@@ -40,9 +40,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (the name carries its source hash)."""
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to (the name carries a hash of its
+    source and of every header under csrc/)."""
+    sha = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{sha.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -1,0 +1,36 @@
+"""Heatmap-space PCK@0.5 training metric (lib/core/evaluate.py:15-70).
+
+Counterpart of buctd_tpu/core/metrics.py::pck_accuracy, on the device with no
+host sync: argmax coords of predicted and target maps, distances normalized
+by heatmap_size / 10, hits among joints whose target coords are > 1 on both
+axes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.decode import get_max_preds
+
+
+def pck_accuracy(pred_heatmaps, target_heatmaps, thr: float = 0.5):
+    """Inputs (B, J, h, w).  Returns (avg_acc, cnt, pred_coords) as tensors.
+
+    cnt is the number of joint TYPES with any valid sample (<= J), what the
+    reference feeds its AverageMeter (evaluate.py:60-70).
+    """
+    _, _, h, w = pred_heatmaps.shape
+    pred, _ = get_max_preds(pred_heatmaps.float())
+    gt, _ = get_max_preds(target_heatmaps.float())
+    # reference quirk kept: norm = [h, w] / 10 divides (x, y) (evaluate.py:50-53)
+    norm = torch.tensor([h, w], dtype=torch.float32, device=pred.device) / 10.0
+    valid = (gt[..., 0] > 1) & (gt[..., 1] > 1)                   # (B, J)
+    dist = torch.linalg.norm((pred - gt) / norm, dim=-1)
+    hit = (dist < thr) & valid
+    per_joint_cnt = valid.sum(dim=0)                              # (J,)
+    has = per_joint_cnt > 0
+    per_joint_acc = hit.sum(dim=0) / per_joint_cnt.clamp(min=1)
+    n_valid = has.sum()
+    avg = torch.where(has, per_joint_acc, torch.zeros_like(per_joint_acc)).sum()
+    avg = torch.where(n_valid > 0, avg / n_valid.clamp(min=1), torch.zeros_like(avg))
+    return avg, n_valid, pred

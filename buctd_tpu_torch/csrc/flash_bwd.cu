@@ -1,0 +1,419 @@
+// Flash-attention backward for Hopper (sm_90a): dq, dk, dv of
+// out = dropout(softmax(q k^T * scale)) v, from the forward's lse.
+//
+// Replaces buctd_tpu/ops/flash_attention.py::_dq_kernel (:212) and
+// ::_dkv_kernel (:363), the TPU kernels behind the custom VJP (:959-971).
+// With p = exp(s - lse) recomputed per tile (s = scale * q k^T), keep the
+// dropout mask and c = 1 / (1 - p_drop):
+//   g  = do v^T,   ds = p * (g * keep * c - delta),   delta = rowsum(do * out)
+//   dq = scale * ds k                      (flash_bwd_dq_kernel)
+//   dv = (p * keep * c)^T do,  dk = scale * ds^T q   (flash_bwd_dkv_kernel)
+// As on the TPU there are two kernels and no atomics, so the gradients are
+// deterministic: the dq kernel gives one block a (bh, 64-row q tile) and loops
+// over 32-key tiles; the dk/dv kernel gives one block a (bh, 32-key tile) and
+// loops over 64-row q tiles.  The TPU grid carried the sums across its
+// sequential axis in VMEM scratch; here the loop is inside the block and the
+// sums live in registers.  No (L_q, L_k) matrix reaches device memory.
+//
+// What bounds it on an H100: 6 (dq) and 10 (dk/dv) * L_q * L_k * d operations
+// (the TPU kernels' CostEstimates) against a few (L, d) operands: far above
+// the ridge, bound by arithmetic.  The JAX path runs f32 at
+// Precision.HIGHEST, so this is exact f32 on the CUDA cores (no TF32): a
+// register-tiled SIMT kernel like flash_fwd.cu (each thread owns a 4 x 4
+// (dq) or 2 x 8 (dk/dv) patch of the logit tile), operands staged in shared
+// memory with odd row strides so column walks are free of bank conflicts.
+// bf16 operands are widened to f32 when staged.  p is recomputed in the exp2
+// domain with log2(e) folded into the staged q, and lse (natural log, as the
+// forward writes it) is multiplied by log2(e) once per row.  The dropout mask
+// is regenerated from dropout_hash.cuh, keyed by the global (bh, row, col).
+//
+// C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py):
+//   int buctd_flash_bwd_dq(q, k, v, dout, lse, delta, dq, bh, lq, lk, d, scale,
+//                          keep_thr, keep_scale, seed, dtype, stream)
+//   int buctd_flash_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, lq, lk, d,
+//                           scale, keep_thr, keep_scale, seed, dtype, stream)
+// q (bh, lq, d), k/v (bh, lk, d) contiguous, f32 (dtype 0) or bf16 (dtype 1);
+// dout (bh, lq, d), lse and delta (bh, lq) f32; dq (bh, lq, d) and dk/dv
+// (bh, lk, d) f32, allocated by the caller.  Each returns the cudaError_t of
+// its launch; it launches on `stream` and does not synchronise.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "dropout_hash.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;   // 16 row groups (ty) x 8 column groups (tx)
+constexpr int kTileQ = 64;
+constexpr int kTileK = 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// rows x D tile of src (row stride d) into dst (row stride D + 1), scaled;
+// rows past `limit` and columns past d are 0
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* src, int row0, int rows,
+                                      int limit, int d, float mul) {
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    float x = 0.f;
+    if (row0 + r < limit && c < d) x = to_f32(src[(size_t)(row0 + r) * d + c]) * mul;
+    dst[r * (D + 1) + c] = x;
+  }
+}
+
+// ------------------------------------------------------------------- dq ----
+template <int D>
+constexpr int dq_smem_floats() {
+  // q, do (64 x D+1); k, v (32 x D+1); ds (64 x 33)
+  return 2 * kTileQ * (D + 1) + 2 * kTileK * (D + 1) + kTileQ * (kTileK + 1);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int lq, int lk, int d, float scale,
+                    Dropout dr) {
+  constexpr int DS = D + 1;
+  constexpr int DC = D / 8;             // dq columns per thread
+  constexpr int KC = kTileK / 8;        // logit columns per thread
+  constexpr int SS = kTileK + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;                     // kTileQ x DS, q * scale * log2(e)
+  float* dos = qs + kTileQ * DS;        // kTileQ x DS
+  float* ks = dos + kTileQ * DS;        // kTileK x DS
+  float* vs = ks + kTileK * DS;         // kTileK x DS
+  float* dss = vs + kTileK * DS;        // kTileQ x SS
+
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kTileQ;
+  const bool drop = dr.keep_thr != 0u;
+
+  stage<T, D>(qs, q + (size_t)bh * lq * d, q0, kTileQ, lq, d, scale * kLog2e);
+  stage<float, D>(dos, dout + (size_t)bh * lq * d, q0, kTileQ, lq, d, 1.f);
+
+  float lse2[4], dl[4], acc[4][DC];
+  uint32_t row_key[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    lse2[i] = r < lq ? lse[(size_t)bh * lq + r] * kLog2e : 0.f;
+    dl[i] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
+    row_key[i] = dropout_row_key(dr.seed, (uint32_t)bh, (uint32_t)r);
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+  }
+
+  const T* kb = k + (size_t)bh * lk * d;
+  const T* vb = v + (size_t)bh * lk * d;
+  for (int k0 = 0; k0 < lk; k0 += kTileK) {
+    __syncthreads();   // the previous tile's k/ds reads are done
+    stage<T, D>(ks, kb, k0, kTileK, lk, d, 1.f);
+    stage<T, D>(vs, vb, k0, kTileK, lk, d, 1.f);
+    __syncthreads();
+
+    float s[4][KC], g[4][KC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KC; ++j) s[i][j] = g[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float aq[4], ad[4], bk[KC], bv[KC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        aq[i] = qs[(ty + 16 * i) * DS + c];
+        ad[i] = dos[(ty + 16 * i) * DS + c];
+      }
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        bk[j] = ks[(tx + 8 * j) * DS + c];
+        bv[j] = vs[(tx + 8 * j) * DS + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
+          g[i][j] = fmaf(ad[i], bv[j], g[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const int col = k0 + tx + 8 * j;
+        const float p = col < lk ? exp2f(s[i][j] - lse2[i]) : 0.f;
+        float gk = g[i][j];
+        if (drop)
+          gk = dropout_bits(row_key[i], (uint32_t)col) >= dr.keep_thr
+                   ? gk * dr.keep_scale : 0.f;
+        dss[(ty + 16 * i) * SS + tx + 8 * j] = p * (gk - dl[i]);
+      }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTileK; ++kk) {
+      float a[4], b[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = dss[(ty + 16 * i) * SS + kk];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) b[j] = ks[kk * DS + tx + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= lq) continue;
+    float* row = dq + ((size_t)bh * lq + r) * d;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      const int c = tx + 8 * j;
+      if (c < d) row[c] = acc[i][j] * scale;
+    }
+  }
+}
+
+// ------------------------------------------------------------------ dkv ----
+template <int D>
+constexpr int dkv_smem_floats() {
+  // k, v (32 x D+1); q, do (64 x D+1); p*keep and ds (32 x 65); lse2, delta
+  return 2 * kTileK * (D + 1) + 2 * kTileQ * (D + 1) + 2 * kTileK * (kTileQ + 1) +
+         2 * kTileQ;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int lq, int lk,
+                     int d, float scale, Dropout dr) {
+  constexpr int DS = D + 1;
+  constexpr int DC = D / 8;             // dk/dv columns per thread
+  constexpr int KR = kTileK / 16;       // key rows per thread
+  constexpr int QC = kTileQ / 8;        // q columns per thread
+  constexpr int PS = kTileQ + 1;
+  extern __shared__ float smem[];
+  float* ks = smem;                     // kTileK x DS
+  float* vs = ks + kTileK * DS;         // kTileK x DS
+  float* qs = vs + kTileK * DS;         // kTileQ x DS, q * scale * log2(e)
+  float* dos = qs + kTileQ * DS;        // kTileQ x DS
+  float* pks = dos + kTileQ * DS;       // kTileK x PS: p * keep * c
+  float* dss = pks + kTileK * PS;       // kTileK x PS: ds
+  float* lse2s = dss + kTileK * PS;     // kTileQ
+  float* dls = lse2s + kTileQ;          // kTileQ
+
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int bh = blockIdx.y, k0 = blockIdx.x * kTileK;
+  const bool drop = dr.keep_thr != 0u;
+  const float qscale = scale * kLog2e;
+
+  stage<T, D>(ks, k + (size_t)bh * lk * d, k0, kTileK, lk, d, 1.f);
+  stage<T, D>(vs, v + (size_t)bh * lk * d, k0, kTileK, lk, d, 1.f);
+
+  float acc_k[KR][DC], acc_v[KR][DC];
+#pragma unroll
+  for (int i = 0; i < KR; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  const T* qb = q + (size_t)bh * lq * d;
+  const float* dob = dout + (size_t)bh * lq * d;
+  for (int q0 = 0; q0 < lq; q0 += kTileQ) {
+    __syncthreads();   // the previous tile's q/do/p/ds reads are done
+    stage<T, D>(qs, qb, q0, kTileQ, lq, d, qscale);
+    stage<float, D>(dos, dob, q0, kTileQ, lq, d, 1.f);
+    if (tid < kTileQ) {
+      const int r = q0 + tid;
+      lse2s[tid] = r < lq ? lse[(size_t)bh * lq + r] * kLog2e : 0.f;
+      dls[tid] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
+    }
+    __syncthreads();
+
+    // transposed logits: rows = keys ty + 16 i, columns = queries tx + 8 j
+    float s[KR][QC], g[KR][QC];
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+#pragma unroll
+      for (int j = 0; j < QC; ++j) s[i][j] = g[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float ak[KR], av[KR], bq[QC], bd[QC];
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        ak[i] = ks[(ty + 16 * i) * DS + c];
+        av[i] = vs[(ty + 16 * i) * DS + c];
+      }
+#pragma unroll
+      for (int j = 0; j < QC; ++j) {
+        bq[j] = qs[(tx + 8 * j) * DS + c];
+        bd[j] = dos[(tx + 8 * j) * DS + c];
+      }
+#pragma unroll
+      for (int i = 0; i < KR; ++i)
+#pragma unroll
+        for (int j = 0; j < QC; ++j) {
+          s[i][j] = fmaf(ak[i], bq[j], s[i][j]);
+          g[i][j] = fmaf(av[i], bd[j], g[i][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < QC; ++j) {
+      const int qc = tx + 8 * j, r = q0 + qc;
+      const uint32_t row_key = dropout_row_key(dr.seed, (uint32_t)bh, (uint32_t)r);
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        const int kr = ty + 16 * i;
+        const float p = r < lq ? exp2f(s[i][j] - lse2s[qc]) : 0.f;
+        float pk = p, gk = g[i][j];
+        if (drop) {
+          const bool keep = dropout_bits(row_key, (uint32_t)(k0 + kr)) >= dr.keep_thr;
+          pk = keep ? p * dr.keep_scale : 0.f;
+          gk = keep ? gk * dr.keep_scale : 0.f;
+        }
+        pks[kr * PS + qc] = pk;
+        dss[kr * PS + qc] = p * (gk - dls[qc]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int qq = 0; qq < kTileQ; ++qq) {
+      float ap[KR], as[KR], bd[DC], bq[DC];
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        ap[i] = pks[(ty + 16 * i) * PS + qq];
+        as[i] = dss[(ty + 16 * i) * PS + qq];
+      }
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        bd[j] = dos[qq * DS + tx + 8 * j];
+        bq[j] = qs[qq * DS + tx + 8 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < KR; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+          acc_v[i][j] = fmaf(ap[i], bd[j], acc_v[i][j]);
+          acc_k[i][j] = fmaf(as[i], bq[j], acc_k[i][j]);
+        }
+    }
+  }
+
+  // dk = scale * ds^T q = ds^T (q * scale * log2 e) * ln 2
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    const int r = k0 + ty + 16 * i;
+    if (r >= lk) continue;
+    float* rk = dk + ((size_t)bh * lk + r) * d;
+    float* rv = dv + ((size_t)bh * lk + r) * d;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      const int c = tx + 8 * j;
+      if (c < d) {
+        rk[c] = acc_k[i][j] * kLn2;
+        rv[c] = acc_v[i][j];
+      }
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const float *dout, *lse, *delta;
+  float *dq, *dk, *dv;
+  int bh, lq, lk, d;
+  float scale;
+  Dropout dr;
+};
+
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+  const int smem = dq_smem_floats<D>() * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.lq + kTileQ - 1) / kTileQ, a.bh);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.dout, a.lse, a.delta, a.dq, a.lq, a.lk, a.d, a.scale, a.dr);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+  const int smem = dkv_smem_floats<D>() * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.lk + kTileK - 1) / kTileK, a.bh);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.dout, a.lse, a.delta, a.dk, a.dv, a.lq, a.lk, a.d, a.scale, a.dr);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kDq>
+cudaError_t dispatch(const Args& a, cudaStream_t s) {
+#define BUCTD_BWD_CASE(n)                                              \
+  case n / 16:                                                         \
+    return kDq ? launch_dq<T, n>(a, s) : launch_dkv<T, n>(a, s);
+  switch ((a.d + 15) / 16) {
+    BUCTD_BWD_CASE(16)
+    BUCTD_BWD_CASE(32)
+    BUCTD_BWD_CASE(48)
+    BUCTD_BWD_CASE(64)
+    BUCTD_BWD_CASE(80)
+    BUCTD_BWD_CASE(96)
+    BUCTD_BWD_CASE(112)
+    BUCTD_BWD_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef BUCTD_BWD_CASE
+}
+
+template <bool kDq>
+int run(const Args& a, int dtype, void* stream) {
+  if (a.bh <= 0 || a.bh > 65535 || a.lq <= 0 || a.lk <= 0 || a.d <= 0 || a.d > 128)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch<float, kDq>(a, s);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16, kDq>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int buctd_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                  const float* dout, const float* lse,
+                                  const float* delta, float* dq, int bh, int lq,
+                                  int lk, int d, float scale, unsigned keep_thr,
+                                  float keep_scale, unsigned seed, int dtype,
+                                  void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, lq, lk, d, scale,
+               Dropout{keep_thr, keep_scale, seed}};
+  return run<true>(a, dtype, stream);
+}
+
+extern "C" int buctd_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                   const float* dout, const float* lse,
+                                   const float* delta, float* dk, float* dv, int bh,
+                                   int lq, int lk, int d, float scale,
+                                   unsigned keep_thr, float keep_scale, unsigned seed,
+                                   int dtype, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, bh, lq, lk, d, scale,
+               Dropout{keep_thr, keep_scale, seed}};
+  return run<false>(a, dtype, stream);
+}

@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): out = softmax(q k^T * scale) v,
-// plus the natural-log logsumexp of every query row.
+// Flash-attention forward for Hopper (sm_90a): out = dropout(softmax(q k^T *
+// scale)) v, plus the natural-log logsumexp of every query row.
 //
 // Replaces buctd_tpu/ops/flash_attention.py::_fwd_kernel (Pallas, TPU).  The
 // TPU kernel walks a (bh, q-block, kv-block) grid in order and carries the
@@ -22,8 +22,17 @@
 // when staged and take the same path (f32 accumulation).  wgmma/TMA and a
 // tensor-core bf16 path are later work.
 //
+// Dropout (training), as in the TPU kernel (:120-125): the un-normalized p of
+// the online softmax is masked and scaled by 1/(1-p) AFTER it entered the
+// running sum l, so the normalizer stays mask-free and the result equals
+// dropout applied to the normalized probabilities.  The mask bits come from
+// dropout_hash.cuh (one hash per weight, keyed by its global (bh, row, col)),
+// so the backward kernels (flash_bwd.cu) regenerate the same mask.
+// keep_thr == 0 means no dropout.
+//
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py):
-//   int buctd_flash_fwd(q, k, v, out, lse, bh, lq, lk, d, scale, dtype, stream)
+//   int buctd_flash_fwd(q, k, v, out, lse, bh, lq, lk, d, scale,
+//                       keep_thr, keep_scale, seed, dtype, stream)
 // q (bh, lq, d), k/v (bh, lk, d) contiguous, f32 (dtype 0) or bf16 (dtype 1);
 // out (bh, lq, d) f32 and lse (bh, lq) f32, allocated by the caller.  Returns
 // the cudaError_t of the launch (0 on success).  Launches on `stream` and does
@@ -31,6 +40,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -56,7 +67,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int lq, int lk, int d, float qscale) {
+                 float* __restrict__ lse, int lq, int lk, int d, float qscale,
+                 uint32_t keep_thr, float keep_scale, uint32_t seed) {
   constexpr int DS = D + 1;
   constexpr int DC = D / 8;   // output columns per thread
   extern __shared__ float smem[];
@@ -82,9 +94,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qs[r * DS + c] = x;
   }
 
+  const bool drop = keep_thr != 0u;
   float m[4], l[4], o[4][DC];
+  uint32_t row_key[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    row_key[i] = dropout_row_key(seed, (uint32_t)bh, (uint32_t)(q0 + ty + 16 * i));
     m[i] = kNegBig;
     l[i] = 0.f;
 #pragma unroll
@@ -144,8 +159,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
+        float p = exp2f(s[i][j] - m_new);
         sum += p;
+        if (drop)   // after the sum: l stays the mask-free normalizer
+          p = dropout_bits(row_key[i], (uint32_t)(k0 + tx + 8 * j)) >= keep_thr
+                  ? p * keep_scale : 0.f;
         ps[(ty + 16 * i) * kPStride + tx + 8 * j] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -190,7 +208,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int bh, int lq, int lk, int d, float scale,
-                   cudaStream_t stream) {
+                   Dropout dr, cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -198,23 +216,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<float*>(out), static_cast<float*>(lse), lq, lk, d, scale * kLog2e);
+      static_cast<float*>(out), static_cast<float*>(lse), lq, lk, d, scale * kLog2e,
+      dr.keep_thr, dr.keep_scale, dr.seed);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int bh, int lq, int lk, int d, float scale,
-                     cudaStream_t stream) {
+                     Dropout dr, cudaStream_t s) {
   switch ((d + 15) / 16) {
-    case 1: return launch<T, 16>(q, k, v, out, lse, bh, lq, lk, d, scale, stream);
-    case 2: return launch<T, 32>(q, k, v, out, lse, bh, lq, lk, d, scale, stream);
-    case 3: return launch<T, 48>(q, k, v, out, lse, bh, lq, lk, d, scale, stream);
-    case 4: return launch<T, 64>(q, k, v, out, lse, bh, lq, lk, d, scale, stream);
-    case 5: return launch<T, 80>(q, k, v, out, lse, bh, lq, lk, d, scale, stream);
-    case 6: return launch<T, 96>(q, k, v, out, lse, bh, lq, lk, d, scale, stream);
-    case 7: return launch<T, 112>(q, k, v, out, lse, bh, lq, lk, d, scale, stream);
-    case 8: return launch<T, 128>(q, k, v, out, lse, bh, lq, lk, d, scale, stream);
+    case 1: return launch<T, 16>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 2: return launch<T, 32>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 3: return launch<T, 48>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 4: return launch<T, 64>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 5: return launch<T, 80>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 6: return launch<T, 96>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 7: return launch<T, 112>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 8: return launch<T, 128>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -223,12 +242,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 
 extern "C" int buctd_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int bh, int lq, int lk,
-                               int d, float scale, int dtype, void* stream) {
+                               int d, float scale, unsigned keep_thr,
+                               float keep_scale, unsigned seed, int dtype,
+                               void* stream) {
   if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0 || d <= 0 || d > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(q, k, v, out, lse, bh, lq, lk, d, scale, s);
+  const Dropout dr{keep_thr, keep_scale, seed};
+  if (dtype == 0)
+    return (int)dispatch<float>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, out, lse, bh, lq, lk, d, scale, s);
+    return (int)dispatch<__nv_bfloat16>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }

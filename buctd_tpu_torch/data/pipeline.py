@@ -1,6 +1,12 @@
-"""Condition-render dispatch and input-channel rules, the serving subset of
-buctd_tpu/data/pipeline.py (:39-69).  The batch loader and the training
-target synthesis are not ported yet."""
+"""Condition-render dispatch and input-channel rules.
+
+Counterpart of buctd_tpu/data/pipeline.py: ``condition_mode``,
+``num_input_channels`` and ``render_condition`` (:39-69) for serving and the
+device loader.  Not ported yet (ROADMAP Queue 1 item 8): the host cv2
+``Loader``, ``device_synthesize_batch`` (TPU.DEVICE_SYNTHESIS) and the
+multi-process sharding helpers (:98-141); the port's loader runs in one
+process and plans every condition on the host.
+"""
 
 from __future__ import annotations
 

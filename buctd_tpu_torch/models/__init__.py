@@ -20,9 +20,10 @@ _NOT_PORTED = {
 }
 
 
-def get_model(cfg, device=None) -> torch.nn.Module:
+def get_model(cfg, device="cuda") -> torch.nn.Module:
     """The cfg's model with the reference's init (N(0, 0.001) weights), in eval
-    mode, on ``device``."""
+    mode, on ``device``.  The device defaults to "cuda" and this raises where
+    CUDA is absent; pass ``device="cpu"`` for the CPU."""
     from .hrnet import init_weights
 
     name = cfg.MODEL.NAME
@@ -32,11 +33,13 @@ def get_model(cfg, device=None) -> torch.nn.Module:
     if name not in _REGISTRY:
         raise KeyError(f"unknown MODEL.NAME {name!r}; known: "
                        f"{sorted(_REGISTRY) + sorted(_NOT_PORTED)}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("get_model: CUDA is not available; pass device='cpu' "
+                           "to build the model on the CPU")
     model = _REGISTRY[name](cfg, engine=str(cfg.TPU.ATTENTION_ENGINE))
     init_weights(model)
-    if device is not None:
-        model = model.to(device)
-    return model.eval()
+    return model.to(device).eval()
 
 
 def compute_dtype(cfg, key: str = "COMPUTE_DTYPE") -> torch.dtype:

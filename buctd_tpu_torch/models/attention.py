@@ -1,15 +1,24 @@
-"""Attention modules matching lib/models/self_attention.py (torch, eval only).
+"""Attention modules matching lib/models/self_attention.py (torch).
 
 Counterpart of buctd_tpu/models/attention.py.  Parameter names mirror the
-reference's (fc_q/fc_k/fc_v/fc_o), so a BUCTD checkpoint loads as is.  The
-dropout modules exist so the module tree matches the reference; training is
-not ported yet and the forward refuses to run in training mode.
+reference's (fc_q/fc_k/fc_v/fc_o), so a BUCTD checkpoint loads as is.
 
 The long-sequence token attention (CoAM position attention) goes through the
-hand-written flash kernel (ops/flash_attention.py) for CUDA tensors at
+hand-written flash kernels (ops/flash_attention.py) for CUDA tensors at
 L_q * L_k >= 512^2; shorter sequences, CPU tensors and the 'mapped' engine take
 a batched matmul + softmax over the folded batch*heads axis.  The engine is
 ``cfg.TPU.ATTENTION_ENGINE``, passed down through the constructors.
+
+Training mode applies the attention dropout (p = 0.1 by default), as the JAX
+modules do at ``train=True``:
+
+* the flash path runs ``flash_attention_train`` (K1 with its in-kernel mask,
+  K2 as the backward); its seed is drawn from the ``torch.Generator`` that
+  ``set_dropout_generator`` hands the model (the trainer carries it), never
+  from the global RNG;
+* the batched-matmul path and the channel attention apply
+  ``torch.nn.functional.dropout`` to the probabilities, as JAX's
+  ``nn.Dropout`` does there (:195).  No kernel is involved.
 """
 
 from __future__ import annotations
@@ -17,9 +26,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_train
 
 FLASH_MIN_TOKENS = 512 * 512
 ENGINES = ("auto", "flash", "mapped")
@@ -37,25 +47,42 @@ def _use_flash(q, nk: int, dv: int, engine: str) -> bool:
     return q.is_cuda and q.shape[-2] * nk >= FLASH_MIN_TOKENS
 
 
-def _attend(q, k, v, scale: float, engine: str = "auto"):
-    """Attention on (B, h, n, d) operands -> (B, h, nq, d_v) f32."""
+def _attend(q, k, v, scale: float, engine: str = "auto", dropout: float = 0.0,
+            generator=None):
+    """Attention on (B, h, n, d) operands -> (B, h, nq, d_v), f32 (or wider
+    for wider operands).  ``dropout`` > 0 is training: the flash path then
+    needs ``generator`` for its seed."""
     B, h, nq, _ = q.shape
     q3, k3, v3 = (x.reshape(B * h, x.shape[2], x.shape[3]).contiguous()
                   for x in (q, k, v))
-    if _use_flash(q, k.shape[2], v.shape[3], engine):
-        out, _ = flash_attention(q3, k3, v3, scale)
+    if not _use_flash(q, k.shape[2], v.shape[3], engine):
+        acc = torch.promote_types(q3.dtype, torch.float32)
+        att = torch.softmax(torch.matmul(q3, k3.transpose(1, 2)).to(acc) * scale, dim=-1)
+        if dropout > 0.0:
+            att = F.dropout(att, dropout, training=True)
+        out = torch.matmul(att, v3.to(acc))
+    elif dropout > 0.0 or (torch.is_grad_enabled()
+                           and any(x.requires_grad for x in (q3, k3, v3))):
+        out = flash_attention_train(q3, k3, v3, scale, dropout,
+                                    _draw_seed(generator) if dropout > 0.0 else 0)
     else:
-        att = torch.softmax(torch.matmul(q3, k3.transpose(1, 2)).float() * scale,
-                            dim=-1)
-        out = torch.matmul(att, v3.float())
+        out, _ = flash_attention(q3, k3, v3, scale)
     return out.reshape(B, h, nq, v.shape[3])
 
 
-def _refuse_training(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} is eval-only in buctd_tpu_torch: training "
-            "(dropout, flash backward) is ROADMAP Queue 1, 'training with K2 and K4'")
+def _draw_seed(generator) -> int:
+    if generator is None:
+        raise RuntimeError("flash attention dropout needs a torch.Generator: "
+                           "call set_dropout_generator(model, generator) first")
+    return int(torch.randint(0, 2**31 - 1, (), generator=generator))
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Hand every ScaledDotProductAttention of ``model`` the generator its
+    flash dropout seeds are drawn from (a CPU generator: no device sync)."""
+    for m in model.modules():
+        if isinstance(m, ScaledDotProductAttention):
+            m.generator = generator
 
 
 class ScaledDotProductAttention(nn.Module):
@@ -75,15 +102,16 @@ class ScaledDotProductAttention(nn.Module):
         self.fc_v = nn.Linear(in_dim_k, h * d_v)
         self.fc_o = nn.Linear(h * d_v, in_dim_k)
         self.dropout = nn.Dropout(dropout)
+        self.generator = None
 
     def forward(self, queries, keys, values):
-        _refuse_training(self)
         B, nq, _ = queries.shape
         nk = keys.shape[1]
         q = self.fc_q(queries).reshape(B, nq, self.h, self.d_k).transpose(1, 2)
         k = self.fc_k(keys).reshape(B, nk, self.h, self.d_k).transpose(1, 2)
         v = self.fc_v(values).reshape(B, nk, self.h, self.d_v).transpose(1, 2)
-        out = _attend(q, k, v, 1.0 / math.sqrt(self.d_k), self.engine)
+        out = _attend(q, k, v, 1.0 / math.sqrt(self.d_k), self.engine,
+                      self.dropout.p if self.training else 0.0, self.generator)
         out = out.transpose(1, 2).reshape(B, nq, self.h * self.d_v)
         return self.fc_o(out)
 
@@ -99,7 +127,6 @@ class SimplifiedScaledDotProductAttention(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, queries, keys, values):
-        _refuse_training(self)
         B, nq, _ = queries.shape
         nk = keys.shape[1]
         h, d = self.h, self.d_model // self.h
@@ -107,6 +134,7 @@ class SimplifiedScaledDotProductAttention(nn.Module):
         k = keys.reshape(B, nk, h, d).transpose(1, 2).reshape(B * h, nk, d)
         v = values.reshape(B, nk, h, d).transpose(1, 2).reshape(B * h, nk, d)
         att = torch.softmax(torch.matmul(q, k.transpose(1, 2)) / math.sqrt(d), dim=-1)
+        att = self.dropout(att)
         out = torch.matmul(att, v)
         out = out.reshape(B, h, nq, d).transpose(1, 2).reshape(B, nq, h * d)
         return self.fc_o(out)

@@ -6,13 +6,15 @@ multi-resolution stages with cross-resolution fusion.  Module attributes follow
 the reference's dotted paths ("layer1.0.conv1", "transition1.1.0.0",
 "stage2.0.fuse_layers.1.0.0.0", ...), so a BUCTD checkpoint loads with
 ``load_state_dict(strict=True)`` and ``convert.from_flax`` fills the same keys
-from the JAX variables.  Rematerialization is training-only and not ported.
+from the JAX variables.  BatchNorm updates its running variance as flax does
+(``BatchNorm2d``).  Rematerialization (TPU.REMAT) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -26,8 +28,33 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1, pad=None,
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=pad, bias=bias)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d with the flax running-variance update.
+
+    In training, torch moves ``running_var`` toward the UNBIASED batch
+    variance; flax (buctd_tpu/models/hrnet.py:25, momentum 0.9 == torch 0.1)
+    moves it toward the BIASED one.  With c = (n - 1) / n, n = B*H*W, torch's
+    update of a copy holding var / c, times c, is
+    (1 - m) var + m c var_unbiased = (1 - m) var + m var_biased, flax's
+    update, while the normalization still runs in torch's own kernel.
+    """
+
+    def forward(self, x):
+        n = x.numel() // x.shape[1]
+        if not (self.training and self.track_running_stats) or n < 2:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        c = (n - 1) / n
+        var = self.running_var / c            # torch updates this copy in place
+        out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True,
+                           self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.copy_(var * c)
+        return out
+
+
 def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+    return BatchNorm2d(c, eps=BN_EPS)
 
 
 class BasicBlock(nn.Module):

@@ -1,18 +1,32 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels for the forward and backward,
+their plain versions, and the autograd Function that training uses.
 
-``flash_attention(q, k, v, scale)`` computes ``softmax(q k^T * scale) @ v`` and the
-logsumexp of every query row for the long-sequence token attention of the CoAM
-position module (L = 6912 at d = 48 and L = 1728 at d = 96 for BUCTD-CoAM-W48).
+``flash_attention(q, k, v, scale, dropout, seed)`` computes
+``dropout(softmax(q k^T * scale)) @ v`` and the logsumexp of every query row
+for the long-sequence token attention of the CoAM position module (L = 6912
+at d = 48 and L = 1728 at d = 96 for BUCTD-CoAM-W48).
+``flash_attention_train`` wraps it in a ``torch.autograd.Function`` whose
+backward runs the two backward kernels: the counterpart of the custom VJP of
+buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
 
-* On CUDA tensors it launches ``csrc/flash_fwd.cu`` (the port of
-  buctd_tpu/ops/flash_attention.py::_fwd_kernel), which streams K/V tiles
-  through shared memory with an online softmax, so no (L_q, L_k) matrix is
-  written.  It launches the kernel or raises; it never falls back.
-* On CPU tensors it runs ``flash_attention_reference``, the plain dense
-  version, which the CPU tests hold against the JAX kernel.
+* On CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` (the port of
+  ``_fwd_kernel`` :86) and ``csrc/flash_bwd.cu`` (``_dq_kernel`` :212 and
+  ``_dkv_kernel`` :363).  They launch the kernel or raise; they never fall
+  back.
+* On CPU tensors they run the plain dense versions
+  (``flash_attention_reference``, ``flash_attention_backward_reference``),
+  which the CPU tests hold against the JAX kernels.
 
-``flash_attention.launches`` counts kernel launches (CPU calls do not count),
-so a run can show that its main path went through the kernel.
+Dropout masks: the TPU kernels draw theirs from the TPU PRNG per tile, so
+they cannot be reproduced and depend on the tile shape.  Here every weight
+(bh, q_row, k_col) has 32 bits from a counter-based hash of
+(seed, bh, q_row, k_col) (``csrc/dropout_hash.cuh``; ``dropout_bits`` is the
+same hash in int64 torch ops): the kernels and the plain versions draw the
+same mask bit for bit.  As in JAX, an entry is kept when its bits are
+>= p * 2^32 and scaled by 1 / (1 - p).
+
+Launch counts (CPU calls do not count): ``flash_attention.launches`` (K1),
+``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2).
 """
 
 from __future__ import annotations
@@ -24,18 +38,91 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-MAX_BH = 65535   # grid.y of the kernel
+MAX_BH = 65535   # grid.y of the kernels
+_MASK32 = 0xFFFFFFFF
 
 
-def flash_attention_reference(q, k, v, scale: float):
-    """Plain version: dense softmax in f32.  q (BH, Lq, d), k/v (BH, Lk, d) ->
-    out f32 (BH, Lq, d), lse f32 (BH, Lq) (natural log)."""
+# ------------------------------------------------------------ dropout bits ----
+def _mul32(a, m: int):
+    """(a * m) mod 2^32 for int64 tensors a in [0, 2^32) and m < 2^32, in
+    16-bit halves so no product leaves int64."""
+    return ((a & 0xFFFF) * m + ((((a >> 16) * m) & 0xFFFF) << 16)) & _MASK32
+
+
+def _fmix32(h):
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_bits(seed: int, bh: int, lq: int, lk: int, device="cpu"):
+    """(bh, lq, lk) int64 tensor of the 32 random bits of every attention
+    weight, the hash of csrc/dropout_hash.cuh."""
+    b, r, c = (torch.arange(n, dtype=torch.int64, device=device) for n in (bh, lq, lk))
+    bkey = _fmix32((int(seed) + _mul32(b, 0x9E3779B9)) & _MASK32)
+    row_key = _fmix32(bkey[:, None] ^ _mul32(r, 0x85EBCA77)[None, :])
+    return _fmix32(row_key[:, :, None] ^ _mul32(c, 0xC2B2AE3D)[None, None, :])
+
+
+def dropout_threshold(p: float) -> int:
+    """Keep an entry when its bits are >= this (the JAX rule, :55-59)."""
+    return min(int(p * 2.0**32), _MASK32) if p > 0.0 else 0
+
+
+def _dropout_args(p: float, seed: int) -> tuple:
+    """The kernels' (keep_thr, keep_scale, seed) launch arguments."""
+    return dropout_threshold(p), 1.0 / (1.0 - p), int(seed)
+
+
+def dropout_multiplier(seed: int, bh: int, lq: int, lk: int, p: float, device="cpu"):
+    """(bh, lq, lk) f32: 1 / (1 - p) where kept, 0 where dropped."""
+    keep = dropout_bits(seed, bh, lq, lk, device) >= dropout_threshold(p)
+    return keep.float() * (1.0 / (1.0 - p))
+
+
+def _check_dropout(p: float, seed: int) -> None:
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout rate {p} not in [0, 1)")
+    if not 0 <= int(seed) <= _MASK32:
+        raise ValueError(f"dropout seed {seed} not in [0, 2^32)")
+
+
+# ---------------------------------------------------------- plain versions ----
+def flash_attention_reference(q, k, v, scale: float, dropout: float = 0.0,
+                              seed: int = 0):
+    """Plain version: dense softmax in f32, dropout on the probabilities.
+    q (BH, Lq, d), k/v (BH, Lk, d) -> out f32 (BH, Lq, d), lse f32 (BH, Lq)
+    (natural log, of the logits before dropout)."""
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
+    if dropout > 0.0:
+        p = p * dropout_multiplier(seed, *s.shape, dropout, s.device)
     return torch.matmul(p, v.float()), lse
 
 
+def flash_attention_backward_reference(q, k, v, dout, lse, delta, scale: float,
+                                       dropout: float = 0.0, seed: int = 0):
+    """Plain backward, written out: p recomputed from lse, g = do v^T masked,
+    ds = p (g - delta).  Returns f32 dq, dk, dv."""
+    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    s = torch.matmul(qf, kf.transpose(1, 2)) * scale
+    p = torch.exp(s - lse[..., None])
+    g = torch.matmul(do, vf.transpose(1, 2))
+    pk = p
+    if dropout > 0.0:
+        keep = dropout_multiplier(seed, *s.shape, dropout, s.device)
+        g, pk = g * keep, p * keep
+    ds = p * (g - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(1, 2), qf) * scale
+    dv = torch.matmul(pk.transpose(1, 2), do)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------- checks ----
 def _check(q, k, v):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("flash_attention wants (BH, L, d) operands, got "
@@ -60,45 +147,173 @@ def _check(q, k, v):
         raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
 
 
+def _check_bwd(q, k, v, dout, lse, delta, dropout: float, seed: int):
+    """The backward kernels' operands: those of the forward, then do, lse and
+    delta in f32 beside q."""
+    _check(q, k, v)
+    _check_dropout(dropout, seed)
+    bh, lq, d = q.shape
+    for name, t, shape in (("dout", dout, (bh, lq, d)), ("lse", lse, (bh, lq)),
+                           ("delta", delta, (bh, lq))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+
+
+def _on_cuda(q, what: str) -> bool:
+    """False for CPU tensors (plain version), True for CUDA, else raise."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
+    return True
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry of csrc/flash_fwd.cu (built and loaded at first call)."""
+def _fn(lib: str, symbol: str, argtypes: tuple):
+    """A C entry of csrc/<lib>.cu (built and loaded at first call)."""
     from .._build import load
 
-    lib = load("flash_fwd")
-    fn = lib.buctd_flash_fwd
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
+    fn = getattr(load(lib), symbol)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention(q, k, v, scale: float):
-    """out f32 (BH, Lq, d), lse f32 (BH, Lq) of softmax(q k^T * scale) @ v.
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_FWD_ARGS = (_P,) * 5 + (_I,) * 4 + (_F, _U, _F, _U, _I, _P)
+_DQ_ARGS = (_P,) * 7 + (_I,) * 4 + (_F, _U, _F, _U, _I, _P)
+_DKV_ARGS = (_P,) * 8 + (_I,) * 4 + (_F, _U, _F, _U, _I, _P)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, what: str, q, k):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err} at q "
+                           f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+
+
+# --------------------------------------------------------------- kernels ----
+def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
+    """out f32 (BH, Lq, d), lse f32 (BH, Lq) of dropout(softmax(q k^T * scale)) @ v.
 
     q (BH, Lq, d), k/v (BH, Lk, d), one dtype (f32 or bf16), d <= 128,
-    contiguous.  CUDA tensors launch the kernel; CPU tensors take the plain
-    version; any other device raises.
+    contiguous.  CUDA tensors launch K1; CPU tensors take the plain version;
+    any other device raises.  ``dropout`` p in [0, 1) with ``seed`` in
+    [0, 2^32) picks the mask (see the module docstring).
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check_dropout(dropout, seed)
+    if not _on_cuda(q, "flash_attention"):
+        return flash_attention_reference(q, k, v, scale, dropout, seed)
     bh, lq, d = q.shape
     out = torch.empty((bh, lq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                        lse.data_ptr(), bh, lq, k.shape[1], d, float(scale),
-                        _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err} "
-                           f"at q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+        err = _fn("flash_fwd", "buctd_flash_fwd", _FWD_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            bh, lq, k.shape[1], d, float(scale), *_dropout_args(dropout, seed),
+            _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(err, "flash_fwd", q, k)
     flash_attention.launches += 1
     return out, lse
 
 
 flash_attention.launches = 0
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
+                 seed: int = 0):
+    """dq f32 (BH, Lq, d) of the attention above, from do, the forward's lse
+    and delta = rowsum(do * out), on CUDA tensors (K2's dq kernel)."""
+    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
+    if not _on_cuda(q, "flash_bwd_dq"):
+        raise ValueError("flash_bwd_dq is the CUDA kernel; CPU tensors take "
+                         "flash_attention_backward_reference")
+    bh, lq, d = q.shape
+    dq = torch.empty((bh, lq, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _fn("flash_bwd", "buctd_flash_bwd_dq", _DQ_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), bh, lq, k.shape[1], d, float(scale),
+            *_dropout_args(dropout, seed), _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(err, "flash_bwd_dq", q, k)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
+                  seed: int = 0):
+    """dk, dv f32 (BH, Lk, d), on CUDA tensors (K2's dk/dv kernel)."""
+    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
+    if not _on_cuda(q, "flash_bwd_dkv"):
+        raise ValueError("flash_bwd_dkv is the CUDA kernel; CPU tensors take "
+                         "flash_attention_backward_reference")
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    dk = torch.empty((bh, lk, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty((bh, lk, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _fn("flash_bwd", "buctd_flash_bwd_dkv", _DKV_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, lq, lk, d,
+            float(scale), *_dropout_args(dropout, seed), _DTYPE_CODES[q.dtype],
+            _stream(q))
+    _raise_on(err, "flash_bwd_dkv", q, k)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, scale: float,
+                             dropout: float = 0.0, seed: int = 0):
+    """dq, dk, dv in q's, k's and v's dtypes (the JAX ``.astype`` at :766).
+    delta = rowsum(do * out) is computed here in torch, as JAX does (:698);
+    CUDA tensors then launch K2's two kernels, CPU tensors take the plain
+    backward."""
+    dout = dout.float().contiguous()
+    delta = (dout * out).sum(-1)
+    if _on_cuda(q, "flash_attention_backward"):
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale, dropout, seed)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale, dropout, seed)
+    else:
+        dq, dk, dv = flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                                        scale, dropout, seed)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionTrain(torch.autograd.Function):
+    """out = dropout(softmax(q k^T * scale)) @ v with the flash backward; the
+    masks regenerate from ``seed``, so neither the probabilities nor the
+    masks are stored.  custom_fwd/custom_bwd let the backward see the
+    forward's autocast state."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v, scale, dropout, seed):
+        out, lse = flash_attention(q, k, v, scale, dropout, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, dropout, seed)
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
+    """Differentiable flash attention: out f32 (BH, Lq, d)."""
+    return FlashAttentionTrain.apply(q, k, v, float(scale), float(dropout), int(seed))

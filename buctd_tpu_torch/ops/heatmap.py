@@ -1,6 +1,7 @@
-"""Condition renderings and the separable Gaussian blur (torch).
+"""Training targets, condition renderings and the separable Gaussian blur (torch).
 
-Counterpart of buctd_tpu/ops/heatmap.py.  The reference splats each condition
+Counterpart of buctd_tpu/ops/heatmap.py.  ``generate_target`` makes the
+batched Gaussian target maps on the device (JointsDataset.py:397-453).  The reference splats each condition
 joint at ``(y-1, x-1)`` and blurs with cv2.GaussianBlur(ksize=(15, 15)), i.e.
 sigma = 0.3*((15-1)*0.5 - 1) + 0.8 = 2.6 by OpenCV's rule.  Blur(splat) is
 linear, so the blurred image is computed in closed form: per joint, the outer
@@ -23,6 +24,38 @@ def opencv_gaussian_kernel(ksize: int, sigma: float = 0.0) -> np.ndarray:
     x = np.arange(ksize, dtype=np.float64) - (ksize - 1) * 0.5
     k = np.exp(-(x**2) / (2.0 * sigma**2))
     return (k / k.sum()).astype(np.float32)
+
+
+def generate_target(joints, joints_vis, image_size, heatmap_size, sigma):
+    """Batched Gaussian target heatmaps (buctd_tpu/ops/heatmap.py:61).
+
+    joints (B, J, 2+) crop-frame coords; joints_vis (B, J) or (B, J, k) (first
+    column used); image_size / heatmap_size (w, h); sigma in heatmap px.
+    Returns target (B, J, h, w) f32 and weight (B, J) f32.  The reference's
+    int-truncated centers and its off-screen weight zeroing are kept.
+    """
+    if joints_vis.dim() == 3:
+        joints_vis = joints_vis[..., 0]
+    w, h = int(heatmap_size[0]), int(heatmap_size[1])
+    stride_x = image_size[0] / heatmap_size[0]
+    stride_y = image_size[1] / heatmap_size[1]
+    tmp = int(sigma * 3)
+    joints = joints.float()
+    mu_x = torch.trunc(joints[..., 0] / stride_x + 0.5)
+    mu_y = torch.trunc(joints[..., 1] / stride_y + 0.5)
+    ul_x, ul_y = mu_x - tmp, mu_y - tmp
+    br_x, br_y = mu_x + tmp + 1, mu_y + tmp + 1
+    oob = (ul_x >= w) | (ul_y >= h) | (br_x < 0) | (br_y < 0)
+    weight = joints_vis.float() * (1.0 - oob.float())
+
+    xs = torch.arange(w, dtype=torch.float32, device=joints.device)[None, :]
+    ys = torch.arange(h, dtype=torch.float32, device=joints.device)[:, None]
+    mx, my = mu_x[..., None, None], mu_y[..., None, None]
+    g = torch.exp(-((xs - mx) ** 2 + (ys - my) ** 2) / (2.0 * sigma ** 2))
+    window = ((xs >= ul_x[..., None, None]) & (xs < br_x[..., None, None])
+              & (ys >= ul_y[..., None, None]) & (ys < br_y[..., None, None]))
+    stamp = (weight > 0.5)[..., None, None]
+    return torch.where(window & stamp, g, torch.zeros_like(g)), weight
 
 
 def _reflect101_index(size: int, r: int) -> np.ndarray:

@@ -77,7 +77,7 @@ class PoseEstimator:
 
         self.cfg = cfg
         self.num_joints = int(cfg.MODEL.NUM_JOINTS)
-        self.model = get_model(cfg)
+        self.model = get_model(cfg, device=self.device)
         if checkpoint:
             if not checkpoint.endswith((".pth", ".pt")):
                 raise ValueError(f"{checkpoint!r}: buctd_tpu_torch loads BUCTD "

@@ -1,21 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of buctd_tpu_torch on one NVIDIA GPU (H100): builds the CUDA
-kernels, holds each against its plain PyTorch version, then serves full-width
-BUCTD-CoAM-W48 through PoseEstimator with 3 refinement rounds.
+kernels, holds each against its plain PyTorch version, serves full-width
+BUCTD-CoAM-W48 through PoseEstimator with 3 refinement rounds, then trains it
+for a few steps through the training entry point.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; nothing is caught):
-  0. build every kernel under buctd_tpu_torch/csrc/ with nvcc for sm_90a;
-  1. kernel: K1 (flash-attention forward) vs its plain version at the CoAM-W48
-     shapes (16 crops, as predict_batch gives them, and 8) in f32 and bf16
-     plus a ragged case; kernel, plain and F.scaled_dot_product_attention
-     times beside the card's bound;
-  2. serving: CoAM-W48 crowdpose 384x288 (14 joints, random weights from
+  0. build every kernel under buctd_tpu_torch/csrc/ with nvcc for sm_90a (one
+     nvcc per source, all started together);
+  1. kernels, serving shapes: K1 (flash-attention forward) vs its plain version
+     at the CoAM-W48 shapes (16 crops, as predict_batch gives them, and 8) in
+     f32 and bf16 plus a ragged case; kernel, plain and
+     F.scaled_dot_product_attention times beside the card's bound;
+  2. kernels, training shapes: K1 with dropout 0.1, K2 (flash backward: the dq
+     and the dk/dv kernels) and K4 (rotated warp) vs their plain versions, and
+     their times at the shapes a batch-32 train step gives them;
+  3. serving: CoAM-W48 crowdpose 384x288 (14 joints, random weights from
      torch.manual_seed), ``predict`` on a 480x640 image with 4 condition poses
      and ``predict_batch`` on 3 images; finite outputs of the right shapes, the
      flash launch count of the run, one forward on the card vs the same module
-     on the CPU, ms per image and crops/s.
+     on the CPU, ms per image and crops/s; a profile of one predict_batch;
+  4. training: ``buctd_tpu_torch.train.run`` on a synthetic CrowdPose-format
+     set (seeded, in a temporary directory) at full width, batch 32, bf16
+     autocast, attention dropout 0.1, the device loader; ms/step, images/s,
+     data-wait per step, the launch counts of K1, K2 and K4 in that run; the
+     loss over a repeated batch (finite, falling); a profile of one step;
+  5. one f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
+     same step on the CPU: loss, the gradients (all, and the position
+     attention's alone), BN running statistics; the step's K2 calls vs
+     float64 on their own inputs.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -26,8 +40,10 @@ from __future__ import annotations
 
 import copy
 import json
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -43,12 +59,47 @@ KERNEL_ATOL = KERNEL_RTOL = 2e-5
 # card vs CPU forward, f32 with TF32 off on the card: convolution algorithms
 # and attention sums differ in order; relative to the heatmaps' peak
 FORWARD_RTOL = 1e-4
+# card vs CPU train step, f32 with TF32 off, batch 1: the loss is a mean over
+# 96x72x14 values summed in another order (rel 1e-4).  The gradients are not
+# compared tensor by tensor: at batch 1 BatchNorm's backward over batch
+# statistics cancels in the low-resolution branches (12x9 values a channel),
+# so the f32 step is about 1.5% (relative L2 of the whole gradient) from
+# float64 on the CPU as on the card (measured on an H100), and kernels that
+# sum in another order move single tensors by up to 25% of their max.  The
+# card's f32 gradient is held to be no further from the float64 step than
+# STEP_GRAD_RATIO x the CPU's own f32 gradient, over the whole model and over
+# the CoAM position attention (where K1/K2 run) alone.  Each K2 call of the
+# card's step is also held against float64 autograd on its own inputs: f32
+# sums over up to 6912 terms, max error / max gradient <= STEP_K2_RTOL.  BN
+# running statistics after the forward: rtol 1e-4, atol 1e-5 (means of O(1)
+# activations).
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RATIO = 2.0
+STEP_K2_RTOL = 1e-4
+STEP_BN_RTOL = 1e-4
+STEP_BN_ATOL = 1e-5
 ROUNDS = 3
 REPEATS = 5
 # K1's (BH, Lq, Lk, d) on the main path: the CoAM position attention of branch
 # 0 and branch 1, BH = the 16 crops of the serving phase's predict_batch
 MAIN_CASES = [(16, 6912, 6912, 48), (16, 1728, 1728, 96)]
 OTHER_CASES = [(8, 6912, 6912, 48), (8, 1728, 1728, 96), (3, 700, 300, 112)]
+# the training path: batch 32, one head, bf16 operands under autocast
+TRAIN_BATCH = 32
+TRAIN_CASES = [(TRAIN_BATCH, 6912, 48), (TRAIN_BATCH, 1728, 96)]
+# the plain versions hold (BH, L, L) f32 tensors: they are checked and timed
+# in BH chunks of this size
+PLAIN_BH = {6912: 2, 1728: 8}
+DROPOUT = 0.1
+# K2 vs its plain backward: dq/dk/dv sum p-weighted products over up to 6912
+# keys or rows in f32, in another order (measured below 1e-6 on randn inputs)
+BWD_ATOL = BWD_RTOL = 1e-4
+# K4 vs its plain version on 0..255 images: two tent taps against the dense
+# tent sum, both f32; a few ulps of 255
+WARP_ATOL = 2e-3
+WARP_BATCH = (TRAIN_BATCH, 512, 640)   # 480x640 images in their 512x640 bucket
+TRAIN_STEPS = 10                        # one epoch of the synthetic set
+SYNTH_IMAGES, SYNTH_PEOPLE = 80, 4      # 320 people = 10 batches of 32
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -118,6 +169,210 @@ def kernel_phase(torch, F, fa) -> dict:
     torch.cuda.empty_cache()
     main["max_abs_err"] = worst
     return main
+
+
+def chunked(fn, bh: int, chunk: int, *tensors):
+    """``fn`` over BH chunks of (BH, ...) tensors: the plain versions' memory
+    stays bounded (their (chunk, L, L) f32 tensors) while they do all the work."""
+    for i in range(0, bh, chunk):
+        fn(*(t[i:i + chunk] for t in tensors))
+
+
+# the L x L x d matrix products of each backward kernel (2 operations per
+# multiply-add): dq recomputes s = q k^T and g = do v^T and forms ds k; dk/dv
+# recompute s and g and form (p keep)^T do and ds^T q.  Outputs: f32 gradients.
+BWD_PRODUCTS = {"dq": 3, "dkv": 4}
+BWD_OUTPUTS = {"dq": 1, "dkv": 2}
+
+
+def bwd_ops(bh, l, d, kind) -> float:
+    return 2.0 * BWD_PRODUCTS[kind] * bh * l * l * d
+
+
+def bwd_bound_ms(bh, l, d, elt, kind) -> tuple:
+    """Least time of one backward kernel: its operations (``bwd_ops``) over
+    the peak for the operands' type, or its bytes (q, k, v in their type; do,
+    lse, delta read and the f32 gradients written) over the memory rate."""
+    nbytes = 3 * elt * bh * l * d + 4 * bh * l * (d + 2) + 4 * BWD_OUTPUTS[kind] * bh * l * d
+    peak = PEAK_OPS["float32" if elt == 4 else "bfloat16"]
+    t_ops, t_bytes = bwd_ops(bh, l, d, kind) / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def warp_read_pixels(torch, tw, trans, hw, out_hw) -> int:
+    """Source pixels the two-pass warp of ``trans`` (B, 2, 3) reads with a
+    nonzero tent weight, summed over samples: per output pixel the two rows
+    around its source y (pass 2) and, in each, the two columns around the
+    pass-1 x of that row, inside the image.  This run's crops read only their
+    own footprint, not the whole padded image."""
+    oh, ow = out_hw
+    oy = torch.arange(oh, dtype=torch.float32, device=trans.device)[:, None]
+    ox = torch.arange(ow, dtype=torch.float32, device=trans.device)[None, :]
+    total = 0
+    for t in trans.float():
+        transposed, t = tw._sample_affine(t)
+        rows, cols = (hw[1], hw[0]) if transposed else hw
+        (a, b, e), (c, d, f) = t
+        y = d * oy + c * ox + f
+        seen = torch.zeros(rows * cols, dtype=torch.bool, device=trans.device)
+        for dy in (0.0, 1.0):
+            r = torch.floor(y) + dy
+            ok_r = (1.0 - (y - r).abs() > 0) & (r >= 0) & (r < rows)
+            x = (a - b * c / d) * ox + (b / d) * r + (e - (b / d) * f)
+            for dx in (0.0, 1.0):
+                w = torch.floor(x) + dx
+                ok = ok_r & (1.0 - (x - w).abs() > 0) & (w >= 0) & (w < cols)
+                seen[(r * cols + w)[ok].long()] = True
+        total += int(seen.sum())
+    return total
+
+
+def train_kernel_phase(torch, F, fa, tw) -> dict:
+    """K1 with dropout, K2 and K4 at the training path's shapes.
+
+    Checked against the plain versions at a smaller BH where those would not
+    fit (f32 and bf16, dropout 0.1, the same seed: the kernels and the plain
+    versions draw the same hash mask), then timed at BH 32 in bf16 (the
+    autocast step's operands).  Library yardsticks: SDPA forward (K1) and
+    forward+backward (K2) with dropout 0.1; F.grid_sample for K4, a one-pass
+    bilinear warp, which is NOT the same function when rotated.
+    """
+    from buctd_tpu_torch.geometry import make_affine
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0}
+    seed = 1234
+    for bh, lq, d in TRAIN_CASES:
+        small = PLAIN_BH[lq]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(small, lq, d, device="cuda", generator=gen).to(dtype)
+                       for _ in range(3))
+            do = torch.randn(small, lq, d, device="cuda", generator=gen)
+            scale = d ** -0.5
+            out, lse = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
+            ref_out, ref_lse = fa.flash_attention_reference(q, k, v, scale, DROPOUT, seed)
+            torch.testing.assert_close(out, ref_out, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+            torch.testing.assert_close(lse, ref_lse, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+            delta = (do * out).sum(-1)
+            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, DROPOUT, seed)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, DROPOUT, seed)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_backward_reference(q, k, v, do, lse, delta, scale,
+                                                        DROPOUT, seed)
+            for got, want in zip((dq, dk, dv), ref):
+                torch.testing.assert_close(got, want, atol=BWD_ATOL, rtol=BWD_RTOL)
+            res["fwd_err"] = max(res["fwd_err"], (out - ref_out).abs().max().item(),
+                                 (lse - ref_lse).abs().max().item())
+            res["dq_err"] = max(res["dq_err"], (dq - ref[0]).abs().max().item())
+            res["dkv_err"] = max(res["dkv_err"], (dk - ref[1]).abs().max().item(),
+                                 (dv - ref[2]).abs().max().item())
+            print(f"K1+K2 check ({small}, {lq}, {d}) {str(dtype)[6:]} dropout {DROPOUT}: "
+                  f"out {(out - ref_out).abs().max().item():.3e} "
+                  f"dq {(dq - ref[0]).abs().max().item():.3e} "
+                  f"dk {(dk - ref[1]).abs().max().item():.3e} "
+                  f"dv {(dv - ref[2]).abs().max().item():.3e}", flush=True)
+            del q, k, v, do, out, lse, ref_out, ref_lse, ref, dq, dk, dv
+            torch.cuda.empty_cache()
+
+    for name in ("fwd", "dq", "dkv"):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms"):
+            res[f"{name}_{key}"] = 0.0
+    for bh, lq, d in TRAIN_CASES:
+        q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        do = torch.randn(bh, lq, d, device="cuda", generator=gen)
+        scale = d ** -0.5
+        out, lse = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
+        delta = (do * out).sum(-1)
+        small = PLAIN_BH[lq]
+        t = {
+            "fwd_ms": timed_ms(lambda: fa.flash_attention(q, k, v, scale, DROPOUT, seed), 10),
+            "dq_ms": timed_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale,
+                                                      DROPOUT, seed), 10),
+            "dkv_ms": timed_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                                        DROPOUT, seed), 10),
+            "fwd_plain_ms": timed_ms(lambda: chunked(
+                lambda a, b, c: fa.flash_attention_reference(a, b, c, scale, DROPOUT, seed),
+                bh, small, q, k, v), 2),
+            "dq_plain_ms": timed_ms(lambda: chunked(
+                lambda a, b, c, g, l, e: fa.flash_attention_backward_reference(
+                    a, b, c, g, l, e, scale, DROPOUT, seed), bh, small, q, k, v, do, lse,
+                delta), 2),
+        }
+        t["dkv_plain_ms"] = t["dq_plain_ms"]   # one plain backward makes dq, dk and dv
+        q4, k4, v4 = (x[:, None].detach().clone().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=DROPOUT, scale=scale)
+
+        def sdpa_fwd_bwd():
+            q4.grad = k4.grad = v4.grad = None
+            sdpa_fwd().backward(do[:, None].to(torch.bfloat16))
+
+        with torch.no_grad():
+            t["fwd_library_ms"] = timed_ms(sdpa_fwd, 10)
+        t["dq_library_ms"] = t["dkv_library_ms"] = timed_ms(sdpa_fwd_bwd, 10)
+        bound_f, by_f = flash_bound_ms(bh, lq, lq, d, "bfloat16")
+        bound_q, by_q = bwd_bound_ms(bh, lq, d, 2, "dq")
+        bound_kv, by_kv = bwd_bound_ms(bh, lq, d, 2, "dkv")
+        ops = {"fwd": 4.0 * bh * lq * lq * d, "dq": bwd_ops(bh, lq, d, "dq"),
+               "dkv": bwd_ops(bh, lq, d, "dkv")}
+        t.update({"fwd_bound_ms": bound_f, "dq_bound_ms": bound_q, "dkv_bound_ms": bound_kv})
+        t.update({f"{n}_ops_ms": o / PEAK_OPS["bfloat16"] * 1e3 for n, o in ops.items()})
+        for key, val in t.items():
+            res[key] += val
+        f32core = {n: o / PEAK_OPS["float32"] * 1e3 for n, o in ops.items()}
+        print(f"train kernels ({bh}, {lq}, {d}) bf16 dropout {DROPOUT}: "
+              f"K1 {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, sdpa "
+              f"{t['fwd_library_ms']:.4f}, bound {bound_f:.4f} {by_f}, f32-core bound "
+              f"{f32core['fwd']:.4f}); K2 dq {t['dq_ms']:.4f} ms (bound {bound_q:.4f} "
+              f"{by_q}, f32-core {f32core['dq']:.4f}), dkv {t['dkv_ms']:.4f} ms (bound "
+              f"{bound_kv:.4f} {by_kv}, f32-core {f32core['dkv']:.4f}); plain backward "
+              f"{t['dq_plain_ms']:.4f} ms; sdpa fwd+bwd {t['dq_library_ms']:.4f} ms",
+              flush=True)
+        del q, k, v, do, out, lse, delta, q4, k4, v4
+        torch.cuda.empty_cache()
+
+    B, H, W = WARP_BATCH
+    images = torch.rand(B, H, W, 3, device="cuda", generator=gen) * 255.0
+    centers = torch.rand(B, 2, device="cuda", generator=gen) * torch.tensor(
+        [440.0, 280.0], device="cuda") + 100.0
+    scales = torch.rand(B, 2, device="cuda", generator=gen) * 1.2 + 0.6
+    rots = torch.rand(B, device="cuda", generator=gen) * 180.0 - 90.0   # both decompositions
+    trans = make_affine(centers, scales, rots, (288, 384), inv=True).contiguous()
+    got = tw.warp_affine_general(images, trans, (384, 288))
+    torch.cuda.synchronize()
+    want = tw.warp_affine_reference(images, trans, (384, 288))
+    torch.testing.assert_close(got, want, atol=WARP_ATOL, rtol=0)
+    res["warp_err"] = (got - want).abs().max().item()
+    res["warp_ms"] = timed_ms(lambda: tw.warp_resample(images, trans, (384, 288)), 20)
+    res["warp_plain_ms"] = timed_ms(lambda: tw.warp_affine_reference(images, trans,
+                                                                     (384, 288)), 2)
+    x_nchw = images.permute(0, 3, 1, 2).contiguous()
+    # grid_sample's normalized grid from the same output->source affines:
+    # theta = N_src @ T @ N_out^-1 in align_corners=False coordinates
+    def norm(w, h):
+        return torch.tensor([[2.0 / w, 0.0, 1.0 / w - 1.0], [0.0, 2.0 / h, 1.0 / h - 1.0],
+                             [0.0, 0.0, 1.0]], device="cuda")
+    t3 = torch.cat([trans, torch.tensor([[[0.0, 0.0, 1.0]]], device="cuda").expand(B, 1, 3)],
+                   dim=1)
+    theta = (norm(W, H) @ t3 @ torch.linalg.inv(norm(288, 384)))[:, :2]
+    grid = torch.nn.functional.affine_grid(theta, (B, 3, 384, 288), align_corners=False)
+    res["warp_library_ms"] = timed_ms(lambda: F.grid_sample(
+        x_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False), 20)
+    # bytes: the f32 source pixels the crops read (each once) and the output
+    read = warp_read_pixels(torch, tw, trans, (H, W), (384, 288))
+    res["warp_bound_ms"] = 4 * 3 * (read + B * 384 * 288) / HBM_BYTES_PER_S * 1e3
+    full_ms = 4 * 3 * B * (H * W + 384 * 288) / HBM_BYTES_PER_S * 1e3
+    print(f"K4 warp ({B}, {H}, {W}, 3) -> (384, 288), rotations -90..90: max_abs_err "
+          f"{res['warp_err']:.3e} kernel {res['warp_ms']:.4f} ms, plain "
+          f"{res['warp_plain_ms']:.4f} ms, grid_sample (one-pass, not the same function) "
+          f"{res['warp_library_ms']:.4f} ms, bound {res['warp_bound_ms']:.4f} ms (bytes: "
+          f"the crops read {read} source pixels, {100 * read / (B * H * W):.1f}% of the "
+          f"images; whole-image bound {full_ms:.4f} ms)", flush=True)
+    del images, got, want, x_nchw, grid
+    torch.cuda.empty_cache()
+    return res
 
 
 def sample_request(np, rng, h=480, w=640, poses=4, joints=14):
@@ -215,25 +470,240 @@ def serving_phase(torch, np, fa) -> dict:
             "est": est, "images": images, "poses": poses}
 
 
-def profile_phase(torch, serving: dict) -> None:
-    """Device time by kernel over one predict_batch (torch.profiler)."""
+def write_synthetic_crowdpose(np, root: Path, n_images: int, people: int, seed: int = 0):
+    """A CrowdPose-format training set made from a seed: random 480x640 JPEGs
+    and ``people`` overlapping 14-joint persons per image (all joints
+    visible, no condition poses: the trainer synthesizes them).  Returns the
+    annotation file's path."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    for i in range(n_images):
+        name = f"im{i:04d}.jpg"
+        cv2.imwrite(str(root / name), rng.randint(0, 256, (480, 640, 3), np.uint8))
+        images.append({"id": i + 1, "file_name": name, "width": 640, "height": 480,
+                       "crowdIndex": float(rng.uniform())})
+        for k in range(people):
+            x0, y0 = 20 + 140 * k + rng.uniform(-15, 15), rng.uniform(20, 120)
+            w, h = rng.uniform(110, 160), rng.uniform(220, 330)
+            pts = np.stack([rng.uniform(x0, x0 + w, 14), rng.uniform(y0, y0 + h, 14)], 1)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
+                         "iscrowd": 0, "num_keypoints": 14,
+                         "keypoints": [float(c) for x, y in pts for c in (x, y, 2)],
+                         "bbox": [float(x0), float(y0), float(w), float(h)],
+                         "area": float(w * h)})
+    ann_file = root / "crowdpose_train.json"
+    ann_file.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": 1, "name": "person", "supercategory": "person",
+                        "keypoints": [f"k{j}" for j in range(14)], "skeleton": []}]}))
+    return ann_file
+
+
+def kernel_profile(torch, fn, label: str) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and the
+    device's idle share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    est = serving["est"]
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        est.predict_batch(serving["images"], serving["poses"], float("-inf"))
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events) / 1e3
-    flash = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
-    print(f"profile predict_batch: kernels {total:.2f} ms in {wall:.2f} ms wall "
-          f"(profiled), flash_fwd {flash:.2f} ms = {100 * flash / total:.1f}% of "
-          f"kernel time; {len(events)} kernel names, top by device time:", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+    ours = sum(e.self_device_time_total for e in events
+               if any(n in e.key for n in ("flash_", "warp_pass"))) / 1e3
+    print(f"profile {label}: kernels {total:.2f} ms in {wall:.2f} ms wall (profiled), "
+          f"device idle {100 * max(0.0, 1 - total / wall):.1f}%; the port's kernels "
+          f"{ours:.2f} ms = {100 * ours / total:.1f}% of kernel time; {len(events)} "
+          f"kernel names, top by device time:", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+def training_phase(torch, np, fa, tw) -> dict:
+    """The trainer's main path at full width, then the repeated-batch loss and
+    a profile of one step."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.data.datasets import get_dataset
+    from buctd_tpu_torch.data.device_pipeline import DeviceLoader
+    from buctd_tpu_torch.train import run
+    from buctd_tpu_torch.train.state import TrainStep, make_lr_schedule, make_optimizer
+
+    with tempfile.TemporaryDirectory(prefix="buctd_train_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        ann = write_synthetic_crowdpose(np, root, SYNTH_IMAGES, SYNTH_PEOPLE)
+        opts = ["TPU.DEVICE_PIPELINE", "True", "DATASET.TRAIN_IMAGE_DIR", str(root),
+                "DATASET.TRAIN_ANNOTATION_FILE", str(ann), "OUTPUT_DIR", str(root / "out")]
+        print(f"training: synthetic CrowdPose set of {SYNTH_IMAGES} images x "
+              f"{SYNTH_PEOPLE} people written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, tw.warp_resample):
+            f.launches = 0                                   # the main path's run
+        t0 = time.perf_counter()
+        res = run.main(["--cfg", str(CONFIG), "--steps", str(TRAIN_STEPS), "--no-eval",
+                        "--seed", "0", *opts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_fwd": fa.flash_attention.launches,
+                    "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                    "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+                    "warp_resample": tw.warp_resample.launches}
+        steps = res["steps"]
+        stats = res["stats"][0]
+        losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
+        want = {"flash_fwd": 2 * steps, "flash_bwd_dq": 2 * steps,
+                "flash_bwd_dkv": 2 * steps, "warp_resample": 2 * steps}
+        print(f"training run: {steps} steps of batch {TRAIN_BATCH} in {wall:.1f} s "
+              f"(model build and data included); launches {launches}, expected {want} "
+              f"(K1, dq, dkv: 2 per step; K4: 2 per batch)", flush=True)
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        if steps != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"{steps} steps, losses {losses}")
+        per_step = [d + s for d, s in zip(stats["data_wait_s"], stats["step_s"])]
+        warm = slice(2, None)
+        ms_step = statistics.median(per_step[warm]) * 1e3
+        data_ms = statistics.median(stats["data_wait_s"][warm]) * 1e3
+        dispatch_ms = statistics.median(stats["step_s"][warm]) * 1e3
+        print(f"training steps 3-{steps}: median {ms_step:.2f} ms/step "
+              f"({TRAIN_BATCH * 1e3 / ms_step:.2f} images/s); data wait median "
+              f"{data_ms:.2f} ms/step, step dispatch median {dispatch_ms:.2f} ms/step; "
+              f"losses {[round(x, 6) for x in losses]}", flush=True)
+
+        # the loss over a repeated batch, from the trained model
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=opts))
+        loader = DeviceLoader(get_dataset(cfg, is_train=True), cfg, num_workers=4, seed=1)
+        batch = next(iter(loader))
+        loader.close()
+        model = res["model"]
+        optimizer = make_optimizer(cfg, model)
+        step = TrainStep(cfg, model, optimizer, make_lr_schedule(cfg, optimizer, 1000),
+                         torch.Generator().manual_seed(1))
+        rep = [step(batch)["loss"] for _ in range(10)]
+        rep = [float(x) for x in rep]
+        print(f"repeated batch, 10 steps: losses {[round(x, 6) for x in rep]}", flush=True)
+        if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
+            raise AssertionError(f"loss did not fall over a repeated batch: {rep}")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(batch)
+        torch.cuda.synchronize()
+        device_ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"train step on a resident batch (no data wait): {device_ms:.2f} ms/step "
+              f"({TRAIN_BATCH * 1e3 / device_ms:.2f} images/s)", flush=True)
+        kernel_profile(torch, lambda: step(batch), f"one train step (batch {TRAIN_BATCH}, bf16)")
+    return {"launches": launches, "ms_step": ms_step, "data_ms": data_ms,
+            "resident_ms": device_ms}
+
+
+def dense_attention_grads(q, k, v, dout, scale):
+    """dq, dk, dv of softmax(q k^T * scale) v by autograd in float64."""
+    import torch
+
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    out = torch.softmax(q @ k.transpose(1, 2) * scale, dim=-1) @ v
+    return torch.autograd.grad(out, (q, k, v), dout.double())
+
+
+def card_vs_cpu_step(torch, np, fa) -> None:
+    """One f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
+    same step on the CPU, from the reference init the trainer starts from,
+    with the CPU's float64 step as exact arithmetic: the loss, the BN running
+    statistics after the forward, the gradients (see STEP_GRAD_RATIO), over
+    the whole model and over the CoAM position attention alone, and each K2
+    call of the card's step against float64 on its own inputs."""
+    from torch import nn
+
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.core.loss import make_loss
+    from buctd_tpu_torch.models import get_model
+
+    cfg = default_config()
+    update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG),
+                                             opts=["TPU.COMPUTE_DTYPE", "float32"]))
+    torch.manual_seed(3)
+    model = get_model(cfg)                                  # device="cuda"
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.p = 0.0
+    cpu = copy.deepcopy(model).cpu()
+    f64 = copy.deepcopy(cpu).double()
+    rng = np.random.RandomState(5)
+    x = np.concatenate([rng.randn(1, 3, 384, 288), rng.uniform(0, 255, (1, 3, 384, 288))], 1)
+    tgt = (rng.rand(1, 14, 96, 72) > 0.995)
+    tw = rng.rand(1, 14) > 0.2
+    loss_fn = make_loss(cfg)
+    backward, k2_calls = fa.flash_attention_backward, []
+
+    def recording_backward(q, k, v, out, lse, dout, *args):
+        grads = backward(q, k, v, out, lse, dout, *args)
+        k2_calls.append([t.detach().cpu() for t in (q, k, v, dout, *grads)] + [args[0]])
+        return grads
+
+    res = {}
+    for name, m, dev, dt in (("card", model, "cuda", torch.float32),
+                             ("cpu", cpu, "cpu", torch.float32),
+                             ("f64", f64, "cpu", torch.float64)):
+        m.train()
+        loss = loss_fn(m(torch.from_numpy(x).to(dev, dt)),
+                       torch.from_numpy(tgt).to(dev, dt), torch.from_numpy(tw).to(dev, dt))
+        fa.flash_attention_backward = recording_backward if name == "card" else backward
+        try:
+            loss.backward()
+        finally:
+            fa.flash_attention_backward = backward
+        res[name] = (loss.item(),
+                     {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()},
+                     {k: b.detach().cpu().double() for k, b in m.named_buffers()
+                      if "running" in k})
+
+    # the CoAM position attention: the parameters whose gradient goes through
+    # K1/K2 in this step (fc_k.bias left out: the softmax is invariant to it,
+    # so its exact gradient is 0)
+    every = list(res["cpu"][1])
+    att = [k for k in every if "position_attention_module" in k
+           and not k.endswith("fc_k.bias")]
+
+    def dist(a, b, keys):   # relative L2 distance of the gradient vector over keys
+        num = sum(((res[a][1][k] - res[b][1][k]) ** 2).sum().item() for k in keys)
+        return (num / sum((res[b][1][k] ** 2).sum().item() for k in keys)) ** 0.5
+
+    l_card, l_cpu = res["card"][0], res["cpu"][0]
+    d_card, d_cpu, d_both = (dist("card", "f64", every), dist("cpu", "f64", every),
+                             dist("card", "cpu", every))
+    a_card, a_cpu = dist("card", "f64", att), dist("cpu", "f64", att)
+    bn_ok = all(torch.allclose(res["card"][2][k], res["cpu"][2][k], rtol=STEP_BN_RTOL,
+                               atol=STEP_BN_ATOL) for k in res["cpu"][2])
+    bn_err = max((res["card"][2][k] - res["cpu"][2][k]).abs().max().item()
+                 for k in res["cpu"][2])
+    k2_err = 0.0
+    for q, k, v, dout, dq, dk, dv, scale in k2_calls:
+        for got, want in zip((dq, dk, dv), dense_attention_grads(q, k, v, dout, scale)):
+            k2_err = max(k2_err, (got.double() - want).abs().max().item()
+                         / want.abs().max().item())
+    print(f"train step card vs CPU (f32, TF32 off, batch 1, dropout 0, reference init): "
+          f"loss {l_card:.8f} vs {l_cpu:.8f} (rel {abs(l_card - l_cpu) / abs(l_cpu):.2e}, "
+          f"limit {STEP_LOSS_RTOL:.0e}); gradient distance (relative L2) to float64 over "
+          f"all {len(every)} tensors: card {d_card:.3e}, CPU {d_cpu:.3e}, card to CPU "
+          f"{d_both:.3e}; over the {len(att)} position-attention tensors: card "
+          f"{a_card:.3e}, CPU {a_cpu:.3e} (limit card <= {STEP_GRAD_RATIO:g} x CPU on "
+          f"both); the step's {len(k2_calls)} K2 calls vs float64 on their inputs: "
+          f"max |err| / max |grad| {k2_err:.2e} (limit {STEP_K2_RTOL:.0e}); BN running "
+          f"stats max |card - CPU| {bn_err:.2e} (rtol {STEP_BN_RTOL:.0e}, atol "
+          f"{STEP_BN_ATOL:.0e})", flush=True)
+    if len(k2_calls) != 2:
+        raise AssertionError(f"{len(k2_calls)} flash backward calls in the step, not 2")
+    if not (abs(l_card - l_cpu) <= STEP_LOSS_RTOL * abs(l_cpu)
+            and d_card <= STEP_GRAD_RATIO * d_cpu and a_card <= STEP_GRAD_RATIO * a_cpu
+            and k2_err <= STEP_K2_RTOL and bn_ok):
+        raise AssertionError("the card's train step disagrees with the CPU's")
 
 
 def main() -> int:
@@ -248,6 +718,7 @@ def main() -> int:
 
     from buctd_tpu_torch import _build
     from buctd_tpu_torch.ops import flash_attention as fa
+    from buctd_tpu_torch.ops import warp as tw
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -268,18 +739,47 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     k1 = kernel_phase(torch, F, fa)
+    tk = train_kernel_phase(torch, F, fa, tw)
     serving = serving_phase(torch, np, fa)
-    profile_phase(torch, serving)
+    est = serving["est"]
+    kernel_profile(torch, lambda: est.predict_batch(serving["images"], serving["poses"],
+                                                    float("-inf")),
+                   "predict_batch (3 images x 4 poses, 3 rounds)")
+    serving_launches = serving["launches"]
+    del est
+    del serving
+    torch.cuda.empty_cache()
+    train = training_phase(torch, np, fa, tw)
+    card_vs_cpu_step(torch, np, fa)
+
+    def entry(name, source, replaces, launches, err, key):
+        bound, ops = tk[f"{key}_bound_ms"], tk.get(f"{key}_ops_ms", 0.0)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": tk[f"{key}_ms"],
+                "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": bound,
+                "bound_by": "operations" if ops >= bound else "bytes",
+                "library_ms": tk[f"{key}_library_ms"]}
 
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "buctd_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "buctd_tpu/ops/flash_attention.py:86",
-        "launches": serving["launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": "operations" if k1["ops_ms"] >= k1["bound_ms"] else "bytes",
-        "library_ms": k1["library_ms"]}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "buctd_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "buctd_tpu/ops/flash_attention.py:86",
+         "launches": serving_launches + train["launches"]["flash_fwd"],
+         "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"]),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": "operations" if k1["ops_ms"] >= k1["bound_ms"] else "bytes",
+         "library_ms": k1["library_ms"]},
+        entry("flash_bwd_dq", "buctd_tpu_torch/csrc/flash_bwd.cu",
+              "buctd_tpu/ops/flash_attention.py:212", train["launches"]["flash_bwd_dq"],
+              tk["dq_err"], "dq"),
+        entry("flash_bwd_dkv", "buctd_tpu_torch/csrc/flash_bwd.cu",
+              "buctd_tpu/ops/flash_attention.py:363", train["launches"]["flash_bwd_dkv"],
+              tk["dkv_err"], "dkv"),
+        entry("warp_resample", "buctd_tpu_torch/csrc/warp_resample.cu",
+              "buctd_tpu/ops/pallas_warp.py:30", train["launches"]["warp_resample"],
+              tk["warp_err"], "warp"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -8,7 +8,10 @@ is false.  The file imports no JAX, so it also runs on a GPU host without it:
 
 Tolerances: kernel vs plain 2e-5 absolute and relative (both sum in f32, in
 another order, over up to 700 keys); estimator card vs CPU 1e-3 px and 1e-3 in
-confidence (f32 convs with TF32 off, summed in another order).
+confidence (f32 convs with TF32 off, summed in another order).  The backward
+kernels (K2) vs the plain backward: 1e-4 absolute and relative (dq, dk, dv sum
+products of a recomputed p over up to 700 keys or rows).  The warp (K4) vs its
+plain version: 1e-4 on [0, 1) images (two tent taps against the dense sum).
 """
 
 import numpy as np
@@ -101,3 +104,60 @@ def test_tiny_estimator_on_cuda_matches_cpu(cuda):
     assert fa.flash_attention.launches == before + 3
     want = est_cpu.predict(img, conds, float("-inf"))
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bh,lq,lk,d", SHAPES)
+def test_forward_and_backward_kernels_match_plain(cuda, bh, lq, lk, d, dtype, dropout):
+    q, k, v = _qkv(bh, lq, lk, d, dtype, cuda)
+    scale, seed = d ** -0.5, 99
+    out, lse = fa.flash_attention(q, k, v, scale, dropout, seed)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, scale, dropout, seed)
+    torch.testing.assert_close(out, ref_out, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    dout = torch.randn(bh, lq, d, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    delta = (dout * out).sum(-1)
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, dropout, seed)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, dropout, seed)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    want = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta, scale,
+                                                 dropout, seed)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_function_on_cuda_matches_cpu(cuda):
+    q, k, v = _qkv(2, 300, 200, 48, torch.float32, cuda)
+    dout = torch.randn(2, 300, 48, generator=torch.Generator().manual_seed(3))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention_train(*leaves, 0.2, 0.1, 7)
+        out.backward(dout.to(dev))
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_warp_kernel_matches_plain(cuda):
+    from buctd_tpu_torch.geometry import make_affine
+    from buctd_tpu_torch.ops import warp as tw
+
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.rand(4, 160, 140, 3).astype(np.float32)).to(cuda)
+    t = make_affine(torch.tensor([[70.0, 80.0], [60.0, 90.0], [75.0, 70.0], [70.0, 85.0]]),
+                    torch.tensor([[0.6, 0.7], [0.5, 0.6], [0.7, 0.8], [0.55, 0.7]]),
+                    torch.tensor([0.0, 30.0, -60.0, 90.0]), (96, 128), inv=True).to(cuda)
+    before = tw.warp_resample.launches
+    got = tw.warp_affine_general(imgs, t, (128, 96))
+    torch.cuda.synchronize()
+    assert tw.warp_resample.launches == before + 2
+    want = tw.warp_affine_reference(imgs, t, (128, 96))
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

@@ -93,6 +93,14 @@ def test_unported_models_and_bf16_raise():
     assert compute_dtype(cfg, "EVAL_DTYPE") == torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PoseEstimator(cfg, device="cpu")
-    model = get_model(load_cfg("torch", opts=TINY_COAM))
-    with pytest.raises(NotImplementedError, match="eval-only"):
-        model.train()(torch.zeros(1, 6, 128, 96))
+    if not torch.cuda.is_available():   # the card is the default device
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_model(load_cfg("torch", opts=TINY_COAM))
+    # training mode is ported: dropout acts, the eval forward is unchanged
+    model = get_model(load_cfg("torch", opts=TINY_COAM), device="cpu")
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 6, 128, 96).astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+        torch.manual_seed(0)
+        got = model.train()(x)
+    assert got.shape == want.shape and torch.isfinite(got).all()
