@@ -4,7 +4,7 @@ Counterpart of buctd_tpu/geometry.py: the batched JAX forms
 (``make_affine_jax``, ``affine_points_jax``, ``transform_preds_jax``) as torch
 functions, and the float64 numpy forms the training loader's host planning
 uses (``host_affine`` = the JAX ``make_affine``, ``affine_transform_points``,
-``fliplr_joints``, ``xywh2cs``).  The
+``fliplr_joints``, ``xywh2cs``, ``flip_pairs_to_perm``).  The
 reference's 3-point ``cv2.getAffineTransform`` solve is a similarity transform,
 written here in closed form: ``scale`` is in units of ``PIXEL_STD`` px, only
 ``scale[..., 0]`` sets the isotropic zoom, the box center maps to the output
@@ -118,3 +118,11 @@ def xywh2cs(x, y, w, h, aspect_ratio, scale_thre=1.25, pixel_std=PIXEL_STD):
     if center[0] != -1:
         scale = scale * scale_thre
     return center, scale
+
+
+def flip_pairs_to_perm(num_joints: int, flip_pairs) -> np.ndarray:
+    """Left/right pair list -> permutation vector, for gather-based flipping."""
+    perm = np.arange(num_joints)
+    for a, b in flip_pairs:
+        perm[a], perm[b] = perm[b], perm[a]
+    return perm

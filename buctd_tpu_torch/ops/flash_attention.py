@@ -9,11 +9,20 @@ at d = 48 and L = 1728 at d = 96 for BUCTD-CoAM-W48).
 backward runs the two backward kernels: the counterpart of the custom VJP of
 buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
 
-* On CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` (the port of
-  ``_fwd_kernel`` :86) and ``csrc/flash_bwd.cu`` (``_dq_kernel`` :212 and
+* On CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` (K1, the port of
+  ``_fwd_kernel`` :86) and ``csrc/flash_bwd.cu`` (K2: ``_dq_kernel`` :212 and
   ``_dkv_kernel`` :363).  They launch the kernel or raise; they never fall
   back.
-* On CPU tensors they run the plain dense versions
+* ``BUCTD_FLASH_KVRES``, read at every call with JAX's rule (:474, :684: any
+  value but "0" turns it on), routes CUDA tensors to the kv/q-resident
+  kernels instead: ``csrc/flash_fwd_kvres.cu`` (K1', ``_fwd_kernel_kvres``
+  :139) in ``flash_attention`` and ``csrc/flash_bwd_kvres.cu`` (K2',
+  ``_dq_kernel_kvres`` :245 and ``_dkv_kernel_kvres`` :295) in
+  ``flash_attention_backward``.  K1' and K2' compute exactly K1's and K2's
+  functions with another schedule (the streamed operands in a two-stage
+  cp.async ring), so the plain versions below are theirs too.  A kv-resident
+  kernel that fails to build or launch raises; it never falls back to K1/K2.
+* On CPU tensors the wrappers run the plain dense versions
   (``flash_attention_reference``, ``flash_attention_backward_reference``),
   which the CPU tests hold against the JAX kernels.
 
@@ -21,18 +30,21 @@ Dropout masks: the TPU kernels draw theirs from the TPU PRNG per tile, so
 they cannot be reproduced and depend on the tile shape.  Here every weight
 (bh, q_row, k_col) has 32 bits from a counter-based hash of
 (seed, bh, q_row, k_col) (``csrc/dropout_hash.cuh``; ``dropout_bits`` is the
-same hash in int64 torch ops): the kernels and the plain versions draw the
-same mask bit for bit.  As in JAX, an entry is kept when its bits are
+same hash in int64 torch ops): all the kernels and the plain versions draw
+the same mask bit for bit.  As in JAX, an entry is kept when its bits are
 >= p * 2^32 and scaled by 1 / (1 - p).
 
 Launch counts (CPU calls do not count): ``flash_attention.launches`` (K1),
-``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2).
+``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2),
+``flash_attention_kvres.launches`` (K1'), ``flash_bwd_dq_kvres.launches`` and
+``flash_bwd_dkv_kvres.launches`` (K2').
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
@@ -40,6 +52,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_BH = 65535   # grid.y of the kernels
 _MASK32 = 0xFFFFFFFF
+KVRES_ENV = "BUCTD_FLASH_KVRES"
 
 
 # ------------------------------------------------------------ dropout bits ----
@@ -57,10 +70,12 @@ def _fmix32(h):
     return h ^ (h >> 16)
 
 
-def dropout_bits(seed: int, bh: int, lq: int, lk: int, device="cpu"):
+def dropout_bits(seed: int, bh: int, lq: int, lk: int, device="cpu", bh0: int = 0):
     """(bh, lq, lk) int64 tensor of the 32 random bits of every attention
-    weight, the hash of csrc/dropout_hash.cuh."""
-    b, r, c = (torch.arange(n, dtype=torch.int64, device=device) for n in (bh, lq, lk))
+    weight, the hash of csrc/dropout_hash.cuh; rows bh0 .. bh0 + bh - 1 of the
+    batch-head axis (a slice of a larger call's mask)."""
+    b = torch.arange(bh0, bh0 + bh, dtype=torch.int64, device=device)
+    r, c = (torch.arange(n, dtype=torch.int64, device=device) for n in (lq, lk))
     bkey = _fmix32((int(seed) + _mul32(b, 0x9E3779B9)) & _MASK32)
     row_key = _fmix32(bkey[:, None] ^ _mul32(r, 0x85EBCA77)[None, :])
     return _fmix32(row_key[:, :, None] ^ _mul32(c, 0xC2B2AE3D)[None, None, :])
@@ -76,9 +91,10 @@ def _dropout_args(p: float, seed: int) -> tuple:
     return dropout_threshold(p), 1.0 / (1.0 - p), int(seed)
 
 
-def dropout_multiplier(seed: int, bh: int, lq: int, lk: int, p: float, device="cpu"):
+def dropout_multiplier(seed: int, bh: int, lq: int, lk: int, p: float, device="cpu",
+                       bh0: int = 0):
     """(bh, lq, lk) f32: 1 / (1 - p) where kept, 0 where dropped."""
-    keep = dropout_bits(seed, bh, lq, lk, device) >= dropout_threshold(p)
+    keep = dropout_bits(seed, bh, lq, lk, device, bh0) >= dropout_threshold(p)
     return keep.float() * (1.0 / (1.0 - p))
 
 
@@ -91,29 +107,31 @@ def _check_dropout(p: float, seed: int) -> None:
 
 # ---------------------------------------------------------- plain versions ----
 def flash_attention_reference(q, k, v, scale: float, dropout: float = 0.0,
-                              seed: int = 0):
+                              seed: int = 0, bh0: int = 0):
     """Plain version: dense softmax in f32, dropout on the probabilities.
     q (BH, Lq, d), k/v (BH, Lk, d) -> out f32 (BH, Lq, d), lse f32 (BH, Lq)
-    (natural log, of the logits before dropout)."""
+    (natural log, of the logits before dropout).  ``bh0``: the inputs are
+    rows bh0 .. of a larger call, whose dropout mask they take."""
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     if dropout > 0.0:
-        p = p * dropout_multiplier(seed, *s.shape, dropout, s.device)
+        p = p * dropout_multiplier(seed, *s.shape, dropout, s.device, bh0)
     return torch.matmul(p, v.float()), lse
 
 
 def flash_attention_backward_reference(q, k, v, dout, lse, delta, scale: float,
-                                       dropout: float = 0.0, seed: int = 0):
+                                       dropout: float = 0.0, seed: int = 0, bh0: int = 0):
     """Plain backward, written out: p recomputed from lse, g = do v^T masked,
-    ds = p (g - delta).  Returns f32 dq, dk, dv."""
+    ds = p (g - delta).  Returns f32 dq, dk, dv.  ``bh0`` as in
+    ``flash_attention_reference``."""
     qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
     s = torch.matmul(qf, kf.transpose(1, 2)) * scale
     p = torch.exp(s - lse[..., None])
     g = torch.matmul(do, vf.transpose(1, 2))
     pk = p
     if dropout > 0.0:
-        keep = dropout_multiplier(seed, *s.shape, dropout, s.device)
+        keep = dropout_multiplier(seed, *s.shape, dropout, s.device, bh0)
         g, pk = g * keep, p * keep
     ds = p * (g - delta[..., None])
     dq = torch.matmul(ds, kf) * scale
@@ -171,6 +189,29 @@ def _on_cuda(q, what: str) -> bool:
     return True
 
 
+def _require_cuda(q, what: str, plain: str) -> None:
+    if not _on_cuda(q, what):
+        raise ValueError(f"{what} is a CUDA kernel; CPU tensors take {plain}")
+
+
+def _check_copyable(*tensors) -> None:
+    """The kv-resident kernels stream rows with cp.async copies of 4, 8 or 16
+    bytes: every row start must be 4-byte aligned."""
+    for t in tensors:
+        row = t.shape[-1] * t.element_size()
+        if row % 4 or t.data_ptr() % 4:
+            raise ValueError(f"the kv-resident flash kernels copy rows in 4-byte "
+                             f"units: a {t.dtype} row of {t.shape[-1]} elements "
+                             f"({row} bytes) at address {t.data_ptr():#x} is not "
+                             f"4-byte aligned")
+
+
+def kvres_enabled() -> bool:
+    """JAX's ``BUCTD_FLASH_KVRES`` rule, read at call time: unset or "0" is
+    off, any other value is on."""
+    return os.environ.get(KVRES_ENV, "0") != "0"
+
+
 @functools.lru_cache(maxsize=None)
 def _fn(lib: str, symbol: str, argtypes: tuple):
     """A C entry of csrc/<lib>.cu (built and loaded at first call)."""
@@ -198,28 +239,64 @@ def _raise_on(err: int, what: str, q, k):
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
 
 
+def _launch_fwd(lib: str, q, k, v, scale, dropout, seed):
+    """out, lse from the forward kernel of csrc/<lib>.cu (K1 or K1')."""
+    bh, lq, d = q.shape
+    out = torch.empty((bh, lq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _fn(lib, f"buctd_{lib}", _FWD_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            bh, lq, k.shape[1], d, float(scale), *_dropout_args(dropout, seed),
+            _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(err, lib, q, k)
+    return out, lse
+
+
+def _launch_dq(lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout, seed):
+    bh, lq, d = q.shape
+    dq = torch.empty((bh, lq, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _fn(lib, symbol, _DQ_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), bh, lq, k.shape[1], d, float(scale),
+            *_dropout_args(dropout, seed), _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(err, symbol, q, k)
+    return dq
+
+
+def _launch_dkv(lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout, seed):
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    dk = torch.empty((bh, lk, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty((bh, lk, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _fn(lib, symbol, _DKV_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, lq, lk, d,
+            float(scale), *_dropout_args(dropout, seed), _DTYPE_CODES[q.dtype],
+            _stream(q))
+    _raise_on(err, symbol, q, k)
+    return dk, dv
+
+
 # --------------------------------------------------------------- kernels ----
 def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
     """out f32 (BH, Lq, d), lse f32 (BH, Lq) of dropout(softmax(q k^T * scale)) @ v.
 
     q (BH, Lq, d), k/v (BH, Lk, d), one dtype (f32 or bf16), d <= 128,
-    contiguous.  CUDA tensors launch K1; CPU tensors take the plain version;
-    any other device raises.  ``dropout`` p in [0, 1) with ``seed`` in
-    [0, 2^32) picks the mask (see the module docstring).
+    contiguous.  CUDA tensors launch K1, or K1' under ``BUCTD_FLASH_KVRES``;
+    CPU tensors take the plain version; any other device raises.
+    ``dropout`` p in [0, 1) with ``seed`` in [0, 2^32) picks the mask (see
+    the module docstring).
     """
     _check(q, k, v)
     _check_dropout(dropout, seed)
     if not _on_cuda(q, "flash_attention"):
         return flash_attention_reference(q, k, v, scale, dropout, seed)
-    bh, lq, d = q.shape
-    out = torch.empty((bh, lq, d), dtype=torch.float32, device=q.device)
-    lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _fn("flash_fwd", "buctd_flash_fwd", _FWD_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            bh, lq, k.shape[1], d, float(scale), *_dropout_args(dropout, seed),
-            _DTYPE_CODES[q.dtype], _stream(q))
-    _raise_on(err, "flash_fwd", q, k)
+    if kvres_enabled():
+        return flash_attention_kvres(q, k, v, scale, dropout, seed)
+    out, lse = _launch_fwd("flash_fwd", q, k, v, scale, dropout, seed)
     flash_attention.launches += 1
     return out, lse
 
@@ -227,22 +304,30 @@ def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
 flash_attention.launches = 0
 
 
+def flash_attention_kvres(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
+    """K1': ``flash_attention``'s function with K/V streamed through a
+    cp.async ring, on CUDA tensors whose K/V rows are 4-byte aligned (d * elt
+    a multiple of 4; ValueError otherwise)."""
+    _check(q, k, v)
+    _check_dropout(dropout, seed)
+    _require_cuda(q, "flash_attention_kvres", "flash_attention_reference")
+    _check_copyable(k, v)
+    out, lse = _launch_fwd("flash_fwd_kvres", q, k, v, scale, dropout, seed)
+    flash_attention_kvres.launches += 1
+    return out, lse
+
+
+flash_attention_kvres.launches = 0
+
+
 def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                  seed: int = 0):
     """dq f32 (BH, Lq, d) of the attention above, from do, the forward's lse
     and delta = rowsum(do * out), on CUDA tensors (K2's dq kernel)."""
     _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
-    if not _on_cuda(q, "flash_bwd_dq"):
-        raise ValueError("flash_bwd_dq is the CUDA kernel; CPU tensors take "
-                         "flash_attention_backward_reference")
-    bh, lq, d = q.shape
-    dq = torch.empty((bh, lq, d), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _fn("flash_bwd", "buctd_flash_bwd_dq", _DQ_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), bh, lq, k.shape[1], d, float(scale),
-            *_dropout_args(dropout, seed), _DTYPE_CODES[q.dtype], _stream(q))
-    _raise_on(err, "flash_bwd_dq", q, k)
+    _require_cuda(q, "flash_bwd_dq", "flash_attention_backward_reference")
+    dq = _launch_dq("flash_bwd", "buctd_flash_bwd_dq", q, k, v, dout, lse, delta, scale,
+                    dropout, seed)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -254,20 +339,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                   seed: int = 0):
     """dk, dv f32 (BH, Lk, d), on CUDA tensors (K2's dk/dv kernel)."""
     _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
-    if not _on_cuda(q, "flash_bwd_dkv"):
-        raise ValueError("flash_bwd_dkv is the CUDA kernel; CPU tensors take "
-                         "flash_attention_backward_reference")
-    bh, lq, d = q.shape
-    lk = k.shape[1]
-    dk = torch.empty((bh, lk, d), dtype=torch.float32, device=q.device)
-    dv = torch.empty((bh, lk, d), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _fn("flash_bwd", "buctd_flash_bwd_dkv", _DKV_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, lq, lk, d,
-            float(scale), *_dropout_args(dropout, seed), _DTYPE_CODES[q.dtype],
-            _stream(q))
-    _raise_on(err, "flash_bwd_dkv", q, k)
+    _require_cuda(q, "flash_bwd_dkv", "flash_attention_backward_reference")
+    dk, dv = _launch_dkv("flash_bwd", "buctd_flash_bwd_dkv", q, k, v, dout, lse, delta,
+                         scale, dropout, seed)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -275,20 +349,55 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
 flash_bwd_dkv.launches = 0
 
 
+def flash_bwd_dq_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
+                       seed: int = 0):
+    """K2' dq: ``flash_bwd_dq``'s function with K/V streamed through a
+    cp.async ring (K/V rows 4-byte aligned)."""
+    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
+    _require_cuda(q, "flash_bwd_dq_kvres", "flash_attention_backward_reference")
+    _check_copyable(k, v)
+    dq = _launch_dq("flash_bwd_kvres", "buctd_flash_bwd_dq_kvres", q, k, v, dout, lse,
+                    delta, scale, dropout, seed)
+    flash_bwd_dq_kvres.launches += 1
+    return dq
+
+
+flash_bwd_dq_kvres.launches = 0
+
+
+def flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
+                        seed: int = 0):
+    """K2' dk/dv: ``flash_bwd_dkv``'s function with q, do, lse and delta
+    streamed through a cp.async ring (q rows 4-byte aligned)."""
+    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
+    _require_cuda(q, "flash_bwd_dkv_kvres", "flash_attention_backward_reference")
+    _check_copyable(q, dout, lse, delta)
+    dk, dv = _launch_dkv("flash_bwd_kvres", "buctd_flash_bwd_dkv_kvres", q, k, v, dout,
+                         lse, delta, scale, dropout, seed)
+    flash_bwd_dkv_kvres.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_kvres.launches = 0
+
+
 def flash_attention_backward(q, k, v, out, lse, dout, scale: float,
                              dropout: float = 0.0, seed: int = 0):
     """dq, dk, dv in q's, k's and v's dtypes (the JAX ``.astype`` at :766).
     delta = rowsum(do * out) is computed here in torch, as JAX does (:698);
-    CUDA tensors then launch K2's two kernels, CPU tensors take the plain
-    backward."""
+    CUDA tensors then launch K2's two kernels (K2' under
+    ``BUCTD_FLASH_KVRES``), CPU tensors take the plain backward."""
     dout = dout.float().contiguous()
     delta = (dout * out).sum(-1)
-    if _on_cuda(q, "flash_attention_backward"):
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale, dropout, seed)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale, dropout, seed)
-    else:
+    if not _on_cuda(q, "flash_attention_backward"):
         dq, dk, dv = flash_attention_backward_reference(q, k, v, dout, lse, delta,
                                                         scale, dropout, seed)
+    elif kvres_enabled():
+        dq = flash_bwd_dq_kvres(q, k, v, dout, lse, delta, scale, dropout, seed)
+        dk, dv = flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, scale, dropout, seed)
+    else:
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale, dropout, seed)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale, dropout, seed)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

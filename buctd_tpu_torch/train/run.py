@@ -13,11 +13,17 @@ steps.  Checkpoints are ``.pth`` files with the reference's state-dict keys
 (``checkpoint.pth`` per epoch, ``final_state.pth`` at the end), so
 ``PoseEstimator(checkpoint=...)`` serves them.
 
+Every ``EPOCH_EVAL_FREQ`` epochs and after the last one it validates, as
+tools/train.py:164-176 does: ``core/function.py::validate`` over the test set
+through the device loader in test mode, with the best AP so far tracked and
+its weights in ``model_best.pth`` beside ``checkpoint.pth`` (``--no-eval``
+skips validation).
+
 Not ported yet, and refused with the ROADMAP item named: the host cv2
-``Loader`` (``TPU.DEVICE_PIPELINE False``), validation at ``EPOCH_EVAL_FREQ``
-(Queue 1 item 7: ``--no-eval`` skips it, otherwise the run stops with an error
-at the first evaluation point), ``MODEL.PRETRAINED``/``TEST.MODEL_FILE`` warm
-starts, and the options ``train/state.py::check_train_options`` lists.
+``Loader`` (``TPU.DEVICE_PIPELINE False``), ``MODEL.PRETRAINED``/
+``TEST.MODEL_FILE`` warm starts, and the options
+``train/state.py::check_train_options`` and
+``core/function.py::check_eval_options`` list.
 """
 
 from __future__ import annotations
@@ -32,7 +38,6 @@ import torch
 
 logger = logging.getLogger("buctd_tpu_torch.train")
 
-_EVAL_ITEM = "ROADMAP Queue 1 item 7, 'Evaluation and NMS'"
 _TRAIN_ITEM = "ROADMAP Queue 1 item 8, 'training: the rest'"
 
 
@@ -46,14 +51,16 @@ def parse_args(argv=None):
     parser.add_argument("--steps", type=int, default=None,
                         help="stop after this many optimizer steps")
     parser.add_argument("--no-eval", dest="no_eval", action="store_true",
-                        help="skip validation (not ported yet) instead of failing")
+                        help="skip validation")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("opts", nargs=argparse.REMAINDER,
                         help="Modify config options using the command-line")
     return parser.parse_args(argv)
 
 
-def _output_dir(cfg, cfg_path: str) -> Path:
+def output_dir(cfg, cfg_path: str) -> Path:
+    """<OUTPUT_DIR>/<dataset>/<model name>/<yaml stem>, made if absent (the
+    JAX package's create_logger layout)."""
     out = (Path(cfg.OUTPUT_DIR or "output") / cfg.DATASET.DATASET / cfg.MODEL.NAME
            / Path(cfg_path).stem)
     out.mkdir(parents=True, exist_ok=True)
@@ -70,21 +77,24 @@ def _refuse_unported(cfg) -> None:
                                   f"are not ported yet: {_TRAIN_ITEM}")
 
 
-def save_checkpoint(model, optimizer, epoch: int, out_dir: Path, perf: float = 0.0):
+def save_checkpoint(model, optimizer, epoch: int, out_dir: Path, perf: float = 0.0,
+                    is_best: bool = False):
     """checkpoint.pth in the reference's layout (lib/utils/utils.py:
     save_checkpoint): epoch, model name, state_dict, best_state_dict, perf,
-    optimizer."""
+    optimizer; with ``is_best`` the state dict alone as model_best.pth."""
     sd = model.state_dict()
     torch.save({"epoch": epoch, "model": type(model).__name__, "state_dict": sd,
                 "best_state_dict": sd, "perf": perf,
                 "optimizer": optimizer.state_dict()}, out_dir / "checkpoint.pth")
+    if is_best:
+        torch.save(sd, out_dir / "model_best.pth")
 
 
 def main(argv=None) -> dict:
-    """Train; returns {'steps', 'begin_epoch', 'stats' (per epoch),
-    'output_dir', 'model'}."""
+    """Train; returns {'steps', 'begin_epoch', 'stats' (per epoch), 'perf'
+    (the AP of each validation), 'output_dir', 'model'}."""
     from ..config import default_config, update_config
-    from ..core.function import train_epoch
+    from ..core.function import check_eval_options, train_epoch, validate
     from ..data.datasets import get_dataset
     from ..data.device_pipeline import DeviceLoader
     from ..models import get_model
@@ -99,12 +109,8 @@ def main(argv=None) -> dict:
     update_config(cfg, args)
     check_train_options(cfg)
     _refuse_unported(cfg)
-    if args.no_eval:
-        logger.info("=> validation is not ported yet (%s): skipped (--no-eval)",
-                    _EVAL_ITEM)
-    else:
-        logger.info("=> validation is not ported yet (%s): the run stops at the "
-                    "first evaluation point; pass --no-eval to skip it", _EVAL_ITEM)
+    if not args.no_eval:
+        check_eval_options(cfg)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -114,7 +120,7 @@ def main(argv=None) -> dict:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.benchmark = bool(cfg.CUDNN.BENCHMARK)
 
-    out_dir = _output_dir(cfg, args.cfg)
+    out_dir = output_dir(cfg, args.cfg)
     model = get_model(cfg, device=device)
     dataset = get_dataset(cfg, is_train=True)
     loader = DeviceLoader(dataset, cfg, batch_size=cfg.TRAIN.BATCH_SIZE_PER_GPU,
@@ -142,7 +148,8 @@ def main(argv=None) -> dict:
                 cfg.MODEL.NAME, device, len(dataset), steps_per_epoch, loader.batch,
                 cfg.TPU.COMPUTE_DTYPE)
 
-    done, all_stats = 0, []
+    valid_set = None if args.no_eval else get_dataset(cfg, is_train=False)
+    done, all_stats, perfs, best_perf = 0, [], [], 0.0
     try:
         for epoch in range(begin_epoch, int(cfg.TRAIN.END_EPOCH)):
             left = None if args.steps is None else args.steps - done
@@ -151,17 +158,27 @@ def main(argv=None) -> dict:
             done += len(stats["step_s"])
             if args.steps is not None and done >= args.steps:
                 break
+            perf = 0.0
             if ((epoch + 1) % cfg.EPOCH_EVAL_FREQ == 0
-                    or epoch == cfg.TRAIN.END_EPOCH - 1) and not args.no_eval:
-                raise NotImplementedError(f"validation is not ported yet: {_EVAL_ITEM}; "
-                                          "pass --no-eval to train without it")
-            save_checkpoint(model, optimizer, epoch + 1, out_dir)
+                    or epoch == cfg.TRAIN.END_EPOCH - 1) and valid_set is not None:
+                valid_loader = DeviceLoader(valid_set, cfg,
+                                            batch_size=cfg.TEST.BATCH_SIZE_PER_GPU,
+                                            num_workers=cfg.WORKERS, device=device)
+                try:
+                    _, perf = validate(cfg, valid_loader, valid_set, model, out_dir,
+                                       epoch=epoch)
+                finally:
+                    valid_loader.close()
+                perfs.append(perf)
+            is_best = perf > best_perf
+            best_perf = max(perf, best_perf)
+            save_checkpoint(model, optimizer, epoch + 1, out_dir, perf, is_best)
     finally:
         loader.close()
     torch.save(model.state_dict(), out_dir / "final_state.pth")
     logger.info("=> %d steps; final state in %s", done, out_dir / "final_state.pth")
     return {"steps": done, "begin_epoch": begin_epoch, "stats": all_stats,
-            "output_dir": out_dir, "model": model}
+            "perf": perfs, "output_dir": out_dir, "model": model}
 
 
 if __name__ == "__main__":

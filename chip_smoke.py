@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of buctd_tpu_torch on one NVIDIA GPU (H100): builds the CUDA
 kernels, holds each against its plain PyTorch version, serves full-width
-BUCTD-CoAM-W48 through PoseEstimator with 3 refinement rounds, then trains it
-for a few steps through the training entry point.
+BUCTD-CoAM-W48 through PoseEstimator with 3 refinement rounds, trains it for a
+few steps through the training entry point, and evaluates it with the flip
+test and 3 refinement rounds through the evaluation entry point.
 
     python3 chip_smoke.py
 
@@ -29,7 +30,26 @@ Phases (each raises on failure; nothing is caught):
   5. one f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
      same step on the CPU: loss, the gradients (all, and the position
      attention's alone), BN running statistics; the step's K2 calls vs
-     float64 on their own inputs.
+     float64 on their own inputs;
+  6. kernels, kv-resident: K1' (flash_fwd_kvres) vs the plain version at the
+     serving shapes, the eval shapes (64 = 2 x 32 flip-test crops) in f32 and
+     bf16 and a ragged case, and vs K1; at the training shapes (BH 32), f32
+     and bf16, dropout 0.1: K1' and K2' (dq, dk/dv) vs the plain versions
+     (over BH chunks, each with its rows' dropout mask) and vs K1/K2; times of
+     each beside K1's/K2's (A/B in turns: old, new, new, old), the plain
+     version's, the bound and SDPA's;
+  7. evaluation: ``buctd_tpu_torch.valid.run`` on a seeded synthetic
+     CrowdPose test set (64 480x640 images x 4 people = 256 crops = 8 batches
+     of 32) from a BU-prediction json, with N(0, 1/fan_in) weights saved as a
+     .pth, full width, flip test, 3 refinement rounds: a results json with
+     one entry per crop and a finite AP in [0, 1] each round, K1 and K4
+     launched 2 per batch per round, crops/s per round; a profile of one
+     validate step;
+  8. the same evaluation, one round, under BUCTD_FLASH_KVRES=1: K1' launched 2
+     per batch and K1 never; one batch's heatmaps from K1 and K1' agree; one
+     validate step at batch 2 on the card vs the CPU;
+  9. 3 training steps under BUCTD_FLASH_KVRES=1: K1', K2' dq and K2' dk/dv
+     launched 2 per step, K1 and K2 never, the loss finite.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -100,6 +120,14 @@ WARP_ATOL = 2e-3
 WARP_BATCH = (TRAIN_BATCH, 512, 640)   # 480x640 images in their 512x640 bucket
 TRAIN_STEPS = 10                        # one epoch of the synthetic set
 SYNTH_IMAGES, SYNTH_PEOPLE = 80, 4      # 320 people = 10 batches of 32
+# evaluation: TEST batch 32, flip test -> BH 64 in K1 (branch 0 and 1 shapes)
+EVAL_BATCH = 32
+EVAL_CASES = [(2 * EVAL_BATCH, 6912, 6912, 48), (2 * EVAL_BATCH, 1728, 1728, 96)]
+EVAL_IMAGES = 64                        # x 4 people = 256 crops = 8 batches of 32
+EVAL_ROUNDS = 3
+KVRES_TRAIN_STEPS = 3
+# K1 vs K1' heatmaps of one eval batch: the same sums in another tile order
+KVRES_HM_RTOL = 1e-5
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -706,6 +734,375 @@ def card_vs_cpu_step(torch, np, fa) -> None:
         raise AssertionError("the card's train step disagrees with the CPU's")
 
 
+def ab_ms(old, new, iters: int) -> tuple:
+    """Device times of two versions of one function in turns (old, new, new,
+    old), each the mean of ``iters`` launches: the A/B inside one call."""
+    a1, b1, b2, a2 = (timed_ms(f, iters) for f in (old, new, new, old))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def check_chunked(torch, got, plain, bh: int, chunk: int, *tensors,
+                  atol=KERNEL_ATOL, rtol=KERNEL_RTOL) -> list:
+    """``got`` (a tuple of (BH, ...) kernel outputs) against the plain
+    version ``plain(bh0, *rows)`` over BH chunks starting at row bh0 (the
+    plain versions hold (chunk, L, L) f32 tensors; bh0 gives them the dropout
+    mask of their rows), to atol/rtol; returns the largest |got - plain| of
+    each output."""
+    worst = [0.0] * len(got)
+    for i in range(0, bh, chunk):
+        want = plain(i, *(t[i:i + chunk] for t in tensors))
+        for j, (g, w) in enumerate(zip(got, want)):
+            torch.testing.assert_close(g[i:i + chunk], w, atol=atol, rtol=rtol)
+            worst[j] = max(worst[j], (g[i:i + chunk] - w).abs().max().item())
+    return worst
+
+
+def kvres_kernel_phase(torch, F, fa) -> dict:
+    """K1' and K2' vs their plain versions and vs K1/K2, and their times.
+
+    K1': MAIN_CASES, EVAL_CASES and a ragged case in f32 and bf16, checked
+    against the plain version (KERNEL_ATOL/RTOL) and K1; timed at EVAL_CASES
+    beside K1 (the eval path's sums are the f32 ones).  At TRAIN_CASES (BH 32,
+    the training path's shapes) in f32 and bf16 with dropout 0.1: K1' (out,
+    lse) against the plain version and K1 (KERNEL_ATOL/RTOL), and K2' (dq,
+    dk, dv, from K1''s lse) against the plain backward and K2 (BWD_ATOL/RTOL),
+    the plain versions over BH chunks; K2' timed at BH 32 bf16 beside K2."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    res = {k: 0.0 for k in ("fwd_err", "dq_err", "dkv_err", "fwd_k1_gap", "bwd_k2_gap")}
+    for key in ("fwd", "k1", "fwd_plain", "fwd_library", "fwd_bound", "fwd_ops"):
+        res[f"{key}_ms"] = 0.0
+    for bh, lq, lk, d in MAIN_CASES + EVAL_CASES + [(3, 700, 300, 112)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            q = torch.randn(bh, lq, d, device="cuda", generator=gen).to(dtype)
+            k = torch.randn(bh, lk, d, device="cuda", generator=gen).to(dtype)
+            v = torch.randn(bh, lk, d, device="cuda", generator=gen).to(dtype)
+            scale = d ** -0.5
+            out, lse = fa.flash_attention_kvres(q, k, v, scale)
+            torch.cuda.synchronize()
+            chunk = PLAIN_BH.get(lq, bh)
+            err = max(check_chunked(torch, (out, lse), lambda i, a, b, c:
+                                    fa.flash_attention_reference(a, b, c, scale),
+                                    bh, chunk, q, k, v))
+            k1_out, k1_lse = fa.flash_attention(q, k, v, scale)
+            torch.testing.assert_close(out, k1_out, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+            torch.testing.assert_close(lse, k1_lse, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+            gap = max((out - k1_out).abs().max().item(), (lse - k1_lse).abs().max().item())
+            print(f"K1' flash_fwd_kvres ({bh}, {lq}, {lk}, {d}) {name}: max_abs_err vs "
+                  f"plain {err:.3e}, vs K1 {gap:.3e}", flush=True)
+            res["fwd_err"] = max(res["fwd_err"], err)
+            res["fwd_k1_gap"] = max(res["fwd_k1_gap"], gap)
+            if (bh, lq, lk, d) in EVAL_CASES:
+                k1_ms, kv_ms = ab_ms(lambda: fa.flash_attention(q, k, v, scale),
+                                     lambda: fa.flash_attention_kvres(q, k, v, scale), 10)
+                plain_ms = timed_ms(lambda: chunked(
+                    lambda a, b, c: fa.flash_attention_reference(a, b, c, scale),
+                    bh, chunk, q, k, v), 2)
+                q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+                lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, scale=scale), 10)
+                bound, by = flash_bound_ms(bh, lq, lk, d, name)
+                print(f"  eval shape {name}: K1' {kv_ms:.4f} ms, K1 {k1_ms:.4f} ms "
+                      f"(K1'/K1 {kv_ms / k1_ms:.3f}), plain {plain_ms:.4f} ms, sdpa "
+                      f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), K1' "
+                      f"{4.0 * bh * lq * lk * d / kv_ms / 1e9:.2f} TFLOP/s", flush=True)
+                if dtype == torch.float32:
+                    for key, val in (("fwd", kv_ms), ("k1", k1_ms), ("fwd_plain", plain_ms),
+                                     ("fwd_library", lib_ms), ("fwd_bound", bound),
+                                     ("fwd_ops", 4.0 * bh * lq * lk * d
+                                      / PEAK_OPS[name] * 1e3)):
+                        res[f"{key}_ms"] += val
+                del q4, k4, v4
+            del q, k, v, out, lse, k1_out, k1_lse
+            torch.cuda.empty_cache()
+
+    seed = 4321
+    for bh, lq, d in TRAIN_CASES:
+        chunk = PLAIN_BH[lq]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen).to(dtype)
+                       for _ in range(3))
+            do = torch.randn(bh, lq, d, device="cuda", generator=gen)
+            scale = d ** -0.5
+            out, lse = fa.flash_attention_kvres(q, k, v, scale, DROPOUT, seed)
+            delta = (do * out).sum(-1)
+            dq = fa.flash_bwd_dq_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed)
+            dk, dv = fa.flash_bwd_dkv_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed)
+            torch.cuda.synchronize()
+            fwd_errs = check_chunked(torch, (out, lse), lambda i, a, b, c:
+                                     fa.flash_attention_reference(a, b, c, scale, DROPOUT,
+                                                                  seed, bh0=i),
+                                     bh, chunk, q, k, v)
+            k1 = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
+            for got, old in zip((out, lse), k1):
+                torch.testing.assert_close(got, old, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+            fwd_gap = max((g - w).abs().max().item() for g, w in zip((out, lse), k1))
+            errs = check_chunked(torch, (dq, dk, dv), lambda i, a, b, c, g, l, e:
+                                 fa.flash_attention_backward_reference(
+                                     a, b, c, g, l, e, scale, DROPOUT, seed, bh0=i),
+                                 bh, chunk, q, k, v, do, lse, delta,
+                                 atol=BWD_ATOL, rtol=BWD_RTOL)
+            k2 = (fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, DROPOUT, seed),
+                  *fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, DROPOUT, seed))
+            for got, old in zip((dq, dk, dv), k2):
+                torch.testing.assert_close(got, old, atol=BWD_ATOL, rtol=BWD_RTOL)
+            gaps = [(g - w).abs().max().item() for g, w in zip((dq, dk, dv), k2)]
+            res["fwd_err"] = max(res["fwd_err"], *fwd_errs)
+            res["fwd_k1_gap"] = max(res["fwd_k1_gap"], fwd_gap)
+            res["dq_err"] = max(res["dq_err"], errs[0])
+            res["dkv_err"] = max(res["dkv_err"], errs[1], errs[2])
+            res["bwd_k2_gap"] = max(res["bwd_k2_gap"], *gaps)
+            print(f"K1'+K2' check ({bh}, {lq}, {d}) {str(dtype)[6:]} dropout {DROPOUT}: vs "
+                  f"plain out {fwd_errs[0]:.3e} lse {fwd_errs[1]:.3e} dq {errs[0]:.3e} dk "
+                  f"{errs[1]:.3e} dv {errs[2]:.3e}; K1' vs K1 {fwd_gap:.3e}, K2' vs K2 "
+                  f"{max(gaps):.3e}", flush=True)
+            del q, k, v, do, out, lse, delta, dq, dk, dv, k1, k2
+            torch.cuda.empty_cache()
+
+    for name in ("dq", "dkv"):
+        for key in ("ms", "k2_ms", "bound_ms", "ops_ms"):
+            res[f"{name}_{key}"] = 0.0
+    for bh, lq, d in TRAIN_CASES:
+        q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        do = torch.randn(bh, lq, d, device="cuda", generator=gen)
+        scale = d ** -0.5
+        out, lse = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
+        delta = (do * out).sum(-1)
+        args = (q, k, v, do, lse, delta, scale, DROPOUT, seed)
+        k2_dq, kv_dq = ab_ms(lambda: fa.flash_bwd_dq(*args),
+                             lambda: fa.flash_bwd_dq_kvres(*args), 5)
+        k2_dkv, kv_dkv = ab_ms(lambda: fa.flash_bwd_dkv(*args),
+                               lambda: fa.flash_bwd_dkv_kvres(*args), 5)
+        bounds = {}
+        for kind, kv_ms, k2_ms in (("dq", kv_dq, k2_dq), ("dkv", kv_dkv, k2_dkv)):
+            bounds[kind], _ = bwd_bound_ms(bh, lq, d, 2, kind)
+            res[f"{kind}_ms"] += kv_ms
+            res[f"{kind}_k2_ms"] += k2_ms
+            res[f"{kind}_bound_ms"] += bounds[kind]
+            res[f"{kind}_ops_ms"] += bwd_ops(bh, lq, d, kind) / PEAK_OPS["bfloat16"] * 1e3
+        print(f"K2' ({bh}, {lq}, {d}) bf16 dropout {DROPOUT}: dq {kv_dq:.4f} ms (K2 "
+              f"{k2_dq:.4f}, K2'/K2 {kv_dq / k2_dq:.3f}, bound {bounds['dq']:.4f}), dkv "
+              f"{kv_dkv:.4f} ms (K2 {k2_dkv:.4f}, K2'/K2 {kv_dkv / k2_dkv:.3f}, bound "
+              f"{bounds['dkv']:.4f}); plain backward and sdpa fwd+bwd: the train kernels "
+              f"line", flush=True)
+        del q, k, v, do, out, lse, delta, args
+        torch.cuda.empty_cache()
+    print(f"A/B sums: K1' {res['fwd_ms']:.4f} ms vs K1 {res['k1_ms']:.4f} ms (f32, eval "
+          f"shapes); K2' dq {res['dq_ms']:.4f} vs K2 {res['dq_k2_ms']:.4f} ms, dkv "
+          f"{res['dkv_ms']:.4f} vs {res['dkv_k2_ms']:.4f} ms (bf16, training shapes); "
+          f"largest gap to K1 {res['fwd_k1_gap']:.3e}, to K2 {res['bwd_k2_gap']:.3e}",
+          flush=True)
+    return res
+
+
+def write_bu_predictions(np, ann_file: Path, image_dir: Path, seed: int = 1) -> Path:
+    """A BU-prediction json beside ``ann_file``: one entry per image
+    ({'preds', 'scores', 'image_paths'}), each person's GT joints jittered by
+    N(0, 6 px) with confidences in [0.3, 1], about 1 joint in 8 zeroed (not
+    detected)."""
+    gt = json.loads(ann_file.read_text())
+    rng = np.random.RandomState(seed)
+    out = []
+    for img in gt["images"]:
+        preds, scores = [], []
+        for a in gt["annotations"]:
+            if a["image_id"] != img["id"]:
+                continue
+            kp = np.array(a["keypoints"], np.float64).reshape(-1, 3)
+            kp[:, :2] += rng.randn(len(kp), 2) * 6.0
+            kp[:, 2] = rng.uniform(0.3, 1.0, len(kp))
+            kp[rng.rand(len(kp)) < 0.125] = 0.0
+            preds.append(kp.tolist())
+            scores.append(float(rng.uniform(0.5, 1.0)))
+        out.append({"preds": preds, "scores": scores,
+                    "image_paths": [str(image_dir / img["file_name"])]})
+    path = ann_file.with_name("bu_predictions.json")
+    path.write_text(json.dumps(out))
+    return path
+
+
+def eval_phase(torch, np, fa, tw) -> dict:
+    """Evaluation at full width through ``valid.run.main`` (3 rounds), the
+    same for one round under BUCTD_FLASH_KVRES=1, K1 vs K1' heatmaps on one
+    batch, a profile of one validate step, and one batch-2 validate step on
+    the card vs the CPU."""
+    import os
+
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.core.function import make_validate_step
+    from buctd_tpu_torch.data.datasets import get_dataset
+    from buctd_tpu_torch.data.device_pipeline import DeviceLoader
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.valid import run as valid_run
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="buctd_eval_") as tmp:
+        root = Path(tmp)
+        ann = write_synthetic_crowdpose(np, root, EVAL_IMAGES, SYNTH_PEOPLE, seed=11)
+        bu = write_bu_predictions(np, ann, root)
+        torch.manual_seed(5)
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=[]))
+        model = get_model(cfg)
+        randomize(torch, model)
+        weights = root / "random_weights.pth"
+        torch.save(model.state_dict(), weights)
+        del model
+        opts = ["TPU.DEVICE_PIPELINE", "True", "DATASET.TEST_IMAGE_DIR", str(root),
+                "DATASET.TEST_ANNOTATION_FILE", str(ann), "TEST.COCO_BBOX_FILE", str(bu),
+                "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH), "TEST.MODEL_FILE", str(weights),
+                "TEST.FLIP_TEST", "True", "TEST.POST_PROCESS", "True",
+                "TEST.SHIFT_HEATMAP", "True", "PRINT_FREQ", "100"]
+        print(f"evaluation: synthetic CrowdPose test set of {EVAL_IMAGES} images x "
+              f"{SYNTH_PEOPLE} people, BU predictions {bu.name}, weights {weights.name}",
+              flush=True)
+
+        counted = (fa.flash_attention, fa.flash_attention_kvres, tw.warp_resample)
+        for f in counted:
+            f.launches = 0                                   # the main path's run
+        t0 = time.perf_counter()
+        out = valid_run.main(["--cfg", str(CONFIG), *opts, "OUTPUT_DIR", str(root / "out"),
+                              "TEST.REFINE_ITERS", str(EVAL_ROUNDS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_fwd": fa.flash_attention.launches,
+                    "flash_fwd_kvres": fa.flash_attention_kvres.launches,
+                    "warp_resample": tw.warp_resample.launches}
+        batches = -(-EVAL_IMAGES * SYNTH_PEOPLE // EVAL_BATCH)
+        want = {"flash_fwd": 2 * batches * EVAL_ROUNDS, "flash_fwd_kvres": 0,
+                "warp_resample": 2 * batches * EVAL_ROUNDS}
+        print(f"evaluation run: {EVAL_ROUNDS} rounds in {wall:.1f} s (model build and "
+              f"data included); launches {launches}, expected {want} (K1 and K4: 2 per "
+              f"batch of {EVAL_BATCH} crops, {batches} batches a round)", flush=True)
+        for it, r in enumerate(out["rounds"]):
+            rows = json.loads(Path(r["results"]).read_text())
+            print(f"  round {it}: AP {r['AP']!r}, {r['crops']} crops, results json "
+                  f"{len(rows)} entries; eval loop {r['loop_s']:.3f} s = "
+                  f"{r['crops'] / r['loop_s']:.2f} crops/s (host clock, to the results "
+                  f"on the host), evaluate {r['evaluate_s']:.3f} s; loss {r['loss']:.6f} "
+                  f"acc {r['acc']:.3f}", flush=True)
+            if len(rows) != r["crops"] or r["crops"] != EVAL_IMAGES * SYNTH_PEOPLE:
+                raise AssertionError(f"round {it}: {len(rows)} results for "
+                                     f"{r['crops']} crops")
+            if not (np.isfinite(r["AP"]) and 0.0 <= r["AP"] <= 1.0):
+                raise AssertionError(f"round {it}: AP {r['AP']}")
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        res["launches"] = launches
+        model = out["model"]
+
+        # the same evaluation, one round, under BUCTD_FLASH_KVRES=1
+        os.environ["BUCTD_FLASH_KVRES"] = "1"
+        try:
+            for f in counted:
+                f.launches = 0
+            kv = valid_run.main(["--cfg", str(CONFIG), *opts,
+                                 "OUTPUT_DIR", str(root / "out_kvres")])
+            kv_launches = {"flash_fwd": fa.flash_attention.launches,
+                           "flash_fwd_kvres": fa.flash_attention_kvres.launches}
+        finally:
+            del os.environ["BUCTD_FLASH_KVRES"]
+        r = kv["rounds"][0]
+        print(f"evaluation under BUCTD_FLASH_KVRES=1, one round: AP {r['AP']!r} (K1's "
+              f"round 0: {out['rounds'][0]['AP']!r}), {r['crops'] / r['loop_s']:.2f} "
+              f"crops/s; launches {kv_launches}", flush=True)
+        if kv_launches != {"flash_fwd": 0, "flash_fwd_kvres": 2 * batches}:
+            raise AssertionError(f"kv-resident eval launches {kv_launches}")
+        res["kvres_launches"] = kv_launches["flash_fwd_kvres"]
+        del kv
+
+        # the evaluation protocol on a known answer: the BU predictions (GT +
+        # 6 px noise, 1 joint in 8 missing) as the predictions score a high AP
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=opts))
+        ds = get_dataset(cfg, is_train=False)
+        preds = np.stack([np.concatenate([r["cond_joints"][:, :2],
+                                          r["cond_joints_vis"][:, :1]], 1) for r in ds.db])
+        boxes = np.array([[*r["center"], *r["scale"], np.prod(r["scale"] * 200), r["score"],
+                           -1] for r in ds.db])
+        _, bu_ap = ds.evaluate(cfg, preds, str(root / "bu_eval"), boxes,
+                               [r["image"] for r in ds.db])
+        print(f"evaluate on the BU predictions themselves ({len(ds.db)} poses): AP "
+              f"{bu_ap!r} (limit > 0.3)", flush=True)
+        if not bu_ap > 0.3:
+            raise AssertionError(f"AP {bu_ap} of near-GT predictions")
+
+        # one batch: K1 vs K1' heatmaps, a profile, the card vs the CPU
+        loader = DeviceLoader(ds, cfg, num_workers=4)
+        batch = next(iter(loader))
+        loader.close()
+        step = make_validate_step(cfg, model, ds.flip_pairs, ds.kpt_colors)
+        hm_k1 = step(batch)[5]
+        os.environ["BUCTD_FLASH_KVRES"] = "1"
+        try:
+            hm_kv = step(batch)[5]
+        finally:
+            del os.environ["BUCTD_FLASH_KVRES"]
+        peak = hm_k1.abs().max().item()
+        gap = (hm_kv - hm_k1).abs().max().item()
+        print(f"one eval batch ({EVAL_BATCH} crops, flip test): heatmaps K1' vs K1 max "
+              f"|diff| {gap:.3e}, peak {peak:.3e}, limit {KVRES_HM_RTOL:.0e} x peak",
+              flush=True)
+        if not gap <= KVRES_HM_RTOL * peak:
+            raise AssertionError("K1' heatmaps disagree with K1's")
+        kernel_profile(torch, lambda: step(batch),
+                       f"one validate step (batch {EVAL_BATCH}, flip test: 64 crops, f32)")
+
+        small = {k: v[:2] for k, v in batch.items()}
+        cpu_model = copy.deepcopy(model).cpu()
+        hm_card = step(small)[5].cpu()
+        cpu_small = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in small.items()}
+        hm_cpu = make_validate_step(cfg, cpu_model, ds.flip_pairs, ds.kpt_colors)(
+            cpu_small)[5]
+        err = (hm_card - hm_cpu).abs().max().item()
+        peak = hm_cpu.abs().max().item()
+        print(f"validate step, batch 2, card vs CPU: heatmaps max |diff| {err:.3e}, peak "
+              f"{peak:.3e}, limit {FORWARD_RTOL:.0e} x peak", flush=True)
+        if not err <= FORWARD_RTOL * peak:
+            raise AssertionError("the card's validate step disagrees with the CPU's")
+    return res
+
+
+def kvres_training_phase(torch, np, fa) -> dict:
+    """KVRES_TRAIN_STEPS trainer steps under BUCTD_FLASH_KVRES=1: K1' and K2'
+    only, a finite loss."""
+    import os
+
+    from buctd_tpu_torch.train import run
+
+    counted = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
+               "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_fwd_kvres": fa.flash_attention_kvres,
+               "flash_bwd_dq_kvres": fa.flash_bwd_dq_kvres,
+               "flash_bwd_dkv_kvres": fa.flash_bwd_dkv_kvres}
+    with tempfile.TemporaryDirectory(prefix="buctd_kvres_train_") as tmp:
+        root = Path(tmp)
+        ann = write_synthetic_crowdpose(np, root, 24, SYNTH_PEOPLE, seed=3)
+        for f in counted.values():
+            f.launches = 0
+        os.environ["BUCTD_FLASH_KVRES"] = "1"
+        try:
+            res = run.main(["--cfg", str(CONFIG), "--steps", str(KVRES_TRAIN_STEPS),
+                            "--no-eval", "--seed", "1", "TPU.DEVICE_PIPELINE", "True",
+                            "DATASET.TRAIN_IMAGE_DIR", str(root),
+                            "DATASET.TRAIN_ANNOTATION_FILE", str(ann),
+                            "OUTPUT_DIR", str(root / "out")])
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["BUCTD_FLASH_KVRES"]
+    launches = {k: f.launches for k, f in counted.items()}
+    losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
+    n = 2 * KVRES_TRAIN_STEPS
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_kvres": n,
+            "flash_bwd_dq_kvres": n, "flash_bwd_dkv_kvres": n}
+    print(f"training under BUCTD_FLASH_KVRES=1: {res['steps']} steps, losses "
+          f"{[round(x, 6) for x in losses]}; launches {launches}, expected {want}",
+          flush=True)
+    if launches != want or res["steps"] != KVRES_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"kv-resident training: launches {launches}, losses {losses}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -730,7 +1127,7 @@ def main() -> int:
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     names = _build.build_all()
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in names:
@@ -740,6 +1137,7 @@ def main() -> int:
 
     k1 = kernel_phase(torch, F, fa)
     tk = train_kernel_phase(torch, F, fa, tw)
+    kv = kvres_kernel_phase(torch, F, fa)
     serving = serving_phase(torch, np, fa)
     est = serving["est"]
     kernel_profile(torch, lambda: est.predict_batch(serving["images"], serving["poses"],
@@ -751,33 +1149,64 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = training_phase(torch, np, fa, tw)
     card_vs_cpu_step(torch, np, fa)
+    torch.cuda.empty_cache()
+    ev = eval_phase(torch, np, fa, tw)
+    torch.cuda.empty_cache()
+    kv_train = kvres_training_phase(torch, np, fa)
+
+    def bound_by(ops_ms, bound_ms):
+        return "operations" if ops_ms >= bound_ms else "bytes"
 
     def entry(name, source, replaces, launches, err, key):
         bound, ops = tk[f"{key}_bound_ms"], tk.get(f"{key}_ops_ms", 0.0)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": tk[f"{key}_ms"],
                 "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": bound,
-                "bound_by": "operations" if ops >= bound else "bytes",
-                "library_ms": tk[f"{key}_library_ms"]}
+                "bound_by": bound_by(ops, bound), "library_ms": tk[f"{key}_library_ms"]}
 
+    def kv_bwd_entry(kind, replaces):
+        return {"name": f"flash_bwd_{kind}_kvres", "route": "cuda",
+                "source": "buctd_tpu_torch/csrc/flash_bwd_kvres.cu",
+                "replaces": f"buctd_tpu/ops/flash_attention.py:{replaces}",
+                "launches": kv_train[f"flash_bwd_{kind}_kvres"],
+                "max_abs_err": kv[f"{kind}_err"], "ms": kv[f"{kind}_ms"],
+                # one plain backward, and one SDPA forward+backward, give dq, dk
+                # and dv: timed in the training kernel phase at the same shapes
+                "plain_ms": tk[f"{kind}_plain_ms"], "bound_ms": kv[f"{kind}_bound_ms"],
+                "bound_by": bound_by(kv[f"{kind}_ops_ms"], kv[f"{kind}_bound_ms"]),
+                "library_ms": tk[f"{kind}_library_ms"]}
+
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "buctd_tpu/ops/flash_attention.py:86",
-         "launches": serving_launches + train["launches"]["flash_fwd"],
+         "launches": (serving_launches + train["launches"]["flash_fwd"]
+                      + ev["launches"]["flash_fwd"]),
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": "operations" if k1["ops_ms"] >= k1["bound_ms"] else "bytes",
+         "bound_by": bound_by(k1["ops_ms"], k1["bound_ms"]),
          "library_ms": k1["library_ms"]},
+        {"name": "flash_fwd_kvres", "route": "cuda",
+         "source": "buctd_tpu_torch/csrc/flash_fwd_kvres.cu",
+         "replaces": "buctd_tpu/ops/flash_attention.py:139",
+         "launches": ev["kvres_launches"] + kv_train["flash_fwd_kvres"],
+         "max_abs_err": kv["fwd_err"], "ms": kv["fwd_ms"], "plain_ms": kv["fwd_plain_ms"],
+         "bound_ms": kv["fwd_bound_ms"], "bound_by": bound_by(kv["fwd_ops_ms"],
+                                                              kv["fwd_bound_ms"]),
+         "library_ms": kv["fwd_library_ms"]},
         entry("flash_bwd_dq", "buctd_tpu_torch/csrc/flash_bwd.cu",
               "buctd_tpu/ops/flash_attention.py:212", train["launches"]["flash_bwd_dq"],
               tk["dq_err"], "dq"),
         entry("flash_bwd_dkv", "buctd_tpu_torch/csrc/flash_bwd.cu",
               "buctd_tpu/ops/flash_attention.py:363", train["launches"]["flash_bwd_dkv"],
               tk["dkv_err"], "dkv"),
+        kv_bwd_entry("dq", 245),
+        kv_bwd_entry("dkv", 295),
         entry("warp_resample", "buctd_tpu_torch/csrc/warp_resample.cu",
-              "buctd_tpu/ops/pallas_warp.py:30", train["launches"]["warp_resample"],
+              "buctd_tpu/ops/pallas_warp.py:30",
+              train["launches"]["warp_resample"] + ev["launches"]["warp_resample"],
               tk["warp_err"], "warp"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,8 +38,9 @@ def load_cfg(package: str, yaml=COAM_YAML, opts=()):
     return cfg
 
 
-def jax_variables(cfg, seed: int = 0):
-    """JAX model + variables for ``cfg``, every leaf drawn from a numpy seed.
+def jax_variables(cfg, seed: int = 0, channels: int = 6):
+    """JAX model + variables for ``cfg`` (``channels`` input channels), every
+    leaf drawn from a numpy seed.
 
     The shapes come from ``jax.eval_shape`` (no init compile).  Weights are
     N(0, 1/fan_in) and the BN statistics non-trivial, so the heatmaps are O(1)
@@ -52,7 +53,7 @@ def jax_variables(cfg, seed: int = 0):
 
     model = get_model(cfg)
     img_w, img_h = cfg.MODEL.IMAGE_SIZE
-    shapes = jax.eval_shape(lambda k: model.init(k, jnp.zeros((1, img_h, img_w, 6)),
+    shapes = jax.eval_shape(lambda k: model.init(k, jnp.zeros((1, img_h, img_w, channels)),
                                                  train=False), jax.random.PRNGKey(0))
     rng = np.random.RandomState(seed)
 

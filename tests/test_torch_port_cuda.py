@@ -161,3 +161,64 @@ def test_warp_kernel_matches_plain(cuda):
     assert tw.warp_resample.launches == before + 2
     want = tw.warp_affine_reference(imgs, t, (128, 96))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# K1'/K2' (the kv-resident kernels): the test shapes, and two whose head dim is
+# no multiple of 16 (the rings' padded columns; copies of 16, 8 and 4 bytes)
+KVRES_SHAPES = SHAPES + [(2, 100, 130, 40), (1, 70, 90, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bh,lq,lk,d", KVRES_SHAPES)
+def test_kvres_kernels_match_plain_and_k1_k2(cuda, monkeypatch, bh, lq, lk, d, dtype,
+                                             dropout):
+    """K1' and K2' vs the plain versions (the same tolerances as K1/K2) and vs
+    K1/K2 on the same inputs."""
+    monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
+    q, k, v = _qkv(bh, lq, lk, d, dtype, cuda)
+    scale, seed = d ** -0.5, 5
+    before = [f.launches for f in (fa.flash_attention_kvres, fa.flash_bwd_dq_kvres,
+                                   fa.flash_bwd_dkv_kvres)]
+    out, lse = fa.flash_attention_kvres(q, k, v, scale, dropout, seed)
+    dout = torch.randn(bh, lq, d, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    delta = (dout * out).sum(-1)
+    dq = fa.flash_bwd_dq_kvres(q, k, v, dout, lse, delta, scale, dropout, seed)
+    dk, dv = fa.flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, scale, dropout, seed)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa.flash_attention_kvres, fa.flash_bwd_dq_kvres,
+                                 fa.flash_bwd_dkv_kvres)] == [b + 1 for b in before]
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, scale, dropout, seed)
+    torch.testing.assert_close(out, ref_out, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    want = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta, scale,
+                                                 dropout, seed)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    k1_out, k1_lse = fa.flash_attention(q, k, v, scale, dropout, seed)
+    torch.testing.assert_close(out, k1_out, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, k1_lse, atol=2e-5, rtol=2e-5)
+    k2 = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, dropout, seed),
+          *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, dropout, seed))
+    for got, ref in zip((dq, dk, dv), k2):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kvres_switch_routes_cuda_tensors(cuda, monkeypatch):
+    """BUCTD_FLASH_KVRES=1: flash_attention and the training backward launch
+    K1' and K2' only; unaligned rows raise instead of taking K1."""
+    monkeypatch.setenv("BUCTD_FLASH_KVRES", "1")
+    q, k, v = (x.requires_grad_() for x in _qkv(2, 300, 200, 48, torch.float32, cuda))
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                fa.flash_attention_kvres, fa.flash_bwd_dq_kvres, fa.flash_bwd_dkv_kvres)
+    before = [f.launches for f in counters]
+    out = fa.flash_attention_train(q, k, v, 0.2, 0.1, 7)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [0, 0, 0, 1, 1, 1]
+    odd = _qkv(1, 16, 16, 7, torch.bfloat16, cuda)   # 14-byte rows
+    with pytest.raises(ValueError, match="4-byte"):
+        fa.flash_attention(*odd, 0.3)
+    assert fa.flash_attention.launches == before[0]

@@ -81,6 +81,28 @@ def test_dropout_mask_rate_and_determinism(p):
     assert torch.equal(fa.dropout_bits(7, 2, 50, 70), bits[:2, :50, :70])
 
 
+def test_reference_slice_takes_the_mask_of_its_rows():
+    """The plain versions over BH rows bh0.. with ``bh0`` equal the same rows
+    of the whole call: the chunked checks on the card hold the kernels at the
+    full BH with the mask of every row."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(4, 24, 40, 8))
+    scale, p, seed = 8 ** -0.5, 0.3, 11
+    out, lse = fa.flash_attention_reference(q, k, v, scale, p, seed)
+    part, part_lse = fa.flash_attention_reference(q[2:], k[2:], v[2:], scale, p, seed, bh0=2)
+    torch.testing.assert_close(part, out[2:], atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(part_lse, lse[2:], atol=1e-6, rtol=1e-6)
+    unshifted, _ = fa.flash_attention_reference(q[2:], k[2:], v[2:], scale, p, seed)
+    assert not torch.allclose(unshifted, out[2:])
+    dout = torch.randn(4, 24, 8, generator=torch.Generator().manual_seed(0))
+    delta = (dout * out).sum(-1)
+    whole = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta, scale, p, seed)
+    sliced = fa.flash_attention_backward_reference(q[2:], k[2:], v[2:], dout[2:], lse[2:],
+                                                   delta[2:], scale, p, seed, bh0=2)
+    for got, want in zip(sliced, whole):
+        torch.testing.assert_close(got, want[2:], atol=1e-6, rtol=1e-6)
+    assert torch.equal(fa.dropout_bits(7, 2, 5, 6, bh0=1), fa.dropout_bits(7, 3, 5, 6)[1:])
+
+
 def test_hash_matches_uint32_arithmetic():
     """The int64 emulation of the 32-bit hash against numpy uint32 math."""
     def fmix(h):

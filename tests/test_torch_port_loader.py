@@ -90,15 +90,17 @@ def test_generate_target_matches_jax():
 
 
 def test_host_planning_refuses_unported_paths(tmp_path):
+    from buctd_tpu_torch.core.function import check_eval_options
     from buctd_tpu_torch.data.datasets import get_dataset
     from buctd_tpu_torch.train.state import check_train_options
 
     ann_file, _ = _tiny_coco(tmp_path, J=14)
     cfg = load_cfg("torch", COAM_YAML, TINY_LOADER + [
         "DATASET.TEST_IMAGE_DIR", str(tmp_path), "DATASET.TEST_ANNOTATION_FILE", ann_file,
-        "TEST.COCO_BBOX_FILE", "boxes.json", "TPU.DEVICE_SYNTHESIS", "True"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset(cfg, is_train=False)             # db from a box file: eval slice
+        "TEST.LAMBDA_SWEEP", "True", "TPU.DEVICE_SYNTHESIS", "True"])
+    assert len(get_dataset(cfg, is_train=False).db) == 4
+    with pytest.raises(NotImplementedError, match="LAMBDA_SWEEP.*ROADMAP"):
+        check_eval_options(cfg)                      # the lambda sweep: not ported
     with pytest.raises(NotImplementedError, match="DEVICE_SYNTHESIS"):
         check_train_options(cfg)
     bad = load_cfg("torch", COAM_YAML, ["DATASET.DATASET", "ochuman"])

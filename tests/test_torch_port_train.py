@@ -20,6 +20,8 @@
 * the entry point trains, checkpoints and refuses what is not ported.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -220,12 +222,37 @@ def test_train_entry_runs_and_checkpoints(tmp_path):
     assert res["begin_epoch"] == 0 and again["begin_epoch"] == 1 and again["steps"] == 1
 
 
-def test_train_entry_refuses_what_is_not_ported(tmp_path):
+def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Validation at EPOCH_EVAL_FREQ runs (results json, best AP tracked in
+    model_best.pth); the options not ported raise and name the ROADMAP."""
+    from buctd_tpu_torch.core import function
     from buctd_tpu_torch.train import run
 
     args = _train_args(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 7"):   # eval after epoch 1
-        run.main(args[:2] + ["--steps", "3"] + args[2:] + ["EPOCH_EVAL_FREQ", "1"])
+    # the tiny random model scores AP 0, and model_best.pth is written only for
+    # an AP above the best so far (tools/train.py:170): the wrapper reports
+    # the real AP + 0.5 to the trainer
+    real, aps = function.validate, []
+
+    def validate(*a, **k):
+        name_values, ap = real(*a, **k)
+        aps.append(ap)
+        return name_values, ap + 0.5
+
+    monkeypatch.setattr(function, "validate", validate)
+    res = run.main(args[:2] + ["--steps", "3"] + args[2:] + [
+        "EPOCH_EVAL_FREQ", "1", "DATASET.TEST_IMAGE_DIR", str(tmp_path),
+        "DATASET.TEST_ANNOTATION_FILE", str(tmp_path / "ann.json"),
+        "TEST.BATCH_SIZE_PER_GPU", "2"])
+    out = res["output_dir"]
+    assert len(aps) == 1 and 0.0 <= aps[0] <= 1.0       # epoch 0 only: 3 steps, 2 a epoch
+    assert res["perf"] == [aps[0] + 0.5]
+    rows = json.loads((out / "results" / "keypoints_test_results_epoch0.json").read_text())
+    assert len(rows) == 4
+    best = torch.load(out / "model_best.pth", weights_only=False)
+    last = torch.load(out / "checkpoint.pth", weights_only=False)["state_dict"]
+    for key, t in best.items():
+        torch.testing.assert_close(t, last[key], rtol=0, atol=0)
     for opts in (["TPU.DEVICE_PIPELINE", "False"], ["TRAIN.GRAD_ACCUM_STEPS", "2"],
                  ["TPU.REMAT", "True"], ["TRAIN.MIX", "cutmix"],
                  ["TPU.FUSED_OPTIMIZER", "True"], ["TPU.DEVICE_SYNTHESIS", "True"]):
