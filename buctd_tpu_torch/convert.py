@@ -5,7 +5,10 @@ arrays, ``{"params": ..., "batch_stats": ...}``) into this package's
 ``state_dict``; it inverts buctd_tpu/convert/torch2jax.py::_torch_key and
 ``_convert_tensor``: path parts that start with "_" are wrapper levels and are
 dropped, conv kernels go HWIO -> OIHW, linear kernels (in, out) -> (out, in),
-BN scale -> weight, mean/var -> running_mean/running_var.  Since the port's
+BN scale -> weight, mean/var -> running_mean/running_var.  One wrapper level
+is kept: ``_prenet_fused`` (the eval-only fused preNet of
+buctd_tpu/models/fuse.py) becomes the port's ``prenet_fused`` module; the
+reference has no such module.  Since the port's
 module names are the reference's, a BUCTD ``.pth`` loads with
 ``load_state_dict(strict=True)``.
 """
@@ -22,6 +25,9 @@ _LEAF_FROM_FLAX = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+
+# wrapper levels of the JAX tree that name a module of the port
+_KEPT = {"_prenet_fused": "prenet_fused"}
 
 
 def _leaves(tree, path=()):
@@ -43,6 +49,7 @@ def from_flax(variables) -> dict:
         for path, value in _leaves(tree):
             *parts, leaf = path
             torch_leaf = _LEAF_FROM_FLAX[(collection, leaf)]
+            parts = [_KEPT.get(p, p) for p in parts]
             key = ".".join([p for p in parts if not p.startswith("_")] + [torch_leaf])
             arr = np.asarray(value)
             if arr.ndim == 4:                       # HWIO -> OIHW

@@ -1,7 +1,8 @@
 """Model registry, keyed by the reference's MODEL.NAME values.
 
-Counterpart of buctd_tpu/models/__init__.py.  Only ``pose_hrnet_coam`` is
-ported so far; the other names raise and name their ROADMAP item.  The
+Counterpart of buctd_tpu/models/__init__.py.  ``pose_hrnet_coam`` and
+``pose_hrnet`` (with the BUCTD preNet) are ported; the other names raise and
+name their ROADMAP item.  The
 attention engine is ``cfg.TPU.ATTENTION_ENGINE``, passed to the constructors.
 """
 
@@ -9,14 +10,13 @@ from __future__ import annotations
 
 import torch
 
-from . import hrnet_coam
+from . import hrnet, hrnet_coam
 
-_REGISTRY = {"pose_hrnet_coam": hrnet_coam.get_pose_net}
+_REGISTRY = {"pose_hrnet_coam": hrnet_coam.get_pose_net, "pose_hrnet": hrnet.get_pose_net}
 
 _NOT_PORTED = {
-    "pose_hrnet": "ROADMAP Queue 1, 'preNet-W48 + models/fuse.py'",
     "transpose_h": "ROADMAP Queue 1, 'TransPose-H on K1 at d=112'",
-    "pose_resnet": "ROADMAP Queue 1, 'preNet-W48 + models/fuse.py' (ResNet follows it)",
+    "pose_resnet": "ROADMAP Queue 1, 'pose_resnet (models/resnet.py)'",
 }
 
 

@@ -1,8 +1,10 @@
-"""HRNet trunk (W32/W48), NCHW, eval-focused.
+"""HRNet trunk (W32/W48) and pose_hrnet / BUCTD-preNet, NCHW.
 
 Counterpart of buctd_tpu/models/hrnet.py and the reference's
 lib/models/pose_hrnet.py:274-495: stem -> 4-Bottleneck layer1 -> three
-multi-resolution stages with cross-resolution fusion.  Module attributes follow
+multi-resolution stages with cross-resolution fusion, and ``PoseHRNet`` with
+the preNet input-fusion stems (:431-458) and their eval-time fused form
+(models/fuse.py).  Module attributes follow
 the reference's dotted paths ("layer1.0.conv1", "transition1.1.0.0",
 "stage2.0.fuse_layers.1.0.0.0", ...), so a BUCTD checkpoint loads with
 ``load_state_dict(strict=True)`` and ``convert.from_flax`` fills the same keys
@@ -225,6 +227,7 @@ class HRNetSpec:
     stage3: StageSpec
     stage4: StageSpec
     final_conv_kernel: int = 1
+    use_pre_net: bool = False
 
     @staticmethod
     def from_cfg(cfg) -> "HRNetSpec":
@@ -235,6 +238,7 @@ class HRNetSpec:
             stage3=StageSpec.from_cfg(extra["STAGE3"]),
             stage4=StageSpec.from_cfg(extra["STAGE4"]),
             final_conv_kernel=int(extra.get("FINAL_CONV_KERNEL", 1)),
+            use_pre_net=bool(extra.get("USE_PRE_NET", False)),
         )
 
     @property
@@ -287,6 +291,118 @@ class HRNetTrunk(nn.Module):
         return ys
 
 
+class PreNet(nn.Module):
+    """BUCTD-preNet input fusion stems (pose_hrnet.py:431-442): the RGB stem is
+    conv3x3(3->64)+BN then conv7x7(64->3)+BN; the condition stem is
+    conv7x7(3->3)+BN.  Outputs are summed (pose_hrnet.py:456-458).  The convs
+    carry biases (torch's default)."""
+
+    def __init__(self):
+        super().__init__()
+        self.rgb_preNet = nn.Sequential(conv(3, 64, 3, bias=True), batch_norm(64),
+                                        conv(64, 3, 7, bias=True), batch_norm(3))
+        self.cond_preNet = nn.Sequential(conv(3, 3, 7, bias=True), batch_norm(3))
+
+    def forward(self, rgb, cond):
+        return self.rgb_preNet(rgb) + self.cond_preNet(cond)
+
+
+class FusedPreNet(nn.Module):
+    """Eval-only exact refactoring of PreNet (buctd_tpu/models/hrnet.py:380):
+    the three BNs fold into the convs and the two parallel 7x7 convs merge
+    into one over the 64 + 3 concatenated channels.  Its weights are made
+    from a PreNet's by models/fuse.py, never trained."""
+
+    def __init__(self, first_kernel: int = 3):
+        super().__init__()
+        self.a = conv(3, 64, first_kernel, bias=True)
+        self.b = conv(67, 3, 7, bias=True)
+
+    def forward(self, rgb, cond):
+        h = self.a(rgb)
+        return self.b(torch.cat([h, cond.to(h.dtype)], dim=1))
+
+
+class PoseHRNet(HRNetTrunk):
+    """pose_hrnet and BUCTD-preNet (buctd_tpu/models/hrnet.py:400), NCHW:
+    (B, C, H, W) -> (B, num_joints, H/4, W/4) heatmaps.
+
+    With ``spec.use_pre_net`` the input is RGB + a 3-channel condition
+    (channels :3 and 3:6), fused by the preNet stems into the 3 channels the
+    trunk takes; the stems' parameters sit at the top level under the
+    reference's names (``rgb_preNet.0`` ... ``cond_preNet.1``), so a BUCTD
+    checkpoint loads with ``strict=True``.  Without it the trunk takes the
+    ``in_channels`` of the input as they are.  ``fused_prenet`` builds the
+    eval-only FusedPreNet (``prenet_fused``) in the stems' place; make one with
+    models/fuse.py::maybe_fuse_prenet, never directly.  ``lambda_head`` builds
+    the lambda-conditioned FiLM head (``lambda_fc``, ``lambda_mu``,
+    ``lambda_sigma``) that ``forward(x, lambda_vec=...)`` needs.
+    """
+
+    def __init__(self, spec: HRNetSpec, in_channels: int = 3, fused_prenet: bool = False,
+                 lambda_head: bool = False):
+        super().__init__(spec, in_channels=3 if spec.use_pre_net else in_channels)
+        self.in_channels = in_channels
+        self.fused_prenet = bool(fused_prenet and spec.use_pre_net)
+        self.lambda_head = lambda_head
+        if self.fused_prenet:
+            self.prenet_fused = FusedPreNet(first_kernel=3)
+        elif spec.use_pre_net:
+            stems = PreNet()
+            self.rgb_preNet, self.cond_preNet = stems.rgb_preNet, stems.cond_preNet
+        c = spec.stage4.num_channels[0]
+        if lambda_head:
+            # the MIPNet-heritage lambda head: the last layers start at zero
+            # (flax zeros kernel_init), so an untrained head is near-identity
+            self.lambda_fc = nn.Linear(2, c)
+            self.lambda_mu = nn.Linear(c, c)
+            self.lambda_sigma = nn.Linear(c, c)
+            self.lambda_mu.zero_init = self.lambda_sigma.zero_init = True
+        k = spec.final_conv_kernel
+        self.final_layer = conv(c, spec.num_joints, k, pad=k // 2, bias=True)
+
+    def forward(self, x, film=None, lambda_vec=None, return_features: bool = False):
+        """``film=(mu, sigma)`` (B, C) modulates the final features as
+        mu + y * sigma (forward_lamda, pose_hrnet.py:497-540);
+        ``lambda_vec`` (B, 2) makes (mu, sigma) through the lambda head;
+        ``return_features`` returns the pre-head trunk features
+        (forward_feature, :542-576)."""
+        if self.spec.use_pre_net:
+            if x.shape[1] < 6:
+                raise ValueError(f"preNet needs RGB + a 3-channel condition, got "
+                                 f"{x.shape[1]} channels")
+            if self.fused_prenet:
+                if self.training:
+                    raise RuntimeError("the fused preNet is an eval-only transform")
+                x = self.prenet_fused(x[:, :3], x[:, 3:6])
+            else:
+                x = self.rgb_preNet(x[:, :3]) + self.cond_preNet(x[:, 3:6])
+        feats = super().forward(x)[0]
+        if return_features:
+            return feats
+        if lambda_vec is not None:
+            if film is not None:
+                raise ValueError("pass film or lambda_vec, not both")
+            if not self.lambda_head:
+                raise ValueError("lambda_vec needs the model built with lambda_head=True")
+            emb = F.relu(self.lambda_fc(lambda_vec))
+            film = (self.lambda_mu(emb), 1.0 + self.lambda_sigma(emb))
+        if film is not None:
+            mu, sigma = film
+            feats = mu[:, :, None, None] + feats * sigma[:, :, None, None]
+        return self.final_layer(feats)
+
+
+def get_pose_net(cfg, engine: str = "auto", lambda_head: bool = False) -> PoseHRNet:
+    """pose_hrnet for ``cfg``; ``engine`` (the attention engine) is unused:
+    the model has no attention."""
+    from ..data.pipeline import num_input_channels
+
+    del engine
+    return PoseHRNet(HRNetSpec.from_cfg(cfg), in_channels=num_input_channels(cfg),
+                     lambda_head=lambda_head)
+
+
 def branch_sizes(image_hw, n_branches: int = 4) -> list:
     """(H, W) of each resolution branch for an input of ``image_hw``: the stem's
     two stride-2 3x3 convs, then one more per branch (ceil division)."""
@@ -299,12 +415,35 @@ def branch_sizes(image_hw, n_branches: int = 4) -> list:
     return sizes
 
 
+def random_init(model: nn.Module) -> None:
+    """Redraw every weight with N(0, 1/fan_in), biases N(0, 0.1), and every BN
+    affine and running statistic away from the identity, from torch's seeded
+    generator.  The reference's N(0, 0.001) init leaves ~1e-10 heatmaps;
+    these give maps with real peaks, so decodes and comparisons see decisive
+    values (chip_smoke.py and the benchmarks use it)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5)
+                if m.bias is not None:
+                    m.bias.normal_(0.0, 0.1)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0.0, 0.1)
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+
+
 def init_weights(model: nn.Module) -> None:
     """The reference's init (pose_hrnet.py:578-590): conv and linear weights
-    N(0, 0.001), biases 0, BN weight 1 and bias 0."""
+    N(0, 0.001), biases 0, BN weight 1 and bias 0.  Layers marked
+    ``zero_init`` (the lambda head's last layers) start at 0."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            nn.init.normal_(mod.weight, std=0.001)
+            if getattr(mod, "zero_init", False):
+                nn.init.zeros_(mod.weight)
+            else:
+                nn.init.normal_(mod.weight, std=0.001)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.BatchNorm2d):

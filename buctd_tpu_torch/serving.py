@@ -8,6 +8,10 @@ same-bucket images as one N*P batch.
     est = PoseEstimator(cfg, checkpoint="model.pth", refine_iters=3)
     preds = est.predict(image_rgb, condition_poses)   # (P, J, 3) image coords
 
+The model is the cfg's: BUCTD-CoAM (``pose_hrnet_coam``) or BUCTD-preNet
+(``pose_hrnet`` with ``USE_PRE_NET``), whose preNet is fused after the
+checkpoint load when ``TPU.FUSED_PRENET`` is not "off" (models/fuse.py).
+
 The JAX estimator's ``max_compiles`` and ``precompile`` bound XLA compiles; an
 eager PyTorch model compiles nothing, so they do not exist here.  The bucket
 tables stay, so that a later per-bucket CUDA graph has a bounded shape set
@@ -84,6 +88,10 @@ class PoseEstimator:
                                  ".pth/.pt checkpoints only")
             self.model.load_state_dict(load_torch_checkpoint(checkpoint), strict=True)
         self.model.to(self.device).eval()
+        # the eval-time preNet fusion (TPU.FUSED_PRENET), after the load as
+        # buctd_tpu/serving.py:78-80 does it
+        from .models.fuse import maybe_fuse_prenet
+        self.model = maybe_fuse_prenet(cfg, self.model)
         self.colors = (np.asarray(colors) if colors is not None
                        else rainbow_colors(self.num_joints))
         self.refine_iters = max(int(refine_iters), 1)

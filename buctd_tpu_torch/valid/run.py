@@ -11,7 +11,8 @@ device loader in test mode (``TPU.DEVICE_PIPELINE True``), the flip test and
 
 Weights: ``TEST.MODEL_FILE`` (a BUCTD ``.pth``/``.pt``, loaded with
 ``strict=True``), else ``<output dir>/model_best.pth``, else the reference's
-random init with a warning (tools/test.py:44-67).
+random init with a warning (tools/test.py:44-67); then the preNet fusion of
+``TPU.FUSED_PRENET`` (models/fuse.py), as tools/test.py:87-88.
 
 ``TEST.REFINE_ITERS`` > 1 runs the 3x refinement loop in one process: round
 ``it`` writes ``results/keypoints_test_results_epoch{it}.json``, which becomes
@@ -90,6 +91,8 @@ def main(argv=None) -> dict:
         torch.backends.cudnn.allow_tf32 = False
     out_dir = output_dir(cfg, args.cfg)
     model = load_model(cfg, device, out_dir)
+    from ..models.fuse import maybe_fuse_prenet
+    model = maybe_fuse_prenet(cfg, model)        # as tools/test.py:87-88
 
     refine_iters = max(int(cfg.TEST.REFINE_ITERS), 1)
     user_output_json = cfg.OUTPUT_JSON

@@ -2,8 +2,10 @@
 """Smoke run of buctd_tpu_torch on one NVIDIA GPU (H100): builds the CUDA
 kernels, holds each against its plain PyTorch version, serves full-width
 BUCTD-CoAM-W48 through PoseEstimator with 3 refinement rounds, trains it for a
-few steps through the training entry point, and evaluates it with the flip
-test and 3 refinement rounds through the evaluation entry point.
+few steps through the training entry point, evaluates it with the flip test
+and 3 refinement rounds through the evaluation entry point, serves
+full-width BUCTD-preNet-W48 with its preNet fused and not, and runs the
+port's benchmarks of the fused basic block (K5) and exp throughput (K6).
 
     python3 chip_smoke.py
 
@@ -49,7 +51,23 @@ Phases (each raises on failure; nothing is caught):
      per batch and K1 never; one batch's heatmaps from K1 and K1' agree; one
      validate step at batch 2 on the card vs the CPU;
   9. 3 training steps under BUCTD_FLASH_KVRES=1: K1', K2' dq and K2' dk/dv
-     launched 2 per step, K1 and K2 never, the loss finite.
+     launched 2 per step, K1 and K2 never, the loss finite;
+ 10. K5 (the fused eval basic block) vs its plain version at the four W48
+     branch geometries, batch 32, f32 and bf16, and on the benchmark's own
+     batch-128 bf16 inputs; the plain version's time on those;
+ 11. K5 vs the port's trunk: one stage-4 BasicBlock per branch of a
+     full-width preNet-W48 with random BN statistics, folded by
+     models/fuse.py::fold_bn, f32 with TF32 off;
+ 12. K6 (exp/exp2 throughput) vs its plain version, all three variants: the
+     full chain, and 1, 2 and 3 steps on inputs over [-100, 100];
+ 13. preNet-W48 serving (crowdpose 384x288, 14 joints, f32, 3 rounds) through
+     PoseEstimator from one .pth of random weights, with TPU.FUSED_PRENET off
+     and auto: fused vs unfused predictions, each forward on the card vs the
+     CPU, crops/s, a profile of each;
+ 14. the port's tools, reduced (buctd_tpu_torch/tools/bench_block.py --fused,
+     bench_exp2.py, bench_stem.py): K5's and K6's launch counts in that run,
+     and the times of K5, cuDNN, K6 (device time) and the torch chains that
+     the kernels line reports; K6 no faster than its SFU bound.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -59,6 +77,7 @@ Exits non-zero, with no result, where CUDA is absent.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -128,6 +147,27 @@ EVAL_ROUNDS = 3
 KVRES_TRAIN_STEPS = 3
 # K1 vs K1' heatmaps of one eval batch: the same sums in another tile order
 KVRES_HM_RTOL = 1e-5
+PRENET_CONFIG = ROOT / "experiments" / "crowdpose" / "buctd" / "prenet_w48_384x288.yaml"
+# K5 vs its plain version at the W48 branch geometries, batch 32: f32 sums of
+# 9C products in another order (measured <= 4.3e-6 on O(1) outputs); in bf16
+# an f32 sum in another order can round the intermediate or the output one
+# bf16 step (2^-7 relative) apart, so two steps, relative and absolute
+K5_CHECK_BATCH = 32
+K5_ATOL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+# K5 vs the trunk's BasicBlock (f32, TF32 off): a float64 BN fold cast to f32
+# against conv + BN in f32, summed in another order; relative to the max
+K5_TRUNK_RTOL = 1e-4
+# K6 vs its plain version, both expf/exp2f in f32: a few ulps.  The full
+# chain contracts (slope ~0.03) to one fixed point whatever the input, so 1, 2
+# and 3 steps on inputs over [-100, 100] (values 0.05..20) are checked too
+K6_RTOL = 1e-5
+# fused vs unfused preNet serving: an exact refactoring up to f32
+# reassociation; the heatmaps of one forward within 1e-5 of their max, the
+# decoded predictions (3 rounds) within 0.01 px
+PRENET_FWD_RTOL = 1e-5
+PRENET_PX_TOL = 0.01
+# the tools' reduced runs: chained blocks, rounds, bench_stem's batch
+TOOL_CHAIN, TOOL_ROUNDS, TOOL_STEM_BATCH = 5, 2, 32
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -412,23 +452,12 @@ def sample_request(np, rng, h=480, w=640, poses=4, joints=14):
 
 
 def randomize(torch, model) -> None:
-    """Redraw every weight with N(0, 1/fan_in) and every BN statistic away from
-    the identity, from torch's seeded generator.  The reference's N(0, 0.001)
-    init leaves ~1e-10 heatmaps; these give maps with real peaks, far from
-    zero, so the decode and the card-vs-CPU check see decisive values."""
-    from torch import nn
+    """N(0, 1/fan_in) weights and BN statistics away from the identity, from
+    torch's seeded generator (models/hrnet.py::random_init): heatmaps with
+    real peaks, so the decode and the card-vs-CPU checks see decisive values."""
+    from buctd_tpu_torch.models.hrnet import random_init
 
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5)
-                if m.bias is not None:
-                    m.bias.normal_(0.0, 0.1)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.5)
-                m.bias.normal_(0.0, 0.1)
-                m.running_mean.normal_(0.0, 0.1)
-                m.running_var.uniform_(0.5, 1.5)
+    random_init(model)
 
 
 def serving_phase(torch, np, fa) -> dict:
@@ -1103,6 +1132,261 @@ def kvres_training_phase(torch, np, fa) -> dict:
     return launches
 
 
+def fused_block_phase(torch, fb) -> dict:
+    """(a) K5 vs its plain version at the four W48 branch geometries: batch
+    K5_CHECK_BATCH in f32 and bf16, and the benchmark's own inputs (batch 128,
+    bf16, bench_block's scales and seed: the tensors the tools phase times);
+    the plain version's time on those, summed over the branches.  K5's and
+    cuDNN's times come from the tools phase."""
+    from buctd_tpu_torch.tools import bench_block as bb
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    res = {"err_f32": 0.0, "err_bf16": 0.0, "plain_ms": 0.0}
+
+    def check(label, args, tol, key):
+        got = fb.fused_basic_block(*args)
+        torch.cuda.synchronize()
+        want = fb.fused_basic_block_plain(*args)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        err = (got.float() - want.float()).abs().max().item()
+        res[key] = max(res[key], err)
+        print(f"K5 fused_block {label}: max_abs_err {err:.3e} (output max "
+              f"{want.float().abs().max().item():.3f}, limit atol = rtol = {tol:.3g}), "
+              f"{(got != want).float().mean().item() * 100:.3f}% of outputs differ", flush=True)
+
+    for _, h, w, c in bb.BRANCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = torch.randn(K5_CHECK_BATCH, h, w, c, device="cuda", generator=gen)
+            ws = [torch.randn(3, 3, c, c, device="cuda", generator=gen) / (3 * c ** 0.5)
+                  for _ in range(2)]
+            bs = [torch.randn(c, device="cuda", generator=gen) * 0.1 for _ in range(2)]
+            check(f"({K5_CHECK_BATCH}, {h}, {w}, {c}) {name}",
+                  [t.to(dtype) for t in (x, *ws, *bs)], K5_ATOL[name],
+                  "err_f32" if dtype == torch.float32 else "err_bf16")
+            del x, ws, bs
+    gen = torch.Generator(device="cuda").manual_seed(0)       # bench_block's default seed
+    for _, h, w, c in bb.BRANCHES:
+        args = bb.branch_inputs(gen, bb.BATCH, h, w, c)
+        check(f"({bb.BATCH}, {h}, {w}, {c}) bfloat16, the benchmark's inputs", args,
+              K5_ATOL["bfloat16"], "err_bf16")
+        plain_ms = timed_ms(lambda: fb.fused_basic_block_plain(*args), 3)
+        print(f"  K5 plain version ({bb.BATCH}, {h}, {w}, {c}) bf16: {plain_ms:.4f} ms",
+              flush=True)
+        res["plain_ms"] += plain_ms
+        del args
+    torch.cuda.empty_cache()
+    return res
+
+
+def fused_block_vs_trunk(torch, np, fb) -> float:
+    """(b) K5 vs the port's trunk, f32, TF32 off: one stage-4 BasicBlock per
+    branch of a full-width preNet-W48 with random weights, BN affine and BN
+    running statistics, folded with models/fuse.py::fold_bn; K5's output vs the
+    module's eval forward within K5_TRUNK_RTOL x the output's max."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.models.fuse import fold_bn
+
+    cfg = default_config()
+    update_config(cfg, types.SimpleNamespace(cfg=str(PRENET_CONFIG), opts=[]))
+    torch.manual_seed(8)
+    model = get_model(cfg)
+    randomize(torch, model)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = 0.0
+    with torch.inference_mode():
+        for i, branch in enumerate(model.stage4[0].branches):
+            blk = branch[0]
+            c = blk.conv1.in_channels
+            h, w = (96 >> i, 72 >> i) if i < 3 else (12, 9)
+            x = torch.relu(torch.randn(K5_CHECK_BATCH, c, h, w, device="cuda", generator=gen))
+            want = blk(x)
+            (w1, b1), (w2, b2) = fold_bn(blk.conv1, blk.bn1), fold_bn(blk.conv2, blk.bn2)
+            got = fb.fused_basic_block(x.permute(0, 2, 3, 1).contiguous(),
+                                       w1.permute(2, 3, 1, 0).contiguous(),
+                                       w2.permute(2, 3, 1, 0).contiguous(), b1, b2)
+            got = got.permute(0, 3, 1, 2)
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            worst = max(worst, rel)
+            print(f"K5 vs stage4.0.branches.{i}.0 ({K5_CHECK_BATCH}, {c}, {h}, {w}) f32, "
+                  f"folded BN: max |diff| / max {rel:.3e} (limit {K5_TRUNK_RTOL:.0e})",
+                  flush=True)
+            if not rel <= K5_TRUNK_RTOL:
+                raise AssertionError(f"K5 disagrees with the trunk's BasicBlock {i}")
+    del model
+    torch.cuda.empty_cache()
+    return worst
+
+
+def exp_phase(torch, ex) -> dict:
+    """(c) K6 vs its plain version, the three variants, rtol K6_RTOL: OUTER
+    chained launches of the full chain (every value ends at the chain's fixed
+    point), and single launches of 1, 2 and 3 steps on inputs spread over
+    [-100, 100] (where the input and the step count still show); the plain
+    chains' device time (replayed from a CUDA graph), summed over the variants.
+    K6's and the torch chains' times come from the tools phase."""
+    from buctd_tpu_torch.tools import bench_exp2 as be
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.rand(be.ROWS, be.COLS, device="cuda", generator=gen) + 0.5
+    wide = torch.rand(be.ROWS, be.COLS, device="cuda", generator=gen) * 200 - 100
+    res = {"err": 0.0, "plain_ms": 0.0}
+
+    def chained(f, v):
+        y = x
+        for _ in range(be.OUTER):
+            y = f(y, v)
+        return y
+
+    def check(got, want):
+        torch.testing.assert_close(got, want, atol=0, rtol=K6_RTOL)
+        err = (got - want).abs().max().item()
+        res["err"] = max(res["err"], err)
+        return err
+
+    for v in ex.VARIANTS:
+        got = chained(ex.exp_chain, v)
+        torch.cuda.synchronize()
+        err = check(got, chained(ex.exp_chain_plain, v))
+        short = []
+        for inner in (1, 2, 3):
+            one = ex.exp_chain(wide, v, inner)
+            torch.cuda.synchronize()
+            short.append(f"{inner} step{'s' if inner > 1 else ''} "
+                         f"{check(one, ex.exp_chain_plain(wide, v, inner)):.3e} "
+                         f"({one.min().item():.4g}..{one.max().item():.4g})")
+        plain = functools.partial(chained, ex.exp_chain_plain, v)
+        plain_ms = be.events_ms(be.captured(plain).replay)
+        res["plain_ms"] += plain_ms
+        print(f"K6 exp_throughput {v} ({be.ROWS}, {be.COLS}): {ex.INNER} steps x {be.OUTER}: "
+              f"max_abs_err {err:.3e} (values {got.min().item():.6f}..{got.max().item():.6f}); "
+              f"on [-100, 100]: {', '.join(short)}; rtol {K6_RTOL:.0e}; plain version "
+              f"{plain_ms:.4f} ms device time", flush=True)
+    return res
+
+
+def prenet_serving_phase(torch, np) -> dict:
+    """(d) preNet-W48 serving at full width through PoseEstimator, from one
+    .pth of random weights, with TPU.FUSED_PRENET off and auto: finite
+    predictions, fused within PRENET_PX_TOL px of unfused, each forward on the
+    card vs the CPU, crops/s of predict_batch, a profile of each."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.serving import PoseEstimator
+
+    def config(knob):
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(PRENET_CONFIG),
+                                                 opts=["TPU.FUSED_PRENET", knob]))
+        return cfg
+
+    res = {}
+    rng = np.random.RandomState(12)
+    img, conds = sample_request(np, rng)
+    batch = [sample_request(np, rng) for _ in range(3)]
+    images, poses = [b[0] for b in batch], [b[1] for b in batch]
+    x = torch.from_numpy(rng.randn(1, 6, 384, 288).astype(np.float32))
+    keep = float("-inf")
+    with tempfile.TemporaryDirectory(prefix="buctd_prenet_") as tmp:
+        torch.manual_seed(11)
+        model = get_model(config("off"))
+        randomize(torch, model)
+        weights = Path(tmp) / "prenet_random.pth"
+        torch.save(model.state_dict(), weights)
+        print(f"preNet-W48 serving: {model.__class__.__name__} "
+              f"{sum(p.numel() for p in model.parameters())} parameters, weights "
+              f"{weights.name}, {ROUNDS} rounds", flush=True)
+        del model
+        for knob in ("off", "auto"):
+            est = PoseEstimator(config(knob), checkpoint=str(weights), refine_iters=ROUNDS)
+            if est.model.fused_prenet != (knob == "auto"):
+                raise AssertionError(f"FUSED_PRENET {knob}: fused_prenet "
+                                     f"{est.model.fused_prenet}")
+            est.predict(img, conds, keep)                       # cuDNN set-up
+            est.predict_batch(images, poses, keep)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REPEATS):
+                out = est.predict(img, conds, keep)
+            t1 = time.perf_counter()
+            for _ in range(REPEATS):
+                outs = est.predict_batch(images, poses, keep)
+            t2 = time.perf_counter()
+            for o in [out, *outs]:
+                if o.shape != (4, 14, 3) or not np.isfinite(o).all():
+                    raise AssertionError(f"preNet {knob}: prediction {o.shape}")
+            with torch.inference_mode():
+                got = est.model(x.cuda()).cpu()
+                want = copy.deepcopy(est.model).cpu()(x)
+            err, peak = (got - want).abs().max().item(), want.abs().max().item()
+            ms_predict = (t1 - t0) / REPEATS * 1e3
+            ms_batch = (t2 - t1) / REPEATS * 1e3
+            print(f"preNet FUSED_PRENET {knob}: predict {ms_predict:.2f} ms/image "
+                  f"({4 * 1e3 / ms_predict:.2f} crops/s); predict_batch (3 images x 4 poses, "
+                  f"padded to 4) {ms_batch / 3:.2f} ms/image, {12 * 1e3 / ms_batch:.2f} "
+                  f"crops/s; forward card vs CPU max_abs_err {err:.3e}, peak {peak:.3e}, "
+                  f"limit {FORWARD_RTOL:.0e} x peak", flush=True)
+            if not err <= FORWARD_RTOL * peak:
+                raise AssertionError(f"preNet {knob}: the card forward disagrees with the CPU")
+            kernel_profile(torch, lambda: est.predict_batch(images, poses, keep),
+                           f"preNet-W48 predict_batch, FUSED_PRENET {knob} "
+                           f"(3 images x 4 poses, 3 rounds)")
+            res[knob] = {"predict": out, "batch": outs, "ms_predict": ms_predict,
+                         "ms_batch": ms_batch, "heatmaps": got}
+            del est
+            torch.cuda.empty_cache()
+    gap_px = max(np.abs(a[..., :2] - b[..., :2]).max() for a, b in zip(
+        [res["off"]["predict"], *res["off"]["batch"]],
+        [res["auto"]["predict"], *res["auto"]["batch"]]))
+    hm_gap = ((res["off"]["heatmaps"] - res["auto"]["heatmaps"]).abs().max()
+              / res["off"]["heatmaps"].abs().max()).item()
+    print(f"preNet fused vs unfused: predictions max |diff| {gap_px:.3e} px (limit "
+          f"{PRENET_PX_TOL} px), one forward's heatmaps max |diff| / max {hm_gap:.3e}",
+          flush=True)
+    if not (gap_px <= PRENET_PX_TOL and hm_gap <= PRENET_FWD_RTOL):
+        raise AssertionError("the fused preNet disagrees with the unfused")
+    return res
+
+
+def tools_phase(torch, fb, ex) -> dict:
+    """(e) The three port tools, reduced: bench_block --fused, bench_exp2 and
+    bench_stem; the launch counts of K5 and K6 over these runs (their main
+    path)."""
+    from buctd_tpu_torch.tools import bench_block, bench_exp2, bench_stem
+
+    fb.fused_basic_block.launches = 0                    # the main path's run
+    ex.exp_chain.launches = 0
+    block = bench_block.main(["--fused", "--chain", str(TOOL_CHAIN), "--rounds",
+                              str(TOOL_ROUNDS)])
+    exp = bench_exp2.main(["--rounds", str(TOOL_ROUNDS)])
+    launches = {"fused_basic_block": fb.fused_basic_block.launches,
+                "exp_throughput": ex.exp_chain.launches}
+    stem = bench_stem.main([str(TOOL_STEM_BATCH), "--steps", "3", "--rounds",
+                            str(TOOL_ROUNDS)])
+    want = {"fused_basic_block": 4 * (TOOL_CHAIN * TOOL_ROUNDS + 1),
+            "exp_throughput": len(ex.VARIANTS) * bench_exp2.OUTER * (2 * TOOL_ROUNDS + 2)}
+    print(f"tools: launches {launches}, expected {want} (K5: 4 branches x (chain x rounds "
+          f"+ warm-up); K6: 3 variants x {bench_exp2.OUTER} x (2 timings x rounds + "
+          f"2 to take the host's issue time))", flush=True)
+    if launches != want:
+        raise AssertionError(f"tool launch counts {launches} != {want}")
+    # every step is one MUFU.EX2 at least, and the bound takes the card's
+    # highest SM clock: a chain faster than the bound skipped steps
+    fast = {v: exp[v]["ms"] for v in ex.VARIANTS if not exp[v]["ms"] >= exp["bound_ms"]}
+    if fast:
+        raise AssertionError(f"K6 faster than its SFU bound {exp['bound_ms']:.4f} ms: {fast}")
+    ratio = {k: round(v["cudnn_ms"] / v["fused_ms"], 4) for k, v in block.items()}
+    print(f"tools: cuDNN/K5 by branch {ratio}; bench_stem b{TOOL_STEM_BATCH}: preNet "
+          f"{stem[TOOL_STEM_BATCH]['prenet_ms']:.4f} -> fused "
+          f"{stem[TOOL_STEM_BATCH]['fused_prenet_ms']:.4f} ms, forward "
+          f"{stem[TOOL_STEM_BATCH]['forward_ms']:.4f} -> "
+          f"{stem[TOOL_STEM_BATCH]['fused_forward_ms']:.4f} ms", flush=True)
+    if not stem[TOOL_STEM_BATCH]["rel_gap"] <= PRENET_FWD_RTOL:
+        raise AssertionError("bench_stem: fused forward disagrees with the canonical one")
+    return {"launches": launches, "block": block, "exp": exp, "stem": stem}
+
+
 def main() -> int:
     import torch
 
@@ -1114,7 +1398,9 @@ def main() -> int:
     import torch.nn.functional as F
 
     from buctd_tpu_torch import _build
+    from buctd_tpu_torch.ops import exp_throughput as ex
     from buctd_tpu_torch.ops import flash_attention as fa
+    from buctd_tpu_torch.ops import fused_block as fb
     from buctd_tpu_torch.ops import warp as tw
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1153,6 +1439,12 @@ def main() -> int:
     ev = eval_phase(torch, np, fa, tw)
     torch.cuda.empty_cache()
     kv_train = kvres_training_phase(torch, np, fa)
+    torch.cuda.empty_cache()
+    k5 = fused_block_phase(torch, fb)
+    k5_trunk = fused_block_vs_trunk(torch, np, fb)
+    k6 = exp_phase(torch, ex)
+    prenet_serving_phase(torch, np)
+    tools = tools_phase(torch, fb, ex)
 
     def bound_by(ops_ms, bound_ms):
         return "operations" if ops_ms >= bound_ms else "bytes"
@@ -1176,6 +1468,20 @@ def main() -> int:
                 "bound_by": bound_by(kv[f"{kind}_ops_ms"], kv[f"{kind}_bound_ms"]),
                 "library_ms": tk[f"{kind}_library_ms"]}
 
+    # K5: ms per block summed over the 4 branches, from bench_block's chained,
+    # interleaved medians; K6: OUTER launches summed over the 3 variants, from
+    # bench_exp2's device-time medians
+    block = tools["block"].values()
+    k5.update({key: sum(r[src] for r in block) for key, src in (
+        ("ms", "fused_ms"), ("library_ms", "cudnn_ms"), ("bound_ms", "bound_ms"),
+        ("ops_ms", "bf16_ms"))})
+    exp = tools["exp"]
+    k6.update({key: sum(exp[v][key] for v in ex.VARIANTS) for key in ("ms", "library_ms")})
+    k6.update(bound_ms=len(ex.VARIANTS) * exp["bound_ms"], bound_by=exp["bound_by"])
+    print(f"K5 sums over the 4 branches at b128 bf16: kernel {k5['ms']:.4f} ms, plain "
+          f"{k5['plain_ms']:.4f}, cuDNN {k5['library_ms']:.4f}, bound {k5['bound_ms']:.4f}; "
+          f"max err f32 {k5['err_f32']:.3e}, bf16 {k5['err_bf16']:.3e}; vs the trunk "
+          f"{k5_trunk:.3e} of the max", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -1208,6 +1514,19 @@ def main() -> int:
               "buctd_tpu/ops/pallas_warp.py:30",
               train["launches"]["warp_resample"] + ev["launches"]["warp_resample"],
               tk["warp_err"], "warp"),
+        {"name": "fused_basic_block", "route": "cuda",
+         "source": "buctd_tpu_torch/csrc/fused_block.cu",
+         "replaces": "buctd_tpu/ops/pallas_block.py:106",
+         "launches": tools["launches"]["fused_basic_block"],
+         "max_abs_err": max(k5["err_f32"], k5["err_bf16"]),
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": bound_by(k5["ops_ms"], k5["bound_ms"]), "library_ms": k5["library_ms"]},
+        {"name": "exp_throughput", "route": "cuda",
+         "source": "buctd_tpu_torch/csrc/exp_throughput.cu",
+         "replaces": "tools/bench_exp2.py:34",
+         "launches": tools["launches"]["exp_throughput"], "max_abs_err": k6["err"],
+         "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": k6["library_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,11 @@ confidence (f32 convs with TF32 off, summed in another order).  The backward
 kernels (K2) vs the plain backward: 1e-4 absolute and relative (dq, dk, dv sum
 products of a recomputed p over up to 700 keys or rows).  The warp (K4) vs its
 plain version: 1e-4 on [0, 1) images (two tent taps against the dense sum).
+The fused basic block (K5) vs its plain version: f32 atol = rtol = 2e-5, bf16
+2^-6 (an f32 sum in another order can round the intermediate or the output
+one bf16 step apart); exp throughput (K6) rtol 1e-5 (expf/exp2f in f32, a few ulps); a
+full-width preNet-W48 forward, fused or not, card vs CPU within 1e-4 of the
+heatmaps' peak.
 """
 
 import numpy as np
@@ -27,19 +32,9 @@ SHAPES = [(2, 256, 256, 48), (1, 300, 300, 112), (3, 640, 384, 96), (1, 128, 700
 def _randomize(model):
     """N(0, 1/fan_in) weights and BN statistics away from the identity, as in
     chip_smoke.py: peaked heatmaps, so no argmax sits on a near-tie."""
-    from torch import nn
+    from buctd_tpu_torch.models.hrnet import random_init
 
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5)
-                if m.bias is not None:
-                    m.bias.normal_(0.0, 0.1)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.5)
-                m.bias.normal_(0.0, 0.1)
-                m.running_mean.normal_(0.0, 0.1)
-                m.running_var.uniform_(0.5, 1.5)
+    random_init(model)
 
 
 @pytest.fixture
@@ -222,3 +217,72 @@ def test_kvres_switch_routes_cuda_tensors(cuda, monkeypatch):
     with pytest.raises(ValueError, match="4-byte"):
         fa.flash_attention(*odd, 0.3)
     assert fa.flash_attention.launches == before[0]
+
+
+# K5 (fused basic block): f32 and bf16, W not a multiple of 8, C = 384, and a
+# C no chunk divides; tolerances as chip_smoke.py's (K5_ATOL)
+K5_SHAPES = [(2, 12, 9, 16), (2, 24, 18, 192), (1, 12, 9, 384), (3, 13, 11, 40)]
+K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c", K5_SHAPES)
+def test_fused_block_kernel_matches_plain(cuda, b, h, w, c, dtype):
+    from buctd_tpu_torch.ops import fused_block as fb
+
+    gen = torch.Generator(cuda).manual_seed(c)
+    x = torch.randn(b, h, w, c, device=cuda, generator=gen)
+    ws = [torch.randn(3, 3, c, c, device=cuda, generator=gen) / (3 * c ** 0.5) for _ in range(2)]
+    bs = [torch.randn(c, device=cuda, generator=gen) * 0.1 for _ in range(2)]
+    args = [t.to(dtype) for t in (x, *ws, *bs)]
+    before = fb.fused_basic_block.launches
+    got = fb.fused_basic_block(*args)
+    torch.cuda.synchronize()
+    assert fb.fused_basic_block.launches == before + 1 and got.dtype == dtype
+    want = fb.fused_basic_block_plain(*args)
+    tol = K5_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inner", [1, 2, 3, 128])
+def test_exp_kernel_matches_plain(cuda, inner):
+    """1-3 steps, where the input and the step count still show, and the full
+    chain, on inputs over [-100, 100]."""
+    from buctd_tpu_torch.ops import exp_throughput as ex
+
+    gen = torch.Generator(cuda).manual_seed(inner)
+    x = torch.rand(64, 1000, device=cuda, generator=gen) * 200 - 100
+    for variant in ex.VARIANTS:
+        before = ex.exp_chain.launches
+        got = ex.exp_chain(x, variant, inner)
+        torch.cuda.synchronize()
+        assert ex.exp_chain.launches == before + 1
+        torch.testing.assert_close(got, ex.exp_chain_plain(x, variant, inner), atol=0,
+                                   rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", ["off", "auto"])
+def test_prenet_forward_on_cuda_matches_cpu(cuda, knob):
+    """A full-width preNet-W48 forward (crowdpose 384x288), fused or not, on
+    the card vs the CPU: within 1e-4 of the heatmaps' peak (f32, TF32 off)."""
+    import copy
+
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.models.fuse import maybe_fuse_prenet
+    from test_torch_port_config import REPO
+
+    yaml = REPO / "experiments" / "crowdpose" / "buctd" / "prenet_w48_384x288.yaml"
+    cfg = load_cfg("torch", yaml, ["TPU.FUSED_PRENET", knob])
+    torch.manual_seed(0)
+    model = get_model(cfg)
+    _randomize(model)
+    model = maybe_fuse_prenet(cfg, model)
+    assert model.fused_prenet == (knob == "auto")
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, 6, 384, 288).astype(np.float32))
+    with torch.inference_mode():
+        got = model(x.to(cuda)).cpu()
+        want = copy.deepcopy(model).cpu()(x)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

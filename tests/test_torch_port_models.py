@@ -86,7 +86,7 @@ def test_unported_models_and_bf16_raise():
     from buctd_tpu_torch.models import compute_dtype, get_model
     from buctd_tpu_torch.serving import PoseEstimator
 
-    cfg = load_cfg("torch", opts=TINY_COAM + ["MODEL.NAME", "pose_hrnet"])
+    cfg = load_cfg("torch", opts=TINY_COAM + ["MODEL.NAME", "pose_resnet"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg)
     cfg = load_cfg("torch", opts=TINY_COAM + ["TPU.EVAL_DTYPE", "bfloat16"])
