@@ -12,15 +12,19 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
 * On CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` (K1, the port of
   ``_fwd_kernel`` :86) and ``csrc/flash_bwd.cu`` (K2: ``_dq_kernel`` :212 and
   ``_dkv_kernel`` :363).  They launch the kernel or raise; they never fall
-  back.
+  back.  K2 has two designs in one source: exact f32 SIMT kernels for f32
+  operands, and tensor-core kernels for bf16 operands (the autocast training
+  step) that round q * scale, do, ds and p * keep * c to bf16 where JAX's
+  kernels do at Precision.DEFAULT; the plain backward rounds there too.
 * ``BUCTD_FLASH_KVRES``, read at every call with JAX's rule (:474, :684: any
   value but "0" turns it on), routes CUDA tensors to the kv/q-resident
   kernels instead: ``csrc/flash_fwd_kvres.cu`` (K1', ``_fwd_kernel_kvres``
   :139) in ``flash_attention`` and ``csrc/flash_bwd_kvres.cu`` (K2',
   ``_dq_kernel_kvres`` :245 and ``_dkv_kernel_kvres`` :295) in
-  ``flash_attention_backward``.  K1' and K2' compute exactly K1's and K2's
-  functions with another schedule (the streamed operands in a two-stage
-  cp.async ring), so the plain versions below are theirs too.  A kv-resident
+  ``flash_attention_backward``.  K1' computes exactly K1's function, and K2'
+  K2's f32 function, with another schedule (the streamed operands in a
+  two-stage cp.async ring); K2' widens bf16 operands to f32 exactly, so its
+  plain version is the plain backward of the widened operands.  A kv-resident
   kernel that fails to build or launch raises; it never falls back to K1/K2.
 * On CPU tensors the wrappers run the plain dense versions
   (``flash_attention_reference``, ``flash_attention_backward_reference``),
@@ -120,13 +124,33 @@ def flash_attention_reference(q, k, v, scale: float, dropout: float = 0.0,
     return torch.matmul(p, v.float()), lse
 
 
+def _bf16(t):
+    """f32 values rounded to bf16 (nearest even) and widened back: the bf16
+    operand of one MXU pass."""
+    return t.to(torch.bfloat16).float()
+
+
 def flash_attention_backward_reference(q, k, v, dout, lse, delta, scale: float,
                                        dropout: float = 0.0, seed: int = 0, bh0: int = 0):
     """Plain backward, written out: p recomputed from lse, g = do v^T masked,
     ds = p (g - delta).  Returns f32 dq, dk, dv.  ``bh0`` as in
-    ``flash_attention_reference``."""
-    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
-    s = torch.matmul(qf, kf.transpose(1, 2)) * scale
+    ``flash_attention_reference``.
+
+    f32 operands: every product in f32 (JAX's Precision.HIGHEST).  bf16
+    operands: the products take bf16 operands where JAX's kernels round at
+    Precision.DEFAULT (the MXU's single bf16 pass) and K2's tensor-core
+    kernels do, with f32 sums: q' = bf16(q * bf16(scale)) (:221, :375) for s
+    and for dk, which then takes no scale; do (:228, :390); ds (:235, :396);
+    p * keep * c for dv (:386)."""
+    kf, vf = k.float(), v.float()
+    low = q.dtype == torch.bfloat16
+    if low:
+        scale_bf16 = float(torch.tensor(scale).to(torch.bfloat16))
+        qs, do = _bf16(q.float() * scale_bf16), _bf16(dout.float())
+        s = torch.matmul(qs, kf.transpose(1, 2))
+    else:
+        qs, do = q.float(), dout.float()
+        s = torch.matmul(qs, kf.transpose(1, 2)) * scale
     p = torch.exp(s - lse[..., None])
     g = torch.matmul(do, vf.transpose(1, 2))
     pk = p
@@ -134,8 +158,12 @@ def flash_attention_backward_reference(q, k, v, dout, lse, delta, scale: float,
         keep = dropout_multiplier(seed, *s.shape, dropout, s.device, bh0)
         g, pk = g * keep, p * keep
     ds = p * (g - delta[..., None])
+    if low:
+        ds, pk = _bf16(ds), _bf16(pk)
     dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(1, 2), qf) * scale
+    dk = torch.matmul(ds.transpose(1, 2), qs)
+    if not low:
+        dk = dk * scale
     dv = torch.matmul(pk.transpose(1, 2), do)
     return dq, dk, dv
 
@@ -320,14 +348,21 @@ def flash_attention_kvres(q, k, v, scale: float, dropout: float = 0.0, seed: int
 flash_attention_kvres.launches = 0
 
 
+def _k2_dout(q, dout):
+    """do as K2's kernels read it: f32 beside f32 q, and cast once to bf16
+    beside bf16 q (the tensor-core kernels' operand, JAX's MXU pass of do)."""
+    return dout.to(torch.bfloat16) if q.dtype == torch.bfloat16 else dout
+
+
 def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                  seed: int = 0):
     """dq f32 (BH, Lq, d) of the attention above, from do, the forward's lse
-    and delta = rowsum(do * out), on CUDA tensors (K2's dq kernel)."""
+    and delta = rowsum(do * out), on CUDA tensors (K2's dq kernel: f32 SIMT
+    for f32 operands, tensor cores for bf16, rounding as the plain backward)."""
     _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
     _require_cuda(q, "flash_bwd_dq", "flash_attention_backward_reference")
-    dq = _launch_dq("flash_bwd", "buctd_flash_bwd_dq", q, k, v, dout, lse, delta, scale,
-                    dropout, seed)
+    dq = _launch_dq("flash_bwd", "buctd_flash_bwd_dq", q, k, v, _k2_dout(q, dout), lse,
+                    delta, scale, dropout, seed)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -337,11 +372,12 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                   seed: int = 0):
-    """dk, dv f32 (BH, Lk, d), on CUDA tensors (K2's dk/dv kernel)."""
+    """dk, dv f32 (BH, Lk, d), on CUDA tensors (K2's dk/dv kernel, as
+    ``flash_bwd_dq``)."""
     _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
     _require_cuda(q, "flash_bwd_dkv", "flash_attention_backward_reference")
-    dk, dv = _launch_dkv("flash_bwd", "buctd_flash_bwd_dkv", q, k, v, dout, lse, delta,
-                         scale, dropout, seed)
+    dk, dv = _launch_dkv("flash_bwd", "buctd_flash_bwd_dkv", q, k, v, _k2_dout(q, dout),
+                         lse, delta, scale, dropout, seed)
     flash_bwd_dkv.launches += 1
     return dk, dv
 

@@ -9,8 +9,16 @@ is false.  The file imports no JAX, so it also runs on a GPU host without it:
 Tolerances: kernel vs plain 2e-5 absolute and relative (both sum in f32, in
 another order, over up to 700 keys); estimator card vs CPU 1e-3 px and 1e-3 in
 confidence (f32 convs with TF32 off, summed in another order).  The backward
-kernels (K2) vs the plain backward: 1e-4 absolute and relative (dq, dk, dv sum
-products of a recomputed p over up to 700 keys or rows).  The warp (K4) vs its
+kernels (K2) vs the plain backward: f32 1e-4 absolute and relative (dq, dk, dv
+sum products of a recomputed p over up to 700 keys or rows); bf16 (the
+tensor-core kernels, against the plain backward that rounds where they do)
+2e-3 x max |grad|: f32 sums in another order, and one-bf16-step flips of a
+rounded ds or p * keep * c where exp2 and exp differ in the last bit.  K2'
+(exact f32 on widened bf16 operands) is held to the plain backward of the
+widened operands at 1e-4, and to bf16 K2 within 4e-2 x max |grad|: their gap
+is the rounding itself, which K2' does not do (the rounding-aware against the
+f32 plain backward: 3.0e-3 to 1.7e-2 of the max on the CPU at (1, 700-6912,
+48-112), randn inputs, dropout 0 and 0.1).  The warp (K4) vs its
 plain version: 1e-4 on [0, 1) images (two tent taps against the dense sum).
 The fused basic block (K5) vs its plain version: f32 atol = rtol = 2e-5, bf16
 2^-6 (an f32 sum in another order can round the intermediate or the output
@@ -27,6 +35,21 @@ from buctd_tpu_torch.ops import flash_attention as fa
 from test_torch_port_config import TINY_COAM, load_cfg
 
 SHAPES = [(2, 256, 256, 48), (1, 300, 300, 112), (3, 640, 384, 96), (1, 128, 700, 64)]
+# and two whose head dim is no multiple of 16, ragged in both L (d = 6: rows of
+# 12 bytes, loaded through registers; d = 40: 16-byte cp.async, padded columns)
+BWD_SHAPES = SHAPES + [(2, 100, 130, 40), (1, 70, 90, 6)]
+BF16_GRAD_RTOL = 2e-3
+KVRES_BF16_GAP_RTOL = 4e-2
+
+
+def _assert_grads_close(got, want, rtol=None):
+    """Without rtol: atol = rtol = 1e-4; with it: within rtol x max |want|."""
+    for g, w in zip(got, want):
+        if rtol is None:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        else:
+            err, top = (g - w).abs().max().item(), w.abs().max().item()
+            assert err <= rtol * top, (err, top)
 
 
 def _randomize(model):
@@ -104,7 +127,7 @@ def test_tiny_estimator_on_cuda_matches_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("bh,lq,lk,d", SHAPES)
+@pytest.mark.parametrize("bh,lq,lk,d", BWD_SHAPES)
 def test_forward_and_backward_kernels_match_plain(cuda, bh, lq, lk, d, dtype, dropout):
     q, k, v = _qkv(bh, lq, lk, d, dtype, cuda)
     scale, seed = d ** -0.5, 99
@@ -122,8 +145,8 @@ def test_forward_and_backward_kernels_match_plain(cuda, bh, lq, lk, d, dtype, dr
                                                                      before[1] + 1)
     want = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta, scale,
                                                  dropout, seed)
-    for got, ref in zip((dq, dk, dv), want):
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    _assert_grads_close((dq, dk, dv), want,
+                        BF16_GRAD_RTOL if dtype == torch.bfloat16 else None)
 
 
 @pytest.mark.cuda
@@ -158,19 +181,19 @@ def test_warp_kernel_matches_plain(cuda):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
-# K1'/K2' (the kv-resident kernels): the test shapes, and two whose head dim is
-# no multiple of 16 (the rings' padded columns; copies of 16, 8 and 4 bytes)
-KVRES_SHAPES = SHAPES + [(2, 100, 130, 40), (1, 70, 90, 6)]
-
-
+# K1'/K2' (the kv-resident kernels) take K2's shapes: for them the two whose head
+# dim is no multiple of 16 exercise the rings' padded columns and copies of 16,
+# 8 and 4 bytes
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("bh,lq,lk,d", KVRES_SHAPES)
+@pytest.mark.parametrize("bh,lq,lk,d", BWD_SHAPES)
 def test_kvres_kernels_match_plain_and_k1_k2(cuda, monkeypatch, bh, lq, lk, d, dtype,
                                              dropout):
-    """K1' and K2' vs the plain versions (the same tolerances as K1/K2) and vs
-    K1/K2 on the same inputs."""
+    """K1' and K2' vs the plain versions and vs K1/K2 on the same inputs.  K2'
+    is exact f32 on widened operands: its plain version is the plain backward
+    of the widened operands (1e-4); against bf16 K2, which rounds, it is held
+    to KVRES_BF16_GAP_RTOL."""
     monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
     q, k, v = _qkv(bh, lq, lk, d, dtype, cuda)
     scale, seed = d ** -0.5, 5
@@ -187,17 +210,16 @@ def test_kvres_kernels_match_plain_and_k1_k2(cuda, monkeypatch, bh, lq, lk, d, d
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, scale, dropout, seed)
     torch.testing.assert_close(out, ref_out, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
-    want = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta, scale,
-                                                 dropout, seed)
-    for got, ref in zip((dq, dk, dv), want):
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    want = fa.flash_attention_backward_reference(q.float(), k.float(), v.float(), dout,
+                                                 lse, delta, scale, dropout, seed)
+    _assert_grads_close((dq, dk, dv), want)
     k1_out, k1_lse = fa.flash_attention(q, k, v, scale, dropout, seed)
     torch.testing.assert_close(out, k1_out, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(lse, k1_lse, atol=2e-5, rtol=2e-5)
     k2 = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, dropout, seed),
           *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, dropout, seed))
-    for got, ref in zip((dq, dk, dv), k2):
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    _assert_grads_close((dq, dk, dv), k2,
+                        KVRES_BF16_GAP_RTOL if dtype == torch.bfloat16 else None)
 
 
 @pytest.mark.cuda
