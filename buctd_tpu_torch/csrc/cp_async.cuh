@@ -1,10 +1,11 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later) for the
-// kv/q-resident flash kernels (flash_fwd_kvres.cu, flash_bwd_kvres.cu).
+// flash kernels' rings (flash_fwd_kvres.cu, flash_bwd_kvres.cu, and the bf16
+// kernels of flash_fwd_tc.cuh and flash_bwd_tc.cuh).
 //
 // They are the counterpart of the TPU kernels' pltpu.make_async_copy +
-// DMA semaphores: a tile's copy is issued, the block computes on the tile
+// DMA semaphores: a tile's copy is issued, the block computes on the tiles
 // before it, and cp.async.wait_group waits for the copy to land.  One
-// commit group is one stage of a two-stage ring.  A copy moves 4, 8 or 16
+// commit group is one slot of a ring.  A copy moves 4, 8 or 16
 // bytes, and both addresses must be aligned to its width: copy_width picks the
 // widest one that every row start of an operand allows.  Rows past the end of
 // an operand are zero-filled (src-size 0: nothing is read).

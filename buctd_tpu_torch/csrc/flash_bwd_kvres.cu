@@ -1,5 +1,5 @@
-// Flash-attention backward with the streamed operands in a two-stage cp.async
-// ring (Hopper, sm_90a): dq, dk, dv of out = dropout(softmax(q k^T * scale)) v
+// Flash-attention backward with the streamed operands in a cp.async ring
+// (Hopper, sm_90a): dq, dk, dv of out = dropout(softmax(q k^T * scale)) v
 // from the forward's lse.  The same functions as K2 (flash_bwd.cu), with
 // another schedule.
 //
@@ -9,30 +9,37 @@
 // dq kernel keeps a q block resident and streams the kv sub-tiles through a
 // double-buffered DMA pair; the dk/dv kernel keeps a kv block resident and
 // streams the q-side operands (q, do, lse, delta) through four such pairs.
-// Here:
+// Two designs, by dtype:
+//
+// f32 (dtype 0):
 //   flash_bwd_dq_kvres_kernel  one block per (bh, 64-row q tile): q (scaled
-//     by scale * log2 e) and do staged in f32 once; 32-key K/V tiles stream
-//     through a two-stage ring in their own dtype;
+//     by scale * log2 e) and do staged once; 32-key K/V tiles stream through
+//     a two-stage ring;
 //   flash_bwd_dkv_kvres_kernel one block per (bh, 32-key tile): K and V staged
-//     in f32 once; BQ-row tiles of q (own dtype), do (f32), lse and delta
-//     stream through a two-stage ring.
+//     once; BQ-row tiles of q, do, lse and delta stream through a two-stage
+//     ring.
 // While a block computes on tile i, tile i+1's copy is in flight
-// (cp_async.cuh).  The math is K2's, with the same thread layout: with
-// p = exp2(s - lse * log2 e), keep the dropout mask and c = 1 / (1 - p_drop),
+// (cp_async.cuh).  The math is K2's f32 math, with the same thread layout:
+// with p = exp2(s - lse * log2 e), keep the dropout mask and
+// c = 1 / (1 - p_drop),
 //   g = do v^T,  ds = p * (g * keep * c - delta),
 //   dq = scale * ds k,  dv = (p * keep * c)^T do,  dk = scale * ds^T q,
 // no atomics (each block owns its outputs), so the gradients are
-// deterministic; the mask is regenerated from dropout_hash.cuh.
-//
-// What bounds it on an H100: 6 (dq) and 8 (dk/dv) * L_q * L_k * d operations
-// against a few (L, d) operands: arithmetic, f32 FMAs on the CUDA cores.
-//
-// Shared memory, per block: dq 2 x 2 x 32 K/V rows + f32 q, do (64 x D+1)
-// and ds (64 x 33); at d = 96 f32 106.75 KB (two blocks per SM).  dk/dv: f32
-// K, V (32 x D+1), p*keep and ds (32 x BQ+1), and 2 stages of q, do, lse,
-// delta (BQ rows); BQ is 64 where the block fits in 113 KB (two blocks per
-// SM), else 32.  Streamed rows are padded by 16 bytes: 16-byte aligned for
+// deterministic; the mask is regenerated from dropout_hash.cuh.  What bounds
+// it on an H100: 6 (dq) and 8 (dk/dv) * L_q * L_k * d operations against a
+// few (L, d) operands: arithmetic, f32 FMAs on the CUDA cores.  Shared
+// memory, per block: dq 2 x 2 x 32 K/V rows + q, do (64 x D+1) and ds
+// (64 x 33); at d = 96 106.75 KB (two blocks per SM).  dk/dv: K, V
+// (32 x D+1), p*keep and ds (32 x BQ+1), and 2 stages of q, do, lse, delta
+// (BQ rows); BQ is 64 where the block fits in 113 KB (two blocks per SM),
+// else 32.  Streamed rows are padded by 16 bytes: 16-byte aligned for
 // cp.async, and 8 consecutive rows in 8 distinct banks.
+//
+// bf16 (dtype 1, the training step under the switch): K2's tensor-core
+// kernels (flash_bwd_tc.cuh) with the kv-resident schedule, a ring of
+// tc::kKvresStages slots for the looped operand: they round as K2 does
+// (q * scale, do, ds and p * keep * c to bf16), and rows that are not 16-byte
+// aligned take their register load path.
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py),
 // the same as buctd_flash_bwd_dq / buctd_flash_bwd_dkv:
@@ -41,18 +48,19 @@
 //   int buctd_flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, dk, dv, bh, lq, lk,
 //                                 d, scale, keep_thr, keep_scale, seed, dtype,
 //                                 stream)
-// q (bh, lq, d), k/v (bh, lk, d) contiguous, f32 (dtype 0) or bf16 (dtype 1);
-// dout (bh, lq, d), lse and delta (bh, lq) f32; dq (bh, lq, d), dk/dv
-// (bh, lk, d) f32, allocated by the caller.  The streamed operands' row starts
-// must be 4-byte aligned; otherwise, and on any other refused argument, they
-// return cudaErrorInvalidValue without launching.  Each returns the
-// cudaError_t of its launch; it launches on `stream` and does not synchronise.
+// q (bh, lq, d), k/v (bh, lk, d) and dout (bh, lq, d) contiguous, all f32
+// (dtype 0) or all bf16 (dtype 1); lse and delta (bh, lq) f32; dq (bh, lq, d),
+// dk/dv (bh, lk, d) f32, allocated by the caller.  With f32 operands the
+// streamed operands' row starts must be 4-byte aligned; otherwise, and on any
+// other refused argument, they return cudaErrorInvalidValue without
+// launching.  Each returns the cudaError_t of its launch; it launches on
+// `stream` and does not synchronise.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
 #include "dropout_hash.cuh"
+#include "flash_bwd_tc.cuh"
 
 namespace {
 
@@ -60,87 +68,80 @@ constexpr int kThreads = 128;   // 16 row groups (ty) x 8 column groups (tx)
 constexpr int kTileQ = 64;
 constexpr int kTileK = 32;
 constexpr int kTwoBlocksPerSm = 113 * 1024;
-constexpr float kLog2e = 1.4426950408889634f;
+using tc::kLog2e;
+using Args = tc::BwdArgs;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-// streamed row stride in elements: D * elt + 16 bytes
-template <typename T, int D>
-__host__ __device__ constexpr int ring_stride() { return D + 16 / (int)sizeof(T); }
+// streamed row stride in floats: D * 4 + 16 bytes
+template <int D>
+__host__ __device__ constexpr int ring_stride() { return D + 4; }
 
 // rows x D tile of src (row stride d) into dst (row stride D + 1), scaled;
 // rows past `limit` and columns past d are 0 (synchronous loads)
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0, int rows,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0, int rows,
                                       int limit, int d, float mul) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
     float x = 0.f;
-    if (row0 + r < limit && c < d) x = to_f32(src[(size_t)(row0 + r) * d + c]) * mul;
+    if (row0 + r < limit && c < d) x = src[(size_t)(row0 + r) * d + c] * mul;
     dst[r * (D + 1) + c] = x;
   }
 }
 
 // columns d..D of `rows` rows (stride `stride`) are never copied: zero them
-template <typename T, int D>
-__device__ __forceinline__ void zero_pad(T* buf, int rows, int stride, int d) {
+template <int D>
+__device__ __forceinline__ void zero_pad(float* buf, int rows, int stride, int d) {
   if (d < D)
     for (int i = threadIdx.x; i < rows * (D - d); i += kThreads)
-      buf[(i / (D - d)) * stride + d + i % (D - d)] = zero<T>();
+      buf[(i / (D - d)) * stride + d + i % (D - d)] = 0.f;
 }
 
 // ------------------------------------------------------------------- dq ----
-template <typename T, int D>
+template <int D>
 constexpr int dq_smem_bytes() {
-  return 4 * kTileK * ring_stride<T, D>() * (int)sizeof(T)   // 2 stages x (K, V)
+  return 4 * kTileK * ring_stride<D>() * 4                   // 2 stages x (K, V)
          + 2 * kTileQ * (D + 1) * 4                          // q, do
          + kTileQ * (kTileK + 1) * 4;                        // ds
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq_kvres_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dq, int lq, int lk, int d, float scale,
                           Dropout dr, int width) {
-  constexpr int SK = ring_stride<T, D>();
+  constexpr int SK = ring_stride<D>();
   constexpr int DS = D + 1;
   constexpr int DC = D / 8;             // dq columns per thread
   constexpr int KC = kTileK / 8;        // logit columns per thread
   constexpr int SS = kTileK + 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* kv = reinterpret_cast<T*>(smem);                                       // [4][32][SK]
-  float* qs = reinterpret_cast<float*>(smem + 4 * kTileK * SK * sizeof(T));  // kTileQ x DS
-  float* dos = qs + kTileQ * DS;                                            // kTileQ x DS
-  float* dss = dos + kTileQ * DS;                                           // kTileQ x SS
+  float* kv = reinterpret_cast<float*>(smem);   // [4][32][SK]
+  float* qs = kv + 4 * kTileK * SK;              // kTileQ x DS
+  float* dos = qs + kTileQ * DS;                 // kTileQ x DS
+  float* dss = dos + kTileQ * DS;                // kTileQ x SS
 
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const int bh = blockIdx.y, q0 = blockIdx.x * kTileQ;
   const bool drop = dr.keep_thr != 0u;
-  const T* kb = k + (size_t)bh * lk * d;
-  const T* vb = v + (size_t)bh * lk * d;
-  const int row_bytes = d * (int)sizeof(T);
+  const float* kb = k + (size_t)bh * lk * d;
+  const float* vb = v + (size_t)bh * lk * d;
+  const int row_bytes = d * 4;
   const int n_k = (lk + kTileK - 1) / kTileK;
 
   auto issue = [&](int k0, int slot) {
-    copy_rows<kThreads>(kv + (2 * slot) * kTileK * SK, SK * (int)sizeof(T), kb,
-                        row_bytes, k0, kTileK, lk, width);
-    copy_rows<kThreads>(kv + (2 * slot + 1) * kTileK * SK, SK * (int)sizeof(T), vb,
-                        row_bytes, k0, kTileK, lk, width);
+    copy_rows<kThreads>(kv + (2 * slot) * kTileK * SK, SK * 4, kb, row_bytes, k0, kTileK,
+                        lk, width);
+    copy_rows<kThreads>(kv + (2 * slot + 1) * kTileK * SK, SK * 4, vb, row_bytes, k0,
+                        kTileK, lk, width);
   };
   issue(0, 0);
   cp_async_commit();
-  zero_pad<T, D>(kv, 4 * kTileK, SK, d);
+  zero_pad<D>(kv, 4 * kTileK, SK, d);
 
-  stage<T, D>(qs, q + (size_t)bh * lq * d, q0, kTileQ, lq, d, scale * kLog2e);
-  stage<float, D>(dos, dout + (size_t)bh * lq * d, q0, kTileQ, lq, d, 1.f);
+  stage<D>(qs, q + (size_t)bh * lq * d, q0, kTileQ, lq, d, scale * kLog2e);
+  stage<D>(dos, dout + (size_t)bh * lq * d, q0, kTileQ, lq, d, 1.f);
 
   float lse2[4], dl[4], acc[4][DC];
   uint32_t row_key[4];
@@ -160,8 +161,8 @@ flash_bwd_dq_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const T* ks = kv + (2 * slot) * kTileK * SK;
-    const T* vs = ks + kTileK * SK;
+    const float* ks = kv + (2 * slot) * kTileK * SK;
+    const float* vs = ks + kTileK * SK;
 
     float s[4][KC], g[4][KC];
 #pragma unroll
@@ -178,8 +179,8 @@ flash_bwd_dq_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int j = 0; j < KC; ++j) {
-        bk[j] = to_f32(ks[(tx + 8 * j) * SK + c]);
-        bv[j] = to_f32(vs[(tx + 8 * j) * SK + c]);
+        bk[j] = ks[(tx + 8 * j) * SK + c];
+        bv[j] = vs[(tx + 8 * j) * SK + c];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -209,7 +210,7 @@ flash_bwd_dq_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = dss[(ty + 16 * i) * SS + kk];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) b[j] = to_f32(ks[kk * SK + tx + 8 * j]);
+      for (int j = 0; j < DC; ++j) b[j] = ks[kk * SK + tx + 8 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -232,36 +233,35 @@ flash_bwd_dq_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ dkv ----
-template <typename T, int D, int BQ>
+template <int D, int BQ>
 constexpr int dkv_smem_bytes() {
-  return 2 * (BQ * ring_stride<T, D>() * (int)sizeof(T)   // q, own dtype
-              + BQ * ring_stride<float, D>() * 4          // do, f32
+  return 2 * (2 * BQ * ring_stride<D>() * 4               // q, do
               + 2 * BQ * 4)                               // lse, delta
          + 2 * kTileK * (D + 1) * 4                       // k, v
          + 2 * kTileK * (BQ + 1) * 4;                     // p*keep, ds
 }
 
-template <typename T, int D>
+template <int D>
 constexpr int pick_bq() {
-  return dkv_smem_bytes<T, D, 64>() <= kTwoBlocksPerSm ? 64 : 32;
+  return dkv_smem_bytes<D, 64>() <= kTwoBlocksPerSm ? 64 : 32;
 }
 
-template <typename T, int D, int BQ>
+template <int D, int BQ>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkv_kvres_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            float* __restrict__ dk, float* __restrict__ dv, int lq, int lk,
                            int d, float scale, Dropout dr, int width_q, int width_do) {
-  constexpr int SQ = ring_stride<T, D>();
-  constexpr int SD = ring_stride<float, D>();
+  constexpr int SQ = ring_stride<D>();
+  constexpr int SD = ring_stride<D>();
   constexpr int DS = D + 1;
   constexpr int DC = D / 8;             // dk/dv columns per thread
   constexpr int KR = kTileK / 16;       // key rows per thread
   constexpr int QC = BQ / 8;            // q columns per thread
   constexpr int PS = BQ + 1;
   // one ring stage: q | do | lse | delta, each part 16-byte aligned
-  constexpr int kQBytes = BQ * SQ * (int)sizeof(T);
+  constexpr int kQBytes = BQ * SQ * 4;
   constexpr int kDoBytes = BQ * SD * 4;
   constexpr int kStage = kQBytes + kDoBytes + 2 * BQ * 4;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -274,13 +274,13 @@ flash_bwd_dkv_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, k0 = blockIdx.x * kTileK;
   const bool drop = dr.keep_thr != 0u;
   const float qscale = scale * kLog2e;
-  const T* qb = q + (size_t)bh * lq * d;
+  const float* qb = q + (size_t)bh * lq * d;
   const float* dob = dout + (size_t)bh * lq * d;
   const float* lseb = lse + (size_t)bh * lq;
   const float* deltab = delta + (size_t)bh * lq;
   const int n_q = (lq + BQ - 1) / BQ;
 
-  auto q_of = [&](int slot) { return reinterpret_cast<T*>(smem + slot * kStage); };
+  auto q_of = [&](int slot) { return reinterpret_cast<float*>(smem + slot * kStage); };
   auto do_of = [&](int slot) {
     return reinterpret_cast<float*>(smem + slot * kStage + kQBytes);
   };
@@ -288,8 +288,7 @@ flash_bwd_dkv_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return reinterpret_cast<float*>(smem + slot * kStage + kQBytes + kDoBytes);
   };
   auto issue = [&](int q0, int slot) {
-    copy_rows<kThreads>(q_of(slot), SQ * (int)sizeof(T), qb, d * (int)sizeof(T), q0, BQ,
-                        lq, width_q);
+    copy_rows<kThreads>(q_of(slot), SQ * 4, qb, d * 4, q0, BQ, lq, width_q);
     copy_rows<kThreads>(do_of(slot), SD * 4, dob, d * 4, q0, BQ, lq, width_do);
     copy_rows<kThreads>(lse_of(slot), 4, lseb, 4, q0, BQ, lq, 4);
     copy_rows<kThreads>(lse_of(slot) + BQ, 4, deltab, 4, q0, BQ, lq, 4);
@@ -297,11 +296,11 @@ flash_bwd_dkv_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
   issue(0, 0);
   cp_async_commit();
   for (int slot = 0; slot < 2; ++slot) {
-    zero_pad<T, D>(q_of(slot), BQ, SQ, d);
-    zero_pad<float, D>(do_of(slot), BQ, SD, d);
+    zero_pad<D>(q_of(slot), BQ, SQ, d);
+    zero_pad<D>(do_of(slot), BQ, SD, d);
   }
-  stage<T, D>(ks, k + (size_t)bh * lk * d, k0, kTileK, lk, d, 1.f);
-  stage<T, D>(vs, v + (size_t)bh * lk * d, k0, kTileK, lk, d, 1.f);
+  stage<D>(ks, k + (size_t)bh * lk * d, k0, kTileK, lk, d, 1.f);
+  stage<D>(vs, v + (size_t)bh * lk * d, k0, kTileK, lk, d, 1.f);
 
   float acc_k[KR][DC], acc_v[KR][DC];
 #pragma unroll
@@ -315,7 +314,7 @@ flash_bwd_dkv_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const T* qs = q_of(slot);
+    const float* qs = q_of(slot);
     const float* dos = do_of(slot);
     const float* lses = lse_of(slot);
     const float* dls = lses + BQ;
@@ -336,7 +335,7 @@ flash_bwd_dkv_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int j = 0; j < QC; ++j) {
-        bq[j] = to_f32(qs[(tx + 8 * j) * SQ + c]);
+        bq[j] = qs[(tx + 8 * j) * SQ + c];
         bd[j] = dos[(tx + 8 * j) * SD + c];
       }
 #pragma unroll
@@ -379,7 +378,7 @@ flash_bwd_dkv_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
         bd[j] = dos[qq * SD + tx + 8 * j];
-        bq[j] = to_f32(qs[qq * SQ + tx + 8 * j]);
+        bq[j] = qs[qq * SQ + tx + 8 * j];
       }
 #pragma unroll
       for (int i = 0; i < KR; ++i)
@@ -410,57 +409,51 @@ flash_bwd_dkv_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-struct Args {
-  const void *q, *k, *v;
-  const float *dout, *lse, *delta;
-  float *dq, *dk, *dv;
-  int bh, lq, lk, d;
-  float scale;
-  Dropout dr;
-};
-
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const long long row_bytes = (long long)a.d * (long long)sizeof(T);
+  const long long row_bytes = 4LL * a.d;
   const int wk = copy_width(a.k, row_bytes), wv = copy_width(a.v, row_bytes);
   const int width = wk < wv ? wk : wv;
   if (width == 0) return cudaErrorInvalidValue;
-  constexpr int smem = dq_smem_bytes<T, D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kvres_kernel<T, D>,
+  constexpr int smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kvres_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.lq + kTileQ - 1) / kTileQ, a.bh);
-  flash_bwd_dq_kvres_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.dout, a.lse, a.delta, a.dq, a.lq, a.lk, a.d, a.scale, a.dr, width);
+  flash_bwd_dq_kvres_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      a.dq, a.lq, a.lk, a.d, a.scale, a.dr, width);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  const int width_q = copy_width(a.q, (long long)a.d * (long long)sizeof(T));
-  const int width_do = copy_width(a.dout, (long long)a.d * 4);
+  const int width_q = copy_width(a.q, 4LL * a.d);
+  const int width_do = copy_width(a.dout, 4LL * a.d);
   if (width_q == 0 || width_do == 0 || copy_width(a.lse, 4) == 0 ||
       copy_width(a.delta, 4) == 0)
     return cudaErrorInvalidValue;
-  constexpr int BQ = pick_bq<T, D>();
-  constexpr int smem = dkv_smem_bytes<T, D, BQ>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kvres_kernel<T, D, BQ>,
+  constexpr int BQ = pick_bq<D>();
+  constexpr int smem = dkv_smem_bytes<D, BQ>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kvres_kernel<D, BQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.lk + kTileK - 1) / kTileK, a.bh);
-  flash_bwd_dkv_kvres_kernel<T, D, BQ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.dout, a.lse, a.delta, a.dk, a.dv, a.lq, a.lk, a.d, a.scale, a.dr, width_q,
-      width_do);
+  flash_bwd_dkv_kvres_kernel<D, BQ><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      a.dk, a.dv, a.lq, a.lk, a.d, a.scale, a.dr, width_q, width_do);
   return cudaGetLastError();
 }
 
-template <typename T, bool kDq>
-cudaError_t dispatch(const Args& a, cudaStream_t s) {
-#define BUCTD_BWD_CASE(n)                                              \
-  case n / 16:                                                         \
-    return kDq ? launch_dq<T, n>(a, s) : launch_dkv<T, n>(a, s);
+// f32 operands take the SIMT kernels, bf16 K2's tensor-core kernels with the
+// kv-resident ring
+template <bool kDq>
+cudaError_t dispatch(const Args& a, int dtype, cudaStream_t s) {
+  if (dtype == 1) return tc::launch_bwd<tc::kKvresStages, kDq>(a, s);
+#define BUCTD_BWD_CASE(n) \
+  case n / 16: return kDq ? launch_dq<n>(a, s) : launch_dkv<n>(a, s);
   switch ((a.d + 15) / 16) {
     BUCTD_BWD_CASE(16)
     BUCTD_BWD_CASE(32)
@@ -477,18 +470,16 @@ cudaError_t dispatch(const Args& a, cudaStream_t s) {
 
 template <bool kDq>
 int run(const Args& a, int dtype, void* stream) {
-  if (a.bh <= 0 || a.bh > 65535 || a.lq <= 0 || a.lk <= 0 || a.d <= 0 || a.d > 128)
+  if (a.bh <= 0 || a.bh > 65535 || a.lq <= 0 || a.lk <= 0 || a.d <= 0 || a.d > 128 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float, kDq>(a, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16, kDq>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch<kDq>(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" int buctd_flash_bwd_dq_kvres(const void* q, const void* k, const void* v,
-                                        const float* dout, const float* lse,
+                                        const void* dout, const float* lse,
                                         const float* delta, float* dq, int bh, int lq,
                                         int lk, int d, float scale, unsigned keep_thr,
                                         float keep_scale, unsigned seed, int dtype,
@@ -499,7 +490,7 @@ extern "C" int buctd_flash_bwd_dq_kvres(const void* q, const void* k, const void
 }
 
 extern "C" int buctd_flash_bwd_dkv_kvres(const void* q, const void* k, const void* v,
-                                         const float* dout, const float* lse,
+                                         const void* dout, const float* lse,
                                          const float* delta, float* dk, float* dv, int bh,
                                          int lq, int lk, int d, float scale,
                                          unsigned keep_thr, float keep_scale,

@@ -8,19 +8,24 @@
 // of its own, so the carry lives in registers and nothing is shared between
 // blocks.  No (L_q, L_k) matrix ever reaches device memory.
 //
-// What bounds it on an H100: at the CoAM-W48 shapes (L = 6912, d = 48 and
-// L = 1728, d = 96) the work is 4 * L_q * L_k * d operations against
-// (L_q + 2 L_k) * d elements of input, i.e. thousands of operations per byte,
-// far above the card's ridge: it is bound by arithmetic.  f32 operands must stay
-// exact f32 (the JAX path runs them at Precision.HIGHEST), so the products are
-// plain f32 FMAs on the CUDA cores (67 TFLOP/s peak), not TF32 tensor cores.
-// This first version is a register-tiled SIMT kernel: each thread holds a
-// 4 x 8 patch of the 64 x 64 logit tile and a 4 x D/8 patch of the output, the
-// operands are staged in shared memory with odd row strides so the column
-// walks are free of bank conflicts, and the softmax runs in the exp2 domain
-// with log2(e) folded into the query scale.  bf16 operands are widened to f32
-// when staged and take the same path (f32 accumulation).  wgmma/TMA and a
-// tensor-core bf16 path are later work.
+// Two designs, by the operands' dtype, behind one C entry:
+//
+// f32 (dtype 0; serving and evaluation): flash_fwd_kernel.  At the CoAM-W48
+// shapes (L = 6912, d = 48 and L = 1728, d = 96) the work is 4 * L_q * L_k *
+// d operations against (L_q + 2 L_k) * d elements of input, thousands of
+// operations per byte, far above the card's ridge: it is bound by
+// arithmetic.  f32 operands must stay exact f32 (the JAX path runs them at
+// Precision.HIGHEST), so the products are plain f32 FMAs on the CUDA cores (67
+// TFLOP/s peak), not TF32 tensor cores.  A register-tiled SIMT kernel: each
+// thread holds a 4 x 8 patch of the 64 x 64 logit tile and a 4 x D/8 patch of
+// the output, the operands are staged in shared memory with odd row strides
+// so the column walks are free of bank conflicts, and the softmax runs in the
+// exp2 domain with log2(e) folded into the query scale.
+//
+// bf16 (dtype 1; the autocast training step): flash_fwd_tc_kernel
+// (flash_fwd_tc.cuh) on the tensor cores, launched with a two-stage K/V ring
+// (tc::kStages).  It rounds q * scale and p * keep * c to bf16 where JAX's
+// kernel does, so the lse it hands K2 is that of K2's logits.
 //
 // Dropout (training), as in the TPU kernel (:120-125): the un-normalized p of
 // the online softmax is masked and scaled by 1/(1-p) AFTER it entered the
@@ -38,10 +43,10 @@
 // the cudaError_t of the launch (0 on success).  Launches on `stream` and does
 // not synchronise.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "dropout_hash.cuh"
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -49,12 +54,9 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;   // 16 row groups x 8 column groups
 constexpr int kPStride = kBlockK + 1;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using tc::kLn2;
+using tc::kLog2e;
 constexpr float kNegBig = -1e30f;   // finite: keeps (m_old - m_new) free of inf - inf
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <int D>
 constexpr int smem_floats() {
@@ -63,10 +65,10 @@ constexpr int smem_floats() {
 }
 
 // D is the head dim rounded up to a multiple of 16; d <= D is the real one.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, float* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int lq, int lk, int d, float qscale,
                  uint32_t keep_thr, float keep_scale, uint32_t seed) {
   constexpr int DS = D + 1;
@@ -82,15 +84,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 7;    // logit columns tx + 8 j, output columns tx + 8 j
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
-  const T* qb = q + (size_t)bh * lq * d;
-  const T* kb = k + (size_t)bh * lk * d;
-  const T* vb = v + (size_t)bh * lk * d;
+  const float* qb = q + (size_t)bh * lq * d;
+  const float* kb = k + (size_t)bh * lk * d;
+  const float* vb = v + (size_t)bh * lk * d;
 
   // q tile, pre-scaled by scale * log2(e); rows past lq and columns past d are 0
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     float x = 0.f;
-    if (q0 + r < lq && c < d) x = to_f32(qb[(size_t)(q0 + r) * d + c]) * qscale;
+    if (q0 + r < lq && c < d) x = qb[(size_t)(q0 + r) * d + c] * qscale;
     qs[r * DS + c] = x;
   }
 
@@ -113,8 +115,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kx = 0.f, vx = 0.f;
       if (k0 + r < lk && c < d) {
         const size_t off = (size_t)(k0 + r) * d + c;
-        kx = to_f32(kb[off]);
-        vx = to_f32(vb[off]);
+        kx = kb[off];
+        vx = vb[off];
       }
       ks[r * DS + c] = kx;
       vs[r * D + c] = vx;
@@ -205,35 +207,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int bh, int lq, int lk, int d, float scale,
                    Dropout dr, cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<float*>(out), static_cast<float*>(lse), lq, lk, d, scale * kLog2e,
-      dr.keep_thr, dr.keep_scale, dr.seed);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse),
+      lq, lk, d, scale * kLog2e, dr.keep_thr, dr.keep_scale, dr.seed);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int bh, int lq, int lk, int d, float scale,
                      Dropout dr, cudaStream_t s) {
   switch ((d + 15) / 16) {
-    case 1: return launch<T, 16>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
-    case 2: return launch<T, 32>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
-    case 3: return launch<T, 48>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
-    case 4: return launch<T, 64>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
-    case 5: return launch<T, 80>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
-    case 6: return launch<T, 96>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
-    case 7: return launch<T, 112>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
-    case 8: return launch<T, 128>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 1: return launch<16>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 2: return launch<32>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 3: return launch<48>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 4: return launch<64>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 5: return launch<80>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 6: return launch<96>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 7: return launch<112>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    case 8: return launch<128>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -249,9 +250,10 @@ extern "C" int buctd_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{keep_thr, keep_scale, seed};
-  if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+  if (dtype == 0) return (int)dispatch(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    return (int)tc::launch_fwd<tc::kStages>(q, k, v, static_cast<float*>(out),
+                                            static_cast<float*>(lse), bh, lq, lk, d, scale,
+                                            dr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-// Flash-attention forward with K/V streamed through a two-stage cp.async ring
-// (Hopper, sm_90a): out = dropout(softmax(q k^T * scale)) v, plus the
+// Flash-attention forward with K/V streamed through a cp.async ring (Hopper,
+// sm_90a): out = dropout(softmax(q k^T * scale)) v, plus the
 // natural-log logsumexp of every query row.  The same function as K1
 // (flash_fwd.cu), with another schedule.
 //
@@ -8,110 +8,103 @@
 // (:474).  That TPU kernel keeps a q block resident, walks the kv sub-tiles in
 // a loop inside the kernel, and streams them from HBM through a hand
 // double-buffered DMA pair: the copy of tile i+1 is started before tile i is
-// computed (kv_dma(ki + 1, 1 - slot), :177-181).  Here one thread block owns
-// one (bh, 64-row q tile), exactly as K1, and the K/V tiles stream through a
-// two-stage ring in shared memory filled by cp.async (cp_async.cuh): while the
-// block computes on tile i, tile i+1's copy is in flight.  The tiles are
-// staged in the operands' own dtype and converted to f32 when read from
-// shared memory (K1 converts on the way in, with synchronous loads).
+// computed (kv_dma(ki + 1, 1 - slot), :177-181).  Two designs, by dtype:
 //
-// What bounds it on an H100: as K1, 4 * L_q * L_k * d operations against
-// (L_q + 2 L_k) * d elements, far above the card's ridge: arithmetic, on the
-// CUDA cores' f32 FMAs (the JAX path runs f32 at Precision.HIGHEST).  The ring
-// takes the loads off the critical path of that arithmetic; it cannot make
-// the FMAs faster.  Math, thread layout and dropout are K1's: a 4 x (BK/8)
-// patch of the logit tile and a 4 x D/8 patch of the output per thread, the
-// online softmax in the exp2 domain with log2(e) folded into the staged q,
-// -1e30 for ragged keys, the mask of dropout_hash.cuh applied after p entered
-// the running sum.
-//
-// Shared memory: 2 stages x (K, V) x BK rows, each row d * elt bytes plus 16
-// of padding (row starts stay 16-byte aligned for cp.async, and 8
-// consecutive rows fall in 8 distinct banks), the f32 q tile with an odd row
-// stride and the f32 p tile.  The key-tile depth BK is 64 where that block
-// fits in 113 KB (two blocks per SM), else 32: at d = 96 f32, 64 keys would
+// f32 (dtype 0, the evaluation path under the switch): flash_fwd_kvres_kernel.
+// One thread block owns one (bh, 64-row q tile), exactly as K1, and the K/V
+// tiles stream through a two-stage ring in shared memory filled by cp.async
+// (cp_async.cuh): while the block computes on tile i, tile i+1's copy is in
+// flight.  What bounds it on an H100: as K1, 4 * L_q * L_k * d operations
+// against (L_q + 2 L_k) * d elements, far above the card's ridge: arithmetic,
+// on the CUDA cores' f32 FMAs (the JAX path runs f32 at Precision.HIGHEST).
+// The ring takes the loads off the critical path of that arithmetic; it
+// cannot make the FMAs faster.  Math, thread layout and dropout are K1's: a
+// 4 x (BK/8) patch of the logit tile and a 4 x D/8 patch of the output per
+// thread, the online softmax in the exp2 domain with log2(e) folded into the
+// staged q, -1e30 for ragged keys, the mask of dropout_hash.cuh applied after
+// p entered the running sum.  Shared memory: 2 stages x (K, V) x BK rows, each
+// row d * 4 bytes plus 16 of padding (row starts stay 16-byte aligned for
+// cp.async, and 8 consecutive rows fall in 8 distinct banks), the q tile with
+// an odd row stride and the p tile.  The key-tile depth BK is 64 where that
+// block fits in 113 KB (two blocks per SM), else 32: at d = 96, 64 keys would
 // take 140.5 KB (one block per SM) and 32 take 82.5 KB.
+//
+// bf16 (dtype 1, the training step under the switch): K1's tensor-core kernel
+// (flash_fwd_tc.cuh) with the kv-resident schedule, a ring of
+// tc::kKvresStages K/V slots: it rounds as K1 does, and rows that are not
+// 16-byte aligned take its register load path.
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py),
 // the same as buctd_flash_fwd:
 //   int buctd_flash_fwd_kvres(q, k, v, out, lse, bh, lq, lk, d, scale,
 //                             keep_thr, keep_scale, seed, dtype, stream)
 // q (bh, lq, d), k/v (bh, lk, d) contiguous, f32 (dtype 0) or bf16 (dtype 1);
-// out (bh, lq, d) and lse (bh, lq) f32, allocated by the caller.  K and V row
-// starts must be 4-byte aligned (d * elt a multiple of 4); otherwise, and on
-// any other refused argument, it returns cudaErrorInvalidValue without
-// launching.  Returns the cudaError_t of the launch; launches on `stream` and
-// does not synchronise.
+// out (bh, lq, d) and lse (bh, lq) f32, allocated by the caller.  f32 K and V
+// row starts must be 4-byte aligned; otherwise, and on any other refused
+// argument, it returns cudaErrorInvalidValue without launching.  Returns the
+// cudaError_t of the launch; launches on `stream` and does not synchronise.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
 #include "dropout_hash.cuh"
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kThreads = 128;   // 16 row groups x 8 column groups
 constexpr int kTwoBlocksPerSm = 113 * 1024;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using tc::kLn2;
+using tc::kLog2e;
 constexpr float kNegBig = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
+// K/V row stride in floats: D * 4 + 16 bytes
+template <int D>
+__host__ __device__ constexpr int kv_stride() { return D + 4; }
 
-// K/V row stride in elements: D * elt + 16 bytes
-template <typename T, int D>
-__host__ __device__ constexpr int kv_stride() { return D + 16 / (int)sizeof(T); }
-
-template <typename T, int D, int BK>
+template <int D, int BK>
 constexpr int smem_bytes() {
-  return 4 * BK * kv_stride<T, D>() * (int)sizeof(T)   // 2 stages x (K, V)
-         + kBlockQ * (D + 1) * 4                       // q, f32
-         + kBlockQ * (BK + 1) * 4;                     // p, f32
+  return 4 * BK * kv_stride<D>() * 4   // 2 stages x (K, V)
+         + kBlockQ * (D + 1) * 4       // q
+         + kBlockQ * (BK + 1) * 4;     // p
 }
 
-template <typename T, int D>
-constexpr int pick_bk() { return smem_bytes<T, D, 64>() <= kTwoBlocksPerSm ? 64 : 32; }
+template <int D>
+constexpr int pick_bk() { return smem_bytes<D, 64>() <= kTwoBlocksPerSm ? 64 : 32; }
 
-template <typename T, int D, int BK>
+template <int D, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, float* __restrict__ out,
+flash_fwd_kvres_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ lse, int lq, int lk, int d, float qscale,
                        uint32_t keep_thr, float keep_scale, uint32_t seed, int width) {
-  constexpr int SK = kv_stride<T, D>();
+  constexpr int SK = kv_stride<D>();
   constexpr int DS = D + 1;
   constexpr int DC = D / 8;    // output columns per thread
   constexpr int KC = BK / 8;   // logit columns per thread
   constexpr int PS = BK + 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* kv = reinterpret_cast<T*>(smem);                                   // [4][BK][SK]
-  float* qs = reinterpret_cast<float*>(smem + 4 * BK * SK * sizeof(T));  // kBlockQ x DS
-  float* ps = qs + kBlockQ * DS;                                        // kBlockQ x PS
+  float* kv = reinterpret_cast<float*>(smem);   // [4][BK][SK]
+  float* qs = kv + 4 * BK * SK;                  // kBlockQ x DS
+  float* ps = qs + kBlockQ * DS;                 // kBlockQ x PS
 
   const int tid = threadIdx.x;
   const int ty = tid >> 3, tx = tid & 7;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
-  const T* qb = q + (size_t)bh * lq * d;
-  const T* kb = k + (size_t)bh * lk * d;
-  const T* vb = v + (size_t)bh * lk * d;
-  const int row_bytes = d * (int)sizeof(T);
+  const float* qb = q + (size_t)bh * lq * d;
+  const float* kb = k + (size_t)bh * lk * d;
+  const float* vb = v + (size_t)bh * lk * d;
+  const int row_bytes = d * 4;
   const int n_k = (lk + BK - 1) / BK;
 
   // slot s holds K in kv[2s] and V in kv[2s + 1]
   auto issue = [&](int k0, int slot) {
-    copy_rows<kThreads>(kv + (2 * slot) * BK * SK, SK * (int)sizeof(T), kb, row_bytes,
-                        k0, BK, lk, width);
-    copy_rows<kThreads>(kv + (2 * slot + 1) * BK * SK, SK * (int)sizeof(T), vb,
-                        row_bytes, k0, BK, lk, width);
+    copy_rows<kThreads>(kv + (2 * slot) * BK * SK, SK * 4, kb, row_bytes, k0, BK, lk,
+                        width);
+    copy_rows<kThreads>(kv + (2 * slot + 1) * BK * SK, SK * 4, vb, row_bytes, k0, BK, lk,
+                        width);
   };
   issue(0, 0);
   cp_async_commit();
@@ -120,13 +113,13 @@ flash_fwd_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // too, but 0 * garbage could be NaN)
   if (d < D)
     for (int i = tid; i < 4 * BK * (D - d); i += kThreads)
-      kv[(i / (D - d)) * SK + d + i % (D - d)] = zero<T>();
+      kv[(i / (D - d)) * SK + d + i % (D - d)] = 0.f;
 
   // q tile, pre-scaled by scale * log2(e); rows past lq and columns past d are 0
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     float x = 0.f;
-    if (q0 + r < lq && c < d) x = to_f32(qb[(size_t)(q0 + r) * d + c]) * qscale;
+    if (q0 + r < lq && c < d) x = qb[(size_t)(q0 + r) * d + c] * qscale;
     qs[r * DS + c] = x;
   }
 
@@ -148,8 +141,8 @@ flash_fwd_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();                           // (an empty group on the last tile)
     cp_async_wait<1>();                          // tile t has landed
     __syncthreads();
-    const T* ks = kv + (2 * slot) * BK * SK;
-    const T* vs = ks + BK * SK;
+    const float* ks = kv + (2 * slot) * BK * SK;
+    const float* vs = ks + BK * SK;
 
     float s[4][KC];
 #pragma unroll
@@ -162,7 +155,7 @@ flash_fwd_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * DS + c];
 #pragma unroll
-      for (int j = 0; j < KC; ++j) b[j] = to_f32(ks[(tx + 8 * j) * SK + c]);
+      for (int j = 0; j < KC; ++j) b[j] = ks[(tx + 8 * j) * SK + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -210,7 +203,7 @@ flash_fwd_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = ps[(ty + 16 * i) * PS + kk];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) b[j] = to_f32(vs[kk * SK + tx + 8 * j]);
+      for (int j = 0; j < DC; ++j) b[j] = vs[kk * SK + tx + 8 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -234,34 +227,33 @@ flash_fwd_kvres_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse,
                    int bh, int lq, int lk, int d, float scale, Dropout dr, int width,
                    cudaStream_t stream) {
-  constexpr int BK = pick_bk<T, D>();
-  constexpr int smem = smem_bytes<T, D, BK>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kvres_kernel<T, D, BK>,
+  constexpr int BK = pick_bk<D>();
+  constexpr int smem = smem_bytes<D, BK>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kvres_kernel<D, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kvres_kernel<T, D, BK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<float*>(out), static_cast<float*>(lse), lq, lk, d, scale * kLog2e,
-      dr.keep_thr, dr.keep_scale, dr.seed, width);
+  flash_fwd_kvres_kernel<D, BK><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse),
+      lq, lk, d, scale * kLog2e, dr.keep_thr, dr.keep_scale, dr.seed, width);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, void* lse,
                      int bh, int lq, int lk, int d, float scale, Dropout dr,
                      cudaStream_t s) {
-  const long long row_bytes = (long long)d * (long long)sizeof(T);
+  const long long row_bytes = 4LL * d;
   const int wk = copy_width(k, row_bytes), wv = copy_width(v, row_bytes);
   const int width = wk < wv ? wk : wv;
   if (width == 0) return cudaErrorInvalidValue;
 #define BUCTD_FWD_CASE(n)                                                      \
   case n / 16:                                                                 \
-    return launch<T, n>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, width, s);
+    return launch<n>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, width, s);
   switch ((d + 15) / 16) {
     BUCTD_FWD_CASE(16)
     BUCTD_FWD_CASE(32)
@@ -286,9 +278,10 @@ extern "C" int buctd_flash_fwd_kvres(const void* q, const void* k, const void* v
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{keep_thr, keep_scale, seed};
-  if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+  if (dtype == 0) return (int)dispatch(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+    return (int)tc::launch_fwd<tc::kKvresStages>(q, k, v, static_cast<float*>(out),
+                                                 static_cast<float*>(lse), bh, lq, lk, d,
+                                                 scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -57,10 +57,12 @@ def _attend(q, k, v, scale: float, engine: str = "auto", dropout: float = 0.0,
                   for x in (q, k, v))
     if not _use_flash(q, k.shape[2], v.shape[3], engine):
         acc = torch.promote_types(q3.dtype, torch.float32)
-        att = torch.softmax(torch.matmul(q3, k3.transpose(1, 2)).to(acc) * scale, dim=-1)
-        if dropout > 0.0:
-            att = F.dropout(att, dropout, training=True)
-        out = torch.matmul(att, v3.to(acc))
+        with _no_autocast(q3):
+            att = torch.softmax(torch.matmul(q3.to(acc), k3.to(acc).transpose(1, 2)) * scale,
+                                dim=-1)
+            if dropout > 0.0:
+                att = F.dropout(att, dropout, training=True)
+            out = torch.matmul(att, v3.to(acc))
     elif dropout > 0.0 or (torch.is_grad_enabled()
                            and any(x.requires_grad for x in (q3, k3, v3))):
         out = flash_attention_train(q3, k3, v3, scale, dropout,
@@ -68,6 +70,15 @@ def _attend(q, k, v, scale: float, engine: str = "auto", dropout: float = 0.0,
     else:
         out, _ = flash_attention(q3, k3, v3, scale)
     return out.reshape(B, h, nq, v.shape[3])
+
+
+def _no_autocast(x):
+    """Autocast off for ``x``'s device: the attention products below take
+    bf16-valued operands widened to f32, so their products are exact and their
+    sums f32, as JAX's ``preferred_element_type=jnp.float32`` dots
+    (buctd_tpu/models/attention.py:85, :118, :192-197).  Under autocast a
+    matmul of bf16 operands would round the logits to bf16."""
+    return torch.autocast(x.device.type, enabled=False)
 
 
 def _draw_seed(generator) -> int:
@@ -133,8 +144,11 @@ class SimplifiedScaledDotProductAttention(nn.Module):
         q = queries.reshape(B, nq, h, d).transpose(1, 2).reshape(B * h, nq, d)
         k = keys.reshape(B, nk, h, d).transpose(1, 2).reshape(B * h, nk, d)
         v = values.reshape(B, nk, h, d).transpose(1, 2).reshape(B * h, nk, d)
-        att = torch.softmax(torch.matmul(q, k.transpose(1, 2)) / math.sqrt(d), dim=-1)
-        att = self.dropout(att)
-        out = torch.matmul(att, v)
+        acc = torch.promote_types(q.dtype, torch.float32)
+        with _no_autocast(q):
+            att = torch.softmax(torch.matmul(q.to(acc), k.to(acc).transpose(1, 2))
+                                / math.sqrt(d), dim=-1)
+            att = self.dropout(att)
+            out = torch.matmul(att, v.to(acc))
         out = out.reshape(B, h, nq, d).transpose(1, 2).reshape(B, nq, h * d)
         return self.fc_o(out)

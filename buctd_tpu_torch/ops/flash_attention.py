@@ -12,20 +12,22 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
 * On CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` (K1, the port of
   ``_fwd_kernel`` :86) and ``csrc/flash_bwd.cu`` (K2: ``_dq_kernel`` :212 and
   ``_dkv_kernel`` :363).  They launch the kernel or raise; they never fall
-  back.  K2 has two designs in one source: exact f32 SIMT kernels for f32
+  back.  Each has two designs in one source: exact f32 SIMT kernels for f32
   operands, and tensor-core kernels for bf16 operands (the autocast training
-  step) that round q * scale, do, ds and p * keep * c to bf16 where JAX's
-  kernels do at Precision.DEFAULT; the plain backward rounds there too.
+  step) that round q * scale, p * keep * c, do and ds to bf16 where JAX's
+  kernels do at Precision.DEFAULT; the plain versions round there too
+  (``_logits``).
 * ``BUCTD_FLASH_KVRES``, read at every call with JAX's rule (:474, :684: any
   value but "0" turns it on), routes CUDA tensors to the kv/q-resident
   kernels instead: ``csrc/flash_fwd_kvres.cu`` (K1', ``_fwd_kernel_kvres``
   :139) in ``flash_attention`` and ``csrc/flash_bwd_kvres.cu`` (K2',
   ``_dq_kernel_kvres`` :245 and ``_dkv_kernel_kvres`` :295) in
-  ``flash_attention_backward``.  K1' computes exactly K1's function, and K2'
-  K2's f32 function, with another schedule (the streamed operands in a
-  two-stage cp.async ring); K2' widens bf16 operands to f32 exactly, so its
-  plain version is the plain backward of the widened operands.  A kv-resident
-  kernel that fails to build or launch raises; it never falls back to K1/K2.
+  ``flash_attention_backward``.  K1' computes K1's function and K2' K2's, with
+  another schedule: f32 operands take SIMT kernels with a two-stage
+  cp.async ring (their rows must be 4-byte aligned), bf16 operands K1's and
+  K2's tensor-core kernels with a deeper ring, which round as K1 and K2 do and
+  take any row alignment.  A kv-resident kernel that fails to build or launch
+  raises; it never falls back to K1/K2.
 * On CPU tensors the wrappers run the plain dense versions
   (``flash_attention_reference``, ``flash_attention_backward_reference``),
   which the CPU tests hold against the JAX kernels.
@@ -51,11 +53,13 @@ import functools
 import os
 
 import torch
+import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_BH = 65535   # grid.y of the kernels
 _MASK32 = 0xFFFFFFFF
+_LOG2E = 1.4426950408889634
 KVRES_ENV = "BUCTD_FLASH_KVRES"
 
 
@@ -110,24 +114,87 @@ def _check_dropout(p: float, seed: int) -> None:
 
 
 # ---------------------------------------------------------- plain versions ----
+def _bf16(t):
+    """f32 values rounded to bf16 (nearest even) and widened back: the bf16
+    operand of one MXU pass."""
+    return t.to(torch.bfloat16).float()
+
+
+def _logits(q, k, scale: float):
+    """The rounding rules of every flash kernel, forward and backward, in one
+    place: returns (s, q_op), the f32 logits (BH, Lq, Lk) and the f32 q
+    operand they were formed from.  f32 operands (JAX's Precision.HIGHEST):
+    exact, s = (q k^T) * scale.  bf16 operands (Precision.DEFAULT, one MXU
+    pass): q' = bf16(q * bf16(scale)) (JAX :99, :169, :221, :375), s = q' k^T
+    with f32 sums; every later product of a bf16 call takes its other f32
+    operand through ``_bf16`` (p * keep * c, do, ds)."""
+    kt = k.float().transpose(1, 2)
+    if q.dtype == torch.bfloat16:
+        qs = _bf16(q.float() * float(torch.tensor(scale).to(torch.bfloat16)))
+        return torch.matmul(qs, kt), qs
+    qs = q.float()
+    return torch.matmul(qs, kt) * scale, qs
+
+
 def flash_attention_reference(q, k, v, scale: float, dropout: float = 0.0,
                               seed: int = 0, bh0: int = 0):
     """Plain version: dense softmax in f32, dropout on the probabilities.
     q (BH, Lq, d), k/v (BH, Lk, d) -> out f32 (BH, Lq, d), lse f32 (BH, Lq)
     (natural log, of the logits before dropout).  ``bh0``: the inputs are
-    rows bh0 .. of a larger call, whose dropout mask they take."""
-    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.softmax(s, dim=-1)
-    if dropout > 0.0:
-        p = p * dropout_multiplier(seed, *s.shape, dropout, s.device, bh0)
-    return torch.matmul(p, v.float()), lse
+    rows bh0 .. of a larger call, whose dropout mask they take.
+
+    f32 operands: every step in f32.  bf16 operands compute what JAX's
+    ``_fwd_kernel`` computes (:99-133): the logits of ``_logits``, m the row
+    max, p = exp(s - m) in f32, l = sum(p) over the unrounded p before
+    dropout (:116-118), lse = m + ln max(l, 1e-30), and out = (bf16(p keep c)
+    @ v) / max(l, 1e-30) with f32 sums (:126-133).  The kernels round p
+    relative to the running max of the key tiles seen so far, this dense
+    version relative to the final row max: where the running max moves, a p
+    can land one bf16 step apart."""
+    s, _ = _logits(q, k, scale)
+    keep = (dropout_multiplier(seed, *s.shape, dropout, s.device, bh0)
+            if dropout > 0.0 else None)
+    return forward_from_logits(s, v, keep, q.dtype == torch.bfloat16)
 
 
-def _bf16(t):
-    """f32 values rounded to bf16 (nearest even) and widened back: the bf16
-    operand of one MXU pass."""
-    return t.to(torch.bfloat16).float()
+def forward_from_logits(s, v, keep, low: bool):
+    """``flash_attention_reference`` from the logits s of ``_logits``:
+    ``keep`` the dropout multiplier (or None), ``low`` the bf16 rules."""
+    if not low:
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.softmax(s, dim=-1)
+        if keep is not None:
+            p = p * keep
+        return torch.matmul(p, v.float()), lse
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if keep is not None:
+        p = p * keep
+    return torch.matmul(_bf16(p), v.float()) / l, (m + torch.log(l)).squeeze(-1)
+
+
+def forward_tile_rounded(s, v, keep):
+    """bf16 K1's rounding emulated densely, for the checks: from the logits s
+    of ``_logits``, p rounded to bf16 relative to the running row max after
+    each key tile of the kernel's width (csrc/flash_fwd_tc.cuh::fwd_key_tile),
+    in the exp2 domain; l and the rescaling as the kernel's online softmax.
+    ``keep`` the dropout multiplier (or None).  Returns that out, and the
+    control: the same with p * keep * c left unrounded, what a kernel that
+    skipped the rounding computes."""
+    bk = 64 if v.shape[-1] <= 64 else 32
+    bh, lq, lk = s.shape
+    nt, pad = -(-lk // bk), -lk % bk
+    tiles = F.pad(s * _LOG2E, (0, pad), value=float("-inf")).view(bh, lq, nt, bk)
+    m = tiles.amax(-1).cummax(-1).values                  # the running max after each tile
+    p = torch.exp2(tiles - m[..., None])
+    del tiles
+    rescale = torch.exp2(m - m[..., -1:])[..., None]
+    l = (p * rescale).sum((-1, -2))[..., None].clamp_min(1e-30)
+    if keep is not None:
+        p = p * F.pad(keep, (0, pad)).view(bh, lq, nt, bk)
+    vt = F.pad(v.float(), (0, 0, 0, pad)).view(bh, nt, bk, -1)
+    return tuple(torch.einsum("bqtk,btkd->bqd", x * rescale, vt) / l for x in (_bf16(p), p))
 
 
 def flash_attention_backward_reference(q, k, v, dout, lse, delta, scale: float,
@@ -144,13 +211,8 @@ def flash_attention_backward_reference(q, k, v, dout, lse, delta, scale: float,
     p * keep * c for dv (:386)."""
     kf, vf = k.float(), v.float()
     low = q.dtype == torch.bfloat16
-    if low:
-        scale_bf16 = float(torch.tensor(scale).to(torch.bfloat16))
-        qs, do = _bf16(q.float() * scale_bf16), _bf16(dout.float())
-        s = torch.matmul(qs, kf.transpose(1, 2))
-    else:
-        qs, do = q.float(), dout.float()
-        s = torch.matmul(qs, kf.transpose(1, 2)) * scale
+    s, qs = _logits(q, k, scale)
+    do = _bf16(dout.float()) if low else dout.float()
     p = torch.exp(s - lse[..., None])
     g = torch.matmul(do, vf.transpose(1, 2))
     pk = p
@@ -223,8 +285,9 @@ def _require_cuda(q, what: str, plain: str) -> None:
 
 
 def _check_copyable(*tensors) -> None:
-    """The kv-resident kernels stream rows with cp.async copies of 4, 8 or 16
-    bytes: every row start must be 4-byte aligned."""
+    """The f32 kv-resident kernels stream rows with cp.async copies of 4, 8 or
+    16 bytes: every row start must be 4-byte aligned.  (The bf16 ones load
+    unaligned rows through registers: no check.)"""
     for t in tensors:
         row = t.shape[-1] * t.element_size()
         if row % 4 or t.data_ptr() % 4:
@@ -334,12 +397,13 @@ flash_attention.launches = 0
 
 def flash_attention_kvres(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
     """K1': ``flash_attention``'s function with K/V streamed through a
-    cp.async ring, on CUDA tensors whose K/V rows are 4-byte aligned (d * elt
-    a multiple of 4; ValueError otherwise)."""
+    cp.async ring, on CUDA tensors (f32 K/V rows 4-byte aligned; ValueError
+    otherwise)."""
     _check(q, k, v)
     _check_dropout(dropout, seed)
     _require_cuda(q, "flash_attention_kvres", "flash_attention_reference")
-    _check_copyable(k, v)
+    if q.dtype == torch.float32:
+        _check_copyable(k, v)
     out, lse = _launch_fwd("flash_fwd_kvres", q, k, v, scale, dropout, seed)
     flash_attention_kvres.launches += 1
     return out, lse
@@ -349,8 +413,9 @@ flash_attention_kvres.launches = 0
 
 
 def _k2_dout(q, dout):
-    """do as K2's kernels read it: f32 beside f32 q, and cast once to bf16
-    beside bf16 q (the tensor-core kernels' operand, JAX's MXU pass of do)."""
+    """do as the K2 and K2' kernels read it: f32 beside f32 q, and cast once
+    to bf16 beside bf16 q (the tensor-core kernels' operand, JAX's MXU pass of
+    do)."""
     return dout.to(torch.bfloat16) if q.dtype == torch.bfloat16 else dout
 
 
@@ -388,12 +453,13 @@ flash_bwd_dkv.launches = 0
 def flash_bwd_dq_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                        seed: int = 0):
     """K2' dq: ``flash_bwd_dq``'s function with K/V streamed through a
-    cp.async ring (K/V rows 4-byte aligned)."""
+    cp.async ring (f32 K/V rows 4-byte aligned)."""
     _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
     _require_cuda(q, "flash_bwd_dq_kvres", "flash_attention_backward_reference")
-    _check_copyable(k, v)
-    dq = _launch_dq("flash_bwd_kvres", "buctd_flash_bwd_dq_kvres", q, k, v, dout, lse,
-                    delta, scale, dropout, seed)
+    if q.dtype == torch.float32:
+        _check_copyable(k, v)
+    dq = _launch_dq("flash_bwd_kvres", "buctd_flash_bwd_dq_kvres", q, k, v,
+                    _k2_dout(q, dout), lse, delta, scale, dropout, seed)
     flash_bwd_dq_kvres.launches += 1
     return dq
 
@@ -404,12 +470,13 @@ flash_bwd_dq_kvres.launches = 0
 def flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                         seed: int = 0):
     """K2' dk/dv: ``flash_bwd_dkv``'s function with q, do, lse and delta
-    streamed through a cp.async ring (q rows 4-byte aligned)."""
+    streamed through a cp.async ring (f32 rows 4-byte aligned)."""
     _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
     _require_cuda(q, "flash_bwd_dkv_kvres", "flash_attention_backward_reference")
-    _check_copyable(q, dout, lse, delta)
-    dk, dv = _launch_dkv("flash_bwd_kvres", "buctd_flash_bwd_dkv_kvres", q, k, v, dout,
-                         lse, delta, scale, dropout, seed)
+    if q.dtype == torch.float32:
+        _check_copyable(q, dout, lse, delta)
+    dk, dv = _launch_dkv("flash_bwd_kvres", "buctd_flash_bwd_dkv_kvres", q, k, v,
+                         _k2_dout(q, dout), lse, delta, scale, dropout, seed)
     flash_bwd_dkv_kvres.launches += 1
     return dk, dv
 

@@ -1,11 +1,13 @@
-"""K2's bf16 tensor-core kernels (csrc/flash_bwd.cu) at the training step's
-shapes against variants of their launch choices, on one CUDA card.
+"""K2's bf16 tensor-core kernels (csrc/flash_bwd_tc.cuh, launched by
+csrc/flash_bwd.cu) at the training step's shapes against variants of their
+launch choices, on one CUDA card.
 
     python -m buctd_tpu_torch.tools.bench_flash_bwd [--rounds 2] [--seed 3]
 
-Each variant is csrc/flash_bwd.cu with one choice changed, built with nvcc
-into buctd_tpu_torch/_build/variants/<name>/ (git ignores it); ptxas's
-registers and spills of the bf16 kernels are printed for each:
+Each variant is csrc/flash_bwd_tc.cuh with one choice changed, written beside
+a copy of csrc/flash_bwd.cu into buctd_tpu_torch/_build/variants/<name>/ (git
+ignores it) and built there with nvcc; ptxas's registers and spills of the
+bf16 kernels are printed for each:
 
   shipped  the source as it is: dk/dv held to 3 blocks a SM at d <= 48;
   no_cap   dk/dv keeps its registers at every d (2 blocks a SM at d = 48);
@@ -47,15 +49,18 @@ VARIANTS = {
 }
 
 
+HEADER = "flash_bwd_tc.cuh"
+
+
 def variant_source(name: str) -> str:
-    """csrc/flash_bwd.cu with the variant's substitutions, each of which must
-    apply."""
+    """csrc/flash_bwd_tc.cuh with the variant's substitutions, each of which
+    must apply."""
     from .. import _build
 
-    text = (_build.CSRC / "flash_bwd.cu").read_text()
+    text = (_build.CSRC / HEADER).read_text()
     for old, new in VARIANTS[name]:
         if old not in text:
-            raise RuntimeError(f"variant {name}: {old!r} is not in csrc/flash_bwd.cu")
+            raise RuntimeError(f"variant {name}: {old!r} is not in csrc/{HEADER}")
         text = text.replace(old, new)
     return text
 
@@ -69,7 +74,10 @@ def build_variants(names) -> dict:
     for name in names:
         out = _build.BUILD_DIR / "variants" / name
         out.mkdir(parents=True, exist_ok=True)
-        (out / "flash_bwd.cu").write_text(variant_source(name))
+        # the quoted include of the header finds the variant's copy beside
+        # flash_bwd.cu first; the other headers come from csrc/
+        (out / HEADER).write_text(variant_source(name))
+        (out / "flash_bwd.cu").write_text((_build.CSRC / "flash_bwd.cu").read_text())
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                "-o", str(out / "libflash_bwd.so"), str(out / "flash_bwd.cu")]
         jobs[name] = (out / "libflash_bwd.so",

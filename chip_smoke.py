@@ -11,20 +11,26 @@ port's benchmarks of the fused basic block (K5) and exp throughput (K6).
 
 Phases (each raises on failure; nothing is caught):
   0. build every kernel under buctd_tpu_torch/csrc/ with nvcc for sm_90a (one
-     nvcc per source, all started together); in K2's SASS (cuobjdump), HMMA
-     in every tensor-core kernel and in no SIMT one;
-  1. kernels, serving shapes: K1 (flash-attention forward) vs its plain version
-     at the CoAM-W48 shapes (16 crops, as predict_batch gives them, and 8) in
-     f32 and bf16 plus a ragged case; kernel, plain and
-     F.scaled_dot_product_attention times beside the card's bound;
+     nvcc per source, all started together); in the SASS (cuobjdump) of the
+     four flash libraries, HMMA in every bf16 tensor-core kernel and in no
+     SIMT one;
+  1. kernels, serving shapes: K1 (flash-attention forward: f32 SIMT, bf16 on
+     the tensor cores) vs its plain version at the CoAM-W48 shapes (16 crops,
+     as predict_batch gives them, and 8) in f32 and bf16 plus a ragged case
+     (bf16 against the plain forward that rounds where it does, within
+     K1_BF16_RTOL, and against the rounding at the kernel's running tile max,
+     within K1_BF16_TILED_RMS, which p left unrounded misses); kernel, plain and F.scaled_dot_product_attention times
+     beside the card's bound;
   2. kernels, training shapes: K1 and K2 (flash backward: the dq and the dk/dv
      kernels; f32 SIMT, bf16 on the tensor cores) at the shapes a batch-32
      train step gives them, f32 and bf16, dropout 0 and 0.1, vs their plain
-     versions over BH chunks (bf16 K2 against the plain backward that rounds
-     where it does, and its distance to the f32 plain version printed), and
-     K4 (rotated warp); their bf16 times beside K2's SIMT times before the
-     tensor-core kernels, the tensor-core, MUFU and dropout-hash floors and
-     SDPA's backward alone;
+     versions over BH chunks (bf16 against the plain versions that round
+     where they do, K2's distance to the f32 plain version printed, and rows
+     of exp(s' - lse) from bf16 K1 summing to 1), and K4 (rotated warp); their
+     bf16 times beside the f32 SIMT kernels' on the widened operands (what
+     bf16 ran before its tensor-core kernels), the
+     tensor-core, MUFU and dropout-hash floors, SDPA's forward and SDPA's
+     backward alone;
   3. serving: CoAM-W48 crowdpose 384x288 (14 joints, random weights from
      torch.manual_seed), ``predict`` on a 480x640 image with 4 condition poses
      and ``predict_batch`` on 3 images; finite outputs of the right shapes, the
@@ -35,7 +41,8 @@ Phases (each raises on failure; nothing is caught):
      autocast, attention dropout 0.1, the device loader; ms/step, images/s,
      data-wait per step, the launch counts of K1, K2 and K4 in that run; the
      loss over a repeated batch (finite, falling); a profile of one step,
-     which must name K2's two tensor-core kernels and no SIMT K2 kernel;
+     which must name K1's and K2's tensor-core kernels and no SIMT K1 or K2
+     kernel;
   5. one f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
      same step on the CPU: loss, the gradients (all, and the position
      attention's alone), BN running statistics; the step's K2 calls vs
@@ -44,11 +51,11 @@ Phases (each raises on failure; nothing is caught):
      serving shapes, the eval shapes (64 = 2 x 32 flip-test crops) in f32 and
      bf16 and a ragged case, and vs K1; at the training shapes (BH 32), f32
      and bf16, dropout 0.1: K1' and K2' (dq, dk/dv) vs the plain versions
-     (over BH chunks, each with its rows' dropout mask; K2' rounds nothing, so
-     in bf16 against the f32 plain version of the widened operands) and vs
-     K1/K2 (bf16 K2 within KVRES_BF16_GAP_RTOL); times of
-     each beside K1's/K2's (A/B in turns: old, new, new, old), the plain
-     version's, the bound and SDPA's;
+     (over BH chunks, each with its rows' dropout mask; K1's and K2's gates)
+     and vs K1/K2 (f32 at their gates, bf16 bit for bit: the same tensor-core
+     kernels with a deeper ring); an odd head dim in bf16 under
+     BUCTD_FLASH_KVRES=1; times of each beside K1's/K2's (A/B in turns: old,
+     new, new, old), the plain version's, the bound and SDPA's;
   7. evaluation: ``buctd_tpu_torch.valid.run`` on a seeded synthetic
      CrowdPose test set (64 480x640 images x 4 people = 256 crops = 8 batches
      of 32) from a BU-prediction json, with N(0, 1/fan_in) weights saved as a
@@ -104,8 +111,34 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores: the kernel's f32 path
             "bfloat16": 989e12}    # dense bf16 tensor cores
 # kernel vs plain: both sum in f32, in another order, over up to 6912 keys
-# (measured ~1e-6 on randn inputs); bf16 inputs widen exactly to f32 on both sides
+# (measured ~1e-6 on randn inputs).  The lse of bf16 K1 takes this gate too: its
+# sum l is never rounded
 KERNEL_ATOL = KERNEL_RTOL = 2e-5
+# bf16 K1 (the tensor-core kernel) vs the plain forward that rounds q' and
+# p * keep * c where it does: out within K1_BF16_RTOL x max |out|, for f32 sums
+# in another order and one-bf16-step flips of a rounded p * keep * c where
+# exp2 and exp, or the kernel's running row max (64- or 32-key tiles) and the
+# plain version's final one, differ.  The last dominates: every p of a tile
+# seen before the row's final max is rounded independently of the plain
+# version's, a relative 2^-9 each, so the error is about 1.6e-3 of the rms of
+# out at any L, and its max about that of max |out| (measured by this script
+# on an H100: 1.02e-3 to 2.12e-3 at the serving, eval and training shapes,
+# dropout 0 and 0.1).  That leaves the rounding itself ungated: a kernel that
+# skipped it would land as far from the dense plain version
+K1_BF16_RTOL = 4e-3
+# so bf16 K1 and K1' are also held to forward_tile_rounded, which rounds p at the
+# kernel's running tile max: the rms of out - that, relative to its rms, within
+# K1_BF16_TILED_RMS (f32 sums in another order, and one-step flips where exp2
+# rounds differently).  Its control, the same with p unrounded, must miss by
+# more at every check, so the gate tells the rounding from its absence
+# (measured by this script on an H100 at every bf16 K1/K1' check, two runs:
+# the kernels 1.64e-5 to 4.05e-5, the control 1.338e-3 to 1.668e-3)
+K1_BF16_TILED_RMS = 2e-4
+# rows of exp(s' - lse), s' = q' k^T the logits K2 recomputes and lse from bf16
+# K1 or K1', sum to 1 within ROWSUM_ATOL: s' summed in f32 in another order on
+# both sides (the forward that rounded nothing missed by 1.7e-3 to 4.6e-3 on
+# the CPU)
+ROWSUM_ATOL = 1e-4
 # card vs CPU forward, f32 with TF32 off on the card: convolution algorithms
 # and attention sums differ in order; relative to the heatmaps' peak
 FORWARD_RTOL = 1e-4
@@ -151,21 +184,14 @@ DROPOUT = 0.1
 # the training shapes)
 BWD_ATOL = BWD_RTOL = 1e-4
 K2_BF16_RTOL = 2e-3
-# K2' rounds nothing (exact f32 on widened bf16 operands), so against bf16 K2
-# their gap is the bf16 rounding itself: the rounding plain backward against
-# the f32 one, 3.0e-3 to 1.7e-2 of the max on the CPU (randn inputs, L
-# 700-6912, d 48-112, dropout 0 and 0.1), 4.4e-3 to 9.3e-3 for bf16 K2 on an
-# H100 at the training shapes
-KVRES_BF16_GAP_RTOL = 4e-2
+# bf16 K1'/K2' vs bf16 K1/K2: the same tensor-core kernels with a deeper ring,
+# which changes no arithmetic: bit for bit (max |gap| KVRES_BF16_GAP)
+KVRES_BF16_GAP = 0.0
 # what else bounds a bf16 backward kernel, besides its products and bytes:
 # one MUFU.EX2 per (row, key) pair, 16 a clock on each SM, and with dropout
 # the hash of csrc/dropout_hash.cuh, about HASH_INT_OPS integer operations a
 # pair at 64 a clock on each SM; at nvidia-smi's clocks.max.sm
 SMS, EX2_PER_SM_CLOCK, INT_PER_SM_CLOCK, HASH_INT_OPS = 132, 16, 64, 10
-# K2's bf16 times before its tensor-core kernels (the SIMT kernels, operands
-# widened to f32), summed over TRAIN_CASES at BH 32, dropout 0.1: PERF.md's
-# kernel table, NVIDIA H100 80GB HBM3 at 700 W
-K2_SIMT_BF16_MS = {"dq": 20.8487, "dkv": 36.1050}
 # K4 vs its plain version on 0..255 images: two tent taps against the dense
 # tent sum, both f32; a few ulps of 255
 WARP_ATOL = 2e-3
@@ -178,6 +204,9 @@ EVAL_CASES = [(2 * EVAL_BATCH, 6912, 6912, 48), (2 * EVAL_BATCH, 1728, 1728, 96)
 EVAL_IMAGES = 64                        # x 4 people = 256 crops = 8 batches of 32
 EVAL_ROUNDS = 3
 KVRES_TRAIN_STEPS = 3
+# odd head dim for the bf16 kv-resident check under BUCTD_FLASH_KVRES=1: rows of
+# 94 bytes, which the bf16 kernels load through registers
+KVRES_ODD_CASE = (8, 1728, 47)
 # K1 vs K1' heatmaps of one eval batch: the same sums in another tile order
 KVRES_HM_RTOL = 1e-5
 PRENET_CONFIG = ROOT / "experiments" / "crowdpose" / "buctd" / "prenet_w48_384x288.yaml"
@@ -203,15 +232,23 @@ PRENET_PX_TOL = 0.01
 TOOL_CHAIN, TOOL_ROUNDS, TOOL_STEM_BATCH = 5, 2, 32
 
 
-def k2_hmma_counts() -> dict:
+# the flash libraries and their SIMT (f32) kernels: every other kernel in them
+# is a bf16 tensor-core kernel (``_tc_kernel``)
+FLASH_SIMT = {"flash_fwd": ("flash_fwd_kernel",),
+              "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+              "flash_fwd_kvres": ("flash_fwd_kvres_kernel",),
+              "flash_bwd_kvres": ("flash_bwd_dq_kvres_kernel", "flash_bwd_dkv_kvres_kernel")}
+
+
+def hmma_counts(lib: str) -> dict:
     """HMMA (tensor-core) instructions in the SASS of each kernel of the
-    built K2 library (cuobjdump -sass), by mangled function name."""
+    built library ``lib`` (cuobjdump -sass), by mangled function name."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from buctd_tpu_torch import _build
 
     tool = shutil.which("cuobjdump") or str(Path(CUDA_HOME) / "bin" / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("flash_bwd"))],
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -222,6 +259,20 @@ def k2_hmma_counts() -> dict:
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def check_sass() -> None:
+    """In every flash library, HMMA in each bf16 tensor-core kernel and in
+    none of the SIMT ones."""
+    for lib, simt_names in FLASH_SIMT.items():
+        hmma = hmma_counts(lib)
+        tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f}
+        simt = {f: n for f, n in hmma.items() if any(k in f for k in simt_names)}
+        print(f"{lib} SASS: {len(tc)} tensor-core kernels, HMMA {min(tc.values(), default=0)}-"
+              f"{max(tc.values(), default=0)} each; {len(simt)} SIMT kernels, HMMA "
+              f"{sum(simt.values())} in all", flush=True)
+        if not tc or min(tc.values()) == 0 or not simt or sum(simt.values()):
+            raise AssertionError(f"{lib}'s SASS: tensor-core kernels {tc}, SIMT kernels {simt}")
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -266,10 +317,9 @@ def kernel_phase(torch, F, fa) -> dict:
             scale = d ** -0.5
             out, lse = fa.flash_attention(q, k, v, scale)
             torch.cuda.synchronize()
-            ref_out, ref_lse = fa.flash_attention_reference(q, k, v, scale)
-            torch.testing.assert_close(out, ref_out, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-            torch.testing.assert_close(lse, ref_lse, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-            err = max((out - ref_out).abs().max().item(), (lse - ref_lse).abs().max().item())
+            errs, note = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, 0.0, 0,
+                                           PLAIN_BH.get(lq, bh))
+            err = max(errs)
             worst = max(worst, err)
             ms = timed_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
             plain_ms = timed_ms(lambda: fa.flash_attention_reference(q, k, v, scale), 5)
@@ -277,8 +327,9 @@ def kernel_phase(torch, F, fa) -> dict:
             lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
                               10)
             bound, by = flash_bound_ms(bh, lq, lk, d, name)
-            print(f"K1 flash_fwd ({bh}, {lq}, {lk}, {d}) {name}: max_abs_err {err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            print(f"K1 flash_fwd ({bh}, {lq}, {lk}, {d}) {name}: max_abs_err {err:.3e}"
+                  f"{note.get('text', '')} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"{lib_ms:.4f} ms, "
                   f"bound {bound:.4f} ms ({by}), "
                   f"{4.0 * bh * lq * lk * d / ms / 1e9:.2f} TFLOP/s", flush=True)
             if (bh, lq, lk, d) in MAIN_CASES and dtype == torch.float32:
@@ -287,7 +338,7 @@ def kernel_phase(torch, F, fa) -> dict:
                 main["library_ms"] += lib_ms
                 main["bound_ms"] += bound
                 main["ops_ms"] += 4.0 * bh * lq * lk * d / PEAK_OPS[name] * 1e3
-            del q, k, v, q4, k4, v4, out, lse, ref_out, ref_lse
+            del q, k, v, q4, k4, v4, out, lse
     torch.cuda.empty_cache()
     main["max_abs_err"] = worst
     return main
@@ -300,24 +351,25 @@ def chunked(fn, bh: int, chunk: int, *tensors):
         fn(*(t[i:i + chunk] for t in tensors))
 
 
-# the L x L x d matrix products of each backward kernel (2 operations per
-# multiply-add): dq recomputes s = q k^T and g = do v^T and forms ds k; dk/dv
-# recompute s and g and form (p keep)^T do and ds^T q.  Outputs: f32 gradients.
-BWD_PRODUCTS = {"dq": 3, "dkv": 4}
+# the L x L x d matrix products of each flash kernel (2 operations per
+# multiply-add): the forward forms s = q k^T and p v; dq recomputes s and
+# g = do v^T and forms ds k; dk/dv recompute s and g and form (p keep)^T do and
+# ds^T q.  Backward outputs: f32 gradients.
+FLASH_PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
 BWD_OUTPUTS = {"dq": 1, "dkv": 2}
 
 
-def bwd_ops(bh, l, d, kind) -> float:
-    return 2.0 * BWD_PRODUCTS[kind] * bh * l * l * d
+def flash_ops(bh, l, d, kind) -> float:
+    return 2.0 * FLASH_PRODUCTS[kind] * bh * l * l * d
 
 
 def bwd_bound_ms(bh, l, d, elt, kind) -> tuple:
-    """Least time of one backward kernel: its operations (``bwd_ops``) over
+    """Least time of one backward kernel: its operations (``flash_ops``) over
     the peak for the operands' type, or its bytes (q, k, v in their type; do,
     lse, delta read and the f32 gradients written) over the memory rate."""
     nbytes = 3 * elt * bh * l * d + 4 * bh * l * (d + 2) + 4 * BWD_OUTPUTS[kind] * bh * l * d
     peak = PEAK_OPS["float32" if elt == 4 else "bfloat16"]
-    t_ops, t_bytes = bwd_ops(bh, l, d, kind) / peak, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = flash_ops(bh, l, d, kind) / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -349,12 +401,12 @@ def warp_read_pixels(torch, tw, trans, hw, out_hw) -> int:
     return total
 
 
-def bwd_floors_ms(bh, l, d, kind, clock_hz: float, dropout: float) -> dict:
-    """The floors of one bf16 backward kernel, ms: its products at the bf16
+def flash_floors_ms(bh, l, d, kind, clock_hz: float, dropout: float) -> dict:
+    """The floors of one bf16 flash kernel, ms: its products at the bf16
     tensor-core peak, its exp2s at the MUFU rate and, with dropout, its
     hashes at the integer rate (one of each per (row, key) pair)."""
     pairs = bh * l * l
-    return {"tensor": bwd_ops(bh, l, d, kind) / PEAK_OPS["bfloat16"] * 1e3,
+    return {"tensor": flash_ops(bh, l, d, kind) / PEAK_OPS["bfloat16"] * 1e3,
             "mufu": pairs / (EX2_PER_SM_CLOCK * SMS * clock_hz) * 1e3,
             "hash": (HASH_INT_OPS * pairs / (INT_PER_SM_CLOCK * SMS * clock_hz) * 1e3
                      if dropout > 0.0 else 0.0)}
@@ -365,10 +417,14 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
 
     K1 and K2 at TRAIN_CASES (BH 32), f32 and bf16, dropout 0 and 0.1, against
     the plain versions over BH chunks (the kernels and the plain versions draw
-    the same hash mask): K1 and f32 K2 at KERNEL_ATOL/RTOL and BWD_ATOL/RTOL,
-    bf16 K2 within K2_BF16_RTOL x max |grad| of the rounding plain backward,
-    its distance to the f32 plain version printed.  Then timed at BH 32 in
-    bf16 (the autocast step's operands), dropout 0.1.  Library yardsticks:
+    the same hash mask): f32 K1 and K2 at KERNEL_ATOL/RTOL and BWD_ATOL/RTOL;
+    bf16 K1 (check_fwd_chunked: lse at KERNEL_ATOL/RTOL, out within
+    K1_BF16_RTOL x max |out| and K1_BF16_TILED_RMS, rows of exp(s' - lse)
+    within ROWSUM_ATOL of 1) and K2 (within K2_BF16_RTOL x max |grad|) against
+    the plain versions that round where they do, K2's distance to the f32
+    plain version printed.  Then timed at BH 32 in bf16 (the autocast step's
+    operands), dropout 0.1, beside the f32 SIMT kernels on the widened
+    operands and the tensor-core, MUFU and dropout-hash floors of each.  Library yardsticks:
     SDPA's forward (K1) and SDPA's backward alone (K2: dq, dk and dv, the
     function of K2's two kernels), with dropout 0.1; F.grid_sample for K4, a
     one-pass bilinear warp, which is NOT the same function when rotated.
@@ -377,7 +433,8 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "bf16_rel": 0.0, "f32_gap": 0.0}
+    res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "bf16_rel": 0.0, "f32_gap": 0.0,
+           "fwd_bf16_rel": 0.0, "rowsum": 0.0, "tiled": 0.0, "control": float("inf")}
     seed = 1234
     for bh, lq, d in TRAIN_CASES:
         chunk = PLAIN_BH[lq]
@@ -388,9 +445,12 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
             scale = d ** -0.5
             for p in (0.0, DROPOUT):
                 out, lse = fa.flash_attention(q, k, v, scale, p, seed)
-                fwd = check_chunked(torch, (out, lse), lambda i, a, b, c:
-                                    fa.flash_attention_reference(a, b, c, scale, p, seed,
-                                                                 bh0=i), bh, chunk, q, k, v)
+                fwd, fnote = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, p, seed,
+                                               chunk)
+                res["fwd_bf16_rel"] = max(res["fwd_bf16_rel"], fnote.get("rel", 0.0))
+                res["rowsum"] = max(res["rowsum"], fnote.get("rowsum", 0.0))
+                res["tiled"] = max(res["tiled"], fnote.get("tiled", 0.0))
+                res["control"] = min(res["control"], fnote.get("control", float("inf")))
                 delta = (do * out).sum(-1)
                 dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, p, seed)
                 dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, p, seed)
@@ -425,18 +485,18 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
                 res["dq_err"] = max(res["dq_err"], err[0])
                 res["dkv_err"] = max(res["dkv_err"], err[1], err[2])
                 print(f"K1+K2 check ({bh}, {lq}, {d}) {str(dtype)[6:]} dropout {p}: out "
-                      f"{fwd[0]:.3e} lse {fwd[1]:.3e}; K2 vs plain {note}", flush=True)
+                      f"{fwd[0]:.3e}{fnote.get('text', '')} lse {fwd[1]:.3e}; K2 vs plain "
+                      f"{note}", flush=True)
                 del out, lse, delta, dq, dk, dv
             del q, k, v, do
             torch.cuda.empty_cache()
 
     clock = sm_clock_hz()
     for name in ("fwd", "dq", "dkv"):
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "simt_ms"):
             res[f"{name}_{key}"] = 0.0
-    for kind in ("dq", "dkv"):
         for floor in ("tensor", "mufu", "hash"):
-            res[f"{kind}_{floor}_ms"] = 0.0
+            res[f"{name}_{floor}_ms"] = 0.0
     for bh, lq, d in TRAIN_CASES:
         q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
@@ -460,6 +520,18 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
                 delta), 2),
         }
         t["dkv_plain_ms"] = t["dq_plain_ms"]   # one plain backward makes dq, dk and dv
+        # the f32 SIMT kernels on the widened operands: what bf16 ran before
+        # its tensor-core kernels
+        qf, kf, vf = q.float(), k.float(), v.float()
+        out32, lse32 = fa.flash_attention(qf, kf, vf, scale, DROPOUT, seed)
+        delta32 = (do * out32).sum(-1)
+        t["fwd_simt_ms"] = timed_ms(lambda: fa.flash_attention(qf, kf, vf, scale, DROPOUT,
+                                                               seed), 3)
+        t["dq_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dq(qf, kf, vf, do, lse32, delta32,
+                                                           scale, DROPOUT, seed), 3)
+        t["dkv_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dkv(qf, kf, vf, do, lse32, delta32,
+                                                             scale, DROPOUT, seed), 3)
+        del qf, kf, vf, out32, lse32, delta32
         q4, k4, v4 = (x[:, None].detach().clone().requires_grad_() for x in (q, k, v))
 
         def sdpa_fwd():
@@ -471,13 +543,11 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
         # SDPA's backward alone: dq, dk, dv from the saved forward, dropout 0.1
         t["dq_library_ms"] = t["dkv_library_ms"] = timed_ms(
             lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 10)
-        bound_f, by_f = flash_bound_ms(bh, lq, lq, d, "bfloat16")
-        t.update({"fwd_bound_ms": bound_f,
-                  "fwd_ops_ms": 4.0 * bh * lq * lq * d / PEAK_OPS["bfloat16"] * 1e3})
         floors = {}
-        for kind in ("dq", "dkv"):
-            floors[kind] = bwd_floors_ms(bh, lq, d, kind, clock, DROPOUT)
-            bytes_bound, _ = bwd_bound_ms(bh, lq, d, 2, kind)
+        for kind in ("fwd", "dq", "dkv"):
+            floors[kind] = flash_floors_ms(bh, lq, d, kind, clock, DROPOUT)
+            bytes_bound = (flash_bound_ms(bh, lq, lq, d, "bfloat16")[0] if kind == "fwd"
+                           else bwd_bound_ms(bh, lq, d, 2, kind)[0])
             t[f"{kind}_ops_ms"] = max(floors[kind].values())
             t[f"{kind}_bound_ms"] = max(t[f"{kind}_ops_ms"], bytes_bound)
             t.update({f"{kind}_{f}_ms": ms for f, ms in floors[kind].items()})
@@ -489,17 +559,26 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
             return ", ".join(f"{f} {ms:.4f}" for f, ms in floors[kind].items())
 
         print(f"train kernels ({bh}, {lq}, {d}) bf16 dropout {DROPOUT}: K1 {t['fwd_ms']:.4f} ms "
-              f"(plain {t['fwd_plain_ms']:.4f}, sdpa {t['fwd_library_ms']:.4f}, bound "
-              f"{bound_f:.4f} {by_f}, f32-core bound {f32core:.4f}); K2 dq {t['dq_ms']:.4f} ms "
+              f"(plain {t['fwd_plain_ms']:.4f}, sdpa {t['fwd_library_ms']:.4f}, floors: "
+              f"{floor_text('fwd')}, f32-core bound {f32core:.4f}); K2 dq {t['dq_ms']:.4f} ms "
               f"(floors: {floor_text('dq')}), dkv {t['dkv_ms']:.4f} ms (floors: "
               f"{floor_text('dkv')}); plain backward {t['dq_plain_ms']:.4f} ms; sdpa backward "
               f"alone {t['dq_library_ms']:.4f} ms", flush=True)
         del q, k, v, do, out, lse, delta, q4, k4, v4, out4, do4
         torch.cuda.empty_cache()
+    print(f"K1 bf16 over {TRAIN_CASES} at SM clock {clock / 1e6:.0f} MHz, dropout "
+          f"{DROPOUT}: {res['fwd_ms']:.4f} ms (SIMT f32 kernel on the widened operands {res['fwd_simt_ms']:.4f}); floors "
+          f"tensor {res['fwd_tensor_ms']:.4f} mufu {res['fwd_mufu_ms']:.4f} hash "
+          f"{res['fwd_hash_ms']:.4f}, bound {res['fwd_bound_ms']:.4f} ms; SDPA forward "
+          f"{res['fwd_library_ms']:.4f} ms, K1 / SDPA forward "
+          f"{res['fwd_ms'] / res['fwd_library_ms']:.3f}; worst bf16 check {res['fwd_bf16_rel']:.3e} "
+          f"of max |out| (limit {K1_BF16_RTOL:.0e}), vs the tile rounding rms {res['tiled']:.3e} "
+          f"(limit {K1_BF16_TILED_RMS:.0e}; unrounded control {res['control']:.3e} at least), "
+          f"rows of exp(s' - lse) within {res['rowsum']:.3e} of 1", flush=True)
     k2_ms = res["dq_ms"] + res["dkv_ms"]
     print(f"K2 bf16 over {TRAIN_CASES} at SM clock {clock / 1e6:.0f} MHz: dq "
-          f"{res['dq_ms']:.4f} ms (SIMT before: {K2_SIMT_BF16_MS['dq']}), dkv "
-          f"{res['dkv_ms']:.4f} ms (SIMT before: {K2_SIMT_BF16_MS['dkv']}); floors dq tensor "
+          f"{res['dq_ms']:.4f} ms (SIMT {res['dq_simt_ms']:.4f}), dkv "
+          f"{res['dkv_ms']:.4f} ms (SIMT {res['dkv_simt_ms']:.4f}); floors dq tensor "
           f"{res['dq_tensor_ms']:.4f} mufu {res['dq_mufu_ms']:.4f} hash {res['dq_hash_ms']:.4f}, "
           f"dkv tensor {res['dkv_tensor_ms']:.4f} mufu {res['dkv_mufu_ms']:.4f} hash "
           f"{res['dkv_hash_ms']:.4f}; SDPA backward alone {res['dq_library_ms']:.4f} ms, "
@@ -777,8 +856,19 @@ def training_phase(torch, np, fa, tw) -> dict:
               f"SIMT K2 kernels seen: {simt}", flush=True)
         if not (k2["dq"] > 0 and k2["dkv"] > 0) or simt:
             raise AssertionError(f"the bf16 step's K2 kernels: tensor-core {k2}, SIMT {simt}")
+        # and its bf16 forward runs K1's tensor-core kernel, never the SIMT
+        # flash_fwd_kernel
+        k1_tc = sum(ms for key, ms in by_name.items() if "flash_fwd_tc_kernel" in key)
+        k1_simt = [key for key in by_name if "flash_fwd_kernel" in key]
+        print(f"K1 in the profiled step: flash_fwd_tc_kernel {k1_tc:.3f} ms = "
+              f"{100 * k1_tc / total:.1f}% of kernel time; SIMT K1 kernels seen: {k1_simt}",
+              flush=True)
+        if not k1_tc > 0 or k1_simt:
+            raise AssertionError(f"the bf16 step's K1 kernels: tensor-core {k1_tc} ms, "
+                                 f"SIMT {k1_simt}")
     return {"launches": launches, "ms_step": ms_step, "data_ms": data_ms,
-            "resident_ms": device_ms}
+            "resident_ms": device_ms, "k1_profile_ms": k1_tc,
+            "k2_profile_ms": k2["dq"] + k2["dkv"], "profile_ms": total}
 
 
 def dense_attention_grads(q, k, v, dout, scale):
@@ -916,26 +1006,117 @@ def check_chunked(torch, got, plain, bh: int, chunk: int, *tensors,
         torch.testing.assert_close, atol=atol, rtol=rtol))[0]
 
 
+def check_fwd_chunked(torch, fa, got, q, k, v, scale, p, seed, chunk) -> tuple:
+    """A forward kernel's (out, lse) at dropout p against the plain forward
+    over BH chunks (each chunk with its rows' mask): f32 at KERNEL_ATOL/RTOL.
+    bf16, from one logits tensor a chunk: lse at KERNEL_ATOL/RTOL, out within
+    K1_BF16_RTOL x max |out| of the plain forward, rows of exp(s' - lse)
+    within ROWSUM_ATOL of 1, and out within K1_BF16_TILED_RMS (relative rms)
+    of ``fa.forward_tile_rounded``, whose unrounded control must miss by
+    more.
+    Returns ([max |out err|, max |lse err|], notes)."""
+    bh = q.shape[0]
+    if q.dtype == torch.float32:
+        def plain(i, a, b, c):
+            return fa.flash_attention_reference(a, b, c, scale, p, seed, bh0=i)
+
+        return check_chunked(torch, got, plain, bh, chunk, q, k, v), {}
+    err, top, gap = [0.0, 0.0], [0.0, 0.0], 0.0
+    sq = {"ref": 0.0, "kernel": 0.0, "control": 0.0}
+    for i in range(0, bh, chunk):
+        rows = slice(i, i + chunk)
+        s, _ = fa._logits(q[rows], k[rows], scale)
+        keep = fa.dropout_multiplier(seed, *s.shape, p, s.device, i) if p > 0.0 else None
+        want = fa.forward_from_logits(s, v[rows], keep, True)
+        for j, (g, w) in enumerate(zip(got, want)):
+            err[j] = max(err[j], (g[rows] - w).abs().max().item())
+            top[j] = max(top[j], w.abs().max().item())
+        del want
+        gap = max(gap, (torch.exp(s - got[1][rows, :, None]).sum(-1) - 1).abs().max().item())
+        tiled, control = fa.forward_tile_rounded(s, v[rows], keep)
+        del s, keep
+        sq["ref"] += tiled.square().sum().item()
+        sq["kernel"] += (got[0][rows] - tiled).square().sum().item()
+        sq["control"] += (control - tiled).square().sum().item()
+        del tiled, control
+    rel = err[0] / top[0]
+    tiled_rms, control_rms = ((sq[key] / sq["ref"]) ** 0.5 for key in ("kernel", "control"))
+    text = (f" ({rel:.3e} of max, limit {K1_BF16_RTOL:.0e}; vs the tile rounding rms "
+            f"{tiled_rms:.3e}, limit {K1_BF16_TILED_RMS:.0e}, unrounded control "
+            f"{control_rms:.3e}; row sums within {gap:.3e} of 1)")
+    if not (err[1] <= KERNEL_ATOL + KERNEL_RTOL * top[1] and rel <= K1_BF16_RTOL
+            and gap <= ROWSUM_ATOL and tiled_rms <= K1_BF16_TILED_RMS < control_rms):
+        raise AssertionError(f"bf16 forward: lse {err[1]:.3e}, out{text}")
+    return err, {"rel": rel, "rowsum": gap, "tiled": tiled_rms, "control": control_rms,
+                 "text": text}
+
+
 def kvres_kernel_phase(torch, F, fa) -> dict:
     """K1' and K2' vs their plain versions and vs K1/K2, and their times.
 
-    K1': MAIN_CASES, EVAL_CASES and a ragged case in f32 and bf16, checked
-    against the plain version (KERNEL_ATOL/RTOL) and K1; timed at EVAL_CASES
-    beside K1 (the eval path's sums are the f32 ones).  At TRAIN_CASES (BH 32,
-    the training path's shapes) in f32 and bf16 with dropout 0.1: K1' (out,
-    lse) against the plain version and K1 (KERNEL_ATOL/RTOL), and K2' (dq,
-    dk, dv, from K1''s lse) against the plain backward of the widened
-    operands (BWD_ATOL/RTOL; K2' rounds nothing) and K2 (f32: BWD_ATOL/RTOL;
-    bf16 K2 rounds: KVRES_BF16_GAP_RTOL x max |grad|), the plain versions
-    over BH chunks; K2' timed at BH 32 bf16 beside K2."""
+    K1': MAIN_CASES, EVAL_CASES and a ragged case in f32 and bf16 against the
+    plain version (check_fwd_chunked: K1's gates) and K1 (f32 at
+    KERNEL_ATOL/RTOL, bf16 bit for bit); timed at EVAL_CASES beside K1 (the
+    eval path's sums are the f32 ones).  At TRAIN_CASES (BH 32, the training
+    path's shapes) in f32 and bf16 with dropout 0.1: K1' (out, lse, and in
+    bf16 the row sums) and K2' (dq, dk, dv, from K1''s lse) against the plain
+    versions over BH chunks (f32 BWD_ATOL/RTOL, bf16 K2_BF16_RTOL x max |grad|
+    of the rounding plain backward) and against K1/K2 (f32 at their gates,
+    bf16 bit for bit: KVRES_BF16_GAP); K1' and K2' timed at BH 32 bf16 beside
+    K1 and K2.  Then KVRES_ODD_CASE in bf16 under BUCTD_FLASH_KVRES=1: the
+    dispatch launches K1', which with K2' meets the same gates."""
+    import os
+
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
 
     clock = sm_clock_hz()
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {k: 0.0 for k in ("fwd_err", "dq_err", "dkv_err", "fwd_k1_gap", "bwd_k2_gap",
-                            "bwd_k2_gap_bf16")}
+                            "gap_bf16", "fwd_bf16_rel", "bwd_bf16_rel", "rowsum")}
     for key in ("fwd", "k1", "fwd_plain", "fwd_library", "fwd_bound", "fwd_ops"):
         res[f"{key}_ms"] = 0.0
+
+    def against_k1_k2(got, old, dtype, atol, rtol):
+        """gaps of K1'/K2' outputs to K1's/K2's: f32 within atol/rtol, bf16
+        bit for bit"""
+        gaps = [(g - w).abs().max().item() for g, w in zip(got, old)]
+        if dtype == torch.float32:
+            for g, w in zip(got, old):
+                torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
+        else:
+            res["gap_bf16"] = max(res["gap_bf16"], *gaps)
+            if max(gaps) > KVRES_BF16_GAP:
+                raise AssertionError(f"bf16 K1'/K2' vs K1/K2: {gaps} > {KVRES_BF16_GAP}")
+        return max(gaps)
+
+    def check_fwd_kv(out, lse, q, k, v, scale, p, seed, chunk):
+        errs, note = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, p, seed, chunk)
+        res["fwd_err"] = max(res["fwd_err"], *errs)
+        res["fwd_bf16_rel"] = max(res["fwd_bf16_rel"], note.get("rel", 0.0))
+        res["rowsum"] = max(res["rowsum"], note.get("rowsum", 0.0))
+        return errs, note
+
+    def check_bwd_kv(grads, q, k, v, do, lse, delta, scale, p, seed, chunk):
+        def plain(i, a, b, c, g, l, e):
+            return fa.flash_attention_backward_reference(a, b, c, g, l, e, scale, p, seed,
+                                                         bh0=i)
+
+        args = (q.shape[0], chunk, q, k, v, do, lse, delta)
+        if q.dtype == torch.float32:
+            errs = check_chunked(torch, grads, plain, *args, atol=BWD_ATOL, rtol=BWD_RTOL)
+            text = f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}"
+        else:
+            errs, top = chunk_errors(grads, plain, *args)
+            rel = [e / t for e, t in zip(errs, top)]
+            res["bwd_bf16_rel"] = max(res["bwd_bf16_rel"], *rel)
+            if max(rel) > K2_BF16_RTOL:
+                raise AssertionError(f"bf16 K2' vs the rounding plain backward: {rel}")
+            text = (f"dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} of max |grad| (limit "
+                    f"{K2_BF16_RTOL:.0e})")
+        res["dq_err"] = max(res["dq_err"], errs[0])
+        res["dkv_err"] = max(res["dkv_err"], errs[1], errs[2])
+        return text
+
     for bh, lq, lk, d in MAIN_CASES + EVAL_CASES + [(3, 700, 300, 112)]:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
@@ -946,17 +1127,13 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
             out, lse = fa.flash_attention_kvres(q, k, v, scale)
             torch.cuda.synchronize()
             chunk = PLAIN_BH.get(lq, bh)
-            err = max(check_chunked(torch, (out, lse), lambda i, a, b, c:
-                                    fa.flash_attention_reference(a, b, c, scale),
-                                    bh, chunk, q, k, v))
-            k1_out, k1_lse = fa.flash_attention(q, k, v, scale)
-            torch.testing.assert_close(out, k1_out, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-            torch.testing.assert_close(lse, k1_lse, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-            gap = max((out - k1_out).abs().max().item(), (lse - k1_lse).abs().max().item())
-            print(f"K1' flash_fwd_kvres ({bh}, {lq}, {lk}, {d}) {name}: max_abs_err vs "
-                  f"plain {err:.3e}, vs K1 {gap:.3e}", flush=True)
-            res["fwd_err"] = max(res["fwd_err"], err)
+            errs, note = check_fwd_kv(out, lse, q, k, v, scale, 0.0, 0, chunk)
+            gap = against_k1_k2((out, lse), fa.flash_attention(q, k, v, scale), dtype,
+                                KERNEL_ATOL, KERNEL_RTOL)
             res["fwd_k1_gap"] = max(res["fwd_k1_gap"], gap)
+            print(f"K1' flash_fwd_kvres ({bh}, {lq}, {lk}, {d}) {name}: vs plain out "
+                  f"{errs[0]:.3e}{note.get('text', '')} lse {errs[1]:.3e}, vs K1 {gap:.3e}",
+                  flush=True)
             if (bh, lq, lk, d) in EVAL_CASES:
                 k1_ms, kv_ms = ab_ms(lambda: fa.flash_attention(q, k, v, scale),
                                      lambda: fa.flash_attention_kvres(q, k, v, scale), 10)
@@ -978,7 +1155,7 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
                                       / PEAK_OPS[name] * 1e3)):
                         res[f"{key}_ms"] += val
                 del q4, k4, v4
-            del q, k, v, out, lse, k1_out, k1_lse
+            del q, k, v, out, lse
             torch.cuda.empty_cache()
 
     seed = 4321
@@ -994,50 +1171,28 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
             dq = fa.flash_bwd_dq_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed)
             dk, dv = fa.flash_bwd_dkv_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed)
             torch.cuda.synchronize()
-            fwd_errs = check_chunked(torch, (out, lse), lambda i, a, b, c:
-                                     fa.flash_attention_reference(a, b, c, scale, DROPOUT,
-                                                                  seed, bh0=i),
-                                     bh, chunk, q, k, v)
-            k1 = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
-            for got, old in zip((out, lse), k1):
-                torch.testing.assert_close(got, old, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-            fwd_gap = max((g - w).abs().max().item() for g, w in zip((out, lse), k1))
-            # K2' rounds nothing: its plain version is the f32 plain backward
-            # of the widened operands
-            errs = check_chunked(torch, (dq, dk, dv), lambda i, a, b, c, g, l, e:
-                                 fa.flash_attention_backward_reference(
-                                     a.float(), b.float(), c.float(), g, l, e, scale,
-                                     DROPOUT, seed, bh0=i),
-                                 bh, chunk, q, k, v, do, lse, delta,
-                                 atol=BWD_ATOL, rtol=BWD_RTOL)
+            fwd_errs, note = check_fwd_kv(out, lse, q, k, v, scale, DROPOUT, seed, chunk)
+            bwd_text = check_bwd_kv((dq, dk, dv), q, k, v, do, lse, delta, scale, DROPOUT,
+                                    seed, chunk)
+            fwd_gap = against_k1_k2((out, lse), fa.flash_attention(q, k, v, scale, DROPOUT,
+                                                                   seed),
+                                    dtype, KERNEL_ATOL, KERNEL_RTOL)
             k2 = (fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, DROPOUT, seed),
                   *fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, DROPOUT, seed))
-            if dtype == torch.float32:
-                for got, old in zip((dq, dk, dv), k2):
-                    torch.testing.assert_close(got, old, atol=BWD_ATOL, rtol=BWD_RTOL)
-                gaps = [(g - w).abs().max().item() for g, w in zip((dq, dk, dv), k2)]
-            else:   # relative to the max, as bf16 K2 rounds
-                gaps = [(g - w).abs().max().item() / w.abs().max().item()
-                        for g, w in zip((dq, dk, dv), k2)]
-                if max(gaps) > KVRES_BF16_GAP_RTOL:
-                    raise AssertionError(f"K2' vs bf16 K2: {gaps} of max |grad| > "
-                                         f"{KVRES_BF16_GAP_RTOL}")
-            res["fwd_err"] = max(res["fwd_err"], *fwd_errs)
+            bwd_gap = against_k1_k2((dq, dk, dv), k2, dtype, BWD_ATOL, BWD_RTOL)
             res["fwd_k1_gap"] = max(res["fwd_k1_gap"], fwd_gap)
-            res["dq_err"] = max(res["dq_err"], errs[0])
-            res["dkv_err"] = max(res["dkv_err"], errs[1], errs[2])
-            key = "bwd_k2_gap" if dtype == torch.float32 else "bwd_k2_gap_bf16"
-            res[key] = max(res[key], *gaps)
+            if dtype == torch.float32:
+                res["bwd_k2_gap"] = max(res["bwd_k2_gap"], bwd_gap)
             print(f"K1'+K2' check ({bh}, {lq}, {d}) {str(dtype)[6:]} dropout {DROPOUT}: vs "
-                  f"plain out {fwd_errs[0]:.3e} lse {fwd_errs[1]:.3e} dq {errs[0]:.3e} dk "
-                  f"{errs[1]:.3e} dv {errs[2]:.3e}; K1' vs K1 {fwd_gap:.3e}, K2' vs K2 "
-                  f"{max(gaps):.3e}{' of max (bf16 K2 rounds)' if dtype != torch.float32 else ''}",
-                  flush=True)
-            del q, k, v, do, out, lse, delta, dq, dk, dv, k1, k2
+                  f"plain out {fwd_errs[0]:.3e}{note.get('text', '')} lse {fwd_errs[1]:.3e}, "
+                  f"{bwd_text}; K1' vs K1 {fwd_gap:.3e}, K2' vs K2 {bwd_gap:.3e}", flush=True)
+            del q, k, v, do, out, lse, delta, dq, dk, dv, k2
             torch.cuda.empty_cache()
 
+    for name in ("train_fwd", "train_k1", "dq", "dkv"):
+        res[f"{name}_ms"] = 0.0
     for name in ("dq", "dkv"):
-        for key in ("ms", "k2_ms", "bound_ms", "ops_ms"):
+        for key in ("k2_ms", "bound_ms", "ops_ms"):
             res[f"{name}_{key}"] = 0.0
     for bh, lq, d in TRAIN_CASES:
         q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
@@ -1047,32 +1202,67 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
         out, lse = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
         delta = (do * out).sum(-1)
         args = (q, k, v, do, lse, delta, scale, DROPOUT, seed)
+        k1_ms, kv_ms = ab_ms(lambda: fa.flash_attention(q, k, v, scale, DROPOUT, seed),
+                             lambda: fa.flash_attention_kvres(q, k, v, scale, DROPOUT, seed),
+                             5)
         k2_dq, kv_dq = ab_ms(lambda: fa.flash_bwd_dq(*args),
                              lambda: fa.flash_bwd_dq_kvres(*args), 5)
         k2_dkv, kv_dkv = ab_ms(lambda: fa.flash_bwd_dkv(*args),
                                lambda: fa.flash_bwd_dkv_kvres(*args), 5)
+        res["train_fwd_ms"] += kv_ms
+        res["train_k1_ms"] += k1_ms
         bounds = {}
-        for kind, kv_ms, k2_ms in (("dq", kv_dq, k2_dq), ("dkv", kv_dkv, k2_dkv)):
+        for kind, kv_t, k2_t in (("dq", kv_dq, k2_dq), ("dkv", kv_dkv, k2_dkv)):
             # the same function as K2's: the same floors
-            ops_ms = max(bwd_floors_ms(bh, lq, d, kind, clock, DROPOUT).values())
+            ops_ms = max(flash_floors_ms(bh, lq, d, kind, clock, DROPOUT).values())
             bounds[kind] = max(ops_ms, bwd_bound_ms(bh, lq, d, 2, kind)[0])
-            res[f"{kind}_ms"] += kv_ms
-            res[f"{kind}_k2_ms"] += k2_ms
+            res[f"{kind}_ms"] += kv_t
+            res[f"{kind}_k2_ms"] += k2_t
             res[f"{kind}_bound_ms"] += bounds[kind]
             res[f"{kind}_ops_ms"] += ops_ms
-        print(f"K2' ({bh}, {lq}, {d}) bf16 dropout {DROPOUT}: dq {kv_dq:.4f} ms (K2 "
-              f"{k2_dq:.4f}, K2'/K2 {kv_dq / k2_dq:.3f}, bound {bounds['dq']:.4f}), dkv "
-              f"{kv_dkv:.4f} ms (K2 {k2_dkv:.4f}, K2'/K2 {kv_dkv / k2_dkv:.3f}, bound "
-              f"{bounds['dkv']:.4f}); plain backward and sdpa backward alone: the train "
-              f"kernels line", flush=True)
+        print(f"K1'/K2' ({bh}, {lq}, {d}) bf16 dropout {DROPOUT}: K1' {kv_ms:.4f} ms (K1 "
+              f"{k1_ms:.4f}, K1'/K1 {kv_ms / k1_ms:.3f}); dq {kv_dq:.4f} ms (K2 {k2_dq:.4f}, "
+              f"K2'/K2 {kv_dq / k2_dq:.3f}, bound {bounds['dq']:.4f}), dkv {kv_dkv:.4f} ms "
+              f"(K2 {k2_dkv:.4f}, K2'/K2 {kv_dkv / k2_dkv:.3f}, bound {bounds['dkv']:.4f}); "
+              f"plain versions and sdpa: the train kernels line", flush=True)
         del q, k, v, do, out, lse, delta, args
         torch.cuda.empty_cache()
+
+    # an odd head dim in bf16 under the switch: the dispatch takes K1', and K1'
+    # and K2' load the 94-byte rows through registers
+    bh, lq, d = KVRES_ODD_CASE
+    q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    do = torch.randn(bh, lq, d, device="cuda", generator=gen)
+    scale = d ** -0.5
+    counters = (fa.flash_attention, fa.flash_attention_kvres)
+    before = [f.launches for f in counters]
+    os.environ["BUCTD_FLASH_KVRES"] = "1"
+    try:
+        out, lse = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
+    finally:
+        del os.environ["BUCTD_FLASH_KVRES"]
+    delta = (do * out).sum(-1)
+    grads = (fa.flash_bwd_dq_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed),
+             *fa.flash_bwd_dkv_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed))
+    torch.cuda.synchronize()
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    if launched != [0, 1]:
+        raise AssertionError(f"odd-d bf16 under BUCTD_FLASH_KVRES=1: K1, K1' launched {launched}")
+    chunk = PLAIN_BH.get(lq, bh)
+    fwd_errs, note = check_fwd_kv(out, lse, q, k, v, scale, DROPOUT, seed, chunk)
+    bwd_text = check_bwd_kv(grads, q, k, v, do, lse, delta, scale, DROPOUT, seed, chunk)
+    print(f"K1'+K2' odd head dim ({bh}, {lq}, {d}) bf16 dropout {DROPOUT} under "
+          f"BUCTD_FLASH_KVRES=1 (94-byte rows): vs plain out {fwd_errs[0]:.3e}"
+          f"{note.get('text', '')} lse {fwd_errs[1]:.3e}, {bwd_text}", flush=True)
+    del q, k, v, do, out, lse, delta, grads
+    torch.cuda.empty_cache()
     print(f"A/B sums: K1' {res['fwd_ms']:.4f} ms vs K1 {res['k1_ms']:.4f} ms (f32, eval "
-          f"shapes); K2' dq {res['dq_ms']:.4f} vs K2 {res['dq_k2_ms']:.4f} ms, dkv "
-          f"{res['dkv_ms']:.4f} vs {res['dkv_k2_ms']:.4f} ms (bf16, training shapes); "
-          f"largest gap to K1 {res['fwd_k1_gap']:.3e}, to K2 {res['bwd_k2_gap']:.3e} (f32), "
-          f"{res['bwd_k2_gap_bf16']:.3e} of max (bf16)",
-          flush=True)
+          f"shapes); K1' {res['train_fwd_ms']:.4f} vs K1 {res['train_k1_ms']:.4f} ms, K2' dq "
+          f"{res['dq_ms']:.4f} vs K2 {res['dq_k2_ms']:.4f} ms, dkv {res['dkv_ms']:.4f} vs "
+          f"{res['dkv_k2_ms']:.4f} ms (bf16, training shapes); largest gap to K1 "
+          f"{res['fwd_k1_gap']:.3e}, to K2 {res['bwd_k2_gap']:.3e} (f32), bf16 "
+          f"{res['gap_bf16']:.3e} (limit {KVRES_BF16_GAP})", flush=True)
     return res
 
 
@@ -1572,15 +1762,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    hmma = k2_hmma_counts()
-    tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f}
-    simt = {f: n for f, n in hmma.items() if "flash_bwd_dq_kernel" in f
-            or "flash_bwd_dkv_kernel" in f}
-    print(f"K2 SASS: {len(tc)} tensor-core kernels, HMMA {min(tc.values())}-"
-          f"{max(tc.values())} each; {len(simt)} SIMT kernels, HMMA "
-          f"{sum(simt.values())} in all", flush=True)
-    if not tc or min(tc.values()) == 0 or not simt or sum(simt.values()):
-        raise AssertionError(f"K2's SASS: tensor-core kernels {tc}, SIMT kernels {simt}")
+    check_sass()
     k1 = kernel_phase(torch, F, fa)
     tk = train_kernel_phase(torch, F, fa, tw)
     kv = kvres_kernel_phase(torch, F, fa)
@@ -1653,7 +1835,16 @@ def main() -> int:
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": bound_by(k1["ops_ms"], k1["bound_ms"]),
-         "library_ms": k1["library_ms"]},
+         "library_ms": k1["library_ms"],
+         # the bf16 training path (the tensor-core kernel) at TRAIN_CASES,
+         # dropout 0.1, beside the f32 SIMT kernel on the widened operands,
+         # which bf16 ran before
+         "bf16_training": {"ms": tk["fwd_ms"], "plain_ms": tk["fwd_plain_ms"],
+                           "bound_ms": tk["fwd_bound_ms"],
+                           "bound_by": bound_by(tk["fwd_ops_ms"], tk["fwd_bound_ms"]),
+                           "library_ms": tk["fwd_library_ms"],
+                           "simt_ms": tk["fwd_simt_ms"],
+                           "max_out_err_of_max": tk["fwd_bf16_rel"]}},
         {"name": "flash_fwd_kvres", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/flash_fwd_kvres.cu",
          "replaces": "buctd_tpu/ops/flash_attention.py:139",
@@ -1661,7 +1852,9 @@ def main() -> int:
          "max_abs_err": kv["fwd_err"], "ms": kv["fwd_ms"], "plain_ms": kv["fwd_plain_ms"],
          "bound_ms": kv["fwd_bound_ms"], "bound_by": bound_by(kv["fwd_ops_ms"],
                                                               kv["fwd_bound_ms"]),
-         "library_ms": kv["fwd_library_ms"]},
+         "library_ms": kv["fwd_library_ms"],
+         # bf16 (the tensor-core ring variant) at TRAIN_CASES beside K1 in turns
+         "bf16_training": {"ms": kv["train_fwd_ms"], "k1_ms": kv["train_k1_ms"]}},
         entry("flash_bwd_dq", "buctd_tpu_torch/csrc/flash_bwd.cu",
               "buctd_tpu/ops/flash_attention.py:212", train["launches"]["flash_bwd_dq"],
               tk["dq_err"], "dq"),

@@ -8,11 +8,12 @@ q * bf16(scale), do, ds and p * keep * c, with f32 sums.  Held against:
 * the JAX VJP of ``flash_attention(q, k, v, 0, scale, 0.0, True)`` (interpret
   mode) on the same bf16 inputs at dropout 0, with do bf16-representable so
   both sides see the same do: the port's gradients (bf16, as JAX returns them)
-  within 1e-2 x max |grad| of JAX's.  The bf16 rounding of the gradients
-  dominates: one bf16 step of a value near the max is up to 2^-7 = 7.8e-3 of
-  it, and the two sides round f32 sums taken in another order (2.8e-3 to
-  6.8e-3 measured on these shapes); the f32 forwards differ too (JAX's sums
-  bf16 p);
+  within JAX_RTOL = 2^-7 x max |grad| of JAX's, one bf16 step of a value near
+  the max.  The plain forward rounds q' and p as JAX's forward does, so both
+  sides recompute p from the same logits and lse; what remains is the bf16
+  rounding of f32 sums taken in another order, which can land a gradient one
+  step apart (0 to 7.1e-3 of the max measured on these shapes; 2.8e-3 to
+  6.8e-3 before the forward rounded, against a limit of 1e-2);
 * a numpy emulation that rounds at exactly those four points, bit for bit, on
   a tiny input whose matrix products are exact in f32 by construction (few
   significant bits, one binade per operand), so the order of the sums cannot
@@ -34,7 +35,7 @@ import torch
 from buctd_tpu_torch.ops import flash_attention as fa
 
 JAX_SHAPES = [(1, 200, 200, 48), (2, 300, 300, 96), (1, 130, 170, 40)]
-JAX_RTOL = 1e-2
+JAX_RTOL = 2.0 ** -7
 
 
 def _bf16_values(rng, *shape):

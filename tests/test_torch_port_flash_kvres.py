@@ -80,3 +80,14 @@ def test_kvres_wrappers_refuse_cpu_tensors():
         fa.flash_bwd_dq_kvres(q, q, q, q, lse, lse, 0.3)
     with pytest.raises(ValueError, match="CUDA kernel"):
         fa.flash_bwd_dkv_kvres(q, q, q, q, lse, lse, 0.3)
+
+
+def test_copy_guard_refuses_rows_not_4_byte_aligned():
+    """The f32 K1'/K2' stream rows with 4-, 8- or 16-byte cp.async copies;
+    their wrappers refuse rows whose bytes or start are not a multiple of 4
+    (the bf16 ones load such rows through registers and skip the guard)."""
+    fa._check_copyable(torch.zeros(1, 16, 7), torch.zeros(1, 16, 2, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="4-byte"):
+        fa._check_copyable(torch.zeros(1, 16, 7, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="4-byte"):
+        fa._check_copyable(torch.zeros(1, 16, 8, dtype=torch.bfloat16)[..., 1:7])
