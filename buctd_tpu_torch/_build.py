@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -107,3 +108,22 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(library_path(name)))
                 _loaded[name] = lib
     return lib
+
+
+def hmma_counts(name: str, kind: str = "") -> dict:
+    """Tensor-core (HMMA) instructions in the SASS of each kernel of the built
+    library of ``csrc/<name>.cu`` (``cuobjdump -sass``), by mangled function
+    name; with ``kind``, only those whose mnemonic holds it (``"TF32"``:
+    ``HMMA.1684.F32.TF32``)."""
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(library_path(name))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\S*" + re.escape(kind), line):
+            counts[fn] += 1
+    return counts

@@ -8,24 +8,27 @@
 // of its own, so the carry lives in registers and nothing is shared between
 // blocks.  No (L_q, L_k) matrix ever reaches device memory.
 //
-// Two designs, by the operands' dtype, behind one C entry:
+// Both dtypes run on the tensor cores, behind one C entry, each with a
+// two-stage K/V ring:
 //
-// f32 (dtype 0; serving and evaluation): flash_fwd_kernel.  At the CoAM-W48
-// shapes (L = 6912, d = 48 and L = 1728, d = 96) the work is 4 * L_q * L_k *
-// d operations against (L_q + 2 L_k) * d elements of input, thousands of
-// operations per byte, far above the card's ridge: it is bound by
-// arithmetic.  f32 operands must stay exact f32 (the JAX path runs them at
-// Precision.HIGHEST), so the products are plain f32 FMAs on the CUDA cores (67
-// TFLOP/s peak), not TF32 tensor cores.  A register-tiled SIMT kernel: each
-// thread holds a 4 x 8 patch of the 64 x 64 logit tile and a 4 x D/8 patch of
-// the output, the operands are staged in shared memory with odd row strides
-// so the column walks are free of bank conflicts, and the softmax runs in the
-// exp2 domain with log2(e) folded into the query scale.
+// f32 (dtype 0; serving and evaluation): flash_fwd_tf32_kernel
+// (flash_fwd_tf32.cuh), 3xTF32 mma.sync: every operand split into two tf32
+// halves and every product taken in three passes, f32-accurate to about
+// 2^-21 relative, as the JAX path's Precision.HIGHEST is on the TPU.  It
+// rounds nothing to a narrower type.
 //
 // bf16 (dtype 1; the autocast training step): flash_fwd_tc_kernel
-// (flash_fwd_tc.cuh) on the tensor cores, launched with a two-stage K/V ring
-// (tc::kStages).  It rounds q * scale and p * keep * c to bf16 where JAX's
-// kernel does, so the lse it hands K2 is that of K2's logits.
+// (flash_fwd_tc.cuh).  It rounds q * scale and p * keep * c to bf16 where
+// JAX's kernel does, so the lse it hands K2 is that of K2's logits.
+//
+// A second C entry, buctd_flash_fwd_simt, launches flash_fwd_kernel below,
+// the f32 forward on the CUDA cores that serving and evaluation ran before
+// the tf32 kernel: a register-tiled SIMT kernel (each thread holds a 4 x 8
+// patch of the 64 x 64 logit tile and a 4 x D/8 patch of the output, operands
+// staged in shared memory with odd row strides, the softmax in the exp2
+// domain with log2(e) folded into the query scale), bound by its shared-memory
+// reads (12 words a thread per 32 FMAs).  No path calls it: it is kept so that
+// chip_smoke.py can time the two f32 kernels in turns.
 //
 // Dropout (training), as in the TPU kernel (:120-125): the un-normalized p of
 // the online softmax is masked and scaled by 1/(1-p) AFTER it entered the
@@ -38,6 +41,7 @@
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py):
 //   int buctd_flash_fwd(q, k, v, out, lse, bh, lq, lk, d, scale,
 //                       keep_thr, keep_scale, seed, dtype, stream)
+//   int buctd_flash_fwd_simt(the same arguments; dtype must be 0)
 // q (bh, lq, d), k/v (bh, lk, d) contiguous, f32 (dtype 0) or bf16 (dtype 1);
 // out (bh, lq, d) f32 and lse (bh, lq) f32, allocated by the caller.  Returns
 // the cudaError_t of the launch (0 on success).  Launches on `stream` and does
@@ -47,6 +51,7 @@
 
 #include "dropout_hash.cuh"
 #include "flash_fwd_tc.cuh"
+#include "flash_fwd_tf32.cuh"
 
 namespace {
 
@@ -250,10 +255,22 @@ extern "C" int buctd_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{keep_thr, keep_scale, seed};
-  if (dtype == 0) return (int)dispatch(q, k, v, out, lse, bh, lq, lk, d, scale, dr, s);
+  auto* o = static_cast<float*>(out);
+  auto* m = static_cast<float*>(lse);
+  if (dtype == 0)
+    return (int)tf32::launch_fwd<tf32::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s);
   if (dtype == 1)
-    return (int)tc::launch_fwd<tc::kStages>(q, k, v, static_cast<float*>(out),
-                                            static_cast<float*>(lse), bh, lq, lk, d, scale,
-                                            dr, s);
+    return (int)tc::launch_fwd<tc::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int buctd_flash_fwd_simt(const void* q, const void* k, const void* v,
+                                    void* out, void* lse, int bh, int lq, int lk,
+                                    int d, float scale, unsigned keep_thr,
+                                    float keep_scale, unsigned seed, int dtype,
+                                    void* stream) {
+  if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0 || d <= 0 || d > 128 || dtype != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch(q, k, v, out, lse, bh, lq, lk, d, scale,
+                       Dropout{keep_thr, keep_scale, seed}, static_cast<cudaStream_t>(stream));
 }

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_train
+from .hrnet import Linear
 
 FLASH_MIN_TOKENS = 512 * 512
 ENGINES = ("auto", "flash", "mapped")
@@ -108,10 +109,10 @@ class ScaledDotProductAttention(nn.Module):
         if engine not in ENGINES:
             raise ValueError(f"attention engine {engine!r} not in {ENGINES}")
         self.d_k, self.d_v, self.h, self.engine = d_k, d_v, h, engine
-        self.fc_q = nn.Linear(in_dim_q, h * d_k)
-        self.fc_k = nn.Linear(in_dim_k, h * d_k)
-        self.fc_v = nn.Linear(in_dim_k, h * d_v)
-        self.fc_o = nn.Linear(h * d_v, in_dim_k)
+        self.fc_q = Linear(in_dim_q, h * d_k)
+        self.fc_k = Linear(in_dim_k, h * d_k)
+        self.fc_v = Linear(in_dim_k, h * d_v)
+        self.fc_o = Linear(h * d_v, in_dim_k)
         self.dropout = nn.Dropout(dropout)
         self.generator = None
 
@@ -134,7 +135,7 @@ class SimplifiedScaledDotProductAttention(nn.Module):
     def __init__(self, d_model: int, h: int = 1, dropout: float = 0.1):
         super().__init__()
         self.d_model, self.h = d_model, h
-        self.fc_o = nn.Linear(d_model, d_model)
+        self.fc_o = Linear(d_model, d_model)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, queries, keys, values):

@@ -24,10 +24,11 @@ from torch import nn
 
 from ..ops.warp import resize_bilinear_nchw
 from .attention import ScaledDotProductAttention, SimplifiedScaledDotProductAttention
+from .hrnet import conv
 
 
 def conv3x3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=True)
+    return conv(cin, cout, 3, bias=True)
 
 
 class PositionAttentionModule(nn.Module):

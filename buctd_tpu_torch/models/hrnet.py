@@ -23,11 +23,41 @@ from torch import nn
 BN_EPS = 1e-5
 
 
+class Conv2d(nn.Conv2d):
+    """torch's Conv2d, with the bias added where flax adds it under bf16.
+
+    flax's ``nn.Conv(dtype=bfloat16)`` (buctd_tpu's bf16 models) rounds the
+    product to bf16 and then adds the bf16 bias: two roundings.  Under
+    autocast, torch's conv takes the bias inside the product and rounds once,
+    and a one-step difference in the CoAM convs' outputs moves the sharp
+    attention that follows by many steps.  So under autocast this adds the
+    bias after the product, in the product's dtype; without autocast (f32) it
+    is torch's module unchanged."""
+
+    def forward(self, x):
+        if self.bias is None or not torch.is_autocast_enabled(x.device.type):
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight, None)
+        return y + self.bias.to(y.dtype)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """torch's Linear, with the bias added where flax's ``nn.Dense`` adds it
+    under bf16 (as ``Conv2d``): after the product, in its dtype, under
+    autocast; torch's module unchanged without it."""
+
+    def forward(self, x):
+        if self.bias is None or not torch.is_autocast_enabled(x.device.type):
+            return super().forward(x)
+        y = F.linear(x, self.weight)
+        return y + self.bias.to(y.dtype)
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, pad=None,
          bias: bool = False) -> nn.Conv2d:
     if pad is None:
         pad = (kernel - 1) // 2
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=pad, bias=bias)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=pad, bias=bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

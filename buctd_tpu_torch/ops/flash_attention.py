@@ -12,10 +12,12 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
 * On CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` (K1, the port of
   ``_fwd_kernel`` :86) and ``csrc/flash_bwd.cu`` (K2: ``_dq_kernel`` :212 and
   ``_dkv_kernel`` :363).  They launch the kernel or raise; they never fall
-  back.  Each has two designs in one source: exact f32 SIMT kernels for f32
-  operands, and tensor-core kernels for bf16 operands (the autocast training
-  step) that round q * scale, p * keep * c, do and ds to bf16 where JAX's
-  kernels do at Precision.DEFAULT; the plain versions round there too
+  back.  K1 runs both dtypes on the tensor cores: f32 operands (serving and
+  evaluation) in 3xTF32, f32-accurate (``forward_tf32`` emulates it), bf16
+  operands (the autocast training step) rounding q * scale and p * keep * c
+  to bf16 where JAX's kernel does at Precision.DEFAULT.  K2 runs exact f32
+  SIMT kernels for f32 operands and tensor-core kernels for bf16 ones, which
+  round do and ds as JAX does; the plain versions round there too
   (``_logits``).
 * ``BUCTD_FLASH_KVRES``, read at every call with JAX's rule (:474, :684: any
   value but "0" turns it on), routes CUDA tensors to the kv/q-resident
@@ -23,14 +25,18 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
   :139) in ``flash_attention`` and ``csrc/flash_bwd_kvres.cu`` (K2',
   ``_dq_kernel_kvres`` :245 and ``_dkv_kernel_kvres`` :295) in
   ``flash_attention_backward``.  K1' computes K1's function and K2' K2's, with
-  another schedule: f32 operands take SIMT kernels with a two-stage
-  cp.async ring (their rows must be 4-byte aligned), bf16 operands K1's and
-  K2's tensor-core kernels with a deeper ring, which round as K1 and K2 do and
-  take any row alignment.  A kv-resident kernel that fails to build or launch
-  raises; it never falls back to K1/K2.
+  another schedule.  K1' is K1's tensor-core kernels with a deeper ring, in
+  both dtypes, equal to K1 bit for bit and taking any row alignment; K2' in
+  f32 is a SIMT kernel with a two-stage cp.async ring (its rows must be
+  4-byte aligned), in bf16 K2's tensor-core kernels with a deeper ring.  A
+  kv-resident kernel that fails to build or launch raises; it never falls
+  back to K1/K2.
 * On CPU tensors the wrappers run the plain dense versions
   (``flash_attention_reference``, ``flash_attention_backward_reference``),
   which the CPU tests hold against the JAX kernels.
+* ``flash_attention_simt`` launches the f32 forward on the CUDA cores that
+  serving and evaluation ran before the 3xTF32 kernel; no path calls it, and
+  ``chip_smoke.py`` times it in turns with K1.
 
 Dropout masks: the TPU kernels draw theirs from the TPU PRNG per tile, so
 they cannot be reproduced and depend on the tile shape.  Here every weight
@@ -43,7 +49,7 @@ the same mask bit for bit.  As in JAX, an entry is kept when its bits are
 Launch counts (CPU calls do not count): ``flash_attention.launches`` (K1),
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2),
 ``flash_attention_kvres.launches`` (K1'), ``flash_bwd_dq_kvres.launches`` and
-``flash_bwd_dkv_kvres.launches`` (K2').
+``flash_bwd_dkv_kvres.launches`` (K2'), ``flash_attention_simt.launches``.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ MAX_HEAD_DIM = 128
 MAX_BH = 65535   # grid.y of the kernels
 _MASK32 = 0xFFFFFFFF
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 KVRES_ENV = "BUCTD_FLASH_KVRES"
 
 
@@ -197,6 +204,47 @@ def forward_tile_rounded(s, v, keep):
     return tuple(torch.einsum("bqtk,btkd->bqd", x * rescale, vt) / l for x in (_bf16(p), p))
 
 
+def tf32_round(x):
+    """f32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: the low 13
+    of the 23 mantissa bits dropped, to nearest with ties away from zero (the
+    sign-magnitude bits plus half an ulp, truncated), as f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, passes: int):
+    """a @ b of f32 operands as f32 K1 takes it on the tensor cores: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi); three passes
+    (lo hi + hi lo, then + hi hi, f32 sums), or one (hi hi, plain TF32)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return torch.matmul(a_hi, b_hi)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
+
+
+def forward_tf32(q, k, v, scale: float, passes: int = 3, keep=None):
+    """f32 K1's arithmetic emulated densely, for the checks: the logits in
+    the exp2 domain, s = q' k^T with q' = q * scale * log2 e in f32 before
+    the split, and p v, each product in ``passes`` tf32 passes (3: 3xTF32,
+    the kernel's; 1: plain TF32, the control a single-pass kernel would
+    compute); p = exp2(s - m) unrounded, l summed before the dropout
+    multiplier ``keep`` (or None).  Returns out f32 (BH, Lq, d) and the
+    natural-log lse (BH, Lq).  Nothing on the main path calls it."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    qs = q.float() * (scale * _LOG2E)
+    s = _tf32_product(qs, k.float().transpose(1, 2), passes)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    del s
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if keep is not None:
+        p = p * keep
+    out = _tf32_product(p, v.float(), passes) / l
+    return out, ((m + torch.log2(l)) * _LN2).squeeze(-1)
+
+
 def flash_attention_backward_reference(q, k, v, dout, lse, delta, scale: float,
                                        dropout: float = 0.0, seed: int = 0, bh0: int = 0):
     """Plain backward, written out: p recomputed from lse, g = do v^T masked,
@@ -285,9 +333,9 @@ def _require_cuda(q, what: str, plain: str) -> None:
 
 
 def _check_copyable(*tensors) -> None:
-    """The f32 kv-resident kernels stream rows with cp.async copies of 4, 8 or
-    16 bytes: every row start must be 4-byte aligned.  (The bf16 ones load
-    unaligned rows through registers: no check.)"""
+    """f32 K2' streams rows with cp.async copies of 4, 8 or 16 bytes: every
+    row start must be 4-byte aligned.  (K1' and bf16 K2' load unaligned rows
+    through registers: no check.)"""
     for t in tensors:
         row = t.shape[-1] * t.element_size()
         if row % 4 or t.data_ptr() % 4:
@@ -330,13 +378,14 @@ def _raise_on(err: int, what: str, q, k):
                            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
 
 
-def _launch_fwd(lib: str, q, k, v, scale, dropout, seed):
-    """out, lse from the forward kernel of csrc/<lib>.cu (K1 or K1')."""
+def _launch_fwd(lib: str, q, k, v, scale, dropout, seed, symbol: str = ""):
+    """out, lse from the forward kernel of csrc/<lib>.cu (K1 or K1'), through
+    its C entry ``symbol`` (default ``buctd_<lib>``)."""
     bh, lq, d = q.shape
     out = torch.empty((bh, lq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _fn(lib, f"buctd_{lib}", _FWD_ARGS)(
+        err = _fn(lib, symbol or f"buctd_{lib}", _FWD_ARGS)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             bh, lq, k.shape[1], d, float(scale), *_dropout_args(dropout, seed),
             _DTYPE_CODES[q.dtype], _stream(q))
@@ -396,20 +445,35 @@ flash_attention.launches = 0
 
 
 def flash_attention_kvres(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
-    """K1': ``flash_attention``'s function with K/V streamed through a
-    cp.async ring, on CUDA tensors (f32 K/V rows 4-byte aligned; ValueError
-    otherwise)."""
+    """K1': ``flash_attention``'s function with K/V streamed through a deeper
+    cp.async ring, on CUDA tensors (K1's kernels: equal to K1 bit for bit)."""
     _check(q, k, v)
     _check_dropout(dropout, seed)
     _require_cuda(q, "flash_attention_kvres", "flash_attention_reference")
-    if q.dtype == torch.float32:
-        _check_copyable(k, v)
     out, lse = _launch_fwd("flash_fwd_kvres", q, k, v, scale, dropout, seed)
     flash_attention_kvres.launches += 1
     return out, lse
 
 
 flash_attention_kvres.launches = 0
+
+
+def flash_attention_simt(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
+    """``flash_attention``'s function for f32 CUDA tensors on the CUDA cores'
+    FMAs (``flash_fwd_kernel`` of csrc/flash_fwd.cu), the f32 forward before
+    the 3xTF32 kernel; kept for timing the two in turns, never on a path."""
+    _check(q, k, v)
+    _check_dropout(dropout, seed)
+    _require_cuda(q, "flash_attention_simt", "flash_attention_reference")
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_simt takes f32 operands, got {q.dtype}")
+    out, lse = _launch_fwd("flash_fwd", q, k, v, scale, dropout, seed,
+                           "buctd_flash_fwd_simt")
+    flash_attention_simt.launches += 1
+    return out, lse
+
+
+flash_attention_simt.launches = 0
 
 
 def _k2_dout(q, dout):

@@ -6,8 +6,8 @@ launch choices, on one CUDA card.
 
 Each variant is csrc/flash_bwd_tc.cuh with one choice changed, written beside
 a copy of csrc/flash_bwd.cu into buctd_tpu_torch/_build/variants/<name>/ (git
-ignores it) and built there with nvcc; ptxas's registers and spills of the
-bf16 kernels are printed for each:
+ignores it) and built there with nvcc (tools/kernel_variants.py); ptxas's
+registers and spills of the bf16 kernels are printed for each:
 
   shipped  the source as it is: dk/dv held to 3 blocks a SM at d <= 48;
   no_cap   dk/dv keeps its registers at every d (2 blocks a SM at d = 48);
@@ -25,13 +25,13 @@ Returns {(L, d): {dropout: {variant: {"dq_ms", "dkv_ms"}}}}, medians.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import re
 import statistics
 import subprocess
 
 import torch
+
+from . import kernel_variants
 
 SHAPES = [(32, 6912, 48), (32, 1728, 96)]
 DROPOUTS = (0.1, 0.0)
@@ -65,33 +65,6 @@ def variant_source(name: str) -> str:
     return text
 
 
-def build_variants(names) -> dict:
-    """Path of each variant's library, all nvcc runs started together, and
-    its ptxas log."""
-    from .. import _build
-
-    jobs = {}
-    for name in names:
-        out = _build.BUILD_DIR / "variants" / name
-        out.mkdir(parents=True, exist_ok=True)
-        # the quoted include of the header finds the variant's copy beside
-        # flash_bwd.cu first; the other headers come from csrc/
-        (out / HEADER).write_text(variant_source(name))
-        (out / "flash_bwd.cu").write_text((_build.CSRC / "flash_bwd.cu").read_text())
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(out / "libflash_bwd.so"), str(out / "flash_bwd.cu")]
-        jobs[name] = (out / "libflash_bwd.so",
-                      subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True))
-    built = {}
-    for name, (lib, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        built[name] = (lib, log)
-    return built
-
-
 def register_summary(log: str) -> str:
     """'dq48:167 dkv48:168 ...' for the bf16 kernels in a ptxas -v log, with
     their spills."""
@@ -112,34 +85,6 @@ def register_summary(log: str) -> str:
     return " ".join(out)
 
 
-@contextlib.contextmanager
-def loaded(lib_path):
-    """The K2 wrappers launch from ``lib_path`` (a variant's library) inside
-    the block, from the package's build again after it."""
-    from .. import _build
-    from ..ops import flash_attention as fa
-
-    shipped = _build.load("flash_bwd")
-    _build._loaded["flash_bwd"] = ctypes.CDLL(str(lib_path)) if lib_path else shipped
-    fa._fn.cache_clear()
-    try:
-        yield
-    finally:
-        _build._loaded["flash_bwd"] = shipped
-        fa._fn.cache_clear()
-
-
-def events_ms(fn, n: int = LAUNCHES) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def main(argv=None) -> dict:
     from .. import _build
     from ..ops import flash_attention as fa
@@ -154,8 +99,9 @@ def main(argv=None) -> dict:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     _build.build(["flash_bwd", "flash_fwd"])
-    others = [n for n in VARIANTS if n != "shipped"]
-    libs = {"shipped": (None, _build.build_log("flash_bwd")), **build_variants(others)}
+    others = {n: {HEADER: variant_source(n)} for n in VARIANTS if n != "shipped"}
+    libs = {"shipped": (None, _build.build_log("flash_bwd")),
+            **kernel_variants.build("flash_bwd", others)}
     print(f"# {card}; K2 bf16 at BH 32, {LAUNCHES} launches per timing, {args.rounds} "
           f"rounds in turns; ms (median)")
     for name, (_, log) in libs.items():
@@ -177,10 +123,12 @@ def main(argv=None) -> dict:
             ref = None
             for r in range(args.rounds):
                 for name in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
-                    with loaded(libs[name][0]):
+                    with kernel_variants.loaded("flash_bwd", libs[name][0]):
                         got = (fa.flash_bwd_dq(*call), *fa.flash_bwd_dkv(*call))
-                        times[name]["dq_ms"].append(events_ms(lambda: fa.flash_bwd_dq(*call)))
-                        times[name]["dkv_ms"].append(events_ms(lambda: fa.flash_bwd_dkv(*call)))
+                        times[name]["dq_ms"].append(kernel_variants.events_ms(
+                            lambda: fa.flash_bwd_dq(*call), LAUNCHES))
+                        times[name]["dkv_ms"].append(kernel_variants.events_ms(
+                            lambda: fa.flash_bwd_dkv(*call), LAUNCHES))
                     ref = got if ref is None else ref   # round 0 starts with shipped
                     gap = max((a - b).abs().max().item() for a, b in zip(got, ref))
                     if gap > 1e-3:

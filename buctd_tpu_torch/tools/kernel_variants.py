@@ -1,0 +1,75 @@
+"""Variants of a kernel's source for the benchmarks that A/B its launch
+choices (tools/bench_flash_fwd.py, tools/bench_flash_bwd.py).
+
+A variant is csrc/<lib>.cu with some of its headers rewritten.  The copies
+are written into buctd_tpu_torch/_build/variants/<tag>/ (git ignores it) and
+built there with nvcc, all at once; ``loaded`` makes the kernel wrappers
+launch from a variant's library for a block of calls, and ``events_ms`` times
+a call with CUDA events.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import subprocess
+
+import torch
+
+
+def build(lib: str, sources: dict) -> dict:
+    """``sources`` {tag: {header: text}} -> {tag: (library path, nvcc's
+    ptxas log)}, one nvcc per variant, all started together."""
+    from .. import _build
+
+    jobs = {}
+    for tag, headers in sources.items():
+        out = _build.BUILD_DIR / "variants" / tag
+        out.mkdir(parents=True, exist_ok=True)
+        # the quoted includes find the variant's headers beside <lib>.cu
+        # first; the other headers come from csrc/
+        for header, text in headers.items():
+            (out / header).write_text(text)
+        (out / f"{lib}.cu").write_text((_build.CSRC / f"{lib}.cu").read_text())
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(out / f"lib{lib}.so"), str(out / f"{lib}.cu")]
+        jobs[tag] = (out / f"lib{lib}.so",
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    built = {}
+    for tag, (path, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {tag}:\n{log}")
+        built[tag] = (path, log)
+    return built
+
+
+@contextlib.contextmanager
+def loaded(lib: str, lib_path):
+    """The wrappers of csrc/<lib>.cu launch from ``lib_path`` (a variant's
+    library; None: the package's own) inside the block, from the package's
+    build again after it."""
+    from .. import _build
+    from ..ops import flash_attention as fa
+
+    shipped = _build.load(lib)
+    _build._loaded[lib] = ctypes.CDLL(str(lib_path)) if lib_path else shipped
+    fa._fn.cache_clear()
+    try:
+        yield
+    finally:
+        _build._loaded[lib] = shipped
+        fa._fn.cache_clear()
+
+
+def events_ms(fn, n: int) -> float:
+    """Mean device time of ``fn()`` over ``n`` calls after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n

@@ -12,15 +12,20 @@ port's benchmarks of the fused basic block (K5) and exp throughput (K6).
 Phases (each raises on failure; nothing is caught):
   0. build every kernel under buctd_tpu_torch/csrc/ with nvcc for sm_90a (one
      nvcc per source, all started together); in the SASS (cuobjdump) of the
-     four flash libraries, HMMA in every bf16 tensor-core kernel and in no
-     SIMT one;
-  1. kernels, serving shapes: K1 (flash-attention forward: f32 SIMT, bf16 on
-     the tensor cores) vs its plain version at the CoAM-W48 shapes (16 crops,
-     as predict_batch gives them, and 8) in f32 and bf16 plus a ragged case
-     (bf16 against the plain forward that rounds where it does, within
-     K1_BF16_RTOL, and against the rounding at the kernel's running tile max,
-     within K1_BF16_TILED_RMS, which p left unrounded misses); kernel, plain and F.scaled_dot_product_attention times
-     beside the card's bound;
+     four flash libraries, HMMA in every tensor-core kernel and in no SIMT
+     one, and TF32 HMMA in every f32 forward kernel of K1 and K1';
+  1. kernels, serving and evaluation shapes: K1 (flash-attention forward on
+     the tensor cores: f32 in 3xTF32, bf16) vs its plain version at the
+     CoAM-W48 shapes (16 crops, as predict_batch gives them, 64 as a
+     flip-test validate batch of 32 gives them, and 8) in f32 and bf16, plus
+     a ragged case and d = 47; f32 with dropout 0 and 0.1 at
+     KERNEL_ATOL/RTOL, where the one-pass tf32 control must miss at the
+     evaluation shapes; bf16 against the plain forward that rounds where it
+     does, within K1_BF16_RTOL, and against the rounding at the kernel's
+     running tile max, within K1_BF16_TILED_RMS, which p left unrounded
+     misses; kernel, plain and F.scaled_dot_product_attention times beside
+     the card's bound, and f32 K1 and the SIMT forward it replaced timed in
+     turns;
   2. kernels, training shapes: K1 and K2 (flash backward: the dq and the dk/dv
      kernels; f32 SIMT, bf16 on the tensor cores) at the shapes a batch-32
      train step gives them, f32 and bf16, dropout 0 and 0.1, vs their plain
@@ -35,7 +40,8 @@ Phases (each raises on failure; nothing is caught):
      torch.manual_seed), ``predict`` on a 480x640 image with 4 condition poses
      and ``predict_batch`` on 3 images; finite outputs of the right shapes, the
      flash launch count of the run, one forward on the card vs the same module
-     on the CPU, ms per image and crops/s; a profile of one predict_batch;
+     on the CPU, ms per image and crops/s; a profile of one predict_batch,
+     with K1's 3xTF32 kernel's time and share and no SIMT forward;
   4. training: ``buctd_tpu_torch.train.run`` on a synthetic CrowdPose-format
      set (seeded, in a temporary directory) at full width, batch 32, bf16
      autocast, attention dropout 0.1, the device loader; ms/step, images/s,
@@ -49,20 +55,22 @@ Phases (each raises on failure; nothing is caught):
      float64 on their own inputs;
   6. kernels, kv-resident: K1' (flash_fwd_kvres) vs the plain version at the
      serving shapes, the eval shapes (64 = 2 x 32 flip-test crops) in f32 and
-     bf16 and a ragged case, and vs K1; at the training shapes (BH 32), f32
-     and bf16, dropout 0.1: K1' and K2' (dq, dk/dv) vs the plain versions
-     (over BH chunks, each with its rows' dropout mask; K1's and K2's gates)
-     and vs K1/K2 (f32 at their gates, bf16 bit for bit: the same tensor-core
-     kernels with a deeper ring); an odd head dim in bf16 under
-     BUCTD_FLASH_KVRES=1; times of each beside K1's/K2's (A/B in turns: old,
-     new, new, old), the plain version's, the bound and SDPA's;
+     bf16, a ragged case and d = 47, and vs K1; at the training shapes (BH
+     32), f32 and bf16, dropout 0.1: K1' and K2' (dq, dk/dv) vs the plain
+     versions (over BH chunks, each with its rows' dropout mask; K1's and
+     K2's gates) and vs K1/K2 (K1' and bf16 K2' bit for bit: the same
+     tensor-core kernels with a deeper ring; f32 K2' at K2's gate); an odd
+     head dim in bf16 under BUCTD_FLASH_KVRES=1; times of each beside
+     K1's/K2's (A/B in turns: old, new, new, old), the plain version's, the
+     bound and SDPA's;
   7. evaluation: ``buctd_tpu_torch.valid.run`` on a seeded synthetic
      CrowdPose test set (64 480x640 images x 4 people = 256 crops = 8 batches
      of 32) from a BU-prediction json, with N(0, 1/fan_in) weights saved as a
      .pth, full width, flip test, 3 refinement rounds: a results json with
      one entry per crop and a finite AP in [0, 1] each round, K1 and K4
      launched 2 per batch per round, crops/s per round; a profile of one
-     validate step;
+     validate step, with K1's 3xTF32 kernel's time and share and no SIMT
+     forward;
   8. the same evaluation, one round, under BUCTD_FLASH_KVRES=1: K1' launched 2
      per batch and K1 never; one batch's heatmaps from K1 and K1' agree; one
      validate step at batch 2 on the card vs the CPU;
@@ -95,8 +103,6 @@ from __future__ import annotations
 import copy
 import functools
 import json
-import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -108,11 +114,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "experiments" / "crowdpose" / "buctd" / "coam_w48_384x288.yaml"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores: the kernel's f32 path
+PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores (the SIMT kernels)
+            "tf32": 494.7e12,      # dense TF32 tensor cores: f32 K1 and K1', 3 passes
             "bfloat16": 989e12}    # dense bf16 tensor cores
 # kernel vs plain: both sum in f32, in another order, over up to 6912 keys
-# (measured ~1e-6 on randn inputs).  The lse of bf16 K1 takes this gate too: its
-# sum l is never rounded
+# (measured ~1e-6 on randn inputs).  f32 K1 and K1' take their products in
+# 3xTF32, as close to f32 as the SIMT kernel (the card test
+# test_f32_forward_long_rows_as_accurate_as_simt); one tf32 pass lands further
+# than the gate, which must refuse it (TF32_CONTROL_PASSES).  The lse of bf16
+# K1 takes this gate too: its sum l is never rounded
 KERNEL_ATOL = KERNEL_RTOL = 2e-5
 # bf16 K1 (the tensor-core kernel) vs the plain forward that rounds q' and
 # p * keep * c where it does: out within K1_BF16_RTOL x max |out|, for f32 sums
@@ -166,7 +176,10 @@ REPEATS = 5
 # K1's (BH, Lq, Lk, d) on the main path: the CoAM position attention of branch
 # 0 and branch 1, BH = the 16 crops of the serving phase's predict_batch
 MAIN_CASES = [(16, 6912, 6912, 48), (16, 1728, 1728, 96)]
-OTHER_CASES = [(8, 6912, 6912, 48), (8, 1728, 1728, 96), (3, 700, 300, 112)]
+# and a ragged case, and d = 47: f32 rows of 188 bytes, which K1's kernels
+# load through registers
+OTHER_CASES = [(8, 6912, 6912, 48), (8, 1728, 1728, 96), (3, 700, 300, 112),
+               (8, 1728, 1728, 47)]
 # the training path: batch 32, one head, bf16 operands under autocast
 TRAIN_BATCH = 32
 TRAIN_CASES = [(TRAIN_BATCH, 6912, 48), (TRAIN_BATCH, 1728, 96)]
@@ -184,9 +197,10 @@ DROPOUT = 0.1
 # the training shapes)
 BWD_ATOL = BWD_RTOL = 1e-4
 K2_BF16_RTOL = 2e-3
-# bf16 K1'/K2' vs bf16 K1/K2: the same tensor-core kernels with a deeper ring,
-# which changes no arithmetic: bit for bit (max |gap| KVRES_BF16_GAP)
-KVRES_BF16_GAP = 0.0
+# K1' vs K1 (f32 and bf16) and bf16 K2' vs K2: the same tensor-core kernels
+# with a deeper ring, which changes no arithmetic: bit for bit (max |gap|
+# KVRES_GAP)
+KVRES_GAP = 0.0
 # what else bounds a bf16 backward kernel, besides its products and bytes:
 # one MUFU.EX2 per (row, key) pair, 16 a clock on each SM, and with dropout
 # the hash of csrc/dropout_hash.cuh, about HASH_INT_OPS integer operations a
@@ -201,6 +215,10 @@ SYNTH_IMAGES, SYNTH_PEOPLE = 80, 4      # 320 people = 10 batches of 32
 # evaluation: TEST batch 32, flip test -> BH 64 in K1 (branch 0 and 1 shapes)
 EVAL_BATCH = 32
 EVAL_CASES = [(2 * EVAL_BATCH, 6912, 6912, 48), (2 * EVAL_BATCH, 1728, 1728, 96)]
+# the control of the f32 gate: the kernel's arithmetic in one tf32 pass
+# (ops/flash_attention.py::forward_tf32, passes=1) must miss
+# KERNEL_ATOL/RTOL at EVAL_CASES, where three passes meet it
+TF32_CONTROL_PASSES = 1
 EVAL_IMAGES = 64                        # x 4 people = 256 crops = 8 batches of 32
 EVAL_ROUNDS = 3
 KVRES_TRAIN_STEPS = 3
@@ -232,47 +250,39 @@ PRENET_PX_TOL = 0.01
 TOOL_CHAIN, TOOL_ROUNDS, TOOL_STEM_BATCH = 5, 2, 32
 
 
-# the flash libraries and their SIMT (f32) kernels: every other kernel in them
-# is a bf16 tensor-core kernel (``_tc_kernel``)
+# the flash libraries and their SIMT (f32, CUDA-core) kernels: every other
+# kernel in them runs on the tensor cores, the bf16 ones (``_tc_kernel``) and
+# the 3xTF32 f32 forward (``_tf32_kernel``).  flash_fwd keeps its SIMT forward
+# for the A/B of kernel_phase only; f32 K1' has none
 FLASH_SIMT = {"flash_fwd": ("flash_fwd_kernel",),
               "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-              "flash_fwd_kvres": ("flash_fwd_kvres_kernel",),
+              "flash_fwd_kvres": (),
               "flash_bwd_kvres": ("flash_bwd_dq_kvres_kernel", "flash_bwd_dkv_kvres_kernel")}
-
-
-def hmma_counts(lib: str) -> dict:
-    """HMMA (tensor-core) instructions in the SASS of each kernel of the
-    built library ``lib`` (cuobjdump -sass), by mangled function name."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    from buctd_tpu_torch import _build
-
-    tool = shutil.which("cuobjdump") or str(Path(CUDA_HOME) / "bin" / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    return counts
+# the libraries whose f32 forward must show TF32 HMMA (HMMA.1684.F32.TF32)
+FLASH_TF32 = ("flash_fwd", "flash_fwd_kvres")
 
 
 def check_sass() -> None:
-    """In every flash library, HMMA in each bf16 tensor-core kernel and in
-    none of the SIMT ones."""
+    """In every flash library, HMMA in each tensor-core kernel and in none of
+    the SIMT ones; TF32 HMMA in every f32 forward kernel (8 head-dim cases
+    each) of K1 and K1'."""
+    from buctd_tpu_torch._build import hmma_counts
+
     for lib, simt_names in FLASH_SIMT.items():
         hmma = hmma_counts(lib)
-        tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f}
+        tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f or "_tf32_kernel" in f}
         simt = {f: n for f, n in hmma.items() if any(k in f for k in simt_names)}
+        tf32 = ({f: n for f, n in hmma_counts(lib, "TF32").items() if "_tf32_kernel" in f}
+                if lib in FLASH_TF32 else {})
         print(f"{lib} SASS: {len(tc)} tensor-core kernels, HMMA {min(tc.values(), default=0)}-"
-              f"{max(tc.values(), default=0)} each; {len(simt)} SIMT kernels, HMMA "
-              f"{sum(simt.values())} in all", flush=True)
-        if not tc or min(tc.values()) == 0 or not simt or sum(simt.values()):
+              f"{max(tc.values(), default=0)} each; {len(tf32)} f32 forward kernels, TF32 "
+              f"HMMA {min(tf32.values(), default=0)}-{max(tf32.values(), default=0)} each; "
+              f"{len(simt)} SIMT kernels, HMMA {sum(simt.values())} in all", flush=True)
+        if (not tc or min(tc.values()) == 0 or bool(simt) != bool(simt_names)
+                or sum(simt.values())):
             raise AssertionError(f"{lib}'s SASS: tensor-core kernels {tc}, SIMT kernels {simt}")
+        if lib in FLASH_TF32 and (len(tf32) != 8 or min(tf32.values()) == 0):
+            raise AssertionError(f"{lib}'s SASS: TF32 HMMA of the f32 forward {tf32}")
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -290,58 +300,142 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound_ms(bh, lq, lk, d, dtype) -> tuple:
+def flash_bound_ms(bh, lq, lk, d, dtype, clock_hz: float | None = None) -> tuple:
     """Least time for softmax(q k^T) v on the card: operations (4 bh lq lk d,
     the CostEstimate of buctd_tpu/ops/flash_attention.py) over the peak rate for
     the inputs' type, or bytes (q, k, v read once, out and lse written once)
-    over the memory rate, whichever is larger."""
+    over the memory rate, whichever is larger.  f32 runs on the tensor cores
+    in 3xTF32: three passes of the operations at the dense TF32 rate, or, if
+    larger, one MUFU.EX2 per (row, key) pair at ``clock_hz`` (16 a clock on
+    each SM)."""
     elt = 4 if dtype == "float32" else 2
     ops = 4.0 * bh * lq * lk * d
     nbytes = elt * bh * (lq + 2 * lk) * d + 4 * bh * lq * (d + 1)
-    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S
+    if dtype == "float32":
+        if not clock_hz:
+            raise ValueError("the f32 bound needs the SM clock for its MUFU floor")
+        t_ops = max(3.0 * ops / PEAK_OPS["tf32"],
+                    bh * lq * lk / (EX2_PER_SM_CLOCK * SMS * clock_hz))
+    else:
+        t_ops = ops / PEAK_OPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def f32_core_ms(bh, lq, lk, d) -> float:
+    """The same operations on the CUDA cores' f32 FMAs (the SIMT kernels'
+    bound), ms."""
+    return 4.0 * bh * lq * lk * d / PEAK_OPS["float32"] * 1e3
+
+
 def kernel_phase(torch, F, fa) -> dict:
-    """K1 vs its plain version in f32 and bf16.  Returns the f32 sums over
-    MAIN_CASES: the kernel's work in one forward of the serving phase's batch."""
+    """K1 vs its plain version in f32 and bf16, at MAIN_CASES, EVAL_CASES and
+    OTHER_CASES.  f32 (the 3xTF32 tensor-core kernel) with dropout 0 and 0.1
+    at KERNEL_ATOL/RTOL; at EVAL_CASES the one-pass control
+    (TF32_CONTROL_PASSES) must miss that gate, and the kernels SDPA launches
+    in f32 are named.  Times: f32 K1 and the SIMT
+    forward it replaced in turns (ab_ms) at MAIN_CASES and EVAL_CASES, the
+    plain version and SDPA beside them.  Returns the f32 sums over MAIN_CASES
+    (one forward of the serving phase's batch) and over EVAL_CASES (one
+    validate step's forward), and the worst error."""
+    from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
+
+    clock = sm_clock_hz()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = 0.0
-    main = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0}
-    for bh, lq, lk, d in MAIN_CASES + OTHER_CASES:
+    worst, control = 0.0, float("inf")
+    keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "core_ms")
+    sums = {case: {key: 0.0 for key in keys} for case in ("main", "eval")}
+    for bh, lq, lk, d in MAIN_CASES + EVAL_CASES + OTHER_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             q = torch.randn(bh, lq, d, device="cuda", generator=gen).to(dtype)
             k = torch.randn(bh, lk, d, device="cuda", generator=gen).to(dtype)
             v = torch.randn(bh, lk, d, device="cuda", generator=gen).to(dtype)
             scale = d ** -0.5
-            out, lse = fa.flash_attention(q, k, v, scale)
-            torch.cuda.synchronize()
-            errs, note = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, 0.0, 0,
-                                           PLAIN_BH.get(lq, bh))
-            err = max(errs)
-            worst = max(worst, err)
-            ms = timed_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
-            plain_ms = timed_ms(lambda: fa.flash_attention_reference(q, k, v, scale), 5)
+            chunk = PLAIN_BH.get(lq, bh)
+            notes = []
+            for p in ((0.0, DROPOUT) if dtype == torch.float32 else (0.0,)):
+                out, lse = fa.flash_attention(q, k, v, scale, p, 7)
+                torch.cuda.synchronize()
+                errs, note = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, p, 7, chunk)
+                worst = max(worst, *errs)
+                notes.append(f"dropout {p}: out {errs[0]:.3e} lse {errs[1]:.3e}"
+                             f"{note.get('text', '')}")
+                del out, lse
+            if dtype == torch.float32 and (bh, lq, lk, d) in EVAL_CASES:
+                miss = tf32_control_miss(torch, fa, q, k, v, scale, chunk)
+                control = min(control, miss)
+                notes.append(f"{TF32_CONTROL_PASSES}-pass control exceeds the gate by "
+                             f"{miss:.3e} (must be > 0)")
+            case = ("main" if (bh, lq, lk, d) in MAIN_CASES else
+                    "eval" if (bh, lq, lk, d) in EVAL_CASES else None)
+            if dtype == torch.float32 and case:
+                simt_ms, ms = ab_ms(lambda: fa.flash_attention_simt(q, k, v, scale),
+                                    lambda: fa.flash_attention(q, k, v, scale), 10)
+            else:
+                simt_ms, ms = None, timed_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
+            plain_ms = timed_ms(lambda: chunked(
+                lambda a, b, c: fa.flash_attention_reference(a, b, c, scale), bh, chunk,
+                q, k, v), 2)
             q4, k4, v4 = q[:, None], k[:, None], v[:, None]   # (BH, 1 head, L, d)
             lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
                               10)
-            bound, by = flash_bound_ms(bh, lq, lk, d, name)
-            print(f"K1 flash_fwd ({bh}, {lq}, {lk}, {d}) {name}: max_abs_err {err:.3e}"
-                  f"{note.get('text', '')} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                  f"{lib_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms ({by}), "
+            if dtype == torch.float32 and case == "eval":
+                notes.append("SDPA's kernels " + ", ".join(cuda_kernel_names(
+                    torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))))
+            bound, by = flash_bound_ms(bh, lq, lk, d, name, clock)
+            core = f32_core_ms(bh, lq, lk, d)
+            simt = f" (SIMT in turns {simt_ms:.4f} ms)" if simt_ms else ""
+            print(f"K1 flash_fwd ({bh}, {lq}, {lk}, {d}) {name}: {'; '.join(notes)}; kernel "
+                  f"{ms:.4f} ms{simt}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}; CUDA-core f32 {core:.4f}), "
                   f"{4.0 * bh * lq * lk * d / ms / 1e9:.2f} TFLOP/s", flush=True)
-            if (bh, lq, lk, d) in MAIN_CASES and dtype == torch.float32:
-                main["ms"] += ms
-                main["plain_ms"] += plain_ms
-                main["library_ms"] += lib_ms
-                main["bound_ms"] += bound
-                main["ops_ms"] += 4.0 * bh * lq * lk * d / PEAK_OPS[name] * 1e3
-            del q, k, v, q4, k4, v4, out, lse
+            if dtype == torch.float32 and case:
+                ops_ms = (bound if by == "operations" else 0.0)
+                for key, val in zip(keys, (ms, simt_ms, plain_ms, lib_ms, bound, ops_ms, core)):
+                    sums[case][key] += val
+            del q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
-    main["max_abs_err"] = worst
-    return main
+    for case, label in (("main", MAIN_CASES), ("eval", EVAL_CASES)):
+        t = sums[case]
+        print(f"K1 f32 over {label} at SM clock {clock / 1e6:.0f} MHz: 3xTF32 kernel "
+              f"{t['ms']:.4f} ms, SIMT in turns {t['simt_ms']:.4f} ms "
+              f"({t['simt_ms'] / t['ms']:.2f}x), sdpa {t['library_ms']:.4f} ms (kernel / sdpa "
+              f"{t['ms'] / t['library_ms']:.3f}), bound {t['bound_ms']:.4f} ms "
+              f"({t['ms'] / t['bound_ms']:.2f}x), CUDA-core bound {t['core_ms']:.4f} ms",
+              flush=True)
+    return {**sums, "max_abs_err": worst, "control": control}
+
+
+def cuda_kernel_names(torch, fn) -> list:
+    """The CUDA kernels one call of ``fn`` launches (torch.profiler), by name:
+    which of SDPA's f32 paths the library call takes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:80] for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+
+
+def tf32_control_miss(torch, fa, q, k, v, scale, chunk) -> float:
+    """How far the one-pass control (fa.forward_tf32, TF32_CONTROL_PASSES)
+    lands outside KERNEL_ATOL + KERNEL_RTOL |plain| of the plain f32 forward,
+    over BH chunks: the largest excess, > 0 where it misses."""
+    miss = float("-inf")
+    for i in range(0, q.shape[0], chunk):
+        rows = slice(i, i + chunk)
+        want, _ = fa.flash_attention_reference(q[rows], k[rows], v[rows], scale)
+        got, _ = fa.forward_tf32(q[rows], k[rows], v[rows], scale, TF32_CONTROL_PASSES)
+        miss = max(miss, ((got - want).abs() - KERNEL_ATOL - KERNEL_RTOL * want.abs())
+                   .max().item())
+        del want, got
+    if not miss > 0.0:
+        raise AssertionError(f"the {TF32_CONTROL_PASSES}-pass tf32 control meets the f32 gate "
+                             f"(excess {miss:.3e}): the gate cannot tell it from 3xTF32")
+    return miss
 
 
 def chunked(fn, bh: int, chunk: int, *tensors):
@@ -525,8 +619,8 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
         qf, kf, vf = q.float(), k.float(), v.float()
         out32, lse32 = fa.flash_attention(qf, kf, vf, scale, DROPOUT, seed)
         delta32 = (do * out32).sum(-1)
-        t["fwd_simt_ms"] = timed_ms(lambda: fa.flash_attention(qf, kf, vf, scale, DROPOUT,
-                                                               seed), 3)
+        t["fwd_simt_ms"] = timed_ms(lambda: fa.flash_attention_simt(qf, kf, vf, scale,
+                                                                    DROPOUT, seed), 3)
         t["dq_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dq(qf, kf, vf, do, lse32, delta32,
                                                            scale, DROPOUT, seed), 3)
         t["dkv_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dkv(qf, kf, vf, do, lse32, delta32,
@@ -766,6 +860,21 @@ def kernel_profile(torch, fn, label: str) -> dict:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
     return {e.key: e.self_device_time_total / 1e3 for e in events}
+
+
+def f32_k1_profile(by_name: dict, label: str) -> dict:
+    """K1's 3xTF32 kernel in a profiled f32 run (``kernel_profile``'s ms by
+    kernel name): its time and share of the kernel time.  Raises where the
+    run named a SIMT forward or no 3xTF32 one."""
+    total = sum(by_name.values())
+    k1 = sum(ms for key, ms in by_name.items() if "flash_fwd_tf32_kernel" in key)
+    simt = [key for key in by_name if "flash_fwd_kernel" in key]
+    print(f"K1 in the profiled {label}: flash_fwd_tf32_kernel {k1:.3f} ms = "
+          f"{100 * k1 / total:.1f}% of {total:.2f} ms of kernel time; SIMT forward kernels "
+          f"seen: {simt}", flush=True)
+    if not k1 > 0 or simt:
+        raise AssertionError(f"the f32 {label}'s K1 kernels: 3xTF32 {k1} ms, SIMT {simt}")
+    return {"k1_ms": k1, "total_ms": total}
 
 
 def training_phase(torch, np, fa, tw) -> dict:
@@ -1054,17 +1163,19 @@ def check_fwd_chunked(torch, fa, got, q, k, v, scale, p, seed, chunk) -> tuple:
 def kvres_kernel_phase(torch, F, fa) -> dict:
     """K1' and K2' vs their plain versions and vs K1/K2, and their times.
 
-    K1': MAIN_CASES, EVAL_CASES and a ragged case in f32 and bf16 against the
-    plain version (check_fwd_chunked: K1's gates) and K1 (f32 at
-    KERNEL_ATOL/RTOL, bf16 bit for bit); timed at EVAL_CASES beside K1 (the
-    eval path's sums are the f32 ones).  At TRAIN_CASES (BH 32, the training
-    path's shapes) in f32 and bf16 with dropout 0.1: K1' (out, lse, and in
-    bf16 the row sums) and K2' (dq, dk, dv, from K1''s lse) against the plain
-    versions over BH chunks (f32 BWD_ATOL/RTOL, bf16 K2_BF16_RTOL x max |grad|
-    of the rounding plain backward) and against K1/K2 (f32 at their gates,
-    bf16 bit for bit: KVRES_BF16_GAP); K1' and K2' timed at BH 32 bf16 beside
-    K1 and K2.  Then KVRES_ODD_CASE in bf16 under BUCTD_FLASH_KVRES=1: the
-    dispatch launches K1', which with K2' meets the same gates."""
+    K1': MAIN_CASES, EVAL_CASES, a ragged case and d = 47 in f32 and bf16
+    against the plain version (check_fwd_chunked: K1's gates) and K1 (bit for
+    bit: the same tensor-core kernels with a deeper ring); timed at
+    EVAL_CASES beside K1 (the eval path's sums are the f32 ones).  At
+    TRAIN_CASES (BH 32, the training path's shapes) in f32 and bf16 with
+    dropout 0.1: K1' (out, lse, and in bf16 the row sums) and K2' (dq, dk, dv,
+    from K1''s lse) against the plain versions over BH chunks (f32
+    BWD_ATOL/RTOL, bf16 K2_BF16_RTOL x max |grad| of the rounding plain
+    backward) and against K1/K2 (K1' and bf16 K2' bit for bit:
+    KVRES_GAP; f32 K2', a SIMT kernel of its own, at K2's gate); K1' and
+    K2' timed at BH 32 bf16 beside K1 and K2.  Then KVRES_ODD_CASE in bf16
+    under BUCTD_FLASH_KVRES=1: the dispatch launches K1', which with K2' meets
+    the same gates."""
     import os
 
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
@@ -1072,21 +1183,22 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
     clock = sm_clock_hz()
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {k: 0.0 for k in ("fwd_err", "dq_err", "dkv_err", "fwd_k1_gap", "bwd_k2_gap",
-                            "gap_bf16", "fwd_bf16_rel", "bwd_bf16_rel", "rowsum")}
+                            "gap_exact", "fwd_bf16_rel", "bwd_bf16_rel", "rowsum")}
     for key in ("fwd", "k1", "fwd_plain", "fwd_library", "fwd_bound", "fwd_ops"):
         res[f"{key}_ms"] = 0.0
 
-    def against_k1_k2(got, old, dtype, atol, rtol):
-        """gaps of K1'/K2' outputs to K1's/K2's: f32 within atol/rtol, bf16
-        bit for bit"""
+    def against_k1_k2(got, old, exact, atol=0.0, rtol=0.0):
+        """gaps of K1'/K2' outputs to K1's/K2's: bit for bit where ``exact``
+        (the same kernels), else within atol/rtol"""
         gaps = [(g - w).abs().max().item() for g, w in zip(got, old)]
-        if dtype == torch.float32:
+        if exact:
+            res["gap_exact"] = max(res["gap_exact"], *gaps)
+            if max(gaps) > KVRES_GAP:
+                raise AssertionError(f"K1'/K2' vs K1/K2 (the same kernels): {gaps} > "
+                                     f"{KVRES_GAP}")
+        else:
             for g, w in zip(got, old):
                 torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
-        else:
-            res["gap_bf16"] = max(res["gap_bf16"], *gaps)
-            if max(gaps) > KVRES_BF16_GAP:
-                raise AssertionError(f"bf16 K1'/K2' vs K1/K2: {gaps} > {KVRES_BF16_GAP}")
         return max(gaps)
 
     def check_fwd_kv(out, lse, q, k, v, scale, p, seed, chunk):
@@ -1117,7 +1229,7 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
         res["dkv_err"] = max(res["dkv_err"], errs[1], errs[2])
         return text
 
-    for bh, lq, lk, d in MAIN_CASES + EVAL_CASES + [(3, 700, 300, 112)]:
+    for bh, lq, lk, d in MAIN_CASES + EVAL_CASES + OTHER_CASES[2:]:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             q = torch.randn(bh, lq, d, device="cuda", generator=gen).to(dtype)
@@ -1128,8 +1240,7 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
             torch.cuda.synchronize()
             chunk = PLAIN_BH.get(lq, bh)
             errs, note = check_fwd_kv(out, lse, q, k, v, scale, 0.0, 0, chunk)
-            gap = against_k1_k2((out, lse), fa.flash_attention(q, k, v, scale), dtype,
-                                KERNEL_ATOL, KERNEL_RTOL)
+            gap = against_k1_k2((out, lse), fa.flash_attention(q, k, v, scale), True)
             res["fwd_k1_gap"] = max(res["fwd_k1_gap"], gap)
             print(f"K1' flash_fwd_kvres ({bh}, {lq}, {lk}, {d}) {name}: vs plain out "
                   f"{errs[0]:.3e}{note.get('text', '')} lse {errs[1]:.3e}, vs K1 {gap:.3e}",
@@ -1143,7 +1254,7 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
                 q4, k4, v4 = q[:, None], k[:, None], v[:, None]
                 lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, scale=scale), 10)
-                bound, by = flash_bound_ms(bh, lq, lk, d, name)
+                bound, by = flash_bound_ms(bh, lq, lk, d, name, clock)
                 print(f"  eval shape {name}: K1' {kv_ms:.4f} ms, K1 {k1_ms:.4f} ms "
                       f"(K1'/K1 {kv_ms / k1_ms:.3f}), plain {plain_ms:.4f} ms, sdpa "
                       f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), K1' "
@@ -1151,8 +1262,7 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
                 if dtype == torch.float32:
                     for key, val in (("fwd", kv_ms), ("k1", k1_ms), ("fwd_plain", plain_ms),
                                      ("fwd_library", lib_ms), ("fwd_bound", bound),
-                                     ("fwd_ops", 4.0 * bh * lq * lk * d
-                                      / PEAK_OPS[name] * 1e3)):
+                                     ("fwd_ops", bound if by == "operations" else 0.0)):
                         res[f"{key}_ms"] += val
                 del q4, k4, v4
             del q, k, v, out, lse
@@ -1175,11 +1285,11 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
             bwd_text = check_bwd_kv((dq, dk, dv), q, k, v, do, lse, delta, scale, DROPOUT,
                                     seed, chunk)
             fwd_gap = against_k1_k2((out, lse), fa.flash_attention(q, k, v, scale, DROPOUT,
-                                                                   seed),
-                                    dtype, KERNEL_ATOL, KERNEL_RTOL)
+                                                                   seed), True)
             k2 = (fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, DROPOUT, seed),
                   *fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, DROPOUT, seed))
-            bwd_gap = against_k1_k2((dq, dk, dv), k2, dtype, BWD_ATOL, BWD_RTOL)
+            bwd_gap = against_k1_k2((dq, dk, dv), k2, dtype == torch.bfloat16, BWD_ATOL,
+                                    BWD_RTOL)
             res["fwd_k1_gap"] = max(res["fwd_k1_gap"], fwd_gap)
             if dtype == torch.float32:
                 res["bwd_k2_gap"] = max(res["bwd_k2_gap"], bwd_gap)
@@ -1261,8 +1371,8 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
           f"shapes); K1' {res['train_fwd_ms']:.4f} vs K1 {res['train_k1_ms']:.4f} ms, K2' dq "
           f"{res['dq_ms']:.4f} vs K2 {res['dq_k2_ms']:.4f} ms, dkv {res['dkv_ms']:.4f} vs "
           f"{res['dkv_k2_ms']:.4f} ms (bf16, training shapes); largest gap to K1 "
-          f"{res['fwd_k1_gap']:.3e}, to K2 {res['bwd_k2_gap']:.3e} (f32), bf16 "
-          f"{res['gap_bf16']:.3e} (limit {KVRES_BF16_GAP})", flush=True)
+          f"{res['fwd_k1_gap']:.3e}, f32 K2' to K2 {res['bwd_k2_gap']:.3e}, of the kernels "
+          f"held bit for bit {res['gap_exact']:.3e} (limit {KVRES_GAP})", flush=True)
     return res
 
 
@@ -1416,8 +1526,10 @@ def eval_phase(torch, np, fa, tw) -> dict:
               flush=True)
         if not gap <= KVRES_HM_RTOL * peak:
             raise AssertionError("K1' heatmaps disagree with K1's")
-        kernel_profile(torch, lambda: step(batch),
-                       f"one validate step (batch {EVAL_BATCH}, flip test: 64 crops, f32)")
+        res["profile"] = f32_k1_profile(
+            kernel_profile(torch, lambda: step(batch),
+                           f"one validate step (batch {EVAL_BATCH}, flip test: 64 crops, f32)"),
+            "validate step")
 
         small = {k: v[:2] for k, v in batch.items()}
         cpu_model = copy.deepcopy(model).cpu()
@@ -1764,13 +1876,15 @@ def main() -> int:
 
     check_sass()
     k1 = kernel_phase(torch, F, fa)
+    main_k1 = k1["main"]
     tk = train_kernel_phase(torch, F, fa, tw)
     kv = kvres_kernel_phase(torch, F, fa)
     serving = serving_phase(torch, np, fa)
     est = serving["est"]
-    kernel_profile(torch, lambda: est.predict_batch(serving["images"], serving["poses"],
-                                                    float("-inf")),
-                   "predict_batch (3 images x 4 poses, 3 rounds)")
+    serving_profile = f32_k1_profile(
+        kernel_profile(torch, lambda: est.predict_batch(serving["images"], serving["poses"],
+                                                        float("-inf")),
+                       "predict_batch (3 images x 4 poses, 3 rounds)"), "predict_batch")
     serving_launches = serving["launches"]
     del est
     del serving
@@ -1833,9 +1947,18 @@ def main() -> int:
          "launches": (serving_launches + train["launches"]["flash_fwd"]
                       + ev["launches"]["flash_fwd"]),
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"]),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": bound_by(k1["ops_ms"], k1["bound_ms"]),
-         "library_ms": k1["library_ms"],
+         # f32 (3xTF32) at MAIN_CASES, the SIMT forward it replaced timed in
+         # turns beside it
+         "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
+         "bound_ms": main_k1["bound_ms"],
+         "bound_by": bound_by(main_k1["ops_ms"], main_k1["bound_ms"]),
+         "library_ms": main_k1["library_ms"], "simt_ms": main_k1["simt_ms"],
+         "f32_core_bound_ms": main_k1["core_ms"],
+         # the same at EVAL_CASES, and K1's time in the profiled f32 runs
+         "f32_eval": {key: k1["eval"][key] for key in ("ms", "simt_ms", "plain_ms",
+                                                       "library_ms", "bound_ms", "core_ms")},
+         "profiled_ms": {"predict_batch": serving_profile["k1_ms"],
+                         "validate_step": ev["profile"]["k1_ms"]},
          # the bf16 training path (the tensor-core kernel) at TRAIN_CASES,
          # dropout 0.1, beside the f32 SIMT kernel on the widened operands,
          # which bf16 ran before
@@ -1852,7 +1975,7 @@ def main() -> int:
          "max_abs_err": kv["fwd_err"], "ms": kv["fwd_ms"], "plain_ms": kv["fwd_plain_ms"],
          "bound_ms": kv["fwd_bound_ms"], "bound_by": bound_by(kv["fwd_ops_ms"],
                                                               kv["fwd_bound_ms"]),
-         "library_ms": kv["fwd_library_ms"],
+         "library_ms": kv["fwd_library_ms"], "k1_ms": kv["k1_ms"],
          # bf16 (the tensor-core ring variant) at TRAIN_CASES beside K1 in turns
          "bf16_training": {"ms": kv["train_fwd_ms"], "k1_ms": kv["train_k1_ms"]}},
         entry("flash_bwd_dq", "buctd_tpu_torch/csrc/flash_bwd.cu",

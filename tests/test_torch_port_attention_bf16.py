@@ -9,12 +9,13 @@ left on around the products) so each test shows that its tolerance tells the
 two apart.
 
 Tolerance, both tests: 1e-2 x the largest |output|.  With the same bf16
-inputs the logits agree to f32 sums in another order; what remains is each
-module's bf16 output linear: JAX rounds its dot to bf16 and then adds the bf16
-bias (two roundings), torch's addmm rounds once, so outputs can land one or two
-bf16 steps (2^-8 relative each) apart (measured <= 7.3e-3 of the max).  The
-pre-fix computation misses by 3.5e-2 to 2.0e-1 on the module's inputs and by
-1.2e-1 on the model's worst call.
+inputs the logits agree to f32 sums in another order, and each module's bf16
+output linear rounds as JAX's does (the product to bf16, then the bf16 bias
+added: models/hrnet.py::Linear), so outputs land at most a step or two
+(2^-8 relative each) apart (measured <= 6.0e-3 of the max on the channel
+module's inputs, <= 1.4e-3 on the model's calls).  The pre-fix computation
+misses by 3.8e-2 to 2.0e-1 on the module's inputs and by 1.2e-1 on the
+model's worst call.
 
 * The CoAM channel attention module (``SimplifiedScaledDotProductAttention``)
   at three token widths, on queries and keys that share a component (channels
@@ -24,11 +25,13 @@ pre-fix computation misses by 3.5e-2 to 2.0e-1 on the module's inputs and by
   of its three branches, on the activations the model gives them, with a condition render
   of 0..255 values as the data pipeline makes it), each held against JAX's
   module built with dtype=bfloat16 and the same weights on the same bf16
-  inputs.  The whole model's heatmaps are not compared here: the port's
-  autocast trunk rounds at other points than JAX's bf16 trunk (conv bias added
-  before or after the bf16 rounding, BatchNorm in f32): 1.7e-2 to 5.9e-2 of
-  the max apart with the fix and 1.8e-2 to 7.8e-2 without it (with and
-  without jit on the JAX side), too close to tell the fix.
+  inputs.  The whole model's heatmaps cannot tell this fix:
+  tests/test_torch_port_bf16_trunk.py holds them against JAX's bf16 model,
+  module by module and whole.  Every module of the trunk and the CoAM block
+  rounds as JAX's does on the same inputs, and the whole model's remaining
+  gap (1.5e-2 to 4.8e-2 of the max in eval) is sub-step differences
+  compounded through the trunk and amplified by the CoAM attention, as far as
+  the port's bf16 model is from its own f32 model.
 """
 
 import contextlib

@@ -7,7 +7,9 @@ is false.  The file imports no JAX, so it also runs on a GPU host without it:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
 
 Tolerances: f32 kernel vs plain 2e-5 absolute and relative (both sum in f32,
-in another order, over up to 700 keys); estimator card vs CPU 1e-3 px and 1e-3
+in another order, over up to 700 keys; f32 K1 takes its products in 3xTF32,
+within about 5e-7 of f32 at these shapes, while one tf32 pass lands near
+1e-4 and misses); estimator card vs CPU 1e-3 px and 1e-3
 in confidence (f32 convs with TF32 off, summed in another order).  bf16 K1
 (the tensor-core kernel, against the plain forward that rounds q' and
 p * keep * c where it does): lse at 2e-5 absolute and relative (the f32 sum l
@@ -23,8 +25,8 @@ backward kernels (K2) vs the plain backward: f32 1e-4 absolute and relative
 do) 2e-3 x max |grad|: f32 sums in another order, and one-bf16-step flips of a
 rounded ds or p * keep * c where exp2 and exp differ in the last bit.  K1' and
 K2' take K1's and K2's gates against the plain versions; in f32 they are held
-to K1/K2 at 2e-5 and 1e-4, in bf16 bit for bit (the same tensor-core kernels:
-the depth of the ring changes no arithmetic).  The warp (K4) vs its
+to K1/K2 at 2e-5 and 1e-4 (K1' bit for bit), in bf16 bit for bit (the same
+tensor-core kernels: the depth of the ring changes no arithmetic).  The warp (K4) vs its
 plain version: 1e-4 on [0, 1) images (two tent taps against the dense sum).
 The fused basic block (K5) vs its plain version: f32 atol = rtol = 2e-5, bf16
 2^-6 (an f32 sum in another order can round the intermediate or the output
@@ -57,6 +59,10 @@ K1_BF16_RTOL = 4e-3
 # 1.338e-3 to 1.668e-3)
 K1_BF16_TILED_RMS = 2e-4
 BF16_GRAD_RTOL = 2e-3
+# f32 K1 and K1' (the 3xTF32 kernel): ragged in both L, and d = 7, 47 (rows of
+# 188 bytes, no multiple of 16: the register load path), 48, 96, 112 and 128
+K1_F32_SHAPES = [(2, 100, 130, 7), (2, 130, 200, 47), (3, 200, 333, 48),
+                 (2, 129, 257, 96), (1, 300, 300, 112), (1, 65, 700, 128)]
 
 
 def _assert_fwd_close(got, want, dtype):
@@ -139,6 +145,91 @@ def test_bf16_forward_kernel_matches_rounding_plain(cuda, bh, lq, lk, d, dropout
     rms = [((x - tiled).square().sum() / tiled.square().sum()).sqrt().item()
            for x in (out, control)]
     assert rms[0] <= K1_BF16_TILED_RMS < rms[1], rms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("bh,lq,lk,d", K1_F32_SHAPES)
+def test_f32_forward_kernels_match_plain(cuda, monkeypatch, bh, lq, lk, d, dropout):
+    """f32 K1 (3xTF32 on the tensor cores) and K1' vs the plain f32 forward
+    at 2e-5 (out and lse), K1' bit for bit equal to K1 (the same kernel with a
+    deeper ring), and the one-pass control misses the gate (the d = 7 case,
+    seven terms a logit, is left out of that)."""
+    monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
+    q, k, v = _qkv(bh, lq, lk, d, torch.float32, cuda)
+    scale, seed = d ** -0.5, 11
+    before = [fa.flash_attention.launches, fa.flash_attention_kvres.launches]
+    got = fa.flash_attention(q, k, v, scale, dropout, seed)
+    kvres = fa.flash_attention_kvres(q, k, v, scale, dropout, seed)
+    torch.cuda.synchronize()
+    assert [fa.flash_attention.launches, fa.flash_attention_kvres.launches] == \
+        [b + 1 for b in before]
+    _assert_fwd_close(got, fa.flash_attention_reference(q, k, v, scale, dropout, seed),
+                      torch.float32)
+    for a, b in zip(kvres, got):
+        assert torch.equal(a, b)
+    keep = fa.dropout_multiplier(seed, bh, lq, lk, dropout, cuda) if dropout > 0.0 else None
+    one_pass, _ = fa.forward_tf32(q, k, v, scale, 1, keep)
+    if d > 7:
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(one_pass, got[0], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0.0, 3.0], ids=["v", "v+3"])
+def test_f32_forward_long_rows_as_accurate_as_simt(cuda, offset):
+    """At 6912 keys, with and without a common component in v (as fc_v's
+    bias gives), f32 K1's out is no further from the plain f32 forward than
+    twice the SIMT forward's: each tile's p v enters o with an f32 fma, not
+    through the tensor cores' accumulator, whose error grows with L_k."""
+    q, k, v = _qkv(2, 6912, 6912, 48, torch.float32, cuda)
+    v = v + offset
+    scale = 48 ** -0.5
+    want, _ = fa.flash_attention_reference(q, k, v, scale)
+    got, _ = fa.flash_attention(q, k, v, scale)
+    simt, _ = fa.flash_attention_simt(q, k, v, scale)
+    err, simt_err = ((x - want).abs().max().item() for x in (got, simt))
+    assert err <= 2 * simt_err, (err, simt_err)
+
+
+@pytest.mark.cuda
+def test_f32_forward_kernels_run_tf32_hmma(cuda):
+    """The f32 forward kernels show TF32 HMMA in their SASS (cuobjdump),
+    in K1's and K1''s libraries, and the SIMT forward kept beside K1 none."""
+    from buctd_tpu_torch import _build
+
+    for lib in ("flash_fwd", "flash_fwd_kvres"):
+        _build.build([lib])
+        tf32 = {f: n for f, n in _build.hmma_counts(lib, "TF32").items()
+                if "flash_fwd_tf32_kernel" in f}
+        simt = {f: n for f, n in _build.hmma_counts(lib).items() if "flash_fwd_kernel" in f}
+        assert len(tf32) == 8 and min(tf32.values()) > 0, tf32   # 8 head-dim cases
+        assert sum(simt.values()) == 0 and (lib == "flash_fwd") == bool(simt), simt
+
+
+@pytest.mark.cuda
+def test_f32_serving_profile_names_no_simt_forward(cuda):
+    """A profiled f32 predict of the tiny estimator runs K1's 3xTF32 kernel
+    and no SIMT forward (chip_smoke.py checks a full-width validate step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from buctd_tpu_torch.serving import PoseEstimator
+
+    cfg = load_cfg("torch", opts=TINY_COAM)
+    rng = np.random.RandomState(2)
+    img = rng.randint(0, 256, (200, 300, 3)).astype(np.uint8)
+    conds = rng.uniform(60, 180, (2, 14, 2)).astype(np.float32)
+    torch.manual_seed(1)
+    est = PoseEstimator(cfg, refine_iters=1)
+    est.predict(img, conds, float("-inf"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        est.predict(img, conds, float("-inf"))
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert any("flash_fwd_tf32_kernel" in n for n in names), names
+    assert not any("flash_fwd_kernel" in n for n in names), names
 
 
 @pytest.mark.cuda
@@ -243,7 +334,8 @@ def test_warp_kernel_matches_plain(cuda):
 def test_kvres_kernels_match_plain_and_k1_k2(cuda, monkeypatch, bh, lq, lk, d, dtype,
                                              dropout):
     """K1' and K2' vs the plain versions (K1's and K2's gates) and vs K1/K2 on
-    the same inputs: f32 at 2e-5 and 1e-4, bf16 bit for bit."""
+    the same inputs: K1' bit for bit, K2' in f32 at 1e-4 and in bf16 bit for
+    bit."""
     monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
     q, k, v = _qkv(bh, lq, lk, d, dtype, cuda)
     scale, seed = d ** -0.5, 5
@@ -266,12 +358,12 @@ def test_kvres_kernels_match_plain_and_k1_k2(cuda, monkeypatch, bh, lq, lk, d, d
     k1 = fa.flash_attention(q, k, v, scale, dropout, seed)
     k2 = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, dropout, seed),
           *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, dropout, seed))
+    for got, old in zip((out, lse), k1):
+        assert torch.equal(got, old)
     if bf16:
-        for got, old in zip((out, lse, dq, dk, dv), (*k1, *k2)):
+        for got, old in zip((dq, dk, dv), k2):
             assert torch.equal(got, old)
     else:
-        torch.testing.assert_close(out, k1[0], atol=2e-5, rtol=2e-5)
-        torch.testing.assert_close(lse, k1[1], atol=2e-5, rtol=2e-5)
         _assert_grads_close((dq, dk, dv), k2)
 
 
