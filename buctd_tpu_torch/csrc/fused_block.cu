@@ -30,19 +30,26 @@
 // of conv1's work (1.36x-1.63x at the W48 branch tiles).
 // What bounds it on this card: operations.  Two 3x3 convs are 36 C^2 flops a
 // pixel against 2-4 C bytes moved (x in, out), hundreds of operations a byte;
-// this SIMT kernel reaches at most the f32 CUDA-core rate (67 TFLOP/s).  The
-// bf16 tensor-core path (mma.sync/wgmma) is later work.
+// this SIMT kernel reaches at most the f32 CUDA-core rate (67 TFLOP/s).  It
+// runs the f32 path; bf16 runs on the tensor cores (fused_block_tc_kernel,
+// csrc/fused_block_tc.cuh), and the bf16 SIMT instantiation stays only for
+// the A/B (buctd_fused_block_simt).
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/fused_block.py):
 //   int buctd_fused_block(x, w1, w2, b1, b2, out, B, H, W, C, dtype, stream)
+//   int buctd_fused_block_simt(x, w1, w2, b1, b2, out, B, H, W, C, dtype, stream)
 // x, out (B, H, W, C) NHWC; w1, w2 (3, 3, C, C) HWIO; b1, b2 (C,); all of
 // one dtype (0 = f32, 1 = bf16), contiguous, on the device, allocated by the
-// caller.  It launches on `stream`, does not synchronise and returns the
-// cudaError_t of its launch.
+// caller.  buctd_fused_block launches this SIMT kernel for f32 and the
+// tensor-core kernel for bf16 (C up to 384); buctd_fused_block_simt this
+// kernel for bf16 only.  They launch on `stream`, do not synchronise and
+// return the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fused_block_tc.cuh"
 
 namespace {
 
@@ -278,6 +285,14 @@ extern "C" int buctd_fused_block(const void* x, const void* w1, const void* w2,
                                  int W, int C, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return run<float>(x, w1, w2, b1, b2, out, B, H, W, C, stream);
+  if (dtype == 1) return k5tc::run(x, w1, w2, b1, b2, out, B, H, W, C, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int buctd_fused_block_simt(const void* x, const void* w1, const void* w2,
+                                      const void* b1, const void* b2, void* out, int B,
+                                      int H, int W, int C, int dtype, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) return run<__nv_bfloat16>(x, w1, w2, b1, b2, out, B, H, W, C, stream);
   return (int)cudaErrorInvalidValue;
 }

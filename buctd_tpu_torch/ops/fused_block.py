@@ -14,15 +14,24 @@ dtype before the second conv, the second conv reads zeros outside the image,
 the residual is added in f32 and the output cast to x's dtype.
 
 * CUDA tensors launch ``csrc/fused_block.cu``, which keeps the intermediate
-  in shared memory (it never goes to device memory).  It launches or raises;
-  nothing falls back to cuDNN or to the plain version.
+  in shared memory (it never goes to device memory): bf16 runs on the tensor
+  cores (``fused_block_tc_kernel``, ``csrc/fused_block_tc.cuh``, C up to
+  384), f32 on the CUDA cores (the SIMT ``fused_block_kernel``).  It
+  launches or raises; nothing falls back to the SIMT kernel, cuDNN or the
+  plain version.
 * CPU tensors take ``fused_basic_block_plain``: the same arithmetic as two
   ``F.conv2d`` in f32 on the widened operands.
+* ``fused_basic_block_simt`` launches the bf16 SIMT kernel, which bf16 ran
+  before its tensor-core kernel; it stays only for the A/B
+  (``tools/bench_block.py --simt``, the checks).
 
-The JAX package wires the kernel into no model; its only callers are the
-benchmark (``buctd_tpu_torch/tools/bench_block.py``, the counterpart of
-tools/bench_block.py) and the checks.  ``fused_basic_block.launches`` counts
-the kernel's launches (CPU calls do not count).
+``TC_PLANS`` states the tensor-core kernel's tile plans as the ``.cuh`` does,
+and ``tc_plan(C)`` the tiles, chunks and shared memory of the plan a C
+takes, for the CPU tests.  The JAX package wires the kernel into no model;
+its only callers are the benchmark (``buctd_tpu_torch/tools/bench_block.py``,
+the counterpart of tools/bench_block.py) and the checks.
+``fused_basic_block.launches`` and ``fused_basic_block_simt.launches`` count
+the kernels' launches (CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -34,6 +43,46 @@ import torch
 import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/fused_block_tc.cuh's tile plans, by C rounded up to 16 (``cmax``):
+# th x tw output pixels a block, kc input channels a weight tile and input
+# chunk, nc output channels a chunk, wm x wn warps, `stages` slots in the
+# weight ring of `taps` taps each, `blocks` blocks an SM that the registers
+# must allow
+TC_PLANS = (
+    {"cmax": 48, "th": 16, "tw": 8, "kc": 48, "nc": 48, "wm": 4, "wn": 1, "stages": 2,
+     "taps": 3, "blocks": 2},
+    {"cmax": 96, "th": 16, "tw": 12, "kc": 96, "nc": 48, "wm": 8, "wn": 1, "stages": 2,
+     "taps": 3, "blocks": 1},
+    {"cmax": 192, "th": 12, "tw": 18, "kc": 32, "nc": 64, "wm": 4, "wn": 2, "stages": 2,
+     "taps": 3, "blocks": 1},
+    {"cmax": 384, "th": 12, "tw": 9, "kc": 64, "nc": 128, "wm": 2, "wn": 4, "stages": 2,
+     "taps": 1, "blocks": 1},
+)
+SMEM_LIMIT = 232448          # bytes of shared memory a block may use on an H100
+
+
+def tc_plan(c: int) -> dict:
+    """The tensor-core kernel's plan for C channels, as the kernel derives it:
+    C_pad (C rounded up to 16), the halo and input tiles, the m16 row tiles
+    of each phase, a warp's m16 and n8 tiles, the chunk counts, the row
+    strides (elements) and the shared-memory bytes (the ring, the input tile,
+    the intermediate and the f32 biases)."""
+    cpad = -(-c // 16) * 16
+    plan = next((dict(p) for p in TC_PLANS if cpad <= p["cmax"]), None)
+    if c <= 0 or plan is None:
+        raise ValueError(f"the bf16 fused block takes 1 <= C <= {TC_PLANS[-1]['cmax']}, "
+                         f"got {c}")
+    th, tw, kc, nc, wm, wn = (plan[k] for k in ("th", "tw", "kc", "nc", "wm", "wn"))
+    p1, p2, px = (th + 2) * (tw + 2), th * tw, (th + 4) * (tw + 4)
+    m1, m2 = -(-p1 // 16), -(-p2 // 16)
+    plan.update(cpad=cpad, p1=p1, p2=p2, px=px, m1=m1, m2=m2,
+                mt=max(-(-m1 // wm), -(-m2 // wm)), nt=nc // (8 * wn), threads=32 * wm * wn,
+                nx=-(-cpad // kc), nn=-(-cpad // nc), xbufs=2 if cpad > kc else 1,
+                sx=kc + 8, sw=nc + 8, sy=cpad + 8)
+    plan["smem"] = (2 * (plan["stages"] * plan["taps"] * kc * plan["sw"]
+                         + plan["xbufs"] * px * plan["sx"] + p1 * plan["sy"]) + 4 * 2 * cpad)
+    return plan
 
 
 def fused_basic_block_plain(x, w1, w2, b1, b2):
@@ -67,39 +116,61 @@ def _check(x, w1, w2, b1, b2) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    """buctd_fused_block of csrc/fused_block.cu (built and loaded at first call)."""
+def _fn(name: str = "buctd_fused_block"):
+    """``name`` of csrc/fused_block.cu (built and loaded at first call)."""
     from .._build import load
 
-    fn = load("fused_block").buctd_fused_block
+    fn = getattr(load("fused_block"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * 6 + [i] * 5 + [p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _launch(name, x, w1, w2, b1, b2):
+    x, w1, w2, b1, b2 = (t.contiguous() for t in (x, w1, w2, b1, b2))
+    B, H, W, C = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _fn(name)(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), B, H, W, C, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err} at "
+                           f"{tuple(x.shape)} {x.dtype}")
+    return out
+
+
 def fused_basic_block(x, w1, w2, b1, b2):
     """The fused eval basic block.  CUDA tensors launch K5
-    (``csrc/fused_block.cu``); CPU tensors take ``fused_basic_block_plain``;
-    any other device raises."""
+    (``csrc/fused_block.cu``: bf16 on the tensor cores, f32 SIMT); CPU
+    tensors take ``fused_basic_block_plain``; any other device raises."""
     _check(x, w1, w2, b1, b2)
     if x.device.type == "cpu":
         return fused_basic_block_plain(x, w1, w2, b1, b2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_basic_block runs on cuda or cpu, not {x.device}")
-    x, w1, w2, b1, b2 = (t.contiguous() for t in (x, w1, w2, b1, b2))
-    B, H, W, C = x.shape
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _fn()(
-            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), B, H, W, C, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_block launch failed: cudaError_t {err} at "
-                           f"{tuple(x.shape)} {x.dtype}")
+    if x.dtype == torch.bfloat16:
+        tc_plan(x.shape[3])                                  # raises past C = 384
+    out = _launch("buctd_fused_block", x, w1, w2, b1, b2)
     fused_basic_block.launches += 1
     return out
 
 
 fused_basic_block.launches = 0
+
+
+def fused_basic_block_simt(x, w1, w2, b1, b2):
+    """K5's bf16 SIMT kernel (f32 FMAs on the widened operands), for the A/B
+    against the tensor-core kernel: bf16 CUDA tensors only."""
+    _check(x, w1, w2, b1, b2)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise TypeError(f"fused_basic_block_simt takes bf16 CUDA tensors, got {x.dtype} on "
+                        f"{x.device}")
+    out = _launch("buctd_fused_block_simt", x, w1, w2, b1, b2)
+    fused_basic_block_simt.launches += 1
+    return out
+
+
+fused_basic_block_simt.launches = 0

@@ -1,7 +1,7 @@
 """Benchmarks of the port on one CUDA card, counterparts of the JAX package's
 tools/bench_block.py, tools/bench_exp2.py and tools/bench_stem.py:
 
-    python -m buctd_tpu_torch.tools.bench_block [--fused]
+    python -m buctd_tpu_torch.tools.bench_block [--fused] [--simt] [--dtype float32]
     python -m buctd_tpu_torch.tools.bench_exp2 [--rounds N]
     python -m buctd_tpu_torch.tools.bench_stem [BATCHES ...]
 

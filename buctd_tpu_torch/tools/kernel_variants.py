@@ -1,5 +1,6 @@
 """Variants of a kernel's source for the benchmarks that A/B its launch
-choices (tools/bench_flash_fwd.py, tools/bench_flash_bwd.py).
+choices (tools/bench_flash_fwd.py, tools/bench_flash_bwd.py) or its
+arithmetic.
 
 A variant is csrc/<lib>.cu with some of its headers rewritten.  The copies
 are written into buctd_tpu_torch/_build/variants/<tag>/ (git ignores it) and
@@ -52,15 +53,18 @@ def loaded(lib: str, lib_path):
     build again after it."""
     from .. import _build
     from ..ops import flash_attention as fa
+    from ..ops import fused_block as fb
 
     shipped = _build.load(lib)
     _build._loaded[lib] = ctypes.CDLL(str(lib_path)) if lib_path else shipped
     fa._fn.cache_clear()
+    fb._fn.cache_clear()
     try:
         yield
     finally:
         _build._loaded[lib] = shipped
         fa._fn.cache_clear()
+        fb._fn.cache_clear()
 
 
 def events_ms(fn, n: int) -> float:

@@ -12,8 +12,9 @@ port's benchmarks of the fused basic block (K5) and exp throughput (K6).
 Phases (each raises on failure; nothing is caught):
   0. build every kernel under buctd_tpu_torch/csrc/ with nvcc for sm_90a (one
      nvcc per source, all started together); in the SASS (cuobjdump) of the
-     four flash libraries, HMMA in every tensor-core kernel and in no SIMT
-     one, and TF32 HMMA in every f32 forward kernel of K1 and K1';
+     four flash libraries and K5's, HMMA in every tensor-core kernel (K5's
+     ``fused_block_tc_kernel``, one a tile plan) and in no SIMT one, and
+     TF32 HMMA in every f32 forward kernel of K1 and K1';
   1. kernels, serving and evaluation shapes: K1 (flash-attention forward on
      the tensor cores: f32 in 3xTF32, bf16) vs its plain version at the
      CoAM-W48 shapes (16 crops, as predict_batch gives them, 64 as a
@@ -35,7 +36,8 @@ Phases (each raises on failure; nothing is caught):
      bf16 times beside the f32 SIMT kernels' on the widened operands (what
      bf16 ran before its tensor-core kernels), the
      tensor-core, MUFU and dropout-hash floors, SDPA's forward and SDPA's
-     backward alone;
+     backward alone; f32 K2 (the SIMT kernels) beside SDPA's f32 backward
+     alone and its f32 CUDA-core bound;
   3. serving: CoAM-W48 crowdpose 384x288 (14 joints, random weights from
      torch.manual_seed), ``predict`` on a 480x640 image with 4 condition poses
      and ``predict_batch`` on 3 images; finite outputs of the right shapes, the
@@ -52,7 +54,7 @@ Phases (each raises on failure; nothing is caught):
   5. one f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
      same step on the CPU: loss, the gradients (all, and the position
      attention's alone), BN running statistics; the step's K2 calls vs
-     float64 on their own inputs;
+     float64 on their own inputs; f32 K2's launches in that step;
   6. kernels, kv-resident: K1' (flash_fwd_kvres) vs the plain version at the
      serving shapes, the eval shapes (64 = 2 x 32 flip-test crops) in f32 and
      bf16, a ragged case and d = 47, and vs K1; at the training shapes (BH
@@ -62,7 +64,7 @@ Phases (each raises on failure; nothing is caught):
      tensor-core kernels with a deeper ring; f32 K2' at K2's gate); an odd
      head dim in bf16 under BUCTD_FLASH_KVRES=1; times of each beside
      K1's/K2's (A/B in turns: old, new, new, old), the plain version's, the
-     bound and SDPA's;
+     bound and SDPA's; f32 K2' beside f32 K2 in turns at the training shapes;
   7. evaluation: ``buctd_tpu_torch.valid.run`` on a seeded synthetic
      CrowdPose test set (64 480x640 images x 4 people = 256 crops = 8 batches
      of 32) from a BU-prediction json, with N(0, 1/fan_in) weights saved as a
@@ -77,8 +79,10 @@ Phases (each raises on failure; nothing is caught):
   9. 3 training steps under BUCTD_FLASH_KVRES=1: K1', K2' dq and K2' dk/dv
      launched 2 per step, K1 and K2 never, the loss finite;
  10. K5 (the fused eval basic block) vs its plain version at the four W48
-     branch geometries, batch 32, f32 and bf16, and on the benchmark's own
-     batch-128 bf16 inputs; the plain version's time on those;
+     branch geometries, batch 32, f32 (SIMT) and bf16 (the tensor-core
+     kernel, and the bf16 SIMT kernel of the A/B), and on the benchmark's own
+     batch-128 bf16 inputs; the long-K check at C = 384 against float64
+     (K5_LONG_K); the plain version's time;
  11. K5 vs the port's trunk: one stage-4 BasicBlock per branch of a
      full-width preNet-W48 with random BN statistics, folded by
      models/fuse.py::fold_bn, f32 with TF32 off;
@@ -88,10 +92,13 @@ Phases (each raises on failure; nothing is caught):
      PoseEstimator from one .pth of random weights, with TPU.FUSED_PRENET off
      and auto: fused vs unfused predictions, each forward on the card vs the
      CPU, crops/s, a profile of each;
- 14. the port's tools, reduced (buctd_tpu_torch/tools/bench_block.py --fused,
-     bench_exp2.py, bench_stem.py): K5's and K6's launch counts in that run,
-     and the times of K5, cuDNN, K6 (device time) and the torch chains that
-     the kernels line reports; K6 no faster than its SFU bound.
+ 14. the port's tools, reduced (buctd_tpu_torch/tools/bench_block.py --simt
+     and --fused --dtype float32, bench_exp2.py, bench_stem.py): K5's (both
+     dtypes), K5's SIMT A/B's and K6's launch counts in that run, and the
+     times of K5 (tensor cores, SIMT, f32), cuDNN (bf16, f32 with TF32 off),
+     K6 (device time) and the torch chains that the kernels line reports;
+     bf16 K5 faster than its SIMT kernel at every branch; K6 no faster than
+     its SFU bound.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -234,6 +241,14 @@ PRENET_CONFIG = ROOT / "experiments" / "crowdpose" / "buctd" / "prenet_w48_384x2
 # bf16 step (2^-7 relative) apart, so two steps, relative and absolute
 K5_CHECK_BATCH = 32
 K5_ATOL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+# bf16 K5's long-K check: C = 384 (K = 3456 terms a conv) at (batch, H, W, C),
+# the tensor-core kernel's and the SIMT kernel's outputs against a float64
+# chain on the same bf16 operands (the intermediate rounded where the kernels
+# round it): the tensor-core kernel's max and rms error, and its share of
+# outputs off the float64 chain rounded to bf16, at most K5_LONG_K_RATIO x the
+# SIMT kernel's (the tensor cores' accumulator is not an f32 add)
+K5_LONG_K = (32, 12, 9, 384)
+K5_LONG_K_RATIO = 2.0
 # K5 vs the trunk's BasicBlock (f32, TF32 off): a float64 BN fold cast to f32
 # against conv + BN in f32, summed in another order; relative to the max
 K5_TRUNK_RTOL = 1e-4
@@ -260,18 +275,24 @@ FLASH_SIMT = {"flash_fwd": ("flash_fwd_kernel",),
               "flash_bwd_kvres": ("flash_bwd_dq_kvres_kernel", "flash_bwd_dkv_kvres_kernel")}
 # the libraries whose f32 forward must show TF32 HMMA (HMMA.1684.F32.TF32)
 FLASH_TF32 = ("flash_fwd", "flash_fwd_kvres")
+# K5's library: the bf16 tensor-core kernel (``fused_block_tc_kernel``, one
+# instantiation a tile plan) and the SIMT kernels (f32, and bf16 for the A/B)
+K5_SIMT = {"fused_block": ("fused_block_kernel",)}
 
 
 def check_sass() -> None:
-    """In every flash library, HMMA in each tensor-core kernel and in none of
-    the SIMT ones; TF32 HMMA in every f32 forward kernel (8 head-dim cases
-    each) of K1 and K1'."""
+    """In every flash library and in K5's, HMMA in each tensor-core kernel
+    and in none of the SIMT ones; TF32 HMMA in every f32 forward kernel (8
+    head-dim cases each) of K1 and K1'; one tensor-core K5 kernel a tile plan."""
     from buctd_tpu_torch._build import hmma_counts
+    from buctd_tpu_torch.ops.fused_block import TC_PLANS
 
-    for lib, simt_names in FLASH_SIMT.items():
+    for lib, simt_names in {**FLASH_SIMT, **K5_SIMT}.items():
         hmma = hmma_counts(lib)
-        tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f or "_tf32_kernel" in f}
-        simt = {f: n for f, n in hmma.items() if any(k in f for k in simt_names)}
+        tc = {f: n for f, n in hmma.items()
+              if "_tc_kernel" in f or "_tf32_kernel" in f}
+        simt = {f: n for f, n in hmma.items() if any(k in f for k in simt_names)
+                and f not in tc}
         tf32 = ({f: n for f, n in hmma_counts(lib, "TF32").items() if "_tf32_kernel" in f}
                 if lib in FLASH_TF32 else {})
         print(f"{lib} SASS: {len(tc)} tensor-core kernels, HMMA {min(tc.values(), default=0)}-"
@@ -283,6 +304,9 @@ def check_sass() -> None:
             raise AssertionError(f"{lib}'s SASS: tensor-core kernels {tc}, SIMT kernels {simt}")
         if lib in FLASH_TF32 and (len(tf32) != 8 or min(tf32.values()) == 0):
             raise AssertionError(f"{lib}'s SASS: TF32 HMMA of the f32 forward {tf32}")
+        if lib in K5_SIMT and len(tc) != len(TC_PLANS):
+            raise AssertionError(f"{lib}'s SASS: {len(tc)} tensor-core kernels, not "
+                                 f"{len(TC_PLANS)}")
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -591,6 +615,7 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
             res[f"{name}_{key}"] = 0.0
         for floor in ("tensor", "mufu", "hash"):
             res[f"{name}_{floor}_ms"] = 0.0
+    res.update(f32_library_ms=0.0, dq_f32_bound_ms=0.0, dkv_f32_bound_ms=0.0)
     for bh, lq, d in TRAIN_CASES:
         q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
@@ -625,7 +650,16 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
                                                            scale, DROPOUT, seed), 3)
         t["dkv_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dkv(qf, kf, vf, do, lse32, delta32,
                                                              scale, DROPOUT, seed), 3)
-        del qf, kf, vf, out32, lse32, delta32
+        # SDPA's f32 backward alone at the same shapes and dropout (dq, dk,
+        # dv from the saved forward): the f32 SIMT K2's library yardstick,
+        # and the f32 bound on the CUDA cores (67 TFLOP/s)
+        q32, k32, v32 = (x[:, None].detach().clone().requires_grad_() for x in (qf, kf, vf))
+        out4 = F.scaled_dot_product_attention(q32, k32, v32, dropout_p=DROPOUT, scale=scale)
+        t["f32_library_ms"] = timed_ms(lambda: torch.autograd.grad(
+            out4, (q32, k32, v32), do[:, None], retain_graph=True), 3)
+        for kind in ("dq", "dkv"):
+            t[f"{kind}_f32_bound_ms"] = bwd_bound_ms(bh, lq, d, 4, kind)[0]
+        del qf, kf, vf, out32, lse32, delta32, q32, k32, v32, out4
         q4, k4, v4 = (x[:, None].detach().clone().requires_grad_() for x in (q, k, v))
 
         def sdpa_fwd():
@@ -679,6 +713,12 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
           f"K2 / SDPA backward {k2_ms / res['dq_library_ms']:.3f}; worst bf16 check "
           f"{res['bf16_rel']:.3e} of max |grad|, distance to the f32 plain version "
           f"{res['f32_gap']:.3e}", flush=True)
+    simt_ms = res["dq_simt_ms"] + res["dkv_simt_ms"]
+    print(f"K2 f32 (the SIMT kernels, the f32 step's) over {TRAIN_CASES}, dropout {DROPOUT}: "
+          f"dq {res['dq_simt_ms']:.4f} ms (f32 bound {res['dq_f32_bound_ms']:.4f}), dkv "
+          f"{res['dkv_simt_ms']:.4f} ms (f32 bound {res['dkv_f32_bound_ms']:.4f}); SDPA's f32 "
+          f"backward alone {res['f32_library_ms']:.4f} ms, K2 / SDPA f32 backward "
+          f"{simt_ms / res['f32_library_ms']:.3f}", flush=True)
 
     B, H, W = WARP_BATCH
     images = torch.rand(B, H, W, 3, device="cuda", generator=gen) * 255.0
@@ -989,13 +1029,14 @@ def dense_attention_grads(q, k, v, dout, scale):
     return torch.autograd.grad(out, (q, k, v), dout.double())
 
 
-def card_vs_cpu_step(torch, np, fa) -> None:
+def card_vs_cpu_step(torch, np, fa) -> dict:
     """One f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
     same step on the CPU, from the reference init the trainer starts from,
     with the CPU's float64 step as exact arithmetic: the loss, the BN running
     statistics after the forward, the gradients (see STEP_GRAD_RATIO), over
     the whole model and over the CoAM position attention alone, and each K2
-    call of the card's step against float64 on its own inputs."""
+    call of the card's step against float64 on its own inputs.  Returns the
+    launches of f32 K2 (the SIMT kernels) in the card's step, its main path."""
     from torch import nn
 
     from buctd_tpu_torch.config import default_config, update_config
@@ -1032,10 +1073,16 @@ def card_vs_cpu_step(torch, np, fa) -> None:
         loss = loss_fn(m(torch.from_numpy(x).to(dev, dt)),
                        torch.from_numpy(tgt).to(dev, dt), torch.from_numpy(tw).to(dev, dt))
         fa.flash_attention_backward = recording_backward if name == "card" else backward
+        if name == "card":                   # f32 K2's main path: this step
+            fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
         try:
             loss.backward()
         finally:
             fa.flash_attention_backward = backward
+        if name == "card":
+            torch.cuda.synchronize()
+            launches = {"flash_bwd_dq": fa.flash_bwd_dq.launches,
+                        "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
         res[name] = (loss.item(),
                      {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()},
                      {k: b.detach().cpu().double() for k, b in m.named_buffers()
@@ -1075,12 +1122,14 @@ def card_vs_cpu_step(torch, np, fa) -> None:
           f"max |err| / max |grad| {k2_err:.2e} (limit {STEP_K2_RTOL:.0e}); BN running "
           f"stats max |card - CPU| {bn_err:.2e} (rtol {STEP_BN_RTOL:.0e}, atol "
           f"{STEP_BN_ATOL:.0e})", flush=True)
-    if len(k2_calls) != 2:
-        raise AssertionError(f"{len(k2_calls)} flash backward calls in the step, not 2")
+    if len(k2_calls) != 2 or launches != {"flash_bwd_dq": 2, "flash_bwd_dkv": 2}:
+        raise AssertionError(f"{len(k2_calls)} flash backward calls in the step, not 2; "
+                             f"K2 launches {launches}")
     if not (abs(l_card - l_cpu) <= STEP_LOSS_RTOL * abs(l_cpu)
             and d_card <= STEP_GRAD_RATIO * d_cpu and a_card <= STEP_GRAD_RATIO * a_cpu
             and k2_err <= STEP_K2_RTOL and bn_ok):
         raise AssertionError("the card's train step disagrees with the CPU's")
+    return launches
 
 
 def ab_ms(old, new, iters: int) -> tuple:
@@ -1302,7 +1351,7 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
     for name in ("train_fwd", "train_k1", "dq", "dkv"):
         res[f"{name}_ms"] = 0.0
     for name in ("dq", "dkv"):
-        for key in ("k2_ms", "bound_ms", "ops_ms"):
+        for key in ("k2_ms", "bound_ms", "ops_ms", "f32_ms", "f32_k2_ms"):
             res[f"{name}_{key}"] = 0.0
     for bh, lq, d in TRAIN_CASES:
         q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
@@ -1335,7 +1384,22 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
               f"K2'/K2 {kv_dq / k2_dq:.3f}, bound {bounds['dq']:.4f}), dkv {kv_dkv:.4f} ms "
               f"(K2 {k2_dkv:.4f}, K2'/K2 {kv_dkv / k2_dkv:.3f}, bound {bounds['dkv']:.4f}); "
               f"plain versions and sdpa: the train kernels line", flush=True)
-        del q, k, v, do, out, lse, delta, args
+        # f32 K2' (its own SIMT kernels) beside f32 K2 in turns, on the widened
+        # operands; SDPA's f32 backward and the f32 bounds: the train kernels line
+        qf, kf, vf = q.float(), k.float(), v.float()
+        outf, lsef = fa.flash_attention(qf, kf, vf, scale, DROPOUT, seed)
+        argf = (qf, kf, vf, do, lsef, (do * outf).sum(-1), scale, DROPOUT, seed)
+        f32 = {"dq": ab_ms(lambda: fa.flash_bwd_dq(*argf),
+                           lambda: fa.flash_bwd_dq_kvres(*argf), 2),
+               "dkv": ab_ms(lambda: fa.flash_bwd_dkv(*argf),
+                            lambda: fa.flash_bwd_dkv_kvres(*argf), 2)}
+        for kind, (k2_t, kv_t) in f32.items():
+            res[f"{kind}_f32_ms"] += kv_t
+            res[f"{kind}_f32_k2_ms"] += k2_t
+        print(f"K2' ({bh}, {lq}, {d}) f32 dropout {DROPOUT}: dq {f32['dq'][1]:.4f} ms (K2 "
+              f"{f32['dq'][0]:.4f}), dkv {f32['dkv'][1]:.4f} ms (K2 {f32['dkv'][0]:.4f})",
+              flush=True)
+        del q, k, v, do, out, lse, delta, args, qf, kf, vf, outf, lsef, argf
         torch.cuda.empty_cache()
 
     # an odd head dim in bf16 under the switch: the dispatch takes K1', and K1'
@@ -1370,7 +1434,9 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
     print(f"A/B sums: K1' {res['fwd_ms']:.4f} ms vs K1 {res['k1_ms']:.4f} ms (f32, eval "
           f"shapes); K1' {res['train_fwd_ms']:.4f} vs K1 {res['train_k1_ms']:.4f} ms, K2' dq "
           f"{res['dq_ms']:.4f} vs K2 {res['dq_k2_ms']:.4f} ms, dkv {res['dkv_ms']:.4f} vs "
-          f"{res['dkv_k2_ms']:.4f} ms (bf16, training shapes); largest gap to K1 "
+          f"{res['dkv_k2_ms']:.4f} ms (bf16, training shapes); f32 K2' dq "
+          f"{res['dq_f32_ms']:.4f} vs K2 {res['dq_f32_k2_ms']:.4f} ms, dkv "
+          f"{res['dkv_f32_ms']:.4f} vs {res['dkv_f32_k2_ms']:.4f} ms; largest gap to K1 "
           f"{res['fwd_k1_gap']:.3e}, f32 K2' to K2 {res['bwd_k2_gap']:.3e}, of the kernels "
           f"held bit for bit {res['gap_exact']:.3e} (limit {KVRES_GAP})", flush=True)
     return res
@@ -1587,23 +1653,25 @@ def kvres_training_phase(torch, np, fa) -> dict:
 
 def fused_block_phase(torch, fb) -> dict:
     """(a) K5 vs its plain version at the four W48 branch geometries: batch
-    K5_CHECK_BATCH in f32 and bf16, and the benchmark's own inputs (batch 128,
-    bf16, bench_block's scales and seed: the tensors the tools phase times);
-    the plain version's time on those, summed over the branches.  K5's and
-    cuDNN's times come from the tools phase."""
+    K5_CHECK_BATCH in f32 and bf16 (the tensor-core kernel, and the bf16 SIMT
+    kernel of the A/B), and the benchmark's own inputs (batch 128, bf16,
+    bench_block's scales and seed: the tensors the tools phase times); the
+    plain version's time on those, summed over the branches; the long-K check
+    (K5_LONG_K).  K5's and cuDNN's times come from the tools phase."""
     from buctd_tpu_torch.tools import bench_block as bb
+    from buctd_tpu_torch.tools import bench_block_variants as bv
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    res = {"err_f32": 0.0, "err_bf16": 0.0, "plain_ms": 0.0}
+    res = {"err_f32": 0.0, "err_bf16": 0.0, "err_simt": 0.0, "plain_ms": 0.0}
 
-    def check(label, args, tol, key):
-        got = fb.fused_basic_block(*args)
+    def check(label, args, tol, key, fn=fb.fused_basic_block):
+        got = fn(*args)
         torch.cuda.synchronize()
         want = fb.fused_basic_block_plain(*args)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
         err = (got.float() - want.float()).abs().max().item()
         res[key] = max(res[key], err)
-        print(f"K5 fused_block {label}: max_abs_err {err:.3e} (output max "
+        print(f"K5 {label}: max_abs_err {err:.3e} (output max "
               f"{want.float().abs().max().item():.3f}, limit atol = rtol = {tol:.3g}), "
               f"{(got != want).float().mean().item() * 100:.3f}% of outputs differ", flush=True)
 
@@ -1614,15 +1682,33 @@ def fused_block_phase(torch, fb) -> dict:
             ws = [torch.randn(3, 3, c, c, device="cuda", generator=gen) / (3 * c ** 0.5)
                   for _ in range(2)]
             bs = [torch.randn(c, device="cuda", generator=gen) * 0.1 for _ in range(2)]
-            check(f"({K5_CHECK_BATCH}, {h}, {w}, {c}) {name}",
-                  [t.to(dtype) for t in (x, *ws, *bs)], K5_ATOL[name],
-                  "err_f32" if dtype == torch.float32 else "err_bf16")
-            del x, ws, bs
+            args = [t.to(dtype) for t in (x, *ws, *bs)]
+            shape = f"({K5_CHECK_BATCH}, {h}, {w}, {c}) {name}"
+            if dtype == torch.float32:
+                check(f"SIMT {shape}", args, K5_ATOL[name], "err_f32")
+            else:
+                check(f"tensor cores {shape}", args, K5_ATOL[name], "err_bf16")
+                check(f"SIMT {shape}", args, K5_ATOL[name], "err_simt",
+                      fb.fused_basic_block_simt)
+            del x, ws, bs, args
+    args = bv.random_block(gen, *K5_LONG_K)
+    want = bv.reference64(*args)
+    res["long_k"] = {"tc": bv.accuracy(fb.fused_basic_block(*args), want),
+                     "simt": bv.accuracy(fb.fused_basic_block_simt(*args), want)}
+    (tmax, trms, tshare), (smax, srms, sshare) = res["long_k"]["tc"], res["long_k"]["simt"]
+    print(f"K5 long K {K5_LONG_K} bf16 vs float64: tensor cores max {tmax:.4e} rms "
+          f"{trms:.4e}, {tshare:.4%} of outputs off the rounded chain; SIMT max {smax:.4e} "
+          f"rms {srms:.4e}, {sshare:.4%} (limit {K5_LONG_K_RATIO:g} x the SIMT kernel's)",
+          flush=True)
+    if not (tmax <= K5_LONG_K_RATIO * smax and trms <= K5_LONG_K_RATIO * srms
+            and tshare <= K5_LONG_K_RATIO * sshare):
+        raise AssertionError(f"bf16 K5's long-K error {res['long_k']}")
+    del args, want
     gen = torch.Generator(device="cuda").manual_seed(0)       # bench_block's default seed
     for _, h, w, c in bb.BRANCHES:
         args = bb.branch_inputs(gen, bb.BATCH, h, w, c)
-        check(f"({bb.BATCH}, {h}, {w}, {c}) bfloat16, the benchmark's inputs", args,
-              K5_ATOL["bfloat16"], "err_bf16")
+        check(f"tensor cores ({bb.BATCH}, {h}, {w}, {c}) bfloat16, the benchmark's inputs",
+              args, K5_ATOL["bfloat16"], "err_bf16")
         plain_ms = timed_ms(lambda: fb.fused_basic_block_plain(*args), 3)
         print(f"  K5 plain version ({bb.BATCH}, {h}, {w}, {c}) bf16: {plain_ms:.4f} ms",
               flush=True)
@@ -1803,41 +1889,54 @@ def prenet_serving_phase(torch, np) -> dict:
 
 
 def tools_phase(torch, fb, ex) -> dict:
-    """(e) The three port tools, reduced: bench_block --fused, bench_exp2 and
-    bench_stem; the launch counts of K5 and K6 over these runs (their main
-    path)."""
+    """(e) The three port tools, reduced: bench_block --simt (cuDNN, K5 on the
+    tensor cores and K5's bf16 SIMT kernel in turns) and --dtype float32
+    (cuDNN with TF32 off against f32 K5), bench_exp2 and bench_stem; the
+    launch counts of K5 (both dtypes), K5's SIMT A/B and K6 over these runs
+    (their main path); bf16 K5 faster than its SIMT kernel at every branch."""
     from buctd_tpu_torch.tools import bench_block, bench_exp2, bench_stem
 
     fb.fused_basic_block.launches = 0                    # the main path's run
+    fb.fused_basic_block_simt.launches = 0
     ex.exp_chain.launches = 0
-    block = bench_block.main(["--fused", "--chain", str(TOOL_CHAIN), "--rounds",
-                              str(TOOL_ROUNDS)])
+    chain = ["--chain", str(TOOL_CHAIN), "--rounds", str(TOOL_ROUNDS)]
+    block = bench_block.main(["--simt", *chain])
+    bf16_launches = fb.fused_basic_block.launches
+    block_f32 = bench_block.main(["--fused", "--dtype", "float32", *chain])
     exp = bench_exp2.main(["--rounds", str(TOOL_ROUNDS)])
     launches = {"fused_basic_block": fb.fused_basic_block.launches,
+                "fused_basic_block_simt": fb.fused_basic_block_simt.launches,
                 "exp_throughput": ex.exp_chain.launches}
     stem = bench_stem.main([str(TOOL_STEM_BATCH), "--steps", "3", "--rounds",
                             str(TOOL_ROUNDS)])
-    want = {"fused_basic_block": 4 * (TOOL_CHAIN * TOOL_ROUNDS + 1),
+    per_run = 4 * (TOOL_CHAIN * TOOL_ROUNDS + 1)
+    want = {"fused_basic_block": 2 * per_run, "fused_basic_block_simt": per_run,
             "exp_throughput": len(ex.VARIANTS) * bench_exp2.OUTER * (2 * TOOL_ROUNDS + 2)}
     print(f"tools: launches {launches}, expected {want} (K5: 4 branches x (chain x rounds "
-          f"+ warm-up); K6: 3 variants x {bench_exp2.OUTER} x (2 timings x rounds + "
-          f"2 to take the host's issue time))", flush=True)
-    if launches != want:
+          f"+ warm-up), bf16 and f32, the SIMT A/B bf16; K6: 3 variants x "
+          f"{bench_exp2.OUTER} x (2 timings x rounds + 2 to take the host's issue time))",
+          flush=True)
+    if launches != want or bf16_launches != per_run:
         raise AssertionError(f"tool launch counts {launches} != {want}")
+    slower = {k: v for k, v in block.items() if not v["fused_ms"] < v["simt_ms"]}
+    if slower:
+        raise AssertionError(f"bf16 K5 no faster than its SIMT kernel: {slower}")
     # every step is one MUFU.EX2 at least, and the bound takes the card's
     # highest SM clock: a chain faster than the bound skipped steps
     fast = {v: exp[v]["ms"] for v in ex.VARIANTS if not exp[v]["ms"] >= exp["bound_ms"]}
     if fast:
         raise AssertionError(f"K6 faster than its SFU bound {exp['bound_ms']:.4f} ms: {fast}")
     ratio = {k: round(v["cudnn_ms"] / v["fused_ms"], 4) for k, v in block.items()}
-    print(f"tools: cuDNN/K5 by branch {ratio}; bench_stem b{TOOL_STEM_BATCH}: preNet "
-          f"{stem[TOOL_STEM_BATCH]['prenet_ms']:.4f} -> fused "
+    ratio32 = {k: round(v["cudnn_ms"] / v["fused_ms"], 4) for k, v in block_f32.items()}
+    print(f"tools: cuDNN/K5 by branch, bf16 {ratio}, f32 {ratio32}; bench_stem "
+          f"b{TOOL_STEM_BATCH}: preNet {stem[TOOL_STEM_BATCH]['prenet_ms']:.4f} -> fused "
           f"{stem[TOOL_STEM_BATCH]['fused_prenet_ms']:.4f} ms, forward "
           f"{stem[TOOL_STEM_BATCH]['forward_ms']:.4f} -> "
           f"{stem[TOOL_STEM_BATCH]['fused_forward_ms']:.4f} ms", flush=True)
     if not stem[TOOL_STEM_BATCH]["rel_gap"] <= PRENET_FWD_RTOL:
         raise AssertionError("bench_stem: fused forward disagrees with the canonical one")
-    return {"launches": launches, "block": block, "exp": exp, "stem": stem}
+    return {"launches": launches, "f32_launches": launches["fused_basic_block"] - bf16_launches,
+            "block": block, "block_f32": block_f32, "exp": exp, "stem": stem}
 
 
 def main() -> int:
@@ -1890,7 +1989,7 @@ def main() -> int:
     del serving
     torch.cuda.empty_cache()
     train = training_phase(torch, np, fa, tw)
-    card_vs_cpu_step(torch, np, fa)
+    step_launches = card_vs_cpu_step(torch, np, fa)
     torch.cuda.empty_cache()
     ev = eval_phase(torch, np, fa, tw)
     torch.cuda.empty_cache()
@@ -1912,6 +2011,21 @@ def main() -> int:
                 "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": bound,
                 "bound_by": bound_by(ops, bound), "library_ms": tk[f"{key}_library_ms"]}
 
+    def f32_bwd(kind, ms, launches, **more):
+        # f32 K2/K2' (SIMT) at TRAIN_CASES, dropout 0.1: SDPA's f32 backward
+        # alone (dq, dk, dv) and the f32 CUDA-core bound, from the training
+        # kernel phase; launches: the f32 train step (K2), none (K2')
+        return {"ms": ms, "library_ms": tk["f32_library_ms"],
+                "bound_ms": tk[f"{kind}_f32_bound_ms"], "bound_by": "operations",
+                "launches": launches, **more}
+
+    def bwd_entry(kind, replaces):
+        e = entry(f"flash_bwd_{kind}", "buctd_tpu_torch/csrc/flash_bwd.cu",
+                  f"buctd_tpu/ops/flash_attention.py:{replaces}",
+                  train["launches"][f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
+        e["f32"] = f32_bwd(kind, tk[f"{kind}_simt_ms"], step_launches[f"flash_bwd_{kind}"])
+        return e
+
     def kv_bwd_entry(kind, replaces):
         return {"name": f"flash_bwd_{kind}_kvres", "route": "cuda",
                 "source": "buctd_tpu_torch/csrc/flash_bwd_kvres.cu",
@@ -1922,7 +2036,8 @@ def main() -> int:
                 # timed in the training kernel phase at the same shapes
                 "plain_ms": tk[f"{kind}_plain_ms"], "bound_ms": kv[f"{kind}_bound_ms"],
                 "bound_by": bound_by(kv[f"{kind}_ops_ms"], kv[f"{kind}_bound_ms"]),
-                "library_ms": tk[f"{kind}_library_ms"]}
+                "library_ms": tk[f"{kind}_library_ms"],
+                "f32": f32_bwd(kind, kv[f"{kind}_f32_ms"], 0, k2_ms=kv[f"{kind}_f32_k2_ms"])}
 
     # K5: ms per block summed over the 4 branches, from bench_block's chained,
     # interleaved medians; K6: OUTER launches summed over the 3 variants, from
@@ -1930,14 +2045,19 @@ def main() -> int:
     block = tools["block"].values()
     k5.update({key: sum(r[src] for r in block) for key, src in (
         ("ms", "fused_ms"), ("library_ms", "cudnn_ms"), ("bound_ms", "bound_ms"),
-        ("ops_ms", "bf16_ms"))})
+        ("ops_ms", "bf16_ms"), ("simt_ms", "simt_ms"))})
+    k5["f32"] = {key: sum(r[src] for r in tools["block_f32"].values()) for key, src in (
+        ("ms", "fused_ms"), ("library_ms", "cudnn_ms"), ("bound_ms", "bound_ms"))}
+    k5["f32"].update(bound_by="operations", launches=tools["f32_launches"])
     exp = tools["exp"]
     k6.update({key: sum(exp[v][key] for v in ex.VARIANTS) for key in ("ms", "library_ms")})
     k6.update(bound_ms=len(ex.VARIANTS) * exp["bound_ms"], bound_by=exp["bound_by"])
-    print(f"K5 sums over the 4 branches at b128 bf16: kernel {k5['ms']:.4f} ms, plain "
-          f"{k5['plain_ms']:.4f}, cuDNN {k5['library_ms']:.4f}, bound {k5['bound_ms']:.4f}; "
-          f"max err f32 {k5['err_f32']:.3e}, bf16 {k5['err_bf16']:.3e}; vs the trunk "
-          f"{k5_trunk:.3e} of the max", flush=True)
+    print(f"K5 sums over the 4 branches at b128 bf16: tensor cores {k5['ms']:.4f} ms, SIMT "
+          f"{k5['simt_ms']:.4f}, plain {k5['plain_ms']:.4f}, cuDNN {k5['library_ms']:.4f}, "
+          f"bound {k5['bound_ms']:.4f}; f32: SIMT {k5['f32']['ms']:.4f} ms, cuDNN (TF32 off) "
+          f"{k5['f32']['library_ms']:.4f}, bound {k5['f32']['bound_ms']:.4f}; max err f32 "
+          f"{k5['err_f32']:.3e}, bf16 {k5['err_bf16']:.3e} (SIMT {k5['err_simt']:.3e}); vs "
+          f"the trunk {k5_trunk:.3e} of the max", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -1978,12 +2098,8 @@ def main() -> int:
          "library_ms": kv["fwd_library_ms"], "k1_ms": kv["k1_ms"],
          # bf16 (the tensor-core ring variant) at TRAIN_CASES beside K1 in turns
          "bf16_training": {"ms": kv["train_fwd_ms"], "k1_ms": kv["train_k1_ms"]}},
-        entry("flash_bwd_dq", "buctd_tpu_torch/csrc/flash_bwd.cu",
-              "buctd_tpu/ops/flash_attention.py:212", train["launches"]["flash_bwd_dq"],
-              tk["dq_err"], "dq"),
-        entry("flash_bwd_dkv", "buctd_tpu_torch/csrc/flash_bwd.cu",
-              "buctd_tpu/ops/flash_attention.py:363", train["launches"]["flash_bwd_dkv"],
-              tk["dkv_err"], "dkv"),
+        bwd_entry("dq", 212),
+        bwd_entry("dkv", 363),
         kv_bwd_entry("dq", 245),
         kv_bwd_entry("dkv", 295),
         entry("warp_resample", "buctd_tpu_torch/csrc/warp_resample.cu",
@@ -1995,8 +2111,17 @@ def main() -> int:
          "replaces": "buctd_tpu/ops/pallas_block.py:106",
          "launches": tools["launches"]["fused_basic_block"],
          "max_abs_err": max(k5["err_f32"], k5["err_bf16"]),
+         # bf16 (the tensor-core kernel) at b128 over the 4 branches, the SIMT
+         # kernel timed in turns beside it
          "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-         "bound_by": bound_by(k5["ops_ms"], k5["bound_ms"]), "library_ms": k5["library_ms"]},
+         "bound_by": bound_by(k5["ops_ms"], k5["bound_ms"]), "library_ms": k5["library_ms"],
+         "simt_ms": k5["simt_ms"], "simt_launches": tools["launches"]["fused_basic_block_simt"],
+         "branches": {name: {"ms": r["fused_ms"], "simt_ms": r["simt_ms"],
+                             "library_ms": r["cudnn_ms"], "bound_ms": r["bound_ms"]}
+                      for name, r in tools["block"].items()},
+         "long_k": k5["long_k"],
+         # f32 (the SIMT kernel) against cuDNN with TF32 off, f32 CUDA-core bound
+         "f32": k5["f32"]},
         {"name": "exp_throughput", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/exp_throughput.cu",
          "replaces": "tools/bench_exp2.py:34",

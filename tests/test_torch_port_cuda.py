@@ -28,9 +28,11 @@ K2' take K1's and K2's gates against the plain versions; in f32 they are held
 to K1/K2 at 2e-5 and 1e-4 (K1' bit for bit), in bf16 bit for bit (the same
 tensor-core kernels: the depth of the ring changes no arithmetic).  The warp (K4) vs its
 plain version: 1e-4 on [0, 1) images (two tent taps against the dense sum).
-The fused basic block (K5) vs its plain version: f32 atol = rtol = 2e-5, bf16
+The fused basic block (K5: f32 SIMT, bf16 on the tensor cores, and the bf16
+SIMT kernel of the A/B) vs its plain version: f32 atol = rtol = 2e-5, bf16
 2^-6 (an f32 sum in another order can round the intermediate or the output
-one bf16 step apart); exp throughput (K6) rtol 1e-5 (expf/exp2f in f32, a few ulps); a
+one bf16 step apart); at C = 384 the tensor-core kernel's error against
+float64 at most 2x the SIMT kernel's; exp throughput (K6) rtol 1e-5 (expf/exp2f in f32, a few ulps); a
 full-width preNet-W48 forward, fused or not, card vs CPU within 1e-4 of the
 heatmaps' peak.
 """
@@ -388,12 +390,16 @@ def test_kvres_switch_routes_cuda_tensors(cuda, monkeypatch):
 # C no chunk divides; tolerances as chip_smoke.py's (K5_ATOL)
 K5_SHAPES = [(2, 12, 9, 16), (2, 24, 18, 192), (1, 12, 9, 384), (3, 13, 11, 40)]
 K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
+# f32 runs the SIMT kernel; bf16 the tensor-core kernel (fused_basic_block)
+# and, for the A/B, the bf16 SIMT kernel (fused_basic_block_simt)
+K5_KERNELS = [(torch.float32, "fused_basic_block"), (torch.bfloat16, "fused_basic_block"),
+              (torch.bfloat16, "fused_basic_block_simt")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype,kernel", K5_KERNELS, ids=["f32", "bf16", "bf16-simt"])
 @pytest.mark.parametrize("b,h,w,c", K5_SHAPES)
-def test_fused_block_kernel_matches_plain(cuda, b, h, w, c, dtype):
+def test_fused_block_kernel_matches_plain(cuda, b, h, w, c, dtype, kernel):
     from buctd_tpu_torch.ops import fused_block as fb
 
     gen = torch.Generator(cuda).manual_seed(c)
@@ -401,13 +407,53 @@ def test_fused_block_kernel_matches_plain(cuda, b, h, w, c, dtype):
     ws = [torch.randn(3, 3, c, c, device=cuda, generator=gen) / (3 * c ** 0.5) for _ in range(2)]
     bs = [torch.randn(c, device=cuda, generator=gen) * 0.1 for _ in range(2)]
     args = [t.to(dtype) for t in (x, *ws, *bs)]
-    before = fb.fused_basic_block.launches
-    got = fb.fused_basic_block(*args)
+    fn = getattr(fb, kernel)
+    before = fn.launches
+    got = fn(*args)
     torch.cuda.synchronize()
-    assert fb.fused_basic_block.launches == before + 1 and got.dtype == dtype
+    assert fn.launches == before + 1 and got.dtype == dtype
     want = fb.fused_basic_block_plain(*args)
     tol = K5_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_fused_block_long_k_as_accurate_as_simt(cuda):
+    """bf16 K5 at C = 384 (K = 3456 terms a conv) against a float64 chain on
+    the same operands: the tensor-core kernel's max and rms error, and its
+    share of outputs off the chain rounded to bf16, at most 2x the SIMT
+    kernel's (chip_smoke.py's K5_LONG_K_RATIO)."""
+    from buctd_tpu_torch.ops import fused_block as fb
+    from buctd_tpu_torch.tools import bench_block_variants as bv
+
+    gen = torch.Generator(cuda).manual_seed(384)
+    args = bv.random_block(gen, 8, 12, 9, 384)
+    want = bv.reference64(*args)
+    tc = bv.accuracy(fb.fused_basic_block(*args), want)
+    simt = bv.accuracy(fb.fused_basic_block_simt(*args), want)
+    assert all(t <= 2.0 * s for t, s in zip(tc, simt)), (tc, simt)
+
+
+@pytest.mark.cuda
+def test_fused_block_tensor_core_kernels_run_hmma(cuda):
+    """Every tile plan's fused_block_tc_kernel shows HMMA in its SASS, the
+    SIMT kernels (f32, and bf16 for the A/B) none; bf16 wider than 384
+    channels raises before a launch."""
+    from buctd_tpu_torch import _build
+    from buctd_tpu_torch.ops import fused_block as fb
+
+    _build.build(["fused_block"])
+    hmma = _build.hmma_counts("fused_block")
+    tc = {f: n for f, n in hmma.items() if "fused_block_tc_kernel" in f}
+    simt = {f: n for f, n in hmma.items() if "fused_block_kernel" in f}
+    assert len(tc) == len(fb.TC_PLANS) and min(tc.values()) > 0, tc
+    assert len(simt) == 8 and sum(simt.values()) == 0, simt
+    x = torch.zeros(1, 4, 4, 400, device=cuda, dtype=torch.bfloat16)
+    w, b = torch.zeros(3, 3, 400, 400, device=cuda, dtype=x.dtype), x[0, 0, 0]
+    before = fb.fused_basic_block.launches
+    with pytest.raises(ValueError):
+        fb.fused_basic_block(x, w, w, b, b)
+    assert fb.fused_basic_block.launches == before
 
 
 @pytest.mark.cuda
