@@ -1,6 +1,8 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later) for the
-// flash kernels' rings (flash_fwd_kvres.cu, flash_bwd_kvres.cu, and the bf16
-// kernels of flash_fwd_tc.cuh and flash_bwd_tc.cuh).
+// rings of the tensor-core kernels (flash_fwd_tc.cuh, flash_fwd_tf32.cuh,
+// flash_bwd_tc.cuh, flash_bwd_tf32.cuh, fused_block_tc.cuh,
+// fused_block_tf32.cuh), and the tile loads that the flash kernels of both
+// element types share (stage_tile, load_tile, zero_pad_tile, rows_aligned).
 //
 // They are the counterpart of the TPU kernels' pltpu.make_async_copy +
 // DMA semaphores: a tile's copy is issued, the block computes on the tiles
@@ -70,4 +72,51 @@ inline int copy_width(const void* ptr, long long row_bytes) {
       static_cast<unsigned long long>(reinterpret_cast<uintptr_t>(ptr)) |
       static_cast<unsigned long long>(row_bytes);
   return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 0;
+}
+
+// ---- (rows, d) tiles of the flash kernels, bf16 or f32 (T) ----
+// A tile is `rows` rows of a row-major (limit, d) operand, from row row0,
+// in shared memory as rows of D elements (D a multiple of 16, >= d) with row
+// stride S; rows at or past `limit` and columns d..D are 0.
+
+struct Identity {
+  template <class T>
+  __device__ __forceinline__ T operator()(T x) const { return x; }
+};
+
+// the tile through registers, `op` applied to every element read
+template <int kThreads, int D, int S, class T, class Op = Identity>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, int row0, int rows,
+                                           int limit, int d, Op op = Op()) {
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D, c = i - r * D;
+    dst[r * S + c] = row0 + r < limit && c < d ? op(src[(size_t)(row0 + r) * d + c]) : T(0.f);
+  }
+}
+
+// the tile into a ring slot: cp.async in 16-byte copies when every row start
+// is 16-byte aligned (zero_pad_tile cleared columns d..D once), else through
+// registers
+template <int kThreads, int D, int S, class T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int rows, int limit,
+                                          int d, bool async) {
+  if (async)
+    copy_rows<kThreads>(dst, S * (int)sizeof(T), src, d * (int)sizeof(T), row0, rows, limit,
+                        16);
+  else
+    stage_tile<kThreads, D, S>(dst, src, row0, rows, limit, d);
+}
+
+// columns d..D of `rows` rows: cp.async never writes them
+template <int kThreads, int D, int S, class T>
+__device__ __forceinline__ void zero_pad_tile(T* buf, int rows, int d) {
+  if (d < D)
+    for (int i = threadIdx.x; i < rows * (D - d); i += kThreads)
+      buf[(i / (D - d)) * S + d + i % (D - d)] = T(0.f);
+}
+
+// every row start of a (rows, d) array of T at p is 16-byte aligned
+template <class T>
+inline bool rows_aligned(const void* p, int d) {
+  return copy_width(p, (long long)sizeof(T) * d) == 16;
 }

@@ -18,14 +18,24 @@
 // the natural log), and the dropout mask is regenerated from dropout_hash.cuh,
 // keyed by the global (bh, row, col).  Two designs, by the operands' dtype:
 //
-// f32 (dtype 0): flash_bwd_dq_kernel, flash_bwd_dkv_kernel.  JAX runs f32 at
-// Precision.HIGHEST (_mxu_precision :68), so these are exact f32 on the CUDA
-// cores (no TF32): register-tiled SIMT like flash_fwd.cu, each thread owning a
-// 4 x 4 (dq) or 2 x 8 (dk/dv) patch of the logit tile, operands staged in
-// shared memory with odd row strides so column walks are free of bank
-// conflicts; dq takes 64-row q tiles and 32-key tiles, dk/dv 32-key tiles and
-// 64-row q tiles.  6 (dq) and 8 (dk/dv) x L_q L_k d operations against a few
-// (L, d) operands bound them by f32 FMA issue.
+// f32 (dtype 0; the f32 train step): flash_bwd_dq_tf32_kernel,
+// flash_bwd_dkv_tf32_kernel (flash_bwd_tf32.cuh), on the tensor cores in
+// 3xTF32: every operand split into two tf32 halves and every product taken in
+// three passes, f32-accurate to about 2^-21 relative, as JAX's f32 kernels
+// are at Precision.HIGHEST (_mxu_precision :68).  They round nothing to a
+// narrower type.  Their design, and what bounds them, is described there.
+//
+// A second pair of C entries, buctd_flash_bwd_dq_simt and
+// buctd_flash_bwd_dkv_simt, launches flash_bwd_dq_kernel and
+// flash_bwd_dkv_kernel below, the exact-f32 SIMT kernels that the f32 path
+// ran before the tensor-core ones: register-tiled like flash_fwd.cu's SIMT
+// forward, each thread owning a 4 x 4 (dq) or 2 x 8 (dk/dv) patch of the
+// logit tile, operands staged in shared memory with odd row strides so
+// column walks are free of bank conflicts; dq takes 64-row q tiles and
+// 32-key tiles, dk/dv 32-key tiles and 64-row q tiles.  6 (dq) and 8 (dk/dv)
+// x L_q L_k d operations bound them by f32 FMA issue.  No path calls them:
+// they are kept so that chip_smoke.py and tools/bench_flash_bwd.py can time
+// the two f32 designs in turns.
 //
 // bf16 (dtype 1, the autocast training step): flash_bwd_dq_tc_kernel,
 // flash_bwd_dkv_tc_kernel, on the tensor cores.  They round where JAX's kernels
@@ -60,6 +70,8 @@
 //                          keep_thr, keep_scale, seed, dtype, stream)
 //   int buctd_flash_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, lq, lk, d,
 //                           scale, keep_thr, keep_scale, seed, dtype, stream)
+//   int buctd_flash_bwd_dq_simt, buctd_flash_bwd_dkv_simt (the same
+//                           arguments; dtype must be 0)
 // q (bh, lq, d), k/v (bh, lk, d) and dout (bh, lq, d) contiguous, all f32
 // (dtype 0) or all bf16 (dtype 1); lse and delta (bh, lq) f32; dq (bh, lq, d)
 // and dk/dv (bh, lk, d) f32, allocated by the caller.  Each returns the
@@ -72,6 +84,7 @@
 
 #include "dropout_hash.cuh"
 #include "flash_bwd_tc.cuh"
+#include "flash_bwd_tf32.cuh"
 
 namespace {
 
@@ -79,7 +92,7 @@ using tc::kLn2;
 using tc::kLog2e;
 using Args = tc::BwdArgs;
 
-// ============================================================ f32: SIMT ====
+// ================================================ f32: SIMT, the A/B only ====
 constexpr int kThreads = 128;   // 16 row groups (ty) x 8 column groups (tx)
 constexpr int kTileQ = 64;
 constexpr int kTileK = 32;
@@ -389,10 +402,9 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// f32 operands take the SIMT kernels, bf16 the tensor-core ones
+// the SIMT kernels (f32 only), the head dim rounded up to a multiple of 16
 template <bool kDq>
-cudaError_t dispatch(const Args& a, int dtype, cudaStream_t s) {
-  if (dtype == 1) return tc::launch_bwd<tc::kStages, kDq>(a, s);
+cudaError_t dispatch_simt(const Args& a, cudaStream_t s) {
 #define BUCTD_BWD_CASE(n) \
   case n / 16: return kDq ? launch_dq<n>(a, s) : launch_dkv<n>(a, s);
   switch ((a.d + 15) / 16) {
@@ -409,12 +421,17 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t s) {
 #undef BUCTD_BWD_CASE
 }
 
+// f32 operands take the 3xTF32 kernels, bf16 the bf16 ones, both on the
+// tensor cores with a two-stage ring; `simt` the SIMT kernels (f32 only)
 template <bool kDq>
-int run(const Args& a, int dtype, void* stream) {
+int run(const Args& a, int dtype, void* stream, bool simt = false) {
   if (a.bh <= 0 || a.bh > 65535 || a.lq <= 0 || a.lk <= 0 || a.d <= 0 || a.d > 128 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (simt && dtype != 0))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<kDq>(a, dtype, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (simt) return (int)dispatch_simt<kDq>(a, s);
+  if (dtype == 1) return (int)tc::launch_bwd<tc::kStages, kDq>(a, s);
+  return (int)tf32::launch_bwd<tf32::kStages, kDq>(a, s);
 }
 
 }  // namespace
@@ -439,4 +456,26 @@ extern "C" int buctd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, bh, lq, lk, d, scale,
                Dropout{keep_thr, keep_scale, seed}};
   return run<false>(a, dtype, stream);
+}
+
+extern "C" int buctd_flash_bwd_dq_simt(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse,
+                                       const float* delta, float* dq, int bh, int lq,
+                                       int lk, int d, float scale, unsigned keep_thr,
+                                       float keep_scale, unsigned seed, int dtype,
+                                       void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, lq, lk, d, scale,
+               Dropout{keep_thr, keep_scale, seed}};
+  return run<true>(a, dtype, stream, true);
+}
+
+extern "C" int buctd_flash_bwd_dkv_simt(const void* q, const void* k, const void* v,
+                                        const void* dout, const float* lse,
+                                        const float* delta, float* dk, float* dv, int bh,
+                                        int lq, int lk, int d, float scale,
+                                        unsigned keep_thr, float keep_scale,
+                                        unsigned seed, int dtype, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, bh, lq, lk, d, scale,
+               Dropout{keep_thr, keep_scale, seed}};
+  return run<false>(a, dtype, stream, true);
 }

@@ -82,17 +82,17 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto issue = [&](int t) {   // key tile t into slot t % Stages
     bf16* slot = ring + (t % Stages) * 2 * BC * S;
-    load<D>(slot, kb, t * BC, BC, lk, d, async_kv);
-    load<D>(slot + BC * S, vb, t * BC, BC, lk, d, async_kv);
+    load_tile<kThreads, D, S>(slot, kb, t * BC, BC, lk, d, async_kv);
+    load_tile<kThreads, D, S>(slot + BC * S, vb, t * BC, BC, lk, d, async_kv);
   };
-  if (async_kv) zero_pad<D>(ring, 2 * Stages * BC, d);
+  if (async_kv) zero_pad_tile<kThreads, D, S>(ring, 2 * Stages * BC, d);
   for (int t = 0; t < Stages - 1; ++t) {
     if (t < n_k) issue(t);
     cp_async_commit();
   }
-  stage<D>(qs, q + (size_t)bh * lq * d, q0, kRows, lq, d,
-           __bfloat162float(__float2bfloat16(scale)), true);
-  stage<D>(dos, dout + (size_t)bh * lq * d, q0, kRows, lq, d, 1.f, false);
+  stage_tile<kThreads, D, S>(qs, q + (size_t)bh * lq * d, q0, kRows, lq, d,
+                             ScaleBf16{__bfloat162float(__float2bfloat16(scale))});
+  stage_tile<kThreads, D, S>(dos, dout + (size_t)bh * lq * d, q0, kRows, lq, d);
 
   // the lane's rows: gid and gid + 8 of its warp's 16
   float nlse2[2], dl[2];
@@ -222,19 +222,20 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto issue = [&](int t) {   // q tile t into slot t % Stages
     const int slot = t % Stages;
-    load<D>(ring + (2 * slot) * BR * S, qb, t * BR, BR, lq, d, async_q);
-    load<D>(ring + (2 * slot + 1) * BR * S, dob, t * BR, BR, lq, d, async_q);
+    bf16* qs = ring + (2 * slot) * BR * S;
+    load_tile<kThreads, D, S>(qs, qb, t * BR, BR, lq, d, async_q);
+    load_tile<kThreads, D, S>(qs + BR * S, dob, t * BR, BR, lq, d, async_q);
     float* st = stats + slot * 3 * BR;
     copy_rows<kThreads>(st, 4, lseb, 4, t * BR, BR, lq, 4);
     copy_rows<kThreads>(st + BR, 4, deltab, 4, t * BR, BR, lq, 4);
   };
-  if (async_q) zero_pad<D>(ring, 2 * Stages * BR, d);
+  if (async_q) zero_pad_tile<kThreads, D, S>(ring, 2 * Stages * BR, d);
   for (int t = 0; t < Stages - 1; ++t) {
     if (t < n_q) issue(t);
     cp_async_commit();
   }
-  stage<D>(ks, k + (size_t)bh * lk * d, k0, kRows, lk, d, 1.f, false);
-  stage<D>(vs, v + (size_t)bh * lk * d, k0, kRows, lk, d, 1.f, false);
+  stage_tile<kThreads, D, S>(ks, k + (size_t)bh * lk * d, k0, kRows, lk, d);
+  stage_tile<kThreads, D, S>(vs, v + (size_t)bh * lk * d, k0, kRows, lk, d);
 
   float dka[ND][4], dva[ND][4];
 #pragma unroll
@@ -367,7 +368,7 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D, Stages>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const bool async_kv = rows_aligned(a.k, a.d) && rows_aligned(a.v, a.d);
+  const bool async_kv = rows_aligned<bf16>(a.k, a.d) && rows_aligned<bf16>(a.v, a.d);
   const dim3 grid((a.lq + kRows - 1) / kRows, a.bh);
   flash_bwd_dq_tc_kernel<D, Stages><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
@@ -382,7 +383,7 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D, Stages>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const bool async_q = rows_aligned(a.q, a.d) && rows_aligned(a.dout, a.d);
+  const bool async_q = rows_aligned<bf16>(a.q, a.d) && rows_aligned<bf16>(a.dout, a.d);
   const dim3 grid((a.lk + kRows - 1) / kRows, a.bh);
   flash_bwd_dkv_tc_kernel<D, Stages><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),

@@ -88,16 +88,16 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto issue = [&](int t) {   // key tile t into slot t % Stages
     bf16* slot = ring + (t % Stages) * 2 * BK * S;
-    load<D>(slot, kb, t * BK, BK, lk, d, async_kv);
-    load<D>(slot + BK * S, vb, t * BK, BK, lk, d, async_kv);
+    load_tile<kThreads, D, S>(slot, kb, t * BK, BK, lk, d, async_kv);
+    load_tile<kThreads, D, S>(slot + BK * S, vb, t * BK, BK, lk, d, async_kv);
   };
-  if (async_kv) zero_pad<D>(ring, 2 * Stages * BK, d);
+  if (async_kv) zero_pad_tile<kThreads, D, S>(ring, 2 * Stages * BK, d);
   for (int t = 0; t < Stages - 1; ++t) {
     if (t < n_k) issue(t);
     cp_async_commit();
   }
-  stage<D>(qs, q + (size_t)bh * lq * d, q0, kRows, lq, d,
-           __bfloat162float(__float2bfloat16(scale)), true);
+  stage_tile<kThreads, D, S>(qs, q + (size_t)bh * lq * d, q0, kRows, lq, d,
+                             ScaleBf16{__bfloat162float(__float2bfloat16(scale))});
 
   // the lane's rows: gid and gid + 8 of its warp's 16.  m is the running max
   // of the log2-domain logits, l the lane's share of the running sum.
@@ -231,7 +231,7 @@ cudaError_t launch_fwd_d(const void* q, const void* k, const void* v, float* out
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, Stages>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const bool async_kv = rows_aligned(k, d) && rows_aligned(v, d);
+  const bool async_kv = rows_aligned<bf16>(k, d) && rows_aligned<bf16>(v, d);
   const dim3 grid((lq + kRows - 1) / kRows, bh);
   flash_fwd_tc_kernel<D, Stages><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

@@ -115,10 +115,10 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto issue = [&](int tile) {   // key tile `tile` into slot tile % Stages
     float* slot = ring + (tile % Stages) * 2 * BK * S;
-    load<D>(slot, kb, tile * BK, BK, lk, d, async_kv);
-    load<D>(slot + BK * S, vb, tile * BK, BK, lk, d, async_kv);
+    load_tile<kThreads, D, S>(slot, kb, tile * BK, BK, lk, d, async_kv);
+    load_tile<kThreads, D, S>(slot + BK * S, vb, tile * BK, BK, lk, d, async_kv);
   };
-  if (async_kv) zero_pad<D>(ring, 2 * Stages * BK, d);
+  if (async_kv) zero_pad_tile<kThreads, D, S>(ring, 2 * Stages * BK, d);
   for (int i = 0; i < Stages - 1; ++i) {
     if (i < n_k) issue(i);
     cp_async_commit();
@@ -163,17 +163,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the tile split once for the whole block: hi = tf32(x) in place in the
     // slot, lo = tf32(x - hi) beside it (every warp reads every fragment)
     float* slot = ring + (t % Stages) * 2 * BK * S;
-    for (int i = threadIdx.x; i < 2 * BK * (D / 4); i += kThreads) {
-      const int at = (i / (D / 4)) * S + (i % (D / 4)) * 4;
-      float4 x = *reinterpret_cast<const float4*>(slot + at);
-      uint32_t h[4], l[4];
-      split(x.x, h[0], l[0]);
-      split(x.y, h[1], l[1]);
-      split(x.z, h[2], l[2]);
-      split(x.w, h[3], l[3]);
-      *reinterpret_cast<uint4*>(slot + at) = make_uint4(h[0], h[1], h[2], h[3]);
-      *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
-    }
+    split_tile<kThreads, D, S>(slot, lo, 2 * BK, 1.f);
     __syncthreads();
     const auto* k_hi = reinterpret_cast<const uint32_t*>(slot);
     const auto* v_hi = k_hi + BK * S;
@@ -247,10 +237,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
       uint32_t a_hi[4], a_lo[4];
-      split(s[kk][0], a_hi[0], a_lo[0]);
-      split(s[kk][2], a_hi[1], a_lo[1]);
-      split(s[kk][1], a_hi[2], a_lo[2]);
-      split(s[kk][3], a_hi[3], a_lo[3]);
+      c_to_a(s[kk], a_hi, a_lo);
       const int row = (kk * 8 + 2 * tig) * S + gid;   // V[key 2 tig][gid], [2 tig + 1]
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
@@ -297,7 +284,7 @@ cudaError_t launch_fwd_d(const float* q, const float* k, const float* v, float* 
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32_kernel<D, Stages>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const bool async_kv = rows_aligned(k, d) && rows_aligned(v, d);
+  const bool async_kv = rows_aligned<float>(k, d) && rows_aligned<float>(v, d);
   const dim3 grid((lq + kRows - 1) / kRows, bh);
   flash_fwd_tf32_kernel<D, Stages><<<grid, kThreads, smem, stream>>>(
       q, k, v, out, lse, lq, lk, d, scale * kLog2e, dr, async_kv);

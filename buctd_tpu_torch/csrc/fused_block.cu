@@ -1,6 +1,10 @@
-// Fused eval HRNet basic block for Hopper (sm_90a), SIMT:
+// Fused eval HRNet basic block for Hopper (sm_90a):
 //   out = relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x)
-// with SAME padding and the block's BatchNorms folded into (w, b).
+// with SAME padding and the block's BatchNorms folded into (w, b).  Both
+// dtypes run on the tensor cores: f32 in 3xTF32 (fused_block_tf32_kernel,
+// fused_block_tf32.cuh), bf16 in bf16 mma.sync (fused_block_tc_kernel,
+// fused_block_tc.cuh).  This file holds their contract, the C entries, and
+// the SIMT kernel that both dtypes ran before, kept for the A/B.
 //
 // Replaces buctd_tpu/ops/pallas_block.py::fused_basic_block (:106; kernel
 // body _make_kernel :67, taps _conv9 :44).  What it reproduces of that kernel:
@@ -11,14 +15,18 @@
 //       to x's dtype;
 //   (d) the second conv reads zeros outside the image: an intermediate
 //       recomputed at a halo position outside the image is 0, not relu(b1)
-//       (the TPU kernel's valid_w mask and jnp.pad of y).
+//       (the TPU kernel's valid_w mask and jnp.pad of y);
+//   (e) relu keeps a NaN (k5tc::relu), so a NaN in x or the weights reaches
+//       the output as it does through jnp.maximum and the plain version.
 // The TPU's _group batching and W8 width padding are layout devices of the
 // TPU and are not carried over.
 //
-// Design.  The point of the kernel is that the intermediate never goes to
-// device memory.  A block owns a TH x TW output tile of one image and all C
-// output channels.  Phase 1 recomputes conv1 on the tile plus a 1-pixel halo
-// ((TH+2) x (TW+2) pixels, all C channels) into shared memory; phase 2 runs
+// Design of the SIMT kernel (the tensor-core kernels keep its tiling and
+// its streaming of weights; their headers say what differs).  The point of
+// the kernel is that the intermediate never goes to device memory.  A block
+// owns a TH x TW output tile of one image and all C output channels.  Phase
+// 1 recomputes conv1 on the tile plus a 1-pixel halo ((TH+2) x (TW+2)
+// pixels, all C channels) into shared memory; phase 2 runs
 // conv2 from there and adds the residual.  Neither the halo intermediate of a
 // large tile nor the (9C, C) weights fit in shared memory at C = 384, so the
 // tile is picked per C (see buctd_fused_block) and the weights, and phase 1's
@@ -30,26 +38,25 @@
 // of conv1's work (1.36x-1.63x at the W48 branch tiles).
 // What bounds it on this card: operations.  Two 3x3 convs are 36 C^2 flops a
 // pixel against 2-4 C bytes moved (x in, out), hundreds of operations a byte;
-// this SIMT kernel reaches at most the f32 CUDA-core rate (67 TFLOP/s).  It
-// runs the f32 path; bf16 runs on the tensor cores (fused_block_tc_kernel,
-// csrc/fused_block_tc.cuh), and the bf16 SIMT instantiation stays only for
-// the A/B (buctd_fused_block_simt).
+// this SIMT kernel reaches at most the f32 CUDA-core rate (67 TFLOP/s).  No
+// path runs it: both dtypes run on the tensor cores, and its f32 and bf16
+// instantiations stay only for the A/B (buctd_fused_block_simt).
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/fused_block.py):
 //   int buctd_fused_block(x, w1, w2, b1, b2, out, B, H, W, C, dtype, stream)
 //   int buctd_fused_block_simt(x, w1, w2, b1, b2, out, B, H, W, C, dtype, stream)
 // x, out (B, H, W, C) NHWC; w1, w2 (3, 3, C, C) HWIO; b1, b2 (C,); all of
 // one dtype (0 = f32, 1 = bf16), contiguous, on the device, allocated by the
-// caller.  buctd_fused_block launches this SIMT kernel for f32 and the
-// tensor-core kernel for bf16 (C up to 384); buctd_fused_block_simt this
-// kernel for bf16 only.  They launch on `stream`, do not synchronise and
-// return the cudaError_t of the launch.
+// caller.  buctd_fused_block launches the tensor-core kernel of the dtype (C
+// up to 384); buctd_fused_block_simt this SIMT kernel.  They launch on
+// `stream`, do not synchronise and return the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fused_block_tc.cuh"
+#include "fused_block_tf32.cuh"
 
 namespace {
 
@@ -205,7 +212,7 @@ fused_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
       float v[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = inside ? fmaxf(acc[m][j] + bias[j], 0.f) : 0.f;
+      for (int j = 0; j < 4; ++j) v[j] = inside ? k5tc::relu(acc[m][j] + bias[j]) : 0.f;
       store4(ys + p * CS + co0 + cg * 4, v);
     }
   }
@@ -240,7 +247,7 @@ fused_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
         const int c = co0 + cg * 4 + j;
         if (c < C) {
           const float z = (acc[m][j] + to_f(b2[c])) + to_f(xb[pix + c]);
-          store1(ob + pix + c, fmaxf(z, 0.f));
+          store1(ob + pix + c, k5tc::relu(z));
         }
       }
     }
@@ -284,7 +291,7 @@ extern "C" int buctd_fused_block(const void* x, const void* w1, const void* w2,
                                  const void* b1, const void* b2, void* out, int B, int H,
                                  int W, int C, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return run<float>(x, w1, w2, b1, b2, out, B, H, W, C, stream);
+  if (dtype == 0) return k5tf32::run(x, w1, w2, b1, b2, out, B, H, W, C, stream);
   if (dtype == 1) return k5tc::run(x, w1, w2, b1, b2, out, B, H, W, C, stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -293,6 +300,7 @@ extern "C" int buctd_fused_block_simt(const void* x, const void* w1, const void*
                                       const void* b1, const void* b2, void* out, int B,
                                       int H, int W, int C, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return run<float>(x, w1, w2, b1, b2, out, B, H, W, C, stream);
   if (dtype == 1) return run<__nv_bfloat16>(x, w1, w2, b1, b2, out, B, H, W, C, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -55,6 +55,10 @@ constexpr size_t kMaxSmem = 232448;   // 227 KB, a block's dynamic limit
 // (false: the running sums in the tensor cores' accumulators)
 constexpr bool kFold = true;
 
+// max(v, 0) that keeps a NaN, as the plain version's relu does (fmaxf would
+// make it 0)
+__device__ __forceinline__ float relu(float v) { return isnan(v) ? v : fmaxf(v, 0.f); }
+
 // A tile plan: used for C_pad up to CMax.  TH x TW output pixels; KC input
 // channels a weight tile and input chunk; NC output channels a chunk; WM x WN
 // warps; Stages slots in the weight ring, each Taps taps (1, 3 or 9) of one
@@ -102,15 +106,16 @@ using Plan192 = Plan<  192, 12, 18, 32,  64, 4, 2, 2, 3, 1>;
 using Plan384 = Plan<  384, 12,  9, 64, 128, 2, 4, 2, 1, 1>;
 
 // rows ci0.. (KC of them) x columns n0.. (NC) of taps tap0.. (Taps) of HWIO
-// w into a ring slot, tap-major; 0 past C
-template <class P>
-__device__ __forceinline__ void load_w(bf16* dst, const bf16* __restrict__ w, int tap0,
-                                       int ci0, int n0, int C, bool vec) {
+// w into a ring slot, tap-major; 0 past C.  T is bf16 here, f32 in
+// fused_block_tf32.cuh, whose plans name the same members
+template <class P, class T>
+__device__ __forceinline__ void load_w(T* dst, const T* __restrict__ w, int tap0, int ci0,
+                                       int n0, int C, bool vec) {
   constexpr int R = P::Taps * P::KC;                   // rows of the slot
-  if (vec) {   // C % 8 == 0: a 16-byte chunk is all in or all out
-    constexpr int CH = P::NC / 8;
+  if (vec) {   // C a multiple of V: a 16-byte chunk is all in or all out
+    constexpr int V = 16 / sizeof(T), CH = P::NC / V;
     for (int i = threadIdx.x; i < R * CH; i += P::kThreads) {
-      const int r = i / CH, c = (i - r * CH) * 8;
+      const int r = i / CH, c = (i - r * CH) * V;
       const int t = r / P::KC, k = r - t * P::KC;
       const bool ok = ci0 + k < C && n0 + c < C;
       cp_async<16>(dst + r * P::SW + c,
@@ -122,20 +127,20 @@ __device__ __forceinline__ void load_w(bf16* dst, const bf16* __restrict__ w, in
       const int t = r / P::KC, k = r - t * P::KC;
       dst[r * P::SW + c] = ci0 + k < C && n0 + c < C
                                ? w[((size_t)(tap0 + t) * C + ci0 + k) * C + n0 + c]
-                               : __float2bfloat16(0.f);
+                               : T(0.f);
     }
   }
 }
 
 // channels ci0.. (KC) of the HX x WX input tile at (gy0, gx0); 0 outside the
 // image and past C
-template <class P>
-__device__ __forceinline__ void load_x(bf16* dst, const bf16* __restrict__ xb, int gy0,
-                                       int gx0, int ci0, int H, int W, int C, bool vec) {
+template <class P, class T>
+__device__ __forceinline__ void load_x(T* dst, const T* __restrict__ xb, int gy0, int gx0,
+                                       int ci0, int H, int W, int C, bool vec) {
   if (vec) {
-    constexpr int CH = P::KC / 8;
+    constexpr int V = 16 / sizeof(T), CH = P::KC / V;
     for (int i = threadIdx.x; i < P::PX * CH; i += P::kThreads) {
-      const int px = i / CH, c = (i - px * CH) * 8;
+      const int px = i / CH, c = (i - px * CH) * V;
       const int gy = gy0 + px / P::WX, gx = gx0 + px % P::WX;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ci0 + c < C;
       cp_async<16>(dst + px * P::SX + c, ok ? xb + ((size_t)gy * W + gx) * C + ci0 + c : xb,
@@ -146,7 +151,7 @@ __device__ __forceinline__ void load_x(bf16* dst, const bf16* __restrict__ xb, i
       const int px = i / P::KC, c = i - px * P::KC;
       const int gy = gy0 + px / P::WX, gx = gx0 + px % P::WX;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ci0 + c < C;
-      dst[px * P::SX + c] = ok ? xb[((size_t)gy * W + gx) * C + ci0 + c] : __float2bfloat16(0.f);
+      dst[px * P::SX + c] = ok ? xb[((size_t)gy * W + gx) * C + ci0 + c] : T(0.f);
     }
   }
 }
@@ -298,8 +303,8 @@ fused_block_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
             if (c >= cp) continue;
             float v0 = 0.f, v1 = 0.f;
             if (inside) {
-              v0 = fmaxf(acc[i][j][2 * h] + bias[c], 0.f);
-              v1 = fmaxf(acc[i][j][2 * h + 1] + bias[c + 1], 0.f);
+              v0 = relu(acc[i][j][2 * h] + bias[c]);
+              v1 = relu(acc[i][j][2 * h + 1] + bias[c + 1]);
             }
             *reinterpret_cast<uint32_t*>(ys + p * sy + c) = tc::pack(v0, v1);
           }
@@ -317,14 +322,14 @@ fused_block_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
               const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(xb + pix + c);
               const float z0 = (acc[i][j][2 * h] + bias[cp + c]) + __low2float(xr);
               const float z1 = (acc[i][j][2 * h + 1] + bias[cp + c + 1]) + __high2float(xr);
-              *reinterpret_cast<uint32_t*>(ob + pix + c) = tc::pack(fmaxf(z0, 0.f), fmaxf(z1, 0.f));
+              *reinterpret_cast<uint32_t*>(ob + pix + c) = tc::pack(relu(z0), relu(z1));
             } else {
 #pragma unroll
               for (int e = 0; e < 2; ++e)
                 if (c + e < C) {
                   const float z = (acc[i][j][2 * h + e] + bias[cp + c + e]) +
                                   __bfloat162float(xb[pix + c + e]);
-                  ob[pix + c + e] = __float2bfloat16_rn(fmaxf(z, 0.f));
+                  ob[pix + c + e] = __float2bfloat16_rn(relu(z));
                 }
             }
           }

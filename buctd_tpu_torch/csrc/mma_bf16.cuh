@@ -1,9 +1,8 @@
 // bf16 tensor-core building blocks shared by the flash kernels' bf16 paths
 // (flash_fwd_tc.cuh: K1 and K1'; flash_bwd_tc.cuh: K2 and K2'): mma.sync
 // m16n8k16 with f32 accumulators, ldmatrix fragment loads from shared memory,
-// the repacking of accumulators as the next product's A operand, and the
-// loads of (rows, d) bf16 tiles into shared memory, by cp.async or through
-// registers.
+// and the repacking of accumulators as the next product's A operand.  The
+// (rows, d) tile loads are cp_async.cuh's, shared with the f32 kernels.
 //
 // Layouts.  A block has kWarps warps; each owns 16 rows of the block's own
 // kRows-row tile.  In an m16n8 accumulator tile a lane holds rows gid and
@@ -100,47 +99,13 @@ __device__ __forceinline__ int b_kn(int lane) {
   return ((lane & 7) + (((lane >> 3) & 1) << 3)) * S + (lane >> 4) * 8;
 }
 
-// rows x D tile of src (row stride d) into dst (row stride stride<D>()) through
-// registers, times `mul` and rounded to bf16 when `scaled`; rows past `limit`
-// and columns past d are 0
-template <int D>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int row0, int rows,
-                                      int limit, int d, float mul, bool scaled) {
-  constexpr int S = stride<D>();
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    bf16 x = __float2bfloat16(0.f);
-    if (row0 + r < limit && c < d) {
-      x = src[(size_t)(row0 + r) * d + c];
-      if (scaled) x = __float2bfloat16(__bfloat162float(x) * mul);
-    }
-    dst[r * S + c] = x;
+// x * mul rounded to bf16: q' = bf16(q * bf16(scale)) as stage_tile's op
+struct ScaleBf16 {
+  float mul;
+  __device__ __forceinline__ bf16 operator()(bf16 x) const {
+    return __float2bfloat16(__bfloat162float(x) * mul);
   }
-}
-
-// rows [row0, row0 + rows) of src into a ring slot: cp.async in 16-byte copies
-// when every row start is 16-byte aligned (zero_pad cleared columns d..D once),
-// else through registers
-template <int D>
-__device__ __forceinline__ void load(bf16* dst, const bf16* src, int row0, int rows,
-                                     int limit, int d, bool async) {
-  if (async)
-    copy_rows<kThreads>(dst, stride<D>() * 2, src, d * 2, row0, rows, limit, 16);
-  else
-    stage<D>(dst, src, row0, rows, limit, d, 1.f, false);
-}
-
-// columns d..D of `rows` rows: cp.async never writes them
-template <int D>
-__device__ __forceinline__ void zero_pad(bf16* buf, int rows, int d) {
-  constexpr int S = stride<D>();
-  if (d < D)
-    for (int i = threadIdx.x; i < rows * (D - d); i += kThreads)
-      buf[(i / (D - d)) * S + d + i % (D - d)] = __float2bfloat16(0.f);
-}
-
-// every row start of a (rows, d) bf16 array at p is 16-byte aligned
-inline bool rows_aligned(const void* p, int d) { return copy_width(p, 2LL * d) == 16; }
+};
 
 // The ring's schedule, a template parameter of every bf16 flash kernel: the
 // looped operand streams through `Stages` slots of shared memory, up to

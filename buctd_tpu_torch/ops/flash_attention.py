@@ -12,31 +12,29 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
 * On CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` (K1, the port of
   ``_fwd_kernel`` :86) and ``csrc/flash_bwd.cu`` (K2: ``_dq_kernel`` :212 and
   ``_dkv_kernel`` :363).  They launch the kernel or raise; they never fall
-  back.  K1 runs both dtypes on the tensor cores: f32 operands (serving and
-  evaluation) in 3xTF32, f32-accurate (``forward_tf32`` emulates it), bf16
-  operands (the autocast training step) rounding q * scale and p * keep * c
-  to bf16 where JAX's kernel does at Precision.DEFAULT.  K2 runs exact f32
-  SIMT kernels for f32 operands and tensor-core kernels for bf16 ones, which
-  round do and ds as JAX does; the plain versions round there too
-  (``_logits``).
+  back.  Both run both dtypes on the tensor cores: f32 operands (K1:
+  serving and evaluation; K2: the f32 train step) in 3xTF32, f32-accurate
+  (``forward_tf32`` and ``backward_tf32`` emulate them), bf16 operands (the
+  autocast training step) rounding q * scale, p * keep * c, do and ds to
+  bf16 where JAX's kernels do at Precision.DEFAULT; the plain versions round
+  there too (``_logits``).
 * ``BUCTD_FLASH_KVRES``, read at every call with JAX's rule (:474, :684: any
   value but "0" turns it on), routes CUDA tensors to the kv/q-resident
   kernels instead: ``csrc/flash_fwd_kvres.cu`` (K1', ``_fwd_kernel_kvres``
   :139) in ``flash_attention`` and ``csrc/flash_bwd_kvres.cu`` (K2',
   ``_dq_kernel_kvres`` :245 and ``_dkv_kernel_kvres`` :295) in
   ``flash_attention_backward``.  K1' computes K1's function and K2' K2's, with
-  another schedule.  K1' is K1's tensor-core kernels with a deeper ring, in
-  both dtypes, equal to K1 bit for bit and taking any row alignment; K2' in
-  f32 is a SIMT kernel with a two-stage cp.async ring (its rows must be
-  4-byte aligned), in bf16 K2's tensor-core kernels with a deeper ring.  A
-  kv-resident kernel that fails to build or launch raises; it never falls
-  back to K1/K2.
+  another schedule: K1' is K1's tensor-core kernels and K2' K2's, with a
+  deeper ring, in both dtypes, equal to K1 and K2 bit for bit and taking any
+  row alignment.  A kv-resident kernel that fails to build or launch raises;
+  it never falls back to K1/K2.
 * On CPU tensors the wrappers run the plain dense versions
   (``flash_attention_reference``, ``flash_attention_backward_reference``),
   which the CPU tests hold against the JAX kernels.
-* ``flash_attention_simt`` launches the f32 forward on the CUDA cores that
-  serving and evaluation ran before the 3xTF32 kernel; no path calls it, and
-  ``chip_smoke.py`` times it in turns with K1.
+* ``flash_attention_simt``, ``flash_bwd_dq_simt`` and ``flash_bwd_dkv_simt``
+  launch the f32 SIMT kernels (exact f32 on the CUDA cores) that the f32
+  paths ran before the 3xTF32 ones; no path calls them, and ``chip_smoke.py``
+  times them in turns with K1 and K2.
 
 Dropout masks: the TPU kernels draw theirs from the TPU PRNG per tile, so
 they cannot be reproduced and depend on the tile shape.  Here every weight
@@ -49,7 +47,8 @@ the same mask bit for bit.  As in JAX, an entry is kept when its bits are
 Launch counts (CPU calls do not count): ``flash_attention.launches`` (K1),
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2),
 ``flash_attention_kvres.launches`` (K1'), ``flash_bwd_dq_kvres.launches`` and
-``flash_bwd_dkv_kvres.launches`` (K2'), ``flash_attention_simt.launches``.
+``flash_bwd_dkv_kvres.launches`` (K2'), ``flash_attention_simt.launches``,
+``flash_bwd_dq_simt.launches``, ``flash_bwd_dkv_simt.launches``.
 """
 
 from __future__ import annotations
@@ -60,6 +59,8 @@ import os
 
 import torch
 import torch.nn.functional as F
+
+from .tf32 import tf32_product
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -204,25 +205,6 @@ def forward_tile_rounded(s, v, keep):
     return tuple(torch.einsum("bqtk,btkd->bqd", x * rescale, vt) / l for x in (_bf16(p), p))
 
 
-def tf32_round(x):
-    """f32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: the low 13
-    of the 23 mantissa bits dropped, to nearest with ties away from zero (the
-    sign-magnitude bits plus half an ulp, truncated), as f32."""
-    bits = x.float().contiguous().view(torch.int32)
-    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
-
-
-def _tf32_product(a, b, passes: int):
-    """a @ b of f32 operands as f32 K1 takes it on the tensor cores: each
-    operand split into hi = tf32(x) and lo = tf32(x - hi); three passes
-    (lo hi + hi lo, then + hi hi, f32 sums), or one (hi hi, plain TF32)."""
-    a_hi, b_hi = tf32_round(a), tf32_round(b)
-    if passes == 1:
-        return torch.matmul(a_hi, b_hi)
-    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
-    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
-
-
 def forward_tf32(q, k, v, scale: float, passes: int = 3, keep=None):
     """f32 K1's arithmetic emulated densely, for the checks: the logits in
     the exp2 domain, s = q' k^T with q' = q * scale * log2 e in f32 before
@@ -234,15 +216,59 @@ def forward_tf32(q, k, v, scale: float, passes: int = 3, keep=None):
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     qs = q.float() * (scale * _LOG2E)
-    s = _tf32_product(qs, k.float().transpose(1, 2), passes)
+    s = tf32_product(qs, k.float().transpose(1, 2), passes)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     del s
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     if keep is not None:
         p = p * keep
-    out = _tf32_product(p, v.float(), passes) / l
+    out = tf32_product(p, v.float(), passes) / l
     return out, ((m + torch.log2(l)) * _LN2).squeeze(-1)
+
+
+def bwd_loop_tile(d: int, dq: bool) -> int:
+    """f32 K2's looped tile (csrc/flash_bwd_tf32.cuh::bwd_loop_tile): keys
+    for the dq kernel, 64 while the head dim rounded up to 16 is at most 48
+    (its q' and do fragments in registers), else 32; q rows for the dk/dv
+    kernel, 32."""
+    return 64 if dq and -(-d // 16) * 16 <= 48 else 32
+
+
+def _tf32_folded(a, b, tile: int, passes: int):
+    """a @ b with the contraction cut into tiles of ``tile``: each tile's
+    product from zero in ``passes`` tf32 passes, the tiles' products summed
+    in f32, as f32 K2 folds a looped tile's products into its sums."""
+    out = torch.zeros(*a.shape[:-1], b.shape[-1], device=a.device)
+    for i in range(0, a.shape[-1], tile):
+        out += tf32_product(a[..., i:i + tile], b[..., i:i + tile, :], passes)
+    return out
+
+
+def backward_tf32(q, k, v, dout, lse, delta, scale: float, passes: int = 3, keep=None):
+    """f32 K2's arithmetic emulated densely, for the checks: q' = q * scale *
+    log2 e rounded to f32, s = q' k^T and g = do v^T, p = exp2(s - lse log2
+    e), ds = p (g keep - delta), then dq = (ds k) scale, dv = (p keep)^T do
+    and dk = (ds^T q') ln 2, each product in ``passes`` tf32 passes (3: the
+    kernels' 3xTF32; 1: the control a single-pass kernel would compute), the
+    last three folded over the kernels' looped tiles (``bwd_loop_tile``).
+    ``keep`` is the dropout multiplier (or None).  Returns f32 dq, dk, dv.
+    Nothing on the main path calls it."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    kf, vf, do = k.float(), v.float(), dout.float()
+    qs = q.float() * (scale * _LOG2E)
+    p = torch.exp2(tf32_product(qs, kf.transpose(1, 2), passes) - lse[..., None] * _LOG2E)
+    g = tf32_product(do, vf.transpose(1, 2), passes)
+    pk = p
+    if keep is not None:
+        g, pk = g * keep, p * keep
+    ds = p * (g - delta[..., None])
+    d = q.shape[-1]
+    dq = _tf32_folded(ds, kf, bwd_loop_tile(d, True), passes) * scale
+    dv = _tf32_folded(pk.transpose(1, 2), do, bwd_loop_tile(d, False), passes)
+    dk = _tf32_folded(ds.transpose(1, 2), qs, bwd_loop_tile(d, False), passes) * _LN2
+    return dq, dk, dv
 
 
 def flash_attention_backward_reference(q, k, v, dout, lse, delta, scale: float,
@@ -333,13 +359,14 @@ def _require_cuda(q, what: str, plain: str) -> None:
 
 
 def _check_copyable(*tensors) -> None:
-    """f32 K2' streams rows with cp.async copies of 4, 8 or 16 bytes: every
-    row start must be 4-byte aligned.  (K1' and bf16 K2' load unaligned rows
+    """f32 K2 and K2' read their operands' rows in 4-byte units (16-byte
+    cp.async copies where the rows allow, else through registers): every
+    row start must be 4-byte aligned.  (The bf16 kernels read unaligned rows
     through registers: no check.)"""
     for t in tensors:
         row = t.shape[-1] * t.element_size()
         if row % 4 or t.data_ptr() % 4:
-            raise ValueError(f"the kv-resident flash kernels copy rows in 4-byte "
+            raise ValueError(f"the f32 flash backward kernels read rows in 4-byte "
                              f"units: a {t.dtype} row of {t.shape[-1]} elements "
                              f"({row} bytes) at address {t.data_ptr():#x} is not "
                              f"4-byte aligned")
@@ -483,17 +510,40 @@ def _k2_dout(q, dout):
     return dout.to(torch.bfloat16) if q.dtype == torch.bfloat16 else dout
 
 
+def _bwd_dq(wrapper, lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout,
+            seed):
+    """dq from the C entry ``symbol`` of csrc/<lib>.cu, counted on ``wrapper``."""
+    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
+    _require_cuda(q, wrapper.__name__, "flash_attention_backward_reference")
+    if q.dtype == torch.float32:
+        _check_copyable(q, k, v, dout)
+    dq = _launch_dq(lib, symbol, q, k, v, _k2_dout(q, dout), lse, delta, scale, dropout, seed)
+    wrapper.launches += 1
+    return dq
+
+
+def _bwd_dkv(wrapper, lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout,
+             seed):
+    """dk, dv from the C entry ``symbol`` of csrc/<lib>.cu, counted on
+    ``wrapper``."""
+    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
+    _require_cuda(q, wrapper.__name__, "flash_attention_backward_reference")
+    if q.dtype == torch.float32:
+        _check_copyable(q, k, v, dout)
+    dk, dv = _launch_dkv(lib, symbol, q, k, v, _k2_dout(q, dout), lse, delta, scale, dropout,
+                         seed)
+    wrapper.launches += 1
+    return dk, dv
+
+
 def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                  seed: int = 0):
     """dq f32 (BH, Lq, d) of the attention above, from do, the forward's lse
-    and delta = rowsum(do * out), on CUDA tensors (K2's dq kernel: f32 SIMT
-    for f32 operands, tensor cores for bf16, rounding as the plain backward)."""
-    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
-    _require_cuda(q, "flash_bwd_dq", "flash_attention_backward_reference")
-    dq = _launch_dq("flash_bwd", "buctd_flash_bwd_dq", q, k, v, _k2_dout(q, dout), lse,
-                    delta, scale, dropout, seed)
-    flash_bwd_dq.launches += 1
-    return dq
+    and delta = rowsum(do * out), on CUDA tensors (K2's dq kernel on the
+    tensor cores: 3xTF32 for f32 operands, bf16 rounding as the plain
+    backward for bf16)."""
+    return _bwd_dq(flash_bwd_dq, "flash_bwd", "buctd_flash_bwd_dq", q, k, v, dout, lse,
+                   delta, scale, dropout, seed)
 
 
 flash_bwd_dq.launches = 0
@@ -503,29 +553,47 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                   seed: int = 0):
     """dk, dv f32 (BH, Lk, d), on CUDA tensors (K2's dk/dv kernel, as
     ``flash_bwd_dq``)."""
-    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
-    _require_cuda(q, "flash_bwd_dkv", "flash_attention_backward_reference")
-    dk, dv = _launch_dkv("flash_bwd", "buctd_flash_bwd_dkv", q, k, v, _k2_dout(q, dout),
-                         lse, delta, scale, dropout, seed)
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _bwd_dkv(flash_bwd_dkv, "flash_bwd", "buctd_flash_bwd_dkv", q, k, v, dout, lse,
+                    delta, scale, dropout, seed)
 
 
 flash_bwd_dkv.launches = 0
 
 
+def flash_bwd_dq_simt(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
+                      seed: int = 0):
+    """``flash_bwd_dq``'s function for f32 CUDA tensors on the CUDA cores'
+    FMAs (``flash_bwd_dq_kernel`` of csrc/flash_bwd.cu), the f32 dq kernel
+    before the 3xTF32 one; kept for timing the two in turns, never on a
+    path."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_bwd_dq_simt takes f32 operands, got {q.dtype}")
+    return _bwd_dq(flash_bwd_dq_simt, "flash_bwd", "buctd_flash_bwd_dq_simt", q, k, v, dout,
+                   lse, delta, scale, dropout, seed)
+
+
+flash_bwd_dq_simt.launches = 0
+
+
+def flash_bwd_dkv_simt(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
+                       seed: int = 0):
+    """``flash_bwd_dkv``'s function on the CUDA cores (``flash_bwd_dkv_kernel``),
+    as ``flash_bwd_dq_simt``."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_bwd_dkv_simt takes f32 operands, got {q.dtype}")
+    return _bwd_dkv(flash_bwd_dkv_simt, "flash_bwd", "buctd_flash_bwd_dkv_simt", q, k, v,
+                    dout, lse, delta, scale, dropout, seed)
+
+
+flash_bwd_dkv_simt.launches = 0
+
+
 def flash_bwd_dq_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                        seed: int = 0):
     """K2' dq: ``flash_bwd_dq``'s function with K/V streamed through a
-    cp.async ring (f32 K/V rows 4-byte aligned)."""
-    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
-    _require_cuda(q, "flash_bwd_dq_kvres", "flash_attention_backward_reference")
-    if q.dtype == torch.float32:
-        _check_copyable(k, v)
-    dq = _launch_dq("flash_bwd_kvres", "buctd_flash_bwd_dq_kvres", q, k, v,
-                    _k2_dout(q, dout), lse, delta, scale, dropout, seed)
-    flash_bwd_dq_kvres.launches += 1
-    return dq
+    deeper cp.async ring (K2's kernels: equal to K2 bit for bit)."""
+    return _bwd_dq(flash_bwd_dq_kvres, "flash_bwd_kvres", "buctd_flash_bwd_dq_kvres", q, k,
+                   v, dout, lse, delta, scale, dropout, seed)
 
 
 flash_bwd_dq_kvres.launches = 0
@@ -534,15 +602,10 @@ flash_bwd_dq_kvres.launches = 0
 def flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                         seed: int = 0):
     """K2' dk/dv: ``flash_bwd_dkv``'s function with q, do, lse and delta
-    streamed through a cp.async ring (f32 rows 4-byte aligned)."""
-    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
-    _require_cuda(q, "flash_bwd_dkv_kvres", "flash_attention_backward_reference")
-    if q.dtype == torch.float32:
-        _check_copyable(q, dout, lse, delta)
-    dk, dv = _launch_dkv("flash_bwd_kvres", "buctd_flash_bwd_dkv_kvres", q, k, v,
-                         _k2_dout(q, dout), lse, delta, scale, dropout, seed)
-    flash_bwd_dkv_kvres.launches += 1
-    return dk, dv
+    streamed through a deeper cp.async ring (K2's kernels: equal to K2 bit
+    for bit)."""
+    return _bwd_dkv(flash_bwd_dkv_kvres, "flash_bwd_kvres", "buctd_flash_bwd_dkv_kvres", q,
+                    k, v, dout, lse, delta, scale, dropout, seed)
 
 
 flash_bwd_dkv_kvres.launches = 0

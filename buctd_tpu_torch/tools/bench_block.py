@@ -16,18 +16,18 @@ For each geometry ``--chain`` blocks are chained (the output feeds the next
 block) inside one timed region, with CUDA events around the chain, and the
 implementations are timed in turns over ``--rounds`` rounds; the medians are
 printed in ms per block.  cuDNN runs ``F.conv2d`` twice on channels-last
-tensors with the bias, relu and residual in PyTorch; ``--fused`` adds K5
-(bf16: the tensor-core kernel; f32: the SIMT kernel), ``--simt`` adds K5's
-bf16 SIMT kernel as well (``fused_basic_block_simt``, the A/B; implies
-``--fused``, bf16 only).  ``--dtype float32`` runs f32 operands with TF32 off
-for cuDNN (restored after).
+tensors with the bias, relu and residual in PyTorch; ``--fused`` adds K5 (on
+the tensor cores: bf16, or f32 in 3xTF32), ``--simt`` adds K5's SIMT kernel
+in the same dtype as well (``fused_basic_block_simt``, the A/B; implies
+``--fused``).  ``--dtype float32`` runs f32 operands with TF32 off for cuDNN
+(restored after).
 
 Bounds are the H100's (NVIDIA data sheet, SXM): the two convs' operations
 (2 x 2 x 9 C^2 H W B, 2 per multiply-add) over 989 TFLOP/s (bf16 dense tensor
-cores) in bf16, over 67 TFLOP/s (f32 outside the tensor cores) in f32, that
-f32 figure printed beside the bf16 bound too (what a SIMT kernel can reach),
-and the bytes a fused block must move (x in, out, the weights and biases, 2 or
-4 bytes each) over 3.35 TB/s.
+cores) in bf16, three passes of them over 494.7 TFLOP/s (dense TF32, f32 K5's
+3xTF32) in f32; the f32 CUDA-core figure (67 TFLOP/s, what a SIMT kernel can
+reach) printed beside; and the bytes a fused block must move (x in, out, the
+weights and biases, 2 or 4 bytes each) over 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ ROUNDS = 5
 BRANCHES = [("branch0", 96, 72, 48), ("branch1", 48, 36, 96),
             ("branch2", 24, 18, 192), ("branch3", 12, 9, 384)]
 HBM_BYTES_PER_S = 3.35e12
-PEAK_BF16, PEAK_F32 = 989e12, 67e12
+PEAK_BF16, PEAK_TF32, PEAK_F32 = 989e12, 494.7e12, 67e12
 
 
 def make_params(gen, c: int, dtype=torch.bfloat16):
@@ -77,17 +77,18 @@ def block_ops(b: int, h: int, w: int, c: int) -> float:
 
 def bounds(b: int, h: int, w: int, c: int, dtype: str = "bfloat16") -> dict:
     """The least time of one block on the card, ms: operations over the bf16
-    peak (``bf16_ms``) or the f32 CUDA-core peak (``f32core_ms``), bytes (x
+    peak (``bf16_ms``), three passes of them over the TF32 peak
+    (``tf32_ms``) or over the f32 CUDA-core peak (``f32core_ms``), bytes (x
     in, out, weights, biases in ``dtype``) over the memory rate
     (``bytes_ms``); ``bound_ms`` is the larger of the bytes time and the
-    operations over ``dtype``'s peak (``ops_ms``: bf16 tensor cores, or f32
-    CUDA cores)."""
+    operations of ``dtype``'s kernel (``ops_ms``: bf16 tensor cores, or f32
+    in 3xTF32)."""
     ops = block_ops(b, h, w, c)
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = elt * (2 * b * h * w * c + 2 * 9 * c * c + 2 * c)
-    res = {"bf16_ms": ops / PEAK_BF16 * 1e3, "f32core_ms": ops / PEAK_F32 * 1e3,
-           "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-    res["ops_ms"] = res["bf16_ms"] if dtype == "bfloat16" else res["f32core_ms"]
+    res = {"bf16_ms": ops / PEAK_BF16 * 1e3, "tf32_ms": 3 * ops / PEAK_TF32 * 1e3,
+           "f32core_ms": ops / PEAK_F32 * 1e3, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    res["ops_ms"] = res["bf16_ms"] if dtype == "bfloat16" else res["tf32_ms"]
     res["bound_ms"] = max(res["ops_ms"], res["bytes_ms"])
     res["bound_by"] = "operations" if res["ops_ms"] >= res["bytes_ms"] else "bytes"
     return res
@@ -110,7 +111,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fused", action="store_true", help="also time the fused kernel K5")
     ap.add_argument("--simt", action="store_true",
-                    help="also time K5's bf16 SIMT kernel (implies --fused)")
+                    help="also time K5's SIMT kernel (implies --fused)")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--chain", type=int, default=CHAIN)
@@ -119,17 +120,15 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_block measures the CUDA card; none is available")
-    if args.simt and args.dtype != "bfloat16":
-        raise ValueError("--simt times the bf16 SIMT kernel: bf16 only")
     dtype = getattr(torch, args.dtype)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     B = args.batch
-    peak = PEAK_BF16 if args.dtype == "bfloat16" else PEAK_F32
+    ops = ("ops / 989 TFLOP/s (bf16 tensor cores)" if args.dtype == "bfloat16"
+           else "3 x ops / 494.7 TFLOP/s (3xTF32)")
     print(f"# {torch.cuda.get_device_name(0)}; b{B} {args.dtype}, {args.chain} chained blocks "
           f"per timed region, {args.rounds} rounds in turns; ms per block (median)")
-    print(f"# bounds: ops / {peak / 1e12:.0f} TFLOP/s ({'bf16 tensor cores' if peak == PEAK_BF16 else 'f32 CUDA cores'}; "
-          f"f32 CUDA cores: {PEAK_F32 / 1e12:.0f}), bytes (x in, out, weights) / "
-          f"{HBM_BYTES_PER_S / 1e12} TB/s")
+    print(f"# bounds: {ops}, or bytes (x in, out, weights) / {HBM_BYTES_PER_S / 1e12} TB/s; "
+          f"f32 CUDA cores: ops / {PEAK_F32 / 1e12:.0f} TFLOP/s")
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False if args.dtype == "float32" else tf32
     results = {}
@@ -165,8 +164,8 @@ def main(argv=None) -> dict:
             if "simt" in times:
                 line += f", SIMT/K5 {res['simt_ms'] / res['fused_ms']:.3f}"
             print(line + f"; bound {res['bound_ms']:.4f} ms ({res['bound_by']}; bf16 ops "
-                  f"{res['bf16_ms']:.4f}, f32-core {res['f32core_ms']:.4f}, bytes "
-                  f"{res['bytes_ms']:.4f})", flush=True)
+                  f"{res['bf16_ms']:.4f}, 3xTF32 {res['tf32_ms']:.4f}, f32-core "
+                  f"{res['f32core_ms']:.4f}, bytes {res['bytes_ms']:.4f})", flush=True)
             del x, impls
     finally:
         torch.backends.cudnn.allow_tf32 = tf32

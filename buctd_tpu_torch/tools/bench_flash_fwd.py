@@ -16,7 +16,12 @@ kernels are printed:
            registers);
   one_sm   no register cap: one block an SM at d = 48;
   warps4   4 warps (64 rows) a block, as the bf16 kernel has;
-  tiles32  32-key tiles at every d.
+  tiles32  32-key tiles at every d;
+  cvtsplit every operand split by cvt.rna.tf32.f32 (mma_tf32.cuh's first
+           split; the same values as the integer rounding shipped for
+           finite operands);
+  nanfree  the integer rounding without the fma that carries a NaN into lo
+           (a NaN operand then reads as 0 or inf: what keeping NaN costs).
 
 The forward is timed with CUDA events around 10 launches, the variants in
 turns (the order reversed every other round) over ``--rounds`` rounds, at BH
@@ -36,6 +41,7 @@ import subprocess
 import torch
 
 from . import kernel_variants
+from .kernel_variants import CVT_SPLIT, INT_SPLIT, NANFREE_SPLIT
 
 SHAPES = [(64, 6912, 48), (64, 1728, 96)]
 ROUNDS = 2
@@ -47,6 +53,8 @@ VARIANTS = {
     "one_sm": [("flash_fwd_tf32.cuh", "return D < 96 ? 2 : 1;", "return 1;")],
     "warps4": [("mma_tf32.cuh", "constexpr int kWarps = 8;", "constexpr int kWarps = 4;")],
     "tiles32": [("flash_fwd_tf32.cuh", "return D < 96 ? 64 : 32;", "return 32;")],
+    "cvtsplit": [("mma_tf32.cuh", INT_SPLIT, CVT_SPLIT)],
+    "nanfree": [("mma_tf32.cuh", INT_SPLIT, NANFREE_SPLIT)],
 }
 
 

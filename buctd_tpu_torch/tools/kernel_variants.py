@@ -18,6 +18,34 @@ import subprocess
 import torch
 
 
+# csrc/mma_tf32.cuh's split; by cvt.rna (the f32 kernels' first), for the
+# cvtsplit variants of bench_block_variants.py, bench_flash_bwd.py and
+# bench_flash_fwd.py; and by the integer rounding without the fma that
+# carries a NaN into lo, for their nanfree variants (what keeping NaN costs)
+INT_SPLIT = """  hi = rna(__float_as_uint(x));
+  const float rest = x - __uint_as_float(hi);
+  lo = __float_as_uint(__fmaf_rn(rest, 0.f, __uint_as_float(rna(__float_as_uint(rest)))));"""
+CVT_SPLIT = """  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
+  hi &= 0xffffe000u;
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(rest));"""
+NANFREE_SPLIT = """  hi = rna(__float_as_uint(x));
+  lo = rna(__float_as_uint(x - __uint_as_float(hi)));"""
+
+
+def substituted(header: str, subs, name: str) -> str:
+    """csrc/<header> with the (old, new) substitutions of variant ``name``,
+    each of which must apply."""
+    from .. import _build
+
+    text = (_build.CSRC / header).read_text()
+    for old, new in subs:
+        if old not in text:
+            raise RuntimeError(f"variant {name}: {old!r} is not in csrc/{header}")
+        text = text.replace(old, new)
+    return text
+
+
 def build(lib: str, sources: dict) -> dict:
     """``sources`` {tag: {header: text}} -> {tag: (library path, nvcc's
     ptxas log)}, one nvcc per variant, all started together."""

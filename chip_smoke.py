@@ -13,8 +13,11 @@ Phases (each raises on failure; nothing is caught):
   0. build every kernel under buctd_tpu_torch/csrc/ with nvcc for sm_90a (one
      nvcc per source, all started together); in the SASS (cuobjdump) of the
      four flash libraries and K5's, HMMA in every tensor-core kernel (K5's
-     ``fused_block_tc_kernel``, one a tile plan) and in no SIMT one, and
-     TF32 HMMA in every f32 forward kernel of K1 and K1';
+     ``fused_block_tc_kernel`` and ``fused_block_tf32_kernel``, one a tile
+     plan) and in no SIMT one, and TF32 HMMA in every f32 kernel of K1, K1',
+     K2, K2' and K5; a NaN in q reaches f32 K1's, K1''s, K2's and K2''s
+     outputs, and a NaN in x K5's (both dtypes, tensor cores and SIMT), where
+     it reaches the plain versions' (``nan_phase``);
   1. kernels, serving and evaluation shapes: K1 (flash-attention forward on
      the tensor cores: f32 in 3xTF32, bf16) vs its plain version at the
      CoAM-W48 shapes (16 crops, as predict_batch gives them, 64 as a
@@ -28,16 +31,15 @@ Phases (each raises on failure; nothing is caught):
      the card's bound, and f32 K1 and the SIMT forward it replaced timed in
      turns;
   2. kernels, training shapes: K1 and K2 (flash backward: the dq and the dk/dv
-     kernels; f32 SIMT, bf16 on the tensor cores) at the shapes a batch-32
+     kernels; on the tensor cores, f32 in 3xTF32) at the shapes a batch-32
      train step gives them, f32 and bf16, dropout 0 and 0.1, vs their plain
-     versions over BH chunks (bf16 against the plain versions that round
-     where they do, K2's distance to the f32 plain version printed, and rows
-     of exp(s' - lse) from bf16 K1 summing to 1), and K4 (rotated warp); their
-     bf16 times beside the f32 SIMT kernels' on the widened operands (what
-     bf16 ran before its tensor-core kernels), the
-     tensor-core, MUFU and dropout-hash floors, SDPA's forward and SDPA's
-     backward alone; f32 K2 (the SIMT kernels) beside SDPA's f32 backward
-     alone and its f32 CUDA-core bound;
+     versions over BH chunks (f32 K2's one-pass tf32 control must miss the
+     gate; bf16 against the plain versions that round where they do, K2's
+     distance to the f32 plain version printed, and rows of exp(s' - lse)
+     from bf16 K1 summing to 1), and K4 (rotated warp); their bf16 times
+     beside the f32 SIMT kernels' on the widened operands (what bf16 ran
+     before its tensor-core kernels), the tensor-core, MUFU and dropout-hash
+     floors, SDPA's forward and SDPA's backward alone;
   3. serving: CoAM-W48 crowdpose 384x288 (14 joints, random weights from
      torch.manual_seed), ``predict`` on a 480x640 image with 4 condition poses
      and ``predict_batch`` on 3 images; finite outputs of the right shapes, the
@@ -53,18 +55,18 @@ Phases (each raises on failure; nothing is caught):
      kernel;
   5. one f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
      same step on the CPU: loss, the gradients (all, and the position
-     attention's alone), BN running statistics; the step's K2 calls vs
-     float64 on their own inputs; f32 K2's launches in that step;
+     attention's alone), BN running statistics; the step's K2 calls (3xTF32)
+     vs float64 on their own inputs; f32 K2's launches in that step;
   6. kernels, kv-resident: K1' (flash_fwd_kvres) vs the plain version at the
      serving shapes, the eval shapes (64 = 2 x 32 flip-test crops) in f32 and
      bf16, a ragged case and d = 47, and vs K1; at the training shapes (BH
      32), f32 and bf16, dropout 0.1: K1' and K2' (dq, dk/dv) vs the plain
      versions (over BH chunks, each with its rows' dropout mask; K1's and
-     K2's gates) and vs K1/K2 (K1' and bf16 K2' bit for bit: the same
-     tensor-core kernels with a deeper ring; f32 K2' at K2's gate); an odd
-     head dim in bf16 under BUCTD_FLASH_KVRES=1; times of each beside
-     K1's/K2's (A/B in turns: old, new, new, old), the plain version's, the
-     bound and SDPA's; f32 K2' beside f32 K2 in turns at the training shapes;
+     K2's gates) and vs K1/K2 (bit for bit in both dtypes: the same
+     tensor-core kernels with a deeper ring); an odd head dim in bf16 under
+     BUCTD_FLASH_KVRES=1; times of each beside K1's/K2's (A/B in turns: old,
+     new, new, old), the plain version's, the bound and SDPA's; f32 K2'
+     beside f32 K2 in turns at the training shapes;
   7. evaluation: ``buctd_tpu_torch.valid.run`` on a seeded synthetic
      CrowdPose test set (64 480x640 images x 4 people = 256 crops = 8 batches
      of 32) from a BU-prediction json, with N(0, 1/fan_in) weights saved as a
@@ -79,10 +81,11 @@ Phases (each raises on failure; nothing is caught):
   9. 3 training steps under BUCTD_FLASH_KVRES=1: K1', K2' dq and K2' dk/dv
      launched 2 per step, K1 and K2 never, the loss finite;
  10. K5 (the fused eval basic block) vs its plain version at the four W48
-     branch geometries, batch 32, f32 (SIMT) and bf16 (the tensor-core
-     kernel, and the bf16 SIMT kernel of the A/B), and on the benchmark's own
-     batch-128 bf16 inputs; the long-K check at C = 384 against float64
-     (K5_LONG_K); the plain version's time;
+     branch geometries, batch 32, f32 and bf16 (the tensor-core kernels, f32
+     in 3xTF32, and the SIMT kernel of the A/B in both), where f32's
+     one-pass tf32 control must miss the f32 gate at every branch, and on the
+     benchmark's own batch-128 bf16 inputs; the long-K check at C = 384
+     against float64 in both dtypes (K5_LONG_K); the plain version's time;
  11. K5 vs the port's trunk: one stage-4 BasicBlock per branch of a
      full-width preNet-W48 with random BN statistics, folded by
      models/fuse.py::fold_bn, f32 with TF32 off;
@@ -93,11 +96,13 @@ Phases (each raises on failure; nothing is caught):
      and auto: fused vs unfused predictions, each forward on the card vs the
      CPU, crops/s, a profile of each;
  14. the port's tools, reduced (buctd_tpu_torch/tools/bench_block.py --simt
-     and --fused --dtype float32, bench_exp2.py, bench_stem.py): K5's (both
-     dtypes), K5's SIMT A/B's and K6's launch counts in that run, and the
-     times of K5 (tensor cores, SIMT, f32), cuDNN (bf16, f32 with TF32 off),
-     K6 (device time) and the torch chains that the kernels line reports;
-     bf16 K5 faster than its SIMT kernel at every branch; K6 no faster than
+     in bf16 and f32, bench_flash_bwd.py --dtype float32, bench_exp2.py,
+     bench_stem.py): K5's (both dtypes), K5's SIMT A/B's and K6's launch
+     counts in that run, and the times of K5 (tensor cores and SIMT, both
+     dtypes), cuDNN (bf16, f32 with TF32 off), f32 K2 (3xTF32 and SIMT in
+     turns, SDPA's f32 backward), K6 (device time) and the torch chains that
+     the kernels line reports; K5 faster than its SIMT kernel at every branch
+     in both dtypes, f32 K2 faster than its SIMT kernels; K6 no faster than
      its SFU bound.
 
 Prints the kernels' JSON line, then as its last line
@@ -122,7 +127,7 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "experiments" / "crowdpose" / "buctd" / "coam_w48_384x288.yaml"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores (the SIMT kernels)
-            "tf32": 494.7e12,      # dense TF32 tensor cores: f32 K1 and K1', 3 passes
+            "tf32": 494.7e12,      # dense TF32 tensor cores: the f32 kernels, 3 passes
             "bfloat16": 989e12}    # dense bf16 tensor cores
 # kernel vs plain: both sum in f32, in another order, over up to 6912 keys
 # (measured ~1e-6 on randn inputs).  f32 K1 and K1' take their products in
@@ -194,9 +199,11 @@ TRAIN_CASES = [(TRAIN_BATCH, 6912, 48), (TRAIN_BATCH, 1728, 96)]
 # in BH chunks of this size
 PLAIN_BH = {6912: 2, 1728: 8}
 DROPOUT = 0.1
-# K2 vs its plain backward.  f32 (the SIMT kernels): dq/dk/dv sum p-weighted
-# products over up to 6912 keys or rows in f32, in another order (measured
-# below 1e-6 on randn inputs).  bf16 (the tensor-core kernels) against the
+# K2 vs its plain backward.  f32 (3xTF32 on the tensor cores): dq/dk/dv sum
+# p-weighted products over up to 6912 keys or rows in f32, in another order
+# (the SIMT kernels measured below 1e-6 on randn inputs); one tf32 pass
+# (ops/flash_attention.py::backward_tf32, TF32_CONTROL_PASSES) lands further
+# and must miss.  bf16 (the tensor-core kernels) against the
 # plain backward that rounds q * scale, do, ds and p * keep * c where they do:
 # within K2_BF16_RTOL x max |grad|, for f32 sums in another order and
 # one-bf16-step flips of a rounded ds or p * keep * c where exp2 and exp
@@ -204,11 +211,11 @@ DROPOUT = 0.1
 # the training shapes)
 BWD_ATOL = BWD_RTOL = 1e-4
 K2_BF16_RTOL = 2e-3
-# K1' vs K1 (f32 and bf16) and bf16 K2' vs K2: the same tensor-core kernels
-# with a deeper ring, which changes no arithmetic: bit for bit (max |gap|
+# K1' vs K1 and K2' vs K2, f32 and bf16: the same tensor-core kernels with a
+# deeper ring, which changes no arithmetic: bit for bit (max |gap|
 # KVRES_GAP)
 KVRES_GAP = 0.0
-# what else bounds a bf16 backward kernel, besides its products and bytes:
+# what else bounds a backward kernel, besides its products and bytes:
 # one MUFU.EX2 per (row, key) pair, 16 a clock on each SM, and with dropout
 # the hash of csrc/dropout_hash.cuh, about HASH_INT_OPS integer operations a
 # pair at 64 a clock on each SM; at nvidia-smi's clocks.max.sm
@@ -236,17 +243,21 @@ KVRES_ODD_CASE = (8, 1728, 47)
 KVRES_HM_RTOL = 1e-5
 PRENET_CONFIG = ROOT / "experiments" / "crowdpose" / "buctd" / "prenet_w48_384x288.yaml"
 # K5 vs its plain version at the W48 branch geometries, batch 32: f32 sums of
-# 9C products in another order (measured <= 4.3e-6 on O(1) outputs); in bf16
-# an f32 sum in another order can round the intermediate or the output one
-# bf16 step (2^-7 relative) apart, so two steps, relative and absolute
+# 9C products in another order (the SIMT kernel measured <= 4.3e-6 on O(1)
+# outputs; f32 K5 takes its products in 3xTF32, and one tf32 pass,
+# ops/fused_block.py::fused_block_tf32 with TF32_CONTROL_PASSES, must miss
+# the f32 gate); in bf16 an f32 sum in another order can round the
+# intermediate or the output one bf16 step (2^-7 relative) apart, so two
+# steps, relative and absolute
 K5_CHECK_BATCH = 32
 K5_ATOL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
-# bf16 K5's long-K check: C = 384 (K = 3456 terms a conv) at (batch, H, W, C),
+# K5's long-K check: C = 384 (K = 3456 terms a conv) at (batch, H, W, C),
 # the tensor-core kernel's and the SIMT kernel's outputs against a float64
-# chain on the same bf16 operands (the intermediate rounded where the kernels
-# round it): the tensor-core kernel's max and rms error, and its share of
-# outputs off the float64 chain rounded to bf16, at most K5_LONG_K_RATIO x the
-# SIMT kernel's (the tensor cores' accumulator is not an f32 add)
+# chain on the same operands (the intermediate rounded where the kernels
+# round it): the tensor-core kernel's max and rms error, and in bf16 its
+# share of outputs off the float64 chain rounded to bf16, at most
+# K5_LONG_K_RATIO x the SIMT kernel's (the tensor cores' accumulator is not
+# an f32 add), in both dtypes
 K5_LONG_K = (32, 12, 9, 384)
 K5_LONG_K_RATIO = 2.0
 # K5 vs the trunk's BasicBlock (f32, TF32 off): a float64 BN fold cast to f32
@@ -267,23 +278,32 @@ TOOL_CHAIN, TOOL_ROUNDS, TOOL_STEM_BATCH = 5, 2, 32
 
 # the flash libraries and their SIMT (f32, CUDA-core) kernels: every other
 # kernel in them runs on the tensor cores, the bf16 ones (``_tc_kernel``) and
-# the 3xTF32 f32 forward (``_tf32_kernel``).  flash_fwd keeps its SIMT forward
-# for the A/B of kernel_phase only; f32 K1' has none
+# the 3xTF32 f32 ones (``_tf32_kernel``).  flash_fwd and flash_bwd keep their
+# SIMT kernels for the A/B only; K1' and K2' have none
 FLASH_SIMT = {"flash_fwd": ("flash_fwd_kernel",),
               "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
               "flash_fwd_kvres": (),
-              "flash_bwd_kvres": ("flash_bwd_dq_kvres_kernel", "flash_bwd_dkv_kvres_kernel")}
-# the libraries whose f32 forward must show TF32 HMMA (HMMA.1684.F32.TF32)
-FLASH_TF32 = ("flash_fwd", "flash_fwd_kvres")
-# K5's library: the bf16 tensor-core kernel (``fused_block_tc_kernel``, one
-# instantiation a tile plan) and the SIMT kernels (f32, and bf16 for the A/B)
+              "flash_bwd_kvres": ()}
+# K5's library: the tensor-core kernels (``fused_block_tc_kernel`` bf16,
+# ``fused_block_tf32_kernel`` f32, one instantiation a tile plan) and the
+# SIMT kernels (f32 and bf16, for the A/B)
 K5_SIMT = {"fused_block": ("fused_block_kernel",)}
+
+
+def tf32_kernels_expected(lib: str) -> int:
+    """How many f32 (``_tf32_kernel``) instantiations a library holds: one a
+    head-dim case of the forward (8), of dq and of dk/dv (16), one a tile
+    plan of K5."""
+    from buctd_tpu_torch.ops.fused_block import TF32_PLANS
+
+    return {"fused_block": len(TF32_PLANS)}.get(lib, 16 if "bwd" in lib else 8)
 
 
 def check_sass() -> None:
     """In every flash library and in K5's, HMMA in each tensor-core kernel
-    and in none of the SIMT ones; TF32 HMMA in every f32 forward kernel (8
-    head-dim cases each) of K1 and K1'; one tensor-core K5 kernel a tile plan."""
+    and in none of the SIMT ones; TF32 HMMA in every f32 kernel (one a
+    head-dim case of K1, K1', K2 and K2', one a tile plan of K5); one bf16
+    K5 kernel a tile plan."""
     from buctd_tpu_torch._build import hmma_counts
     from buctd_tpu_torch.ops.fused_block import TC_PLANS
 
@@ -293,20 +313,59 @@ def check_sass() -> None:
               if "_tc_kernel" in f or "_tf32_kernel" in f}
         simt = {f: n for f, n in hmma.items() if any(k in f for k in simt_names)
                 and f not in tc}
-        tf32 = ({f: n for f, n in hmma_counts(lib, "TF32").items() if "_tf32_kernel" in f}
-                if lib in FLASH_TF32 else {})
+        tf32 = {f: n for f, n in hmma_counts(lib, "TF32").items() if "_tf32_kernel" in f}
         print(f"{lib} SASS: {len(tc)} tensor-core kernels, HMMA {min(tc.values(), default=0)}-"
-              f"{max(tc.values(), default=0)} each; {len(tf32)} f32 forward kernels, TF32 "
+              f"{max(tc.values(), default=0)} each; {len(tf32)} f32 kernels, TF32 "
               f"HMMA {min(tf32.values(), default=0)}-{max(tf32.values(), default=0)} each; "
               f"{len(simt)} SIMT kernels, HMMA {sum(simt.values())} in all", flush=True)
         if (not tc or min(tc.values()) == 0 or bool(simt) != bool(simt_names)
                 or sum(simt.values())):
             raise AssertionError(f"{lib}'s SASS: tensor-core kernels {tc}, SIMT kernels {simt}")
-        if lib in FLASH_TF32 and (len(tf32) != 8 or min(tf32.values()) == 0):
-            raise AssertionError(f"{lib}'s SASS: TF32 HMMA of the f32 forward {tf32}")
-        if lib in K5_SIMT and len(tc) != len(TC_PLANS):
+        if len(tf32) != tf32_kernels_expected(lib) or min(tf32.values()) == 0:
+            raise AssertionError(f"{lib}'s SASS: TF32 HMMA of the f32 kernels {tf32}")
+        if lib in K5_SIMT and len(tc) != len(TC_PLANS) + len(tf32):
             raise AssertionError(f"{lib}'s SASS: {len(tc)} tensor-core kernels, not "
-                                 f"{len(TC_PLANS)}")
+                                 f"{len(TC_PLANS)} + {len(tf32)}")
+
+
+def nan_phase(torch, fa, fb) -> None:
+    """A NaN operand reaches every f32 tensor-core kernel's output (the 3xTF32
+    split's lo carries it) and K5's in both dtypes (relu keeps it): the
+    entries that are not finite are those of the plain version's output,
+    at small shapes, dropout 0 (a dropped entry is 0 by selection in the
+    kernels, NaN times 0 in the plain version)."""
+    from buctd_tpu_torch.tools import bench_block_variants as bv
+
+    def alike(label, got, want):
+        for g, w in zip(got, want):
+            bad = ~torch.isfinite(w)
+            if not (bad.any() and torch.equal(~torch.isfinite(g), bad)):
+                raise AssertionError(f"{label}: {(~torch.isfinite(g)).sum().item()} entries "
+                                     f"not finite, the plain version {bad.sum().item()}")
+
+    gen = torch.Generator("cuda").manual_seed(17)
+    for bh, l, d in ((2, 128, 48), (1, 100, 96)):
+        q, k, v, dout = (torch.randn(bh, l, d, device="cuda", generator=gen) for _ in range(4))
+        q[-1, l // 2, d // 3] = float("nan")
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_reference(q, k, v, scale)
+        args = (q, k, v, dout, lse, (dout * out).sum(-1), scale)
+        want = fa.flash_attention_backward_reference(*args)
+        for tag, fwd, dq, dkv in (
+                ("K1/K2", fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv),
+                ("K1'/K2'", fa.flash_attention_kvres, fa.flash_bwd_dq_kvres,
+                 fa.flash_bwd_dkv_kvres)):
+            alike(f"f32 {tag} forward ({bh}, {l}, {d})", fwd(q, k, v, scale), (out, lse))
+            alike(f"f32 {tag} backward ({bh}, {l}, {d})", (dq(*args), *dkv(*args)), want)
+    for b, h, w, c in ((2, 24, 18, 48), (2, 12, 9, 384)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = bv.random_block(gen, b, h, w, c, dtype=dtype)
+            args[0][1, h // 2, 0, c // 2] = float("nan")
+            want = fb.fused_basic_block_plain(*args)
+            for fn in (fb.fused_basic_block, fb.fused_basic_block_simt):
+                alike(f"K5 {fn.__name__} ({b}, {h}, {w}, {c}) {dtype}", [fn(*args)], [want])
+    print("NaN operands: f32 K1, K1', K2, K2' and K5 (both dtypes, tensor cores and SIMT) "
+          "not finite where the plain versions are", flush=True)
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -462,6 +521,25 @@ def tf32_control_miss(torch, fa, q, k, v, scale, chunk) -> float:
     return miss
 
 
+def k2_control_miss(torch, fa, chunk, q, k, v, do, lse, delta, scale, p, seed) -> float:
+    """How far f32 K2's arithmetic in one tf32 pass (fa.backward_tf32,
+    TF32_CONTROL_PASSES) lands outside BWD_ATOL + BWD_RTOL |plain| of the
+    plain backward, on the first BH chunk: the largest excess over dq, dk and
+    dv, > 0 where it misses."""
+    rows = slice(0, chunk)
+    args = [t[rows] for t in (q, k, v, do, lse, delta)]
+    want = fa.flash_attention_backward_reference(*args, scale, p, seed)
+    keep = fa.dropout_multiplier(seed, *args[0].shape[:2], k.shape[1], p, q.device) \
+        if p > 0.0 else None
+    got = fa.backward_tf32(*args, scale, TF32_CONTROL_PASSES, keep)
+    miss = max(((g - w).abs() - BWD_ATOL - BWD_RTOL * w.abs()).max().item()
+               for g, w in zip(got, want))
+    if not miss > 0.0:
+        raise AssertionError(f"the {TF32_CONTROL_PASSES}-pass tf32 K2 control meets the f32 "
+                             f"gate (excess {miss:.3e}): the gate cannot tell it from 3xTF32")
+    return miss
+
+
 def chunked(fn, bh: int, chunk: int, *tensors):
     """``fn`` over BH chunks of (BH, ...) tensors: the plain versions' memory
     stays bounded (their (chunk, L, L) f32 tensors) while they do all the work."""
@@ -483,11 +561,13 @@ def flash_ops(bh, l, d, kind) -> float:
 
 def bwd_bound_ms(bh, l, d, elt, kind) -> tuple:
     """Least time of one backward kernel: its operations (``flash_ops``) over
-    the peak for the operands' type, or its bytes (q, k, v in their type; do,
-    lse, delta read and the f32 gradients written) over the memory rate."""
+    the peak for the operands' type (f32: three passes at the TF32 peak, the
+    3xTF32 kernels), or its bytes (q, k, v in their type; do, lse, delta read
+    and the f32 gradients written) over the memory rate."""
     nbytes = 3 * elt * bh * l * d + 4 * bh * l * (d + 2) + 4 * BWD_OUTPUTS[kind] * bh * l * d
-    peak = PEAK_OPS["float32" if elt == 4 else "bfloat16"]
-    t_ops, t_bytes = flash_ops(bh, l, d, kind) / peak, nbytes / HBM_BYTES_PER_S
+    t_ops = (3 * flash_ops(bh, l, d, kind) / PEAK_OPS["tf32"] if elt == 4
+             else flash_ops(bh, l, d, kind) / PEAK_OPS["bfloat16"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -519,12 +599,16 @@ def warp_read_pixels(torch, tw, trans, hw, out_hw) -> int:
     return total
 
 
-def flash_floors_ms(bh, l, d, kind, clock_hz: float, dropout: float) -> dict:
-    """The floors of one bf16 flash kernel, ms: its products at the bf16
-    tensor-core peak, its exp2s at the MUFU rate and, with dropout, its
-    hashes at the integer rate (one of each per (row, key) pair)."""
+def flash_floors_ms(bh, l, d, kind, clock_hz: float, dropout: float,
+                    dtype: str = "bfloat16") -> dict:
+    """The floors of one flash kernel, ms: its products at the bf16
+    tensor-core peak (f32: three passes at the TF32 peak), its exp2s at the
+    MUFU rate and, with dropout, its hashes at the integer rate (one of each
+    per (row, key) pair)."""
     pairs = bh * l * l
-    return {"tensor": flash_ops(bh, l, d, kind) / PEAK_OPS["bfloat16"] * 1e3,
+    tensor = (3 * flash_ops(bh, l, d, kind) / PEAK_OPS["tf32"] if dtype == "float32"
+              else flash_ops(bh, l, d, kind) / PEAK_OPS["bfloat16"])
+    return {"tensor": tensor * 1e3,
             "mufu": pairs / (EX2_PER_SM_CLOCK * SMS * clock_hz) * 1e3,
             "hash": (HASH_INT_OPS * pairs / (INT_PER_SM_CLOCK * SMS * clock_hz) * 1e3
                      if dropout > 0.0 else 0.0)}
@@ -535,7 +619,8 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
 
     K1 and K2 at TRAIN_CASES (BH 32), f32 and bf16, dropout 0 and 0.1, against
     the plain versions over BH chunks (the kernels and the plain versions draw
-    the same hash mask): f32 K1 and K2 at KERNEL_ATOL/RTOL and BWD_ATOL/RTOL;
+    the same hash mask): f32 K1 and K2 at KERNEL_ATOL/RTOL and BWD_ATOL/RTOL,
+    where K2's one-pass tf32 control (``k2_control_miss``) must miss;
     bf16 K1 (check_fwd_chunked: lse at KERNEL_ATOL/RTOL, out within
     K1_BF16_RTOL x max |out| and K1_BF16_TILED_RMS, rows of exp(s' - lse)
     within ROWSUM_ATOL of 1) and K2 (within K2_BF16_RTOL x max |grad|) against
@@ -546,13 +631,16 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
     SDPA's forward (K1) and SDPA's backward alone (K2: dq, dk and dv, the
     function of K2's two kernels), with dropout 0.1; F.grid_sample for K4, a
     one-pass bilinear warp, which is NOT the same function when rotated.
+    f32 K2's times, beside its SIMT kernels' and SDPA's f32 backward, come
+    from the tools phase (tools/bench_flash_bwd.py --dtype float32).
     """
     from buctd_tpu_torch.geometry import make_affine
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "bf16_rel": 0.0, "f32_gap": 0.0,
-           "fwd_bf16_rel": 0.0, "rowsum": 0.0, "tiled": 0.0, "control": float("inf")}
+           "fwd_bf16_rel": 0.0, "rowsum": 0.0, "tiled": 0.0, "control": float("inf"),
+           "k2_control": float("inf")}
     seed = 1234
     for bh, lq, d in TRAIN_CASES:
         chunk = PLAIN_BH[lq]
@@ -584,8 +672,11 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
                 if dtype == torch.float32:
                     err = check_chunked(torch, (dq, dk, dv), plain, *args, atol=BWD_ATOL,
                                         rtol=BWD_RTOL)
+                    miss = k2_control_miss(torch, fa, chunk, q, k, v, do, lse, delta, scale, p,
+                                           seed)
+                    res["k2_control"] = min(res["k2_control"], miss)
                     note = f"dq {err[0]:.3e} dk {err[1]:.3e} dv {err[2]:.3e} (atol = rtol = " \
-                           f"{BWD_ATOL:.0e})"
+                           f"{BWD_ATOL:.0e}; the one-pass control misses by {miss:.3e})"
                 else:
                     err, top = chunk_errors((dq, dk, dv), plain, *args)
                     rel = [e / t for e, t in zip(err, top)]
@@ -615,7 +706,6 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
             res[f"{name}_{key}"] = 0.0
         for floor in ("tensor", "mufu", "hash"):
             res[f"{name}_{floor}_ms"] = 0.0
-    res.update(f32_library_ms=0.0, dq_f32_bound_ms=0.0, dkv_f32_bound_ms=0.0)
     for bh, lq, d in TRAIN_CASES:
         q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
@@ -646,20 +736,12 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
         delta32 = (do * out32).sum(-1)
         t["fwd_simt_ms"] = timed_ms(lambda: fa.flash_attention_simt(qf, kf, vf, scale,
                                                                     DROPOUT, seed), 3)
-        t["dq_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dq(qf, kf, vf, do, lse32, delta32,
-                                                           scale, DROPOUT, seed), 3)
-        t["dkv_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dkv(qf, kf, vf, do, lse32, delta32,
-                                                             scale, DROPOUT, seed), 3)
-        # SDPA's f32 backward alone at the same shapes and dropout (dq, dk,
-        # dv from the saved forward): the f32 SIMT K2's library yardstick,
-        # and the f32 bound on the CUDA cores (67 TFLOP/s)
-        q32, k32, v32 = (x[:, None].detach().clone().requires_grad_() for x in (qf, kf, vf))
-        out4 = F.scaled_dot_product_attention(q32, k32, v32, dropout_p=DROPOUT, scale=scale)
-        t["f32_library_ms"] = timed_ms(lambda: torch.autograd.grad(
-            out4, (q32, k32, v32), do[:, None], retain_graph=True), 3)
-        for kind in ("dq", "dkv"):
-            t[f"{kind}_f32_bound_ms"] = bwd_bound_ms(bh, lq, d, 4, kind)[0]
-        del qf, kf, vf, out32, lse32, delta32, q32, k32, v32, out4
+        t["dq_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dq_simt(qf, kf, vf, do, lse32, delta32,
+                                                                scale, DROPOUT, seed), 3)
+        t["dkv_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dkv_simt(qf, kf, vf, do, lse32,
+                                                                  delta32, scale, DROPOUT,
+                                                                  seed), 3)
+        del qf, kf, vf, out32, lse32, delta32
         q4, k4, v4 = (x[:, None].detach().clone().requires_grad_() for x in (q, k, v))
 
         def sdpa_fwd():
@@ -713,12 +795,9 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
           f"K2 / SDPA backward {k2_ms / res['dq_library_ms']:.3f}; worst bf16 check "
           f"{res['bf16_rel']:.3e} of max |grad|, distance to the f32 plain version "
           f"{res['f32_gap']:.3e}", flush=True)
-    simt_ms = res["dq_simt_ms"] + res["dkv_simt_ms"]
-    print(f"K2 f32 (the SIMT kernels, the f32 step's) over {TRAIN_CASES}, dropout {DROPOUT}: "
-          f"dq {res['dq_simt_ms']:.4f} ms (f32 bound {res['dq_f32_bound_ms']:.4f}), dkv "
-          f"{res['dkv_simt_ms']:.4f} ms (f32 bound {res['dkv_f32_bound_ms']:.4f}); SDPA's f32 "
-          f"backward alone {res['f32_library_ms']:.4f} ms, K2 / SDPA f32 backward "
-          f"{simt_ms / res['f32_library_ms']:.3f}", flush=True)
+    print(f"K2 f32 (3xTF32) over {TRAIN_CASES}, dropout 0 and {DROPOUT}: within atol = rtol = "
+          f"{BWD_ATOL:.0e} of the plain backward at every check above, the one-pass control "
+          f"at least {res['k2_control']:.3e} outside it; times: the tools phase", flush=True)
 
     B, H, W = WARP_BATCH
     images = torch.rand(B, H, W, 3, device="cuda", generator=gen) * 255.0
@@ -1036,7 +1115,7 @@ def card_vs_cpu_step(torch, np, fa) -> dict:
     statistics after the forward, the gradients (see STEP_GRAD_RATIO), over
     the whole model and over the CoAM position attention alone, and each K2
     call of the card's step against float64 on its own inputs.  Returns the
-    launches of f32 K2 (the SIMT kernels) in the card's step, its main path."""
+    launches of f32 K2 (3xTF32) in the card's step, its main path."""
     from torch import nn
 
     from buctd_tpu_torch.config import default_config, update_config
@@ -1220,9 +1299,8 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
     dropout 0.1: K1' (out, lse, and in bf16 the row sums) and K2' (dq, dk, dv,
     from K1''s lse) against the plain versions over BH chunks (f32
     BWD_ATOL/RTOL, bf16 K2_BF16_RTOL x max |grad| of the rounding plain
-    backward) and against K1/K2 (K1' and bf16 K2' bit for bit:
-    KVRES_GAP; f32 K2', a SIMT kernel of its own, at K2's gate); K1' and
-    K2' timed at BH 32 bf16 beside K1 and K2.  Then KVRES_ODD_CASE in bf16
+    backward) and against K1/K2 (bit for bit in both dtypes: KVRES_GAP); K1'
+    and K2' timed at BH 32 in bf16 and f32 beside K1 and K2.  Then KVRES_ODD_CASE in bf16
     under BUCTD_FLASH_KVRES=1: the dispatch launches K1', which with K2' meets
     the same gates."""
     import os
@@ -1236,18 +1314,13 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
     for key in ("fwd", "k1", "fwd_plain", "fwd_library", "fwd_bound", "fwd_ops"):
         res[f"{key}_ms"] = 0.0
 
-    def against_k1_k2(got, old, exact, atol=0.0, rtol=0.0):
-        """gaps of K1'/K2' outputs to K1's/K2's: bit for bit where ``exact``
-        (the same kernels), else within atol/rtol"""
+    def against_k1_k2(got, old):
+        """gaps of K1'/K2' outputs to K1's/K2's, bit for bit (the same
+        kernels)"""
         gaps = [(g - w).abs().max().item() for g, w in zip(got, old)]
-        if exact:
-            res["gap_exact"] = max(res["gap_exact"], *gaps)
-            if max(gaps) > KVRES_GAP:
-                raise AssertionError(f"K1'/K2' vs K1/K2 (the same kernels): {gaps} > "
-                                     f"{KVRES_GAP}")
-        else:
-            for g, w in zip(got, old):
-                torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
+        res["gap_exact"] = max(res["gap_exact"], *gaps)
+        if max(gaps) > KVRES_GAP:
+            raise AssertionError(f"K1'/K2' vs K1/K2 (the same kernels): {gaps} > {KVRES_GAP}")
         return max(gaps)
 
     def check_fwd_kv(out, lse, q, k, v, scale, p, seed, chunk):
@@ -1289,7 +1362,7 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
             torch.cuda.synchronize()
             chunk = PLAIN_BH.get(lq, bh)
             errs, note = check_fwd_kv(out, lse, q, k, v, scale, 0.0, 0, chunk)
-            gap = against_k1_k2((out, lse), fa.flash_attention(q, k, v, scale), True)
+            gap = against_k1_k2((out, lse), fa.flash_attention(q, k, v, scale))
             res["fwd_k1_gap"] = max(res["fwd_k1_gap"], gap)
             print(f"K1' flash_fwd_kvres ({bh}, {lq}, {lk}, {d}) {name}: vs plain out "
                   f"{errs[0]:.3e}{note.get('text', '')} lse {errs[1]:.3e}, vs K1 {gap:.3e}",
@@ -1334,11 +1407,10 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
             bwd_text = check_bwd_kv((dq, dk, dv), q, k, v, do, lse, delta, scale, DROPOUT,
                                     seed, chunk)
             fwd_gap = against_k1_k2((out, lse), fa.flash_attention(q, k, v, scale, DROPOUT,
-                                                                   seed), True)
+                                                                   seed))
             k2 = (fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, DROPOUT, seed),
                   *fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, DROPOUT, seed))
-            bwd_gap = against_k1_k2((dq, dk, dv), k2, dtype == torch.bfloat16, BWD_ATOL,
-                                    BWD_RTOL)
+            bwd_gap = against_k1_k2((dq, dk, dv), k2)
             res["fwd_k1_gap"] = max(res["fwd_k1_gap"], fwd_gap)
             if dtype == torch.float32:
                 res["bwd_k2_gap"] = max(res["bwd_k2_gap"], bwd_gap)
@@ -1384,8 +1456,9 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
               f"K2'/K2 {kv_dq / k2_dq:.3f}, bound {bounds['dq']:.4f}), dkv {kv_dkv:.4f} ms "
               f"(K2 {k2_dkv:.4f}, K2'/K2 {kv_dkv / k2_dkv:.3f}, bound {bounds['dkv']:.4f}); "
               f"plain versions and sdpa: the train kernels line", flush=True)
-        # f32 K2' (its own SIMT kernels) beside f32 K2 in turns, on the widened
-        # operands; SDPA's f32 backward and the f32 bounds: the train kernels line
+        # f32 K2' (K2's 3xTF32 kernels with the deeper ring) beside f32 K2 in
+        # turns, on the widened operands; SDPA's f32 backward and the f32
+        # bounds: the tools phase
         qf, kf, vf = q.float(), k.float(), v.float()
         outf, lsef = fa.flash_attention(qf, kf, vf, scale, DROPOUT, seed)
         argf = (qf, kf, vf, do, lsef, (do * outf).sum(-1), scale, DROPOUT, seed)
@@ -1437,8 +1510,8 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
           f"{res['dkv_k2_ms']:.4f} ms (bf16, training shapes); f32 K2' dq "
           f"{res['dq_f32_ms']:.4f} vs K2 {res['dq_f32_k2_ms']:.4f} ms, dkv "
           f"{res['dkv_f32_ms']:.4f} vs {res['dkv_f32_k2_ms']:.4f} ms; largest gap to K1 "
-          f"{res['fwd_k1_gap']:.3e}, f32 K2' to K2 {res['bwd_k2_gap']:.3e}, of the kernels "
-          f"held bit for bit {res['gap_exact']:.3e} (limit {KVRES_GAP})", flush=True)
+          f"{res['fwd_k1_gap']:.3e}, f32 K2' to K2 {res['bwd_k2_gap']:.3e}, of all "
+          f"{res['gap_exact']:.3e} (limit {KVRES_GAP})", flush=True)
     return res
 
 
@@ -1653,16 +1726,19 @@ def kvres_training_phase(torch, np, fa) -> dict:
 
 def fused_block_phase(torch, fb) -> dict:
     """(a) K5 vs its plain version at the four W48 branch geometries: batch
-    K5_CHECK_BATCH in f32 and bf16 (the tensor-core kernel, and the bf16 SIMT
-    kernel of the A/B), and the benchmark's own inputs (batch 128, bf16,
-    bench_block's scales and seed: the tensors the tools phase times); the
-    plain version's time on those, summed over the branches; the long-K check
-    (K5_LONG_K).  K5's and cuDNN's times come from the tools phase."""
+    K5_CHECK_BATCH in f32 and bf16 (the tensor-core kernels, and the SIMT
+    kernel of the A/B in both), where the one-pass tf32 control of f32
+    (``fb.fused_block_tf32``, TF32_CONTROL_PASSES) must miss the f32 gate,
+    and the benchmark's own inputs (batch 128, bf16, bench_block's scales
+    and seed: the tensors the tools phase times); the plain version's time
+    on those, summed over the branches; the long-K check (K5_LONG_K) in both
+    dtypes.  K5's and cuDNN's times come from the tools phase."""
     from buctd_tpu_torch.tools import bench_block as bb
     from buctd_tpu_torch.tools import bench_block_variants as bv
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    res = {"err_f32": 0.0, "err_bf16": 0.0, "err_simt": 0.0, "plain_ms": 0.0}
+    res = {"err_f32": 0.0, "err_bf16": 0.0, "err_simt": 0.0, "err_simt_f32": 0.0,
+           "plain_ms": 0.0, "control": float("inf")}
 
     def check(label, args, tol, key, fn=fb.fused_basic_block):
         got = fn(*args)
@@ -1674,6 +1750,7 @@ def fused_block_phase(torch, fb) -> dict:
         print(f"K5 {label}: max_abs_err {err:.3e} (output max "
               f"{want.float().abs().max().item():.3f}, limit atol = rtol = {tol:.3g}), "
               f"{(got != want).float().mean().item() * 100:.3f}% of outputs differ", flush=True)
+        return want
 
     for _, h, w, c in bb.BRANCHES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1684,36 +1761,51 @@ def fused_block_phase(torch, fb) -> dict:
             bs = [torch.randn(c, device="cuda", generator=gen) * 0.1 for _ in range(2)]
             args = [t.to(dtype) for t in (x, *ws, *bs)]
             shape = f"({K5_CHECK_BATCH}, {h}, {w}, {c}) {name}"
-            if dtype == torch.float32:
-                check(f"SIMT {shape}", args, K5_ATOL[name], "err_f32")
-            else:
-                check(f"tensor cores {shape}", args, K5_ATOL[name], "err_bf16")
-                check(f"SIMT {shape}", args, K5_ATOL[name], "err_simt",
-                      fb.fused_basic_block_simt)
-            del x, ws, bs, args
-    args = bv.random_block(gen, *K5_LONG_K)
-    want = bv.reference64(*args)
-    res["long_k"] = {"tc": bv.accuracy(fb.fused_basic_block(*args), want),
-                     "simt": bv.accuracy(fb.fused_basic_block_simt(*args), want)}
-    (tmax, trms, tshare), (smax, srms, sshare) = res["long_k"]["tc"], res["long_k"]["simt"]
-    print(f"K5 long K {K5_LONG_K} bf16 vs float64: tensor cores max {tmax:.4e} rms "
-          f"{trms:.4e}, {tshare:.4%} of outputs off the rounded chain; SIMT max {smax:.4e} "
-          f"rms {srms:.4e}, {sshare:.4%} (limit {K5_LONG_K_RATIO:g} x the SIMT kernel's)",
-          flush=True)
-    if not (tmax <= K5_LONG_K_RATIO * smax and trms <= K5_LONG_K_RATIO * srms
-            and tshare <= K5_LONG_K_RATIO * sshare):
-        raise AssertionError(f"bf16 K5's long-K error {res['long_k']}")
-    del args, want
-    gen = torch.Generator(device="cuda").manual_seed(0)       # bench_block's default seed
-    for _, h, w, c in bb.BRANCHES:
-        args = bb.branch_inputs(gen, bb.BATCH, h, w, c)
-        check(f"tensor cores ({bb.BATCH}, {h}, {w}, {c}) bfloat16, the benchmark's inputs",
-              args, K5_ATOL["bfloat16"], "err_bf16")
-        plain_ms = timed_ms(lambda: fb.fused_basic_block_plain(*args), 3)
-        print(f"  K5 plain version ({bb.BATCH}, {h}, {w}, {c}) bf16: {plain_ms:.4f} ms",
-              flush=True)
-        res["plain_ms"] += plain_ms
-        del args
+            f32 = dtype == torch.float32
+            want = check(f"tensor cores {shape}", args, K5_ATOL[name],
+                         "err_f32" if f32 else "err_bf16")
+            check(f"SIMT {shape}", args, K5_ATOL[name], "err_simt_f32" if f32 else "err_simt",
+                  fb.fused_basic_block_simt)
+            if f32:
+                one = fb.fused_block_tf32(*args, passes=TF32_CONTROL_PASSES)
+                miss = ((one - want).abs() - K5_ATOL[name] * (1 + want.abs())).max().item()
+                res["control"] = min(res["control"], miss)
+                print(f"  the {TF32_CONTROL_PASSES}-pass tf32 control misses the f32 gate by "
+                      f"{miss:.3e}", flush=True)
+                if not miss > 0.0:
+                    raise AssertionError(f"f32 K5's one-pass control meets the gate {shape}")
+                del one
+            del x, ws, bs, args, want
+    res["long_k"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        args = bv.random_block(gen, *K5_LONG_K, dtype=dtype)
+        want = bv.reference64(*args)
+        acc = {"tc": bv.accuracy(fb.fused_basic_block(*args), want),
+               "simt": bv.accuracy(fb.fused_basic_block_simt(*args), want)}
+        res["long_k"][name] = acc
+        (tmax, trms, tshare), (smax, srms, sshare) = acc["tc"], acc["simt"]
+        print(f"K5 long K {K5_LONG_K} {name} vs float64: tensor cores max {tmax:.4e} rms "
+              f"{trms:.4e}, {tshare:.4%} of outputs off the rounded chain; SIMT max {smax:.4e} "
+              f"rms {srms:.4e}, {sshare:.4%} (limit {K5_LONG_K_RATIO:g} x the SIMT kernel's "
+              f"max and rms{', and share' if name == 'bfloat16' else ''})", flush=True)
+        if not (tmax <= K5_LONG_K_RATIO * smax and trms <= K5_LONG_K_RATIO * srms
+                and (dtype == torch.float32 or tshare <= K5_LONG_K_RATIO * sshare)):
+            raise AssertionError(f"{name} K5's long-K error {acc}")
+        del args, want
+    res["plain_f32_ms"] = 0.0
+    for dtype, key in ((torch.bfloat16, "plain_ms"), (torch.float32, "plain_f32_ms")):
+        name = str(dtype).split(".")[-1]
+        gen = torch.Generator(device="cuda").manual_seed(0)   # bench_block's default seed
+        for _, h, w, c in bb.BRANCHES:
+            args = bb.branch_inputs(gen, bb.BATCH, h, w, c, dtype)
+            check(f"tensor cores ({bb.BATCH}, {h}, {w}, {c}) {name}, the benchmark's inputs",
+                  args, K5_ATOL[name], "err_bf16" if name == "bfloat16" else "err_f32")
+            plain_ms = timed_ms(lambda: fb.fused_basic_block_plain(*args), 3)
+            print(f"  K5 plain version ({bb.BATCH}, {h}, {w}, {c}) {name}: {plain_ms:.4f} ms",
+                  flush=True)
+            res[key] += plain_ms
+            del args
     torch.cuda.empty_cache()
     return res
 
@@ -1889,12 +1981,14 @@ def prenet_serving_phase(torch, np) -> dict:
 
 
 def tools_phase(torch, fb, ex) -> dict:
-    """(e) The three port tools, reduced: bench_block --simt (cuDNN, K5 on the
-    tensor cores and K5's bf16 SIMT kernel in turns) and --dtype float32
-    (cuDNN with TF32 off against f32 K5), bench_exp2 and bench_stem; the
-    launch counts of K5 (both dtypes), K5's SIMT A/B and K6 over these runs
-    (their main path); bf16 K5 faster than its SIMT kernel at every branch."""
-    from buctd_tpu_torch.tools import bench_block, bench_exp2, bench_stem
+    """(e) The port's tools, reduced: bench_block --simt (cuDNN, K5 on the
+    tensor cores and K5's SIMT kernel in turns) in bf16 and f32 (cuDNN with
+    TF32 off), bench_flash_bwd --dtype float32 (f32 K2 in 3xTF32, its SIMT
+    kernels and SDPA's f32 backward in turns), bench_exp2 and bench_stem;
+    the launch counts of K5 (both dtypes), K5's SIMT A/B and K6 over these
+    runs (their main path); K5 faster than its SIMT kernel at every branch
+    in both dtypes, f32 K2 faster than its SIMT kernels at both shapes."""
+    from buctd_tpu_torch.tools import bench_block, bench_exp2, bench_flash_bwd, bench_stem
 
     fb.fused_basic_block.launches = 0                    # the main path's run
     fb.fused_basic_block_simt.launches = 0
@@ -1902,25 +1996,33 @@ def tools_phase(torch, fb, ex) -> dict:
     chain = ["--chain", str(TOOL_CHAIN), "--rounds", str(TOOL_ROUNDS)]
     block = bench_block.main(["--simt", *chain])
     bf16_launches = fb.fused_basic_block.launches
-    block_f32 = bench_block.main(["--fused", "--dtype", "float32", *chain])
+    block_f32 = bench_block.main(["--simt", "--dtype", "float32", *chain])
     exp = bench_exp2.main(["--rounds", str(TOOL_ROUNDS)])
     launches = {"fused_basic_block": fb.fused_basic_block.launches,
                 "fused_basic_block_simt": fb.fused_basic_block_simt.launches,
                 "exp_throughput": ex.exp_chain.launches}
+    k2 = bench_flash_bwd.main(["--dtype", "float32", "--rounds", "1", "--only"])
     stem = bench_stem.main([str(TOOL_STEM_BATCH), "--steps", "3", "--rounds",
                             str(TOOL_ROUNDS)])
     per_run = 4 * (TOOL_CHAIN * TOOL_ROUNDS + 1)
-    want = {"fused_basic_block": 2 * per_run, "fused_basic_block_simt": per_run,
+    want = {"fused_basic_block": 2 * per_run, "fused_basic_block_simt": 2 * per_run,
             "exp_throughput": len(ex.VARIANTS) * bench_exp2.OUTER * (2 * TOOL_ROUNDS + 2)}
     print(f"tools: launches {launches}, expected {want} (K5: 4 branches x (chain x rounds "
-          f"+ warm-up), bf16 and f32, the SIMT A/B bf16; K6: 3 variants x "
+          f"+ warm-up), bf16 and f32, the SIMT A/B both; K6: 3 variants x "
           f"{bench_exp2.OUTER} x (2 timings x rounds + 2 to take the host's issue time))",
           flush=True)
     if launches != want or bf16_launches != per_run:
         raise AssertionError(f"tool launch counts {launches} != {want}")
-    slower = {k: v for k, v in block.items() if not v["fused_ms"] < v["simt_ms"]}
+    for name, res in (("bf16", block), ("f32", block_f32)):
+        slower = {k: v for k, v in res.items() if not v["fused_ms"] < v["simt_ms"]}
+        if slower:
+            raise AssertionError(f"{name} K5 no faster than its SIMT kernel: {slower}")
+    # f32 K2 at the training shapes with dropout 0.1, the training path's
+    k2 = {shape: by_p[DROPOUT] for shape, by_p in k2.items()}
+    slower = {s: r for s, r in k2.items() if not r["shipped"]["dq_ms"] + r["shipped"]["dkv_ms"]
+              < r["simt"]["dq_ms"] + r["simt"]["dkv_ms"]}
     if slower:
-        raise AssertionError(f"bf16 K5 no faster than its SIMT kernel: {slower}")
+        raise AssertionError(f"f32 K2 no faster than its SIMT kernels: {slower}")
     # every step is one MUFU.EX2 at least, and the bound takes the card's
     # highest SM clock: a chain faster than the bound skipped steps
     fast = {v: exp[v]["ms"] for v in ex.VARIANTS if not exp[v]["ms"] >= exp["bound_ms"]}
@@ -1936,7 +2038,7 @@ def tools_phase(torch, fb, ex) -> dict:
     if not stem[TOOL_STEM_BATCH]["rel_gap"] <= PRENET_FWD_RTOL:
         raise AssertionError("bench_stem: fused forward disagrees with the canonical one")
     return {"launches": launches, "f32_launches": launches["fused_basic_block"] - bf16_launches,
-            "block": block, "block_f32": block_f32, "exp": exp, "stem": stem}
+            "block": block, "block_f32": block_f32, "k2_f32": k2, "exp": exp, "stem": stem}
 
 
 def main() -> int:
@@ -1954,6 +2056,7 @@ def main() -> int:
     from buctd_tpu_torch.ops import flash_attention as fa
     from buctd_tpu_torch.ops import fused_block as fb
     from buctd_tpu_torch.ops import warp as tw
+    from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1974,6 +2077,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     check_sass()
+    nan_phase(torch, fa, fb)
     k1 = kernel_phase(torch, F, fa)
     main_k1 = k1["main"]
     tk = train_kernel_phase(torch, F, fa, tw)
@@ -2011,19 +2115,34 @@ def main() -> int:
                 "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": bound,
                 "bound_by": bound_by(ops, bound), "library_ms": tk[f"{key}_library_ms"]}
 
+    # f32 K2 at TRAIN_CASES, dropout 0.1, from bench_flash_bwd in the tools
+    # phase: the 3xTF32 kernels, the SIMT kernels in turns, SDPA's f32
+    # backward alone (dq, dk, dv); bounds: the 3xTF32, MUFU and hash floors
+    # and the bytes, at this run's SM clock
+    k2_f32 = tools["k2_f32"].values()
+    clock = sm_clock_hz()
+    f32_bounds = {}
+    for kind in ("dq", "dkv"):
+        ops = sum(max(flash_floors_ms(bh, l, d, kind, clock, DROPOUT, "float32").values())
+                  for bh, l, d in TRAIN_CASES)
+        # bwd_bound_ms: the larger of the 3xTF32 operations and the bytes
+        bound = max(ops, sum(bwd_bound_ms(bh, l, d, 4, kind)[0] for bh, l, d in TRAIN_CASES))
+        f32_bounds[kind] = (bound, bound_by(ops, bound))
+
     def f32_bwd(kind, ms, launches, **more):
-        # f32 K2/K2' (SIMT) at TRAIN_CASES, dropout 0.1: SDPA's f32 backward
-        # alone (dq, dk, dv) and the f32 CUDA-core bound, from the training
-        # kernel phase; launches: the f32 train step (K2), none (K2')
-        return {"ms": ms, "library_ms": tk["f32_library_ms"],
-                "bound_ms": tk[f"{kind}_f32_bound_ms"], "bound_by": "operations",
+        # f32 K2/K2' at TRAIN_CASES, dropout 0.1; launches: the f32 train
+        # step (K2), none (K2')
+        return {"ms": ms, "simt_ms": sum(r["simt"][f"{kind}_ms"] for r in k2_f32),
+                "library_ms": sum(r["sdpa_ms"] for r in k2_f32),
+                "bound_ms": f32_bounds[kind][0], "bound_by": f32_bounds[kind][1],
                 "launches": launches, **more}
 
     def bwd_entry(kind, replaces):
         e = entry(f"flash_bwd_{kind}", "buctd_tpu_torch/csrc/flash_bwd.cu",
                   f"buctd_tpu/ops/flash_attention.py:{replaces}",
                   train["launches"][f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
-        e["f32"] = f32_bwd(kind, tk[f"{kind}_simt_ms"], step_launches[f"flash_bwd_{kind}"])
+        e["f32"] = f32_bwd(kind, sum(r["shipped"][f"{kind}_ms"] for r in k2_f32),
+                           step_launches[f"flash_bwd_{kind}"])
         return e
 
     def kv_bwd_entry(kind, replaces):
@@ -2047,17 +2166,32 @@ def main() -> int:
         ("ms", "fused_ms"), ("library_ms", "cudnn_ms"), ("bound_ms", "bound_ms"),
         ("ops_ms", "bf16_ms"), ("simt_ms", "simt_ms"))})
     k5["f32"] = {key: sum(r[src] for r in tools["block_f32"].values()) for key, src in (
-        ("ms", "fused_ms"), ("library_ms", "cudnn_ms"), ("bound_ms", "bound_ms"))}
-    k5["f32"].update(bound_by="operations", launches=tools["f32_launches"])
+        ("ms", "fused_ms"), ("library_ms", "cudnn_ms"), ("bound_ms", "bound_ms"),
+        ("ops_ms", "tf32_ms"), ("simt_ms", "simt_ms"))}
+    k5["f32"].update(bound_by=bound_by(k5["f32"]["ops_ms"], k5["f32"]["bound_ms"]),
+                     launches=tools["f32_launches"], plain_ms=k5["plain_f32_ms"],
+                     branches={name: {"ms": r["fused_ms"], "simt_ms": r["simt_ms"],
+                                      "library_ms": r["cudnn_ms"], "bound_ms": r["bound_ms"]}
+                               for name, r in tools["block_f32"].items()})
     exp = tools["exp"]
     k6.update({key: sum(exp[v][key] for v in ex.VARIANTS) for key in ("ms", "library_ms")})
     k6.update(bound_ms=len(ex.VARIANTS) * exp["bound_ms"], bound_by=exp["bound_by"])
     print(f"K5 sums over the 4 branches at b128 bf16: tensor cores {k5['ms']:.4f} ms, SIMT "
           f"{k5['simt_ms']:.4f}, plain {k5['plain_ms']:.4f}, cuDNN {k5['library_ms']:.4f}, "
-          f"bound {k5['bound_ms']:.4f}; f32: SIMT {k5['f32']['ms']:.4f} ms, cuDNN (TF32 off) "
+          f"bound {k5['bound_ms']:.4f}; f32 (3xTF32): {k5['f32']['ms']:.4f} ms, SIMT "
+          f"{k5['f32']['simt_ms']:.4f}, plain {k5['plain_f32_ms']:.4f}, cuDNN (TF32 off) "
           f"{k5['f32']['library_ms']:.4f}, bound {k5['f32']['bound_ms']:.4f}; max err f32 "
-          f"{k5['err_f32']:.3e}, bf16 {k5['err_bf16']:.3e} (SIMT {k5['err_simt']:.3e}); vs "
-          f"the trunk {k5_trunk:.3e} of the max", flush=True)
+          f"{k5['err_f32']:.3e} (SIMT {k5['err_simt_f32']:.3e}), bf16 {k5['err_bf16']:.3e} "
+          f"(SIMT {k5['err_simt']:.3e}); vs the trunk {k5_trunk:.3e} of the max", flush=True)
+    print(f"K2 f32 sums over {TRAIN_CASES}, dropout {DROPOUT}: 3xTF32 dq "
+          f"{sum(r['shipped']['dq_ms'] for r in k2_f32):.4f} + dkv "
+          f"{sum(r['shipped']['dkv_ms'] for r in k2_f32):.4f} ms, SIMT dq "
+          f"{sum(r['simt']['dq_ms'] for r in k2_f32):.4f} + dkv "
+          f"{sum(r['simt']['dkv_ms'] for r in k2_f32):.4f}, SDPA's f32 backward "
+          f"{sum(r['sdpa_ms'] for r in k2_f32):.4f}; bounds dq {f32_bounds['dq'][0]:.4f}, dkv "
+          f"{f32_bounds['dkv'][0]:.4f}; f32 K2' dq {kv['dq_f32_ms']:.4f} + dkv "
+          f"{kv['dkv_f32_ms']:.4f} (K2 in turns {kv['dq_f32_k2_ms']:.4f} + "
+          f"{kv['dkv_f32_k2_ms']:.4f})", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -2111,6 +2245,7 @@ def main() -> int:
          "replaces": "buctd_tpu/ops/pallas_block.py:106",
          "launches": tools["launches"]["fused_basic_block"],
          "max_abs_err": max(k5["err_f32"], k5["err_bf16"]),
+         "max_abs_err_f32": k5["err_f32"],
          # bf16 (the tensor-core kernel) at b128 over the 4 branches, the SIMT
          # kernel timed in turns beside it
          "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
@@ -2120,7 +2255,8 @@ def main() -> int:
                              "library_ms": r["cudnn_ms"], "bound_ms": r["bound_ms"]}
                       for name, r in tools["block"].items()},
          "long_k": k5["long_k"],
-         # f32 (the SIMT kernel) against cuDNN with TF32 off, f32 CUDA-core bound
+         # f32 (3xTF32) against its SIMT kernel and cuDNN with TF32 off, the
+         # 3xTF32 bound
          "f32": k5["f32"]},
         {"name": "exp_throughput", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/exp_throughput.cu",

@@ -23,16 +23,18 @@ backward kernels (K2) vs the plain backward: f32 1e-4 absolute and relative
 (dq, dk, dv sum products of a recomputed p over up to 700 keys or rows); bf16
 (the tensor-core kernels, against the plain backward that rounds where they
 do) 2e-3 x max |grad|: f32 sums in another order, and one-bf16-step flips of a
-rounded ds or p * keep * c where exp2 and exp differ in the last bit.  K1' and
-K2' take K1's and K2's gates against the plain versions; in f32 they are held
-to K1/K2 at 2e-5 and 1e-4 (K1' bit for bit), in bf16 bit for bit (the same
+rounded ds or p * keep * c where exp2 and exp differ in the last bit; f32 K2
+takes its products in 3xTF32 (about 1e-6 from f32 here), while one tf32 pass
+lands near 4e-4 and misses.  K1' and K2' take K1's and K2's gates against the
+plain versions and equal K1/K2 bit for bit in both dtypes (the same
 tensor-core kernels: the depth of the ring changes no arithmetic).  The warp (K4) vs its
 plain version: 1e-4 on [0, 1) images (two tent taps against the dense sum).
-The fused basic block (K5: f32 SIMT, bf16 on the tensor cores, and the bf16
-SIMT kernel of the A/B) vs its plain version: f32 atol = rtol = 2e-5, bf16
-2^-6 (an f32 sum in another order can round the intermediate or the output
-one bf16 step apart); at C = 384 the tensor-core kernel's error against
-float64 at most 2x the SIMT kernel's; exp throughput (K6) rtol 1e-5 (expf/exp2f in f32, a few ulps); a
+The fused basic block (K5: f32 in 3xTF32 and bf16 on the tensor cores, and
+the SIMT kernel of the A/B in both dtypes) vs its plain version: f32 atol =
+rtol = 2e-5, which one tf32 pass misses, bf16 2^-6 (an f32 sum in another
+order can round the intermediate or the output one bf16 step apart); at C =
+384 the tensor-core kernels' error against float64 at most 2x the SIMT
+kernel's; exp throughput (K6) rtol 1e-5 (expf/exp2f in f32, a few ulps); a
 full-width preNet-W48 forward, fused or not, card vs CPU within 1e-4 of the
 heatmaps' peak.
 """
@@ -294,6 +296,78 @@ def test_forward_and_backward_kernels_match_plain(cuda, bh, lq, lk, d, dtype, dr
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("bh,lq,lk,d", [(2, 256, 256, 48), (3, 640, 384, 96)])
+def test_f32_backward_one_pass_control_misses(cuda, bh, lq, lk, d, dropout):
+    """f32 K2 meets the 1e-4 gate against the plain backward where its
+    arithmetic in one tf32 pass (``backward_tf32(passes=1)``) misses it, and
+    the SIMT kernels of the A/B meet it too."""
+    q, k, v = _qkv(bh, lq, lk, d, torch.float32, cuda)
+    scale, seed = d ** -0.5, 3
+    out, lse = fa.flash_attention(q, k, v, scale, dropout, seed)
+    dout = torch.randn(bh, lq, d, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    delta = (dout * out).sum(-1)
+    want = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta, scale, dropout,
+                                                 seed)
+    args = (q, k, v, dout, lse, delta, scale, dropout, seed)
+    before = (fa.flash_bwd_dq_simt.launches, fa.flash_bwd_dkv_simt.launches)
+    simt = (fa.flash_bwd_dq_simt(*args), *fa.flash_bwd_dkv_simt(*args))
+    assert (fa.flash_bwd_dq_simt.launches, fa.flash_bwd_dkv_simt.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_grads_close((fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args)), want)
+    _assert_grads_close(simt, want)
+    keep = fa.dropout_multiplier(seed, bh, lq, lk, dropout, cuda) if dropout > 0.0 else None
+    one_pass = fa.backward_tf32(q, k, v, dout, lse, delta, scale, 1, keep)
+    with pytest.raises(AssertionError):
+        _assert_grads_close(one_pass, want)
+
+
+def _grads64(q, k, v, dout, scale):
+    """dq, dk, dv of softmax(q k^T scale) v by autograd in float64."""
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    out = torch.softmax(q @ k.transpose(1, 2) * scale, dim=-1) @ v
+    return torch.autograd.grad(out, (q, k, v), dout.double())
+
+
+@pytest.mark.cuda
+def test_f32_backward_long_rows_as_accurate_as_simt(cuda):
+    """At 6912 keys and rows, f32 K2's dq, dk and dv are no further from
+    float64 than twice the SIMT kernels' (max |err| / max |grad|): each
+    looped tile's products enter the sums with an f32 add."""
+    q, k, v = _qkv(2, 6912, 6912, 48, torch.float32, cuda)
+    scale = 48 ** -0.5
+    out, lse = fa.flash_attention(q, k, v, scale)
+    dout = torch.randn(2, 6912, 48, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    delta = (dout * out).sum(-1)
+    args = (q, k, v, dout, lse, delta, scale)
+    want = _grads64(q, k, v, dout, scale)
+    errs = []
+    for got, simt, w in zip((fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args)),
+                            (fa.flash_bwd_dq_simt(*args), *fa.flash_bwd_dkv_simt(*args)),
+                            want):
+        top = w.abs().max().item()
+        errs.append(((got.double() - w).abs().max().item() / top,
+                     (simt.double() - w).abs().max().item() / top))
+    assert all(e <= 2 * s for e, s in errs), errs
+
+
+@pytest.mark.cuda
+def test_f32_backward_kernels_run_tf32_hmma(cuda):
+    """K2's and K2''s f32 kernels show TF32 HMMA in their SASS, 8 head-dim
+    cases each; the SIMT kernels kept in K2's library for the A/B none, and
+    K2''s library has none."""
+    from buctd_tpu_torch import _build
+
+    for lib in ("flash_bwd", "flash_bwd_kvres"):
+        _build.build([lib])
+        tf32 = {f: n for f, n in _build.hmma_counts(lib, "TF32").items() if "_tf32_kernel" in f}
+        simt = {f: n for f, n in _build.hmma_counts(lib).items()
+                if "flash_bwd_dq_kernel" in f or "flash_bwd_dkv_kernel" in f}
+        assert len(tf32) == 16 and min(tf32.values()) > 0, tf32
+        assert sum(simt.values()) == 0 and (lib == "flash_bwd") == bool(simt), simt
+
+
+@pytest.mark.cuda
 def test_train_function_on_cuda_matches_cpu(cuda):
     q, k, v = _qkv(2, 300, 200, 48, torch.float32, cuda)
     dout = torch.randn(2, 300, 48, generator=torch.Generator().manual_seed(3))
@@ -336,8 +410,8 @@ def test_warp_kernel_matches_plain(cuda):
 def test_kvres_kernels_match_plain_and_k1_k2(cuda, monkeypatch, bh, lq, lk, d, dtype,
                                              dropout):
     """K1' and K2' vs the plain versions (K1's and K2's gates) and vs K1/K2 on
-    the same inputs: K1' bit for bit, K2' in f32 at 1e-4 and in bf16 bit for
-    bit."""
+    the same inputs: bit for bit in both dtypes (K1's and K2's kernels with a
+    deeper ring)."""
     monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
     q, k, v = _qkv(bh, lq, lk, d, dtype, cuda)
     scale, seed = d ** -0.5, 5
@@ -360,13 +434,8 @@ def test_kvres_kernels_match_plain_and_k1_k2(cuda, monkeypatch, bh, lq, lk, d, d
     k1 = fa.flash_attention(q, k, v, scale, dropout, seed)
     k2 = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, dropout, seed),
           *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, dropout, seed))
-    for got, old in zip((out, lse), k1):
+    for got, old in zip((out, lse, dq, dk, dv), (*k1, *k2)):
         assert torch.equal(got, old)
-    if bf16:
-        for got, old in zip((dq, dk, dv), k2):
-            assert torch.equal(got, old)
-    else:
-        _assert_grads_close((dq, dk, dv), k2)
 
 
 @pytest.mark.cuda
@@ -390,23 +459,22 @@ def test_kvres_switch_routes_cuda_tensors(cuda, monkeypatch):
 # C no chunk divides; tolerances as chip_smoke.py's (K5_ATOL)
 K5_SHAPES = [(2, 12, 9, 16), (2, 24, 18, 192), (1, 12, 9, 384), (3, 13, 11, 40)]
 K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
-# f32 runs the SIMT kernel; bf16 the tensor-core kernel (fused_basic_block)
-# and, for the A/B, the bf16 SIMT kernel (fused_basic_block_simt)
+# the tensor-core kernels (fused_basic_block: f32 in 3xTF32, bf16) and, for
+# the A/B, the SIMT kernel in both dtypes (fused_basic_block_simt)
 K5_KERNELS = [(torch.float32, "fused_basic_block"), (torch.bfloat16, "fused_basic_block"),
-              (torch.bfloat16, "fused_basic_block_simt")]
+              (torch.bfloat16, "fused_basic_block_simt"),
+              (torch.float32, "fused_basic_block_simt")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,kernel", K5_KERNELS, ids=["f32", "bf16", "bf16-simt"])
+@pytest.mark.parametrize("dtype,kernel", K5_KERNELS,
+                         ids=["f32", "bf16", "bf16-simt", "f32-simt"])
 @pytest.mark.parametrize("b,h,w,c", K5_SHAPES)
 def test_fused_block_kernel_matches_plain(cuda, b, h, w, c, dtype, kernel):
     from buctd_tpu_torch.ops import fused_block as fb
+    from buctd_tpu_torch.tools import bench_block_variants as bv
 
-    gen = torch.Generator(cuda).manual_seed(c)
-    x = torch.randn(b, h, w, c, device=cuda, generator=gen)
-    ws = [torch.randn(3, 3, c, c, device=cuda, generator=gen) / (3 * c ** 0.5) for _ in range(2)]
-    bs = [torch.randn(c, device=cuda, generator=gen) * 0.1 for _ in range(2)]
-    args = [t.to(dtype) for t in (x, *ws, *bs)]
+    args = bv.random_block(torch.Generator(cuda).manual_seed(c), b, h, w, c, dtype=dtype)
     fn = getattr(fb, kernel)
     before = fn.launches
     got = fn(*args)
@@ -418,42 +486,118 @@ def test_fused_block_kernel_matches_plain(cuda, b, h, w, c, dtype, kernel):
 
 
 @pytest.mark.cuda
-def test_fused_block_long_k_as_accurate_as_simt(cuda):
-    """bf16 K5 at C = 384 (K = 3456 terms a conv) against a float64 chain on
-    the same operands: the tensor-core kernel's max and rms error, and its
-    share of outputs off the chain rounded to bf16, at most 2x the SIMT
-    kernel's (chip_smoke.py's K5_LONG_K_RATIO)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_block_long_k_as_accurate_as_simt(cuda, dtype):
+    """K5 at C = 384 (K = 3456 terms a conv) against a float64 chain on the
+    same operands (the intermediate rounded where the kernels round it): the
+    tensor-core kernel's max and rms error at most 2x the SIMT kernel's (f32:
+    3xTF32; bf16: and its share of outputs off the chain rounded to bf16;
+    chip_smoke.py's K5_LONG_K_RATIO)."""
     from buctd_tpu_torch.ops import fused_block as fb
     from buctd_tpu_torch.tools import bench_block_variants as bv
 
-    gen = torch.Generator(cuda).manual_seed(384)
-    args = bv.random_block(gen, 8, 12, 9, 384)
+    args = bv.random_block(torch.Generator(cuda).manual_seed(384), 8, 12, 9, 384, dtype=dtype)
     want = bv.reference64(*args)
     tc = bv.accuracy(fb.fused_basic_block(*args), want)
     simt = bv.accuracy(fb.fused_basic_block_simt(*args), want)
+    if dtype == torch.float32:      # no rounded chain to count outputs off
+        tc, simt = tc[:2], simt[:2]
     assert all(t <= 2.0 * s for t, s in zip(tc, simt)), (tc, simt)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", [(2, 24, 18, 48), (2, 12, 9, 384)])
+def test_fused_block_f32_one_pass_control_misses(cuda, b, h, w, c):
+    """f32 K5 meets the 2e-5 gate against the plain version where its
+    arithmetic in one tf32 pass (``fused_block_tf32(passes=1)``) misses it;
+    the three-pass emulation meets it."""
+    from buctd_tpu_torch.ops import fused_block as fb
+    from buctd_tpu_torch.tools import bench_block_variants as bv
+
+    args = bv.random_block(torch.Generator(cuda).manual_seed(c + 1), b, h, w, c,
+                           dtype=torch.float32)
+    want = fb.fused_basic_block_plain(*args)
+    torch.testing.assert_close(fb.fused_basic_block(*args), want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(fb.fused_block_tf32(*args), want, atol=2e-5, rtol=2e-5)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(fb.fused_block_tf32(*args, passes=1), want, atol=2e-5,
+                                   rtol=2e-5)
+
+
+def _assert_nonfinite_alike(got, want):
+    """got is not finite exactly where want is not, and want has such
+    entries: a NaN operand reached the output as it reaches the plain
+    version's."""
+    for g, w in zip(got, want):
+        bad = ~torch.isfinite(w)
+        assert bad.any() and torch.equal(~torch.isfinite(g), bad), (
+            bad.sum().item(), (~torch.isfinite(g)).sum().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvres", [False, True], ids=["k1_k2", "kvres"])
+@pytest.mark.parametrize("bh,lq,lk,d", [(2, 128, 128, 48), (1, 100, 130, 96)])
+def test_f32_flash_kernels_take_nan_as_plain(cuda, bh, lq, lk, d, kvres):
+    """A NaN in q reaches f32 K1's out and lse and f32 K2's dq, dk and dv (and
+    K1''s and K2''s) where it reaches the plain versions': the split's lo
+    carries a NaN operand (dropout 0: a dropped entry is 0 by selection in
+    the kernels and NaN times 0 in the plain version)."""
+    q, k, v = _qkv(bh, lq, lk, d, torch.float32, cuda)
+    q[-1, lq // 2, d // 3] = float("nan")
+    scale = d ** -0.5
+    fwd, dq_fn, dkv_fn = ((fa.flash_attention_kvres, fa.flash_bwd_dq_kvres,
+                           fa.flash_bwd_dkv_kvres) if kvres else
+                          (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv))
+    out, lse = fa.flash_attention_reference(q, k, v, scale)
+    _assert_nonfinite_alike(fwd(q, k, v, scale), (out, lse))
+    dout = torch.randn(bh, lq, d, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    delta = (dout * out).sum(-1)
+    args = (q, k, v, dout, lse, delta, scale)
+    _assert_nonfinite_alike((dq_fn(*args), *dkv_fn(*args)),
+                            fa.flash_attention_backward_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernel", K5_KERNELS,
+                         ids=["f32", "bf16", "bf16-simt", "f32-simt"])
+@pytest.mark.parametrize("b,h,w,c", [(2, 24, 18, 48), (2, 12, 9, 384)])
+def test_fused_block_takes_nan_as_plain(cuda, b, h, w, c, dtype, kernel):
+    """A NaN in x reaches K5's output where it reaches the plain version's
+    (every channel of the 5x5 pixels around it): the split's lo carries it
+    and relu keeps it."""
+    from buctd_tpu_torch.ops import fused_block as fb
+    from buctd_tpu_torch.tools import bench_block_variants as bv
+
+    args = bv.random_block(torch.Generator(cuda).manual_seed(c + 2), b, h, w, c, dtype=dtype)
+    args[0][1, h // 2, 0, c // 2] = float("nan")
+    _assert_nonfinite_alike([getattr(fb, kernel)(*args)], [fb.fused_basic_block_plain(*args)])
+
+
+@pytest.mark.cuda
 def test_fused_block_tensor_core_kernels_run_hmma(cuda):
-    """Every tile plan's fused_block_tc_kernel shows HMMA in its SASS, the
-    SIMT kernels (f32, and bf16 for the A/B) none; bf16 wider than 384
-    channels raises before a launch."""
+    """Every tile plan's fused_block_tc_kernel shows HMMA in its SASS and
+    every f32 plan's fused_block_tf32_kernel TF32 HMMA, the SIMT kernels (f32
+    and bf16, for the A/B) none; either dtype wider than 384 channels raises
+    before a launch."""
     from buctd_tpu_torch import _build
     from buctd_tpu_torch.ops import fused_block as fb
 
     _build.build(["fused_block"])
     hmma = _build.hmma_counts("fused_block")
     tc = {f: n for f, n in hmma.items() if "fused_block_tc_kernel" in f}
+    tf32 = {f: n for f, n in _build.hmma_counts("fused_block", "TF32").items()
+            if "fused_block_tf32_kernel" in f}
     simt = {f: n for f, n in hmma.items() if "fused_block_kernel" in f}
     assert len(tc) == len(fb.TC_PLANS) and min(tc.values()) > 0, tc
+    assert len(tf32) == len(fb.TF32_PLANS) and min(tf32.values()) > 0, tf32
     assert len(simt) == 8 and sum(simt.values()) == 0, simt
-    x = torch.zeros(1, 4, 4, 400, device=cuda, dtype=torch.bfloat16)
-    w, b = torch.zeros(3, 3, 400, 400, device=cuda, dtype=x.dtype), x[0, 0, 0]
-    before = fb.fused_basic_block.launches
-    with pytest.raises(ValueError):
-        fb.fused_basic_block(x, w, w, b, b)
-    assert fb.fused_basic_block.launches == before
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros(1, 4, 4, 400, device=cuda, dtype=dtype)
+        w, b = torch.zeros(3, 3, 400, 400, device=cuda, dtype=x.dtype), x[0, 0, 0]
+        before = fb.fused_basic_block.launches
+        with pytest.raises(ValueError):
+            fb.fused_basic_block(x, w, w, b, b)
+        assert fb.fused_basic_block.launches == before
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ versions (K1' and K2' compute K1's and K2's functions), so this holds the
 plain versions, forward and through ``flash_attention_train``'s backward,
 against the JAX kernels: forward atol = rtol = 2e-5 (f32 sums over at most
 700 keys), gradients atol 5e-4, rtol 1e-3 (the tolerance of the JAX test).
-The CUDA kernels are held against the plain versions and against K1/K2 by
+The CUDA kernels are held against the plain versions and against K1/K2 (bit
+for bit: K1' and K2' are K1's and K2's kernels with a deeper ring) by
 tests/test_torch_port_cuda.py (marked ``cuda``) and chip_smoke.py.
 """
 
@@ -83,9 +84,11 @@ def test_kvres_wrappers_refuse_cpu_tensors():
 
 
 def test_copy_guard_refuses_rows_not_4_byte_aligned():
-    """The f32 K1'/K2' stream rows with 4-, 8- or 16-byte cp.async copies;
-    their wrappers refuse rows whose bytes or start are not a multiple of 4
-    (the bf16 ones load such rows through registers and skip the guard)."""
+    """The f32 K2 and K2' kernels (the same 3xTF32 kernels) read their
+    operands' rows in 4-byte units, by 16-byte cp.async copies where the rows
+    allow and else through registers; their wrappers refuse rows whose bytes
+    or start are not a multiple of 4 (the bf16 ones read such rows through
+    registers and skip the guard)."""
     fa._check_copyable(torch.zeros(1, 16, 7), torch.zeros(1, 16, 2, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="4-byte"):
         fa._check_copyable(torch.zeros(1, 16, 7, dtype=torch.bfloat16))

@@ -17,8 +17,12 @@ f32 forward.  Here:
   ``pltpu.prng_random_bits`` (a monkeypatch of the kernel's mask helper,
   keyed by the same (bh, row, key)); the kernel's own math (mask after the
   sum l, kept entries scaled by 1 / (1 - p)) is unchanged.
-* ``tf32_round`` bit for bit against a model of cvt.rna.tf32.f32 written
-  from its definition (11 significant bits, to nearest, ties away from zero).
+* ``tf32_round`` (ops/tf32.py, csrc/mma_tf32.cuh's rna) bit for bit
+  against a model of cvt.rna.tf32.f32 written from its definition (11
+  significant bits, to nearest, ties away from zero) on finite values and
+  +-inf.  ``tf32_split`` makes lo NaN beside every NaN or infinite operand
+  (whose hi may wrap), so a NaN operand reaches the 3xTF32 product as it
+  reaches f32's.
 * A model of mma.m16n8k8's tf32 fragments (PTX ISA layouts): q' k^T with
   K's B fragment read as K[key g][t], K[key g][t + 4], and p v with the
   accumulators of s reused as the A fragment in the permuted key order (A
@@ -36,6 +40,7 @@ import pytest
 import torch
 
 from buctd_tpu_torch.ops import flash_attention as fa
+from buctd_tpu_torch.ops import tf32
 
 # head dims 7 (padded to 16), 48, 96 and 112; every Lk ragged against the
 # kernel's 64- and 32-key tiles
@@ -116,11 +121,19 @@ def test_forward_tf32_refuses_other_pass_counts():
 # ------------------------------------------------------------- cvt.rna ----
 def _cvt_rna(x):
     """cvt.rna.tf32.f32 from its definition: |x| rounded to 11 significant
-    bits, to nearest with ties away from zero (normal numbers and 0)."""
+    bits, to nearest with ties away from zero (normal numbers, 0 and
+    +-inf)."""
     x64 = x.astype(np.float64)
     m, e = np.frexp(np.abs(x64))                    # |x| = m 2^e, m in [0.5, 1)
     r = np.floor(m * 2.0 ** 11 + 0.5) / 2.0 ** 11
     return (np.sign(x64) * np.ldexp(r, e)).astype(np.float32)
+
+
+# NaNs of both signs (CUDA's canonical 0x7fffffff, whose rounding carry
+# reaches the sign bit; a quiet NaN; one with only low mantissa bits, which
+# rounds to inf), then +-inf
+NON_FINITE = np.array([0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0xFFC00000, 0x7F800001,
+                       0x7FFFF000, 0x7F800000, 0xFF800000], np.uint32).view(np.float32)
 
 
 def test_tf32_round_matches_cvt_rna_model():
@@ -131,12 +144,44 @@ def test_tf32_round_matches_cvt_rna_model():
     base = (rng.randint(0x00800000, 0x7E000000, 4000) & ~0x1FFF).astype(np.uint32)
     edges = np.concatenate([base | 0x1000, base | 0x0FFF, base | 0x1001, base | 0x1FFF,
                             base | 0x7FFFFF]).view(np.float32)
-    x = np.concatenate([spread, edges, -edges, np.zeros(2, np.float32)])
-    got = fa.tf32_round(torch.from_numpy(x)).numpy()
-    np.testing.assert_array_equal(got.view(np.uint32), _cvt_rna(x).view(np.uint32))
+    x = np.concatenate([spread, edges, -edges, np.zeros(2, np.float32), NON_FINITE])
+    got = tf32.tf32_round(torch.from_numpy(x)).numpy()
+    nan = np.isnan(x)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32), _cvt_rna(x[~nan]).view(np.uint32))
     assert (got.view(np.uint32) & 0x1FFF == 0).all()
+    # a NaN's carry wraps, as the kernels' rna does: the canonical NaN gives -0.0
+    assert got.view(np.uint32)[-len(NON_FINITE)] == 0x80000000 and nan.sum() == 6
     ties = (base | 0x1000).view(np.float32)
-    assert (np.abs(fa.tf32_round(torch.from_numpy(ties)).numpy()) > ties).all()
+    assert (np.abs(tf32.tf32_round(torch.from_numpy(ties)).numpy()) > ties).all()
+
+
+def test_tf32_split_keeps_non_finite_operands():
+    """lo is NaN beside every NaN or infinite operand, whatever hi became,
+    and hi of an infinity is that infinity; so no operand that is not finite
+    enters a product as a finite one (the rounding alone made the canonical
+    NaN -0.0 in both halves)."""
+    hi, lo = tf32.tf32_split(torch.from_numpy(NON_FINITE))
+    assert torch.isnan(lo).all()
+    np.testing.assert_array_equal(hi.numpy()[-2:], NON_FINITE[-2:])
+    # a finite x: hi + lo = x to 2^-22, lo itself tf32
+    x = torch.from_numpy(np.random.RandomState(1).randn(4096).astype(np.float32))
+    hi, lo = tf32.tf32_split(x)
+    assert ((hi + lo - x).abs() <= x.abs() * 2.0 ** -21).all()
+    assert torch.equal(tf32.tf32_round(lo), lo)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_tf32_product_takes_nan_as_f32_does(passes):
+    """A NaN in one row of a makes that row of a b NaN and leaves the others
+    as they were, as the f32 product does."""
+    rng = np.random.RandomState(passes)
+    a, b = (torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in ((6, 24), (24, 5)))
+    clean = tf32.tf32_product(a, b, passes)
+    a[2, 7] = float("nan")
+    got = tf32.tf32_product(a, b, passes)
+    np.testing.assert_array_equal(torch.isnan(got).numpy(), torch.isnan(a @ b).numpy())
+    keep = torch.arange(6) != 2
+    assert torch.equal(got[keep], clean[keep])
 
 
 # -------------------------------------------------- m16n8k8 tf32 fragments ----
@@ -210,7 +255,7 @@ def test_fragment_reads_are_free_of_bank_conflicts(d_pad):
     assert any(len(b) < 32 for b in _banks(d_pad, d_pad))   # the unpadded stride conflicts
 
 
-@pytest.mark.parametrize("name", ["one_sm", "warps4", "tiles32"])
+@pytest.mark.parametrize("name", ["one_sm", "warps4", "tiles32", "cvtsplit", "nanfree"])
 def test_bench_variants_apply_to_the_kernel_source(name):
     """tools/bench_flash_fwd.py builds its variants by text substitution in
     the kernel's headers: each still applies and changes the source."""
