@@ -6,10 +6,11 @@ Counterpart of buctd_tpu/data/device_pipeline.py::DeviceLoader (:42-179):
            choice / synthesis, box and augmentation draws, crop affine, joint
            transforms), then the padding of the images into one uint8 bucket,
            copied to the card through pinned memory;
-  device : crop-aug rectangle masking -> rotated warp (K4,
-           ops/warp.py::warp_affine_general) -> round -> ImageNet
-           normalization -> colored condition render -> channel concat ->
-           target Gaussians (ops/heatmap.py::generate_target).
+  device : rotated warp of the uint8 bucket with the crop-aug rectangle
+           mask (K4, ops/warp.py::warp_affine_general: one fused kernel
+           launch that reads the bytes and the rectangle itself) -> round ->
+           ImageNet normalization -> colored condition render -> channel
+           concat -> target Gaussians (ops/heatmap.py::generate_target).
 
 Images pad into the JAX package's buckets.  A batch is the JAX loader's dict,
 with the model's NCHW layout: 'input' (B, 3 + c, H, W), 'target'
@@ -100,14 +101,10 @@ class DeviceLoader:
 
     def _device_batch(self, images, trans_inv, mask_box, joints, joints_vis, cond_joints):
         """The dense per-batch work, on the card (the JAX jitted ``fn``)."""
-        B, H, W, _ = images.shape
-        x = images.float()
-        bx, by, bw, bh = (mask_box[:, i, None, None] for i in range(4))
-        xs = torch.arange(W, dtype=torch.float32, device=x.device)[None, None, :]
-        ys = torch.arange(H, dtype=torch.float32, device=x.device)[None, :, None]
-        inside = (xs >= bx) & (xs < bx + bw) & (ys >= by) & (ys < by + bh)
-        x = x * inside[..., None]
-        crops = warp_affine_general(x, trans_inv, (self.img_h, self.img_w), self.engine)
+        # the warp reads the uint8 bucket and zeroes the pixels outside each
+        # mask rectangle itself: images.float() * inside, never materialised
+        crops = warp_affine_general(images, trans_inv, (self.img_h, self.img_w), self.engine,
+                                    mask_box=mask_box)
         crops = torch.round(crops)   # the host path warps uint8 (cv2 rounds)
         inp = (crops / 255.0 - self.mean) / self.std
         if self.conditional:

@@ -2,7 +2,8 @@
 choices (tools/bench_flash_fwd.py, tools/bench_flash_bwd.py) or its
 arithmetic.
 
-A variant is csrc/<lib>.cu with some of its headers rewritten.  The copies
+A variant is csrc/<lib>.cu with some of its headers, or the source itself,
+rewritten.  The copies
 are written into buctd_tpu_torch/_build/variants/<tag>/ (git ignores it) and
 built there with nvcc, all at once; ``loaded`` makes the kernel wrappers
 launch from a variant's library for a block of calls, and ``events_ms`` times
@@ -59,7 +60,8 @@ def build(lib: str, sources: dict) -> dict:
         # first; the other headers come from csrc/
         for header, text in headers.items():
             (out / header).write_text(text)
-        (out / f"{lib}.cu").write_text((_build.CSRC / f"{lib}.cu").read_text())
+        if f"{lib}.cu" not in headers:
+            (out / f"{lib}.cu").write_text((_build.CSRC / f"{lib}.cu").read_text())
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                "-o", str(out / f"lib{lib}.so"), str(out / f"{lib}.cu")]
         jobs[tag] = (out / f"lib{lib}.so",
@@ -82,17 +84,19 @@ def loaded(lib: str, lib_path):
     from .. import _build
     from ..ops import flash_attention as fa
     from ..ops import fused_block as fb
+    from ..ops import warp as tw
 
+    caches = (fa._fn, fb._fn, tw._warp_fn)
     shipped = _build.load(lib)
     _build._loaded[lib] = ctypes.CDLL(str(lib_path)) if lib_path else shipped
-    fa._fn.cache_clear()
-    fb._fn.cache_clear()
+    for cache in caches:
+        cache.cache_clear()
     try:
         yield
     finally:
         _build._loaded[lib] = shipped
-        fa._fn.cache_clear()
-        fb._fn.cache_clear()
+        for cache in caches:
+            cache.cache_clear()
 
 
 def events_ms(fn, n: int) -> float:

@@ -36,7 +36,13 @@ Phases (each raises on failure; nothing is caught):
      versions over BH chunks (f32 K2's one-pass tf32 control must miss the
      gate; bf16 against the plain versions that round where they do, K2's
      distance to the f32 plain version printed, and rows of exp(s' - lse)
-     from bf16 K1 summing to 1), and K4 (rotated warp); their bf16 times
+     from bf16 K1 summing to 1), and K4 (rotated warp: the fused kernel vs
+     the plain version, bit for bit vs the two-pass form it replaced and
+     timed against it in turns; the uint8 source with mask rectangles (the
+     loaders' input) vs the plain version of the f32 masked images and bit for
+     bit vs the f32 warp of them; at rotation 0 and the evaluation scales
+     vs F.grid_sample, the same function there; the loader's work before the
+     render, the former cast-mask-warp chain vs the fused read); their bf16 times
      beside the f32 SIMT kernels' on the widened operands (what bf16 ran
      before its tensor-core kernels), the tensor-core, MUFU and dropout-hash
      floors, SDPA's forward and SDPA's backward alone;
@@ -49,7 +55,8 @@ Phases (each raises on failure; nothing is caught):
   4. training: ``buctd_tpu_torch.train.run`` on a synthetic CrowdPose-format
      set (seeded, in a temporary directory) at full width, batch 32, bf16
      autocast, attention dropout 0.1, the device loader; ms/step, images/s,
-     data-wait per step, the launch counts of K1, K2 and K4 in that run; the
+     data-wait per step, the launch counts of K1, K2 and K4 (one per batch)
+     in that run; the
      loss over a repeated batch (finite, falling); a profile of one step,
      which must name K1's and K2's tensor-core kernels and no SIMT K1 or K2
      kernel;
@@ -71,8 +78,8 @@ Phases (each raises on failure; nothing is caught):
      CrowdPose test set (64 480x640 images x 4 people = 256 crops = 8 batches
      of 32) from a BU-prediction json, with N(0, 1/fan_in) weights saved as a
      .pth, full width, flip test, 3 refinement rounds: a results json with
-     one entry per crop and a finite AP in [0, 1] each round, K1 and K4
-     launched 2 per batch per round, crops/s per round; a profile of one
+     one entry per crop and a finite AP in [0, 1] each round, K1 launched 2
+     and K4 1 per batch per round, crops/s per round; a profile of one
      validate step, with K1's 3xTF32 kernel's time and share and no SIMT
      forward;
   8. the same evaluation, one round, under BUCTD_FLASH_KVRES=1: K1' launched 2
@@ -221,9 +228,20 @@ KVRES_GAP = 0.0
 # pair at 64 a clock on each SM; at nvidia-smi's clocks.max.sm
 SMS, EX2_PER_SM_CLOCK, INT_PER_SM_CLOCK, HASH_INT_OPS = 132, 16, 64, 10
 # K4 vs its plain version on 0..255 images: two tent taps against the dense
-# tent sum, both f32; a few ulps of 255
+# tent sum, both f32; a few ulps of 255.  The fused kernel vs the two-pass
+# form, and the uint8 source with its mask vs the f32 masked images: bit for
+# bit (the same tent arithmetic on the same values)
 WARP_ATOL = 2e-3
 WARP_BATCH = (TRAIN_BATCH, 512, 640)   # 480x640 images in their 512x640 bucket
+# K4 vs F.grid_sample (align_corners=False, zeros) at rotation 0, where both
+# are the same bilinear warp: grid_sample takes the source coordinate through
+# the normalised grid, ((g + 1) W - 1) / 2 with g in [-1, 1] in f32, so each
+# coordinate carries a few ulps of 2^10 (~1e-4 px) that the kernel's a x + e
+# does not; on 0..255 noise a pixel step is up to 255, so about 0.03 at most
+WARP_GRID_ATOL = 3e-2
+# the evaluation loader's scales (x, in units of 200 px): the synthetic
+# set's boxes (110-160 x 220-330 px) at 288:384 and 1.25 padding
+WARP_EVAL_SCALES = (1.0, 1.6)
 TRAIN_STEPS = 10                        # one epoch of the synthetic set
 SYNTH_IMAGES, SYNTH_PEOPLE = 80, 4      # 320 people = 10 batches of 32
 # evaluation: TEST batch 32, flip test -> BH 64 in K1 (branch 0 and 1 shapes)
@@ -571,17 +589,20 @@ def bwd_bound_ms(bh, l, d, elt, kind) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def warp_read_pixels(torch, tw, trans, hw, out_hw) -> int:
+def warp_read_pixels(torch, tw, trans, hw, out_hw, mask_box=None) -> int:
     """Source pixels the two-pass warp of ``trans`` (B, 2, 3) reads with a
     nonzero tent weight, summed over samples: per output pixel the two rows
     around its source y (pass 2) and, in each, the two columns around the
-    pass-1 x of that row, inside the image.  This run's crops read only their
-    own footprint, not the whole padded image."""
+    pass-1 x of that row, inside the image and, given ``mask_box`` (B, 4),
+    inside the sample's mask rectangle (the kernel loads no pixel outside
+    it).  This run's crops read only their own footprint, not the whole
+    padded image."""
     oh, ow = out_hw
     oy = torch.arange(oh, dtype=torch.float32, device=trans.device)[:, None]
     ox = torch.arange(ow, dtype=torch.float32, device=trans.device)[None, :]
+    inside = None if mask_box is None else tw.mask_inside(mask_box.float(), *hw)
     total = 0
-    for t in trans.float():
+    for i, t in enumerate(trans.float()):
         transposed, t = tw._sample_affine(t)
         rows, cols = (hw[1], hw[0]) if transposed else hw
         (a, b, e), (c, d, f) = t
@@ -595,6 +616,8 @@ def warp_read_pixels(torch, tw, trans, hw, out_hw) -> int:
                 w = torch.floor(x) + dx
                 ok = ok_r & (1.0 - (x - w).abs() > 0) & (w >= 0) & (w < cols)
                 seen[(r * cols + w)[ok].long()] = True
+        if inside is not None:   # (rows, cols) in the decomposition's order
+            seen &= (inside[i].t() if transposed else inside[i]).reshape(-1)
         total += int(seen.sum())
     return total
 
@@ -629,12 +652,10 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
     operands), dropout 0.1, beside the f32 SIMT kernels on the widened
     operands and the tensor-core, MUFU and dropout-hash floors of each.  Library yardsticks:
     SDPA's forward (K1) and SDPA's backward alone (K2: dq, dk and dv, the
-    function of K2's two kernels), with dropout 0.1; F.grid_sample for K4, a
-    one-pass bilinear warp, which is NOT the same function when rotated.
+    function of K2's two kernels), with dropout 0.1.  K4: ``warp_phase``.
     f32 K2's times, beside its SIMT kernels' and SDPA's f32 backward, come
     from the tools phase (tools/bench_flash_bwd.py --dtype float32).
     """
-    from buctd_tpu_torch.geometry import make_affine
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -799,44 +820,180 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
           f"{BWD_ATOL:.0e} of the plain backward at every check above, the one-pass control "
           f"at least {res['k2_control']:.3e} outside it; times: the tools phase", flush=True)
 
+    res.update(warp_phase(torch, F, tw, gen))
+    return res
+
+
+def grid_sample_affine(torch, F, images, trans, out_hw):
+    """F.grid_sample (bilinear, zeros, align_corners=False) of (B, H, W, C)
+    images at the (B, 2, 3) output->source affines: theta = N_src T N_out^-1
+    in normalised coordinates.  Returns (run, grid): ``run()`` gives the
+    (B, C, oh, ow) warp."""
+    B, H, W, C = images.shape
+    oh, ow = out_hw
+
+    def norm(w, h):
+        return torch.tensor([[2.0 / w, 0.0, 1.0 / w - 1.0], [0.0, 2.0 / h, 1.0 / h - 1.0],
+                             [0.0, 0.0, 1.0]], device="cuda", dtype=torch.float64)
+
+    t3 = torch.cat([trans.double(), torch.tensor([[[0.0, 0.0, 1.0]]], device="cuda",
+                                                 dtype=torch.float64).expand(B, 1, 3)], dim=1)
+    theta = (norm(W, H) @ t3 @ torch.linalg.inv(norm(ow, oh)))[:, :2]
+    grid = F.affine_grid(theta, (B, C, oh, ow), align_corners=False).float()
+    x_nchw = images.permute(0, 3, 1, 2).contiguous()
+    return lambda: F.grid_sample(x_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+
+
+def same_bits(torch, got, want) -> bool:
+    """Equal bit for bit, NaN in the same places."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def loader_chain_before(torch, tw, images, trans, mask_box, mean, std, out_hw):
+    """The device loader's work before the render as it was with the two-pass
+    kernel: the uint8 bucket cast to f32 and multiplied by the crop-aug mask
+    in device memory, then warped by the two-pass form, rounded and
+    normalised."""
+    B, H, W, _ = images.shape
+    x = images.float()
+    bx, by, bw, bh = (mask_box[:, i, None, None] for i in range(4))
+    xs = torch.arange(W, dtype=torch.float32, device=x.device)[None, None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=x.device)[None, :, None]
+    inside = (xs >= bx) & (xs < bx + bw) & (ys >= by) & (ys < by + bh)
+    crops = torch.round(tw.warp_resample_two_pass(x * inside[..., None], trans, out_hw))
+    return (crops / 255.0 - mean) / std
+
+
+def loader_chain(torch, tw, images, trans, mask_box, mean, std, out_hw):
+    """The same with the fused kernel reading the bucket and the mask itself
+    (data/device_pipeline.py::DeviceLoader._device_batch before the render)."""
+    crops = torch.round(tw.warp_affine_general(images, trans, out_hw, mask_box=mask_box))
+    return (crops / 255.0 - mean) / std
+
+
+def warp_phase(torch, F, tw, gen) -> dict:
+    """K4 at the training loader's shape, WARP_BATCH -> 384x288, rotations
+    -90..90 (both decompositions): the fused kernel vs the plain version
+    (WARP_ATOL) and bit for bit vs the two-pass form, both timed in turns; the
+    uint8 source with mask rectangles vs the plain version of the f32 masked
+    images (WARP_ATOL) and bit for bit vs the fused f32 warp of them, timed,
+    with its own bytes bound (3 B a footprint pixel inside its sample's mask,
+    12 B an output pixel); rotation 0 at the evaluation loader's scales,
+    where F.grid_sample is the same function (WARP_GRID_ATOL), both timed in
+    turns; the loader's work before the render, the former chain vs the fused one, equal bit for
+    bit and timed in turns."""
+    from buctd_tpu_torch.data.joints_dataset import IMAGENET_MEAN, IMAGENET_STD
+    from buctd_tpu_torch.geometry import make_affine
+
+    res = {}
     B, H, W = WARP_BATCH
+    out_hw = (384, 288)
+    n_out = B * out_hw[0] * out_hw[1]
     images = torch.rand(B, H, W, 3, device="cuda", generator=gen) * 255.0
     centers = torch.rand(B, 2, device="cuda", generator=gen) * torch.tensor(
         [440.0, 280.0], device="cuda") + 100.0
     scales = torch.rand(B, 2, device="cuda", generator=gen) * 1.2 + 0.6
     rots = torch.rand(B, device="cuda", generator=gen) * 180.0 - 90.0   # both decompositions
-    trans = make_affine(centers, scales, rots, (288, 384), inv=True).contiguous()
-    got = tw.warp_affine_general(images, trans, (384, 288))
+    trans = make_affine(centers, scales, rots, out_hw[::-1], inv=True).contiguous()
+    got = tw.warp_affine_general(images, trans, out_hw)
+    two = tw.warp_resample_two_pass(images, trans, out_hw)
     torch.cuda.synchronize()
-    want = tw.warp_affine_reference(images, trans, (384, 288))
+    want = tw.warp_affine_reference(images, trans, out_hw)
     torch.testing.assert_close(got, want, atol=WARP_ATOL, rtol=0)
     res["warp_err"] = (got - want).abs().max().item()
-    res["warp_ms"] = timed_ms(lambda: tw.warp_resample(images, trans, (384, 288)), 20)
-    res["warp_plain_ms"] = timed_ms(lambda: tw.warp_affine_reference(images, trans,
-                                                                     (384, 288)), 2)
-    x_nchw = images.permute(0, 3, 1, 2).contiguous()
-    # grid_sample's normalized grid from the same output->source affines:
-    # theta = N_src @ T @ N_out^-1 in align_corners=False coordinates
-    def norm(w, h):
-        return torch.tensor([[2.0 / w, 0.0, 1.0 / w - 1.0], [0.0, 2.0 / h, 1.0 / h - 1.0],
-                             [0.0, 0.0, 1.0]], device="cuda")
-    t3 = torch.cat([trans, torch.tensor([[[0.0, 0.0, 1.0]]], device="cuda").expand(B, 1, 3)],
-                   dim=1)
-    theta = (norm(W, H) @ t3 @ torch.linalg.inv(norm(288, 384)))[:, :2]
-    grid = torch.nn.functional.affine_grid(theta, (B, 3, 384, 288), align_corners=False)
-    res["warp_library_ms"] = timed_ms(lambda: F.grid_sample(
-        x_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False), 20)
+    if not same_bits(torch, got, two):
+        raise AssertionError(f"fused K4 vs the two-pass form: max |gap| "
+                             f"{(got - two).abs().max().item():.3e}, not bit for bit")
+    res["warp_two_pass_ms"], res["warp_ms"] = ab_ms(
+        lambda: tw.warp_resample_two_pass(images, trans, out_hw),
+        lambda: tw.warp_resample(images, trans, out_hw), 20)
+    if res["warp_ms"] >= res["warp_two_pass_ms"]:
+        raise AssertionError(f"fused K4 {res['warp_ms']:.4f} ms is no faster than the "
+                             f"two-pass form's {res['warp_two_pass_ms']:.4f} ms")
+    res["warp_plain_ms"] = timed_ms(lambda: tw.warp_affine_reference(images, trans, out_hw), 2)
+    res["warp_library_ms"] = timed_ms(grid_sample_affine(torch, F, images, trans, out_hw), 20)
     # bytes: the f32 source pixels the crops read (each once) and the output
-    read = warp_read_pixels(torch, tw, trans, (H, W), (384, 288))
-    res["warp_bound_ms"] = 4 * 3 * (read + B * 384 * 288) / HBM_BYTES_PER_S * 1e3
-    full_ms = 4 * 3 * B * (H * W + 384 * 288) / HBM_BYTES_PER_S * 1e3
-    print(f"K4 warp ({B}, {H}, {W}, 3) -> (384, 288), rotations -90..90: max_abs_err "
-          f"{res['warp_err']:.3e} kernel {res['warp_ms']:.4f} ms, plain "
-          f"{res['warp_plain_ms']:.4f} ms, grid_sample (one-pass, not the same function) "
-          f"{res['warp_library_ms']:.4f} ms, bound {res['warp_bound_ms']:.4f} ms (bytes: "
-          f"the crops read {read} source pixels, {100 * read / (B * H * W):.1f}% of the "
-          f"images; whole-image bound {full_ms:.4f} ms)", flush=True)
-    del images, got, want, x_nchw, grid
+    read = warp_read_pixels(torch, tw, trans, (H, W), out_hw)
+    res["warp_bound_ms"] = 4 * 3 * (read + n_out) / HBM_BYTES_PER_S * 1e3
+    full_ms = 4 * 3 * B * (H * W + out_hw[0] * out_hw[1]) / HBM_BYTES_PER_S * 1e3
+    print(f"K4 warp ({B}, {H}, {W}, 3) f32 -> {out_hw}, rotations -90..90: max_abs_err "
+          f"{res['warp_err']:.3e} (limit {WARP_ATOL:.0e}), bit for bit the two-pass form; "
+          f"fused {res['warp_ms']:.4f} ms, two-pass in turns {res['warp_two_pass_ms']:.4f} ms "
+          f"({res['warp_two_pass_ms'] / res['warp_ms']:.2f}x), plain "
+          f"{res['warp_plain_ms']:.4f} ms, grid_sample (one-pass, not the same function when "
+          f"rotated) {res['warp_library_ms']:.4f} ms, bound {res['warp_bound_ms']:.4f} ms "
+          f"(bytes: the crops read {read} source pixels, {100 * read / (B * H * W):.1f}% of "
+          f"the images; whole-image bound {full_ms:.4f} ms)", flush=True)
+
+    # the loader's input: the uint8 bucket, each sample's crop-aug rectangle
+    # (a quarter of them the whole 480x640 image, as samples without one)
+    u8 = torch.randint(0, 256, (B, H, W, 3), dtype=torch.uint8, device="cuda", generator=gen)
+    lo = torch.rand(B, 2, device="cuda", generator=gen) * torch.tensor([320.0, 240.0],
+                                                                         device="cuda")
+    size = torch.rand(B, 2, device="cuda", generator=gen) * torch.tensor([320.0, 240.0],
+                                                                           device="cuda") + 40.0
+    boxes = torch.cat([lo, size], 1)
+    boxes[::4] = torch.tensor([0.0, 0.0, 640.0, 480.0], device="cuda")
+    boxes = boxes.contiguous()
+    got8 = tw.warp_resample(u8, trans, out_hw, boxes)
+    masked = tw.apply_mask_box(u8, boxes)
+    if not same_bits(torch, got8, tw.warp_resample(masked, trans, out_hw)):
+        raise AssertionError("fused K4 on uint8 with mask rectangles vs the f32 masked "
+                             "images: not bit for bit")
+    torch.cuda.synchronize()
+    want8 = tw.warp_affine_reference(masked, trans, out_hw)
+    torch.testing.assert_close(got8, want8, atol=WARP_ATOL, rtol=0)
+    res["warp_uint8_err"] = (got8 - want8).abs().max().item()
+    del want8
+    res["warp_uint8_ms"] = timed_ms(lambda: tw.warp_resample(u8, trans, out_hw, boxes), 20)
+    # bytes: the uint8 footprint pixels inside the mask rectangles, the output
+    read8 = warp_read_pixels(torch, tw, trans, (H, W), out_hw, boxes)
+    res["warp_uint8_bound_ms"] = (3 * read8 + 12 * n_out + 16 * B) / HBM_BYTES_PER_S * 1e3
+    print(f"K4 uint8 + mask rectangles: max_abs_err vs the plain version of images.float() "
+          f"* inside {res['warp_uint8_err']:.3e} (limit {WARP_ATOL:.0e}), bit for bit the "
+          f"f32 warp of those images; {res['warp_uint8_ms']:.4f} ms, bound "
+          f"{res['warp_uint8_bound_ms']:.4f} ms (3 B a footprint pixel inside its mask, "
+          f"{read8} of the {read} footprint pixels; 12 B an output pixel)", flush=True)
+
+    mean = torch.as_tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.as_tensor(IMAGENET_STD, device="cuda")
+    old = loader_chain_before(torch, tw, u8, trans, boxes, mean, std, out_hw)
+    new = loader_chain(torch, tw, u8, trans, boxes, mean, std, out_hw)
+    if not same_bits(torch, new, old):
+        raise AssertionError("the loader's chain before the render changed its output")
+    res["loader_before_ms"], res["loader_ms"] = ab_ms(
+        lambda: loader_chain_before(torch, tw, u8, trans, boxes, mean, std, out_hw),
+        lambda: loader_chain(torch, tw, u8, trans, boxes, mean, std, out_hw), 10)
+    print(f"loader before the render ({B}, {H}, {W}, 3) uint8 -> {out_hw}: former chain "
+          f"(cast, mask multiply, f32 warp, round, normalise) {res['loader_before_ms']:.4f} "
+          f"ms, fused read {res['loader_ms']:.4f} ms in turns; outputs bit for bit",
+          flush=True)
+    del u8, masked, got8, old, new
+
+    # rotation 0 at the evaluation scales: grid_sample is the same function
+    s0 = torch.rand(B, 1, device="cuda", generator=gen) * (
+        WARP_EVAL_SCALES[1] - WARP_EVAL_SCALES[0]) + WARP_EVAL_SCALES[0]
+    trans0 = make_affine(centers, s0.expand(B, 2), torch.zeros(B, device="cuda"),
+                         out_hw[::-1], inv=True).contiguous()
+    got0 = tw.warp_affine_general(images, trans0, out_hw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got0, tw.warp_affine_reference(images, trans0, out_hw),
+                               atol=WARP_ATOL, rtol=0)
+    library = grid_sample_affine(torch, F, images, trans0, out_hw)
+    res["warp_rot0_grid_err"] = (library().permute(0, 2, 3, 1) - got0).abs().max().item()
+    if res["warp_rot0_grid_err"] > WARP_GRID_ATOL:
+        raise AssertionError(f"K4 vs grid_sample at rotation 0: {res['warp_rot0_grid_err']:.3e} "
+                             f"> {WARP_GRID_ATOL:.0e}")
+    res["warp_library_rot0_ms"], res["warp_rot0_ms"] = ab_ms(
+        library, lambda: tw.warp_resample(images, trans0, out_hw), 20)
+    print(f"K4 at rotation 0, scales {WARP_EVAL_SCALES} (the evaluation loader's): fused "
+          f"{res['warp_rot0_ms']:.4f} ms, F.grid_sample (the same function here) in turns "
+          f"{res['warp_library_rot0_ms']:.4f} ms, max |gap| {res['warp_rot0_grid_err']:.3e} "
+          f"(limit {WARP_GRID_ATOL:.0e})", flush=True)
+    del images, got, two, want, got0
     torch.cuda.empty_cache()
     return res
 
@@ -1014,7 +1171,8 @@ def training_phase(torch, np, fa, tw) -> dict:
         print(f"training: synthetic CrowdPose set of {SYNTH_IMAGES} images x "
               f"{SYNTH_PEOPLE} people written in {time.perf_counter() - t0:.1f} s", flush=True)
 
-        for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, tw.warp_resample):
+        for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, tw.warp_resample,
+                  tw.warp_resample_two_pass):
             f.launches = 0                                   # the main path's run
         t0 = time.perf_counter()
         res = run.main(["--cfg", str(CONFIG), "--steps", str(TRAIN_STEPS), "--no-eval",
@@ -1024,15 +1182,17 @@ def training_phase(torch, np, fa, tw) -> dict:
         launches = {"flash_fwd": fa.flash_attention.launches,
                     "flash_bwd_dq": fa.flash_bwd_dq.launches,
                     "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
-                    "warp_resample": tw.warp_resample.launches}
+                    "warp_resample": tw.warp_resample.launches,
+                    "warp_resample_two_pass": tw.warp_resample_two_pass.launches}
         steps = res["steps"]
         stats = res["stats"][0]
         losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
         want = {"flash_fwd": 2 * steps, "flash_bwd_dq": 2 * steps,
-                "flash_bwd_dkv": 2 * steps, "warp_resample": 2 * steps}
+                "flash_bwd_dkv": 2 * steps, "warp_resample": steps,
+                "warp_resample_two_pass": 0}
         print(f"training run: {steps} steps of batch {TRAIN_BATCH} in {wall:.1f} s "
               f"(model build and data included); launches {launches}, expected {want} "
-              f"(K1, dq, dkv: 2 per step; K4: 2 per batch)", flush=True)
+              f"(K1, dq, dkv: 2 per step; K4: 1 per batch)", flush=True)
         if launches != want:
             raise AssertionError(f"launch counts {launches} != {want}")
         if steps != TRAIN_STEPS or not np.isfinite(losses).all():
@@ -1577,7 +1737,8 @@ def eval_phase(torch, np, fa, tw) -> dict:
               f"{SYNTH_PEOPLE} people, BU predictions {bu.name}, weights {weights.name}",
               flush=True)
 
-        counted = (fa.flash_attention, fa.flash_attention_kvres, tw.warp_resample)
+        counted = (fa.flash_attention, fa.flash_attention_kvres, tw.warp_resample,
+                   tw.warp_resample_two_pass)
         for f in counted:
             f.launches = 0                                   # the main path's run
         t0 = time.perf_counter()
@@ -1587,12 +1748,13 @@ def eval_phase(torch, np, fa, tw) -> dict:
         wall = time.perf_counter() - t0
         launches = {"flash_fwd": fa.flash_attention.launches,
                     "flash_fwd_kvres": fa.flash_attention_kvres.launches,
-                    "warp_resample": tw.warp_resample.launches}
+                    "warp_resample": tw.warp_resample.launches,
+                    "warp_resample_two_pass": tw.warp_resample_two_pass.launches}
         batches = -(-EVAL_IMAGES * SYNTH_PEOPLE // EVAL_BATCH)
         want = {"flash_fwd": 2 * batches * EVAL_ROUNDS, "flash_fwd_kvres": 0,
-                "warp_resample": 2 * batches * EVAL_ROUNDS}
+                "warp_resample": batches * EVAL_ROUNDS, "warp_resample_two_pass": 0}
         print(f"evaluation run: {EVAL_ROUNDS} rounds in {wall:.1f} s (model build and "
-              f"data included); launches {launches}, expected {want} (K1 and K4: 2 per "
+              f"data included); launches {launches}, expected {want} (K1: 2, K4: 1 per "
               f"batch of {EVAL_BATCH} crops, {batches} batches a round)", flush=True)
         for it, r in enumerate(out["rounds"]):
             rows = json.loads(Path(r["results"]).read_text())
@@ -2236,10 +2398,22 @@ def main() -> int:
         bwd_entry("dkv", 363),
         kv_bwd_entry("dq", 245),
         kv_bwd_entry("dkv", 295),
-        entry("warp_resample", "buctd_tpu_torch/csrc/warp_resample.cu",
-              "buctd_tpu/ops/pallas_warp.py:30",
-              train["launches"]["warp_resample"] + ev["launches"]["warp_resample"],
-              tk["warp_err"], "warp"),
+        {**entry("warp_resample", "buctd_tpu_torch/csrc/warp_resample.cu",
+                 "buctd_tpu/ops/pallas_warp.py:30",
+                 train["launches"]["warp_resample"] + ev["launches"]["warp_resample"],
+                 tk["warp_err"], "warp"),
+         # the fused f32 kernel above; beside it, in this run: the two-pass
+         # form in turns, the uint8 source with mask rectangles (the loaders'
+         # input) with its error against the plain version and its bound,
+         # rotation 0 at the evaluation scales with F.grid_sample in turns,
+         # and the loader's work before the render
+         "two_pass_ms": tk["warp_two_pass_ms"], "uint8_ms": tk["warp_uint8_ms"],
+         "uint8_max_abs_err": tk["warp_uint8_err"],
+         "uint8_bound_ms": tk["warp_uint8_bound_ms"], "rot0_ms": tk["warp_rot0_ms"],
+         "library_rot0_ms": tk["warp_library_rot0_ms"],
+         "rot0_library_gap": tk["warp_rot0_grid_err"],
+         "loader_before_render_ms": {"former": tk["loader_before_ms"],
+                                     "fused": tk["loader_ms"]}},
         {"name": "fused_basic_block", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/fused_block.cu",
          "replaces": "buctd_tpu/ops/pallas_block.py:106",

@@ -28,7 +28,11 @@ takes its products in 3xTF32 (about 1e-6 from f32 here), while one tf32 pass
 lands near 4e-4 and misses.  K1' and K2' take K1's and K2's gates against the
 plain versions and equal K1/K2 bit for bit in both dtypes (the same
 tensor-core kernels: the depth of the ring changes no arithmetic).  The warp (K4) vs its
-plain version: 1e-4 on [0, 1) images (two tent taps against the dense sum).
+plain version: 1e-4 on [0, 1) images (two tent taps against the dense sum);
+its fused kernel vs the two-pass form it replaced bit for bit (the same tent
+arithmetic, NaN where the two-pass form gives NaN), and a uint8 source with a
+mask rectangle vs the f32 warp of images.float() * inside bit for bit and vs
+the plain version of those images at 2e-3 (0..255 images).
 The fused basic block (K5: f32 in 3xTF32 and bf16 on the tensor cores, and
 the SIMT kernel of the A/B in both dtypes) vs its plain version: f32 atol =
 rtol = 2e-5, which one tf32 pass misses, bf16 2^-6 (an f32 sum in another
@@ -394,9 +398,84 @@ def test_warp_kernel_matches_plain(cuda):
     before = tw.warp_resample.launches
     got = tw.warp_affine_general(imgs, t, (128, 96))
     torch.cuda.synchronize()
-    assert tw.warp_resample.launches == before + 2
+    assert tw.warp_resample.launches == before + 1       # one fused launch a call
     want = tw.warp_affine_reference(imgs, t, (128, 96))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _same_bits(got, want):
+    """Equal bit for bit, NaN in the same places (CUDA's NaN is canonical)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("C", [1, 3])
+def test_fused_warp_matches_two_pass_bit_for_bit(cuda, C, nan):
+    """tests/warp_cases.py: both decompositions, |d| 0.2-8 (the band walked
+    in chunks), the guarded d = 1e-6, random affines, sizes no multiple of
+    the tile; a NaN pixel in every image where it says so."""
+    import warp_cases
+    from buctd_tpu_torch.ops import warp as tw
+
+    cases = warp_cases.cases()
+    t = torch.from_numpy(np.stack([m for _, m in cases])).to(cuda)
+    imgs = torch.from_numpy(warp_cases.images(len(cases), C, seed=C)).to(cuda)
+    if nan:
+        imgs[:, 26, 30, 0] = float("nan")
+    before = tw.warp_resample_two_pass.launches
+    want = tw.warp_resample_two_pass(imgs, t, warp_cases.OUT_HW)
+    got = tw.warp_resample(imgs, t, warp_cases.OUT_HW)
+    torch.cuda.synchronize()
+    assert tw.warp_resample_two_pass.launches == before + 2
+    _same_bits(got, want)
+    assert torch.isnan(got).any() == nan
+    if not nan:
+        plain = tw.warp_affine_reference(imgs, t, warp_cases.OUT_HW)
+        torch.testing.assert_close(got, plain, atol=2e-3, rtol=0)   # 0..255: chip_smoke's WARP_ATOL
+
+
+@pytest.mark.cuda
+def test_fused_warp_uint8_mask_matches_masked_f32(cuda):
+    import warp_cases
+    from buctd_tpu_torch.ops import warp as tw
+
+    cases = warp_cases.cases()
+    n = len(cases)
+    t = torch.from_numpy(np.stack([m for _, m in cases])).to(cuda)
+    u8 = torch.from_numpy(warp_cases.images(n, 3, seed=4, dtype=np.uint8)).to(cuda)
+    box = torch.from_numpy(warp_cases.mask_boxes(n, seed=4)).to(cuda)
+    got = tw.warp_affine_general(u8, t, warp_cases.OUT_HW, mask_box=box)
+    masked = u8.float() * tw.mask_inside(box, *warp_cases.SRC_HW)[..., None]
+    _same_bits(got, tw.warp_resample(masked, t, warp_cases.OUT_HW))
+    _same_bits(got, tw.warp_resample_two_pass(masked, t, warp_cases.OUT_HW))
+    plain = tw.warp_affine_reference(masked, t, warp_cases.OUT_HW)
+    torch.testing.assert_close(got, plain, atol=2e-3, rtol=0)   # 0..255: chip_smoke's WARP_ATOL
+    whole = torch.tensor([[0.0, 0.0, warp_cases.SRC_HW[1], warp_cases.SRC_HW[0]]],
+                         device=cuda).expand(n, 4).contiguous()   # every pixel inside
+    _same_bits(tw.warp_resample(u8, t, warp_cases.OUT_HW, whole),
+               tw.warp_resample(u8.float(), t, warp_cases.OUT_HW))
+
+
+@pytest.mark.cuda
+def test_warp_wrapper_refuses_other_dtypes(cuda):
+    from buctd_tpu_torch.ops import warp as tw
+
+    t = torch.tensor([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]], device=cuda)
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError):
+            tw.warp_affine_general(torch.zeros(1, 8, 8, 3, dtype=dtype, device=cuda), t,
+                                   (4, 4))
+    with pytest.raises(TypeError):                      # the two-pass form: f32 only
+        tw.warp_resample_two_pass(torch.zeros(1, 8, 8, 3, dtype=torch.uint8, device=cuda),
+                                  t, (4, 4))
+    box = torch.tensor([[0.0, 0.0, 8.0, 8.0]], device=cuda)
+    with pytest.raises(TypeError):                      # uint8 takes its mask box
+        tw.warp_resample(torch.zeros(1, 8, 8, 3, dtype=torch.uint8, device=cuda), t, (4, 4))
+    with pytest.raises(TypeError):                      # f32 takes none
+        tw.warp_resample(torch.zeros(1, 8, 8, 3, device=cuda), t, (4, 4), box)
 
 
 # K1'/K2' (the kv-resident kernels) take K2's shapes and an odd head dim: for
