@@ -8,7 +8,12 @@ dropped, conv kernels go HWIO -> OIHW, linear kernels (in, out) -> (out, in),
 BN scale -> weight, mean/var -> running_mean/running_var.  One wrapper level
 is kept: ``_prenet_fused`` (the eval-only fused preNet of
 buctd_tpu/models/fuse.py) becomes the port's ``prenet_fused`` module; the
-reference has no such module.  Since the port's
+reference has no such module.  TransPose's packed projection
+``self_attn.in_proj.{kernel,bias}`` becomes the reference's
+``self_attn.in_proj_{weight,bias}`` (buctd_tpu/models/transpose.py::
+transpose_key_map), and a learnable ``pos_embedding`` keeps its (L, 1, d)
+layout; the sine table, which the JAX tree lacks, is supplied by the model
+when the state_dict loads (models/transpose.py::TransPoseH).  Since the port's
 module names are the reference's, a BUCTD ``.pth`` loads with
 ``load_state_dict(strict=True)``.
 """
@@ -28,6 +33,9 @@ _LEAF_FROM_FLAX = {
 
 # wrapper levels of the JAX tree that name a module of the port
 _KEPT = {"_prenet_fused": "prenet_fused"}
+# torch keys that the joined JAX path does not give as they are
+_RENAMED = {"self_attn.in_proj.weight": "self_attn.in_proj_weight",
+            "self_attn.in_proj.bias": "self_attn.in_proj_bias"}
 
 
 def _leaves(tree, path=()):
@@ -48,10 +56,15 @@ def from_flax(variables) -> dict:
     for collection, tree in variables.items():
         for path, value in _leaves(tree):
             *parts, leaf = path
+            arr = np.asarray(value)
+            if (collection, leaf) == ("params", "pos_embedding"):
+                sd[leaf] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+                continue
             torch_leaf = _LEAF_FROM_FLAX[(collection, leaf)]
             parts = [_KEPT.get(p, p) for p in parts]
             key = ".".join([p for p in parts if not p.startswith("_")] + [torch_leaf])
-            arr = np.asarray(value)
+            for old, new in _RENAMED.items():
+                key = key.replace(old, new)
             if arr.ndim == 4:                       # HWIO -> OIHW
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2:                     # (in, out) -> (out, in)

@@ -1,8 +1,8 @@
 """Model registry, keyed by the reference's MODEL.NAME values.
 
-Counterpart of buctd_tpu/models/__init__.py.  ``pose_hrnet_coam`` and
-``pose_hrnet`` (with the BUCTD preNet) are ported; the other names raise and
-name their ROADMAP item.  The
+Counterpart of buctd_tpu/models/__init__.py.  ``pose_hrnet_coam``,
+``pose_hrnet`` (with the BUCTD preNet) and ``transpose_h`` (BUCTD-TransPose-H)
+are ported; ``pose_resnet`` raises and names its ROADMAP item.  The
 attention engine is ``cfg.TPU.ATTENTION_ENGINE``, passed to the constructors.
 """
 
@@ -10,12 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from . import hrnet, hrnet_coam
+from . import hrnet, hrnet_coam, transpose
 
-_REGISTRY = {"pose_hrnet_coam": hrnet_coam.get_pose_net, "pose_hrnet": hrnet.get_pose_net}
+_REGISTRY = {"pose_hrnet_coam": hrnet_coam.get_pose_net, "pose_hrnet": hrnet.get_pose_net,
+             "transpose_h": transpose.get_pose_net}
 
 _NOT_PORTED = {
-    "transpose_h": "ROADMAP Queue 1, 'TransPose-H on K1 at d=112'",
     "pose_resnet": "ROADMAP Queue 1, 'pose_resnet (models/resnet.py)'",
 }
 

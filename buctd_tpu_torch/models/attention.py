@@ -90,10 +90,13 @@ def _draw_seed(generator) -> int:
 
 
 def set_dropout_generator(model: nn.Module, generator) -> None:
-    """Hand every ScaledDotProductAttention of ``model`` the generator its
-    flash dropout seeds are drawn from (a CPU generator: no device sync)."""
+    """Hand every ScaledDotProductAttention and TransPose
+    MultiheadSelfAttention of ``model`` the generator its flash dropout seeds
+    are drawn from (a CPU generator: no device sync)."""
+    from .transpose import MultiheadSelfAttention
+
     for m in model.modules():
-        if isinstance(m, ScaledDotProductAttention):
+        if isinstance(m, (ScaledDotProductAttention, MultiheadSelfAttention)):
             m.generator = generator
 
 

@@ -450,24 +450,32 @@ def random_init(model: nn.Module) -> None:
     affine and running statistic away from the identity, from torch's seeded
     generator.  The reference's N(0, 0.001) init leaves ~1e-10 heatmaps;
     these give maps with real peaks, so decodes and comparisons see decisive
-    values (chip_smoke.py and the benchmarks use it)."""
+    values (chip_smoke.py and the benchmarks use it).  The packed attention
+    projection (``in_proj_weight``) and LayerNorm are drawn the same way; a
+    position embedding is left as it is."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 m.weight.normal_(0.0, m.weight[0].numel() ** -0.5)
                 if m.bias is not None:
                     m.bias.normal_(0.0, 0.1)
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.weight.uniform_(0.5, 1.5)
                 m.bias.normal_(0.0, 0.1)
-                m.running_mean.normal_(0.0, 0.1)
-                m.running_var.uniform_(0.5, 1.5)
+                if isinstance(m, nn.BatchNorm2d):
+                    m.running_mean.normal_(0.0, 0.1)
+                    m.running_var.uniform_(0.5, 1.5)
+            elif hasattr(m, "in_proj_weight"):
+                m.in_proj_weight.normal_(0.0, m.in_proj_weight.shape[1] ** -0.5)
+                m.in_proj_bias.normal_(0.0, 0.1)
 
 
 def init_weights(model: nn.Module) -> None:
     """The reference's init (pose_hrnet.py:578-590): conv and linear weights
-    N(0, 0.001), biases 0, BN weight 1 and bias 0.  Layers marked
-    ``zero_init`` (the lambda head's last layers) start at 0."""
+    N(0, 0.001), biases 0, BN and LayerNorm weight 1 and bias 0.  Layers
+    marked ``zero_init`` (the lambda head's last layers) start at 0.  Other
+    parameters (TransPose's packed attention projection, which draws its own
+    N(0, 0.001), and its position embedding) are left as built."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             if getattr(mod, "zero_init", False):
@@ -476,6 +484,6 @@ def init_weights(model: nn.Module) -> None:
                 nn.init.normal_(mod.weight, std=0.001)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
-        elif isinstance(mod, nn.BatchNorm2d):
+        elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)

@@ -8,9 +8,10 @@ same-bucket images as one N*P batch.
     est = PoseEstimator(cfg, checkpoint="model.pth", refine_iters=3)
     preds = est.predict(image_rgb, condition_poses)   # (P, J, 3) image coords
 
-The model is the cfg's: BUCTD-CoAM (``pose_hrnet_coam``) or BUCTD-preNet
-(``pose_hrnet`` with ``USE_PRE_NET``), whose preNet is fused after the
-checkpoint load when ``TPU.FUSED_PRENET`` is not "off" (models/fuse.py).
+The model is the cfg's: BUCTD-CoAM (``pose_hrnet_coam``), BUCTD-TransPose-H
+(``transpose_h``) or BUCTD-preNet (``pose_hrnet`` with ``USE_PRE_NET``), whose
+preNet is fused after the checkpoint load when ``TPU.FUSED_PRENET`` is not
+"off" (models/fuse.py).
 
 The JAX estimator's ``max_compiles`` and ``precompile`` bound XLA compiles; an
 eager PyTorch model compiles nothing, so they do not exist here.  The bucket

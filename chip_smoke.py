@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of buctd_tpu_torch on one NVIDIA GPU (H100): builds the CUDA
 kernels, holds each against its plain PyTorch version, serves full-width
-BUCTD-CoAM-W48 through PoseEstimator with 3 refinement rounds, trains it for a
-few steps through the training entry point, evaluates it with the flip test
-and 3 refinement rounds through the evaluation entry point, serves
+BUCTD-CoAM-W48 and BUCTD-TransPose-H through PoseEstimator with 3 refinement
+rounds, trains both for a few steps through the training entry point,
+evaluates CoAM-W48 with the flip test and 3 refinement rounds and
+TransPose-H for one round through the evaluation entry point, serves
 full-width BUCTD-preNet-W48 with its preNet fused and not, and runs the
 port's benchmarks of the fused basic block (K5) and exp throughput (K6).
 
@@ -16,13 +17,15 @@ Phases (each raises on failure; nothing is caught):
      ``fused_block_tc_kernel`` and ``fused_block_tf32_kernel``, one a tile
      plan) and in no SIMT one, and TF32 HMMA in every f32 kernel of K1, K1',
      K2, K2' and K5; a NaN in q reaches f32 K1's, K1''s, K2's and K2''s
-     outputs, and a NaN in x K5's (both dtypes, tensor cores and SIMT), where
-     it reaches the plain versions' (``nan_phase``);
+     outputs (at d = 48, 96 and 112), and a NaN in x K5's (both dtypes,
+     tensor cores and SIMT), where it reaches the plain versions'
+     (``nan_phase``);
   1. kernels, serving and evaluation shapes: K1 (flash-attention forward on
      the tensor cores: f32 in 3xTF32, bf16) vs its plain version at the
      CoAM-W48 shapes (16 crops, as predict_batch gives them, 64 as a
-     flip-test validate batch of 32 gives them, and 8) in f32 and bf16, plus
-     a ragged case and d = 47; f32 with dropout 0 and 0.1 at
+     flip-test validate batch of 32 gives them, and 8) and at TransPose-H's
+     d = 112 (TP_F32_CASES: BH 16 and 32, L 6912) in f32 and bf16, plus a
+     ragged case and d = 47; f32 with dropout 0 and 0.1 at
      KERNEL_ATOL/RTOL, where the one-pass tf32 control must miss at the
      evaluation shapes; bf16 against the plain forward that rounds where it
      does, within K1_BF16_RTOL, and against the rounding at the kernel's
@@ -45,13 +48,18 @@ Phases (each raises on failure; nothing is caught):
      render, the former cast-mask-warp chain vs the fused read); their bf16 times
      beside the f32 SIMT kernels' on the widened operands (what bf16 ran
      before its tensor-core kernels), the tensor-core, MUFU and dropout-hash
-     floors, SDPA's forward and SDPA's backward alone;
+     floors, SDPA's forward and SDPA's backward alone; then the same bf16
+     checks and times of K1 and K2 at TransPose-H's training shape
+     (TP_TRAIN_CASES, d = 112), their ratios to SDPA beside those at
+     TRAIN_CASES, and ptxas's registers and spills of f32 K1 by head dim;
   3. serving: CoAM-W48 crowdpose 384x288 (14 joints, random weights from
      torch.manual_seed), ``predict`` on a 480x640 image with 4 condition poses
      and ``predict_batch`` on 3 images; finite outputs of the right shapes, the
      flash launch count of the run, one forward on the card vs the same module
      on the CPU, ms per image and crops/s; a profile of one predict_batch,
-     with K1's 3xTF32 kernel's time and share and no SIMT forward;
+     with K1's 3xTF32 kernel's time and share and no SIMT forward; the same
+     for TransPose-H (coco 384x288, 17 joints, 6 encoder layers of one
+     d = 112 head: 6 K1 launches a forward);
   4. training: ``buctd_tpu_torch.train.run`` on a synthetic CrowdPose-format
      set (seeded, in a temporary directory) at full width, batch 32, bf16
      autocast, attention dropout 0.1, the device loader; ms/step, images/s,
@@ -59,7 +67,9 @@ Phases (each raises on failure; nothing is caught):
      in that run; the
      loss over a repeated batch (finite, falling); a profile of one step,
      which must name K1's and K2's tensor-core kernels and no SIMT K1 or K2
-     kernel;
+     kernel; the same for TransPose-H on a synthetic COCO-format set whose
+     people carry ``cond_kpts`` (the yaml trains from them, SYNTHESIS_POSE
+     false), K1, K2 dq and K2 dk/dv launched 6 times a step;
   5. one f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
      same step on the CPU: loss, the gradients (all, and the position
      attention's alone), BN running statistics; the step's K2 calls (3xTF32)
@@ -84,7 +94,11 @@ Phases (each raises on failure; nothing is caught):
      forward;
   8. the same evaluation, one round, under BUCTD_FLASH_KVRES=1: K1' launched 2
      per batch and K1 never; one batch's heatmaps from K1 and K1' agree; one
-     validate step at batch 2 on the card vs the CPU;
+     validate step at batch 2 on the card vs the CPU; then one TransPose-H
+     evaluation round (``transpose_eval_phase``: 64 synthetic COCO crops
+     from a BU json, the yaml's batch 32 without the flip test, AP in
+     [0, 1], K1 launched 6 times a batch) and a profile of its validate
+     step;
   9. 3 training steps under BUCTD_FLASH_KVRES=1: K1', K2' dq and K2' dk/dv
      launched 2 per step, K1 and K2 never, the loss finite;
  10. K5 (the fused eval basic block) vs its plain version at the four W48
@@ -171,6 +185,15 @@ ROWSUM_ATOL = 1e-4
 # card vs CPU forward, f32 with TF32 off on the card: convolution algorithms
 # and attention sums differ in order; relative to the heatmaps' peak
 FORWARD_RTOL = 1e-4
+# TransPose-H's first encoder layer takes the trunk's tokens unnormalised
+# (post-norm), and under random_init's BN statistics they reach |x| ~ 650, so
+# its attention logits reach ~1e4: f32 itself is then far from exact (on the
+# CPU, layer 0's attention output lies 6.3e-4 and the heatmaps 6.6e-5 of
+# their max from float64), and two f32 forwards that sum in another order
+# differ by up to ~1e-3 of the peak (measured 8.6e-4 card vs CPU on an H100).
+# So its card forward is held against the CPU's float64 forward: no further
+# than FORWARD_F64_RATIO x the CPU's own f32 forward
+FORWARD_F64_RATIO = 2.0
 # card vs CPU train step, f32 with TF32 off, batch 1: the loss is a mean over
 # 96x72x14 values summed in another order (rel 1e-4).  The gradients are not
 # compared tensor by tensor: at batch 1 BatchNorm's backward over batch
@@ -260,6 +283,18 @@ KVRES_ODD_CASE = (8, 1728, 47)
 # K1 vs K1' heatmaps of one eval batch: the same sums in another tile order
 KVRES_HM_RTOL = 1e-5
 PRENET_CONFIG = ROOT / "experiments" / "crowdpose" / "buctd" / "prenet_w48_384x288.yaml"
+TRANSPOSE_CONFIG = ROOT / "experiments" / "coco" / "buctd" / "transpose_h_384x288.yaml"
+# TransPose-H's self-attention: one head of d = 112 (DIM_MODEL 96 + 16
+# condition channels) over the 96 x 72 = 6912 tokens, once per encoder layer.
+# f32 K1 at the serving phase's predict_batch (16 crops) and at an evaluation
+# batch of 32 (the yaml's TEST.FLIP_TEST is false); bf16 K1 and K2 with
+# dropout at a training batch of 32
+TP_LAYERS = 6
+TP_F32_CASES = {"tp_serving": (16, 6912, 6912, 112), "tp_eval": (32, 6912, 6912, 112)}
+TP_TRAIN_CASES = [(TRAIN_BATCH, 6912, 112)]
+TP_EVAL_IMAGES = 16                     # x 4 people = 64 crops = 2 batches of 32
+# the synthetic sets' joint layouts: CrowdPose's 14, COCO's 17
+SYNTH_JOINTS = {"crowdpose": 14, "coco": 17}
 # K5 vs its plain version at the W48 branch geometries, batch 32: f32 sums of
 # 9C products in another order (the SIMT kernel measured <= 4.3e-6 on O(1)
 # outputs; f32 K5 takes its products in 3xTF32, and one tf32 pass,
@@ -362,7 +397,7 @@ def nan_phase(torch, fa, fb) -> None:
                                      f"not finite, the plain version {bad.sum().item()}")
 
     gen = torch.Generator("cuda").manual_seed(17)
-    for bh, l, d in ((2, 128, 48), (1, 100, 96)):
+    for bh, l, d in ((2, 128, 48), (1, 100, 96), (1, 100, 112)):
         q, k, v, dout = (torch.randn(bh, l, d, device="cuda", generator=gen) for _ in range(4))
         q[-1, l // 2, d // 3] = float("nan")
         scale = d ** -0.5
@@ -430,23 +465,26 @@ def f32_core_ms(bh, lq, lk, d) -> float:
 
 
 def kernel_phase(torch, F, fa) -> dict:
-    """K1 vs its plain version in f32 and bf16, at MAIN_CASES, EVAL_CASES and
-    OTHER_CASES.  f32 (the 3xTF32 tensor-core kernel) with dropout 0 and 0.1
+    """K1 vs its plain version in f32 and bf16, at MAIN_CASES, EVAL_CASES,
+    TransPose-H's TP_F32_CASES (d = 112) and OTHER_CASES.  f32 (the 3xTF32 tensor-core kernel) with dropout 0 and 0.1
     at KERNEL_ATOL/RTOL; at EVAL_CASES the one-pass control
     (TF32_CONTROL_PASSES) must miss that gate, and the kernels SDPA launches
     in f32 are named.  Times: f32 K1 and the SIMT
     forward it replaced in turns (ab_ms) at MAIN_CASES and EVAL_CASES, the
-    plain version and SDPA beside them.  Returns the f32 sums over MAIN_CASES
-    (one forward of the serving phase's batch) and over EVAL_CASES (one
-    validate step's forward), and the worst error."""
+    plain version and SDPA beside them, also at TP_F32_CASES.  Returns the f32
+    sums over MAIN_CASES (one forward of the serving phase's batch), over
+    EVAL_CASES (one validate step's forward) and at each TP_F32_CASES shape
+    (one TransPose-H encoder layer), and the worst error."""
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
 
     clock = sm_clock_hz()
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst, control = 0.0, float("inf")
     keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "core_ms")
-    sums = {case: {key: 0.0 for key in keys} for case in ("main", "eval")}
-    for bh, lq, lk, d in MAIN_CASES + EVAL_CASES + OTHER_CASES:
+    groups = {"main": MAIN_CASES, "eval": EVAL_CASES,
+              **{name: [case] for name, case in TP_F32_CASES.items()}}
+    sums = {case: {key: 0.0 for key in keys} for case in groups}
+    for bh, lq, lk, d in [c for cases in groups.values() for c in cases] + OTHER_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             q = torch.randn(bh, lq, d, device="cuda", generator=gen).to(dtype)
@@ -468,8 +506,7 @@ def kernel_phase(torch, F, fa) -> dict:
                 control = min(control, miss)
                 notes.append(f"{TF32_CONTROL_PASSES}-pass control exceeds the gate by "
                              f"{miss:.3e} (must be > 0)")
-            case = ("main" if (bh, lq, lk, d) in MAIN_CASES else
-                    "eval" if (bh, lq, lk, d) in EVAL_CASES else None)
+            case = next((g for g, cases in groups.items() if (bh, lq, lk, d) in cases), None)
             if dtype == torch.float32 and case:
                 simt_ms, ms = ab_ms(lambda: fa.flash_attention_simt(q, k, v, scale),
                                     lambda: fa.flash_attention(q, k, v, scale), 10)
@@ -497,7 +534,7 @@ def kernel_phase(torch, F, fa) -> dict:
                     sums[case][key] += val
             del q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
-    for case, label in (("main", MAIN_CASES), ("eval", EVAL_CASES)):
+    for case, label in groups.items():
         t = sums[case]
         print(f"K1 f32 over {label} at SM clock {clock / 1e6:.0f} MHz: 3xTF32 kernel "
               f"{t['ms']:.4f} ms, SIMT in turns {t['simt_ms']:.4f} ms "
@@ -637,40 +674,27 @@ def flash_floors_ms(bh, l, d, kind, clock_hz: float, dropout: float,
                      if dropout > 0.0 else 0.0)}
 
 
-def train_kernel_phase(torch, F, fa, tw) -> dict:
-    """K1 with dropout, K2 and K4 at the training path's shapes.
-
-    K1 and K2 at TRAIN_CASES (BH 32), f32 and bf16, dropout 0 and 0.1, against
-    the plain versions over BH chunks (the kernels and the plain versions draw
-    the same hash mask): f32 K1 and K2 at KERNEL_ATOL/RTOL and BWD_ATOL/RTOL,
-    where K2's one-pass tf32 control (``k2_control_miss``) must miss;
-    bf16 K1 (check_fwd_chunked: lse at KERNEL_ATOL/RTOL, out within
-    K1_BF16_RTOL x max |out| and K1_BF16_TILED_RMS, rows of exp(s' - lse)
-    within ROWSUM_ATOL of 1) and K2 (within K2_BF16_RTOL x max |grad|) against
-    the plain versions that round where they do, K2's distance to the f32
-    plain version printed.  Then timed at BH 32 in bf16 (the autocast step's
-    operands), dropout 0.1, beside the f32 SIMT kernels on the widened
-    operands and the tensor-core, MUFU and dropout-hash floors of each.  Library yardsticks:
-    SDPA's forward (K1) and SDPA's backward alone (K2: dq, dk and dv, the
-    function of K2's two kernels), with dropout 0.1.  K4: ``warp_phase``.
-    f32 K2's times, beside its SIMT kernels' and SDPA's f32 backward, come
-    from the tools phase (tools/bench_flash_bwd.py --dtype float32).
-    """
-    from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
+    """K1 and K2 at ``cases`` (BH, L, d), in ``dtypes``, at ``dropouts``, on
+    operands from ``gen``, against the plain versions over BH chunks (the
+    kernels and the plain versions draw the same hash mask): f32 K1 and K2 at
+    KERNEL_ATOL/RTOL and BWD_ATOL/RTOL, where K2's one-pass tf32 control
+    (``k2_control_miss``) must miss; bf16 K1 (check_fwd_chunked) and K2
+    (within K2_BF16_RTOL x max |grad|) against the plain versions that round
+    where they do, K2's distance to the f32 plain version printed.  Returns
+    the worst errors."""
     res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "bf16_rel": 0.0, "f32_gap": 0.0,
            "fwd_bf16_rel": 0.0, "rowsum": 0.0, "tiled": 0.0, "control": float("inf"),
            "k2_control": float("inf")}
     seed = 1234
-    for bh, lq, d in TRAIN_CASES:
+    for bh, lq, d in cases:
         chunk = PLAIN_BH[lq]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(3))
             do = torch.randn(bh, lq, d, device="cuda", generator=gen)
             scale = d ** -0.5
-            for p in (0.0, DROPOUT):
+            for p in dropouts:
                 out, lse = fa.flash_attention(q, k, v, scale, p, seed)
                 fwd, fnote = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, p, seed,
                                                chunk)
@@ -721,13 +745,24 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
             del q, k, v, do
             torch.cuda.empty_cache()
 
-    clock = sm_clock_hz()
+    return res
+
+
+def k1_k2_times(torch, F, fa, gen, cases, clock: float) -> dict:
+    """bf16 K1 and K2 (the autocast step's operands) at ``cases`` (BH, L, d),
+    dropout DROPOUT, on operands from ``gen``, summed over the cases: the
+    kernels, the plain versions, the f32 SIMT kernels on the widened operands
+    (what bf16 ran before its tensor-core kernels), SDPA's forward and SDPA's
+    backward alone (dq, dk and dv: the function of K2's two kernels), and the
+    tensor-core, MUFU and dropout-hash floors of each at ``clock``."""
+    seed = 1234
+    res = {}
     for name in ("fwd", "dq", "dkv"):
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "simt_ms"):
             res[f"{name}_{key}"] = 0.0
         for floor in ("tensor", "mufu", "hash"):
             res[f"{name}_{floor}_ms"] = 0.0
-    for bh, lq, d in TRAIN_CASES:
+    for bh, lq, d in cases:
         q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
         do = torch.randn(bh, lq, d, device="cuda", generator=gen)
@@ -797,6 +832,35 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
               f"alone {t['dq_library_ms']:.4f} ms", flush=True)
         del q, k, v, do, out, lse, delta, q4, k4, v4, out4, do4
         torch.cuda.empty_cache()
+    return res
+
+
+def train_kernel_phase(torch, F, fa, tw) -> dict:
+    """K1 with dropout, K2 and K4 at the training path's shapes.
+
+    K1 and K2 at TRAIN_CASES (BH 32), f32 and bf16, dropout 0 and 0.1, against
+    the plain versions over BH chunks (the kernels and the plain versions draw
+    the same hash mask): f32 K1 and K2 at KERNEL_ATOL/RTOL and BWD_ATOL/RTOL,
+    where K2's one-pass tf32 control (``k2_control_miss``) must miss;
+    bf16 K1 (check_fwd_chunked: lse at KERNEL_ATOL/RTOL, out within
+    K1_BF16_RTOL x max |out| and K1_BF16_TILED_RMS, rows of exp(s' - lse)
+    within ROWSUM_ATOL of 1) and K2 (within K2_BF16_RTOL x max |grad|) against
+    the plain versions that round where they do, K2's distance to the f32
+    plain version printed.  Then timed at BH 32 in bf16 (the autocast step's
+    operands), dropout 0.1, beside the f32 SIMT kernels on the widened
+    operands and the tensor-core, MUFU and dropout-hash floors of each.  Library yardsticks:
+    SDPA's forward (K1) and SDPA's backward alone (K2: dq, dk and dv, the
+    function of K2's two kernels), with dropout 0.1.  K4: ``warp_phase``.
+    f32 K2's times, beside its SIMT kernels' and SDPA's f32 backward, come
+    from the tools phase (tools/bench_flash_bwd.py --dtype float32).
+    """
+    from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res = k1_k2_checks(torch, fa, gen, TRAIN_CASES, (torch.float32, torch.bfloat16),
+                       (0.0, DROPOUT))
+    clock = sm_clock_hz()
+    res.update(k1_k2_times(torch, F, fa, gen, TRAIN_CASES, clock))
     print(f"K1 bf16 over {TRAIN_CASES} at SM clock {clock / 1e6:.0f} MHz, dropout "
           f"{DROPOUT}: {res['fwd_ms']:.4f} ms (SIMT f32 kernel on the widened operands {res['fwd_simt_ms']:.4f}); floors "
           f"tensor {res['fwd_tensor_ms']:.4f} mufu {res['fwd_mufu_ms']:.4f} hash "
@@ -821,6 +885,36 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
           f"at least {res['k2_control']:.3e} outside it; times: the tools phase", flush=True)
 
     res.update(warp_phase(torch, F, tw, gen))
+    return res
+
+
+def transpose_kernel_phase(torch, F, fa, tk: dict) -> dict:
+    """K1 and K2 at TransPose-H's training shape TP_TRAIN_CASES (d = 112),
+    bf16, dropout DROPOUT: checked against the plain versions at the bf16
+    gates (``k1_k2_checks``) and timed beside SDPA's forward and backward and
+    the floors (``k1_k2_times``); the kernel / SDPA ratios printed beside
+    those at TRAIN_CASES (``tk``, the training kernel phase's).  f32 K1 at
+    d = 112 is in the kernel phase (TP_F32_CASES).  Prints ptxas's registers
+    and spills of f32 K1's kernels at every head dim
+    (tools/bench_flash_fwd.py::register_summary)."""
+    from buctd_tpu_torch import _build
+    from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
+    from buctd_tpu_torch.tools.bench_flash_fwd import register_summary
+
+    print(f"f32 K1 registers (spills) by head dim: "
+          f"{register_summary(_build.build_log('flash_fwd'))}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res = k1_k2_checks(torch, fa, gen, TP_TRAIN_CASES, (torch.bfloat16,), (DROPOUT,))
+    res.update(k1_k2_times(torch, F, fa, gen, TP_TRAIN_CASES, sm_clock_hz()))
+    for kind, lib, label in (("fwd", "fwd_library_ms", "K1 / SDPA forward"),
+                             ("dq", "dq_library_ms", "K2 (dq + dkv) / SDPA backward")):
+        mine = res["fwd_ms"] if kind == "fwd" else res["dq_ms"] + res["dkv_ms"]
+        theirs = tk["fwd_ms"] if kind == "fwd" else tk["dq_ms"] + tk["dkv_ms"]
+        print(f"bf16 {label}: {mine / res[lib]:.3f} at {TP_TRAIN_CASES} (d = 112), "
+              f"{theirs / tk[lib]:.3f} over {TRAIN_CASES}", flush=True)
+    print(f"bf16 at d = 112: worst K1 check {res['fwd_bf16_rel']:.3e} of max |out|, tile "
+          f"rounding rms {res['tiled']:.3e}; worst K2 check {res['bf16_rel']:.3e} of max "
+          f"|grad|", flush=True)
     return res
 
 
@@ -1015,12 +1109,18 @@ def randomize(torch, model) -> None:
     random_init(model)
 
 
-def serving_phase(torch, np, fa) -> dict:
+def serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
+                  exact_ref: bool = False) -> dict:
+    """``config``'s model served at full width through PoseEstimator (f32,
+    ROUNDS rounds, random weights): predict and predict_batch, K1's launches
+    (``k1_per_forward`` a forward), one forward on the card vs the CPU
+    (within FORWARD_RTOL x peak; with ``exact_ref``, both against the CPU's
+    float64 forward, within FORWARD_F64_RATIO)."""
     from buctd_tpu_torch.config import default_config, update_config
     from buctd_tpu_torch.serving import PoseEstimator
 
     cfg = default_config()
-    update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=[]))
+    update_config(cfg, types.SimpleNamespace(cfg=str(config), opts=[]))
     torch.manual_seed(0)
     est = PoseEstimator(cfg, refine_iters=ROUNDS)   # device="cuda"
     randomize(torch, est.model)
@@ -1030,8 +1130,8 @@ def serving_phase(torch, np, fa) -> dict:
           f"{ROUNDS} rounds; allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     rng = np.random.RandomState(0)
-    img, conds = sample_request(np, rng)
-    batch = [sample_request(np, rng) for _ in range(3)]
+    img, conds = sample_request(np, rng, joints=joints)
+    batch = [sample_request(np, rng, joints=joints) for _ in range(3)]
     images, poses = [b[0] for b in batch], [b[1] for b in batch]
     keep = float("-inf")   # random weights: keep every joint, whatever its confidence
 
@@ -1055,40 +1155,57 @@ def serving_phase(torch, np, fa) -> dict:
         if o.shape != (4, joints, 3) or not np.isfinite(o).all():
             raise AssertionError(f"predict_batch gave {o.shape}")
     forwards = 2 * REPEATS   # predict: one forward per round; predict_batch: one chunk
-    want = 2 * ROUNDS * forwards
+    want = k1_per_forward * ROUNDS * forwards
     if launches != want:
-        raise AssertionError(f"flash launches {launches}, expected 2 per forward x "
-                             f"{ROUNDS} rounds x {forwards} forwards = {want}")
+        raise AssertionError(f"flash launches {launches}, expected {k1_per_forward} per "
+                             f"forward x {ROUNDS} rounds x {forwards} forwards = {want}")
     ms_predict = (t1 - t0) / REPEATS * 1e3
     ms_batch = (t2 - t1) / REPEATS * 1e3
-    print(f"predict: {ms_predict:.2f} ms/image (4 poses, {ROUNDS} rounds), "
+    name = cfg.MODEL.NAME
+    print(f"{name} predict: {ms_predict:.2f} ms/image (4 poses, {ROUNDS} rounds), "
           f"{4 * 1e3 / ms_predict:.2f} crops/s", flush=True)
-    print(f"predict_batch (3 images x 4 poses, padded to 4 images): "
+    print(f"{name} predict_batch (3 images x 4 poses, padded to 4 images): "
           f"{ms_batch / 3:.2f} ms/image, {12 * 1e3 / ms_batch:.2f} crops/s", flush=True)
-    print(f"flash launches in the run: {launches} (= 2 x {ROUNDS} x {forwards})", flush=True)
+    print(f"{name} flash launches in the run: {launches} (= {k1_per_forward} x {ROUNDS} x "
+          f"{forwards})", flush=True)
 
     # one forward on the card vs the same module on the CPU
     x = torch.from_numpy(rng.randn(1, 6, 384, 288).astype(np.float32))
     with torch.inference_mode():
         got = est.model(x.cuda()).cpu()
-        want_hm = copy.deepcopy(est.model).cpu()(x)
+        cpu_model = copy.deepcopy(est.model).cpu()
+        want_hm = cpu_model(x)
+        exact = cpu_model.double()(x.double()) if exact_ref else None
     err = (got - want_hm).abs().max().item()
     peak = want_hm.abs().max().item()
-    print(f"forward card vs CPU: max_abs_err {err:.3e}, heatmap peak {peak:.3e}, "
-          f"std {want_hm.std().item():.3e}, limit {FORWARD_RTOL:.0e} x peak", flush=True)
-    if not err <= FORWARD_RTOL * peak:
-        raise AssertionError("card forward disagrees with the CPU forward")
+    if not exact_ref:
+        print(f"{name} forward card vs CPU: max_abs_err {err:.3e}, heatmap peak {peak:.3e}, "
+              f"std {want_hm.std().item():.3e}, limit {FORWARD_RTOL:.0e} x peak", flush=True)
+        if not err <= FORWARD_RTOL * peak:
+            raise AssertionError("card forward disagrees with the CPU forward")
+    else:
+        card64, cpu64 = ((t.double() - exact).abs().max().item() for t in (got, want_hm))
+        print(f"{name} forward vs float64 on the CPU: card (f32) {card64:.3e}, CPU (f32) "
+              f"{cpu64:.3e} ({card64 / cpu64:.2f}x, limit {FORWARD_F64_RATIO}x), heatmap peak "
+              f"{peak:.3e}; card vs CPU {err:.3e}", flush=True)
+        if not card64 <= FORWARD_F64_RATIO * cpu64:
+            raise AssertionError("card forward further from float64 than the CPU's f32 forward")
     return {"launches": launches, "ms_predict": ms_predict, "ms_batch": ms_batch,
             "est": est, "images": images, "poses": poses}
 
 
-def write_synthetic_crowdpose(np, root: Path, n_images: int, people: int, seed: int = 0):
-    """A CrowdPose-format training set made from a seed: random 480x640 JPEGs
-    and ``people`` overlapping 14-joint persons per image (all joints
-    visible, no condition poses: the trainer synthesizes them).  Returns the
-    annotation file's path."""
+def write_synthetic_set(np, root: Path, n_images: int, people: int, seed: int = 0,
+                        layout: str = "crowdpose"):
+    """A training or test set in COCO format made from a seed: random 480x640
+    JPEGs and ``people`` overlapping persons per image, all joints visible,
+    in one of SYNTH_JOINTS' layouts: ``crowdpose`` (14 joints, a crowdIndex
+    per image, no condition poses: the CoAM yaml's trainer synthesizes them)
+    or ``coco`` (17 joints, each person with ``cond_kpts``, its joints moved
+    by N(0, 6 px), as a BU model's predictions: the TransPose-H yaml trains
+    from them, SYNTHESIS_POSE false).  Returns the annotation file's path."""
     import cv2
 
+    joints = SYNTH_JOINTS[layout]
     rng = np.random.RandomState(seed)
     images, anns = [], []
     for i in range(n_images):
@@ -1099,17 +1216,21 @@ def write_synthetic_crowdpose(np, root: Path, n_images: int, people: int, seed: 
         for k in range(people):
             x0, y0 = 20 + 140 * k + rng.uniform(-15, 15), rng.uniform(20, 120)
             w, h = rng.uniform(110, 160), rng.uniform(220, 330)
-            pts = np.stack([rng.uniform(x0, x0 + w, 14), rng.uniform(y0, y0 + h, 14)], 1)
-            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
-                         "iscrowd": 0, "num_keypoints": 14,
-                         "keypoints": [float(c) for x, y in pts for c in (x, y, 2)],
-                         "bbox": [float(x0), float(y0), float(w), float(h)],
-                         "area": float(w * h)})
-    ann_file = root / "crowdpose_train.json"
+            pts = np.stack([rng.uniform(x0, x0 + w, joints), rng.uniform(y0, y0 + h, joints)], 1)
+            ann = {"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
+                   "iscrowd": 0, "num_keypoints": joints,
+                   "keypoints": [float(c) for x, y in pts for c in (x, y, 2)],
+                   "bbox": [float(x0), float(y0), float(w), float(h)],
+                   "area": float(w * h)}
+            if layout == "coco":
+                cond = pts + rng.randn(joints, 2) * 6.0
+                ann["cond_kpts"] = {"bu": [float(c) for x, y in cond for c in (x, y, 1.0)]}
+            anns.append(ann)
+    ann_file = root / f"{layout}_train.json"
     ann_file.write_text(json.dumps({
         "images": images, "annotations": anns,
         "categories": [{"id": 1, "name": "person", "supercategory": "person",
-                        "keypoints": [f"k{j}" for j in range(14)], "skeleton": []}]}))
+                        "keypoints": [f"k{j}" for j in range(joints)], "skeleton": []}]}))
     return ann_file
 
 
@@ -1153,9 +1274,22 @@ def f32_k1_profile(by_name: dict, label: str) -> dict:
     return {"k1_ms": k1, "total_ms": total}
 
 
-def training_phase(torch, np, fa, tw) -> dict:
-    """The trainer's main path at full width, then the repeated-batch loss and
-    a profile of one step."""
+def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
+                   k1_per_step: int = 2, repeat_from_random: bool = False) -> dict:
+    """The trainer's main path at full width on ``config`` and a synthetic set
+    of ``layout``, K1, K2 dq and K2 dk/dv launched ``k1_per_step`` times a
+    step; then the loss over a repeated batch, from the trained model or,
+    with ``repeat_from_random``, from N(0, 1/fan_in) weights (``randomize``),
+    and a profile of one step.
+
+    The trainer starts from the reference's N(0, 0.001) init, whose heatmaps
+    are near 0: its loss starts at the zero-output floor, half the mean square
+    of the targets (~0.002 for sigma-3 heatmaps at 96x72).  CoAM-W48 leaves
+    its 10 steps above that floor and falls back to it over the repeated
+    batch; TransPose-H leaves them at it (its LayerNorms keep the encoder's
+    output at unit scale and the head's weights at 0.001), and 10 steps cannot
+    fit a batch below it (measured 0.00193 to 0.00193 on an H100), so its
+    repeated batch starts from random weights, far above the floor."""
     from buctd_tpu_torch.config import default_config, update_config
     from buctd_tpu_torch.data.datasets import get_dataset
     from buctd_tpu_torch.data.device_pipeline import DeviceLoader
@@ -1165,17 +1299,17 @@ def training_phase(torch, np, fa, tw) -> dict:
     with tempfile.TemporaryDirectory(prefix="buctd_train_") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
-        ann = write_synthetic_crowdpose(np, root, SYNTH_IMAGES, SYNTH_PEOPLE)
+        ann = write_synthetic_set(np, root, SYNTH_IMAGES, SYNTH_PEOPLE, layout=layout)
         opts = ["TPU.DEVICE_PIPELINE", "True", "DATASET.TRAIN_IMAGE_DIR", str(root),
                 "DATASET.TRAIN_ANNOTATION_FILE", str(ann), "OUTPUT_DIR", str(root / "out")]
-        print(f"training: synthetic CrowdPose set of {SYNTH_IMAGES} images x "
+        print(f"training {config.stem}: synthetic {layout} set of {SYNTH_IMAGES} images x "
               f"{SYNTH_PEOPLE} people written in {time.perf_counter() - t0:.1f} s", flush=True)
 
         for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, tw.warp_resample,
                   tw.warp_resample_two_pass):
             f.launches = 0                                   # the main path's run
         t0 = time.perf_counter()
-        res = run.main(["--cfg", str(CONFIG), "--steps", str(TRAIN_STEPS), "--no-eval",
+        res = run.main(["--cfg", str(config), "--steps", str(TRAIN_STEPS), "--no-eval",
                         "--seed", "0", *opts])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1187,12 +1321,12 @@ def training_phase(torch, np, fa, tw) -> dict:
         steps = res["steps"]
         stats = res["stats"][0]
         losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
-        want = {"flash_fwd": 2 * steps, "flash_bwd_dq": 2 * steps,
-                "flash_bwd_dkv": 2 * steps, "warp_resample": steps,
+        want = {"flash_fwd": k1_per_step * steps, "flash_bwd_dq": k1_per_step * steps,
+                "flash_bwd_dkv": k1_per_step * steps, "warp_resample": steps,
                 "warp_resample_two_pass": 0}
         print(f"training run: {steps} steps of batch {TRAIN_BATCH} in {wall:.1f} s "
               f"(model build and data included); launches {launches}, expected {want} "
-              f"(K1, dq, dkv: 2 per step; K4: 1 per batch)", flush=True)
+              f"(K1, dq, dkv: {k1_per_step} per step; K4: 1 per batch)", flush=True)
         if launches != want:
             raise AssertionError(f"launch counts {launches} != {want}")
         if steps != TRAIN_STEPS or not np.isfinite(losses).all():
@@ -1209,17 +1343,20 @@ def training_phase(torch, np, fa, tw) -> dict:
 
         # the loss over a repeated batch, from the trained model
         cfg = default_config()
-        update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=opts))
+        update_config(cfg, types.SimpleNamespace(cfg=str(config), opts=opts))
         loader = DeviceLoader(get_dataset(cfg, is_train=True), cfg, num_workers=4, seed=1)
         batch = next(iter(loader))
         loader.close()
         model = res["model"]
+        if repeat_from_random:
+            randomize(torch, model)
         optimizer = make_optimizer(cfg, model)
         step = TrainStep(cfg, model, optimizer, make_lr_schedule(cfg, optimizer, 1000),
                          torch.Generator().manual_seed(1))
         rep = [step(batch)["loss"] for _ in range(10)]
         rep = [float(x) for x in rep]
-        print(f"repeated batch, 10 steps: losses {[round(x, 6) for x in rep]}", flush=True)
+        print(f"repeated batch, 10 steps{' from random weights' if repeat_from_random else ''}: "
+              f"losses {[round(x, 6) for x in rep]}", flush=True)
         if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
             raise AssertionError(f"loss did not fall over a repeated batch: {rep}")
         t0 = time.perf_counter()
@@ -1230,7 +1367,7 @@ def training_phase(torch, np, fa, tw) -> dict:
         print(f"train step on a resident batch (no data wait): {device_ms:.2f} ms/step "
               f"({TRAIN_BATCH * 1e3 / device_ms:.2f} images/s)", flush=True)
         by_name = kernel_profile(torch, lambda: step(batch),
-                                 f"one train step (batch {TRAIN_BATCH}, bf16)")
+                                 f"one {config.stem} train step (batch {TRAIN_BATCH}, bf16)")
         # the autocast step's bf16 backward runs K2's tensor-core kernels, and
         # neither of its SIMT kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
         k2 = {kind: sum(ms for key, ms in by_name.items()
@@ -1718,7 +1855,7 @@ def eval_phase(torch, np, fa, tw) -> dict:
     res = {}
     with tempfile.TemporaryDirectory(prefix="buctd_eval_") as tmp:
         root = Path(tmp)
-        ann = write_synthetic_crowdpose(np, root, EVAL_IMAGES, SYNTH_PEOPLE, seed=11)
+        ann = write_synthetic_set(np, root, EVAL_IMAGES, SYNTH_PEOPLE, seed=11)
         bu = write_bu_predictions(np, ann, root)
         torch.manual_seed(5)
         cfg = default_config()
@@ -1847,6 +1984,80 @@ def eval_phase(torch, np, fa, tw) -> dict:
     return res
 
 
+def transpose_eval_phase(torch, np, fa, tw) -> dict:
+    """One TransPose-H evaluation round at full width through
+    ``valid.run.main`` on a synthetic COCO test set (TP_EVAL_IMAGES images x
+    SYNTH_PEOPLE people, 17 joints) from a BU-prediction json, with
+    N(0, 1/fan_in) weights saved as a .pth and the yaml's own test settings
+    (batch 32, TEST.FLIP_TEST false): a results json with one entry per crop,
+    a finite AP in [0, 1], K1 launched TP_LAYERS times and K4 once a batch;
+    then a profile of one validate step, K1's share of its kernel time."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.core.function import make_validate_step
+    from buctd_tpu_torch.data.datasets import get_dataset
+    from buctd_tpu_torch.data.device_pipeline import DeviceLoader
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.valid import run as valid_run
+
+    with tempfile.TemporaryDirectory(prefix="buctd_tp_eval_") as tmp:
+        root = Path(tmp)
+        ann = write_synthetic_set(np, root, TP_EVAL_IMAGES, SYNTH_PEOPLE, seed=13,
+                                  layout="coco")
+        bu = write_bu_predictions(np, ann, root)
+        torch.manual_seed(7)
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(TRANSPOSE_CONFIG), opts=[]))
+        model = get_model(cfg)
+        randomize(torch, model)
+        weights = root / "random_weights.pth"
+        torch.save(model.state_dict(), weights)
+        del model
+        opts = ["TPU.DEVICE_PIPELINE", "True", "DATASET.TEST_IMAGE_DIR", str(root),
+                "DATASET.TEST_ANNOTATION_FILE", str(ann), "TEST.COCO_BBOX_FILE", str(bu),
+                "TEST.MODEL_FILE", str(weights), "PRINT_FREQ", "100",
+                "OUTPUT_DIR", str(root / "out")]
+        for f in (fa.flash_attention, tw.warp_resample):
+            f.launches = 0                                   # the main path's run
+        t0 = time.perf_counter()
+        out = valid_run.main(["--cfg", str(TRANSPOSE_CONFIG), *opts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_fwd": fa.flash_attention.launches,
+                    "warp_resample": tw.warp_resample.launches}
+        batch_size = int(cfg.TEST.BATCH_SIZE_PER_GPU)
+        batches = -(-TP_EVAL_IMAGES * SYNTH_PEOPLE // batch_size)
+        want = {"flash_fwd": TP_LAYERS * batches, "warp_resample": batches}
+        r = out["rounds"][0]
+        rows = json.loads(Path(r["results"]).read_text())
+        print(f"transpose_h evaluation: one round in {wall:.1f} s (model build and data "
+              f"included): AP {r['AP']!r}, {r['crops']} crops, results json {len(rows)} "
+              f"entries; eval loop {r['loop_s']:.3f} s = {r['crops'] / r['loop_s']:.2f} "
+              f"crops/s (host clock), evaluate {r['evaluate_s']:.3f} s; launches {launches}, "
+              f"expected {want} (K1: {TP_LAYERS}, K4: 1 per batch of {batch_size} crops)",
+              flush=True)
+        if len(out["rounds"]) != 1 or len(rows) != r["crops"] \
+                or r["crops"] != TP_EVAL_IMAGES * SYNTH_PEOPLE:
+            raise AssertionError(f"{len(rows)} results for {r['crops']} crops")
+        if not (np.isfinite(r["AP"]) and 0.0 <= r["AP"] <= 1.0):
+            raise AssertionError(f"AP {r['AP']}")
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(TRANSPOSE_CONFIG), opts=opts))
+        ds = get_dataset(cfg, is_train=False)
+        loader = DeviceLoader(ds, cfg, num_workers=4)
+        batch = next(iter(loader))
+        loader.close()
+        step = make_validate_step(cfg, out["model"], ds.flip_pairs, ds.kpt_colors)
+        profile = f32_k1_profile(kernel_profile(
+            torch, lambda: step(batch),
+            f"one transpose_h validate step (batch {batch_size}, no flip, f32)"),
+            "transpose_h validate step")
+    return {"launches": launches, "ap": r["AP"], "crops_s": r["crops"] / r["loop_s"],
+            "profile": profile}
+
+
 def kvres_training_phase(torch, np, fa) -> dict:
     """KVRES_TRAIN_STEPS trainer steps under BUCTD_FLASH_KVRES=1: K1' and K2'
     only, a finite loss."""
@@ -1860,7 +2071,7 @@ def kvres_training_phase(torch, np, fa) -> dict:
                "flash_bwd_dkv_kvres": fa.flash_bwd_dkv_kvres}
     with tempfile.TemporaryDirectory(prefix="buctd_kvres_train_") as tmp:
         root = Path(tmp)
-        ann = write_synthetic_crowdpose(np, root, 24, SYNTH_PEOPLE, seed=3)
+        ann = write_synthetic_set(np, root, 24, SYNTH_PEOPLE, seed=3)
         for f in counted.values():
             f.launches = 0
         os.environ["BUCTD_FLASH_KVRES"] = "1"
@@ -2243,21 +2454,30 @@ def main() -> int:
     k1 = kernel_phase(torch, F, fa)
     main_k1 = k1["main"]
     tk = train_kernel_phase(torch, F, fa, tw)
+    tp_k = transpose_kernel_phase(torch, F, fa, tk)
     kv = kvres_kernel_phase(torch, F, fa)
-    serving = serving_phase(torch, np, fa)
-    est = serving["est"]
-    serving_profile = f32_k1_profile(
-        kernel_profile(torch, lambda: est.predict_batch(serving["images"], serving["poses"],
-                                                        float("-inf")),
-                       "predict_batch (3 images x 4 poses, 3 rounds)"), "predict_batch")
-    serving_launches = serving["launches"]
-    del est
-    del serving
-    torch.cuda.empty_cache()
+
+    def serve(config, k1_per_forward, exact_ref=False):
+        serving = serving_phase(torch, np, fa, config, k1_per_forward, exact_ref)
+        est = serving["est"]
+        profile = f32_k1_profile(kernel_profile(
+            torch, lambda: est.predict_batch(serving["images"], serving["poses"],
+                                             float("-inf")),
+            f"{config.stem} predict_batch (3 images x 4 poses, 3 rounds)"), "predict_batch")
+        del est, serving["est"]
+        torch.cuda.empty_cache()
+        return serving["launches"], profile
+
+    serving_launches, serving_profile = serve(CONFIG, 2)
+    tp_serving_launches, tp_serving_profile = serve(TRANSPOSE_CONFIG, TP_LAYERS, True)
     train = training_phase(torch, np, fa, tw)
+    torch.cuda.empty_cache()
+    tp_train = training_phase(torch, np, fa, tw, TRANSPOSE_CONFIG, "coco", TP_LAYERS, True)
     step_launches = card_vs_cpu_step(torch, np, fa)
     torch.cuda.empty_cache()
     ev = eval_phase(torch, np, fa, tw)
+    torch.cuda.empty_cache()
+    tp_ev = transpose_eval_phase(torch, np, fa, tw)
     torch.cuda.empty_cache()
     kv_train = kvres_training_phase(torch, np, fa)
     torch.cuda.empty_cache()
@@ -2299,13 +2519,31 @@ def main() -> int:
                 "bound_ms": f32_bounds[kind][0], "bound_by": f32_bounds[kind][1],
                 "launches": launches, **more}
 
+    def tp_bf16(kind, err_key):
+        # bf16 at TP_TRAIN_CASES (d = 112), dropout 0.1
+        return {"ms": tp_k[f"{kind}_ms"], "plain_ms": tp_k[f"{kind}_plain_ms"],
+                "bound_ms": tp_k[f"{kind}_bound_ms"],
+                "bound_by": bound_by(tp_k[f"{kind}_ops_ms"], tp_k[f"{kind}_bound_ms"]),
+                "library_ms": tp_k[f"{kind}_library_ms"], "simt_ms": tp_k[f"{kind}_simt_ms"],
+                "max_abs_err": tp_k[err_key]}
+
     def bwd_entry(kind, replaces):
         e = entry(f"flash_bwd_{kind}", "buctd_tpu_torch/csrc/flash_bwd.cu",
                   f"buctd_tpu/ops/flash_attention.py:{replaces}",
-                  train["launches"][f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
+                  train["launches"][f"flash_bwd_{kind}"]
+                  + tp_train["launches"][f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
         e["f32"] = f32_bwd(kind, sum(r["shipped"][f"{kind}_ms"] for r in k2_f32),
                            step_launches[f"flash_bwd_{kind}"])
+        # TransPose-H's training at d = 112: its launches, its bf16 kernels
+        e["transpose_h"] = {"launches": tp_train["launches"][f"flash_bwd_{kind}"],
+                            "bf16_training": tp_bf16(kind, f"{kind}_err")}
         return e
+
+    def tp_f32(group):
+        t = k1[group]
+        return {**{key: t[key] for key in ("ms", "simt_ms", "plain_ms", "library_ms",
+                                           "bound_ms", "core_ms")},
+                "bound_by": bound_by(t["ops_ms"], t["bound_ms"]), "case": TP_F32_CASES[group]}
 
     def kv_bwd_entry(kind, replaces):
         return {"name": f"flash_bwd_{kind}_kvres", "route": "cuda",
@@ -2361,8 +2599,9 @@ def main() -> int:
          "source": "buctd_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "buctd_tpu/ops/flash_attention.py:86",
          "launches": (serving_launches + train["launches"]["flash_fwd"]
-                      + ev["launches"]["flash_fwd"]),
-         "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"]),
+                      + ev["launches"]["flash_fwd"] + tp_serving_launches
+                      + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]),
+         "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"], tp_k["fwd_err"]),
          # f32 (3xTF32) at MAIN_CASES, the SIMT forward it replaced timed in
          # turns beside it
          "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
@@ -2383,7 +2622,20 @@ def main() -> int:
                            "bound_by": bound_by(tk["fwd_ops_ms"], tk["fwd_bound_ms"]),
                            "library_ms": tk["fwd_library_ms"],
                            "simt_ms": tk["fwd_simt_ms"],
-                           "max_out_err_of_max": tk["fwd_bf16_rel"]}},
+                           "max_out_err_of_max": tk["fwd_bf16_rel"]},
+         # TransPose-H at d = 112: K1's launches on its three paths, f32 at
+         # its serving and evaluation shapes, bf16 at its training shape, and
+         # K1's time in its profiled runs
+         "transpose_h": {
+             "launches": {"serving": tp_serving_launches,
+                          "training": tp_train["launches"]["flash_fwd"],
+                          "evaluation": tp_ev["launches"]["flash_fwd"]},
+             "f32_serving": tp_f32("tp_serving"), "f32_eval": tp_f32("tp_eval"),
+             "bf16_training": {**tp_bf16("fwd", "fwd_err"),
+                               "max_out_err_of_max": tp_k["fwd_bf16_rel"]},
+             "profiled_ms": {"predict_batch": tp_serving_profile["k1_ms"],
+                             "validate_step": tp_ev["profile"]["k1_ms"],
+                             "train_step": tp_train["k1_profile_ms"]}}},
         {"name": "flash_fwd_kvres", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/flash_fwd_kvres.cu",
          "replaces": "buctd_tpu/ops/flash_attention.py:139",
@@ -2400,7 +2652,8 @@ def main() -> int:
         kv_bwd_entry("dkv", 295),
         {**entry("warp_resample", "buctd_tpu_torch/csrc/warp_resample.cu",
                  "buctd_tpu/ops/pallas_warp.py:30",
-                 train["launches"]["warp_resample"] + ev["launches"]["warp_resample"],
+                 train["launches"]["warp_resample"] + ev["launches"]["warp_resample"]
+                 + tp_train["launches"]["warp_resample"] + tp_ev["launches"]["warp_resample"],
                  tk["warp_err"], "warp"),
          # the fused f32 kernel above; beside it, in this run: the two-pass
          # form in turns, the uint8 source with mask rectangles (the loaders'

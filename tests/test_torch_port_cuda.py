@@ -40,7 +40,8 @@ order can round the intermediate or the output one bf16 step apart); at C =
 384 the tensor-core kernels' error against float64 at most 2x the SIMT
 kernel's; exp throughput (K6) rtol 1e-5 (expf/exp2f in f32, a few ulps); a
 full-width preNet-W48 forward, fused or not, card vs CPU within 1e-4 of the
-heatmaps' peak.
+heatmaps' peak; a full-width TransPose-H forward (K1 at d = 112) no further
+from the CPU's float64 forward than 2x the CPU's own f32 forward.
 """
 
 import numpy as np
@@ -720,3 +721,36 @@ def test_prenet_forward_on_cuda_matches_cpu(cuda, knob):
         got = model(x.to(cuda)).cpu()
         want = copy.deepcopy(model).cpu()(x)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_transpose_forward_on_cuda_matches_cpu(cuda):
+    """A full-width TransPose-H forward (coco 384x288, 6 encoder layers of one
+    d = 112 head over 6912 tokens), f32 with TF32 off, on the card and on the
+    CPU, each against the CPU's float64 forward: the card's no further than
+    2x the CPU's.  The first encoder layer takes the trunk's unnormalised
+    tokens (|x| ~ 650 under random weights: logits ~1e4), so f32 itself lies
+    ~1e-4 of the peak from float64 there, and two f32 forwards ~1e-3 apart
+    (chip_smoke.py's FORWARD_F64_RATIO).  The card's forward launches K1 once
+    a layer."""
+    import copy
+
+    from buctd_tpu_torch.models import get_model
+    from test_torch_port_config import REPO
+
+    yaml = REPO / "experiments" / "coco" / "buctd" / "transpose_h_384x288.yaml"
+    cfg = load_cfg("torch", yaml)
+    torch.manual_seed(0)
+    model = get_model(cfg)
+    _randomize(model)
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, 6, 384, 288).astype(np.float32))
+    fa.flash_attention.launches = 0
+    with torch.inference_mode():
+        got = model(x.to(cuda)).cpu()
+        assert fa.flash_attention.launches == 6
+        cpu_model = copy.deepcopy(model).cpu()
+        want = cpu_model(x)
+        exact = cpu_model.double()(x.double())
+    assert got.shape == (2, 17, 96, 72)
+    card, cpu = ((t.double() - exact).abs().max().item() for t in (got, want))
+    assert card <= 2.0 * cpu, (card, cpu)
