@@ -3,8 +3,8 @@
 Mirrors the reference's yacs schema (lib/config/default.py:17-178) key-for-key so the
 reference's experiment YAMLs and ``KEY value`` CLI override lists work unchanged, plus the
 ``TPU`` section of the JAX package (buctd_tpu/config/defaults.py), kept key-for-key so
-every experiment YAML loads in both packages.  The port reads ``TPU.EVAL_DTYPE`` and
-``TPU.ATTENTION_ENGINE``; the other ``TPU`` keys belong to paths not ported yet.
+every experiment YAML loads in both packages.  The comment above the ``TPU`` section
+says which of its keys the port reads.
 """
 
 from __future__ import annotations
@@ -179,10 +179,13 @@ def default_config() -> CN:
 
     # --- the JAX package's TPU section, key for key ------------------------
     # Every experiment YAML carries it.  The port reads EVAL_DTYPE (float32;
-    # bfloat16 is not ported yet) and ATTENTION_ENGINE: 'auto' = the
-    # hand-written CUDA flash kernel (ops/flash_attention.py) for CUDA tensors
-    # with L_q*L_k >= 512^2, batched matmuls elsewhere; 'flash'/'mapped' force.
-    # The other keys belong to paths not ported yet; buctd_tpu/config/defaults.py
+    # bfloat16 is not ported yet), ATTENTION_ENGINE ('auto' = the hand-written
+    # CUDA flash kernel (ops/flash_attention.py) for CUDA tensors with
+    # L_q*L_k >= 512^2, batched matmuls elsewhere; 'flash'/'mapped' force),
+    # COMPUTE_DTYPE, DEVICE_PIPELINE (True; False raises), WARP_ENGINE,
+    # PREFETCH, FUSED_PRENET, DEVICE_SYNTHESIS, REMAT, REMAT_MODE and
+    # FUSED_OPTIMIZER; a MESH_SHAPE over more than one card raises.  The other
+    # keys belong to paths not ported yet; buctd_tpu/config/defaults.py
     # documents them.
     _C.TPU = CN()
     _C.TPU.MESH_SHAPE = [-1]

@@ -15,7 +15,8 @@ transpose_key_map), and a learnable ``pos_embedding`` keeps its (L, 1, d)
 layout; the sine table, which the JAX tree lacks, is supplied by the model
 when the state_dict loads (models/transpose.py::TransPoseH).  Since the port's
 module names are the reference's, a BUCTD ``.pth`` loads with
-``load_state_dict(strict=True)``.
+``load_state_dict(strict=True)``.  ``load_pretrained_subset`` is the
+ImageNet warm start's subset load (MODEL.PRETRAINED).
 """
 
 from __future__ import annotations
@@ -86,3 +87,19 @@ def load_torch_checkpoint(path: str) -> dict:
                 ckpt = ckpt[key]
                 break
     return {k[7:] if k.startswith("module.") else k: v for k, v in ckpt.items()}
+
+
+def load_pretrained_subset(model, state_dict: dict, pretrained_layers=("*",)) -> list:
+    """ImageNet warm start (buctd_tpu/convert/torch2jax.py::load_pretrained_subset,
+    the reference's init_weights, pose_hrnet.py:596-605): a key is loaded
+    when its first dotted part is in ``pretrained_layers`` (or the list is
+    ['*']) and the model has it at the same shape; every other parameter
+    keeps its fresh init.  Returns the loaded keys."""
+    allowed = set(pretrained_layers)
+    own = model.state_dict()
+    take = {k: v for k, v in state_dict.items()
+            if not k.endswith("num_batches_tracked")
+            and ("*" in allowed or k.split(".")[0] in allowed)
+            and k in own and tuple(v.shape) == tuple(own[k].shape)}
+    model.load_state_dict(take, strict=False)
+    return sorted(take)

@@ -2,6 +2,11 @@
 
 Counterpart of buctd_tpu/data/device_pipeline.py::DeviceLoader (:42-179):
 
+  synth  : with TPU.DEVICE_SYNTHESIS (training), the batch's condition
+           poses from the batched sampler on the loader's device and its
+           own stream (data/pose_synthesis_device.py,
+           pipeline.py::device_synthesize_batch); plan_sample takes them as
+           ``cond_override`` in place of its host sampler;
   host   : JointsDataset.plan_sample in a thread pool (decode, condition
            choice / synthesis, box and augmentation draws, crop affine, joint
            transforms), then the padding of the images into one uint8 bucket,
@@ -27,7 +32,7 @@ import torch
 from ..ops.heatmap import generate_target
 from ..ops.warp import warp_affine_general
 from .joints_dataset import IMAGENET_MEAN, IMAGENET_STD
-from .pipeline import condition_mode, render_condition
+from .pipeline import condition_mode, device_synthesize_batch, render_condition
 
 BUCKETS = (256, 384, 512, 640, 768, 1024, 1536, 2048)
 
@@ -76,14 +81,25 @@ class DeviceLoader:
         self.joints_weight = (
             torch.as_tensor(np.asarray(jw, np.float32).reshape(1, -1), device=dev)
             if bool(cfg.LOSS.USE_DIFFERENT_JOINTS_WEIGHT) and jw is not None else None)
+        self.device_synth = None
+        if (bool(cfg.TPU.DEVICE_SYNTHESIS) and self.is_train
+                and getattr(dataset, "synthesis_pose", False)
+                and getattr(dataset, "condition_topdown", False)):
+            # the batched sampler on the loader's device replaces the host
+            # sampler; plan_sample takes its poses through cond_override
+            from .pose_synthesis_device import make_synthesize_fn
+            self.device_synth = make_synthesize_fn(cfg, device=dev)
+            self.synth_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+            self._synth_step = 0
+            self._synth_seed = seed
 
     def close(self) -> None:
         self.pool.shutdown(wait=True)
 
-    def _host_sample(self, idx):
+    def _host_sample(self, idx, cond_override=None):
         """plan_sample plus packaging; the dict keeps the possibly flipped
         source view, which the bucket padding copies anyway."""
-        plan = self.ds.plan_sample(idx)
+        plan = self.ds.plan_sample(idx, cond_override=cond_override)
         H, W = plan["image"].shape[:2]
         mask_box = (np.array(plan["mask_box"], np.float64)
                     if plan["mask_box"] is not None
@@ -132,7 +148,8 @@ class DeviceLoader:
                 if self.drop_last:
                     return
                 idxs = np.concatenate([idxs, np.repeat(idxs[-1:], self.batch - len(idxs))])
-            samples = list(self.pool.map(self._host_sample, idxs))
+            conds = device_synthesize_batch(self, idxs)
+            samples = list(self.pool.map(self._host_sample, idxs, conds))
 
             hb = _bucket(max(s["image"].shape[0] for s in samples))
             wb = _bucket(max(s["image"].shape[1] for s in samples))

@@ -141,8 +141,8 @@ class JointsDataset:
 
     def synthesis_seed(self, db_rec):
         """(joints, seed_cond, near, area) of one record: the inputs of batched
-        device synthesis (TPU.DEVICE_SYNTHESIS, not ported yet), mirroring the
-        host path's seed selection."""
+        device synthesis (TPU.DEVICE_SYNTHESIS, data/pose_synthesis_device.py),
+        mirroring the host path's seed selection."""
         joints = np.asarray(db_rec["joints_3d"], np.float64).reshape(-1, 3)
         cond = db_rec.get("cond_joints")
         if cond is None or isinstance(cond, dict):

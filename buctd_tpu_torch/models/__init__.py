@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import hrnet, hrnet_coam, transpose
+from .remat import remat_mode
 
 _REGISTRY = {"pose_hrnet_coam": hrnet_coam.get_pose_net, "pose_hrnet": hrnet.get_pose_net,
              "transpose_h": transpose.get_pose_net}
@@ -38,6 +39,11 @@ def get_model(cfg, device="cuda") -> torch.nn.Module:
         raise RuntimeError("get_model: CUDA is not available; pass device='cpu' "
                            "to build the model on the CPU")
     model = _REGISTRY[name](cfg, engine=str(cfg.TPU.ATTENTION_ENGINE))
+    if hasattr(model, "remat"):
+        # the in-model units of TPU.REMAT, active in training mode only;
+        # 'forward' checkpoints the whole forward (train/state.py)
+        mode = remat_mode(cfg)
+        model.remat = "" if mode == "forward" else mode
     init_weights(model)
     return model.to(device).eval()
 

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_train
 from .hrnet import Linear
+from .remat import draw_seed
 
 FLASH_MIN_TOKENS = 512 * 512
 ENGINES = ("auto", "flash", "mapped")
@@ -83,10 +84,12 @@ def _no_autocast(x):
 
 
 def _draw_seed(generator) -> int:
+    """The flash dropout's seed (models/remat.py::draw_seed: a recompute
+    under TPU.REMAT replays the forward's seeds)."""
     if generator is None:
         raise RuntimeError("flash attention dropout needs a torch.Generator: "
                            "call set_dropout_generator(model, generator) first")
-    return int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    return draw_seed(generator)
 
 
 def set_dropout_generator(model: nn.Module, generator) -> None:

@@ -9,7 +9,9 @@ the reference's dotted paths ("layer1.0.conv1", "transition1.1.0.0",
 "stage2.0.fuse_layers.1.0.0.0", ...), so a BUCTD checkpoint loads with
 ``load_state_dict(strict=True)`` and ``convert.from_flax`` fills the same keys
 from the JAX variables.  BatchNorm updates its running variance as flax does
-(``BatchNorm2d``).  Rematerialization (TPU.REMAT) is not ported.
+(``BatchNorm2d``).  In training, ``remat`` (models/remat.py, TPU.REMAT_MODE)
+checkpoints the JAX package's units: the stem + layer1, the HRModules, the
+residual blocks, the preNet stems.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .remat import checkpoint, recomputing
 
 BN_EPS = 1e-5
 
@@ -68,16 +72,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     moves it toward the BIASED one.  With c = (n - 1) / n, n = B*H*W, torch's
     update of a copy holding var / c, times c, is
     (1 - m) var + m c var_unbiased = (1 - m) var + m var_biased, flax's
-    update, while the normalization still runs in torch's own kernel.
+    update, while the normalization still runs in torch's own kernel.  The
+    recompute of a rematerialized unit runs the same op on copies of the
+    statistics: its forward already moved them.
     """
 
     def forward(self, x):
         n = x.numel() // x.shape[1]
         if not (self.training and self.track_running_stats) or n < 2:
             return super().forward(x)
-        self.num_batches_tracked.add_(1)
         c = (n - 1) / n
         var = self.running_var / c            # torch updates this copy in place
+        if recomputing():                     # the same op, on copies
+            return F.batch_norm(x, self.running_mean.clone(), var, self.weight, self.bias,
+                                True, self.momentum, self.eps)
+        self.num_batches_tracked.add_(1)
         out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True,
                            self.momentum, self.eps)
         with torch.no_grad():
@@ -212,8 +221,8 @@ class HRModule(nn.Module):
                 fuse.append(nn.ModuleList(row))
             self.fuse_layers = nn.ModuleList(fuse)
 
-    def forward(self, xs):
-        outs = [branch(x) for branch, x in zip(self.branches, xs)]
+    def forward(self, xs, remat_blocks: bool = False):
+        outs = [run_blocks(branch, x, remat_blocks) for branch, x in zip(self.branches, xs)]
         if self.fuse_layers is None:
             return outs
         fused = []
@@ -224,6 +233,29 @@ class HRModule(nn.Module):
                 y = t if y is None else y + t
             fused.append(F.relu(y))
         return fused
+
+
+def run_blocks(blocks: nn.Sequential, x, remat: bool = False):
+    """A stack of residual blocks, each one rematerialized unit with ``remat``
+    (without it the Sequential itself runs, so its hooks see the call)."""
+    if not remat:
+        return blocks(x)
+    for block in blocks:
+        x = checkpoint(block, x)
+    return x
+
+
+def run_stage(stage: nn.Sequential, ys: list, mode: str = "") -> list:
+    """A stage's HRModules on the branch tensors ``ys``: each module one
+    rematerialized unit in mode 'modules', each block one in 'blocks'."""
+    if mode not in ("modules", "blocks"):
+        return stage(ys)
+    for module in stage:
+        if mode == "modules":
+            ys = list(checkpoint(lambda *xs, m=module: m(list(xs)), *ys))
+        else:
+            ys = module(ys, remat_blocks=True)
+    return ys
 
 
 def _transition(pre: tuple, cur: tuple) -> nn.ModuleList:
@@ -283,12 +315,16 @@ class HRNetTrunk(nn.Module):
 
     ``forward(x, taps, tap_arg)``: ``taps`` holds up to four hooks
     ``f(list_of_branch_tensors, tap_arg) -> list``, applied right after
-    transitions 1-3 and after stage4 (pose_hrnet_coam.py:521-563).
+    transitions 1-3 and after stage4 (pose_hrnet_coam.py:521-563).  They
+    stay outside the rematerialized units, as in JAX.  ``remat`` is the
+    TPU.REMAT_MODE of training ('' off; models/remat.py), which
+    models/__init__.py::get_model sets.
     """
 
     def __init__(self, spec: HRNetSpec, in_channels: int = 3):
         super().__init__()
         self.spec = spec
+        self.remat = ""
         self.conv1 = conv(in_channels, 64, 3, 2)
         self.bn1 = batch_norm(64)
         self.conv2 = conv(64, 64, 3, 2)
@@ -307,15 +343,22 @@ class HRNetTrunk(nn.Module):
                 for m in range(stage.num_modules)]))
             pre = cur
 
-    def forward(self, x, taps=(None, None, None, None), tap_arg=None) -> list:
+    def _stem_layer1(self, x, remat_blocks: bool = False):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
-        ys = [self.layer1(x)]
+        return run_blocks(self.layer1, x, remat_blocks)
+
+    def forward(self, x, taps=(None, None, None, None), tap_arg=None) -> list:
+        mode = self.remat if self.training else ""
+        if mode in ("modules", "stem"):
+            ys = [checkpoint(self._stem_layer1, x)]
+        else:
+            ys = [self._stem_layer1(x, remat_blocks=mode == "blocks")]
         for si in range(3):
             ys = _apply_transition(getattr(self, f"transition{si + 1}"), ys)
             if taps[si] is not None:
                 ys = taps[si](ys, tap_arg)
-            ys = getattr(self, f"stage{si + 2}")(ys)
+            ys = run_stage(getattr(self, f"stage{si + 2}"), ys, mode)
         if taps[3] is not None:
             ys = taps[3](ys, tap_arg)
         return ys
@@ -391,6 +434,9 @@ class PoseHRNet(HRNetTrunk):
         k = spec.final_conv_kernel
         self.final_layer = conv(c, spec.num_joints, k, pad=k // 2, bias=True)
 
+    def _prenet(self, rgb, cond):
+        return self.rgb_preNet(rgb) + self.cond_preNet(cond)
+
     def forward(self, x, film=None, lambda_vec=None, return_features: bool = False):
         """``film=(mu, sigma)`` (B, C) modulates the final features as
         mu + y * sigma (forward_lamda, pose_hrnet.py:497-540);
@@ -405,8 +451,10 @@ class PoseHRNet(HRNetTrunk):
                 if self.training:
                     raise RuntimeError("the fused preNet is an eval-only transform")
                 x = self.prenet_fused(x[:, :3], x[:, 3:6])
+            elif self.training and self.remat:
+                x = checkpoint(self._prenet, x[:, :3], x[:, 3:6])
             else:
-                x = self.rgb_preNet(x[:, :3]) + self.cond_preNet(x[:, 3:6])
+                x = self._prenet(x[:, :3], x[:, 3:6])
         feats = super().forward(x)[0]
         if return_features:
             return feats

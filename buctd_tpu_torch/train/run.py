@@ -5,12 +5,18 @@
 Same surface as the reference's tools/train.py: a YAML plus ``KEY value``
 overrides.  It trains on one CUDA card (``--device cuda``, the default; it
 raises where CUDA is absent) with the device loader (``TPU.DEVICE_PIPELINE
-True``: host planning, then the warp (K4), renders and targets on the card),
-Adam or SGD with MultiStepLR on optimizer steps, bf16 autocast when
-``TPU.COMPUTE_DTYPE`` says so, and the attention dropout through the flash
-kernels (K1 forward, K2 backward).  ``--steps N`` stops after N optimizer
-steps.  Checkpoints are ``.pth`` files with the reference's state-dict keys
-(``checkpoint.pth`` per epoch, ``final_state.pth`` at the end), so
+True``: host planning, then the warp (K4), renders and targets on the card;
+with ``TPU.DEVICE_SYNTHESIS`` the condition poses from the batched sampler
+on the card), Adam or SGD (``TPU.FUSED_OPTIMIZER``: their fused form) with
+MultiStepLR on optimizer steps, ``TRAIN.GRAD_ACCUM_STEPS`` micro-batches a
+step, bf16 autocast when ``TPU.COMPUTE_DTYPE`` says so, ``TPU.REMAT``, the
+cutmix/mixup step with ``TRAIN.MIX``, and the attention dropout through the
+flash kernels (K1 forward, K2 backward).  ``--steps N`` stops after N
+loader batches (micro-steps).  Warm starts as tools/train.py:53-77:
+``MODEL.PRETRAINED`` loads the ``MODEL.EXTRA.PRETRAINED_LAYERS`` subset of a
+``.pth``, ``TEST.MODEL_FILE`` a whole ``.pth``.  Checkpoints are ``.pth``
+files with the reference's state-dict keys (``checkpoint.pth`` per epoch,
+``checkpoint_ep{epoch}.pth`` every 20, ``final_state.pth`` at the end), so
 ``PoseEstimator(checkpoint=...)`` serves them.
 
 Every ``EPOCH_EVAL_FREQ`` epochs and after the last one it validates, as
@@ -20,9 +26,8 @@ its weights in ``model_best.pth`` beside ``checkpoint.pth`` (``--no-eval``
 skips validation).
 
 Not ported yet, and refused with the ROADMAP item named: the host cv2
-``Loader`` (``TPU.DEVICE_PIPELINE False``), ``MODEL.PRETRAINED``/
-``TEST.MODEL_FILE`` warm starts, and the options
-``train/state.py::check_train_options`` and
+``Loader`` (``TPU.DEVICE_PIPELINE False``), an orbax ``TEST.MODEL_FILE``, and
+the options ``train/state.py::check_train_options`` and
 ``core/function.py::check_eval_options`` list.
 """
 
@@ -49,7 +54,7 @@ def parse_args(argv=None):
     parser.add_argument("--dataDir", type=str, default="")
     parser.add_argument("--seed", type=int, default=22)
     parser.add_argument("--steps", type=int, default=None,
-                        help="stop after this many optimizer steps")
+                        help="stop after this many loader batches (micro-steps)")
     parser.add_argument("--no-eval", dest="no_eval", action="store_true",
                         help="skip validation")
     parser.add_argument("--device", type=str, default="cuda")
@@ -72,20 +77,39 @@ def _refuse_unported(cfg) -> None:
         raise NotImplementedError(
             "TPU.DEVICE_PIPELINE False (the host cv2 Loader) is not ported to "
             f"buctd_tpu_torch yet: {_TRAIN_ITEM}; pass TPU.DEVICE_PIPELINE True")
-    if (cfg.MODEL.INIT_WEIGHTS and cfg.MODEL.PRETRAINED.strip("/")) or cfg.TEST.MODEL_FILE:
-        raise NotImplementedError("warm starts (MODEL.PRETRAINED, TEST.MODEL_FILE) "
-                                  f"are not ported yet: {_TRAIN_ITEM}")
+    path = cfg.TEST.MODEL_FILE
+    if path and not path.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"TEST.MODEL_FILE {path!r}: an orbax checkpoint directory is not ported "
+            f"to buctd_tpu_torch yet: {_TRAIN_ITEM}; pass a .pth")
+
+
+def load_warm_start(cfg, model) -> None:
+    """MODEL.PRETRAINED (a subset by PRETRAINED_LAYERS), then TEST.MODEL_FILE
+    (the whole model), as tools/train.py:53-77."""
+    from ..convert import load_pretrained_subset, load_torch_checkpoint
+
+    if cfg.MODEL.INIT_WEIGHTS and cfg.MODEL.PRETRAINED.strip("/"):
+        path = cfg.MODEL.PRETRAINED
+        if not Path(path).is_file():
+            raise ValueError(f"MODEL.PRETRAINED not found: {path}")
+        layers = list(cfg.MODEL.EXTRA.get("PRETRAINED_LAYERS", ["*"]))
+        keys = load_pretrained_subset(model, load_torch_checkpoint(path), layers)
+        logger.info("=> %d tensors of %s loaded (layers %s)", len(keys), path, layers)
+    if cfg.TEST.MODEL_FILE:
+        model.load_state_dict(load_torch_checkpoint(cfg.TEST.MODEL_FILE), strict=True)
+        logger.info("=> weights from %s", cfg.TEST.MODEL_FILE)
 
 
 def save_checkpoint(model, optimizer, epoch: int, out_dir: Path, perf: float = 0.0,
-                    is_best: bool = False):
-    """checkpoint.pth in the reference's layout (lib/utils/utils.py:
+                    is_best: bool = False, name: str = "checkpoint.pth"):
+    """``name`` (checkpoint.pth) in the reference's layout (lib/utils/utils.py:
     save_checkpoint): epoch, model name, state_dict, best_state_dict, perf,
     optimizer; with ``is_best`` the state dict alone as model_best.pth."""
     sd = model.state_dict()
     torch.save({"epoch": epoch, "model": type(model).__name__, "state_dict": sd,
                 "best_state_dict": sd, "perf": perf,
-                "optimizer": optimizer.state_dict()}, out_dir / "checkpoint.pth")
+                "optimizer": optimizer.state_dict()}, out_dir / name)
     if is_best:
         torch.save(sd, out_dir / "model_best.pth")
 
@@ -98,7 +122,8 @@ def main(argv=None) -> dict:
     from ..data.datasets import get_dataset
     from ..data.device_pipeline import DeviceLoader
     from ..models import get_model
-    from .state import TrainStep, check_train_options, make_lr_schedule, make_optimizer
+    from .state import (accum_steps, check_train_options, make_lr_schedule, make_optimizer,
+                        make_train_step)
 
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -122,6 +147,7 @@ def main(argv=None) -> dict:
 
     out_dir = output_dir(cfg, args.cfg)
     model = get_model(cfg, device=device)
+    load_warm_start(cfg, model)
     dataset = get_dataset(cfg, is_train=True)
     loader = DeviceLoader(dataset, cfg, batch_size=cfg.TRAIN.BATCH_SIZE_PER_GPU,
                           shuffle=cfg.TRAIN.SHUFFLE, num_workers=cfg.WORKERS,
@@ -139,11 +165,11 @@ def main(argv=None) -> dict:
         for group in optimizer.param_groups:   # replayed below from the base LR
             group["lr"] = group["initial_lr"]
         scheduler = make_lr_schedule(cfg, optimizer, steps_per_epoch)
-        for _ in range(begin_epoch * steps_per_epoch):
+        for _ in range(begin_epoch * max(steps_per_epoch // accum_steps(cfg), 1)):
             scheduler.step()
         logger.info("=> auto-resumed at epoch %d from %s", begin_epoch, ckpt)
     generator = torch.Generator().manual_seed(args.seed)
-    step = TrainStep(cfg, model, optimizer, scheduler, generator)
+    step = make_train_step(cfg, model, optimizer, scheduler, generator, args.seed)
     logger.info("=> %s on %s: %d samples, %d steps per epoch, batch %d, %s",
                 cfg.MODEL.NAME, device, len(dataset), steps_per_epoch, loader.batch,
                 cfg.TPU.COMPUTE_DTYPE)
@@ -173,6 +199,9 @@ def main(argv=None) -> dict:
             is_best = perf > best_perf
             best_perf = max(perf, best_perf)
             save_checkpoint(model, optimizer, epoch + 1, out_dir, perf, is_best)
+            if (epoch + 1) % 20 == 0:
+                save_checkpoint(model, optimizer, epoch + 1, out_dir, perf,
+                                name=f"checkpoint_ep{epoch}.pth")
     finally:
         loader.close()
     torch.save(model.state_dict(), out_dir / "final_state.pth")

@@ -69,7 +69,17 @@ Phases (each raises on failure; nothing is caught):
      which must name K1's and K2's tensor-core kernels and no SIMT K1 or K2
      kernel; the same for TransPose-H on a synthetic COCO-format set whose
      people carry ``cond_kpts`` (the yaml trains from them, SYNTHESIS_POSE
-     false), K1, K2 dq and K2 dk/dv launched 6 times a step;
+     false), K1, K2 dq and K2 dk/dv launched 6 times a step; then
+     TPU.DEVICE_SYNTHESIS (``synthesis_phase``): plan_sample's host time a
+     sample, split into the host sampler and the rest, the card sampler's
+     device time a batch of 32, its CUDA kernel launches and its wall time
+     with the copy back, its mode rates against the host sampler's within
+     SYNTH_RATE_ATOL; CoAM-W48's 10-step run again with the sampler on the
+     card (ms/step, data wait, dispatch, resident step, the same launch
+     gates); and 3-step CoAM-W48 runs with each of OPTIONS (cutmix, mixup,
+     GRAD_ACCUM_STEPS 2, REMAT, FUSED_OPTIMIZER; ``options_phase``): finite
+     losses, the launch gates, and for REMAT the resident step's ms, peak
+     memory and K1/K2 launches with and without remat;
   5. one f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
      same step on the CPU: loss, the gradients (all, and the position
      attention's alone), BN running statistics; the step's K2 calls (3xTF32)
@@ -327,6 +337,21 @@ PRENET_FWD_RTOL = 1e-5
 PRENET_PX_TOL = 0.01
 # the tools' reduced runs: chained blocks, rounds, bench_stem's batch
 TOOL_CHAIN, TOOL_ROUNDS, TOOL_STEM_BATCH = 5, 2, 32
+# TPU.DEVICE_SYNTHESIS: the card sampler's mode rates (good, jitter, far,
+# zero by distance from GT) against the host sampler's on the same records,
+# within the JAX package's device-vs-host tolerance
+# (tests/test_pose_synthesis.py); SYNTH_HOST_REPS passes of the host sampler
+# and SYNTH_CARD_REPS batches of the card's over TRAIN_BATCH records
+SYNTH_RATE_ATOL = 0.05
+SYNTH_HOST_REPS, SYNTH_CARD_REPS = 4, 16
+# the trainer's step options, OPTION_STEPS steps of CoAM-W48 each, beside a
+# run with none of them (the same length, the same set); REMAT's resident
+# step with and without remat in REMAT_ROUNDS turns (off, on, on, off)
+OPTION_STEPS = 3
+REMAT_ROUNDS = 4
+OPTIONS = {"plain": [], "cutmix": ["TRAIN.MIX", "cutmix"], "mixup": ["TRAIN.MIX", "mixup"],
+           "grad_accum_2": ["TRAIN.GRAD_ACCUM_STEPS", "2"],
+           "remat": ["TPU.REMAT", "True"], "fused_optimizer": ["TPU.FUSED_OPTIMIZER", "True"]}
 
 
 # the flash libraries and their SIMT (f32, CUDA-core) kernels: every other
@@ -1275,12 +1300,14 @@ def f32_k1_profile(by_name: dict, label: str) -> dict:
 
 
 def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
-                   k1_per_step: int = 2, repeat_from_random: bool = False) -> dict:
+                   k1_per_step: int = 2, repeat_from_random: bool = False,
+                   extra_opts=(), full: bool = True) -> dict:
     """The trainer's main path at full width on ``config`` and a synthetic set
-    of ``layout``, K1, K2 dq and K2 dk/dv launched ``k1_per_step`` times a
-    step; then the loss over a repeated batch, from the trained model or,
-    with ``repeat_from_random``, from N(0, 1/fan_in) weights (``randomize``),
-    and a profile of one step.
+    of ``layout`` (with ``extra_opts``, e.g. TPU.DEVICE_SYNTHESIS True), K1, K2
+    dq and K2 dk/dv launched ``k1_per_step`` times a step, and the step on a
+    resident batch; with ``full``, then the loss over a repeated batch, from
+    the trained model or, with ``repeat_from_random``, from N(0, 1/fan_in)
+    weights (``randomize``), and a profile of one step.
 
     The trainer starts from the reference's N(0, 0.001) init, whose heatmaps
     are near 0: its loss starts at the zero-output floor, half the mean square
@@ -1301,18 +1328,22 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
         t0 = time.perf_counter()
         ann = write_synthetic_set(np, root, SYNTH_IMAGES, SYNTH_PEOPLE, layout=layout)
         opts = ["TPU.DEVICE_PIPELINE", "True", "DATASET.TRAIN_IMAGE_DIR", str(root),
-                "DATASET.TRAIN_ANNOTATION_FILE", str(ann), "OUTPUT_DIR", str(root / "out")]
-        print(f"training {config.stem}: synthetic {layout} set of {SYNTH_IMAGES} images x "
-              f"{SYNTH_PEOPLE} people written in {time.perf_counter() - t0:.1f} s", flush=True)
+                "DATASET.TRAIN_ANNOTATION_FILE", str(ann), "OUTPUT_DIR", str(root / "out"),
+                *extra_opts]
+        print(f"training {config.stem} {list(extra_opts)}: synthetic {layout} set of "
+              f"{SYNTH_IMAGES} images x {SYNTH_PEOPLE} people written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, tw.warp_resample,
                   tw.warp_resample_two_pass):
             f.launches = 0                                   # the main path's run
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = run.main(["--cfg", str(config), "--steps", str(TRAIN_STEPS), "--no-eval",
                         "--seed", "0", *opts])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         launches = {"flash_fwd": fa.flash_attention.launches,
                     "flash_bwd_dq": fa.flash_bwd_dq.launches,
                     "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
@@ -1336,12 +1367,12 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
         ms_step = statistics.median(per_step[warm]) * 1e3
         data_ms = statistics.median(stats["data_wait_s"][warm]) * 1e3
         dispatch_ms = statistics.median(stats["step_s"][warm]) * 1e3
-        print(f"training steps 3-{steps}: median {ms_step:.2f} ms/step "
+        print(f"training {list(extra_opts)} steps 3-{steps}: median {ms_step:.2f} ms/step "
               f"({TRAIN_BATCH * 1e3 / ms_step:.2f} images/s); data wait median "
               f"{data_ms:.2f} ms/step, step dispatch median {dispatch_ms:.2f} ms/step; "
-              f"losses {[round(x, 6) for x in losses]}", flush=True)
+              f"peak memory {peak_gib:.2f} GiB; losses {[round(x, 6) for x in losses]}",
+              flush=True)
 
-        # the loss over a repeated batch, from the trained model
         cfg = default_config()
         update_config(cfg, types.SimpleNamespace(cfg=str(config), opts=opts))
         loader = DeviceLoader(get_dataset(cfg, is_train=True), cfg, num_workers=4, seed=1)
@@ -1353,19 +1384,29 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
         optimizer = make_optimizer(cfg, model)
         step = TrainStep(cfg, model, optimizer, make_lr_schedule(cfg, optimizer, 1000),
                          torch.Generator().manual_seed(1))
-        rep = [step(batch)["loss"] for _ in range(10)]
-        rep = [float(x) for x in rep]
-        print(f"repeated batch, 10 steps{' from random weights' if repeat_from_random else ''}: "
-              f"losses {[round(x, 6) for x in rep]}", flush=True)
-        if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
-            raise AssertionError(f"loss did not fall over a repeated batch: {rep}")
+        if full:
+            # the loss over a repeated batch, from the trained model
+            rep = [step(batch)["loss"] for _ in range(10)]
+            rep = [float(x) for x in rep]
+            print(f"repeated batch, 10 steps"
+                  f"{' from random weights' if repeat_from_random else ''}: "
+                  f"losses {[round(x, 6) for x in rep]}", flush=True)
+            if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
+                raise AssertionError(f"loss did not fall over a repeated batch: {rep}")
+        else:
+            step(batch)                                     # warm-up
         t0 = time.perf_counter()
         for _ in range(5):
             step(batch)
         torch.cuda.synchronize()
         device_ms = (time.perf_counter() - t0) / 5 * 1e3
         print(f"train step on a resident batch (no data wait): {device_ms:.2f} ms/step "
-              f"({TRAIN_BATCH * 1e3 / device_ms:.2f} images/s)", flush=True)
+              f"({TRAIN_BATCH * 1e3 / device_ms:.2f} images/s); the loop ran "
+              f"{ms_step / device_ms:.3f}x it", flush=True)
+        if not full:
+            return {"launches": launches, "ms_step": ms_step, "data_ms": data_ms,
+                    "dispatch_ms": dispatch_ms, "resident_ms": device_ms,
+                    "peak_gib": peak_gib}
         by_name = kernel_profile(torch, lambda: step(batch),
                                  f"one {config.stem} train step (batch {TRAIN_BATCH}, bf16)")
         # the autocast step's bf16 backward runs K2's tensor-core kernels, and
@@ -1392,8 +1433,242 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
             raise AssertionError(f"the bf16 step's K1 kernels: tensor-core {k1_tc} ms, "
                                  f"SIMT {k1_simt}")
     return {"launches": launches, "ms_step": ms_step, "data_ms": data_ms,
-            "resident_ms": device_ms, "k1_profile_ms": k1_tc,
-            "k2_profile_ms": k2["dq"] + k2["dkv"], "profile_ms": total}
+            "dispatch_ms": dispatch_ms, "resident_ms": device_ms, "peak_gib": peak_gib,
+            "k1_profile_ms": k1_tc, "k2_profile_ms": k2["dq"] + k2["dkv"],
+            "profile_ms": total}
+
+
+def synth_mode_rates(np, samples, joints, area, sigmas):
+    """good / jitter / far / zero rates of synthesized joints by distance from
+    GT (tests/test_pose_synthesis.py's buckets): samples (R, B, J, 3), joints
+    (B, J, 3), area (B,)."""
+    var = (np.asarray(sigmas) * 2) ** 2
+    ks50, ks85 = (np.sqrt(-2 * np.asarray(area)[:, None] * var * np.log(p))
+                  for p in (0.50, 0.85))
+    d = np.linalg.norm(samples[..., :2] - joints[None, ..., :2], axis=-1)
+    zero = samples[..., 2] == 0
+    return np.array([((d <= ks85) & ~zero).mean(), ((d > ks85) & (d <= ks50) & ~zero).mean(),
+                     ((d > ks50) & ~zero).mean(), zero.mean()])
+
+
+def synthesis_phase(torch, np) -> dict:
+    """TPU.DEVICE_SYNTHESIS on CONFIG's synthetic CrowdPose set: plan_sample's
+    host time a sample, split into the host sampler and the rest, and the rest
+    alone with the card's poses (cond_override); the card sampler's device
+    time a batch of TRAIN_BATCH (CUDA events on its stream), its CUDA kernel
+    launches, and its wall time with the copy to pinned host memory
+    (pipeline.py::device_synthesize_batch); its mode rates against the host
+    sampler's on the same records, within SYNTH_RATE_ATOL."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.data import joints_dataset
+    from buctd_tpu_torch.data.datasets import get_dataset
+    from buctd_tpu_torch.data.device_pipeline import DeviceLoader
+    from buctd_tpu_torch.data.pipeline import device_synthesize_batch, synthesis_generator
+    from buctd_tpu_torch.data.pose_synthesis import CROWDPOSE_SIGMAS
+
+    with tempfile.TemporaryDirectory(prefix="buctd_synth_") as tmp:
+        root = Path(tmp)
+        ann = write_synthetic_set(np, root, TRAIN_BATCH // SYNTH_PEOPLE, SYNTH_PEOPLE, seed=3)
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=[
+            "TPU.DEVICE_PIPELINE", "True", "TPU.DEVICE_SYNTHESIS", "True",
+            "DATASET.TRAIN_IMAGE_DIR", str(root), "DATASET.TRAIN_ANNOTATION_FILE", str(ann)]))
+        ds = get_dataset(cfg, is_train=True)
+        idxs = np.arange(TRAIN_BATCH)
+        if len(ds.db) != TRAIN_BATCH:
+            raise AssertionError(f"{len(ds.db)} records, not {TRAIN_BATCH}")
+
+        # plan_sample with the host sampler, the sampler timed inside it
+        host_sampler, in_sampler = joints_dataset.synthesize_pose, []
+
+        def timed_sampler(*a, **k):
+            t0 = time.perf_counter()
+            out = host_sampler(*a, **k)
+            in_sampler.append(time.perf_counter() - t0)
+            return out
+
+        joints_dataset.synthesize_pose = timed_sampler
+        try:
+            ds.plan_sample(0)                                   # warm-up (decode caches)
+            in_sampler.clear()
+            t0 = time.perf_counter()
+            for i in idxs:
+                ds.plan_sample(int(i))
+            plan_ms = (time.perf_counter() - t0) / len(idxs) * 1e3
+        finally:
+            joints_dataset.synthesize_pose = host_sampler
+        sampler_ms = sum(in_sampler) / len(idxs) * 1e3
+        if len(in_sampler) != len(idxs):
+            raise AssertionError(f"host sampler ran {len(in_sampler)} times for {len(idxs)}")
+
+        loader = DeviceLoader(ds, cfg, batch_size=TRAIN_BATCH, num_workers=4, seed=0)
+        try:
+            seeds = [ds.synthesis_seed(ds.db[i]) for i in idxs]
+            args = (np.stack([s[0] for s in seeds]), np.stack([s[1] for s in seeds]),
+                    [s[2] for s in seeds], np.array([s[3] for s in seeds]))
+            for _ in range(3):
+                conds = device_synthesize_batch(loader, idxs)          # warm-up
+            t0 = time.perf_counter()
+            for i in idxs:
+                ds.plan_sample(int(i), cond_override=conds[i])
+            rest_ms = (time.perf_counter() - t0) / len(idxs) * 1e3
+
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                device_synthesize_batch(loader, idxs)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall_ms = statistics.median(walls)
+            stream = loader.synth_stream
+            times = []
+            with torch.cuda.stream(stream):
+                for k in range(10):
+                    gen = synthesis_generator(loader.device, 1, k)
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record(stream)
+                    loader.device_synth(gen, *args)
+                    end.record(stream)
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+            device_ms = statistics.median(times)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                device_synthesize_batch(loader, idxs)
+                torch.cuda.synchronize()
+            launches = sum(e.count for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA)
+
+            # mode rates: the host sampler twice over the records, the card's
+            # SYNTH_CARD_REPS batches, against each record's GT
+            joints = np.stack([np.asarray(ds.db[i]["joints_3d"], np.float64) for i in idxs])
+            area = args[3]
+            host_rng = np.random.RandomState(5)
+            host = np.stack([[host_sampler(cfg, s[0], s[1], s[2], s[3], 0, rng=host_rng)
+                              for s in seeds] for _ in range(SYNTH_HOST_REPS)])
+            card = np.stack([loader.device_synth(synthesis_generator(loader.device, 2, k),
+                                                 *args).cpu().numpy()
+                             for k in range(SYNTH_CARD_REPS)])
+        finally:
+            loader.close()
+    rates = {name: synth_mode_rates(np, v, joints, area, CROWDPOSE_SIGMAS)
+             for name, v in (("host", host), ("card", card))}
+    print(f"plan_sample a sample (host clock, {len(idxs)} records): {plan_ms:.3f} ms with "
+          f"the host sampler, of which the sampler {sampler_ms:.3f} ms and the rest "
+          f"{plan_ms - sampler_ms:.3f}; with the card's poses (cond_override) {rest_ms:.3f} "
+          f"ms", flush=True)
+    print(f"card sampler, batch {TRAIN_BATCH} ({cfg.MODEL.NUM_JOINTS} joints, P_max 8, N 500): "
+          f"device time {device_ms:.4f} ms (median of 10, CUDA events on its stream), "
+          f"{launches} CUDA kernel launches a batch; wall {wall_ms:.4f} ms with the copy "
+          f"to the host (median of 10; the host sampler {sampler_ms * TRAIN_BATCH:.1f} ms "
+          f"a batch on one core)", flush=True)
+    print(f"mode rates good/jitter/far/zero: host {np.round(rates['host'], 4).tolist()} "
+          f"({SYNTH_HOST_REPS} x {TRAIN_BATCH} poses), card "
+          f"{np.round(rates['card'], 4).tolist()} ({SYNTH_CARD_REPS} x {TRAIN_BATCH}); "
+          f"max gap {np.abs(rates['host'] - rates['card']).max():.4f} (limit "
+          f"{SYNTH_RATE_ATOL})", flush=True)
+    if not (np.isfinite(card).all() and np.abs(rates["host"] - rates["card"]).max()
+            <= SYNTH_RATE_ATOL and rates["card"][2] > 0.01):
+        raise AssertionError(f"card sampler rates {rates}")
+    return {"plan_ms": plan_ms, "sampler_ms": sampler_ms, "rest_ms": rest_ms,
+            "device_ms": device_ms, "wall_ms": wall_ms, "launches": launches,
+            "rates": rates}
+
+
+def options_phase(torch, np, fa, tw, k1_per_step: int = 2) -> dict:
+    """OPTION_STEPS-step CoAM-W48 runs of the trainer with each of OPTIONS
+    (and TPU.DEVICE_SYNTHESIS, so the loader keeps up), each with finite
+    losses and K1, K2 dq, K2 dk/dv launched ``k1_per_step`` times and K4
+    once a loader batch; for TPU.REMAT also the resident step with and
+    without remat, its ms, peak memory and K1/K2 launches."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.data.datasets import get_dataset
+    from buctd_tpu_torch.data.device_pipeline import DeviceLoader
+    from buctd_tpu_torch.train import run
+    from buctd_tpu_torch.train.state import TrainStep, make_lr_schedule, make_optimizer
+
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, tw.warp_resample)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="buctd_options_") as tmp:
+        root = Path(tmp)
+        ann = write_synthetic_set(np, root, OPTION_STEPS * TRAIN_BATCH // SYNTH_PEOPLE,
+                                  SYNTH_PEOPLE, seed=4)
+        base = ["TPU.DEVICE_PIPELINE", "True", "TPU.DEVICE_SYNTHESIS", "True",
+                "DATASET.TRAIN_IMAGE_DIR", str(root), "DATASET.TRAIN_ANNOTATION_FILE",
+                str(ann), "OUTPUT_DIR", str(root / "out"), "AUTO_RESUME", "False"]
+        for name, opts in OPTIONS.items():
+            for f in counters:
+                f.launches = 0                               # this option's run
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = run.main(["--cfg", str(CONFIG), "--steps", str(OPTION_STEPS), "--no-eval",
+                            "--seed", "0", *base, *opts])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = [f.launches for f in counters]
+            losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
+            st = res["stats"][0]
+            per_step = [d + s for d, s in zip(st["data_wait_s"], st["step_s"])][1:]
+            ms = statistics.median(per_step) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = [k1_per_step * OPTION_STEPS] * 3 + [OPTION_STEPS]
+            print(f"option {name} {opts}: {res['steps']} steps in {wall:.1f} s (model build "
+                  f"included), steps 2-{OPTION_STEPS} median {ms:.2f} ms/step, peak memory "
+                  f"{peak:.2f} GiB; launches K1, dq, dkv, K4 {launches} (expected {want}); "
+                  f"losses {[round(x, 6) for x in losses]}", flush=True)
+            if (res["steps"] != OPTION_STEPS or not np.isfinite(losses).all()
+                    or launches != want):
+                raise AssertionError(f"option {name}: {res['steps']} steps, losses {losses}, "
+                                     f"launches {launches} != {want}")
+            out[name] = {"ms_step": ms, "peak_gib": peak, "launches": launches}
+            if name != "remat":
+                del res
+                continue
+            # the resident step with and without remat, on the trained model,
+            # in turns (off, on, on, off, ...)
+            cfg = default_config()
+            update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=base + opts))
+            loader = DeviceLoader(get_dataset(cfg, is_train=True), cfg, num_workers=4, seed=1)
+            batch = next(iter(loader))
+            loader.close()
+            model = res["model"]
+            del res
+            optimizer = make_optimizer(cfg, model)
+            step = TrainStep(cfg, model, optimizer, make_lr_schedule(cfg, optimizer, 1000),
+                             torch.Generator().manual_seed(1))
+            times = {"": [], "modules": []}
+            peaks, k12s = {}, {}
+            for r in range(REMAT_ROUNDS):
+                mode = ("", "modules")[(r + r // 2) % 2]            # off, on, on, off
+                model.remat = mode
+                step(batch)                                         # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = [f.launches for f in counters[:3]]
+                t0 = time.perf_counter()
+                for _ in range(OPTION_STEPS):
+                    step(batch)
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) / OPTION_STEPS * 1e3)
+                k12s[mode] = [(f.launches - b) // OPTION_STEPS for f, b in zip(counters[:3],
+                                                                               before)]
+                peaks[mode] = torch.cuda.max_memory_allocated() / 2**30
+            for mode in ("", "modules"):
+                ms_res, k12 = statistics.mean(times[mode]), k12s[mode]
+                out["remat"][f"resident_{mode or 'off'}"] = {
+                    "ms": ms_res, "peak_gib": peaks[mode], "k1_k2_per_step": k12}
+                print(f"resident step, REMAT {mode or 'off'}: {ms_res:.2f} ms/step (turns "
+                      f"{[round(t, 2) for t in times[mode]]}), peak memory {peaks[mode]:.2f} "
+                      f"GiB (max_memory_allocated), K1, dq, dkv launches a step {k12}: "
+                      f"CoAM's attention sits outside the remat units, as in JAX, so the "
+                      f"recompute launches no K1 or K2 of its own", flush=True)
+                if k12 != [k1_per_step] * 3:
+                    raise AssertionError(f"REMAT {mode!r}: K1/K2 launches a step {k12}")
+            del model, optimizer, step
+            torch.cuda.empty_cache()
+    return out
 
 
 def dense_attention_grads(q, k, v, dout, scale):
@@ -2472,6 +2747,24 @@ def main() -> int:
     tp_serving_launches, tp_serving_profile = serve(TRANSPOSE_CONFIG, TP_LAYERS, True)
     train = training_phase(torch, np, fa, tw)
     torch.cuda.empty_cache()
+    synth = synthesis_phase(torch, np)
+    train_synth = training_phase(torch, np, fa, tw, extra_opts=("TPU.DEVICE_SYNTHESIS", "True"),
+                                 full=False)
+    torch.cuda.empty_cache()
+    options = options_phase(torch, np, fa, tw)
+    torch.cuda.empty_cache()
+    print(f"CoAM-W48 trainer, batch {TRAIN_BATCH}: host synthesis {train['ms_step']:.2f} ms/step "
+          f"(data wait {train['data_ms']:.2f}, dispatch {train['dispatch_ms']:.2f}; resident "
+          f"{train['resident_ms']:.2f}); card synthesis (TPU.DEVICE_SYNTHESIS) "
+          f"{train_synth['ms_step']:.2f} ms/step (data wait {train_synth['data_ms']:.2f}, "
+          f"dispatch {train_synth['dispatch_ms']:.2f}; resident "
+          f"{train_synth['resident_ms']:.2f}): {train_synth['ms_step'] / train_synth['resident_ms']:.3f}x "
+          f"its resident step; the card sampler {synth['device_ms']:.4f} ms a batch on the "
+          f"card, {synth['wall_ms']:.4f} ms with the copy back", flush=True)
+    # K1, dq, dkv and K4 launches of the trainer's other paths in this run
+    more = {key: train_synth["launches"][key] + sum(o["launches"][i] for o in options.values())
+            for i, key in enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                     "warp_resample"))}
     tp_train = training_phase(torch, np, fa, tw, TRANSPOSE_CONFIG, "coco", TP_LAYERS, True)
     step_launches = card_vs_cpu_step(torch, np, fa)
     torch.cuda.empty_cache()
@@ -2530,7 +2823,7 @@ def main() -> int:
     def bwd_entry(kind, replaces):
         e = entry(f"flash_bwd_{kind}", "buctd_tpu_torch/csrc/flash_bwd.cu",
                   f"buctd_tpu/ops/flash_attention.py:{replaces}",
-                  train["launches"][f"flash_bwd_{kind}"]
+                  train["launches"][f"flash_bwd_{kind}"] + more[f"flash_bwd_{kind}"]
                   + tp_train["launches"][f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
         e["f32"] = f32_bwd(kind, sum(r["shipped"][f"{kind}_ms"] for r in k2_f32),
                            step_launches[f"flash_bwd_{kind}"])
@@ -2598,7 +2891,7 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "buctd_tpu/ops/flash_attention.py:86",
-         "launches": (serving_launches + train["launches"]["flash_fwd"]
+         "launches": (serving_launches + train["launches"]["flash_fwd"] + more["flash_fwd"]
                       + ev["launches"]["flash_fwd"] + tp_serving_launches
                       + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]),
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"], tp_k["fwd_err"]),
@@ -2652,7 +2945,8 @@ def main() -> int:
         kv_bwd_entry("dkv", 295),
         {**entry("warp_resample", "buctd_tpu_torch/csrc/warp_resample.cu",
                  "buctd_tpu/ops/pallas_warp.py:30",
-                 train["launches"]["warp_resample"] + ev["launches"]["warp_resample"]
+                 train["launches"]["warp_resample"] + more["warp_resample"]
+                 + ev["launches"]["warp_resample"]
                  + tp_train["launches"]["warp_resample"] + tp_ev["launches"]["warp_resample"],
                  tk["warp_err"], "warp"),
          # the fused f32 kernel above; beside it, in this run: the two-pass

@@ -754,3 +754,121 @@ def test_transpose_forward_on_cuda_matches_cpu(cuda):
     assert got.shape == (2, 17, 96, 72)
     card, cpu = ((t.double() - exact).abs().max().item() for t in (got, want))
     assert card <= 2.0 * cpu, (card, cpu)
+
+
+def _coco_scenario():
+    """tests/test_pose_synthesis.py's COCO scenario (17 visible joints, one
+    overlapping neighbour), without its JAX import."""
+    rng = np.random.RandomState(7)
+    joints = np.zeros((17, 3))
+    joints[:, 0] = rng.uniform(100, 200, 17)
+    joints[:, 1] = rng.uniform(100, 300, 17)
+    joints[:, 2] = 2
+    near = joints[None].copy()
+    near[0, :, 0] += 60
+    return joints, joints.copy(), near, 150 * 250
+
+
+def _mode_rates(samples, joints, area, sigmas):
+    """good / jitter / far / zero rates by distance from GT (ks85, ks50)."""
+    var = (sigmas * 2) ** 2
+    ks50, ks85 = (np.sqrt(-2 * area * var * np.log(p)) for p in (0.50, 0.85))
+    d = np.linalg.norm(samples[..., :2] - joints[None, :, :2], axis=-1)
+    zero = samples[..., 2] == 0
+    return np.array([((d <= ks85) & ~zero).mean(), ((d > ks85) & (d <= ks50) & ~zero).mean(),
+                     ((d > ks50) & ~zero).mean(), zero.mean()])
+
+
+@pytest.mark.cuda
+def test_card_sampler_rates_match_the_host_sampler(cuda):
+    """The batched sampler on the card against the port's host sampler: the
+    four mode rates within 0.05 (the JAX package's device-vs-host tolerance),
+    the far rate above 0.01; finite (B, J, 3) at CrowdPose's training shapes
+    (batch 32, 14 joints, 8 neighbours)."""
+    import types
+
+    from buctd_tpu_torch.data.pose_synthesis import COCO_SIGMAS, synthesize_pose
+    from buctd_tpu_torch.data.pose_synthesis_device import make_synthesize_fn
+
+    def cfg(dataset, J):
+        return types.SimpleNamespace(MODEL=types.SimpleNamespace(NUM_JOINTS=J),
+                                     DATASET=types.SimpleNamespace(DATASET=dataset))
+
+    joints, est, near, area = _coco_scenario()
+    n = 600
+    fn = make_synthesize_fn(cfg("coco", 17), P_max=4, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    card = fn(gen, np.repeat(joints[None], n, 0), np.repeat(est[None], n, 0), [near] * n,
+              np.full(n, float(area))).cpu().numpy()
+    host_rng = np.random.RandomState(5)
+    host = np.stack([synthesize_pose(cfg("coco", 17), joints, est, near, area, 0, rng=host_rng)
+                     for _ in range(150)])
+    got, want = (_mode_rates(s, joints, area, COCO_SIGMAS) for s in (card, host))
+    np.testing.assert_allclose(got, want, atol=0.05)
+    assert got[2] > 0.01
+
+    rng = np.random.RandomState(1)
+    cp = make_synthesize_fn(cfg("crowdpose", 14), P_max=8, device=cuda)
+    j = np.concatenate([rng.uniform(50, 400, (32, 14, 2)), np.full((32, 14, 1), 2.0)], -1)
+    out = cp(gen, j, j, [j[(i + 1) % 32][None].repeat(8, 0) for i in range(32)],
+             np.full(32, 40000.0))
+    assert out.shape == (32, 14, 3) and out.is_cuda and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_name", ["coam_modules", "transpose_h"])
+def test_remat_gradients_on_the_card(cuda, model_name):
+    """TPU.REMAT's gradients on the card equal those without it, attention
+    dropout on through K1 and K2 (the flash engine): within 1e-5 of the max
+    gradient (cuDNN's backward convs may sum in another order between runs);
+    a recompute that drew another dropout seed would move them by O(1)."""
+    from pathlib import Path
+
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.train.state import TrainStep, make_lr_schedule, make_optimizer
+
+    repo = Path(__file__).resolve().parents[1]
+    if model_name == "transpose_h":
+        yaml = repo / "experiments" / "coco" / "buctd" / "transpose_h_384x288.yaml"
+        opts = ["MODEL.IMAGE_SIZE", "[96, 128]", "MODEL.HEATMAP_SIZE", "[24, 32]",
+                "MODEL.EXTRA.STAGE2.NUM_CHANNELS", "[8, 16]",
+                "MODEL.EXTRA.STAGE3.NUM_CHANNELS", "[8, 16, 32]",
+                "MODEL.EXTRA.STAGE2.NUM_BLOCKS", "[1, 1]",
+                "MODEL.EXTRA.STAGE3.NUM_BLOCKS", "[1, 1, 1]",
+                "MODEL.EXTRA.STAGE3.NUM_MODULES", "2", "MODEL.DIM_MODEL", "16",
+                "MODEL.DIM_FEEDFORWARD", "32", "MODEL.ENCODER_LAYERS", "2"]
+        J, k1_per_forward = 17, 2
+    else:
+        from test_torch_port_config import COAM_YAML
+
+        yaml, opts, J, k1_per_forward = COAM_YAML, list(TINY_COAM), 14, 3
+    rng = np.random.RandomState(4)
+    batch = {"input": torch.from_numpy(rng.randn(2, 6, 128, 96).astype(np.float32)).to(cuda),
+             "target": torch.from_numpy((rng.rand(2, J, 32, 24) > 0.99).astype(np.float32)).to(cuda),
+             "target_weight": torch.ones(2, J, device=cuda)}
+    grads, launches = [], []
+    for remat in (False, True):
+        cfg = load_cfg("torch", yaml, opts + ["TPU.COMPUTE_DTYPE", "float32",
+                                              "TPU.ATTENTION_ENGINE", "flash",
+                                              "TPU.REMAT", str(remat)])
+        torch.manual_seed(0)
+        model = get_model(cfg, device=cuda)
+        _randomize(model)
+        optimizer = make_optimizer(cfg, model)
+        step = TrainStep(cfg, model, optimizer, make_lr_schedule(cfg, optimizer, 1),
+                         torch.Generator().manual_seed(5))
+        before = fa.flash_attention.launches
+        torch.manual_seed(1)
+        step(batch)
+        torch.cuda.synchronize()
+        launches.append(fa.flash_attention.launches - before)
+        grads.append({n: p.grad.float().clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    top = max(float(g.abs().max()) for g in grads[0].values())
+    for name, g in grads[0].items():
+        err = float((grads[1][name] - g).abs().max())
+        assert err <= 1e-5 * top, (name, err, top)
+    # the whole-forward recompute (TransPose-H) runs K1 again; CoAM's units
+    # leave the attention outside
+    assert launches[0] == k1_per_forward
+    assert launches[1] == (2 if model_name == "transpose_h" else 1) * k1_per_forward

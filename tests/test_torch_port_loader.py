@@ -97,12 +97,12 @@ def test_host_planning_refuses_unported_paths(tmp_path):
     ann_file, _ = _tiny_coco(tmp_path, J=14)
     cfg = load_cfg("torch", COAM_YAML, TINY_LOADER + [
         "DATASET.TEST_IMAGE_DIR", str(tmp_path), "DATASET.TEST_ANNOTATION_FILE", ann_file,
-        "TEST.LAMBDA_SWEEP", "True", "TPU.DEVICE_SYNTHESIS", "True"])
+        "TEST.LAMBDA_SWEEP", "True", "DEBUG.DEBUG", "True"])
     assert len(get_dataset(cfg, is_train=False).db) == 4
     with pytest.raises(NotImplementedError, match="LAMBDA_SWEEP.*ROADMAP"):
         check_eval_options(cfg)                      # the lambda sweep: not ported
-    with pytest.raises(NotImplementedError, match="DEVICE_SYNTHESIS"):
-        check_train_options(cfg)
+    with pytest.raises(NotImplementedError, match="DEBUG.DEBUG.*ROADMAP"):
+        check_train_options(cfg)                     # the debug dumps: not ported
     bad = load_cfg("torch", COAM_YAML, ["DATASET.DATASET", "ochuman"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_dataset(bad, is_train=True)

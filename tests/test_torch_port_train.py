@@ -253,9 +253,8 @@ def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch):
     last = torch.load(out / "checkpoint.pth", weights_only=False)["state_dict"]
     for key, t in best.items():
         torch.testing.assert_close(t, last[key], rtol=0, atol=0)
-    for opts in (["TPU.DEVICE_PIPELINE", "False"], ["TRAIN.GRAD_ACCUM_STEPS", "2"],
-                 ["TPU.REMAT", "True"], ["TRAIN.MIX", "cutmix"],
-                 ["TPU.FUSED_OPTIMIZER", "True"], ["TPU.DEVICE_SYNTHESIS", "True"]):
+    for opts in (["TPU.DEVICE_PIPELINE", "False"], ["DEBUG.DEBUG", "True"],
+                 ["TPU.MESH_SHAPE", "[2]"], ["TEST.MODEL_FILE", str(tmp_path / "orbax")]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run.main(args[:2] + ["--steps", "1", "--no-eval"] + args[2:] + opts)
     if not torch.cuda.is_available():
