@@ -6,6 +6,9 @@ evaluation ``make_validate_step`` / ``validate``.  The per-batch eval protocol
 shift + the average, loss, PCK, decode with POST_PROCESS/DARK and the inverse
 affine) is one function on the card, as the JAX step is one jitted program;
 the host only gathers (N, J, 3) predictions and calls ``dataset.evaluate``.
+With ``TPU.EVAL_DTYPE bfloat16`` the forward runs under bf16 autocast and
+everything after it on the bf16 heatmaps, as JAX's bf16 step does: the
+flip average and shift in bf16, the loss and PCK, and the decode.
 The lambda sweeps (``validate_lambda_quantitative``, ``validate_lambda``) are
 not ported: ``check_eval_options`` refuses ``TEST.LAMBDA_SWEEP``.
 """
@@ -20,6 +23,7 @@ import torch
 
 from ..data.pipeline import condition_mode, render_condition
 from ..geometry import flip_pairs_to_perm
+from ..models import autocast, compute_dtype
 from ..ops.decode import get_final_preds
 from ..utils.prefetch import prefetch
 from .loss import make_loss
@@ -96,8 +100,6 @@ def check_eval_options(cfg) -> None:
         (bool(cfg.DEBUG.DEBUG), "DEBUG.DEBUG (validation debug image dumps)"),
         (not cfg.TPU.DEVICE_PIPELINE,
          "TPU.DEVICE_PIPELINE False (the host cv2 Loader); pass TPU.DEVICE_PIPELINE True"),
-        (str(cfg.TPU.EVAL_DTYPE).lower() not in ("float32", "f32"),
-         f"TPU.EVAL_DTYPE={cfg.TPU.EVAL_DTYPE!r} (bf16 evaluation)"),
         (list(cfg.TPU.MESH_SHAPE) not in ([-1], [1]),
          f"TPU.MESH_SHAPE={list(cfg.TPU.MESH_SHAPE)} (the eval set sharded over cards)"),
     ]
@@ -122,9 +124,12 @@ def make_validate_step(cfg, model, flip_pairs, kpt_colors):
       * stacked condition: channel swap + spatial flip of the rendered map;
       * no condition: the RGB flip alone.
     The flipped output is flipped back (W flip + pair swap), shifted by 1 px
-    with SHIFT_HEATMAP, and averaged with the unflipped one.
+    with SHIFT_HEATMAP, and averaged with the unflipped one.  The forward runs
+    in ``TPU.EVAL_DTYPE`` (bf16: autocast; the heatmaps, and what follows
+    them, stay bf16); the inputs and the flip test's render stay f32.
     """
     device = next(model.parameters()).device
+    dtype = compute_dtype(cfg, "EVAL_DTYPE")
     J = int(cfg.MODEL.NUM_JOINTS)
     perm = torch.as_tensor(flip_pairs_to_perm(J, flip_pairs), device=device)
     img_w, img_h = int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1])
@@ -155,13 +160,15 @@ def make_validate_step(cfg, model, flip_pairs, kpt_colors):
                 cjf = torch.cat([img_w - cj[..., :1] - 1, cj[..., 1:]], dim=-1)[:, perm] * cv
                 cond_f = render_condition(cjf, "colored", (img_h, img_w), colors)
                 x_f = torch.cat([x_f, cond_f.permute(0, 3, 1, 2)], 1)
-            out_all = model(torch.cat([x, x_f], 0))
+            with autocast(device, dtype):
+                out_all = model(torch.cat([x, x_f], 0))
             out, out_f = out_all[:B], torch.flip(out_all[B:], dims=[3])[:, perm]
             if shift:
                 out_f = torch.cat([out_f[..., :1], out_f[..., :-1]], dim=-1)
             out = (out + out_f) * 0.5
         else:
-            out = model(x)
+            with autocast(device, dtype):
+                out = model(x)
         loss = loss_fn(out, batch["target"], batch["target_weight"])
         acc, cnt, _ = pck_accuracy(out, batch["target"])
         preds, maxvals = get_final_preds(out, on_device(batch["center"]),
@@ -203,7 +210,7 @@ def validate(cfg, val_loader, val_dataset, model, output_dir, epoch=-1, writer=N
     finally:
         it.close()
     preds = torch.cat([o[0] for o in outs]).cpu().numpy()
-    maxvals = torch.cat([o[1] for o in outs]).cpu().numpy()
+    maxvals = torch.cat([o[1] for o in outs]).float().cpu().numpy()
     for (p, _, loss, a, cnt) in outs:
         losses.update(float(loss), len(p))
         acc.update(float(a), int(cnt))

@@ -20,8 +20,8 @@ def pck_accuracy(pred_heatmaps, target_heatmaps, thr: float = 0.5):
     reference feeds its AverageMeter (evaluate.py:60-70).
     """
     _, _, h, w = pred_heatmaps.shape
-    pred, _ = get_max_preds(pred_heatmaps.float())
-    gt, _ = get_max_preds(target_heatmaps.float())
+    pred, _ = get_max_preds(pred_heatmaps)     # bf16 maps: argmax on bf16, as JAX
+    gt, _ = get_max_preds(target_heatmaps)
     # reference quirk kept: norm = [h, w] / 10 divides (x, y) (evaluate.py:50-53)
     norm = torch.tensor([h, w], dtype=torch.float32, device=pred.device) / 10.0
     valid = (gt[..., 0] > 1) & (gt[..., 1] > 1)                   # (B, J)

@@ -5,6 +5,15 @@ boxes from the previous round's predictions, re-crops the source image with the
 aligned matmul warp, re-renders the colored condition and re-runs the model.
 The JAX ``lax.scan`` over rounds is a Python loop here; every tensor stays on
 the device between rounds (no host copy).
+
+``TPU.EVAL_DTYPE bfloat16`` runs the model under bf16 autocast
+(models/__init__.py::autocast): its heatmaps come out bf16, the decode runs
+on them (ops/decode.py), and the next round's confidences are the bf16
+maxvals widened to f32, as JAX's concatenate promotes them.  The warp and
+the render then take TF32 on the card (JAX's ``precision="default"`` for a
+bf16 model, core/refine.py:78 there; exact f32 on the CPU), and every other
+matmul and cuDNN conv of the call exact f32, each set for the call alone
+(ops/tf32.py::tf32_scope).
 """
 
 from __future__ import annotations
@@ -14,7 +23,9 @@ import torch
 from ..data.joints_dataset import IMAGENET_MEAN, IMAGENET_STD
 from ..data.pipeline import condition_mode, render_condition
 from ..geometry import PIXEL_STD, affine_points, make_affine
+from ..models import autocast, compute_dtype
 from ..ops.decode import get_final_preds
+from ..ops.tf32 import tf32_scope
 from ..ops.warp import warp_affine_aligned
 
 
@@ -53,16 +64,18 @@ def joints2cs(joints, img_w, img_h, margin: float, aspect_ratio: float,
     return center, scale
 
 
-def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3):
+def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3, tf32_warps=None):
     """``refine(image, cond_joints, img_wh=None) -> (preds, maxvals)`` after
-    ``n_iters`` rounds, on the device of ``model``.
+    ``n_iters`` rounds, on the device of ``model``, in ``TPU.EVAL_DTYPE``.
 
     One image: image (H, W, 3) RGB uint8/float, cond_joints (P, J, 3) ->
     preds (P, J, 2) image coords, maxvals (P, J, 1).  A batch: image
     (N, H, W, 3), cond_joints (N, P, J, 3), img_wh (N, 2) -> (N, P, J, 2),
     (N, P, J, 1); the N*P crops go through the model as one batch.  ``img_wh``
     is the [width, height] of the real image when ``image`` is padded to a
-    bucket: condition boxes clip to it, not to the pad.
+    bucket: condition boxes clip to it, not to the pad.  maxvals come out in
+    the model's dtype.  ``tf32_warps`` overrides the warp and render
+    precision the dtype picks (True: TF32 on the card; False: exact f32).
     """
     img_w, img_h = int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1])
     hm_w, hm_h = int(cfg.MODEL.HEATMAP_SIZE[0]), int(cfg.MODEL.HEATMAP_SIZE[1])
@@ -73,12 +86,19 @@ def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3):
     post = bool(cfg.TEST.POST_PROCESS)
     use_dark = bool(cfg.TEST.USE_DARK)
     device = next(model.parameters()).device
+    dtype = compute_dtype(cfg, "EVAL_DTYPE")
+    if tf32_warps is None:
+        tf32_warps = dtype == torch.bfloat16
     colors = torch.as_tensor(kpt_colors, dtype=torch.float32, device=device)
     mean = torch.as_tensor(IMAGENET_MEAN, device=device)
     std = torch.as_tensor(IMAGENET_STD, device=device)
 
     @torch.inference_mode()
     def refine(image, cond_joints, img_wh=None):
+        with tf32_scope(device, matmul=False, cudnn=False):
+            return rounds(image, cond_joints, img_wh)
+
+    def rounds(image, cond_joints, img_wh):
         image = torch.as_tensor(image, device=device)
         cond = torch.as_tensor(cond_joints, dtype=torch.float32, device=device)
         single = image.dim() == 3
@@ -99,17 +119,19 @@ def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3):
         for _ in range(n_iters):
             center, scale = joints2cs(cond, bw, bh, margin, aspect, scale_thre)
             t_inv = make_affine(center, scale, zeros, (img_w, img_h), inv=True)
-            crops = warp_affine_aligned(images, t_inv, (img_h, img_w))
             t_fwd = make_affine(center, scale, zeros, (img_w, img_h))
             cond_crop = torch.cat([affine_points(cond[..., :2], t_fwd),
                                    cond[..., 2:]], dim=-1)
+            with tf32_scope(device, matmul=tf32_warps):
+                crops = warp_affine_aligned(images, t_inv, (img_h, img_w))
+                cond_img = render_condition(cond_crop, mode, (img_h, img_w), colors)
             rgb = (crops / 255.0 - mean) / std
-            cond_img = render_condition(cond_crop, mode, (img_h, img_w), colors)
             x = torch.cat([rgb, cond_img], dim=-1)             # NHWC
-            hm = model(x.permute(0, 3, 1, 2).contiguous())     # (N*P, J, h, w)
+            with autocast(device, dtype):
+                hm = model(x.permute(0, 3, 1, 2).contiguous())  # (N*P, J, h, w)
             preds, maxvals = get_final_preds(hm, center, scale, (hm_w, hm_h),
                                              post_process=post, use_dark=use_dark)
-            cond = torch.cat([preds, maxvals], dim=-1)
+            cond = torch.cat([preds, maxvals.float()], dim=-1)
 
         preds = preds.reshape(N, P, J, 2)
         maxvals = maxvals.reshape(N, P, J, 1)

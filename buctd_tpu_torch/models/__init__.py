@@ -48,6 +48,17 @@ def get_model(cfg, device="cuda") -> torch.nn.Module:
     return model.to(device).eval()
 
 
+def autocast(device, dtype: torch.dtype):
+    """The context a forward in ``dtype`` runs under: for bf16, autocast on
+    ``device``'s type, which keeps the parameters f32 and runs the convs and
+    linears in bf16, as JAX's modules built with ``dtype=bfloat16``
+    (buctd_tpu/serving.py:61-62, tools/test.py:85); for f32, none.  The
+    callers own it (core/refine.py, core/function.py, train/state.py) and
+    wrap only the model's call."""
+    return torch.autocast(torch.device(device).type, dtype=dtype,
+                          enabled=dtype != torch.float32)
+
+
 def compute_dtype(cfg, key: str = "COMPUTE_DTYPE") -> torch.dtype:
     """cfg.TPU.<key> -> torch dtype."""
     name = str(getattr(cfg.TPU, key, "float32")).lower()
@@ -58,4 +69,4 @@ def compute_dtype(cfg, key: str = "COMPUTE_DTYPE") -> torch.dtype:
     return dtypes[name]
 
 
-__all__ = ["get_model", "compute_dtype"]
+__all__ = ["get_model", "compute_dtype", "autocast"]

@@ -57,6 +57,18 @@ class Linear(nn.Linear):
         return y + self.bias.to(y.dtype)
 
 
+class Upsample(nn.Upsample):
+    """torch's nearest Upsample, run in its input's dtype.  On CUDA, autocast
+    runs ``upsample_nearest2d`` in f32, so a bf16 branch came back f32 and
+    the fuse sums that follow ran unrounded; JAX's bf16 HRModule (and
+    torch's CPU autocast) keeps bf16 there.  The pixel repeat is exact in
+    any dtype, so autocast is simply turned off for it."""
+
+    def forward(self, x):
+        with torch.autocast(x.device.type, enabled=False):
+            return super().forward(x)
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, pad=None,
          bias: bool = False) -> nn.Conv2d:
     if pad is None:
@@ -206,8 +218,8 @@ class HRModule(nn.Module):
                     elif j > i:   # 1x1 conv, BN, nearest 2^(j-i) upsample (pixel repeat)
                         row.append(nn.Sequential(conv(chans[j], chans[i], 1),
                                                  batch_norm(chans[i]),
-                                                 nn.Upsample(scale_factor=2 ** (j - i),
-                                                             mode="nearest")))
+                                                 Upsample(scale_factor=2 ** (j - i),
+                                                          mode="nearest")))
                     else:   # j < i: chain of stride-2 3x3s
                         steps = []
                         for k in range(i - j):

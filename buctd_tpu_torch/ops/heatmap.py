@@ -65,16 +65,19 @@ def _reflect101_index(size: int, r: int) -> np.ndarray:
 
 def _sep_blur(x, kernel: np.ndarray):
     """Separable blur over the H and W axes of (..., H, W, C), reflect-101
-    border (cv2's default BORDER_REFLECT_101)."""
+    border (cv2's default BORDER_REFLECT_101).  Each tap is rounded to x's
+    dtype first, as JAX takes a Python float beside a bf16 array (a weak
+    type): torch would multiply a bf16 tensor by the unrounded f32 tap."""
     k = len(kernel)
     r = k // 2
     h, w = x.shape[-3], x.shape[-2]
+    taps = torch.as_tensor(kernel).to(x.dtype).tolist()
     iy = torch.as_tensor(_reflect101_index(h, r), device=x.device)
     xp = x.index_select(-3, iy)
-    x = sum(float(kernel[i]) * xp.narrow(-3, i, h) for i in range(k))
+    x = sum(taps[i] * xp.narrow(-3, i, h) for i in range(k))
     ix = torch.as_tensor(_reflect101_index(w, r), device=x.device)
     xp = x.index_select(-2, ix)
-    return sum(float(kernel[i]) * xp.narrow(-2, i, w) for i in range(k))
+    return sum(taps[i] * xp.narrow(-2, i, w) for i in range(k))
 
 
 @functools.lru_cache(maxsize=8)

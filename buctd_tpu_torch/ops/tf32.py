@@ -2,13 +2,38 @@
 csrc/mma_tf32.cuh, which K1, K2 and K5 share.  The dense emulations that
 the checks hold against the kernels and the JAX package
 (``flash_attention.forward_tf32``, ``flash_attention.backward_tf32``,
-``fused_block.fused_block_tf32``) take their products from here.  Nothing
-on the main path calls it.
+``fused_block.fused_block_tf32``) take their products from here; nothing
+on the main path calls them.  ``tf32_scope`` is the serving path's per-call
+switch of cuBLAS's and cuDNN's TF32 (core/refine.py).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def tf32_scope(device, matmul: bool, cudnn: bool | None = None):
+    """TF32 for f32 matmuls on CUDA set to ``matmul`` (and for f32 cuDNN
+    convs to ``cudnn``, where given) inside the block, the process's
+    settings restored after it: what one call needs, without touching
+    another caller's numerics.  On the CPU it sets nothing: f32 products
+    there are exact, as XLA's are at any precision."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    for f, on in zip(flags, (matmul, cudnn)):
+        if on is not None:
+            f.allow_tf32 = bool(on)
+    try:
+        yield
+    finally:
+        for f, on in zip(flags, saved):
+            f.allow_tf32 = on
 
 
 def tf32_round(x):

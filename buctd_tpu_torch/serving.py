@@ -11,7 +11,12 @@ same-bucket images as one N*P batch.
 The model is the cfg's: BUCTD-CoAM (``pose_hrnet_coam``), BUCTD-TransPose-H
 (``transpose_h``) or BUCTD-preNet (``pose_hrnet`` with ``USE_PRE_NET``), whose
 preNet is fused after the checkpoint load when ``TPU.FUSED_PRENET`` is not
-"off" (models/fuse.py).
+"off" (models/fuse.py).  It runs in ``TPU.EVAL_DTYPE``: float32 (exact: TF32
+off for every matmul and cuDNN conv of a call) or bfloat16 (f32 parameters
+under bf16 autocast, bf16 heatmaps, TF32 for the warp and the render), as
+JAX's estimator builds its model with that dtype.  Each call sets the TF32
+flags it needs and restores them (core/refine.py), so an f32 and a bf16
+estimator keep their own numerics in one process.
 
 The JAX estimator's ``max_compiles`` and ``precompile`` bound XLA compiles; an
 eager PyTorch model compiles nothing, so they do not exist here.  The bucket
@@ -70,16 +75,7 @@ class PoseEstimator:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PoseEstimator: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
-        dtype = compute_dtype(cfg, "EVAL_DTYPE")
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"TPU.EVAL_DTYPE={cfg.TPU.EVAL_DTYPE!r}: bf16 serving is ROADMAP "
-                "Queue 1, 'EVAL_DTYPE bf16'; this slice serves f32 only")
-        if self.device.type == "cuda":
-            # f32 means f32: cuDNN convs default to TF32, which keeps ~3 digits
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-
+        self.dtype = compute_dtype(cfg, "EVAL_DTYPE")
         self.cfg = cfg
         self.num_joints = int(cfg.MODEL.NUM_JOINTS)
         self.model = get_model(cfg, device=self.device)
@@ -101,8 +97,9 @@ class PoseEstimator:
 
     @staticmethod
     def _to_host(preds, maxvals) -> np.ndarray:
-        """(..., J, 2) and (..., J, 1) device tensors -> (..., J, 3) numpy, one copy."""
-        return torch.cat([preds, maxvals], dim=-1).cpu().numpy()
+        """(..., J, 2) and (..., J, 1) device tensors -> (..., J, 3) f32 numpy,
+        one copy (bf16 maxvals widened exactly)."""
+        return torch.cat([preds, maxvals.float()], dim=-1).cpu().numpy()
 
     @staticmethod
     def _finish(res: np.ndarray, P: int, vis_thres: float) -> np.ndarray:
@@ -125,6 +122,12 @@ class PoseEstimator:
         preds, maxvals = self.refine(torch.from_numpy(img_pad), torch.from_numpy(conds),
                                      img_wh=true_wh)
         return self._finish(self._to_host(preds, maxvals), P, vis_thres)
+
+    def predict_many(self, images, conditions, vis_thres: float = 0.0) -> list:
+        """``predict`` over (image, condition_poses) pairs, one call each
+        (buctd_tpu/serving.py:205); ``predict_batch`` batches them."""
+        return [self.predict(img, conds, vis_thres)
+                for img, conds in zip(images, conditions)]
 
     def predict_batch(self, images, conditions, vis_thres: float = 0.0) -> list:
         """Process many (image, condition_poses) pairs: images of one

@@ -30,7 +30,7 @@ import torch
 
 from ..core.loss import make_loss
 from ..core.metrics import pck_accuracy
-from ..models import compute_dtype
+from ..models import autocast, compute_dtype
 from ..models.attention import set_dropout_generator
 from ..models.remat import checkpoint, remat_mode
 
@@ -99,8 +99,7 @@ class TrainStep:
 
     def forward(self, x):
         self.model.train()
-        with torch.autocast(x.device.type, dtype=self.dtype,
-                            enabled=self.dtype != torch.float32):
+        with autocast(x.device, self.dtype):
             return checkpoint(self.model, x) if self.remat_forward else self.model(x)
 
     def apply(self, loss) -> None:

@@ -18,9 +18,12 @@ random init with a warning (tools/test.py:44-67); then the preNet fusion of
 ``it`` writes ``results/keypoints_test_results_epoch{it}.json``, which becomes
 the next round's ``TEST.COCO_BBOX_FILE`` (with ``TEST.USE_BU_BBOX True``), the
 protocol the reference runs as three invocations; ``OUTPUT_JSON`` applies to
-the last round only (tools/test.py:94-152).  Not ported (see
+the last round only (tools/test.py:94-152).  ``TPU.EVAL_DTYPE bfloat16``
+evaluates every round with the model under bf16 autocast and the decode on
+its bf16 heatmaps (core/function.py::make_validate_step), as tools/test.py:85
+builds its model in that dtype; the loader's inputs stay f32.  Not ported (see
 ``core/function.py::check_eval_options``): the lambda sweep, DEBUG dumps, the
-host cv2 loader, bf16 evaluation and a sharded eval set.
+host cv2 loader and a sharded eval set.
 """
 
 from __future__ import annotations
@@ -86,7 +89,8 @@ def main(argv=None) -> dict:
     update_config(cfg, args)
     check_eval_options(cfg)
     if device.type == "cuda":
-        # f32 means f32 (the JAX path evaluates at Precision.HIGHEST)
+        # f32 means f32 (the JAX path evaluates at Precision.HIGHEST); a bf16
+        # model's convs and linears run in bf16 whatever these say
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     out_dir = output_dir(cfg, args.cfg)

@@ -5,7 +5,8 @@ BUCTD-CoAM-W48 and BUCTD-TransPose-H through PoseEstimator with 3 refinement
 rounds, trains both for a few steps through the training entry point,
 evaluates CoAM-W48 with the flip test and 3 refinement rounds and
 TransPose-H for one round through the evaluation entry point, serves
-full-width BUCTD-preNet-W48 with its preNet fused and not, and runs the
+full-width BUCTD-preNet-W48 with its preNet fused and not, serves and
+evaluates each family in bf16 as well (TPU.EVAL_DTYPE bfloat16), and runs the
 port's benchmarks of the fused basic block (K5) and exp throughput (K6).
 
     python3 chip_smoke.py
@@ -32,7 +33,9 @@ Phases (each raises on failure; nothing is caught):
      running tile max, within K1_BF16_TILED_RMS, which p left unrounded
      misses; kernel, plain and F.scaled_dot_product_attention times beside
      the card's bound, and f32 K1 and the SIMT forward it replaced timed in
-     turns;
+     turns; bf16 K1 at dropout 0 (the bf16 serving and evaluation paths)
+     summed over the same serving and evaluation shapes for the kernels
+     line;
   2. kernels, training shapes: K1 and K2 (flash backward: the dq and the dk/dv
      kernels; on the tensor cores, f32 in 3xTF32) at the shapes a batch-32
      train step gives them, f32 and bf16, dropout 0 and 0.1, vs their plain
@@ -59,7 +62,16 @@ Phases (each raises on failure; nothing is caught):
      on the CPU, ms per image and crops/s; a profile of one predict_batch,
      with K1's 3xTF32 kernel's time and share and no SIMT forward; the same
      for TransPose-H (coco 384x288, 17 joints, 6 encoder layers of one
-     d = 112 head: 6 K1 launches a forward);
+     d = 112 head: 6 K1 launches a forward); after each, the same model in
+     bf16 (TPU.EVAL_DTYPE bfloat16, ``bf16_serving_phase``) beside the f32
+     estimator of the same weights: the bf16 run's K1 launches, predict and
+     predict_batch timed in turns with f32, a profile of each dtype (bf16
+     K1's tensor-core kernel by name and launches, no SIMT or 3xTF32
+     forward; the convolutions' share of kernel time), one round's bf16 vs
+     f32 keypoints within one heatmap pixel (a report), the decode drift of
+     the TF32 warp and render against exact (median within WARP_DRIFT_PX),
+     one bf16 forward card vs CPU (BF16_FORWARD_RATIO), the TF32 flags
+     unchanged by the calls;
   4. training: ``buctd_tpu_torch.train.run`` on a synthetic CrowdPose-format
      set (seeded, in a temporary directory) at full width, batch 32, bf16
      autocast, attention dropout 0.1, the device loader; ms/step, images/s,
@@ -101,14 +113,19 @@ Phases (each raises on failure; nothing is caught):
      one entry per crop and a finite AP in [0, 1] each round, K1 launched 2
      and K4 1 per batch per round, crops/s per round; a profile of one
      validate step, with K1's 3xTF32 kernel's time and share and no SIMT
-     forward;
+     forward, and the convolutions' share;
   8. the same evaluation, one round, under BUCTD_FLASH_KVRES=1: K1' launched 2
      per batch and K1 never; one batch's heatmaps from K1 and K1' agree; one
-     validate step at batch 2 on the card vs the CPU; then one TransPose-H
+     validate step at batch 2 on the card vs the CPU; one bf16 round
+     (TPU.EVAL_DTYPE bfloat16: K1 2, K4 1 a batch, AP in [0, 1], crops/s) and
+     one under BUCTD_FLASH_KVRES=1 whose results json equals K1's; one
+     batch's bf16 heatmaps against f32's, printed, K1' bit for bit K1 in
+     bf16, and a profile of the bf16 step (K1's tensor-core kernel, the
+     convolutions' share); then one TransPose-H
      evaluation round (``transpose_eval_phase``: 64 synthetic COCO crops
      from a BU json, the yaml's batch 32 without the flip test, AP in
      [0, 1], K1 launched 6 times a batch) and a profile of its validate
-     step;
+     step, then the same round and profile in bf16;
   9. 3 training steps under BUCTD_FLASH_KVRES=1: K1', K2' dq and K2' dk/dv
      launched 2 per step, K1 and K2 never, the loss finite;
  10. K5 (the fused eval basic block) vs its plain version at the four W48
@@ -125,7 +142,8 @@ Phases (each raises on failure; nothing is caught):
  13. preNet-W48 serving (crowdpose 384x288, 14 joints, f32, 3 rounds) through
      PoseEstimator from one .pth of random weights, with TPU.FUSED_PRENET off
      and auto: fused vs unfused predictions, each forward on the card vs the
-     CPU, crops/s, a profile of each;
+     CPU, crops/s, a profile of each; then each knob in bf16
+     (``bf16_serving_phase``, the card-vs-CPU forward with the knob off);
  14. the port's tools, reduced (buctd_tpu_torch/tools/bench_block.py --simt
      in bf16 and f32, bench_flash_bwd.py --dtype float32, bench_exp2.py,
      bench_stem.py): K5's (both dtypes), K5's SIMT A/B's and K6's launch
@@ -143,6 +161,7 @@ Exits non-zero, with no result, where CUDA is absent.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -344,6 +363,34 @@ TOOL_CHAIN, TOOL_ROUNDS, TOOL_STEM_BATCH = 5, 2, 32
 # and SYNTH_CARD_REPS batches of the card's over TRAIN_BATCH records
 SYNTH_RATE_ATOL = 0.05
 SYNTH_HOST_REPS, SYNTH_CARD_REPS = 4, 16
+# bf16 serving and evaluation (TPU.EVAL_DTYPE bfloat16), beside the f32
+# estimator of the same weights: predict and predict_batch BF16_REPEATS calls
+# a turn (f32, bf16, bf16, f32).  The decode's drift from the warp and render
+# in TF32 (the bf16 path's default) against them exact, over the joints of
+# one round: the median within WARP_DRIFT_PX, the drift JAX measured
+# (tools/bench_precision.py: 0.00 px); its p99 and max are printed (an argmax
+# at a near-tie moves a joint by whole pixels).  One bf16 forward on the card
+# against the CPU's bf16 forward on the same input: within BF16_FORWARD_RATIO
+# x the distance of the CPU's bf16 forward from its f32 one (bf16's own noise
+# on that input; convolution algorithms sum in another order, and the
+# attention amplifies what reaches it), both printed in bf16 steps of the
+# peak.  The CPU's bf16 forward takes the flash path's plain version where
+# the card takes K1 (``card_attention_rule``): K1 rounds p to bf16 as JAX's
+# kernel does, the batched-matmul path does not.  Measured by this script on
+# an H100: CoAM-W48 6.03-6.66 steps against the CPU's 5.01-5.30 (1.14-1.33x).
+# TransPose-H 34.58-35.49 steps against 10.26-10.50 (3.3-3.5x): its first
+# encoder layer takes the trunk's unnormalised tokens (|x| ~ 960 under random
+# BN statistics), whose attention logits of ~1e4 are near an argmax, so the
+# trunk's few-step differences at the tokens move that layer's attention
+# output by many more (both printed); hence its own ratio.  BUCTD_FLASH_KVRES=1's bf16 eval heatmaps equal K1's
+# bit for bit.
+BF16_REPEATS = 2
+WARP_DRIFT_PX = 0.05
+BF16_FORWARD_RATIO = {"pose_hrnet_coam": 2.0, "pose_hrnet": 2.0, "transpose_h": 7.0}
+BF16_STEP = 2.0 ** -8
+# kernel names that are convolutions or the layout transposes around them
+CONV_NAMES = ("conv", "fprop", "fft", "flip_filter", "cf32", "inograd", "nchwToNhwc",
+              "nhwcToNchw")
 # the trainer's step options, OPTION_STEPS steps of CoAM-W48 each, beside a
 # run with none of them (the same length, the same set); REMAT's resident
 # step with and without remat in REMAT_ROUNDS turns (off, on, on, off)
@@ -509,6 +556,9 @@ def kernel_phase(torch, F, fa) -> dict:
     groups = {"main": MAIN_CASES, "eval": EVAL_CASES,
               **{name: [case] for name, case in TP_F32_CASES.items()}}
     sums = {case: {key: 0.0 for key in keys} for case in groups}
+    # bf16 at dropout 0: the bf16 serving and evaluation paths' K1
+    bf16_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "rel", "tiled")
+    bf16 = {case: {key: 0.0 for key in bf16_keys} for case in groups}
     for bh, lq, lk, d in [c for cases in groups.values() for c in cases] + OTHER_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
@@ -522,6 +572,7 @@ def kernel_phase(torch, F, fa) -> dict:
                 out, lse = fa.flash_attention(q, k, v, scale, p, 7)
                 torch.cuda.synchronize()
                 errs, note = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, p, 7, chunk)
+                errs_note = note
                 worst = max(worst, *errs)
                 notes.append(f"dropout {p}: out {errs[0]:.3e} lse {errs[1]:.3e}"
                              f"{note.get('text', '')}")
@@ -557,6 +608,13 @@ def kernel_phase(torch, F, fa) -> dict:
                 ops_ms = (bound if by == "operations" else 0.0)
                 for key, val in zip(keys, (ms, simt_ms, plain_ms, lib_ms, bound, ops_ms, core)):
                     sums[case][key] += val
+            elif case:
+                t = bf16[case]
+                for key, val in zip(bf16_keys[:5], (ms, plain_ms, lib_ms, bound,
+                                                    bound if by == "operations" else 0.0)):
+                    t[key] += val
+                t["rel"] = max(t["rel"], errs_note["rel"])
+                t["tiled"] = max(t["tiled"], errs_note["tiled"])
             del q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
     for case, label in groups.items():
@@ -567,7 +625,13 @@ def kernel_phase(torch, F, fa) -> dict:
               f"{t['ms'] / t['library_ms']:.3f}), bound {t['bound_ms']:.4f} ms "
               f"({t['ms'] / t['bound_ms']:.2f}x), CUDA-core bound {t['core_ms']:.4f} ms",
               flush=True)
-    return {**sums, "max_abs_err": worst, "control": control}
+        t = bf16[case]
+        print(f"K1 bf16, dropout 0, over {label}: tensor-core kernel {t['ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms (kernel / sdpa {t['ms'] / t['library_ms']:.3f}), "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['ms'] / t['bound_ms']:.2f}x); out within {t['rel']:.3e} of max, "
+              f"{t['tiled']:.3e} rms of the tile rounding", flush=True)
+    return {**sums, "bf16": bf16, "max_abs_err": worst, "control": control}
 
 
 def cuda_kernel_names(torch, fn) -> list:
@@ -1219,6 +1283,182 @@ def serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
             "est": est, "images": images, "poses": poses}
 
 
+def host_ms(fn, iters: int) -> float:
+    """Host time of ``fn()`` (a call that ends on the host), ms a call."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+@contextlib.contextmanager
+def card_attention_rule():
+    """CPU attention calls take the flash path where CUDA ones would (L_q *
+    L_k >= 512^2 under the 'auto' engine): its plain version there, which in
+    bf16 rounds p as K1 does (models/attention.py's batched-matmul path keeps
+    p in f32), so a CPU forward computes the card's function."""
+    from buctd_tpu_torch.models import attention
+
+    rule = attention._use_flash
+
+    def card_rule(q, nk, dv, engine):
+        return q.shape[-1] == dv and (engine == "flash" or (
+            engine == "auto" and q.shape[-2] * nk >= attention.FLASH_MIN_TOKENS))
+
+    attention._use_flash = card_rule
+    try:
+        yield
+    finally:
+        attention._use_flash = rule
+
+
+def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
+                       opts=(), cpu_check: bool = True) -> dict:
+    """``config``'s model served in bf16 (TPU.EVAL_DTYPE bfloat16) at full
+    width through PoseEstimator (ROUNDS rounds), beside an f32 estimator of
+    the same random weights.  The bf16 main path's run: predict and
+    predict_batch once each, finite outputs, K1 launched ``k1_per_forward``
+    a forward.  Then predict and predict_batch timed in turns with the f32
+    estimator; a profile of one predict_batch in each dtype (K1's
+    tensor-core kernel by name in bf16, the convolutions' share of kernel
+    time in both); one round of both on the predict_batch inputs: the share
+    of joints whose bf16 and f32 keypoints lie within one heatmap pixel (a
+    report: the weights are random), and the bf16 decode's drift with the
+    warp and render exact against TF32 (WARP_DRIFT_PX); with ``cpu_check``,
+    one bf16 forward on the card against the CPU's (BF16_FORWARD_RATIO)."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.core.refine import joints2cs, make_refine_fn
+    from buctd_tpu_torch.models import autocast
+    from buctd_tpu_torch.serving import PoseEstimator
+
+    def load(dtype):
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(config), opts=[
+            *opts, "TPU.EVAL_DTYPE", dtype]))
+        return cfg
+
+    cfg32, cfg16 = load("float32"), load("bfloat16")
+    torch.manual_seed(0)
+    est32 = PoseEstimator(cfg32, refine_iters=ROUNDS)   # device="cuda"
+    randomize(torch, est32.model)
+    est16 = PoseEstimator(cfg16, refine_iters=ROUNDS)
+    est16.model.load_state_dict(est32.model.state_dict())
+    label = f"{cfg16.MODEL.NAME}{' '.join([''] + list(opts))} bf16"
+    joints = int(cfg16.MODEL.NUM_JOINTS)
+    rng = np.random.RandomState(0)
+    img, conds = sample_request(np, rng, joints=joints)
+    batch = [sample_request(np, rng, joints=joints) for _ in range(3)]
+    images, poses = [b[0] for b in batch], [b[1] for b in batch]
+    keep = float("-inf")
+    for est in (est32, est16):                       # first calls: cuDNN set-up
+        est.predict(img, conds, keep)
+        est.predict_batch(images, poses, keep)
+    torch.cuda.synchronize()
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+    fa.flash_attention.launches = 0                  # the bf16 main path's run
+    out = est16.predict(img, conds, keep)
+    outs = est16.predict_batch(images, poses, keep)
+    launches = fa.flash_attention.launches
+    for o in [out, *outs]:
+        if o.shape != (4, joints, 3) or not np.isfinite(o).all():
+            raise AssertionError(f"{label}: prediction {o.shape}, finite "
+                                 f"{np.isfinite(o).all()}")
+    want = k1_per_forward * ROUNDS * 2
+    if launches != want:
+        raise AssertionError(f"{label}: flash launches {launches}, expected {want}")
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != flags:
+        raise AssertionError(f"{label}: the estimator left the TF32 flags changed")
+
+    p32a, p16a, p16b, p32b = (host_ms(lambda e=e: e.predict(img, conds, keep), BF16_REPEATS)
+                              for e in (est32, est16, est16, est32))
+    b32a, b16a, b16b, b32b = (host_ms(lambda e=e: e.predict_batch(images, poses, keep),
+                                      BF16_REPEATS) for e in (est32, est16, est16, est32))
+    ms = {"predict_f32": (p32a + p32b) / 2, "predict_bf16": (p16a + p16b) / 2,
+          "batch_f32": (b32a + b32b) / 2, "batch_bf16": (b16a + b16b) / 2}
+    print(f"{label} serving, in turns with f32 (f32, bf16, bf16, f32): predict "
+          f"{ms['predict_bf16']:.2f} ms/image against {ms['predict_f32']:.2f} "
+          f"({4e3 / ms['predict_bf16']:.2f} against {4e3 / ms['predict_f32']:.2f} crops/s); "
+          f"predict_batch {12e3 / ms['batch_bf16']:.2f} crops/s against "
+          f"{12e3 / ms['batch_f32']:.2f} ({ms['batch_f32'] / ms['batch_bf16']:.3f}x); "
+          f"K1 launches in the bf16 run {launches} (= {k1_per_forward} x {ROUNDS} x 2)",
+          flush=True)
+
+    counts, shares = {}, {}
+    for dtype, est in (("float32", est32), ("bfloat16", est16)):
+        name = f"{cfg16.MODEL.NAME} {dtype} predict_batch (3 images x 4 poses, {ROUNDS} rounds)"
+        by_name = kernel_profile(torch, lambda: est.predict_batch(images, poses, keep), name,
+                                 counts if dtype == "bfloat16" else None)
+        shares[dtype] = conv_share(by_name, name)
+        if dtype == "bfloat16":
+            k1 = bf16_k1_profile(by_name, counts, name, k1_per_forward * ROUNDS)
+
+    # one round on the predict_batch inputs: the first round's box is the
+    # input condition's, so its heatmap pixel is known
+    imgs = torch.from_numpy(np.stack(images))
+    cnds = torch.from_numpy(np.stack(poses))
+    one = {key: make_refine_fn(cfg, est.model, est.colors, n_iters=1, tf32_warps=tf32)
+           for key, cfg, est, tf32 in (("f32", cfg32, est32, None), ("bf16", cfg16, est16, None),
+                                       ("bf16_exact", cfg16, est16, False))}
+    got = {key: fn(imgs, cnds)[0].reshape(-1, joints, 2).cpu() for key, fn in one.items()}
+    img_w, img_h = (int(v) for v in cfg16.MODEL.IMAGE_SIZE)
+    _, scale = joints2cs(cnds.reshape(-1, joints, 3), 640, 480,
+                         float(cfg16.DATASET.BU_BBOX_MARGIN), img_w / img_h,
+                         float(cfg16.TEST.SCALE_THRE))
+    pix = scale * 200.0 / torch.tensor([float(v) for v in cfg16.MODEL.HEATMAP_SIZE])
+    off = (got["bf16"] - got["f32"]).abs() / pix[:, None, :]
+    agree = (off <= 1.0).all(-1).float().mean().item()
+    drift = (got["bf16"] - got["bf16_exact"]).norm(dim=-1).flatten()
+    med, p99, top = (drift.median().item(), drift.quantile(0.99).item(), drift.max().item())
+    print(f"{label}: one round, bf16 vs f32 keypoints within one heatmap pixel for "
+          f"{100 * agree:.1f}% of {off.shape[0] * joints} joints (random weights: a report); "
+          f"decode drift of the TF32 warp and render against exact: median {med:.4f} px "
+          f"(limit {WARP_DRIFT_PX}), p99 {p99:.4f}, max {top:.4f}", flush=True)
+    if not med <= WARP_DRIFT_PX:
+        raise AssertionError(f"{label}: TF32 warp drift {med} px")
+    res = {"launches": launches, "ms": ms, "conv": shares, "k1": k1, "agree": agree,
+           "drift_px": [med, p99, top]}
+
+    if cpu_check:   # one bf16 forward on the card vs the CPU's
+        x = torch.from_numpy(rng.randn(1, 6, img_h, img_w).astype(np.float32))
+        cpu_model = copy.deepcopy(est16.model).cpu()
+        # TransPose-H: the first encoder layer's input tokens and attention
+        taps, handles = {"tokens": [], "attention": []}, []
+        for model in (est16.model, cpu_model):
+            if hasattr(model, "global_encoder"):
+                layer = model.global_encoder.layers[0]
+                handles += [layer.register_forward_pre_hook(
+                                lambda m, args: taps["tokens"].append(args[0].float().cpu())),
+                            layer.self_attn.register_forward_hook(
+                                lambda m, args, out: taps["attention"].append(
+                                    out.float().cpu()))]
+        with torch.inference_mode():
+            with autocast("cuda", torch.bfloat16):
+                card = est16.model(x.cuda()).float().cpu()
+            with card_attention_rule(), autocast("cpu", torch.bfloat16):
+                cpu16 = cpu_model(x).float()
+            for handle in handles:
+                handle.remove()
+            cpu32 = cpu_model(x)
+        peak = cpu32.abs().max().item()
+        steps = (card - cpu16).abs().max().item() / peak / BF16_STEP
+        noise = (cpu16 - cpu32).abs().max().item() / peak / BF16_STEP
+        for key, (got, want) in ((k, v) for k, v in taps.items() if v):
+            gap = (got - want).abs().max().item() / want.abs().max().item() / BF16_STEP
+            print(f"{label} encoder layer 0's {key}, card vs CPU: {gap:.3f} bf16 steps of "
+                  f"their max {want.abs().max().item():.3e}", flush=True)
+        ratio = BF16_FORWARD_RATIO[cfg16.MODEL.NAME]
+        print(f"{label} forward card vs CPU, both bf16: {steps:.3f} bf16 steps of the peak "
+              f"{peak:.3e}; the CPU's bf16 vs its f32: {noise:.3f} ({steps / noise:.2f}x, "
+              f"limit {ratio}x)", flush=True)
+        if not steps <= ratio * noise:
+            raise AssertionError(f"{label}: the card's bf16 forward disagrees with the CPU's")
+        res.update(forward_steps=steps, forward_noise_steps=noise)
+    del est32, est16
+    torch.cuda.empty_cache()
+    return res
+
+
 def write_synthetic_set(np, root: Path, n_images: int, people: int, seed: int = 0,
                         layout: str = "crowdpose"):
     """A training or test set in COCO format made from a seed: random 480x640
@@ -1259,9 +1499,10 @@ def write_synthetic_set(np, root: Path, n_images: int, people: int, seed: int = 
     return ann_file
 
 
-def kernel_profile(torch, fn, label: str) -> dict:
+def kernel_profile(torch, fn, label: str, counts: dict | None = None) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and the
-    device's idle share of the call's wall time.  Returns ms by kernel name."""
+    device's idle share of the call's wall time.  Returns ms by kernel name;
+    ``counts``, a dict, receives the launches by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1281,7 +1522,40 @@ def kernel_profile(torch, fn, label: str) -> dict:
           f"kernel names, top by device time:", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    if counts is not None:
+        counts.update({e.key: e.count for e in events})
     return {e.key: e.self_device_time_total / 1e3 for e in events}
+
+
+def conv_share(by_name: dict, label: str) -> dict:
+    """The convolutions' (and their layout transposes') device time and share
+    of a profile's kernel time (``kernel_profile``'s ms by name)."""
+    total = sum(by_name.values())
+    convs = {k: ms for k, ms in by_name.items()
+             if any(n in k for n in CONV_NAMES) and "bn_" not in k}
+    ms = sum(convs.values())
+    top = sorted(convs, key=lambda k: -convs[k])[:3]
+    print(f"convolutions in {label}: {ms:.3f} ms = {100 * ms / total:.1f}% of {total:.2f} ms "
+          f"of kernel time; largest: {[k[:70] for k in top]}", flush=True)
+    return {"conv_ms": ms, "total_ms": total, "share": ms / total}
+
+
+def bf16_k1_profile(by_name: dict, counts: dict, label: str, want: int) -> dict:
+    """K1 in a profiled bf16 run: ``want`` launches of its tensor-core kernel
+    (flash_fwd_tc_kernel, by name), its time and share; raises where the run
+    named a SIMT or a 3xTF32 forward."""
+    total = sum(by_name.values())
+    tc = {k: ms for k, ms in by_name.items() if "flash_fwd_tc_kernel" in k}
+    launched = sum(counts[k] for k in tc)
+    other = [k for k in by_name if "flash_fwd_kernel" in k or "flash_fwd_tf32_kernel" in k]
+    ms = sum(tc.values())
+    print(f"K1 in the profiled {label}: flash_fwd_tc_kernel {launched} launches (want {want}), "
+          f"{ms:.3f} ms = {100 * ms / total:.1f}% of {total:.2f} ms of kernel time; SIMT or "
+          f"3xTF32 forward kernels seen: {other}", flush=True)
+    if launched != want or other:
+        raise AssertionError(f"the bf16 {label}'s K1 kernels: tensor cores {launched}, "
+                             f"others {other}")
+    return {"k1_ms": ms, "total_ms": total}
 
 
 def f32_k1_profile(by_name: dict, label: str) -> dict:
@@ -2239,10 +2513,10 @@ def eval_phase(torch, np, fa, tw) -> dict:
               flush=True)
         if not gap <= KVRES_HM_RTOL * peak:
             raise AssertionError("K1' heatmaps disagree with K1's")
-        res["profile"] = f32_k1_profile(
-            kernel_profile(torch, lambda: step(batch),
-                           f"one validate step (batch {EVAL_BATCH}, flip test: 64 crops, f32)"),
-            "validate step")
+        label = f"one validate step (batch {EVAL_BATCH}, flip test: 64 crops, f32)"
+        by_name = kernel_profile(torch, lambda: step(batch), label)
+        res["profile"] = f32_k1_profile(by_name, "validate step")
+        res["conv_f32"] = conv_share(by_name, label)
 
         small = {k: v[:2] for k, v in batch.items()}
         cpu_model = copy.deepcopy(model).cpu()
@@ -2256,7 +2530,77 @@ def eval_phase(torch, np, fa, tw) -> dict:
               f"{peak:.3e}, limit {FORWARD_RTOL:.0e} x peak", flush=True)
         if not err <= FORWARD_RTOL * peak:
             raise AssertionError("the card's validate step disagrees with the CPU's")
+
+        # bf16 (TPU.EVAL_DTYPE bfloat16): one round, and one under
+        # BUCTD_FLASH_KVRES=1 whose results are K1's bit for bit
+        bf16_opts = [*opts, "TPU.EVAL_DTYPE", "bfloat16"]
+        runs = {}
+        for kv in ("0", "1"):
+            os.environ["BUCTD_FLASH_KVRES"] = kv
+            try:
+                for f in counted:
+                    f.launches = 0                           # the bf16 main path's run
+                run = valid_run.main(["--cfg", str(CONFIG), *bf16_opts,
+                                      "OUTPUT_DIR", str(root / f"out_bf16_kvres{kv}")])
+                got = {"flash_fwd": fa.flash_attention.launches,
+                       "flash_fwd_kvres": fa.flash_attention_kvres.launches,
+                       "warp_resample": tw.warp_resample.launches}
+            finally:
+                del os.environ["BUCTD_FLASH_KVRES"]
+            r = run["rounds"][0]
+            want = {"flash_fwd": 2 * batches * (kv == "0"),
+                    "flash_fwd_kvres": 2 * batches * (kv == "1"), "warp_resample": batches}
+            rows = Path(r["results"]).read_text()
+            print(f"bf16 evaluation, one round{' under BUCTD_FLASH_KVRES=1' * (kv == '1')}: AP "
+                  f"{r['AP']!r} (f32's round 0: {out['rounds'][0]['AP']!r}), {r['crops']} "
+                  f"crops, eval loop {r['loop_s']:.3f} s = {r['crops'] / r['loop_s']:.2f} "
+                  f"crops/s (f32's round 0: "
+                  f"{out['rounds'][0]['crops'] / out['rounds'][0]['loop_s']:.2f}); loss "
+                  f"{r['loss']:.6f} acc {r['acc']:.3f}; launches {got}, expected {want}",
+                  flush=True)
+            if got != want or len(json.loads(rows)) != r["crops"] \
+                    or not (np.isfinite(r["AP"]) and 0.0 <= r["AP"] <= 1.0):
+                raise AssertionError(f"bf16 evaluation: launches {got}, AP {r['AP']}")
+            runs[kv] = (r, rows, got)
+        if runs["1"][1] != runs["0"][1] or runs["1"][0]["AP"] != runs["0"][0]["AP"]:
+            raise AssertionError("bf16 evaluation: K1' results differ from K1's")
+        res["bf16"] = {"ap": runs["0"][0]["AP"], "launches": runs["0"][2]["flash_fwd"],
+                       "warp_launches": runs["0"][2]["warp_resample"],
+                       "kvres_launches": runs["1"][2]["flash_fwd_kvres"],
+                       "crops_s": runs["0"][0]["crops"] / runs["0"][0]["loop_s"],
+                       "f32_crops_s": out["rounds"][0]["crops"] / out["rounds"][0]["loop_s"]}
+        cfg16 = default_config()
+        update_config(cfg16, types.SimpleNamespace(cfg=str(CONFIG), opts=bf16_opts))
+        step16 = make_validate_step(cfg16, model, ds.flip_pairs, ds.kpt_colors)
+        hm16 = step16(batch)[5]
+        os.environ["BUCTD_FLASH_KVRES"] = "1"
+        try:
+            hm16_kv = step16(batch)[5]
+        finally:
+            del os.environ["BUCTD_FLASH_KVRES"]
+        res["bf16"].update(bf16_vs_f32(torch, hm16, hm_k1, "CoAM-W48 eval batch"))
+        if hm16.dtype != torch.bfloat16 or not torch.equal(hm16_kv, hm16):
+            raise AssertionError(f"bf16 eval batch: {hm16.dtype}, K1' heatmaps equal K1's: "
+                                 f"{torch.equal(hm16_kv, hm16)}")
+        print("bf16 eval batch: K1' heatmaps equal K1's bit for bit", flush=True)
+        label = f"one bf16 validate step (batch {EVAL_BATCH}, flip test: 64 crops)"
+        counts = {}
+        by_name = kernel_profile(torch, lambda: step16(batch), label, counts)
+        res["bf16"].update(profile=bf16_k1_profile(by_name, counts, label, 2),
+                           conv=conv_share(by_name, label))
     return res
+
+
+def bf16_vs_f32(torch, hm16, hm32, label: str) -> dict:
+    """One batch's bf16 heatmaps against the f32 ones of the same weights:
+    the largest gap in bf16 steps of the f32 peak, and the share of maps
+    whose argmax agrees (random weights: a report)."""
+    steps = ((hm16.float() - hm32).abs().max() / hm32.abs().max()).item() / BF16_STEP
+    same = (hm16.float().flatten(2).argmax(-1) == hm32.flatten(2).argmax(-1)).float().mean()
+    print(f"{label}: bf16 vs f32 heatmaps max |diff| {steps:.3f} bf16 steps of the f32 peak "
+          f"{hm32.abs().max().item():.3e}; argmax equal in {100 * same.item():.1f}% of the "
+          f"maps", flush=True)
+    return {"hm_steps": steps, "argmax_same": same.item()}
 
 
 def transpose_eval_phase(torch, np, fa, tw) -> dict:
@@ -2325,12 +2669,40 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
         batch = next(iter(loader))
         loader.close()
         step = make_validate_step(cfg, out["model"], ds.flip_pairs, ds.kpt_colors)
-        profile = f32_k1_profile(kernel_profile(
-            torch, lambda: step(batch),
-            f"one transpose_h validate step (batch {batch_size}, no flip, f32)"),
-            "transpose_h validate step")
+        label = f"one transpose_h validate step (batch {batch_size}, no flip, f32)"
+        by_name = kernel_profile(torch, lambda: step(batch), label)
+        profile = f32_k1_profile(by_name, "transpose_h validate step")
+        conv_f32 = conv_share(by_name, label)
+
+        # one round in bf16 (TPU.EVAL_DTYPE bfloat16)
+        bf16_opts = [*opts[:-2], "OUTPUT_DIR", str(root / "out_bf16"),
+                     "TPU.EVAL_DTYPE", "bfloat16"]
+        for f in (fa.flash_attention, tw.warp_resample):
+            f.launches = 0                                   # the bf16 main path's run
+        run = valid_run.main(["--cfg", str(TRANSPOSE_CONFIG), *bf16_opts])
+        got = {"flash_fwd": fa.flash_attention.launches,
+               "warp_resample": tw.warp_resample.launches}
+        r16 = run["rounds"][0]
+        print(f"transpose_h bf16 evaluation, one round: AP {r16['AP']!r} (f32: {r['AP']!r}), "
+              f"{r16['crops']} crops, eval loop {r16['loop_s']:.3f} s = "
+              f"{r16['crops'] / r16['loop_s']:.2f} crops/s (f32: "
+              f"{r['crops'] / r['loop_s']:.2f}); launches {got}, expected {want}", flush=True)
+        if got != want or r16["crops"] != r["crops"] \
+                or not (np.isfinite(r16["AP"]) and 0.0 <= r16["AP"] <= 1.0):
+            raise AssertionError(f"transpose_h bf16 evaluation: launches {got}, AP {r16['AP']}")
+        cfg16 = default_config()
+        update_config(cfg16, types.SimpleNamespace(cfg=str(TRANSPOSE_CONFIG), opts=bf16_opts))
+        step16 = make_validate_step(cfg16, out["model"], ds.flip_pairs, ds.kpt_colors)
+        bf16 = bf16_vs_f32(torch, step16(batch)[5], step(batch)[5], "transpose_h eval batch")
+        label = f"one transpose_h bf16 validate step (batch {batch_size}, no flip)"
+        counts = {}
+        by_name = kernel_profile(torch, lambda: step16(batch), label, counts)
+        bf16.update(ap=r16["AP"], launches=got["flash_fwd"], warp_launches=got["warp_resample"],
+                    crops_s=r16["crops"] / r16["loop_s"],
+                    profile=bf16_k1_profile(by_name, counts, label, TP_LAYERS),
+                    conv=conv_share(by_name, label))
     return {"launches": launches, "ap": r["AP"], "crops_s": r["crops"] / r["loop_s"],
-            "profile": profile}
+            "profile": profile, "conv_f32": conv_f32, "bf16": bf16}
 
 
 def kvres_training_phase(torch, np, fa) -> dict:
@@ -2744,7 +3116,9 @@ def main() -> int:
         return serving["launches"], profile
 
     serving_launches, serving_profile = serve(CONFIG, 2)
+    bf16_serving = bf16_serving_phase(torch, np, fa, CONFIG, 2)
     tp_serving_launches, tp_serving_profile = serve(TRANSPOSE_CONFIG, TP_LAYERS, True)
+    tp_bf16_serving = bf16_serving_phase(torch, np, fa, TRANSPOSE_CONFIG, TP_LAYERS)
     train = training_phase(torch, np, fa, tw)
     torch.cuda.empty_cache()
     synth = synthesis_phase(torch, np)
@@ -2778,6 +3152,9 @@ def main() -> int:
     k5_trunk = fused_block_vs_trunk(torch, np, fb)
     k6 = exp_phase(torch, ex)
     prenet_serving_phase(torch, np)
+    prenet_bf16 = {knob: bf16_serving_phase(torch, np, fa, PRENET_CONFIG, 0,
+                                            ("TPU.FUSED_PRENET", knob), knob == "off")
+                   for knob in ("off", "auto")}
     tools = tools_phase(torch, fb, ex)
 
     def bound_by(ops_ms, bound_ms):
@@ -2838,6 +3215,17 @@ def main() -> int:
                                            "bound_ms", "core_ms")},
                 "bound_by": bound_by(t["ops_ms"], t["bound_ms"]), "case": TP_F32_CASES[group]}
 
+    def k1_bf16(group, launches):
+        # bf16 K1 at dropout 0 (the bf16 serving and evaluation paths) over a
+        # group's shapes, with the launches of that bf16 path in this run
+        t = k1["bf16"][group]
+        return {**{key: t[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "bound_by": bound_by(t["ops_ms"], t["bound_ms"]), "launches": launches,
+                "max_out_err_of_max": t["rel"], "tile_rounding_rms": t["tiled"]}
+
+    bf16_launches = (bf16_serving["launches"] + tp_bf16_serving["launches"]
+                     + ev["bf16"]["launches"] + tp_ev["bf16"]["launches"])
+
     def kv_bwd_entry(kind, replaces):
         return {"name": f"flash_bwd_{kind}_kvres", "route": "cuda",
                 "source": "buctd_tpu_torch/csrc/flash_bwd_kvres.cu",
@@ -2885,6 +3273,18 @@ def main() -> int:
           f"{f32_bounds['dkv'][0]:.4f}; f32 K2' dq {kv['dq_f32_ms']:.4f} + dkv "
           f"{kv['dkv_f32_ms']:.4f} (K2 in turns {kv['dq_f32_k2_ms']:.4f} + "
           f"{kv['dkv_f32_k2_ms']:.4f})", flush=True)
+    for name, r in (("CoAM-W48", bf16_serving), ("TransPose-H", tp_bf16_serving),
+                    *((f"preNet-W48 FUSED_PRENET {k}", v) for k, v in prenet_bf16.items())):
+        print(f"bf16 serving {name}: predict_batch {12e3 / r['ms']['batch_bf16']:.2f} crops/s "
+              f"(f32 {12e3 / r['ms']['batch_f32']:.2f}), predict "
+              f"{r['ms']['predict_bf16']:.2f} ms/image (f32 {r['ms']['predict_f32']:.2f}); "
+              f"convolutions {100 * r['conv']['bfloat16']['share']:.1f}% of kernel time "
+              f"(f32 {100 * r['conv']['float32']['share']:.1f}%); K1 launches {r['launches']}",
+              flush=True)
+    for name, r in (("CoAM-W48", ev["bf16"]), ("TransPose-H", tp_ev["bf16"])):
+        print(f"bf16 evaluation {name}: one round {r['crops_s']:.2f} crops/s, AP {r['ap']!r}, "
+              f"K1 launches {r['launches']}; a validate step's convolutions "
+              f"{100 * r['conv']['share']:.1f}% of kernel time", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -2893,7 +3293,8 @@ def main() -> int:
          "replaces": "buctd_tpu/ops/flash_attention.py:86",
          "launches": (serving_launches + train["launches"]["flash_fwd"] + more["flash_fwd"]
                       + ev["launches"]["flash_fwd"] + tp_serving_launches
-                      + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]),
+                      + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]
+                      + bf16_launches),
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"], tp_k["fwd_err"]),
          # f32 (3xTF32) at MAIN_CASES, the SIMT forward it replaced timed in
          # turns beside it
@@ -2910,6 +3311,13 @@ def main() -> int:
          # the bf16 training path (the tensor-core kernel) at TRAIN_CASES,
          # dropout 0.1, beside the f32 SIMT kernel on the widened operands,
          # which bf16 ran before
+         # bf16 at dropout 0 (TPU.EVAL_DTYPE bfloat16): CoAM-W48 serving at
+         # MAIN_CASES, evaluation at EVAL_CASES, and K1's time in the profiled
+         # bf16 runs
+         "bf16_serving": k1_bf16("main", bf16_serving["launches"]),
+         "bf16_eval": k1_bf16("eval", ev["bf16"]["launches"]),
+         "bf16_profiled_ms": {"predict_batch": bf16_serving["k1"]["k1_ms"],
+                              "validate_step": ev["bf16"]["profile"]["k1_ms"]},
          "bf16_training": {"ms": tk["fwd_ms"], "plain_ms": tk["fwd_plain_ms"],
                            "bound_ms": tk["fwd_bound_ms"],
                            "bound_by": bound_by(tk["fwd_ops_ms"], tk["fwd_bound_ms"]),
@@ -2924,6 +3332,8 @@ def main() -> int:
                           "training": tp_train["launches"]["flash_fwd"],
                           "evaluation": tp_ev["launches"]["flash_fwd"]},
              "f32_serving": tp_f32("tp_serving"), "f32_eval": tp_f32("tp_eval"),
+             "bf16_serving": k1_bf16("tp_serving", tp_bf16_serving["launches"]),
+             "bf16_eval": k1_bf16("tp_eval", tp_ev["bf16"]["launches"]),
              "bf16_training": {**tp_bf16("fwd", "fwd_err"),
                                "max_out_err_of_max": tp_k["fwd_bf16_rel"]},
              "profiled_ms": {"predict_batch": tp_serving_profile["k1_ms"],
@@ -2932,7 +3342,8 @@ def main() -> int:
         {"name": "flash_fwd_kvres", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/flash_fwd_kvres.cu",
          "replaces": "buctd_tpu/ops/flash_attention.py:139",
-         "launches": ev["kvres_launches"] + kv_train["flash_fwd_kvres"],
+         "launches": (ev["kvres_launches"] + kv_train["flash_fwd_kvres"]
+                      + ev["bf16"]["kvres_launches"]),
          "max_abs_err": kv["fwd_err"], "ms": kv["fwd_ms"], "plain_ms": kv["fwd_plain_ms"],
          "bound_ms": kv["fwd_bound_ms"], "bound_by": bound_by(kv["fwd_ops_ms"],
                                                               kv["fwd_bound_ms"]),
@@ -2947,7 +3358,8 @@ def main() -> int:
                  "buctd_tpu/ops/pallas_warp.py:30",
                  train["launches"]["warp_resample"] + more["warp_resample"]
                  + ev["launches"]["warp_resample"]
-                 + tp_train["launches"]["warp_resample"] + tp_ev["launches"]["warp_resample"],
+                 + tp_train["launches"]["warp_resample"] + tp_ev["launches"]["warp_resample"]
+                 + ev["bf16"]["warp_launches"] + tp_ev["bf16"]["warp_launches"],
                  tk["warp_err"], "warp"),
          # the fused f32 kernel above; beside it, in this run: the two-pass
          # form in turns, the uint8 source with mask rectangles (the loaders'

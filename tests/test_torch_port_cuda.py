@@ -872,3 +872,68 @@ def test_remat_gradients_on_the_card(cuda, model_name):
     # leave the attention outside
     assert launches[0] == k1_per_forward
     assert launches[1] == (2 if model_name == "transpose_h" else 1) * k1_per_forward
+
+
+@pytest.mark.cuda
+def test_bf16_estimator_runs_the_tensor_core_forward(cuda, monkeypatch):
+    """A tiny bf16 PoseEstimator (TPU.EVAL_DTYPE bfloat16) on the card:
+    finite poses, K1 launched once a round through its tensor-core kernel
+    (flash_fwd_tc_kernel in the profile, no SIMT and no 3xTF32 forward), its
+    warp under TF32 and an f32 estimator's warp exact in the same process,
+    the process's flags as they were after both."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from buctd_tpu_torch.core import refine
+    from buctd_tpu_torch.serving import PoseEstimator
+
+    seen = []
+    real_warp = refine.warp_affine_aligned
+
+    def warp(*args, **kw):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real_warp(*args, **kw)
+
+    monkeypatch.setattr(refine, "warp_affine_aligned", warp)
+    rng = np.random.RandomState(3)
+    img = rng.randint(0, 256, (200, 300, 3)).astype(np.uint8)
+    conds = rng.uniform(60, 180, (2, 14, 2)).astype(np.float32)
+    torch.manual_seed(2)
+    est = PoseEstimator(load_cfg("torch", opts=TINY_COAM + ["TPU.EVAL_DTYPE", "bfloat16"]),
+                        refine_iters=2)
+    _randomize(est.model)
+    f32 = PoseEstimator(load_cfg("torch", opts=TINY_COAM), refine_iters=1)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    before = fa.flash_attention.launches
+    out = est.predict(img, conds, float("-inf"))
+    assert fa.flash_attention.launches == before + 2
+    assert out.shape == (2, 14, 3) and np.isfinite(out).all()
+    f32.predict(img, conds, float("-inf"))
+    assert seen == [True, True, False]
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        est.predict(img, conds, float("-inf"))
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert any("flash_fwd_tc_kernel" in n for n in names), names
+    assert not any("flash_fwd_kernel" in n or "flash_fwd_tf32" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_bf16_forward_at_a_serving_shape_holds_against_tile_rounding(cuda):
+    """bf16 K1 at dropout 0 at CoAM-W48's branch-1 serving shape (the 16
+    crops of a predict_batch, 1728 tokens, d = 96): lse at 2e-5, out within
+    K1_BF16_RTOL x max |out| of the plain forward, within K1_BF16_TILED_RMS of
+    forward_tile_rounded, whose unrounded control misses by more."""
+    bh, lq, d = 16, 1728, 96
+    q, k, v = _qkv(bh, lq, lq, d, torch.bfloat16, cuda)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    _assert_fwd_close((out, lse), fa.flash_attention_reference(q, k, v, scale), torch.bfloat16)
+    s, _ = fa._logits(q, k, scale)
+    tiled, control = fa.forward_tile_rounded(s, v, None)
+    rms = [((x - tiled).square().sum() / tiled.square().sum()).sqrt().item()
+           for x in (out, control)]
+    assert rms[0] <= K1_BF16_TILED_RMS < rms[1], rms

@@ -91,8 +91,14 @@ def test_unported_models_and_bf16_raise():
         get_model(cfg)
     cfg = load_cfg("torch", opts=TINY_COAM + ["TPU.EVAL_DTYPE", "bfloat16"])
     assert compute_dtype(cfg, "EVAL_DTYPE") == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseEstimator(cfg, device="cpu")
+    # bf16 serving is ported (tests/test_torch_port_eval_bf16.py): the
+    # estimator builds, its parameters f32 under the bf16 autocast
+    est = PoseEstimator(cfg, device="cpu")
+    assert est.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in est.model.parameters())
+    with pytest.raises(ValueError, match="EVAL_DTYPE"):
+        compute_dtype(load_cfg("torch", opts=TINY_COAM + ["TPU.EVAL_DTYPE", "float16"]),
+                      "EVAL_DTYPE")
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="CUDA"):
             get_model(load_cfg("torch", opts=TINY_COAM))
