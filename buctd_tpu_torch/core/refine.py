@@ -10,10 +10,11 @@ the device between rounds (no host copy).
 (models/__init__.py::autocast): its heatmaps come out bf16, the decode runs
 on them (ops/decode.py), and the next round's confidences are the bf16
 maxvals widened to f32, as JAX's concatenate promotes them.  The warp and
-the render then take TF32 on the card (JAX's ``precision="default"`` for a
-bf16 model, core/refine.py:78 there; exact f32 on the CPU), and every other
-matmul and cuDNN conv of the call exact f32, each set for the call alone
-(ops/tf32.py::tf32_scope).
+the render then take TF32 operands on the card (JAX's
+``precision="default"`` for a bf16 model, core/refine.py:78 there, which
+XLA takes as TF32 on a GPU and exact f32 on the CPU): the operands are
+rounded (ops/tf32.py::tf32_operand), so no process-wide TF32 flag is read or
+set, and an f32 and a bf16 model in one process keep their own numerics.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from ..data.pipeline import condition_mode, render_condition
 from ..geometry import PIXEL_STD, affine_points, make_affine
 from ..models import autocast, compute_dtype
 from ..ops.decode import get_final_preds
-from ..ops.tf32 import tf32_scope
 from ..ops.warp import warp_affine_aligned
 
 
@@ -64,7 +64,7 @@ def joints2cs(joints, img_w, img_h, margin: float, aspect_ratio: float,
     return center, scale
 
 
-def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3, tf32_warps=None):
+def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3):
     """``refine(image, cond_joints, img_wh=None) -> (preds, maxvals)`` after
     ``n_iters`` rounds, on the device of ``model``, in ``TPU.EVAL_DTYPE``.
 
@@ -74,8 +74,7 @@ def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3, tf32_warps=None):
     (N, P, J, 1); the N*P crops go through the model as one batch.  ``img_wh``
     is the [width, height] of the real image when ``image`` is padded to a
     bucket: condition boxes clip to it, not to the pad.  maxvals come out in
-    the model's dtype.  ``tf32_warps`` overrides the warp and render
-    precision the dtype picks (True: TF32 on the card; False: exact f32).
+    the model's dtype.
     """
     img_w, img_h = int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1])
     hm_w, hm_h = int(cfg.MODEL.HEATMAP_SIZE[0]), int(cfg.MODEL.HEATMAP_SIZE[1])
@@ -87,18 +86,13 @@ def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3, tf32_warps=None):
     use_dark = bool(cfg.TEST.USE_DARK)
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg, "EVAL_DTYPE")
-    if tf32_warps is None:
-        tf32_warps = dtype == torch.bfloat16
+    tf32 = dtype == torch.bfloat16 and device.type == "cuda"
     colors = torch.as_tensor(kpt_colors, dtype=torch.float32, device=device)
     mean = torch.as_tensor(IMAGENET_MEAN, device=device)
     std = torch.as_tensor(IMAGENET_STD, device=device)
 
     @torch.inference_mode()
     def refine(image, cond_joints, img_wh=None):
-        with tf32_scope(device, matmul=False, cudnn=False):
-            return rounds(image, cond_joints, img_wh)
-
-    def rounds(image, cond_joints, img_wh):
         image = torch.as_tensor(image, device=device)
         cond = torch.as_tensor(cond_joints, dtype=torch.float32, device=device)
         single = image.dim() == 3
@@ -119,13 +113,12 @@ def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3, tf32_warps=None):
         for _ in range(n_iters):
             center, scale = joints2cs(cond, bw, bh, margin, aspect, scale_thre)
             t_inv = make_affine(center, scale, zeros, (img_w, img_h), inv=True)
+            crops = warp_affine_aligned(images, t_inv, (img_h, img_w), tf32=tf32)
             t_fwd = make_affine(center, scale, zeros, (img_w, img_h))
             cond_crop = torch.cat([affine_points(cond[..., :2], t_fwd),
                                    cond[..., 2:]], dim=-1)
-            with tf32_scope(device, matmul=tf32_warps):
-                crops = warp_affine_aligned(images, t_inv, (img_h, img_w))
-                cond_img = render_condition(cond_crop, mode, (img_h, img_w), colors)
             rgb = (crops / 255.0 - mean) / std
+            cond_img = render_condition(cond_crop, mode, (img_h, img_w), colors, tf32=tf32)
             x = torch.cat([rgb, cond_img], dim=-1)             # NHWC
             with autocast(device, dtype):
                 hm = model(x.permute(0, 3, 1, 2).contiguous())  # (N*P, J, h, w)

@@ -34,13 +34,14 @@ def num_input_channels(cfg) -> int:
     return 6
 
 
-def render_condition(cond_joints, mode: str, out_hw, colors=None):
-    """Dispatch to the three condition encodings (all return (B, H, W, c))."""
+def render_condition(cond_joints, mode: str, out_hw, colors=None, tf32: bool = False):
+    """Dispatch to the three condition encodings (all return (B, H, W, c));
+    ``tf32``: the sums over joints take TF32 operands (ops/heatmap.py)."""
     if mode == "stacked":
         return render_condition_stacked(cond_joints, out_hw)
     if mode == "colored":
-        return render_condition_colored(cond_joints, colors, out_hw)
-    return render_condition_plain(cond_joints, out_hw)
+        return render_condition_colored(cond_joints, colors, out_hw, tf32)
+    return render_condition_plain(cond_joints, out_hw, tf32)
 
 
 def synthesis_generator(device, seed: int, step: int) -> torch.Generator:

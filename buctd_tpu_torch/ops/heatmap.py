@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from .tf32 import tf32_operand
+
 
 def opencv_gaussian_kernel(ksize: int, sigma: float = 0.0) -> np.ndarray:
     """1-D Gaussian kernel matching cv2.getGaussianKernel (ksize > 7 or sigma > 0)."""
@@ -124,18 +126,21 @@ def _delta_profiles(points, out_hw, ksize: int, overwrite: bool):
     return ky, kx, keep
 
 
-def render_condition_colored(cond_joints, colors, out_hw):
+def render_condition_colored(cond_joints, colors, out_hw, tf32: bool = False):
     """3-channel rainbow condition image (get_condition_image_colored).
 
     cond_joints (B, J, 2+); colors (J, 3).  Returns (B, H, W, 3) f32
-    peak-normalized to 255 across all channels.
+    peak-normalized to 255 across all channels.  ``tf32``: the sum over
+    joints takes TF32 operands (``ops/tf32.py::tf32_operand``), as XLA's default
+    precision does on a GPU.
     """
     H, W = int(out_hw[0]), int(out_hw[1])
     colors = torch.as_tensor(colors, dtype=torch.float32, device=cond_joints.device)
     ky, kx, _ = _delta_profiles(cond_joints[..., :2], (H, W), 15, overwrite=True)
     B, J = ky.shape[:2]
     kyc = ky[..., None] * colors[None, :, None, :]          # (B, J, H, 3)
-    canvas = torch.matmul(kyc.reshape(B, J, H * 3).transpose(1, 2), kx)
+    op = tf32_operand(tf32)
+    canvas = torch.matmul(op(kyc.reshape(B, J, H * 3).transpose(1, 2)), op(kx))
     canvas = canvas.reshape(B, H, 3, W).transpose(2, 3)     # (B, H, W, 3)
     am = canvas.amax(dim=(1, 2, 3), keepdim=True)
     return torch.where(am == 0, canvas, canvas / am * 255.0)
@@ -143,22 +148,24 @@ def render_condition_colored(cond_joints, colors, out_hw):
 
 def render_condition_stacked(cond_joints, out_hw):
     """J-channel condition, one blurred point per channel, each channel
-    peak-normalized on its own (get_stacked_condition).  (B, H, W, J) f32."""
+    peak-normalized on its own (get_stacked_condition).  (B, H, W, J) f32.
+    An outer product per joint, with no sum: exact at any matmul precision."""
     ky, kx, _ = _delta_profiles(cond_joints[..., :2], out_hw, 15, overwrite=False)
     canvas = torch.einsum("bjh,bjw->bhwj", ky, kx) * 255.0
     am = canvas.amax(dim=(1, 2), keepdim=True)
     return torch.where(am == 0, canvas, canvas / am * 255.0)
 
 
-def render_condition_plain(cond_joints, out_hw):
+def render_condition_plain(cond_joints, out_hw, tf32: bool = False):
     """1-channel condition replicated x3 (get_condition_image).  The reference
     casts the final map to int (JointsDataset.py:514): kept as a trunc.  The
     peak normalization divides first, so every peak pixel is exactly 255: the
     f32 product canvas * (255 / am) lands on 254.99998 for some peaks, which
     the trunc turns into 254 (XLA evaluates the JAX expression as the
-    division-first form)."""
+    division-first form).  ``tf32`` as in ``render_condition_colored``."""
     ky, kx, _ = _delta_profiles(cond_joints[..., :2], out_hw, 15, overwrite=True)
-    canvas = torch.matmul(ky.transpose(1, 2), kx) * 255.0  # (B, H, W)
+    op = tf32_operand(tf32)
+    canvas = torch.matmul(op(ky.transpose(1, 2)), op(kx)) * 255.0  # (B, H, W)
     am = canvas.amax(dim=(1, 2), keepdim=True)
     hm = torch.trunc(torch.where(am == 0, canvas, canvas / am * 255.0))
     return hm[..., None].expand(*hm.shape, 3).contiguous()

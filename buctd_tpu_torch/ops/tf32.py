@@ -3,37 +3,14 @@ csrc/mma_tf32.cuh, which K1, K2 and K5 share.  The dense emulations that
 the checks hold against the kernels and the JAX package
 (``flash_attention.forward_tf32``, ``flash_attention.backward_tf32``,
 ``fused_block.fused_block_tf32``) take their products from here; nothing
-on the main path calls them.  ``tf32_scope`` is the serving path's per-call
-switch of cuBLAS's and cuDNN's TF32 (core/refine.py).
+on the main path calls them.  ``tf32_operand`` is how a bf16 model's warp
+and render take XLA's default precision on the card (core/refine.py): TF32
+operands, multiplied exactly, with the process's TF32 flags left alone.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
-
-
-@contextlib.contextmanager
-def tf32_scope(device, matmul: bool, cudnn: bool | None = None):
-    """TF32 for f32 matmuls on CUDA set to ``matmul`` (and for f32 cuDNN
-    convs to ``cudnn``, where given) inside the block, the process's
-    settings restored after it: what one call needs, without touching
-    another caller's numerics.  On the CPU it sets nothing: f32 products
-    there are exact, as XLA's are at any precision."""
-    if torch.device(device).type != "cuda":
-        yield
-        return
-    flags = torch.backends.cuda.matmul, torch.backends.cudnn
-    saved = [f.allow_tf32 for f in flags]
-    for f, on in zip(flags, (matmul, cudnn)):
-        if on is not None:
-            f.allow_tf32 = bool(on)
-    try:
-        yield
-    finally:
-        for f, on in zip(flags, saved):
-            f.allow_tf32 = on
 
 
 def tf32_round(x):
@@ -70,3 +47,11 @@ def tf32_product(a, b, passes: int):
     if passes == 1:
         return torch.matmul(a_hi, b_hi)
     return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
+
+
+def tf32_operand(on: bool):
+    """A matmul operand as it enters the product: ``tf32_round`` where
+    ``on``, else the identity.  A product of two TF32 values is exact in f32,
+    so a matmul of such operands computes a TF32 matmul whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says."""
+    return tf32_round if on else (lambda a: a)

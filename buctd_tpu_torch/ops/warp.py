@@ -25,6 +25,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .tf32 import tf32_operand
+
 
 def _axis_taps(coord, in_size: int):
     """Bilinear tap-weight matrix (..., out, in): relu(1 - |src - idx|).  Rows
@@ -33,14 +35,16 @@ def _axis_taps(coord, in_size: int):
     return torch.relu(1.0 - torch.abs(coord[..., None] - idx))
 
 
-def warp_affine_aligned(images, trans_dst2src, out_hw):
+def warp_affine_aligned(images, trans_dst2src, out_hw, tf32: bool = False):
     """Axis-aligned (rot == 0) warp: ``out = Wy @ img @ Wx^T`` per crop.
 
     images: (N, H, W, C); trans_dst2src: (B, 2, 3) output -> source affines with
     zero off-diagonal terms, B a multiple of N: crops ``[n*P, (n+1)*P)`` come
     from image n (P = B / N; the JAX function takes N == B).  Returns
-    (B, out_h, out_w, C) f32.
+    (B, out_h, out_w, C) f32.  ``tf32``: both matmuls take TF32 operands
+    (``ops/tf32.py::tf32_operand``), as XLA's default precision does on a GPU.
     """
+    operand = tf32_operand(tf32)
     n_img, H, W, C = images.shape
     B = trans_dst2src.shape[0]
     if B % n_img:
@@ -55,10 +59,10 @@ def warp_affine_aligned(images, trans_dst2src, out_hw):
     wy = _axis_taps(sy, H)                                  # (B, oh, H)
     wx = _axis_taps(sx, W)                                  # (B, ow, W)
 
-    img = images.float().reshape(n_img, H, W * C)
-    rows = torch.matmul(wy.reshape(n_img, P * oh, H), img)  # (N, P*oh, W*C)
+    img = operand(images.float().reshape(n_img, H, W * C))
+    rows = torch.matmul(operand(wy.reshape(n_img, P * oh, H)), img)  # (N, P*oh, W*C)
     rows = rows.reshape(B, oh, W, C).transpose(2, 3).reshape(B, oh * C, W)
-    out = torch.matmul(rows, wx.transpose(1, 2))            # (B, oh*C, ow)
+    out = torch.matmul(operand(rows), operand(wx.transpose(1, 2)))   # (B, oh*C, ow)
     return out.reshape(B, oh, C, ow).transpose(2, 3)
 
 

@@ -11,11 +11,11 @@ same-bucket images as one N*P batch.
 The model is the cfg's: BUCTD-CoAM (``pose_hrnet_coam``), BUCTD-TransPose-H
 (``transpose_h``) or BUCTD-preNet (``pose_hrnet`` with ``USE_PRE_NET``), whose
 preNet is fused after the checkpoint load when ``TPU.FUSED_PRENET`` is not
-"off" (models/fuse.py).  It runs in ``TPU.EVAL_DTYPE``: float32 (exact: TF32
-off for every matmul and cuDNN conv of a call) or bfloat16 (f32 parameters
-under bf16 autocast, bf16 heatmaps, TF32 for the warp and the render), as
-JAX's estimator builds its model with that dtype.  Each call sets the TF32
-flags it needs and restores them (core/refine.py), so an f32 and a bf16
+"off" (models/fuse.py).  It runs in ``TPU.EVAL_DTYPE``: float32 (exact: the
+constructor turns TF32 off for cuBLAS and cuDNN) or bfloat16 (f32 parameters
+under bf16 autocast, bf16 heatmaps, the warp and the render on TF32
+operands, core/refine.py), as JAX's estimator builds its model with that
+dtype.  No call reads or sets the TF32 flags, so an f32 and a bf16
 estimator keep their own numerics in one process.
 
 The JAX estimator's ``max_compiles`` and ``precompile`` bound XLA compiles; an
@@ -75,6 +75,11 @@ class PoseEstimator:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PoseEstimator: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
+        if self.device.type == "cuda":
+            # f32 means f32: cuDNN convs default to TF32, which keeps ~3 digits
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
         self.dtype = compute_dtype(cfg, "EVAL_DTYPE")
         self.cfg = cfg
         self.num_joints = int(cfg.MODEL.NUM_JOINTS)

@@ -65,13 +65,14 @@ Phases (each raises on failure; nothing is caught):
      d = 112 head: 6 K1 launches a forward); after each, the same model in
      bf16 (TPU.EVAL_DTYPE bfloat16, ``bf16_serving_phase``) beside the f32
      estimator of the same weights: the bf16 run's K1 launches, predict and
-     predict_batch timed in turns with f32, a profile of each dtype (bf16
-     K1's tensor-core kernel by name and launches, no SIMT or 3xTF32
-     forward; the convolutions' share of kernel time), one round's bf16 vs
-     f32 keypoints within one heatmap pixel (a report), the decode drift of
-     the TF32 warp and render against exact (median within WARP_DRIFT_PX),
-     one bf16 forward card vs CPU (BF16_FORWARD_RATIO), the TF32 flags
-     unchanged by the calls;
+     predict_batch timed in turns with f32 (medians), a profile of each
+     dtype (bf16 K1's tensor-core kernel by name and launches, no SIMT or
+     3xTF32 forward; the convolutions' share of kernel time), one round's
+     bf16 vs f32 keypoints within one heatmap pixel (a report), the decode
+     drift of the warp and render on TF32 operands against exact (median
+     within WARP_DRIFT_PX), one bf16 forward card vs CPU (every module's
+     output dtype equal, the nn.Upsample control apart; BF16_FORWARD_RATIO),
+     the TF32 flags unchanged by the calls;
   4. training: ``buctd_tpu_torch.train.run`` on a synthetic CrowdPose-format
      set (seeded, in a temporary directory) at full width, batch 32, bf16
      autocast, attention dropout 0.1, the device loader; ms/step, images/s,
@@ -364,17 +365,22 @@ TOOL_CHAIN, TOOL_ROUNDS, TOOL_STEM_BATCH = 5, 2, 32
 SYNTH_RATE_ATOL = 0.05
 SYNTH_HOST_REPS, SYNTH_CARD_REPS = 4, 16
 # bf16 serving and evaluation (TPU.EVAL_DTYPE bfloat16), beside the f32
-# estimator of the same weights: predict and predict_batch BF16_REPEATS calls
-# a turn (f32, bf16, bf16, f32).  The decode's drift from the warp and render
-# in TF32 (the bf16 path's default) against them exact, over the joints of
-# one round: the median within WARP_DRIFT_PX, the drift JAX measured
-# (tools/bench_precision.py: 0.00 px); its p99 and max are printed (an argmax
-# at a near-tie moves a joint by whole pixels).  One bf16 forward on the card
-# against the CPU's bf16 forward on the same input: within BF16_FORWARD_RATIO
-# x the distance of the CPU's bf16 forward from its f32 one (bf16's own noise
-# on that input; convolution algorithms sum in another order, and the
-# attention amplifies what reaches it), both printed in bf16 steps of the
-# peak.  The CPU's bf16 forward takes the flash path's plain version where
+# estimator of the same weights: predict and predict_batch, one call a turn
+# (f32, bf16, bf16, f32), BF16_REPEATS turns; the medians of each dtype's
+# calls and their range are printed.  The decode's drift from the warp and
+# render on TF32 operands (the bf16 path's default on the card) against them
+# exact, over the joints of one round: the median within WARP_DRIFT_PX, the
+# drift JAX measured (tools/bench_precision.py: 0.00 px); its p99 and max are
+# printed (an argmax at a near-tie moves a joint by whole pixels).  One bf16
+# forward on the card against the CPU's bf16 forward on the same input:
+# every module's output dtype the same on both (CUDA autocast rounds where
+# CPU autocast, and so JAX, rounds), with a control that must miss: the fuse
+# layers' nn.Upsample put back (F7, which CUDA autocast runs in f32); and the
+# heatmaps within BF16_FORWARD_RATIO x the distance of the CPU's bf16 forward
+# from its f32 one (bf16's own noise on that input; convolution algorithms
+# sum in another order, and the attention amplifies what reaches it), both
+# printed in bf16 steps of the peak, and the control's distance beside them.
+# The CPU's bf16 forward takes the flash path's plain version where
 # the card takes K1 (``card_attention_rule``): K1 rounds p to bf16 as JAX's
 # kernel does, the batched-matmul path does not.  Measured by this script on
 # an H100: CoAM-W48 6.03-6.66 steps against the CPU's 5.01-5.30 (1.14-1.33x).
@@ -384,7 +390,7 @@ SYNTH_HOST_REPS, SYNTH_CARD_REPS = 4, 16
 # trunk's few-step differences at the tokens move that layer's attention
 # output by many more (both printed); hence its own ratio.  BUCTD_FLASH_KVRES=1's bf16 eval heatmaps equal K1's
 # bit for bit.
-BF16_REPEATS = 2
+BF16_REPEATS = 4
 WARP_DRIFT_PX = 0.05
 BF16_FORWARD_RATIO = {"pose_hrnet_coam": 2.0, "pose_hrnet": 2.0, "transpose_h": 7.0}
 BF16_STEP = 2.0 ** -8
@@ -1312,6 +1318,42 @@ def card_attention_rule():
         attention._use_flash = rule
 
 
+@contextlib.contextmanager
+def exact_warps():
+    """The refine round's warp and render exact whatever the model's dtype:
+    a bf16 round's TF32 operands (core/refine.py) turned off, for the drift
+    they cause."""
+    from buctd_tpu_torch.core import refine
+
+    real = refine.warp_affine_aligned, refine.render_condition
+    refine.warp_affine_aligned = lambda *args, tf32, **kw: real[0](*args, tf32=False, **kw)
+    refine.render_condition = lambda *args, tf32, **kw: real[1](*args, tf32=False, **kw)
+    try:
+        yield
+    finally:
+        refine.warp_affine_aligned, refine.render_condition = real
+
+
+@contextlib.contextmanager
+def module_dtypes(torch, model):
+    """name -> output dtype of every module of ``model`` whose output is a
+    tensor, filled by the forwards run inside the block."""
+    dtypes = {}
+
+    def record(name):
+        def hook(module, args, out):
+            if torch.is_tensor(out):
+                dtypes[name] = out.dtype
+        return hook
+
+    handles = [m.register_forward_hook(record(n)) for n, m in model.named_modules()]
+    try:
+        yield dtypes
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
 def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
                        opts=(), cpu_check: bool = True) -> dict:
     """``config``'s model served in bf16 (TPU.EVAL_DTYPE bfloat16) at full
@@ -1329,6 +1371,7 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     from buctd_tpu_torch.config import default_config, update_config
     from buctd_tpu_torch.core.refine import joints2cs, make_refine_fn
     from buctd_tpu_torch.models import autocast
+    from buctd_tpu_torch.models.hrnet import Upsample
     from buctd_tpu_torch.serving import PoseEstimator
 
     def load(dtype):
@@ -1370,19 +1413,23 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != flags:
         raise AssertionError(f"{label}: the estimator left the TF32 flags changed")
 
-    p32a, p16a, p16b, p32b = (host_ms(lambda e=e: e.predict(img, conds, keep), BF16_REPEATS)
-                              for e in (est32, est16, est16, est32))
-    b32a, b16a, b16b, b32b = (host_ms(lambda e=e: e.predict_batch(images, poses, keep),
-                                      BF16_REPEATS) for e in (est32, est16, est16, est32))
-    ms = {"predict_f32": (p32a + p32b) / 2, "predict_bf16": (p16a + p16b) / 2,
-          "batch_f32": (b32a + b32b) / 2, "batch_bf16": (b16a + b16b) / 2}
-    print(f"{label} serving, in turns with f32 (f32, bf16, bf16, f32): predict "
-          f"{ms['predict_bf16']:.2f} ms/image against {ms['predict_f32']:.2f} "
-          f"({4e3 / ms['predict_bf16']:.2f} against {4e3 / ms['predict_f32']:.2f} crops/s); "
-          f"predict_batch {12e3 / ms['batch_bf16']:.2f} crops/s against "
-          f"{12e3 / ms['batch_f32']:.2f} ({ms['batch_f32'] / ms['batch_bf16']:.3f}x); "
-          f"K1 launches in the bf16 run {launches} (= {k1_per_forward} x {ROUNDS} x 2)",
-          flush=True)
+    calls = {key: [] for key in ("predict_f32", "predict_bf16", "batch_f32", "batch_bf16")}
+    for _ in range(BF16_REPEATS):
+        for dtype, e in (("f32", est32), ("bf16", est16), ("bf16", est16), ("f32", est32)):
+            calls[f"predict_{dtype}"].append(host_ms(lambda: e.predict(img, conds, keep), 1))
+            calls[f"batch_{dtype}"].append(
+                host_ms(lambda: e.predict_batch(images, poses, keep), 1))
+    ms = {key: statistics.median(v) for key, v in calls.items()}
+    spread = {key: f"{min(v):.2f}-{max(v):.2f}" for key, v in calls.items()}
+    print(f"{label} serving, medians of {2 * BF16_REPEATS} calls a dtype in turns with f32 "
+          f"(f32, bf16, bf16, f32): predict {ms['predict_bf16']:.2f} ms/image "
+          f"[{spread['predict_bf16']}] against {ms['predict_f32']:.2f} "
+          f"[{spread['predict_f32']}] ({4e3 / ms['predict_bf16']:.2f} against "
+          f"{4e3 / ms['predict_f32']:.2f} crops/s); predict_batch {ms['batch_bf16']:.2f} ms "
+          f"[{spread['batch_bf16']}] against {ms['batch_f32']:.2f} [{spread['batch_f32']}] "
+          f"({12e3 / ms['batch_bf16']:.2f} against {12e3 / ms['batch_f32']:.2f} crops/s, "
+          f"{ms['batch_f32'] / ms['batch_bf16']:.3f}x); K1 launches in the bf16 run "
+          f"{launches} (= {k1_per_forward} x {ROUNDS} x 2)", flush=True)
 
     counts, shares = {}, {}
     for dtype, est in (("float32", est32), ("bfloat16", est16)):
@@ -1397,10 +1444,11 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     # input condition's, so its heatmap pixel is known
     imgs = torch.from_numpy(np.stack(images))
     cnds = torch.from_numpy(np.stack(poses))
-    one = {key: make_refine_fn(cfg, est.model, est.colors, n_iters=1, tf32_warps=tf32)
-           for key, cfg, est, tf32 in (("f32", cfg32, est32, None), ("bf16", cfg16, est16, None),
-                                       ("bf16_exact", cfg16, est16, False))}
+    one = {key: make_refine_fn(cfg, est.model, est.colors, n_iters=1)
+           for key, cfg, est in (("f32", cfg32, est32), ("bf16", cfg16, est16))}
     got = {key: fn(imgs, cnds)[0].reshape(-1, joints, 2).cpu() for key, fn in one.items()}
+    with exact_warps():
+        got["bf16_exact"] = one["bf16"](imgs, cnds)[0].reshape(-1, joints, 2).cpu()
     img_w, img_h = (int(v) for v in cfg16.MODEL.IMAGE_SIZE)
     _, scale = joints2cs(cnds.reshape(-1, joints, 3), 640, 480,
                          float(cfg16.DATASET.BU_BBOX_MARGIN), img_w / img_h,
@@ -1433,27 +1481,50 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
                                 lambda m, args, out: taps["attention"].append(
                                     out.float().cpu()))]
         with torch.inference_mode():
-            with autocast("cuda", torch.bfloat16):
+            with module_dtypes(torch, est16.model) as card_dtypes, \
+                    autocast("cuda", torch.bfloat16):
                 card = est16.model(x.cuda()).float().cpu()
-            with card_attention_rule(), autocast("cpu", torch.bfloat16):
+            with module_dtypes(torch, cpu_model) as cpu_dtypes, card_attention_rule(), \
+                    autocast("cpu", torch.bfloat16):
                 cpu16 = cpu_model(x).float()
             for handle in handles:
                 handle.remove()
             cpu32 = cpu_model(x)
+            # the control: torch's nn.Upsample back in the fuse layers (F7)
+            ups = [m for m in est16.model.modules() if isinstance(m, Upsample)]
+            for m in ups:
+                m.__class__ = torch.nn.Upsample
+            try:
+                with module_dtypes(torch, est16.model) as control_dtypes, \
+                        autocast("cuda", torch.bfloat16):
+                    control = est16.model(x.cuda()).float().cpu()
+            finally:
+                for m in ups:
+                    m.__class__ = Upsample
         peak = cpu32.abs().max().item()
         steps = (card - cpu16).abs().max().item() / peak / BF16_STEP
         noise = (cpu16 - cpu32).abs().max().item() / peak / BF16_STEP
+        control_steps = (control - cpu16).abs().max().item() / peak / BF16_STEP
         for key, (got, want) in ((k, v) for k, v in taps.items() if v):
             gap = (got - want).abs().max().item() / want.abs().max().item() / BF16_STEP
             print(f"{label} encoder layer 0's {key}, card vs CPU: {gap:.3f} bf16 steps of "
                   f"their max {want.abs().max().item():.3e}", flush=True)
         ratio = BF16_FORWARD_RATIO[cfg16.MODEL.NAME]
+        apart = sorted(n for n in cpu_dtypes if card_dtypes.get(n) != cpu_dtypes[n])
+        control_apart = [n for n in cpu_dtypes if control_dtypes.get(n) != cpu_dtypes[n]]
         print(f"{label} forward card vs CPU, both bf16: {steps:.3f} bf16 steps of the peak "
               f"{peak:.3e}; the CPU's bf16 vs its f32: {noise:.3f} ({steps / noise:.2f}x, "
-              f"limit {ratio}x)", flush=True)
+              f"limit {ratio}x); module output dtypes apart {len(apart)} of "
+              f"{len(cpu_dtypes)}; the control with nn.Upsample (F7 undone, {len(ups)} "
+              f"upsamples): {control_steps:.3f} steps ({control_steps / noise:.2f}x), dtypes "
+              f"apart {len(control_apart)}", flush=True)
         if not steps <= ratio * noise:
             raise AssertionError(f"{label}: the card's bf16 forward disagrees with the CPU's")
-        res.update(forward_steps=steps, forward_noise_steps=noise)
+        if apart or not control_apart:
+            raise AssertionError(f"{label}: module dtypes card vs CPU apart {apart[:8]}; "
+                                 f"the nn.Upsample control apart {control_apart[:8]}")
+        res.update(forward_steps=steps, forward_noise_steps=noise,
+                   control_steps=control_steps, control_dtypes_apart=len(control_apart))
     del est32, est16
     torch.cuda.empty_cache()
     return res
@@ -2532,8 +2603,14 @@ def eval_phase(torch, np, fa, tw) -> dict:
             raise AssertionError("the card's validate step disagrees with the CPU's")
 
         # bf16 (TPU.EVAL_DTYPE bfloat16): one round, and one under
-        # BUCTD_FLASH_KVRES=1 whose results are K1's bit for bit
+        # BUCTD_FLASH_KVRES=1 whose results are K1's bit for bit; first one
+        # bf16 validate step, so the timed round pays no first cuDNN calls
         bf16_opts = [*opts, "TPU.EVAL_DTYPE", "bfloat16"]
+        cfg16 = default_config()
+        update_config(cfg16, types.SimpleNamespace(cfg=str(CONFIG), opts=bf16_opts))
+        step16 = make_validate_step(cfg16, model, ds.flip_pairs, ds.kpt_colors)
+        step16(batch)
+        torch.cuda.synchronize()
         runs = {}
         for kv in ("0", "1"):
             os.environ["BUCTD_FLASH_KVRES"] = kv
@@ -2569,9 +2646,6 @@ def eval_phase(torch, np, fa, tw) -> dict:
                        "kvres_launches": runs["1"][2]["flash_fwd_kvres"],
                        "crops_s": runs["0"][0]["crops"] / runs["0"][0]["loop_s"],
                        "f32_crops_s": out["rounds"][0]["crops"] / out["rounds"][0]["loop_s"]}
-        cfg16 = default_config()
-        update_config(cfg16, types.SimpleNamespace(cfg=str(CONFIG), opts=bf16_opts))
-        step16 = make_validate_step(cfg16, model, ds.flip_pairs, ds.kpt_colors)
         hm16 = step16(batch)[5]
         os.environ["BUCTD_FLASH_KVRES"] = "1"
         try:
@@ -2674,9 +2748,15 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
         profile = f32_k1_profile(by_name, "transpose_h validate step")
         conv_f32 = conv_share(by_name, label)
 
-        # one round in bf16 (TPU.EVAL_DTYPE bfloat16)
+        # one round in bf16 (TPU.EVAL_DTYPE bfloat16), after one bf16
+        # validate step that pays the first cuDNN calls
         bf16_opts = [*opts[:-2], "OUTPUT_DIR", str(root / "out_bf16"),
                      "TPU.EVAL_DTYPE", "bfloat16"]
+        cfg16 = default_config()
+        update_config(cfg16, types.SimpleNamespace(cfg=str(TRANSPOSE_CONFIG), opts=bf16_opts))
+        step16 = make_validate_step(cfg16, out["model"], ds.flip_pairs, ds.kpt_colors)
+        step16(batch)
+        torch.cuda.synchronize()
         for f in (fa.flash_attention, tw.warp_resample):
             f.launches = 0                                   # the bf16 main path's run
         run = valid_run.main(["--cfg", str(TRANSPOSE_CONFIG), *bf16_opts])
@@ -2690,9 +2770,6 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
         if got != want or r16["crops"] != r["crops"] \
                 or not (np.isfinite(r16["AP"]) and 0.0 <= r16["AP"] <= 1.0):
             raise AssertionError(f"transpose_h bf16 evaluation: launches {got}, AP {r16['AP']}")
-        cfg16 = default_config()
-        update_config(cfg16, types.SimpleNamespace(cfg=str(TRANSPOSE_CONFIG), opts=bf16_opts))
-        step16 = make_validate_step(cfg16, out["model"], ds.flip_pairs, ds.kpt_colors)
         bf16 = bf16_vs_f32(torch, step16(batch)[5], step(batch)[5], "transpose_h eval batch")
         label = f"one transpose_h bf16 validate step (batch {batch_size}, no flip)"
         counts = {}

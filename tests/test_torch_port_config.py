@@ -26,6 +26,20 @@ TINY_COAM = ["MODEL.IMAGE_SIZE", "[96, 128]", "MODEL.HEATMAP_SIZE", "[24, 32]",
              "MODEL.EXTRA.STAGE4.NUM_BLOCKS", "[1, 1, 1, 1]",
              "TEST.POST_PROCESS", "True"]
 
+TRANSPOSE_YAML = REPO / "experiments" / "coco" / "buctd" / "transpose_h_384x288.yaml"
+# the yaml narrowed: 8/16/32 channels, one block a branch, stage 3 with two
+# modules (a multi-scale one, then the single-scale last), d_model 16 (+ 16
+# condition channels: d = 32), 2 encoder layers; 128x96 images give 32x24 =
+# 768 tokens, over the flash path's 512^2 threshold
+TINY_TRANSPOSE = ["MODEL.IMAGE_SIZE", "[96, 128]", "MODEL.HEATMAP_SIZE", "[24, 32]",
+                  "MODEL.EXTRA.STAGE2.NUM_CHANNELS", "[8, 16]",
+                  "MODEL.EXTRA.STAGE3.NUM_CHANNELS", "[8, 16, 32]",
+                  "MODEL.EXTRA.STAGE2.NUM_BLOCKS", "[1, 1]",
+                  "MODEL.EXTRA.STAGE3.NUM_BLOCKS", "[1, 1, 1]",
+                  "MODEL.EXTRA.STAGE3.NUM_MODULES", "2",
+                  "MODEL.DIM_MODEL", "16", "MODEL.DIM_FEEDFORWARD", "32",
+                  "MODEL.ENCODER_LAYERS", "2"]
+
 
 def load_cfg(package: str, yaml=COAM_YAML, opts=()):
     """The same YAML + overrides through buctd_tpu or buctd_tpu_torch's config."""

@@ -41,7 +41,11 @@ order can round the intermediate or the output one bf16 step apart); at C =
 kernel's; exp throughput (K6) rtol 1e-5 (expf/exp2f in f32, a few ulps); a
 full-width preNet-W48 forward, fused or not, card vs CPU within 1e-4 of the
 heatmaps' peak; a full-width TransPose-H forward (K1 at d = 112) no further
-from the CPU's float64 forward than 2x the CPU's own f32 forward.
+from the CPU's float64 forward than 2x the CPU's own f32 forward.  Under
+bf16 autocast, every module's output dtype on the card equals the CPU's
+exactly (the fuse layers' nn.Upsample, the control, must break that); a
+matmul of TF32-rounded operands within 1e-4 of the peak of cuBLAS's own
+TF32 product, which the exact product misses.
 """
 
 import numpy as np
@@ -49,7 +53,7 @@ import pytest
 import torch
 
 from buctd_tpu_torch.ops import flash_attention as fa
-from test_torch_port_config import TINY_COAM, load_cfg
+from test_torch_port_config import COAM_YAML, TINY_COAM, TINY_TRANSPOSE, TRANSPOSE_YAML, load_cfg
 
 SHAPES = [(2, 256, 256, 48), (1, 300, 300, 112), (3, 640, 384, 96), (1, 128, 700, 64)]
 # and two whose head dim is no multiple of 16, ragged in both L (d = 6: rows of
@@ -822,25 +826,12 @@ def test_remat_gradients_on_the_card(cuda, model_name):
     dropout on through K1 and K2 (the flash engine): within 1e-5 of the max
     gradient (cuDNN's backward convs may sum in another order between runs);
     a recompute that drew another dropout seed would move them by O(1)."""
-    from pathlib import Path
-
     from buctd_tpu_torch.models import get_model
     from buctd_tpu_torch.train.state import TrainStep, make_lr_schedule, make_optimizer
 
-    repo = Path(__file__).resolve().parents[1]
     if model_name == "transpose_h":
-        yaml = repo / "experiments" / "coco" / "buctd" / "transpose_h_384x288.yaml"
-        opts = ["MODEL.IMAGE_SIZE", "[96, 128]", "MODEL.HEATMAP_SIZE", "[24, 32]",
-                "MODEL.EXTRA.STAGE2.NUM_CHANNELS", "[8, 16]",
-                "MODEL.EXTRA.STAGE3.NUM_CHANNELS", "[8, 16, 32]",
-                "MODEL.EXTRA.STAGE2.NUM_BLOCKS", "[1, 1]",
-                "MODEL.EXTRA.STAGE3.NUM_BLOCKS", "[1, 1, 1]",
-                "MODEL.EXTRA.STAGE3.NUM_MODULES", "2", "MODEL.DIM_MODEL", "16",
-                "MODEL.DIM_FEEDFORWARD", "32", "MODEL.ENCODER_LAYERS", "2"]
-        J, k1_per_forward = 17, 2
+        yaml, opts, J, k1_per_forward = TRANSPOSE_YAML, list(TINY_TRANSPOSE), 17, 2
     else:
-        from test_torch_port_config import COAM_YAML
-
         yaml, opts, J, k1_per_forward = COAM_YAML, list(TINY_COAM), 14, 3
     rng = np.random.RandomState(4)
     batch = {"input": torch.from_numpy(rng.randn(2, 6, 128, 96).astype(np.float32)).to(cuda),
@@ -879,8 +870,8 @@ def test_bf16_estimator_runs_the_tensor_core_forward(cuda, monkeypatch):
     """A tiny bf16 PoseEstimator (TPU.EVAL_DTYPE bfloat16) on the card:
     finite poses, K1 launched once a round through its tensor-core kernel
     (flash_fwd_tc_kernel in the profile, no SIMT and no 3xTF32 forward), its
-    warp under TF32 and an f32 estimator's warp exact in the same process,
-    the process's flags as they were after both."""
+    warp on TF32 operands and an f32 estimator's warp exact in the same
+    process, the process's flags as they were after both."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -890,9 +881,9 @@ def test_bf16_estimator_runs_the_tensor_core_forward(cuda, monkeypatch):
     seen = []
     real_warp = refine.warp_affine_aligned
 
-    def warp(*args, **kw):
-        seen.append(torch.backends.cuda.matmul.allow_tf32)
-        return real_warp(*args, **kw)
+    def warp(*args, tf32, **kw):
+        seen.append((tf32, torch.backends.cuda.matmul.allow_tf32))
+        return real_warp(*args, tf32=tf32, **kw)
 
     monkeypatch.setattr(refine, "warp_affine_aligned", warp)
     rng = np.random.RandomState(3)
@@ -909,7 +900,7 @@ def test_bf16_estimator_runs_the_tensor_core_forward(cuda, monkeypatch):
     assert fa.flash_attention.launches == before + 2
     assert out.shape == (2, 14, 3) and np.isfinite(out).all()
     f32.predict(img, conds, float("-inf"))
-    assert seen == [True, True, False]
+    assert seen == [(True, False), (True, False), (False, False)]
     assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -937,3 +928,86 @@ def test_bf16_forward_at_a_serving_shape_holds_against_tile_rounding(cuda):
     rms = [((x - tiled).square().sum() / tiled.square().sum()).sqrt().item()
            for x in (out, control)]
     assert rms[0] <= K1_BF16_TILED_RMS < rms[1], rms
+
+
+def _module_dtypes(model, x, device_type: str) -> dict:
+    """name -> output dtype of every module of ``model`` whose output is a
+    tensor, in one forward of ``x`` under ``device_type``'s bf16 autocast."""
+    from buctd_tpu_torch.models import autocast
+
+    dtypes = {}
+
+    def record(name):
+        def hook(module, args, out):
+            if torch.is_tensor(out):
+                dtypes[name] = out.dtype
+        return hook
+
+    handles = [m.register_forward_hook(record(name)) for name, m in model.named_modules()]
+    try:
+        with torch.inference_mode(), autocast(device_type, torch.bfloat16):
+            model(x)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return dtypes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["coam", "transpose_h"])
+def test_cuda_autocast_rounds_where_cpu_autocast_does(cuda, name):
+    """A tiny CoAM and a tiny TransPose-H under CUDA and under CPU bf16
+    autocast: every module's output dtype the same on both devices (the
+    CPU's are JAX's, tests/test_torch_port_eval_bf16.py).  The control puts
+    torch's own nn.Upsample back into the fuse layers: CUDA autocast runs
+    upsample_nearest2d in f32, so the fuse sums there come out f32 on the
+    card only, and the dtypes must differ."""
+    import copy
+
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.models.hrnet import Upsample
+
+    yaml, opts = ((COAM_YAML, TINY_COAM) if name == "coam"
+                  else (TRANSPOSE_YAML, TINY_TRANSPOSE))
+    torch.manual_seed(5)
+    model = get_model(load_cfg("torch", yaml, opts), device="cpu")
+    _randomize(model)
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 6, 128, 96).astype(np.float32))
+    want = _module_dtypes(model, x, "cpu")
+    card = copy.deepcopy(model).to(cuda)
+    got = _module_dtypes(card, x.to(cuda), "cuda")
+    assert torch.bfloat16 in want.values() and got == want, \
+        {k: (got.get(k), want[k]) for k in want if got.get(k) != want[k]}
+    ups = [m for m in card.modules() if isinstance(m, Upsample)]
+    assert ups
+    for m in ups:
+        m.__class__ = torch.nn.Upsample
+    control = _module_dtypes(card, x.to(cuda), "cuda")
+    assert control != want
+
+
+@pytest.mark.cuda
+def test_tf32_operands_compute_cublas_tf32(cuda):
+    """A matmul of ``ops/tf32.py::tf32_operand``'s operands, with cuBLAS's
+    TF32 off, against cuBLAS's own TF32 matmul of the operands as they are,
+    at a shape where cuBLAS takes the tensor cores (64 x 200 x 96): within
+    1e-4 of the peak (cuBLAS rounds a tie to even, ``tf32_round`` away from
+    zero, and the sums run in another order; measured 5.5e-5 on an H100),
+    while the exact product lies further (measured 2.7e-4).  cuBLAS picks
+    TF32 by shape (at the colored render's 14 joints it keeps f32); the bf16
+    path rounds its warp's and render's operands at every shape."""
+    from buctd_tpu_torch.ops.tf32 import tf32_operand
+
+    rng = np.random.RandomState(7)
+    a = torch.from_numpy(rng.randn(64, 200).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(200, 96).astype(np.float32)).to(cuda)
+    op = tf32_operand(True)
+    emulated, exact = op(a) @ op(b), a @ b
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cublas = a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    peak = cublas.abs().max().item()
+    gaps = [(x - cublas).abs().max().item() / peak for x in (emulated, exact)]
+    assert gaps[0] <= 1e-4 < gaps[1], gaps

@@ -12,15 +12,22 @@ prints every gap the tests hold.
   CoAM, preNet (fused and not) and TransPose-H models: the heatmaps bf16 on
   both sides.  The HRNet models' within the whole-model tolerance that
   tests/test_torch_port_bf16_trunk.py states (MODEL_TOL_STEPS; measured
-  3.4 to 5.1 steps): sub-step differences compound through the trunk and
-  the attention amplifies them.  TransPose-H's condition channels reach 255
-  here, and its post-norm encoder takes them into logits where one bf16
-  step of a logit reorders the softmax: JAX's own bf16 model lands 93.4
-  steps from its f32 model on this round.  So its heatmaps are held to be
-  no further from JAX's bf16 ones than TP_RATIO x that distance (measured
-  80.3 steps, 0.86 of it); on the unit-scale inputs of
-  tests/test_torch_port_transpose.py the whole model is within 7.5 steps.
-  The round's maxvals come out bf16 on both sides.
+  5.1 to 5.7 steps): sub-step differences compound through the trunk and
+  the attention amplifies them.  TransPose-H's condition reaches its encoder
+  through one 1x1 conv, ``trans_cond``, with no norm: at its N(0, 1/fan_in)
+  draw the rendered condition's 255 gives tokens near 400 and logits near
+  1e4, where one bf16 step of a logit reorders the softmax (JAX's own bf16
+  model then lands 93.4 steps from its f32 one).  A trained trans_cond maps
+  the 0-255 condition to O(1) tokens, so here it carries 1/255 of its draw
+  on both sides; the round's heatmaps are held within TP_TOL_STEPS, twice
+  the 22.5 measured.  The round's maxvals come out bf16 on both sides.
+* The same round's rounding points: every module that both models name
+  returns the same dtype in the port as in JAX's bf16 model (flax's
+  ``capture_intermediates``), bf16 for most of them.  A whole-model gap
+  cannot tell a bf16 forward from an f32 one at these sizes (JAX's f32
+  heatmaps lie 3.5 to 9.5 steps from its bf16 ones, inside every tolerance
+  above), so this is the check that does: the port's f32 forward of the same
+  input, the control, must differ.
 * The validate step with the flip test and the 1-px shift: the averaged
   heatmaps at the same tolerance and bf16; the port's loss and PCK on JAX's
   bf16 heatmaps equal to JAX's (both widen bf16 exactly and sum in f32).
@@ -30,10 +37,12 @@ prints every gap the tests hold.
   affine, which XLA contracts into other roundings).  DARK rounds each blur
   tap and every step to bf16 as jnp does; the same decode widened to f32
   first misses (the control).
-* The TF32 scope: the warp and render of a bf16 call take TF32 and every
-  other matmul and conv of a call exact f32, set for the call alone
-  (``ops/tf32.py::tf32_scope``, a no-op on the CPU): an f32 and a bf16
-  estimator in one process leave the process's flags as they found them.
+* The warp and the render on TF32 operands (``ops/tf32.py::tf32_operand``,
+  what a bf16 call takes on the card, as XLA's default precision does on a
+  GPU): off the exact result, and within three TF32 roundings of it.  An f32
+  and a bf16 estimator in one process (CPU): both take the exact warp and
+  render there, as XLA does on the CPU, and no call reads or sets the
+  process's TF32 flags.
 * ``valid.run`` evaluates two rounds in bf16 on the CPU: its confidences are
   bf16 values.  ``check_eval_options`` takes ``EVAL_DTYPE bfloat16``; the
   other refusals stay.  ``predict_many`` is a loop of ``predict``.
@@ -59,16 +68,21 @@ STEP = 2.0 ** -8
 # f32 inverse affine (coords * s + t) lands a few ulps of a ~300 px value
 # apart (measured 3.1e-5)
 AFFINE_ATOL = 1e-4
-# TransPose-H's refine round: port bf16 vs JAX bf16 over JAX bf16 vs JAX f32
-TP_RATIO = 1.0
+# TransPose-H's refine round, trans_cond at 1/255 of its draw: twice the
+# 22.5 steps measured (tests/test_torch_port_transpose.py holds the whole
+# model on randn inputs within 7.5; the round's crops and condition drive
+# its trunk and encoder harder)
+TP_TOL_STEPS = 45.0
+# the share of JAX's modules whose names the port's model also has (the
+# rest: flax's Dropout, the packed in_proj and wrapper levels)
+MIN_SHARED_MODULES = 0.8
 
-# name -> (yaml, tiny overrides, joints, fused preNet, heatmap tolerance in
-# steps; None: TP_RATIO x JAX's own bf16-vs-f32 distance)
+# name -> (yaml, tiny overrides, joints, fused preNet, heatmap tolerance in steps)
 MODELS = {
     "coam": (COAM_YAML, TINY_COAM, 14, False, HRNET_TOL_STEPS[False]),
     "prenet": (PRENET_YAML, TINY_PRENET, 14, False, HRNET_TOL_STEPS[False]),
     "prenet_fused": (PRENET_YAML, TINY_PRENET, 14, True, HRNET_TOL_STEPS[False]),
-    "transpose": (TRANSPOSE_YAML, TINY_TRANSPOSE, 17, False, None),
+    "transpose": (TRANSPOSE_YAML, TINY_TRANSPOSE, 17, False, TP_TOL_STEPS),
 }
 
 
@@ -83,6 +97,16 @@ def _nchw(a):
     return torch.from_numpy(np.array(a, np.float32)).permute(0, 3, 1, 2)
 
 
+def _unit_scale_condition(variables):
+    """``variables`` with TransPose-H's trans_cond kernel at 1/255 (the
+    others have none): O(1) condition tokens from the 0-255 render."""
+    params = variables["params"]
+    if "trans_cond" not in params:
+        return variables
+    cond = {**params["trans_cond"], "kernel": params["trans_cond"]["kernel"] / 255.0}
+    return {**variables, "params": {**params, "trans_cond": cond}}
+
+
 @functools.lru_cache(maxsize=None)
 def _setup(name):
     """(JAX cfg, port cfg, JAX bf16 model, variables, port model) of a tiny
@@ -94,7 +118,7 @@ def _setup(name):
     yaml, opts, _, fused, _ = MODELS[name]
     opts = list(opts) + BF16 + ["TPU.FUSED_PRENET", "auto" if fused else "off"]
     jcfg, tcfg = load_cfg("jax", yaml, opts), load_cfg("torch", yaml, opts)
-    _, variables = jax_variables(jcfg, seed=5)
+    variables = _unit_scale_condition(jax_variables(jcfg, seed=5)[1])
     port = maybe_fuse_prenet(tcfg, port_model(tcfg, variables))
     jmodel, variables = jax_fuse(jcfg, get_model(jcfg, dtype=jnp.bfloat16), variables)
     return jcfg, tcfg, jmodel, variables, port
@@ -110,60 +134,115 @@ def _request(cfg, seed=6, poses=3):
     return img, conds, np.linspace(0, 255, J * 3).reshape(-1, 3)
 
 
+def _flax_dtypes(tree, path=()) -> dict:
+    """name -> output dtype of every module in flax's captured intermediates
+    whose output is one array, named as the port names it: the JAX path's
+    parts joined by dots, without its wrapper levels (convert.from_flax)."""
+    from buctd_tpu_torch.convert import _KEPT
+
+    out = {}
+    for key, value in tree.items():
+        if key == "__call__":
+            if hasattr(value[0], "dtype"):
+                parts = [_KEPT.get(p, p) for p in path]
+                out[".".join(p for p in parts if not p.startswith("_"))] = value[0].dtype
+        else:
+            out.update(_flax_dtypes(value, path + (key,)))
+    return out
+
+
+def _port_dtypes(model):
+    """(name -> output dtype of every module of ``model`` whose output is a
+    tensor, filled as it runs; the hooks' handles)."""
+    dtypes = {}
+
+    def record(name):
+        def hook(module, args, out):
+            if torch.is_tensor(out):
+                dtypes[name] = out.dtype
+        return hook
+
+    return dtypes, [m.register_forward_hook(record(n)) for n, m in model.named_modules()]
+
+
 class _Recording:
     """JAX model whose ``apply`` hands each output to the host (the refine
-    function is jitted: its heatmaps are not among its results)."""
+    function is jitted: its heatmaps are not among its results) and keeps
+    its modules' output dtypes (known when it traces)."""
 
     def __init__(self, model):
-        self.model, self.maps = model, []
+        self.model, self.maps, self.dtypes = model, [], {}
 
     def apply(self, variables, x, train=False):
-        out = self.model.apply(variables, x, train=train)
+        out, state = self.model.apply(variables, x, train=train, capture_intermediates=True,
+                                      mutable=["intermediates"])
+        self.dtypes = _flax_dtypes(state["intermediates"])
         jax.debug.callback(lambda o: self.maps.append(np.asarray(o)), out)
         return out
 
 
+@functools.lru_cache(maxsize=None)
 def _refine_round(name, jax_dtype=jnp.bfloat16):
     """One refine round on both sides: (port heatmaps, port maxvals, JAX
-    heatmaps (NHWC), JAX maxvals); ``jax_dtype`` f32 runs JAX's f32 model
-    on the same variables."""
+    heatmaps (NHWC), JAX maxvals, port module dtypes, JAX module dtypes,
+    the port model's input); ``jax_dtype`` f32 runs JAX's f32 model on the
+    same variables."""
     from buctd_tpu.core.refine import make_refine_fn as jax_refine_fn
     from buctd_tpu_torch.core.refine import make_refine_fn
 
     jcfg, tcfg, jmodel, variables, port = _setup(name)
     img, conds, colors = _request(tcfg)
-    maps = []
-    hook = port.register_forward_hook(lambda m, i, o: maps.append(o))
+    calls = []
+    dtypes, handles = _port_dtypes(port)
+    handles.append(port.register_forward_hook(lambda m, args, out: calls.append((args[0], out))))
     try:
         _, m = make_refine_fn(tcfg, port, colors, n_iters=1)(
             torch.from_numpy(img), torch.from_numpy(conds))
     finally:
-        hook.remove()
+        for handle in handles:
+            handle.remove()
     if jax_dtype != jnp.bfloat16:
         jmodel = jmodel.clone(dtype=jax_dtype)
     rec = _Recording(jmodel)
     _, jm = jax_refine_fn(jcfg, rec, colors, n_iters=1)(
         variables, jnp.asarray(img, jnp.float32), jnp.asarray(conds))
     jax.block_until_ready(jm)
-    return maps[0], m, rec.maps[0], jm
-
-
-def _refine_limit(name) -> float:
-    """The refine round's heatmap tolerance in steps (see MODELS)."""
-    tol = MODELS[name][4]
-    if tol is not None:
-        return tol
-    _, _, jhm, _ = _refine_round(name)
-    _, _, j32, _ = _refine_round(name, jnp.float32)
-    return TP_RATIO * _steps(_nchw(jhm), _nchw(j32))
+    (x, hm), = calls
+    return hm, m, rec.maps[0], jm, dtypes, rec.dtypes, x
 
 
 @pytest.mark.parametrize("name", list(MODELS))
 def test_refine_round_bf16_matches_jax(name):
-    hm, m, jhm, jm = _refine_round(name)
+    hm, m, jhm, jm, *_ = _refine_round(name)
     assert hm.dtype == torch.bfloat16 and jhm.dtype == jnp.bfloat16
     assert m.dtype == torch.bfloat16 and jm.dtype == jnp.bfloat16
-    assert _steps(hm, _nchw(jhm)) <= _refine_limit(name)
+    assert _steps(hm, _nchw(jhm)) <= MODELS[name][4]
+
+
+def _shared_dtypes(port, jax_dtypes) -> dict:
+    """name -> (port dtype, JAX dtype as torch's) over the modules both name."""
+    return {n: (port[n], getattr(torch, jnp.dtype(d).name))
+            for n, d in jax_dtypes.items() if n in port}
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_refine_round_rounds_where_jax_rounds(name):
+    _, _, _, _, dtypes, jax_dtypes, x = _refine_round(name)
+    shared = _shared_dtypes(dtypes, jax_dtypes)
+    missing = sorted(set(jax_dtypes) - set(shared))
+    assert len(shared) >= MIN_SHARED_MODULES * len(jax_dtypes), missing
+    assert {n: p for n, (p, j) in shared.items() if p != j} == {}
+    assert sum(p == torch.bfloat16 for p, _ in shared.values()) > len(shared) / 2
+    # the control: the port's f32 forward of the same input
+    port = _setup(name)[4]
+    f32, handles = _port_dtypes(port)
+    try:
+        with torch.inference_mode():
+            port(x)
+    finally:
+        for handle in handles:
+            handle.remove()
+    assert any(p != j for p, j in _shared_dtypes(f32, jax_dtypes).values())
 
 
 # ------------------------------------------------------------ validate ----
@@ -295,64 +374,75 @@ def _flags():
     return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
 
-def test_tf32_scope_sets_and_restores_the_flags():
-    from buctd_tpu_torch.ops.tf32 import tf32_scope
+def _tf32_cases():
+    """name -> fn(tf32) for the aligned warp and the colored and plain
+    renders of the bf16 refine round, on seeded inputs."""
+    from buctd_tpu_torch.ops.heatmap import render_condition_colored, render_condition_plain
+    from buctd_tpu_torch.ops.warp import warp_affine_aligned
 
-    saved = _flags()
-    try:
-        for start in ((False, False), (True, True), (True, False)):
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = start
-            with tf32_scope("cuda", matmul=False, cudnn=False):
-                assert _flags() == (False, False)
-                with tf32_scope(torch.device("cuda", 0), matmul=True):
-                    assert _flags() == (True, False)
-                assert _flags() == (False, False)
-            assert _flags() == start
-            with tf32_scope("cpu", matmul=not start[0], cudnn=not start[1]):
-                assert _flags() == start                   # the CPU: nothing set
-            with pytest.raises(KeyError):
-                with tf32_scope("cuda", matmul=True):
-                    raise KeyError("restored on the way out")
-            assert _flags() == start
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    rng = np.random.RandomState(7)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 200, 300, 3)).astype(np.float32))
+    t = torch.tensor([[[0.93, 0.0, 11.3], [0.0, 0.93, 7.7]],
+                      [[1.71, 0.0, -4.2], [0.0, 1.71, 3.1]]] * 2)
+    joints = torch.from_numpy(rng.uniform(2, 90, (4, 14, 2)).astype(np.float32))
+    colors = rng.uniform(0, 255, (14, 3)).astype(np.float32)
+    return {"warp": lambda tf32: warp_affine_aligned(images, t, (128, 96), tf32=tf32),
+            "colored": lambda tf32: render_condition_colored(joints, colors, (128, 96), tf32),
+            "plain": lambda tf32: render_condition_plain(joints, (128, 96), tf32)}
+
+
+@pytest.mark.parametrize("case", ["warp", "colored", "plain"])
+def test_tf32_operands_round_the_products(case):
+    """TF32 operands move the exact result, by at most three TF32 roundings
+    (2^-10 relative each: two operands and the warp's intermediate) of the
+    peak; the plain render truncates to integers, so there by at most 1.
+    Neither reads nor sets the process's TF32 flags."""
+    before = _flags()
+    fn = _tf32_cases()[case]
+    exact, tf32 = fn(False), fn(True)
+    assert _flags() == before
+    gap = (tf32 - exact).abs().max().item()
+    if case == "plain":
+        assert gap <= 1.0
+    else:
+        assert 0.0 < gap <= 3 * 2.0 ** -10 * exact.abs().max().item()
 
 
 def test_estimators_scope_their_own_precision(monkeypatch):
-    """An f32 and a bf16 PoseEstimator in one process (CPU): each call asks
-    for exact f32 around the whole call and for the dtype's warp precision
-    around the warp and the render; the process's flags read before, during
-    (in the warp) and after each call are the ones it started with."""
+    """An f32 and a bf16 PoseEstimator in one process (CPU): both take the
+    exact warp and render there (XLA's default precision is exact f32 on the
+    CPU; the card's bf16 call takes TF32 operands, tests/test_torch_port_cuda.py),
+    and the process's flags read before, during (in the warp) and after
+    each call are the ones it started with."""
     from buctd_tpu_torch.core import refine
     from buctd_tpu_torch.serving import PoseEstimator
 
-    scopes, seen = [], []
-    real_scope, real_warp = refine.tf32_scope, refine.warp_affine_aligned
+    seen = []
+    real_warp, real_render = refine.warp_affine_aligned, refine.render_condition
 
-    def scope(device, matmul, cudnn=None):
-        scopes.append((torch.device(device).type, matmul, cudnn))
-        return real_scope(device, matmul, cudnn)
+    def warp(*args, tf32, **kw):
+        seen.append(("warp", tf32, _flags()))
+        return real_warp(*args, tf32=tf32, **kw)
 
-    def warp(*args, **kw):
-        seen.append(_flags())
-        return real_warp(*args, **kw)
+    def render(*args, tf32, **kw):
+        seen.append(("render", tf32, _flags()))
+        return real_render(*args, tf32=tf32, **kw)
 
-    monkeypatch.setattr(refine, "tf32_scope", scope)
     monkeypatch.setattr(refine, "warp_affine_aligned", warp)
+    monkeypatch.setattr(refine, "render_condition", render)
     _, tcfg, *_ = _setup("coam")
     f32_cfg = load_cfg("torch", COAM_YAML, TINY_COAM)
     img, conds, _ = _request(tcfg, poses=2)
     before = _flags()
     ests = {"f32": PoseEstimator(f32_cfg, device="cpu"),
             "bf16": PoseEstimator(tcfg, device="cpu")}
-    assert _flags() == before                 # the constructors set nothing
+    assert _flags() == before                 # the constructors set nothing on the CPU
     for name in ("bf16", "f32", "bf16"):
-        scopes.clear()
+        seen.clear()
         out = ests[name].predict(img, conds, float("-inf"))   # keep every joint
         assert out.dtype == np.float32 and np.isfinite(out).all()
-        assert scopes == [("cpu", False, False), ("cpu", name == "bf16", None)]
-        assert seen[-1] == before and _flags() == before
+        assert seen == [("warp", False, before), ("render", False, before)]
+        assert _flags() == before
 
 
 def test_predict_many_is_a_loop_of_predict():
@@ -406,9 +496,11 @@ def test_check_eval_options_takes_bf16():
 def main():
     """Print every gap the tests hold."""
     for name in MODELS:
-        hm, _, jhm, _ = _refine_round(name)
+        hm, _, jhm, _, *_ = _refine_round(name)
+        j32 = _refine_round(name, jnp.float32)[2]
         print(f"refine round {name}: heatmaps {_steps(hm, _nchw(jhm)):.3f} steps "
-              f"(limit {_refine_limit(name):.3f})")
+              f"(limit {MODELS[name][4]}); JAX's f32 from its bf16 "
+              f"{_steps(_nchw(j32), _nchw(jhm)):.3f}")
     (_, _, _, _, _, hm), (_, _, jloss, jacc, _, jhm), _ = _validate_step()
     print(f"validate step (flip, shift): heatmaps {_steps(hm, _nchw(jhm)):.3f} steps")
     for kind, kw in DECODES.items():

@@ -50,21 +50,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_config import REPO, jax_variables, load_cfg, port_model
+from test_torch_port_config import (TINY_TRANSPOSE, TRANSPOSE_YAML, jax_variables,
+                                    load_cfg, port_model)
 
-TRANSPOSE_YAML = REPO / "experiments" / "coco" / "buctd" / "transpose_h_384x288.yaml"
-# the yaml narrowed: 8/16/32 channels, one block a branch, stage 3 with two
-# modules (a multi-scale one, then the single-scale last), d_model 16 (+ 16
-# condition channels: d = 32), 2 encoder layers; 128x96 images give 32x24 =
-# 768 tokens, over the flash path's 512^2 threshold
-TINY_TRANSPOSE = ["MODEL.IMAGE_SIZE", "[96, 128]", "MODEL.HEATMAP_SIZE", "[24, 32]",
-                  "MODEL.EXTRA.STAGE2.NUM_CHANNELS", "[8, 16]",
-                  "MODEL.EXTRA.STAGE3.NUM_CHANNELS", "[8, 16, 32]",
-                  "MODEL.EXTRA.STAGE2.NUM_BLOCKS", "[1, 1]",
-                  "MODEL.EXTRA.STAGE3.NUM_BLOCKS", "[1, 1, 1]",
-                  "MODEL.EXTRA.STAGE3.NUM_MODULES", "2",
-                  "MODEL.DIM_MODEL", "16", "MODEL.DIM_FEEDFORWARD", "32",
-                  "MODEL.ENCODER_LAYERS", "2"]
 # the yaml's d = 112 (d_model 96 + 16), one head, on 64x32 images (128 tokens)
 D112 = TINY_TRANSPOSE[4:] + ["MODEL.IMAGE_SIZE", "[32, 64]", "MODEL.HEATMAP_SIZE", "[8, 16]",
                              "MODEL.DIM_MODEL", "96", "MODEL.DIM_FEEDFORWARD", "64"]
