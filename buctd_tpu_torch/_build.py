@@ -1,11 +1,13 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host C++.
 
 Every ``csrc/<name>.cu`` has a plain C interface.  It is compiled with ``nvcc``
 for ``sm_90a`` into a shared library under ``buctd_tpu_torch/_build/`` (git
 ignores it) the first time a kernel is launched, and loaded with ``ctypes``.
 The library's file name carries a hash of its source, so an edited kernel is
-rebuilt and a stale one is never loaded.  Nothing here runs at import time:
-the CPU tests import every module of the package on a host without ``nvcc``.
+rebuilt and a stale one is never loaded.  ``csrc/<name>.cpp`` (the host box
+NMS) builds the same way with the host C++ compiler (``build_host``,
+``load_host``).  Nothing here runs at import time: the CPU tests import every
+module of the package on a host without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -107,6 +109,54 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = ctypes.CDLL(str(library_path(name)))
                 _loaded[name] = lib
+    return lib
+
+
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cpp`` builds to (the name carries a hash of its
+    source and of the flags)."""
+    sha = hashlib.sha1((CSRC / f"{name}.cpp").read_bytes())
+    sha.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{sha.hexdigest()[:12]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Build ``csrc/<name>.cpp`` with the host C++ compiler (``$CXX``, else
+    ``c++``/``g++``) unless built; raises with the compiler's output when it
+    fails or no compiler is found."""
+    out = host_library_path(name)
+    with _lock:
+        if out.exists():
+            return out
+        cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+        if not cxx:
+            raise RuntimeError(f"no C++ compiler for csrc/{name}.cpp: set CXX or put "
+                               "c++/g++ on PATH")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed on csrc/{name}.cpp (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cpp``, built first if needed."""
+    key = f"host:{name}"
+    lib = _loaded.get(key)
+    if lib is None:
+        path = build_host(name)
+        with _lock:
+            lib = _loaded.get(key)
+            if lib is None:
+                lib = _loaded[key] = ctypes.CDLL(str(path))
     return lib
 
 

@@ -178,8 +178,9 @@ def default_config() -> CN:
     _C.OUTPUT_JSON = None
 
     # --- the JAX package's TPU section, key for key ------------------------
-    # Every experiment YAML carries it.  The port reads EVAL_DTYPE (float32;
-    # bfloat16 is not ported yet), ATTENTION_ENGINE ('auto' = the hand-written
+    # Every experiment YAML carries it.  The port reads EVAL_DTYPE (float32
+    # or bfloat16; tools/inference.py takes COMPUTE_DTYPE as JAX's tool
+    # does), ATTENTION_ENGINE ('auto' = the hand-written
     # CUDA flash kernel (ops/flash_attention.py) for CUDA tensors with
     # L_q*L_k >= 512^2, batched matmuls elsewhere; 'flash'/'mapped' force),
     # COMPUTE_DTYPE, DEVICE_PIPELINE (True; False raises), WARP_ENGINE,

@@ -152,6 +152,26 @@ class COCOKeypointEval:
                 }
         return self
 
+    def gt_matches(self, iou_index: int = 0, area: str = "all") -> dict:
+        """{gt_ann_id: matched dt_ann_id or 0} at iou_thrs[iou_index].
+
+        The reference's qualitative analysis builds exactly this dict from
+        pycocotools' ``evalImgs[..]['gtMatches'][0]`` (lib/analysis/
+        qualitative_evaluation.py:71-80) to pair each GT instance with the
+        detection COCOeval credited to it; exposing it here lets the worst-case
+        dumps analyze arbitrary COCO results jsons (no ``annotation_id``
+        extension needed)."""
+        if self._eval_imgs is None:
+            self.evaluate()
+        matched = {}
+        for img_id in self.img_ids:
+            e = self._eval_imgs.get((img_id, area))
+            if e is None:
+                continue
+            for gt_id, dt_id in zip(e["gt_ids"], e["gtm"][iou_index]):
+                matched[gt_id] = int(dt_id)
+        return matched
+
     # ------------------------------------------------------------------
     def _accumulate_subset(self, area_name: str, img_ids) -> tuple:
         """Returns (precision (T, R), recall (T,)) over an image subset."""

@@ -11,9 +11,9 @@ from four input formats:
   * detector-box pickle (no conditions)
 
 ``evaluate`` is the protocol: rescoring, OKS-NMS with its bypass rules, the
-results json, and COCOeval through the port's ``COCOKeypointEval``.  The
-lambda-sweep evaluation (``evaluate_lambda``, an (N, 8) ``all_boxes``) is not
-ported: ROADMAP Queue 1 item 7.
+results json, and COCOeval through the port's ``COCOKeypointEval``; an (N, 8)
+``all_boxes`` (the lambda sweep's) goes to ``evaluate_lambda``, which scores
+each mode and their ``oks_merge``.
 """
 
 from __future__ import annotations
@@ -26,14 +26,12 @@ from collections import OrderedDict, defaultdict
 
 import numpy as np
 
-from ..ops.nms import oks_nms, soft_oks_nms
+from ..ops.nms import oks_merge, oks_nms, soft_oks_nms
 from .coco_eval import COCO_STATS_NAMES, COCOKeypointEval
 from .coco_io import COCOIndex
 from .joints_dataset import JointsDataset
 
 logger = logging.getLogger(__name__)
-
-_LAMBDA_ITEM = "ROADMAP Queue 1 item 7, 'Evaluation: the rest'"
 
 
 class CocoStyleDataset(JointsDataset):
@@ -324,13 +322,15 @@ class CocoStyleDataset(JointsDataset):
                  *args, **kwargs):
         """Rescoring + OKS-NMS (with bypass rules) + results json + COCOeval.
 
-        preds: (N, J, 3); all_boxes: (N, 7) [cx, cy, sx, sy, area, score, ann_id].
-        Returns (name_values, AP).  Matches lib/dataset/dataloader.py:538-648.
-        An (N, 8) all_boxes (the lambda sweep's) raises: not ported.
+        preds: (N, J, 3); all_boxes: (N, 7) [cx, cy, sx, sy, area, score, ann_id],
+        or (N, 8) with a trailing lambda-mode column from the lambda sweep,
+        dispatched to ``evaluate_lambda`` as lib/dataset/crowdpose.py:132-133
+        does.  Returns (name_values, AP).  Matches
+        lib/dataset/dataloader.py:538-648.
         """
         if np.asarray(all_boxes).shape[1] == 8:
-            raise NotImplementedError("the lambda-sweep evaluation (evaluate_lambda) "
-                                      f"is not ported yet: {_LAMBDA_ITEM}")
+            return self.evaluate_lambda(cfg, preds, output_dir, all_boxes, img_path, epoch,
+                                        *args, **kwargs)
         res_folder = os.path.join(output_dir, "results")
         os.makedirs(res_folder, exist_ok=True)
         res_file = os.path.join(
@@ -376,9 +376,7 @@ class CocoStyleDataset(JointsDataset):
                 "annotation_id": int(all_boxes[idx][6]),
             })
 
-        sigmas = (np.full(self.num_joints, self.joints_weight / 10.0)
-                  if np.isscalar(self.joints_weight)
-                  else np.asarray(self.joints_weight).ravel() / 10.0)
+        sigmas = self._sigmas()
         oks_nmsed = []
         for img_kpts in kpts.values():
             for n_p in img_kpts:  # rescoring: box score x mean kpt conf (:596-612)
@@ -402,6 +400,53 @@ class CocoStyleDataset(JointsDataset):
             oks_nmsed.append(img_kpts if len(keep) == 0
                              else [img_kpts[k] for k in keep])
         return oks_nmsed
+
+    def _sigmas(self) -> np.ndarray:
+        """The OKS sigmas of NMS and the merge: ``joints_weight / 10``, the
+        JAX package's quirk kept as it is (not ``oks_sigmas``)."""
+        if np.isscalar(self.joints_weight):
+            return np.full(self.num_joints, self.joints_weight / 10.0)
+        return np.asarray(self.joints_weight).ravel() / 10.0
+
+    def evaluate_lambda(self, cfg, preds, output_dir, all_boxes, img_path, epoch=-1,
+                        *args, **kwargs):
+        """The lambda-sweep evaluation (buctd_tpu/data/dataloader.py:423):
+        all_boxes is (N, 8), column 7 the lambda mode (0 or 1).
+
+        The reference dispatches here (crowdpose.py:132-133) but never defines
+        it; JAX reconstructs it from the surviving pieces, and so does this:
+        each mode is rescored, NMS'd and written (``_l{m}.json``) exactly as
+        ``evaluate`` does, then merged per image with ``ops/nms.py::oks_merge``
+        (every mode-1 detection, and each mode-0 detection whose best OKS
+        against mode 1 is <= 0.5) into ``_merged.json`` (or ``OUTPUT_JSON``).
+        Returns (merged name_values, mode-0's, mode-1's, merged AP)."""
+        all_boxes = np.asarray(all_boxes)
+        preds = np.asarray(preds)
+        modes = all_boxes[:, 7]
+        res_folder = os.path.join(output_dir, "results")
+        os.makedirs(res_folder, exist_ok=True)
+        stem = os.path.join(res_folder, f"keypoints_{self.mode}_results_epoch{epoch}")
+
+        nmsed, name_values = {}, {}
+        for m in (0, 1):
+            sel = modes == m
+            nmsed[m] = self._rescore_and_nms(cfg, preds[sel], all_boxes[sel, :7],
+                                             [p for p, s in zip(img_path, sel) if s])
+            self._write_keypoint_results(nmsed[m], f"{stem}_l{m}.json")
+            if not self.is_train:
+                name_values[m] = OrderedDict(self._do_keypoint_eval(f"{stem}_l{m}.json"))
+
+        by_img = {m: {kp[0]["image"]: kp for kp in nmsed[m] if kp} for m in (0, 1)}
+        merged = [oks_merge(by_img[0].get(img, []), by_img[1].get(img, []),
+                            sigmas=self._sigmas())
+                  for img in sorted(set(by_img[0]) | set(by_img[1]))]
+        res_file = cfg.OUTPUT_JSON or f"{stem}_merged.json"
+        self._write_keypoint_results(merged, res_file)
+
+        if self.is_train:
+            return {"Null": 0}, {"Null": 0}, {"Null": 0}, 0
+        nv = OrderedDict(self._do_keypoint_eval(res_file))
+        return nv, name_values[0], name_values[1], nv["AP"]
 
     def _write_keypoint_results(self, keypoints, res_file):
         cat_id = self._class_to_coco_ind[self.classes[1]]

@@ -120,6 +120,24 @@ def xywh2cs(x, y, w, h, aspect_ratio, scale_thre=1.25, pixel_std=PIXEL_STD):
     return center, scale
 
 
+def joints2box(joints, margin=25, img_w=None, img_h=None):
+    """Bounding box (x, y, w, h) f32 of the nonzero condition keypoints +-
+    ``margin``, clipped to the image; None without any (tools/inference.py:208,
+    JointsDataset.py:218-228)."""
+    joints = np.asarray(joints)
+    xs = joints[:, 0][np.nonzero(joints[:, 0])]
+    ys = joints[:, 1][np.nonzero(joints[:, 1])]
+    if xs.size == 0 or ys.size == 0:
+        return None
+    xmin, xmax = xs.min() - margin, xs.max() + margin
+    ymin, ymax = ys.min() - margin, ys.max() + margin
+    if img_w is not None:
+        xmin, xmax = np.clip(xmin, 0, img_w), np.clip(xmax, 0, img_w)
+    if img_h is not None:
+        ymin, ymax = np.clip(ymin, 0, img_h), np.clip(ymax, 0, img_h)
+    return np.array([xmin, ymin, xmax - xmin, ymax - ymin], dtype=np.float32)
+
+
 def flip_pairs_to_perm(num_joints: int, flip_pairs) -> np.ndarray:
     """Left/right pair list -> permutation vector, for gather-based flipping."""
     perm = np.arange(num_joints)

@@ -2,8 +2,8 @@
 
 Counterpart of buctd_tpu/models/fuse.py.  At eval every PreNet op is linear:
 conv -> BN(affine) -> conv -> BN, plus a parallel conv -> BN on the condition,
-summed (reference pose_hrnet.py:431-458, no activations inside the stems).
-So:
+summed (reference pose_hrnet.py:431-458, pose_resnet.py:160-171, no
+activations inside the stems).  So:
 
   * each BatchNorm folds into the preceding conv:  BN(conv(x, K) + c)
     == conv(x, K * a) + (c * a + b)  with  a = scale / sqrt(var + eps),
@@ -11,6 +11,10 @@ So:
   * the two parallel 7x7 convs (rgb-path 64->3 and cond-path 3->3, same
     stride and padding) merge into one 7x7 conv over 67 concatenated
     channels: conv(u, Ku) + conv(v, Kv) == conv(concat(u, v), concat(Ku, Kv)).
+
+Both preNet layouts fold the same way under the same key names: HRNet's
+(3x3 first RGB conv) into ``FusedPreNet(first_kernel=3)``, pose_resnet's
+(7x7) into ``FusedPreNet(first_kernel=7)``.
 
 The affine is computed in float64 on the host, once, and cast to f32, as in
 JAX.  ``TPU.FUSED_PRENET`` keeps the JAX default "off"; "auto" (or any value
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from .hrnet import BN_EPS, PoseHRNet
+from .resnet import PoseResNet
 
 _RGB, _COND, _FUSED = "rgb_preNet", "cond_preNet", "prenet_fused"
 
@@ -65,7 +70,7 @@ def fold_bn(conv: torch.nn.Conv2d, bn: torch.nn.BatchNorm2d):
 
 
 def fuse_prenet_variables(state_dict: dict) -> dict:
-    """A PoseHRNet state_dict with the canonical stems (``rgb_preNet.*``,
+    """A PoseHRNet or PoseResNet state_dict with the canonical stems (``rgb_preNet.*``,
     ``cond_preNet.*``) -> the same with ``prenet_fused.{a,b}`` in their place."""
     sd = dict(state_dict)
     ka, ca = _fold(sd, f"{_RGB}.0", f"{_RGB}.1")
@@ -89,12 +94,15 @@ def maybe_fuse_prenet(cfg, model):
     knob = str(getattr(cfg.TPU, "FUSED_PRENET", "auto")).lower()
     if knob in ("off", "false", "0", "none"):
         return model
-    if not isinstance(model, PoseHRNet) or not model.spec.use_pre_net:
+    if not isinstance(model, (PoseHRNet, PoseResNet)) or not model.spec.use_pre_net:
         return model
     if model.fused_prenet:
         return model
     device = next(model.parameters()).device
-    fused = PoseHRNet(model.spec, in_channels=model.in_channels, fused_prenet=True,
-                      lambda_head=model.lambda_head)
+    if isinstance(model, PoseHRNet):
+        fused = PoseHRNet(model.spec, in_channels=model.in_channels, fused_prenet=True,
+                          lambda_head=model.lambda_head)
+    else:
+        fused = PoseResNet(model.spec, in_channels=model.in_channels, fused_prenet=True)
     fused.load_state_dict(fuse_prenet_variables(model.state_dict()), strict=True)
     return fused.to(device).eval()

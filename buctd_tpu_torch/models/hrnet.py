@@ -475,8 +475,11 @@ class PoseHRNet(HRNetTrunk):
                 raise ValueError("pass film or lambda_vec, not both")
             if not self.lambda_head:
                 raise ValueError("lambda_vec needs the model built with lambda_head=True")
-            emb = F.relu(self.lambda_fc(lambda_vec))
-            film = (self.lambda_mu(emb), 1.0 + self.lambda_sigma(emb))
+            # the head runs in f32 under autocast too: JAX's lambda Dense
+            # layers are built without the model's dtype (hrnet.py:448-452)
+            with torch.autocast(x.device.type, enabled=False):
+                emb = F.relu(self.lambda_fc(lambda_vec.float()))
+                film = (self.lambda_mu(emb), 1.0 + self.lambda_sigma(emb))
         if film is not None:
             mu, sigma = film
             feats = mu[:, :, None, None] + feats * sigma[:, :, None, None]
@@ -515,7 +518,12 @@ def random_init(model: nn.Module) -> None:
     position embedding is left as it is."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, nn.ConvTranspose2d):      # each output sums I*k*k/s^2 inputs
+                fan_in = m.weight.numel() // m.weight.shape[1] // (m.stride[0] * m.stride[1])
+                m.weight.normal_(0.0, fan_in ** -0.5)
+                if m.bias is not None:
+                    m.bias.normal_(0.0, 0.1)
+            elif isinstance(m, (nn.Conv2d, nn.Linear)):
                 m.weight.normal_(0.0, m.weight[0].numel() ** -0.5)
                 if m.bias is not None:
                     m.bias.normal_(0.0, 0.1)
@@ -531,13 +539,13 @@ def random_init(model: nn.Module) -> None:
 
 
 def init_weights(model: nn.Module) -> None:
-    """The reference's init (pose_hrnet.py:578-590): conv and linear weights
-    N(0, 0.001), biases 0, BN and LayerNorm weight 1 and bias 0.  Layers
+    """The reference's init (pose_hrnet.py:578-590, pose_resnet.py:237-255):
+    conv, transposed-conv and linear weights N(0, 0.001), biases 0, BN and LayerNorm weight 1 and bias 0.  Layers
     marked ``zero_init`` (the lambda head's last layers) start at 0.  Other
     parameters (TransPose's packed attention projection, which draws its own
     N(0, 0.001), and its position embedding) are left as built."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             if getattr(mod, "zero_init", False):
                 nn.init.zeros_(mod.weight)
             else:

@@ -10,8 +10,10 @@ of the JAX package), itself the replacement of the reference's lib/nms package
     score-sorted boxes on tensors (the JAX ``box_nms_jax`` :51-89), mirroring
     the CUDA kernel's suppression rule (lib/nms/nms_kernel.cu:33-77).
 
-COCO sigmas default as in nms.py:77.  The C++ ``native/nms.cpp`` binding
-(buctd_tpu/ops/native.py) is not on the eval path and is not ported.
+COCO sigmas default as in nms.py:77.  The C++ box NMS (``cpu_nms``,
+``gpu_nms``) is ops/native.py, on the port's own copy of the source
+(csrc/host_nms.cpp); ``nms`` is its numpy equal, and the one to call where
+no C++ compiler is wanted.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Benchmarks of the port on one CUDA card, counterparts of the JAX package's
-tools/bench_block.py, tools/bench_exp2.py and tools/bench_stem.py:
+"""The port's tools.  Benchmarks on one CUDA card, counterparts of the JAX
+package's tools/bench_block.py, tools/bench_exp2.py and tools/bench_stem.py:
 
     python -m buctd_tpu_torch.tools.bench_block [--fused] [--simt] [--dtype float32]
     python -m buctd_tpu_torch.tools.bench_exp2 [--rounds N]
@@ -7,5 +7,9 @@ tools/bench_block.py, tools/bench_exp2.py and tools/bench_stem.py:
 
 Each ``main(argv)`` returns its numbers as a dict (chip_smoke.py runs them in
 reduced form) and raises where CUDA is absent: a measurement never falls back
-to the CPU.
+to the CPU.  The user tools, counterparts of tools/inference.py,
+tools/analysis.py and tools/vis.py:
+
+    python -m buctd_tpu_torch.tools.inference --cfg <yaml> --image <path> [--device cpu]
+    python -m buctd_tpu_torch.tools.analysis {binned,rank,qualitative} --gt ... --dt ...
 """

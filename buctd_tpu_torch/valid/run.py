@@ -21,8 +21,14 @@ protocol the reference runs as three invocations; ``OUTPUT_JSON`` applies to
 the last round only (tools/test.py:94-152).  ``TPU.EVAL_DTYPE bfloat16``
 evaluates every round with the model under bf16 autocast and the decode on
 its bf16 heatmaps (core/function.py::make_validate_step), as tools/test.py:85
-builds its model in that dtype; the loader's inputs stay f32.  Not ported (see
-``core/function.py::check_eval_options``): the lambda sweep, DEBUG dumps, the
+builds its model in that dtype; the loader's inputs stay f32.
+``TEST.LAMBDA_SWEEP`` evaluates each round with
+``core/function.py::validate_lambda_quantitative`` (lambda 0 and 1, their
+``_l0``/``_l1`` results and the ``_merged`` one); it cannot feed a refinement
+round, so with ``TEST.REFINE_ITERS`` > 1 it raises, as tools/test.py:95-98.
+A checkpoint with pose_hrnet's lambda head (``lambda_fc.*``) builds the
+model with it.  ``DEBUG.DEBUG`` writes utils/vis.py's debug images beside the
+results.  Not ported (see ``core/function.py::check_eval_options``): the
 host cv2 loader and a sharded eval set.
 """
 
@@ -54,7 +60,6 @@ def load_model(cfg, device, out_dir):
     from ..convert import load_torch_checkpoint
     from ..models import get_model
 
-    model = get_model(cfg, device=device)
     path = cfg.TEST.MODEL_FILE
     best = out_dir / "model_best.pth"
     if path and not path.endswith((".pth", ".pt")):
@@ -62,9 +67,13 @@ def load_model(cfg, device, out_dir):
                                   ".pth/.pt checkpoints only (orbax directories are "
                                   "ROADMAP Queue 1 item 7, 'Evaluation: the rest')")
     if path or best.exists():
-        model.load_state_dict(load_torch_checkpoint(path or str(best)), strict=True)
+        sd = load_torch_checkpoint(path or str(best))
+        model = get_model(cfg, device=device,
+                          lambda_head=any(k.startswith("lambda_fc.") for k in sd))
+        model.load_state_dict(sd, strict=True)
         logger.info("=> weights from %s", path or best)
     else:
+        model = get_model(cfg, device=device)
         logger.warning("=> no checkpoint found (TEST.MODEL_FILE empty, no %s); "
                        "evaluating randomly-initialized weights", best)
     return model.eval()
@@ -75,7 +84,8 @@ def main(argv=None) -> dict:
     AP, name_values, loop_s, evaluate_s, crops, results], 'output_dir',
     'model'}."""
     from ..config import default_config, update_config
-    from ..core.function import check_eval_options, validate
+    from ..core.function import (check_eval_options, validate,
+                                 validate_lambda_quantitative)
     from ..data.datasets import get_dataset
     from ..data.device_pipeline import DeviceLoader
     from ..train.run import output_dir
@@ -99,6 +109,10 @@ def main(argv=None) -> dict:
     model = maybe_fuse_prenet(cfg, model)        # as tools/test.py:87-88
 
     refine_iters = max(int(cfg.TEST.REFINE_ITERS), 1)
+    if cfg.TEST.LAMBDA_SWEEP and refine_iters > 1:
+        raise ValueError("TEST.LAMBDA_SWEEP writes per-mode/_merged results, "
+                         "which the refinement feedback loop cannot consume; "
+                         "use one or the other")
     user_output_json = cfg.OUTPUT_JSON
     rounds = []
     for it in range(refine_iters):
@@ -113,12 +127,20 @@ def main(argv=None) -> dict:
                               num_workers=cfg.WORKERS, device=device)
         stats = {}
         try:
-            name_values, perf = validate(cfg, loader, dataset, model, out_dir, epoch=it,
-                                         print_prefix=f"refine{it}", stats=stats)
+            if cfg.TEST.LAMBDA_SWEEP:
+                perf = validate_lambda_quantitative(cfg, loader, dataset, model, out_dir,
+                                                    epoch=it, print_prefix=f"refine{it}",
+                                                    stats=stats)
+                name_values = stats.pop("name_values")[0]
+            else:
+                name_values, perf = validate(cfg, loader, dataset, model, out_dir,
+                                             epoch=it, print_prefix=f"refine{it}",
+                                             stats=stats)
         finally:
             loader.close()
+        suffix = "_merged" if cfg.TEST.LAMBDA_SWEEP else ""
         results = cfg.OUTPUT_JSON or str(
-            out_dir / "results" / f"keypoints_test_results_epoch{it}.json")
+            out_dir / "results" / f"keypoints_test_results_epoch{it}{suffix}.json")
         logger.info("=> refinement round %d: AP %.4f", it, perf)
         rounds.append({"AP": perf, "name_values": name_values, "results": results,
                        **stats})

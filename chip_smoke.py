@@ -6,8 +6,11 @@ rounds, trains both for a few steps through the training entry point,
 evaluates CoAM-W48 with the flip test and 3 refinement rounds and
 TransPose-H for one round through the evaluation entry point, serves
 full-width BUCTD-preNet-W48 with its preNet fused and not, serves and
-evaluates each family in bf16 as well (TPU.EVAL_DTYPE bfloat16), and runs the
-port's benchmarks of the fused basic block (K5) and exp throughput (K6).
+evaluates each family in bf16 as well (TPU.EVAL_DTYPE bfloat16), serves,
+evaluates and trains pose_resnet-50 with the preNet, runs the lambda sweep,
+the OCHuman and animal evaluation rounds and the standalone inference entry,
+and runs the port's benchmarks of the fused basic block (K5) and exp
+throughput (K6).
 
     python3 chip_smoke.py
 
@@ -154,6 +157,30 @@ Phases (each raises on failure; nothing is caught):
      the kernels line reports; K5 faster than its SIMT kernel at every branch
      in both dtypes, f32 K2 faster than its SIMT kernels; K6 no faster than
      its SFU bound.
+
+ 15. (phases 15-18 run after phase 9) pose_resnet-50 with the preNet
+     (``resnet_phase``: the preNet-W48 yaml with
+     MODEL.NAME pose_resnet, CrowdPose 384x288, 14 joints, one .pth of random
+     weights): predict_batch in f32 and bf16 in turns, FUSED_PRENET off and
+     auto, each f32 forward card vs CPU (FORWARD_RTOL), fused vs unfused
+     within PRENET_PX_TOL px, a profile; one evaluation round of 64 crops and
+     3 training steps; K1 launched 0 times, K4 once a batch;
+ 16. TEST.LAMBDA_SWEEP (``lambda_phase``): rounds of CoAM-W48 on
+     eval_phase's set and weights in f32 and bf16, plain and swept in turns:
+     the sweep's K1 launched 4 and K4 once a batch (lambda 0 and 1), the _l0,
+     _l1 and _merged jsons, merged AP in [0, 1], crops/s beside the plain
+     round's; validate_lambda over 6 lambdas on 2 batches of preNet-W48 with
+     the lambda head;
+ 17. ``datasets_phase``: one round of 32 crops through valid.run with
+     CoAM-W48 on synthetic OCHuman (COCO-17, the coco yaml), fish (7 joints),
+     multimouse (12) and marmosets (15): AP in [0, 1], K1 2 and K4 1 a batch;
+ 18. ``inference_phase``: buctd_tpu_torch.tools.inference's run_ctd_inference
+     on one 480x640 image with 4 poses, refine_iters 1 and 3, CoAM-W48 in
+     the yaml's TPU.COMPUTE_DTYPE (bf16) and in f32, K1 2 a round, the card
+     against the CPU's f32 run (the share within one heatmap pixel,
+     INFERENCE_PX_SHARE in f32), ms/image; cpu_nms and gpu_nms on 2000
+     boxes against ops/nms.py::nms; analysis.bin_evaluate on eval_phase's
+     round-0 results.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -324,7 +351,21 @@ TP_F32_CASES = {"tp_serving": (16, 6912, 6912, 112), "tp_eval": (32, 6912, 6912,
 TP_TRAIN_CASES = [(TRAIN_BATCH, 6912, 112)]
 TP_EVAL_IMAGES = 16                     # x 4 people = 64 crops = 2 batches of 32
 # the synthetic sets' joint layouts: CrowdPose's 14, COCO's 17
-SYNTH_JOINTS = {"crowdpose": 14, "coco": 17}
+SYNTH_JOINTS = {"crowdpose": 14, "coco": 17, "ochuman": 17, "fish": 7, "multimouse": 12,
+                "marmosets": 15}
+# pose_resnet-50 with the preNet: the preNet-W48 yaml with the ResNet named
+RESNET_OPTS = ["MODEL.NAME", "pose_resnet", "MODEL.EXTRA.NUM_LAYERS", "50",
+               "MODEL.EXTRA.USE_PRE_NET", "True"]
+RESNET_EVAL_IMAGES = 16                 # x 4 people = 64 crops = 2 batches of 32
+RESNET_TRAIN_STEPS = 3
+COCO_CONFIG = ROOT / "experiments" / "coco" / "buctd" / "coam_w48_384x288.yaml"
+# the datasets of this round's eval phase, each with CoAM-W48 of its layout
+DATASETS = {"ochuman": COCO_CONFIG, "fish": CONFIG, "multimouse": CONFIG,
+            "marmosets": CONFIG}
+DATASET_IMAGES = 8                      # x 4 people = 32 crops = 1 batch of 32
+# inference on the card vs the CPU in f32: the share of joints within one
+# heatmap pixel (random weights; the f32 forwards differ by ~1e-5 relative)
+INFERENCE_PX_SHARE = 0.9
 # K5 vs its plain version at the W48 branch geometries, batch 32: f32 sums of
 # 9C products in another order (the SIMT kernel measured <= 4.3e-6 on O(1)
 # outputs; f32 K5 takes its products in 3xTF32, and one tf32 pass,
@@ -1535,10 +1576,13 @@ def write_synthetic_set(np, root: Path, n_images: int, people: int, seed: int = 
     """A training or test set in COCO format made from a seed: random 480x640
     JPEGs and ``people`` overlapping persons per image, all joints visible,
     in one of SYNTH_JOINTS' layouts: ``crowdpose`` (14 joints, a crowdIndex
-    per image, no condition poses: the CoAM yaml's trainer synthesizes them)
-    or ``coco`` (17 joints, each person with ``cond_kpts``, its joints moved
+    per image, no condition poses: the CoAM yaml's trainer synthesizes them),
+    ``coco`` (17 joints, each person with ``cond_kpts``, its joints moved
     by N(0, 6 px), as a BU model's predictions: the TransPose-H yaml trains
-    from them, SYNTHESIS_POSE false).  Returns the annotation file's path."""
+    from them, SYNTHESIS_POSE false), or an evaluation set of ``ochuman``
+    (17), ``fish`` (7), ``multimouse`` (12) or ``marmosets`` (15) joints
+    without conditions (their rounds read a BU json).  Returns the
+    annotation file's path."""
     import cv2
 
     joints = SYNTH_JOINTS[layout]
@@ -2529,6 +2573,11 @@ def eval_phase(torch, np, fa, tw) -> dict:
             raise AssertionError(f"launch counts {launches} != {want}")
         res["launches"] = launches
         model = out["model"]
+        # the GT and round 0's results, for inference_phase's bin_evaluate
+        keep = Path(tempfile.mkdtemp(prefix="buctd_eval_results_"))
+        res["files"] = (keep / ann.name, keep / "round0_results.json")
+        res["files"][0].write_bytes(ann.read_bytes())
+        res["files"][1].write_bytes(Path(out["rounds"][0]["results"]).read_bytes())
 
         # the same evaluation, one round, under BUCTD_FLASH_KVRES=1
         os.environ["BUCTD_FLASH_KVRES"] = "1"
@@ -3138,6 +3187,428 @@ def tools_phase(torch, fb, ex) -> dict:
             "block": block, "block_f32": block_f32, "k2_f32": k2, "exp": exp, "stem": stem}
 
 
+def _run_counts(fa, tw) -> dict:
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_fwd_kvres": fa.flash_attention_kvres.launches,
+            "warp_resample": tw.warp_resample.launches,
+            "warp_resample_two_pass": tw.warp_resample_two_pass.launches}
+
+
+def _zero_counts(fa, tw) -> None:
+    for f in (fa.flash_attention, fa.flash_attention_kvres, tw.warp_resample,
+              tw.warp_resample_two_pass):
+        f.launches = 0                                       # the main path's run
+
+
+def _check_round(np, label: str, r: dict, crops: int) -> None:
+    rows = json.loads(Path(r["results"]).read_text())
+    if len(rows) != crops or r["crops"] % crops or not (np.isfinite(r["AP"])
+                                                        and 0.0 <= r["AP"] <= 1.0):
+        raise AssertionError(f"{label}: {len(rows)} results for {crops} crops "
+                             f"({r['crops']} run), AP {r['AP']}")
+
+
+def resnet_phase(torch, np, fa, tw) -> dict:
+    """BUCTD pose_resnet-50 with the preNet at full width (the preNet-W48
+    yaml with MODEL.NAME pose_resnet: CrowdPose 384x288, 14 joints), from
+    one .pth of random weights: served through PoseEstimator (ROUNDS rounds,
+    predict_batch of 3 images x 4 poses) in f32 and bf16 in turns with
+    TPU.FUSED_PRENET off and auto, each f32 forward card vs CPU, fused vs
+    unfused predictions; one evaluation round of RESNET_EVAL_IMAGES x
+    SYNTH_PEOPLE crops through valid.run and 3 training steps through
+    train.run.  pose_resnet reaches no hand-written kernel but K4 (the
+    loaders' warp): K1 is launched 0 times on every path."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.serving import PoseEstimator
+    from buctd_tpu_torch.train import run as train_run
+    from buctd_tpu_torch.valid import run as valid_run
+
+    def config(*opts):
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(PRENET_CONFIG),
+                                                 opts=[*RESNET_OPTS, *opts]))
+        return cfg
+
+    res = {"serving": {}}
+    rng = np.random.RandomState(31)
+    batch = [sample_request(np, rng) for _ in range(3)]
+    images, poses = [b[0] for b in batch], [b[1] for b in batch]
+    x = torch.from_numpy(rng.randn(1, 6, 384, 288).astype(np.float32))
+    keep = float("-inf")
+    with tempfile.TemporaryDirectory(prefix="buctd_resnet_") as tmp:
+        root = Path(tmp)
+        torch.manual_seed(31)
+        model = get_model(config("TPU.FUSED_PRENET", "off"))
+        randomize(torch, model)
+        weights = root / "pose_resnet50_random.pth"
+        torch.save(model.state_dict(), weights)
+        print(f"pose_resnet-50 + preNet: {sum(p.numel() for p in model.parameters())} "
+              f"parameters, weights {weights.name}, {ROUNDS} rounds", flush=True)
+        del model
+        preds = {}
+        for knob in ("off", "auto"):
+            ests = {dt: PoseEstimator(config("TPU.FUSED_PRENET", knob, "TPU.EVAL_DTYPE", dt),
+                                      checkpoint=str(weights), refine_iters=ROUNDS)
+                    for dt in ("float32", "bfloat16")}
+            for est in ests.values():
+                if est.model.fused_prenet != (knob == "auto"):
+                    raise AssertionError(f"FUSED_PRENET {knob}: fused {est.model.fused_prenet}")
+                est.predict_batch(images, poses, keep)           # cuDNN set-up
+            torch.cuda.synchronize()
+            _zero_counts(fa, tw)
+            ms = {"float32": [], "bfloat16": []}
+            for dt in ("float32", "bfloat16", "bfloat16", "float32") * 2:
+                t0 = time.perf_counter()
+                outs = ests[dt].predict_batch(images, poses, keep)
+                ms[dt].append((time.perf_counter() - t0) * 1e3)
+                for o in outs:
+                    if o.shape != (4, 14, 3) or not np.isfinite(o).all():
+                        raise AssertionError(f"pose_resnet {dt}: prediction {o.shape}")
+                preds[(knob, dt)] = outs
+            launches = fa.flash_attention.launches
+            with torch.inference_mode():
+                got = ests["float32"].model(x.cuda()).cpu()
+                want = copy.deepcopy(ests["float32"].model).cpu()(x)
+            err, peak = (got - want).abs().max().item(), want.abs().max().item()
+            med = {dt: statistics.median(v) for dt, v in ms.items()}
+            print(f"pose_resnet FUSED_PRENET {knob}: predict_batch (3 images x 4 poses, "
+                  f"{ROUNDS} rounds) f32 {12e3 / med['float32']:.2f} crops/s "
+                  f"({med['float32']:.2f} ms), bf16 {12e3 / med['bfloat16']:.2f} crops/s "
+                  f"({med['bfloat16']:.2f} ms), medians of {len(ms['float32'])} in turns; K1 "
+                  f"launches {launches} (expected 0); f32 forward card vs CPU max_abs_err "
+                  f"{err:.3e}, peak {peak:.3e}, limit {FORWARD_RTOL:.0e} x peak", flush=True)
+            if launches != 0 or not err <= FORWARD_RTOL * peak:
+                raise AssertionError(f"pose_resnet {knob}: K1 {launches}, card vs CPU {err}")
+            res["serving"][knob] = {"ms": med, "forward_err": err}
+            if knob == "auto":
+                res["profile"] = kernel_profile(
+                    torch, lambda: ests["float32"].predict_batch(images, poses, keep),
+                    "pose_resnet-50 predict_batch, f32, FUSED_PRENET auto")
+            del ests
+            torch.cuda.empty_cache()
+        gap = max(np.abs(a[..., :2] - b[..., :2]).max()
+                  for a, b in zip(preds[("off", "float32")], preds[("auto", "float32")]))
+        print(f"pose_resnet fused vs unfused (f32): predictions max |diff| {gap:.3e} px "
+              f"(limit {PRENET_PX_TOL} px)", flush=True)
+        if not gap <= PRENET_PX_TOL:
+            raise AssertionError("pose_resnet: the fused preNet disagrees with the unfused")
+
+        ann = write_synthetic_set(np, root, RESNET_EVAL_IMAGES, SYNTH_PEOPLE, seed=33)
+        bu = write_bu_predictions(np, ann, root)
+        crops = RESNET_EVAL_IMAGES * SYNTH_PEOPLE
+        _zero_counts(fa, tw)
+        out = valid_run.main(["--cfg", str(PRENET_CONFIG), *RESNET_OPTS,
+                              "TPU.DEVICE_PIPELINE", "True", "DATASET.TEST_IMAGE_DIR", str(root),
+                              "DATASET.TEST_ANNOTATION_FILE", str(ann),
+                              "TEST.COCO_BBOX_FILE", str(bu),
+                              "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH),
+                              "TEST.MODEL_FILE", str(weights), "PRINT_FREQ", "100",
+                              "OUTPUT_DIR", str(root / "out")])
+        ev = _run_counts(fa, tw)
+        r = out["rounds"][0]
+        batches = -(-crops // EVAL_BATCH)
+        print(f"pose_resnet evaluation, one round: AP {r['AP']!r}, {r['crops']} crops, "
+              f"{r['crops'] / r['loop_s']:.2f} crops/s (loop {r['loop_s']:.3f} s); "
+              f"launches {ev} (K1 0, K4 1 a batch of {EVAL_BATCH}: {batches})", flush=True)
+        _check_round(np, "pose_resnet evaluation", r, crops)
+        if ev != {"flash_fwd": 0, "flash_fwd_kvres": 0, "warp_resample": batches,
+                  "warp_resample_two_pass": 0}:
+            raise AssertionError(f"pose_resnet evaluation launches {ev}")
+        res.update(eval_crops_s=r["crops"] / r["loop_s"], eval_ap=r["AP"], eval_launches=ev)
+        del out
+
+        train_ann = write_synthetic_set(np, root, RESNET_TRAIN_STEPS * TRAIN_BATCH // SYNTH_PEOPLE,
+                                        SYNTH_PEOPLE, seed=34)
+        _zero_counts(fa, tw)
+        t0 = time.perf_counter()
+        tr = train_run.main(["--cfg", str(PRENET_CONFIG), "--steps", str(RESNET_TRAIN_STEPS),
+                             "--no-eval", "--seed", "0", *RESNET_OPTS,
+                             "TPU.DEVICE_PIPELINE", "True", "TPU.DEVICE_SYNTHESIS", "True",
+                             "DATASET.TRAIN_IMAGE_DIR", str(root),
+                             "DATASET.TRAIN_ANNOTATION_FILE", str(train_ann),
+                             "OUTPUT_DIR", str(root / "train")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tl = _run_counts(fa, tw)
+        losses = [float(m["loss"]) for st in tr["stats"] for m in st["metrics"]]
+        step_ms = [(d + s) * 1e3 for st in tr["stats"]
+                   for d, s in zip(st["data_wait_s"], st["step_s"])]
+        print(f"pose_resnet training: {tr['steps']} steps of batch {TRAIN_BATCH} (bf16 "
+              f"autocast, TPU.DEVICE_SYNTHESIS) in {wall:.1f} s with the model build; "
+              f"ms/step {[round(v, 2) for v in step_ms]}; losses "
+              f"{[round(v, 6) for v in losses]}; launches {tl}", flush=True)
+        if (tr["steps"] != RESNET_TRAIN_STEPS or not np.isfinite(losses).all()
+                or tl["flash_fwd"] != 0 or tl["warp_resample"] != RESNET_TRAIN_STEPS):
+            raise AssertionError(f"pose_resnet training: {tr['steps']} steps, launches {tl}")
+        res.update(train_launches=tl, train_ms=step_ms)
+    return res
+
+
+def lambda_phase(torch, np, fa, tw) -> dict:
+    """TEST.LAMBDA_SWEEP: rounds of CoAM-W48 through valid.run on
+    eval_phase's synthetic CrowdPose set and weights (the same seeds), f32 and
+    bf16, with and without the sweep in turns (plain, lambda, lambda, plain):
+    the _l0, _l1 and _merged results, AP in [0, 1], K1 launched 2 x a plain
+    round's (lambda 0 and 1), K4 once a batch, the sweep's crops/s beside the
+    plain round's.  Then validate_lambda over 6 lambdas on 2 batches of a
+    preNet-W48 with the lambda head (K1 0 times)."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.core.function import validate_lambda
+    from buctd_tpu_torch.data.datasets import get_dataset
+    from buctd_tpu_torch.data.device_pipeline import DeviceLoader
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.valid import run as valid_run
+
+    res = {}
+    crops = EVAL_IMAGES * SYNTH_PEOPLE
+    batches = -(-crops // EVAL_BATCH)
+    with tempfile.TemporaryDirectory(prefix="buctd_lambda_") as tmp:
+        root = Path(tmp)
+        ann = write_synthetic_set(np, root, EVAL_IMAGES, SYNTH_PEOPLE, seed=11)
+        bu = write_bu_predictions(np, ann, root)
+        torch.manual_seed(5)
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=[]))
+        model = get_model(cfg)
+        randomize(torch, model)
+        weights = root / "random_weights.pth"
+        torch.save(model.state_dict(), weights)
+        del model
+        opts = ["TPU.DEVICE_PIPELINE", "True", "DATASET.TEST_IMAGE_DIR", str(root),
+                "DATASET.TEST_ANNOTATION_FILE", str(ann), "TEST.COCO_BBOX_FILE", str(bu),
+                "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH), "TEST.MODEL_FILE", str(weights),
+                "PRINT_FREQ", "100"]
+        for dt in ("float32", "bfloat16"):
+            # plain and lambda rounds in turns (plain, lambda, lambda, plain)
+            runs = {False: [], True: []}
+            for sweep in (False, True, True, False):
+                _zero_counts(fa, tw)
+                out = valid_run.main(["--cfg", str(CONFIG), *opts, "TPU.EVAL_DTYPE", dt,
+                                      "TEST.LAMBDA_SWEEP", str(sweep),
+                                      "OUTPUT_DIR", str(root / f"out_{dt}_{sweep}")])
+                got = _run_counts(fa, tw)
+                r = out["rounds"][0]
+                want = {"flash_fwd": 2 * (1 + sweep) * batches, "flash_fwd_kvres": 0,
+                        "warp_resample": batches, "warp_resample_two_pass": 0}
+                label = f"{'lambda sweep' if sweep else 'plain round'} {dt}"
+                print(f"{label}: AP {r['AP']!r}, {crops} crops{' x lambda 0 and 1' * sweep} "
+                      f"in {r['loop_s']:.3f} s = {crops / r['loop_s']:.2f} crops/s; evaluate "
+                      f"{r['evaluate_s']:.3f} s; launches {got}, expected {want}", flush=True)
+                if got != want or not (np.isfinite(r["AP"]) and 0.0 <= r["AP"] <= 1.0):
+                    raise AssertionError(f"{label}: launches {got}, AP {r['AP']}")
+                if sweep:
+                    results = Path(r["results"])
+                    if not results.name.endswith("_merged.json"):
+                        raise AssertionError(f"lambda sweep results {results}")
+                    for kind in ("l0", "l1"):
+                        if not results.with_name(results.name.replace("merged", kind)).exists():
+                            raise AssertionError(f"lambda sweep: no _{kind} json")
+                    rows = json.loads(results.read_text())
+                    if not crops <= len(rows) <= 2 * crops:
+                        raise AssertionError(f"lambda sweep: {len(rows)} merged rows")
+                runs[sweep].append((crops / r["loop_s"], got, r["AP"]))
+                del out
+            lam_s = statistics.mean(v[0] for v in runs[True])
+            plain_s = statistics.mean(v[0] for v in runs[False])
+            print(f"lambda sweep {dt}: {lam_s:.2f} crops/s against the plain round's "
+                  f"{plain_s:.2f} in turns ({lam_s / plain_s:.3f}x; means of 2)", flush=True)
+            res[dt] = {"launches": sum(v[1]["flash_fwd"] for vs in runs.values() for v in vs),
+                       "warp_launches": sum(v[1]["warp_resample"] for vs in runs.values()
+                                            for v in vs),
+                       "crops_s": lam_s, "plain_crops_s": plain_s, "ap": runs[True][0][2]}
+            torch.cuda.empty_cache()
+
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(PRENET_CONFIG), opts=[
+            "TPU.DEVICE_PIPELINE", "True", "DATASET.TEST_IMAGE_DIR", str(root),
+            "DATASET.TEST_ANNOTATION_FILE", str(ann), "TEST.COCO_BBOX_FILE", str(bu),
+            "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH)]))
+        torch.manual_seed(35)
+        model = get_model(cfg, lambda_head=True)
+        randomize(torch, model)
+        ds = get_dataset(cfg, is_train=False)
+        _zero_counts(fa, tw)
+        loader = DeviceLoader(ds, cfg, num_workers=4)
+        it = iter(loader)
+        two = [next(it) for _ in range(2)]
+        loader.close()
+        t0 = time.perf_counter()
+        sweep = validate_lambda(cfg, two, ds, model)
+        torch.cuda.synchronize()
+        got = _run_counts(fa, tw)
+        print(f"validate_lambda, preNet-W48 with the lambda head, 2 batches of {EVAL_BATCH}, "
+              f"6 lambdas in {time.perf_counter() - t0:.3f} s: "
+              f"{ {k: (round(v[0], 6), round(v[1], 4)) for k, v in sweep.items()} }; "
+              f"launches {got}", flush=True)
+        losses = [v[0] for v in sweep.values()]
+        if (list(sweep) != [0, 0.2, 0.4, 0.6, 0.8, 1.0] or not np.isfinite(losses).all()
+                or len(set(losses)) < 2 or got["flash_fwd"] != 0 or got["warp_resample"] != 2):
+            raise AssertionError(f"validate_lambda: {sweep}, launches {got}")
+        res["validate_lambda_warp_launches"] = got["warp_resample"]
+    return res
+
+
+def datasets_phase(torch, np, fa, tw) -> dict:
+    """One evaluation round of DATASET_IMAGES x SYNTH_PEOPLE crops through
+    valid.run with CoAM-W48 at full width (random weights) on each of
+    DATASETS: synthetic OCHuman (COCO-17, the coco yaml), fish (7 joints),
+    multimouse (12) and marmosets (15) from BU-prediction jsons: one result
+    per crop, AP in [0, 1], K1 twice and K4 once a batch."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.valid import run as valid_run
+
+    res = {}
+    crops = DATASET_IMAGES * SYNTH_PEOPLE
+    batches = -(-crops // EVAL_BATCH)
+    for i, (name, yaml) in enumerate(DATASETS.items()):
+        with tempfile.TemporaryDirectory(prefix=f"buctd_{name}_") as tmp:
+            root = Path(tmp)
+            ann = write_synthetic_set(np, root, DATASET_IMAGES, SYNTH_PEOPLE, seed=40 + i,
+                                      layout=name)
+            bu = write_bu_predictions(np, ann, root)
+            opts = ["DATASET.DATASET", name, "MODEL.NUM_JOINTS", str(SYNTH_JOINTS[name])]
+            cfg = default_config()
+            update_config(cfg, types.SimpleNamespace(cfg=str(yaml), opts=opts))
+            torch.manual_seed(40 + i)
+            model = get_model(cfg)
+            randomize(torch, model)
+            weights = root / "random_weights.pth"
+            torch.save(model.state_dict(), weights)
+            del model
+            _zero_counts(fa, tw)
+            out = valid_run.main(["--cfg", str(yaml), *opts, "TPU.DEVICE_PIPELINE", "True",
+                                  "DATASET.TEST_IMAGE_DIR", str(root),
+                                  "DATASET.TEST_ANNOTATION_FILE", str(ann),
+                                  "TEST.COCO_BBOX_FILE", str(bu),
+                                  "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH),
+                                  "TEST.MODEL_FILE", str(weights), "PRINT_FREQ", "100",
+                                  "OUTPUT_DIR", str(root / "out")])
+            got = _run_counts(fa, tw)
+            r = out["rounds"][0]
+            want = {"flash_fwd": 2 * batches, "flash_fwd_kvres": 0, "warp_resample": batches,
+                    "warp_resample_two_pass": 0}
+            print(f"{name} ({SYNTH_JOINTS[name]} joints, {yaml.parent.name} CoAM-W48), one "
+                  f"round: AP {r['AP']!r}, {r['crops']} crops, "
+                  f"{r['crops'] / r['loop_s']:.2f} crops/s; launches {got}, expected {want}",
+                  flush=True)
+            _check_round(np, name, r, crops)
+            if got != want:
+                raise AssertionError(f"{name}: launches {got} != {want}")
+            res[name] = {"launches": got["flash_fwd"], "warp_launches": got["warp_resample"],
+                         "ap": r["AP"], "crops_s": r["crops"] / r["loop_s"]}
+            del out
+            torch.cuda.empty_cache()
+    return res
+
+
+def inference_phase(torch, np, fa, eval_files) -> dict:
+    """buctd_tpu_torch.tools.inference at full width: run_ctd_inference on
+    one 480x640 image with 4 condition poses, refine_iters 1 and 3, CoAM-W48
+    from a .pth of random weights, in the yaml's TPU.COMPUTE_DTYPE (bf16)
+    and in f32: finite, K1 twice a round; the card against the CPU's f32 run
+    (the share of joints within one heatmap pixel, at least
+    INFERENCE_PX_SHARE in f32); ms/image of each call with the model built.
+    Then ops/native.py's cpu_nms and gpu_nms on 2000 boxes against
+    ops/nms.py::nms, and analysis.bin_evaluate on eval_phase's results."""
+    import shutil
+
+    from buctd_tpu_torch.analysis import bin_evaluate
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.core.refine import make_refine_fn
+    from buctd_tpu_torch.data.coco_io import COCOIndex
+    from buctd_tpu_torch.data.datasets.crowdpose import CROWDPOSE_OKS_SIGMAS
+    from buctd_tpu_torch.geometry import joints2box, xywh2cs
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.ops import native
+    from buctd_tpu_torch.ops.nms import nms
+    from buctd_tpu_torch.tools import inference
+
+    res = {"launches": {}}
+    rng = np.random.RandomState(51)
+    img, conds = sample_request(np, rng)
+    # one heatmap pixel in image px for each pose: its crop's width / the map's
+    px = np.array([xywh2cs(*joints2box(c, 25, 640, 480), aspect_ratio=288 / 384)[1][0]
+                   * 200 / 72 for c in conds])
+    with tempfile.TemporaryDirectory(prefix="buctd_inference_") as tmp:
+        torch.manual_seed(51)
+        cfgs = {}
+        for dt in ("bfloat16", "float32"):
+            cfgs[dt] = default_config()
+            update_config(cfgs[dt], types.SimpleNamespace(
+                cfg=str(CONFIG), opts=["TPU.COMPUTE_DTYPE", dt]))
+        model = get_model(cfgs["float32"])
+        randomize(torch, model)
+        weights = str(Path(tmp) / "random_weights.pth")
+        torch.save(model.state_dict(), weights)
+        del model
+        keep = float("-inf")
+        runs = {}
+        for dt in ("bfloat16", "float32"):
+            for iters in (1, 3):
+                fa.flash_attention.launches = 0              # the main path's run
+                out = inference.run_ctd_inference([img], [conds], weights, keep,
+                                                  config=cfgs[dt], refine_iters=iters)
+                n = fa.flash_attention.launches
+                res["launches"][f"{dt}_{iters}"] = n
+                if out.shape != (1, 4, 14, 3) or not np.isfinite(out).all() or n != 2 * iters:
+                    raise AssertionError(f"inference {dt} x{iters}: {out.shape}, K1 {n}")
+                runs[(dt, iters)] = out[0]
+        t0 = time.perf_counter()
+        for iters in (1, 3):
+            cpu = inference.run_ctd_inference([img], [conds], weights, keep, device="cpu",
+                                              config=cfgs["float32"], refine_iters=iters)[0]
+            for dt in ("float32", "bfloat16"):
+                dist = np.abs(runs[(dt, iters)][..., :2] - cpu[..., :2]).max(-1)
+                share = float((dist <= px[:, None]).mean())
+                print(f"inference x{iters} {dt} on the card vs f32 on the CPU: "
+                      f"{100 * share:.1f}% of joints within one heatmap pixel "
+                      f"({px.round(2).tolist()} px), max |diff| {dist.max():.3e} px", flush=True)
+                res[f"share_{dt}_{iters}"] = share
+                if dt == "float32" and not share >= INFERENCE_PX_SHARE:
+                    raise AssertionError(f"inference x{iters}: card vs CPU share {share}")
+        print(f"the CPU's runs took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        for dt in ("bfloat16", "float32"):
+            cfg = inference.model_config(cfgs[dt])
+            model = inference.get_model(cfg, weights)
+            refine = make_refine_fn(cfg, model, inference.palette(14), n_iters=3)
+            calls = {1: lambda: inference.get_pose_feature(cfg, model, img, conds, keep),
+                     3: lambda: torch.cat(refine(img, conds), -1).cpu()}
+            for iters, fn in calls.items():
+                fn()
+                res[f"ms_{dt}_{iters}"] = host_ms(fn, REPEATS)
+            print(f"inference {dt} (model built): refine_iters 1 {res[f'ms_{dt}_1']:.2f} "
+                  f"ms/image, 3 {res[f'ms_{dt}_3']:.2f} ms/image (4 poses, host clock to "
+                  f"the results on the host)", flush=True)
+            del model, refine
+            torch.cuda.empty_cache()
+
+    r = np.random.RandomState(52)
+    xy = r.uniform(0, 1000, (2000, 2))
+    dets = np.c_[xy, xy + r.uniform(10, 150, (2000, 2)), r.permutation(2000) / 2000.0
+                 ].astype(np.float32)
+    t0 = time.perf_counter()
+    for thresh in (0.3, 0.5, 0.7):
+        kept = native.cpu_nms(dets, thresh)
+        if native.gpu_nms(dets, thresh) != kept or kept != nms(dets, thresh):
+            raise AssertionError(f"native NMS at {thresh} disagrees with ops/nms.py::nms")
+    print(f"cpu_nms and gpu_nms on 2000 boxes at 0.3/0.5/0.7 equal ops/nms.py::nms "
+          f"(built and run in {time.perf_counter() - t0:.2f} s)", flush=True)
+
+    ann, results = eval_files
+    try:
+        out = bin_evaluate(COCOIndex(str(ann)), str(results), list(range(9)), list(range(18)),
+                           sigmas=CROWDPOSE_OKS_SIGMAS)
+    finally:
+        shutil.rmtree(Path(ann).parent)
+    print(f"bin_evaluate on eval_phase's round-0 results, every bin: {out}", flush=True)
+    if not (out["num_instances"] > 0 and 0.0 <= out["AP"] <= 1.0):
+        raise AssertionError(f"bin_evaluate: {out}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3225,6 +3696,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     kv_train = kvres_training_phase(torch, np, fa)
     torch.cuda.empty_cache()
+    rn = resnet_phase(torch, np, fa, tw)
+    torch.cuda.empty_cache()
+    lam = lambda_phase(torch, np, fa, tw)
+    torch.cuda.empty_cache()
+    dsets = datasets_phase(torch, np, fa, tw)
+    torch.cuda.empty_cache()
+    inf = inference_phase(torch, np, fa, ev["files"])
+    torch.cuda.empty_cache()
     k5 = fused_block_phase(torch, fb)
     k5_trunk = fused_block_vs_trunk(torch, np, fb)
     k6 = exp_phase(torch, ex)
@@ -3302,6 +3781,20 @@ def main() -> int:
 
     bf16_launches = (bf16_serving["launches"] + tp_bf16_serving["launches"]
                      + ev["bf16"]["launches"] + tp_ev["bf16"]["launches"])
+    # K1 and K4 on the paths of the lambda phase (its plain and swept rounds,
+    # validate_lambda), the datasets, inference and pose_resnet (no K1)
+    new_k1 = {"lambda_f32": lam["float32"]["launches"],
+              "lambda_bf16": lam["bfloat16"]["launches"],
+              "datasets": {k: v["launches"] for k, v in dsets.items()},
+              "inference_f32": inf["launches"]["float32_1"] + inf["launches"]["float32_3"],
+              "inference_bf16": inf["launches"]["bfloat16_1"] + inf["launches"]["bfloat16_3"],
+              "pose_resnet": rn["eval_launches"]["flash_fwd"] + rn["train_launches"]["flash_fwd"]}
+    new_k4 = {"pose_resnet": rn["eval_launches"]["warp_resample"]
+              + rn["train_launches"]["warp_resample"],
+              "lambda": lam["float32"]["warp_launches"] + lam["bfloat16"]["warp_launches"]
+              + lam["validate_lambda_warp_launches"],
+              "datasets": sum(v["warp_launches"] for v in dsets.values())}
+    bf16_launches += new_k1["lambda_bf16"] + new_k1["inference_bf16"]
 
     def kv_bwd_entry(kind, replaces):
         return {"name": f"flash_bwd_{kind}_kvres", "route": "cuda",
@@ -3362,6 +3855,20 @@ def main() -> int:
         print(f"bf16 evaluation {name}: one round {r['crops_s']:.2f} crops/s, AP {r['ap']!r}, "
               f"K1 launches {r['launches']}; a validate step's convolutions "
               f"{100 * r['conv']['share']:.1f}% of kernel time", flush=True)
+    r32, r16 = rn["serving"]["auto"]["ms"]["float32"], rn["serving"]["auto"]["ms"]["bfloat16"]
+    print(f"pose_resnet-50 + preNet (FUSED_PRENET auto): predict_batch f32 {12e3 / r32:.2f} "
+          f"crops/s, bf16 {12e3 / r16:.2f}; one eval round {rn['eval_crops_s']:.2f} crops/s, "
+          f"AP {rn['eval_ap']!r}", flush=True)
+    for dt in ("float32", "bfloat16"):
+        r = lam[dt]
+        print(f"lambda sweep {dt}: {r['crops_s']:.2f} crops/s against the plain round's "
+              f"{r['plain_crops_s']:.2f} ({r['crops_s'] / r['plain_crops_s']:.3f}x), merged AP "
+              f"{r['ap']!r}, K1 launches {r['launches']}; inference refine_iters 1 "
+              f"{inf[f'ms_{dt}_1']:.2f} ms/image, 3 {inf[f'ms_{dt}_3']:.2f} ms/image",
+              flush=True)
+    print(f"pose_resnet training ms/step {[round(v, 2) for v in rn['train_ms']]}", flush=True)
+    print(f"datasets: { {k: (round(v['crops_s'], 2), v['ap']) for k, v in dsets.items()} } "
+          f"(crops/s, AP)", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -3371,7 +3878,11 @@ def main() -> int:
          "launches": (serving_launches + train["launches"]["flash_fwd"] + more["flash_fwd"]
                       + ev["launches"]["flash_fwd"] + tp_serving_launches
                       + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]
-                      + bf16_launches),
+                      + bf16_launches + new_k1["lambda_f32"] + new_k1["inference_f32"]
+                      + sum(new_k1["datasets"].values())),
+         # its launches on the lambda sweep (f32, bf16), the OCHuman and animal
+         # evaluation rounds, inference (f32, bf16) and pose_resnet's paths
+         "more_paths": new_k1,
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"], tp_k["fwd_err"]),
          # f32 (3xTF32) at MAIN_CASES, the SIMT forward it replaced timed in
          # turns beside it
@@ -3436,8 +3947,9 @@ def main() -> int:
                  train["launches"]["warp_resample"] + more["warp_resample"]
                  + ev["launches"]["warp_resample"]
                  + tp_train["launches"]["warp_resample"] + tp_ev["launches"]["warp_resample"]
-                 + ev["bf16"]["warp_launches"] + tp_ev["bf16"]["warp_launches"],
-                 tk["warp_err"], "warp"),
+                 + ev["bf16"]["warp_launches"] + tp_ev["bf16"]["warp_launches"]
+                 + sum(new_k4.values()), tk["warp_err"], "warp"),
+         "more_paths": new_k4,
          # the fused f32 kernel above; beside it, in this run: the two-pass
          # form in turns, the uint8 source with mask rectangles (the loaders'
          # input) with its error against the plain version and its bound,

@@ -1011,3 +1011,95 @@ def test_tf32_operands_compute_cublas_tf32(cuda):
     peak = cublas.abs().max().item()
     gaps = [(x - cublas).abs().max().item() / peak for x in (emulated, exact)]
     assert gaps[0] <= 1e-4 < gaps[1], gaps
+
+
+RESNET_TINY = ["MODEL.NAME", "pose_resnet", "MODEL.EXTRA.NUM_LAYERS", "18",
+               "MODEL.IMAGE_SIZE", "[48, 64]", "MODEL.HEATMAP_SIZE", "[12, 16]",
+               "MODEL.EXTRA.NUM_DECONV_FILTERS", "[16, 16, 16]"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pose_resnet_forward_on_cuda_matches_cpu(cuda, dtype):
+    """A tiny pose_resnet-18 with the preNet (models/resnet.py: torch's
+    ConvTranspose2d deconvolutions) on the card vs the CPU.  f32: within
+    1e-4 of the heatmaps' peak (TF32 off).  bf16 autocast: every module's
+    output dtype the same on both devices (the deconvolutions bf16), and the
+    card's heatmaps no further from the CPU's bf16 ones than twice the CPU's
+    bf16 from its own f32."""
+    import copy
+
+    from buctd_tpu_torch.models import autocast, get_model
+    from test_torch_port_config import REPO
+
+    yaml = REPO / "experiments" / "crowdpose" / "buctd" / "prenet_w48_384x288.yaml"
+    torch.manual_seed(7)
+    model = get_model(load_cfg("torch", yaml, RESNET_TINY), device="cpu")
+    _randomize(model)
+    card = copy.deepcopy(model).to(cuda)
+    x = torch.from_numpy(np.random.RandomState(8).randn(2, 6, 64, 48).astype(np.float32))
+    with torch.inference_mode():
+        want32 = model(x)
+        if dtype == "float32":
+            got = card(x.to(cuda)).cpu()
+            assert (got - want32).abs().max() <= 1e-4 * want32.abs().max()
+            return
+        with autocast("cpu", torch.bfloat16):
+            want = model(x).float()
+        with autocast(cuda, torch.bfloat16):
+            got = card(x.to(cuda)).float().cpu()
+    assert _module_dtypes(card, x.to(cuda), cuda.type) == _module_dtypes(model, x, "cpu")
+    assert (got - want).abs().max() <= 2 * (want - want32).abs().max()
+
+
+@pytest.mark.cuda
+def test_lambda_step_on_cuda_matches_cpu(cuda):
+    """The legacy lambda step (core/function.py::make_validate_lambda_step:
+    the whole input mirrored, the lambda head live) of a tiny preNet HRNet on
+    the card vs the CPU: predictions within 1e-3 px, maxvals within 1e-4 of
+    their peak, the loss within 1e-4 relative."""
+    import copy
+
+    from buctd_tpu_torch.core.function import make_validate_lambda_step
+    from buctd_tpu_torch.models import get_model
+    from test_torch_port_config import REPO
+
+    yaml = REPO / "experiments" / "crowdpose" / "buctd" / "prenet_w48_384x288.yaml"
+    cfg = load_cfg("torch", yaml, TINY_COAM)
+    torch.manual_seed(9)
+    model = get_model(cfg, device="cpu", lambda_head=True)
+    _randomize(model)
+    rng = np.random.RandomState(10)
+    batch = {"input": torch.from_numpy(rng.randn(3, 6, 128, 96).astype(np.float32)),
+             "target": torch.from_numpy((rng.rand(3, 14, 32, 24) > 0.99).astype(np.float32)),
+             "target_weight": torch.ones(3, 14),
+             "center": rng.uniform(80, 200, (3, 2)).astype(np.float32),
+             "scale": rng.uniform(0.5, 1.2, (3, 2)).astype(np.float32)}
+    lam = torch.tensor([[0.3, 0.7]]).expand(3, 2)
+    pairs = [[0, 1], [2, 3], [4, 5], [6, 7], [8, 9], [10, 11]]
+    want = make_validate_lambda_step(cfg, model, pairs)(batch, lam)
+    card = copy.deepcopy(model).to(cuda)
+    on_card = {k: (v.to(cuda) if torch.is_tensor(v) else v) for k, v in batch.items()}
+    got = [t.cpu() for t in make_validate_lambda_step(cfg, card, pairs)(on_card, lam)]
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
+    assert (got[1] - want[1]).abs().max() <= 1e-4 * want[1].abs().max()
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_gpu_nms_equals_cpu_nms(cuda):
+    """ops/native.py on the card's machine: the host library builds there
+    with its C++ compiler, and the bitmask scan keeps what the greedy scan
+    and the numpy NMS keep on 2000 boxes with distinct scores."""
+    from buctd_tpu_torch.ops import native
+    from buctd_tpu_torch.ops.nms import nms
+
+    del cuda
+    rng = np.random.RandomState(11)
+    xy = rng.uniform(0, 1000, (2000, 2))
+    dets = np.c_[xy, xy + rng.uniform(10, 150, (2000, 2)),
+                 rng.permutation(2000) / 2000.0].astype(np.float32)
+    for thresh in (0.3, 0.5, 0.7):
+        kept = native.cpu_nms(dets, thresh)
+        assert native.gpu_nms(dets, thresh) == kept == nms(dets, thresh)
+        assert 0 < len(kept) < 2000

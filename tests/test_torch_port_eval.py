@@ -451,6 +451,10 @@ def test_valid_run_refines_in_process(tmp_path):
     r1 = json.loads((results / "keypoints_test_results_epoch1.json").read_text())
     # round 1's boxes come from round 0's keypoints: its centers moved
     assert any(a["center"] != b["center"] for a, b in zip(r0, r1))
-    with pytest.raises(NotImplementedError, match="LAMBDA_SWEEP"):
-        run.main(["--cfg", str(COAM_YAML), "--device", "cpu",
-                  *_crowdpose_eval_opts(tmp_path, ann_file), "TEST.LAMBDA_SWEEP", "True"])
+    # the lambda sweep runs (tests/test_torch_port_lambda.py holds it to JAX)
+    lam = run.main(["--cfg", str(COAM_YAML), "--device", "cpu",
+                    *_crowdpose_eval_opts(tmp_path, ann_file), "TEST.LAMBDA_SWEEP", "True",
+                    "OUTPUT_DIR", str(out)])
+    assert 0.0 <= lam["ap"][0] <= 1.0 and lam["rounds"][0]["crops"] == 8
+    for kind in ("l0", "l1", "merged"):
+        assert (results / f"keypoints_test_results_epoch0_{kind}.json").exists()

@@ -45,7 +45,8 @@ prints every gap the tests hold.
   process's TF32 flags.
 * ``valid.run`` evaluates two rounds in bf16 on the CPU: its confidences are
   bf16 values.  ``check_eval_options`` takes ``EVAL_DTYPE bfloat16``; the
-  other refusals stay.  ``predict_many`` is a loop of ``predict``.
+  other refusals stay (the lambda sweep and the debug dumps are ported).
+  ``predict_many`` is a loop of ``predict``.
 """
 
 import functools
@@ -486,8 +487,10 @@ def test_check_eval_options_takes_bf16():
     from buctd_tpu_torch.core.function import check_eval_options
 
     check_eval_options(load_cfg("torch", COAM_YAML, BF16 + ["TPU.DEVICE_PIPELINE", "True"]))
-    for bad in (["TEST.LAMBDA_SWEEP", "True"], ["DEBUG.DEBUG", "True"],
-                ["TPU.DEVICE_PIPELINE", "False"], ["TPU.MESH_SHAPE", "[2]"]):
+    # the lambda sweep and the debug dumps are ported
+    check_eval_options(load_cfg("torch", COAM_YAML, BF16 + [
+        "TPU.DEVICE_PIPELINE", "True", "TEST.LAMBDA_SWEEP", "True", "DEBUG.DEBUG", "True"]))
+    for bad in (["TPU.DEVICE_PIPELINE", "False"], ["TPU.MESH_SHAPE", "[2]"]):
         opts = BF16 + ["TPU.DEVICE_PIPELINE", "True"] + bad
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_eval_options(load_cfg("torch", COAM_YAML, opts))

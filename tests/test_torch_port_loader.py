@@ -99,10 +99,12 @@ def test_host_planning_refuses_unported_paths(tmp_path):
         "DATASET.TEST_IMAGE_DIR", str(tmp_path), "DATASET.TEST_ANNOTATION_FILE", ann_file,
         "TEST.LAMBDA_SWEEP", "True", "DEBUG.DEBUG", "True"])
     assert len(get_dataset(cfg, is_train=False).db) == 4
-    with pytest.raises(NotImplementedError, match="LAMBDA_SWEEP.*ROADMAP"):
-        check_eval_options(cfg)                      # the lambda sweep: not ported
+    check_eval_options(cfg)                 # the lambda sweep and eval debug dumps: ported
     with pytest.raises(NotImplementedError, match="DEBUG.DEBUG.*ROADMAP"):
-        check_train_options(cfg)                     # the debug dumps: not ported
-    bad = load_cfg("torch", COAM_YAML, ["DATASET.DATASET", "ochuman"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset(bad, is_train=True)
+        check_train_options(cfg)            # the train debug dumps: not ported
+    coco_ann, _ = _tiny_coco(tmp_path, J=17)
+    ochuman = load_cfg("torch", COAM_YAML, ["DATASET.DATASET", "ochuman", "MODEL.NUM_JOINTS",
+                                            "17", "DATASET.TRAIN_IMAGE_DIR", str(tmp_path),
+                                            "DATASET.TRAIN_ANNOTATION_FILE", coco_ann])
+    ds = get_dataset(ochuman, is_train=True)
+    assert type(ds).__name__ == "OCHumanDataset" and len(ds.db) == 4

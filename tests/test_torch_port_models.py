@@ -86,9 +86,15 @@ def test_unported_models_and_bf16_raise():
     from buctd_tpu_torch.models import compute_dtype, get_model
     from buctd_tpu_torch.serving import PoseEstimator
 
-    cfg = load_cfg("torch", opts=TINY_COAM + ["MODEL.NAME", "pose_resnet"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg)
+    # pose_resnet is ported (tests/test_torch_port_resnet.py): it builds; an
+    # unknown name, and a lambda head on a model without one, raise
+    cfg = load_cfg("torch", opts=TINY_COAM + ["MODEL.NAME", "pose_resnet",
+                                              "MODEL.EXTRA.NUM_LAYERS", "18"])
+    assert type(get_model(cfg, device="cpu")).__name__ == "PoseResNet"
+    with pytest.raises(ValueError, match="lambda head"):
+        get_model(cfg, device="cpu", lambda_head=True)
+    with pytest.raises(KeyError, match="unknown MODEL.NAME"):
+        get_model(load_cfg("torch", opts=TINY_COAM + ["MODEL.NAME", "pose_mobilenet"]))
     cfg = load_cfg("torch", opts=TINY_COAM + ["TPU.EVAL_DTYPE", "bfloat16"])
     assert compute_dtype(cfg, "EVAL_DTYPE") == torch.bfloat16
     # bf16 serving is ported (tests/test_torch_port_eval_bf16.py): the
