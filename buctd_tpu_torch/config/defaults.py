@@ -183,7 +183,8 @@ def default_config() -> CN:
     # does), ATTENTION_ENGINE ('auto' = the hand-written
     # CUDA flash kernel (ops/flash_attention.py) for CUDA tensors with
     # L_q*L_k >= 512^2, batched matmuls elsewhere; 'flash'/'mapped' force),
-    # COMPUTE_DTYPE, DEVICE_PIPELINE (True; False raises), WARP_ENGINE,
+    # COMPUTE_DTYPE, DEVICE_PIPELINE (False: the host cv2 Loader; True: the
+    # device loader), WARP_ENGINE (auto/pallas: K4; matmul: torch.einsum),
     # PREFETCH, FUSED_PRENET, DEVICE_SYNTHESIS, REMAT, REMAT_MODE and
     # FUSED_OPTIMIZER; a MESH_SHAPE over more than one card raises.  The other
     # keys belong to paths not ported yet; buctd_tpu/config/defaults.py

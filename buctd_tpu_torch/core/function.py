@@ -12,7 +12,8 @@ flip average and shift in bf16, the loss and PCK, and the decode.
 The lambda sweeps of the legacy loop (lib/core/validate.py:175-430):
 ``make_validate_lambda_step``, ``validate_lambda_quantitative``
 (``TEST.LAMBDA_SWEEP``) and the qualitative ``validate_lambda``.
-``DEBUG.DEBUG`` makes ``validate`` write utils/vis.py's debug images.
+``DEBUG.DEBUG`` makes ``validate``, and ``train_epoch`` every 50th epoch,
+write utils/vis.py's debug images.
 """
 
 from __future__ import annotations
@@ -50,15 +51,20 @@ class AverageMeter:
 
 
 def train_epoch(cfg, train_loader, train_step, epoch: int, max_steps=None,
-                writer=None) -> dict:
+                writer=None, output_dir=None) -> dict:
     """One training epoch, or its first ``max_steps`` steps.
 
     The loader runs ahead in a background thread (``TPU.PREFETCH`` batches).
     Metrics are read on the host only every PRINT_FREQ steps: a read waits
-    for the card, so reading every step would fence each step.  Returns the
-    per-step host times: ``data_wait_s`` (blocked on the loader),
-    ``step_s`` (dispatching the step; the card runs behind it) and the
-    per-step metric tensors (``metrics``), still on the device.
+    for the card, so reading every step would fence each step; then
+    ``writer`` (utils/logging_utils.py::MetricWriter) takes train_loss and
+    train_acc, and with ``DEBUG.DEBUG`` every 50th epoch writes the step's
+    debug images to ``output_dir/train_epoch_{epoch}_iter_{i}*`` (JAX
+    function.py:510-533).  Returns the per-step host times: ``data_wait_s``
+    (blocked on the loader), ``step_s`` (dispatching the step; the card runs
+    behind it) and the per-step metric tensors (``metrics``), still on the
+    device.  The debug heatmaps are not kept past their step: an epoch of
+    them would fill the card.
     """
     batch_time, data_time = AverageMeter(), AverageMeter()
     losses, acc = AverageMeter(), AverageMeter()
@@ -70,6 +76,7 @@ def train_epoch(cfg, train_loader, train_step, epoch: int, max_steps=None,
             got = time.perf_counter()
             data_time.update(got - end)
             metrics = train_step(batch)
+            heatmaps = metrics.pop("out", None)      # the step returns them only with DEBUG.DEBUG
             done = time.perf_counter()
             stats["data_wait_s"].append(got - end)
             stats["step_s"].append(done - got)
@@ -87,6 +94,9 @@ def train_epoch(cfg, train_loader, train_step, epoch: int, max_steps=None,
                 if writer is not None:
                     writer.add_scalar("train_loss", losses.val)
                     writer.add_scalar("train_acc", acc.val)
+                if heatmaps is not None and output_dir and epoch % 50 == 0:
+                    prefix = os.path.join(str(output_dir), f"train_epoch_{epoch}_iter_{i}")
+                    _debug_dump(cfg, batch, heatmaps, prefix)
             if max_steps is not None and i + 1 >= max_steps:
                 break
     finally:
@@ -97,9 +107,6 @@ def train_epoch(cfg, train_loader, train_step, epoch: int, max_steps=None,
 def check_eval_options(cfg) -> None:
     """Raise on the evaluation options of the JAX package not ported yet."""
     unported = [
-        (not cfg.TPU.DEVICE_PIPELINE,
-         "TPU.DEVICE_PIPELINE False (the host cv2 Loader); pass TPU.DEVICE_PIPELINE True",
-         "ROADMAP Queue 1 item 8, 'training: the rest'"),
         (list(cfg.TPU.MESH_SHAPE) not in ([-1], [1]),
          f"TPU.MESH_SHAPE={list(cfg.TPU.MESH_SHAPE)} (the eval set sharded over cards)",
          "ROADMAP Queue 1 items 6 and 8, 'multi-card'"),

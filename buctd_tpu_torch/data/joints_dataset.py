@@ -1,14 +1,17 @@
-"""Per-sample host planning: condition choice, augmentation draws, crop affine.
+"""Per-sample host work: condition choice, augmentation draws, crop affine,
+and the host crop.
 
-Counterpart of buctd_tpu/data/joints_dataset.py (:32-356), the part the
-device loader (data/device_pipeline.py) runs: image decode, condition
-selection or generative synthesis, BU-box derivation, augmentation draws,
-half-body transform, the crop affine and the joint transforms, all in numpy
-on the host.  The warp itself runs on the card (K4).  The random draws come
-from the global ``np.random`` and ``random`` states in the JAX package's
-order, so seeded runs plan the same samples in both packages.
-``get_sample`` (the host cv2 warp) waits with the host ``Loader`` (ROADMAP
-Queue 1 item 8).
+Counterpart of buctd_tpu/data/joints_dataset.py (:32-385).  ``plan_sample``
+is what both loaders run on the host: image decode (image files, or zip
+archives with ``DATASET.DATA_FORMAT zip``), condition selection or
+generative synthesis, BU-box derivation, augmentation draws, half-body
+transform, the crop affine and the joint transforms, all in numpy.  The
+device loader (data/device_pipeline.py) warps on the card (K4); the host
+``Loader`` (data/pipeline.py, ``TPU.DEVICE_PIPELINE False``) takes
+``get_sample``: the plan, the crop-aug rectangle zeroed, then
+``cv2.warpAffine`` (INTER_LINEAR), the JAX package's host crop.  The random
+draws come from the global ``np.random`` and ``random`` states in the JAX
+package's order, so seeded runs plan the same samples in both packages.
 """
 
 from __future__ import annotations
@@ -47,14 +50,16 @@ DEFAULT_BEST_BU_MODEL_KEY = "baseline_resnet_50_s4_60000"
 
 
 def imread_rgb(path: str, color_rgb: bool = True, data_format: str = "jpg") -> np.ndarray:
-    """cv2 decode (EXIF orientation ignored, as the reference), BGR -> RGB."""
+    """cv2 decode (EXIF orientation ignored, as the reference), BGR -> RGB;
+    ``data_format`` 'zip' reads ``archive.zip@/inner/path`` (utils/zipreader.py)."""
     import cv2
 
-    if data_format != "jpg":
-        raise NotImplementedError(f"DATASET.DATA_FORMAT={data_format!r}: only image "
-                                  "files are read by buctd_tpu_torch (zip archives "
-                                  "are ROADMAP Queue 1 item 8)")
-    img = cv2.imread(path, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+    flags = cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION
+    if data_format == "zip":
+        from ..utils import zipreader
+        img = zipreader.imread(path, flags)
+    else:
+        img = cv2.imread(path, flags)
     if img is None:
         raise ValueError(f"Fail to read {path}")
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if color_rgb else img
@@ -311,3 +316,31 @@ class JointsDataset:
             "cond_max_iou": np.float32(db_rec.get("cond_max_iou", 0.0)),
             "image_path": image_file,
         }
+
+    def get_sample(self, idx, data_numpy=None, cond_override=None):
+        """One sample with the crop warped on the host by cv2 (JAX
+        joints_dataset.py:358-385): ``plan_sample``, the pixels outside the
+        crop-aug rectangle zeroed, then ``cv2.warpAffine`` (INTER_LINEAR,
+        border 0) into a uint8 (H, W, 3) 'image'.  ``data_numpy`` injects a
+        decoded image."""
+        import cv2
+
+        plan = self.plan_sample(idx, data_numpy, cond_override=cond_override)
+        src = plan.pop("image")
+        if plan["mask_box"] is not None:
+            src = src.copy()
+            x, y, w, h = plan["mask_box"]
+            H, W = src.shape[:2]
+            src[0:H, 0:x] = 0
+            src[0:y, x:W] = 0
+            src[y + h:H, x:W] = 0
+            src[y:y + h, x + w:W] = 0
+        crop = cv2.warpAffine(src, plan["trans"],
+                              (int(self.image_size[0]), int(self.image_size[1])),
+                              flags=cv2.INTER_LINEAR)
+        plan["image"] = np.ascontiguousarray(crop)
+        for k in ("trans", "trans_inv", "mask_box"):
+            plan.pop(k)
+        return plan
+
+    __getitem__ = get_sample

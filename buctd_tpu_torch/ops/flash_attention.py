@@ -461,6 +461,8 @@ def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
     _check_dropout(dropout, seed)
     if not _on_cuda(q, "flash_attention"):
         return flash_attention_reference(q, k, v, scale, dropout, seed)
+    if flash_attention.shapes is not None:
+        flash_attention.shapes.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2]))
     if kvres_enabled():
         return flash_attention_kvres(q, k, v, scale, dropout, seed)
     out, lse = _launch_fwd("flash_fwd", q, k, v, scale, dropout, seed)
@@ -469,6 +471,9 @@ def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
 
 
 flash_attention.launches = 0
+# a list while utils/summary.py counts a forward's FLOPs: the (BH, Lq, Lk, d)
+# of each CUDA call (K1 or K1'), whose products no torch FLOP counter sees
+flash_attention.shapes = None
 
 
 def flash_attention_kvres(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):

@@ -1,11 +1,23 @@
-"""Affine crops and bilinear resize (torch), and the rotated-warp kernel K4.
+"""Affine crops and bilinear resize (torch), the banded-matmul warp engine,
+and the rotated-warp kernel K4.
 
-Counterpart of buctd_tpu/ops/warp.py: ``warp_affine_aligned`` (:271) is the
-serving crop, two batched matmuls against banded 2-tap weight matrices
-(cv2 INTER_LINEAR + BORDER_CONSTANT(0) semantics); ``resize_bilinear`` (:63)
-is the CoAM condition resize; ``warp_affine_general`` (:234) is the training
-loader's rotated crop.  Its 'pallas' engine (the JAX default on a TPU) is the
-hand-written CUDA kernel ``csrc/warp_resample.cu``, the port of
+Counterpart of buctd_tpu/ops/warp.py, every public warp of it:
+``warp_affine_aligned`` (:271) is the serving crop, two batched matmuls
+against banded 2-tap weight matrices (cv2 INTER_LINEAR + BORDER_CONSTANT(0)
+semantics); ``resize_bilinear`` (:63) is the CoAM condition resize;
+``warp_affine`` (:18) the 2-D bilinear gather; ``warp_affine_shear`` (:140)
+the two-pass warp by single-axis gathers; ``warp_affine_rotated`` (:204) the
+banded-matmul engine (``TPU.WARP_ENGINE matmul``): per sample, each 1-D
+resample of the two-pass warp is a product against a materialised
+(rows, in, out) tent-weight tensor, ``torch.einsum`` in f32 (JAX's
+``Precision.HIGHEST``; the entry points keep TF32 off), with the transposed
+decomposition when |t[1,1]| < |t[0,1]| and t[1,1] guarded to 1e-6; and
+``crop_images`` (:308) crops boxes with either.  None of these is a Pallas
+kernel in JAX, and none launches a kernel of this package here.
+
+``warp_affine_general`` (:234) is the loaders' rotated crop.  Its 'pallas'
+engine (the JAX default on a TPU, and 'auto' here) is the hand-written CUDA
+kernel ``csrc/warp_resample.cu``, the port of
 buctd_tpu/ops/pallas_warp.py::_resample_kernel (:30): a two-pass warp, each
 pass a per-row 1-D tent resample, fused into one launch for the whole batch
 (``warp_resample``) that keeps the intermediate in shared memory and reads
@@ -16,7 +28,6 @@ launches (one per call); ``warp_resample_two_pass`` is the two-launch form it
 replaced, kept for the A/B.  Images stay NHWC at these signatures, as in the
 JAX functions.
 """
-
 from __future__ import annotations
 
 import ctypes
@@ -77,6 +88,144 @@ def resize_bilinear(x, out_hw):
     NO antialias, as torch's interpolate(align_corners=False) is — the JAX
     function's stated semantics."""
     return resize_bilinear_nchw(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+
+
+def warp_affine(images, trans_dst2src, out_hw):
+    """2-D bilinear gather warp (buctd_tpu/ops/warp.py:18): images (B, H, W,
+    C), trans_dst2src (B, 2, 3) output (x, y) -> source (x, y) affines ->
+    (B, out_h, out_w, C) f32; out-of-bounds taps read 0."""
+    B, H, W, C = images.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    img = images.float()
+    t = trans_dst2src.float()
+    dev = img.device
+    ox = torch.arange(ow, dtype=torch.float32, device=dev)[None, None, :]
+    oy = torch.arange(oh, dtype=torch.float32, device=dev)[None, :, None]
+    sx = t[:, 0, 0, None, None] * ox + t[:, 0, 1, None, None] * oy + t[:, 0, 2, None, None]
+    sy = t[:, 1, 0, None, None] * ox + t[:, 1, 1, None, None] * oy + t[:, 1, 2, None, None]
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0, y0 = x0.long(), y0.long()
+    b = torch.arange(B, device=dev)[:, None, None]
+
+    def tap(yi, xi):
+        valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        v = img[b, yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+        return torch.where(valid[..., None], v, torch.zeros_like(v))
+
+    top = tap(y0, x0) * (1.0 - fx) + tap(y0, x0 + 1) * fx
+    bot = tap(y0 + 1, x0) * (1.0 - fx) + tap(y0 + 1, x0 + 1) * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def _two_pass_coords(t, rows: int, out_hw):
+    """The Catmull-Smith decomposition of one guarded (2, 3) affine ``t``
+    over a source of ``rows`` rows: u (rows, ow), the pass-1 source column
+    of each (source row, output column), and v (oh, ow), the pass-2 source
+    row of each output pixel (JAX warp.py:128-134, :189-198)."""
+    oh, ow = out_hw
+    a, b, e = t[0]
+    c, d, f = t[1]
+    ox = torch.arange(ow, dtype=torch.float32, device=t.device)
+    Y = torch.arange(rows, dtype=torch.float32, device=t.device)
+    u = (a - b * c / d) * ox[None, :] + (b / d) * (Y[:, None] - f) + e
+    oy = torch.arange(oh, dtype=torch.float32, device=t.device)
+    v = d * oy[:, None] + c * ox[None, :] + f
+    return u, v
+
+
+def _resample_axis1(img, u):
+    """Bilinear 1-D resample along axis 1: img (R, W, C), u (R, o) source
+    columns -> (R, o, C); out-of-range taps read 0 (JAX warp.py:95)."""
+    W = img.shape[1]
+    u0 = torch.floor(u)
+    f = (u - u0)[..., None]
+    u0 = u0.long()
+
+    def tap(xi):
+        valid = (xi >= 0) & (xi < W)
+        v = torch.gather(img, 1, xi.clamp(0, W - 1)[..., None].expand(-1, -1, img.shape[2]))
+        return torch.where(valid[..., None], v, torch.zeros_like(v))
+
+    return tap(u0) * (1.0 - f) + tap(u0 + 1) * f
+
+
+def _guarded_samples(images, trans_dst2src):
+    """Per sample: (f32 (H, W, C) image, or its transpose for the transposed
+    decomposition, and the guarded (2, 3) affine on the image's device).
+    The choice |t11| < |t01| reads one host copy of the affines (one sync a
+    batch, not one a sample); the guard runs on the device, as JAX's
+    ``jnp.where`` (warp.py:162, :222)."""
+    t = trans_dst2src.float()
+    host = t.detach().cpu()
+    for k, img in enumerate(images):
+        transposed = bool(host[k, 1, 1].abs() < host[k, 0, 1].abs())
+        tt = t[k].flip(0) if transposed else t[k].clone()
+        d = tt[1, 1]
+        tt[1, 1] = torch.where(d.abs() < 1e-6, torch.full_like(d, 1e-6), d)
+        img = img.float()
+        yield (img.transpose(0, 1) if transposed else img), tt
+
+
+def warp_affine_shear(images, trans_dst2src, out_hw):
+    """General batched affine warp by two single-axis gather passes
+    (buctd_tpu/ops/warp.py:140): images (B, H, W, C), trans_dst2src (B, 2, 3)
+    -> (B, oh, ow, C) f32, the transposed decomposition where |t11| < |t01|."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    outs = []
+    for img, t in _guarded_samples(images, trans_dst2src):
+        u, v = _two_pass_coords(t, img.shape[0], (oh, ow))
+        i1 = _resample_axis1(img, u)                               # (R, ow, C)
+        out = _resample_axis1(i1.transpose(0, 1), v.T)             # (ow, oh, C)
+        outs.append(out.transpose(0, 1))
+    return torch.stack(outs)
+
+
+def _warp_two_pass_mm(img, t, out_hw):
+    """One sample's two-pass warp with banded-matmul resampling (JAX
+    warp.py:173): img (R, W, C) f32, t the guarded affine.
+      pass 1: I1[Y, ox]  = sum_w img[Y, w] * relu(1 - |u(Y, ox) - w|)
+      pass 2: out[oy, ox] = sum_Y I1[Y, ox] * relu(1 - |v(oy, ox) - Y|)
+    The (R, W, ow) and (R, oh, ow) weight tensors are materialised: 0.38 GB
+    and 0.23 GB in f32 at a 512 x 640 source and a 384 x 288 output."""
+    R, W, _ = img.shape
+    u, v = _two_pass_coords(t, R, out_hw)
+    kw = torch.arange(W, dtype=torch.float32, device=img.device)
+    w1 = torch.relu(1.0 - torch.abs(u[:, None, :] - kw[None, :, None]))     # (R, W, ow)
+    i1 = torch.einsum("ywc,ywo->yoc", img, w1)
+    del w1
+    Y = torch.arange(R, dtype=torch.float32, device=img.device)
+    w2 = torch.relu(1.0 - torch.abs(v[None, :, :] - Y[:, None, None]))     # (R, oh, ow)
+    return torch.einsum("yoc,yso->soc", i1, w2)
+
+
+def warp_affine_rotated(images, trans_dst2src, out_hw):
+    """General batched affine warp, any rotation: the banded-matmul engine
+    (buctd_tpu/ops/warp.py:204, ``TPU.WARP_ENGINE matmul``), one sample at a
+    time as JAX's ``lax.map`` (it bounds the weight tensors' memory), each
+    with the transposed decomposition where |t11| < |t01|.  images (B, H, W,
+    C), trans_dst2src (B, 2, 3) -> (B, oh, ow, C) f32, on the images'
+    device.  f32 products: with TF32 off (the entry points' setting) the
+    card's sums are f32, as JAX's ``Precision.HIGHEST``."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    return torch.stack([_warp_two_pass_mm(img, t, (oh, ow))
+                        for img, t in _guarded_samples(images, trans_dst2src)])
+
+
+def crop_images(images, centers, scales, rots, out_size):
+    """Crop per-instance boxes out of (padded) source images (JAX
+    warp.py:308).  ``out_size`` is (width, height); ``rots`` None takes the
+    axis-aligned two-matmul path, else the banded-matmul engine."""
+    from ..geometry import make_affine
+
+    centers = torch.as_tensor(centers, dtype=torch.float32, device=images.device)
+    out_hw = (int(out_size[1]), int(out_size[0]))
+    if rots is None:
+        trans_inv = make_affine(centers, scales, torch.zeros(centers.shape[:-1]), out_size,
+                                inv=True)
+        return warp_affine_aligned(images, trans_inv, out_hw)
+    trans_inv = make_affine(centers, scales, rots, out_size, inv=True)
+    return warp_affine_rotated(images, trans_inv, out_hw)
 
 
 # ------------------------------------------------------- rotated warp (K4) ----
@@ -316,21 +465,19 @@ def warp_affine_general(images, trans_dst2src, out_hw, engine: str = "auto",
     """General batched affine warp (any rotation), the ``TPU.WARP_ENGINE`` knob
     of buctd_tpu/ops/warp.py:234.  'auto' and 'pallas' take K4: the fused CUDA
     kernel for CUDA tensors (another dtype raises), the plain version of
-    ``images.float() * inside`` for CPU tensors.  images: uint8 with mask_box,
-    (B, 4) [x, y, w, h] per sample whose outside pixels read 0 (the loaders'
-    bucket), or f32 with mask_box None; another pairing raises on either
-    device.  'matmul' (the banded-matmul engine) is not ported and raises."""
+    ``images.float() * inside`` for CPU tensors.  'matmul' takes the
+    banded-matmul engine (``warp_affine_rotated``) on the images' device,
+    never K4.  images: uint8 with mask_box, (B, 4) [x, y, w, h] per sample
+    whose outside pixels read 0 (the loaders' bucket), or f32 with mask_box
+    None; another pairing raises on either device and engine."""
     if engine not in WARP_ENGINES:
         raise ValueError(f"unknown warp engine {engine!r} (want auto|matmul|pallas)")
-    if engine == "matmul":
-        raise NotImplementedError(
-            "TPU.WARP_ENGINE='matmul' (the banded-matmul warp) is not ported to "
-            "buctd_tpu_torch: ROADMAP Queue 1 item 8, 'training: the rest'; "
-            "use 'auto' or 'pallas' (the K4 kernel)")
     _check_mask_pairing(images, mask_box)
     trans = trans_dst2src.float().contiguous()
-    if images.device.type == "cpu":
+    if engine == "matmul" or images.device.type == "cpu":
         x = images.float() if mask_box is None else apply_mask_box(images, mask_box.float())
+        if engine == "matmul":
+            return warp_affine_rotated(x, trans, out_hw)
         return warp_affine_reference(x, trans, out_hw)
     if mask_box is not None:
         mask_box = mask_box.float().contiguous()

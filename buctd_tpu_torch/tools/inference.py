@@ -76,7 +76,7 @@ def get_model(config, model_path=None, device="cuda"):
     elif model_path:
         raise NotImplementedError(f"{model_path!r}: buctd_tpu_torch loads .pth/.pt "
                                   "checkpoints only (orbax directories are ROADMAP "
-                                  "Queue 1 item 7, 'Evaluation: the rest')")
+                                  "Queue 1 items 7 and 8, 'the orbax reader')")
     return maybe_fuse_prenet(config, model)
 
 

@@ -20,7 +20,9 @@ its units (models/remat.py), or the step the whole forward.
 ``DoubleTrainStep`` (``make_train_step_double``) takes a double-target batch;
 ``MixedTrainStep`` (``make_train_step_mixed``) mixes a plain batch first
 (train/mixing.py, TRAIN.MIX).  Each returns ``{loss, acc, cnt}`` as device
-tensors and makes no host sync, so steps queue up on the card.
+tensors, and ``TrainStep`` with ``DEBUG.DEBUG`` also the heatmaps ``out``
+(for the debug dumps), and makes no host sync, so steps queue up on the
+card.
 """
 
 from __future__ import annotations
@@ -34,20 +36,19 @@ from ..models import autocast, compute_dtype
 from ..models.attention import set_dropout_generator
 from ..models.remat import checkpoint, remat_mode
 
-_LATER = "ROADMAP Queue 1 item 8, 'training: the rest'"
+_MULTI_CARD = "ROADMAP Queue 1 items 6 and 8, 'multi-card'"
 
 
 def check_train_options(cfg) -> None:
     """Raise on the training options of the JAX package not ported yet."""
     unported = [
-        (bool(cfg.DEBUG.DEBUG), "DEBUG.DEBUG (train debug image dumps)"),
         (list(cfg.TPU.MESH_SHAPE) not in ([-1], [1]),
          f"TPU.MESH_SHAPE={list(cfg.TPU.MESH_SHAPE)} (a mesh: multi-card DDP)"),
     ]
     for bad, what in unported:
         if bad:
             raise NotImplementedError(f"{what} is not ported to buctd_tpu_torch "
-                                      f"yet: {_LATER}")
+                                      f"yet: {_MULTI_CARD}")
     remat_mode(cfg)                     # an unknown REMAT_MODE raises here
 
 
@@ -95,6 +96,7 @@ class TrainStep:
         # the whole forward, as the JAX step does
         mode = remat_mode(cfg)
         self.remat_forward = bool(mode) and (mode == "forward" or not hasattr(model, "remat"))
+        self.debug = bool(cfg.DEBUG.DEBUG)
         set_dropout_generator(model, generator)
 
     def forward(self, x):
@@ -125,7 +127,11 @@ class TrainStep:
         self.apply(loss)
         with torch.no_grad():
             acc, cnt, _ = pck_accuracy(out.detach().float(), target)
-        return {"loss": loss.detach(), "acc": acc, "cnt": cnt}
+        metrics = {"loss": loss.detach(), "acc": acc, "cnt": cnt}
+        if self.debug:
+            # the heatmaps, for train_epoch's debug dumps (JAX state.py:179-181)
+            metrics["out"] = out.detach()
+        return metrics
 
 
 class DoubleTrainStep(TrainStep):

@@ -6,8 +6,15 @@ in-process iterative refinement.
 Same surface as the reference's tools/test.py: a YAML plus ``KEY value``
 overrides.  It evaluates on one CUDA card (``--device cuda``, the default; it
 raises where CUDA is absent; ``--device cpu`` runs the plain kernels) with the
-device loader in test mode (``TPU.DEVICE_PIPELINE True``), the flip test and
-``dataset.evaluate`` (rescoring, OKS-NMS, the results json, COCOeval).
+loader tools/test.py:109-118 picks: the host cv2 ``Loader``
+(``TPU.DEVICE_PIPELINE False``, the default and every stock yaml's) or the
+device loader (``TPU.DEVICE_PIPELINE True``), then the flip test and
+``dataset.evaluate`` (rescoring, OKS-NMS, the results json, COCOeval).  As
+tools/test.py, it logs under ``<OUTPUT_DIR>/<dataset>/<model>/<yaml stem>``
+(utils/logging_utils.py), writes the validation's metrics to
+``metrics.jsonl`` in the tensorboard directory, logs the model summary
+(utils/summary.py) and, with ``BUCTD_PROFILE_DIR`` set, writes a Chrome
+trace of each evaluation round there (utils/profiler.py).
 
 Weights: ``TEST.MODEL_FILE`` (a BUCTD ``.pth``/``.pt``, loaded with
 ``strict=True``), else ``<output dir>/model_best.pth``, else the reference's
@@ -28,14 +35,16 @@ builds its model in that dtype; the loader's inputs stay f32.
 round, so with ``TEST.REFINE_ITERS`` > 1 it raises, as tools/test.py:95-98.
 A checkpoint with pose_hrnet's lambda head (``lambda_fc.*``) builds the
 model with it.  ``DEBUG.DEBUG`` writes utils/vis.py's debug images beside the
-results.  Not ported (see ``core/function.py::check_eval_options``): the
-host cv2 loader and a sharded eval set.
+results.  Not ported (see ``core/function.py::check_eval_options``): a
+sharded eval set.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import pprint
+from pathlib import Path
 
 import torch
 
@@ -65,7 +74,7 @@ def load_model(cfg, device, out_dir):
     if path and not path.endswith((".pth", ".pt")):
         raise NotImplementedError(f"TEST.MODEL_FILE {path!r}: buctd_tpu_torch loads "
                                   ".pth/.pt checkpoints only (orbax directories are "
-                                  "ROADMAP Queue 1 item 7, 'Evaluation: the rest')")
+                                  "ROADMAP Queue 1 items 7 and 8, 'the orbax reader')")
     if path or best.exists():
         sd = load_torch_checkpoint(path or str(best))
         model = get_model(cfg, device=device,
@@ -82,13 +91,18 @@ def load_model(cfg, device, out_dir):
 def main(argv=None) -> dict:
     """Evaluate; returns {'ap': [AP per round], 'rounds': [per-round dicts:
     AP, name_values, loop_s, evaluate_s, crops, results], 'output_dir',
+    'log_dir' (metrics.jsonl), 'summary' (utils/summary.py::model_summary),
     'model'}."""
     from ..config import default_config, update_config
     from ..core.function import (check_eval_options, validate,
                                  validate_lambda_quantitative)
     from ..data.datasets import get_dataset
     from ..data.device_pipeline import DeviceLoader
-    from ..train.run import output_dir
+    from ..data.pipeline import Loader, num_input_channels
+    from ..models.fuse import maybe_fuse_prenet
+    from ..utils.logging_utils import MetricWriter, create_logger
+    from ..utils.profiler import trace_context
+    from ..utils.summary import model_summary
 
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -103,10 +117,15 @@ def main(argv=None) -> dict:
         # model's convs and linears run in bf16 whatever these say
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    out_dir = output_dir(cfg, args.cfg)
+    _, out_dir, log_dir = create_logger(cfg, args.cfg, "valid")
+    out_dir = Path(out_dir)
+    logger.info(pprint.pformat(cfg))
+    writer = MetricWriter(log_dir)
     model = load_model(cfg, device, out_dir)
-    from ..models.fuse import maybe_fuse_prenet
     model = maybe_fuse_prenet(cfg, model)        # as tools/test.py:87-88
+    img_w, img_h = int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1])
+    summary = model_summary(model, (1, num_input_channels(cfg), img_h, img_w))
+    logger.info(summary["text"])
 
     refine_iters = max(int(cfg.TEST.REFINE_ITERS), 1)
     if cfg.TEST.LAMBDA_SWEEP and refine_iters > 1:
@@ -115,44 +134,48 @@ def main(argv=None) -> dict:
                          "use one or the other")
     user_output_json = cfg.OUTPUT_JSON
     rounds = []
-    for it in range(refine_iters):
-        if refine_iters > 1:
-            # intermediate rounds write the epoch-numbered results (the next
-            # round reads them); OUTPUT_JSON applies to the last one
-            cfg.defrost()
-            cfg.OUTPUT_JSON = user_output_json if it == refine_iters - 1 else None
-            cfg.freeze()
-        dataset = get_dataset(cfg, is_train=False)
-        loader = DeviceLoader(dataset, cfg, batch_size=cfg.TEST.BATCH_SIZE_PER_GPU,
-                              num_workers=cfg.WORKERS, device=device)
-        stats = {}
-        try:
-            if cfg.TEST.LAMBDA_SWEEP:
-                perf = validate_lambda_quantitative(cfg, loader, dataset, model, out_dir,
-                                                    epoch=it, print_prefix=f"refine{it}",
-                                                    stats=stats)
-                name_values = stats.pop("name_values")[0]
-            else:
-                name_values, perf = validate(cfg, loader, dataset, model, out_dir,
-                                             epoch=it, print_prefix=f"refine{it}",
-                                             stats=stats)
-        finally:
-            loader.close()
-        suffix = "_merged" if cfg.TEST.LAMBDA_SWEEP else ""
-        results = cfg.OUTPUT_JSON or str(
-            out_dir / "results" / f"keypoints_test_results_epoch{it}{suffix}.json")
-        logger.info("=> refinement round %d: AP %.4f", it, perf)
-        rounds.append({"AP": perf, "name_values": name_values, "results": results,
-                       **stats})
-        if it < refine_iters - 1:
-            cfg.defrost()
-            cfg.TEST.COCO_BBOX_FILE = results
-            cfg.TEST.USE_BU_BBOX = True
-            cfg.freeze()
+    try:
+        for it in range(refine_iters):
+            if refine_iters > 1:
+                # intermediate rounds write the epoch-numbered results (the next
+                # round reads them); OUTPUT_JSON applies to the last one
+                cfg.defrost()
+                cfg.OUTPUT_JSON = user_output_json if it == refine_iters - 1 else None
+                cfg.freeze()
+            dataset = get_dataset(cfg, is_train=False)
+            cls = DeviceLoader if cfg.TPU.DEVICE_PIPELINE else Loader
+            loader = cls(dataset, cfg, batch_size=cfg.TEST.BATCH_SIZE_PER_GPU,
+                         num_workers=cfg.WORKERS, device=device)
+            stats = {}
+            try:
+                with trace_context():       # BUCTD_PROFILE_DIR: a Chrome trace of the round
+                    if cfg.TEST.LAMBDA_SWEEP:
+                        perf = validate_lambda_quantitative(
+                            cfg, loader, dataset, model, out_dir, epoch=it, writer=writer,
+                            print_prefix=f"refine{it}", stats=stats)
+                        name_values = stats.pop("name_values")[0]
+                    else:
+                        name_values, perf = validate(cfg, loader, dataset, model, out_dir,
+                                                     epoch=it, writer=writer,
+                                                     print_prefix=f"refine{it}", stats=stats)
+            finally:
+                loader.close()
+            suffix = "_merged" if cfg.TEST.LAMBDA_SWEEP else ""
+            results = cfg.OUTPUT_JSON or str(
+                out_dir / "results" / f"keypoints_test_results_epoch{it}{suffix}.json")
+            logger.info("=> refinement round %d: AP %.4f", it, perf)
+            rounds.append({"AP": perf, "name_values": name_values, "results": results,
+                           **stats})
+            if it < refine_iters - 1:
+                cfg.defrost()
+                cfg.TEST.COCO_BBOX_FILE = results
+                cfg.TEST.USE_BU_BBOX = True
+                cfg.freeze()
+    finally:
+        writer.close()
     return {"ap": [r["AP"] for r in rounds], "rounds": rounds, "output_dir": out_dir,
-            "model": model}
+            "log_dir": Path(log_dir), "summary": summary, "model": model}
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, format="%(asctime)-15s %(message)s")
     main()

@@ -9,6 +9,7 @@ full-width BUCTD-preNet-W48 with its preNet fused and not, serves and
 evaluates each family in bf16 as well (TPU.EVAL_DTYPE bfloat16), serves,
 evaluates and trains pose_resnet-50 with the preNet, runs the lambda sweep,
 the OCHuman and animal evaluation rounds and the standalone inference entry,
+trains and evaluates on the host cv2 Loader (the JAX default data path),
 and runs the port's benchmarks of the fused basic block (K5) and exp
 throughput (K6).
 
@@ -181,6 +182,24 @@ Phases (each raises on failure; nothing is caught):
      INFERENCE_PX_SHARE in f32), ms/image; cpu_nms and gpu_nms on 2000
      boxes against ops/nms.py::nms; analysis.bin_evaluate on eval_phase's
      round-0 results.
+ 19. ``host_loader_phase`` (after phase 18): the JAX default data
+     path, TPU.DEVICE_PIPELINE False with no override, on CoAM-W48 (batch
+     32): train.run 10 steps on the host cv2 ``Loader`` with the host
+     sampler, then with TPU.DEVICE_SYNTHESIS in turns with the device loader
+     (ms/step, data wait, dispatch; K1 and K2 2 a step, K4 never on the host
+     Loader); a 3-step run with PRINT_FREQ 1, BUCTD_PROFILE_DIR and
+     DEBUG.DEBUG (one train_loss line a step in metrics.jsonl, a Chrome
+     trace, epoch 0's debug images, the summary's parameters and GFLOPs a
+     crop); one eval round of 256 crops through valid.run on each loader
+     (crops/s, AP; f32 K1 2 a batch); one eval batch's input from both
+     loaders against each other on noise images and on smooth ones
+     (tests/test_device_pipeline.py's eval limits), the host crops against
+     numpy's bilinear at the installed OpenCV's sampling (exact, or 1/32
+     px), and the host Loader's batch on the card against the CPU's;
+     TPU.WARP_ENGINE matmul at K4's draw against K4's
+     plain version (WARP_MATMUL_ATOL), timed beside K4, its peak memory.
+     Every entry point logs the model summary, whose forward launches K1
+     (2 for CoAM-W48, 6 for TransPose-H): each launch gate counts them.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -433,6 +452,15 @@ SYNTH_HOST_REPS, SYNTH_CARD_REPS = 4, 16
 # bit for bit.
 BF16_REPEATS = 4
 WARP_DRIFT_PX = 0.05
+# host_loader_phase: steps of the checks run (metrics, trace, debug dumps);
+# the matmul engine vs K4's plain version, tests/test_torch_port_warp_matmul.py's
+# 1e-4 on [0, 1) images on 0..255 ones; the host Loader's RGB input card vs
+# CPU: the same uint8 crops, (x / 255 - mean) / std in f32 on each device
+HOST_CHECK_STEPS = 2
+# eval samples whose host crops are held to numpy's bilinear sampling
+HOST_CROP_CHECKS = 8
+WARP_MATMUL_ATOL = 1e-4 * 255
+HOST_CARD_RGB_ATOL = 1e-5
 BF16_FORWARD_RATIO = {"pose_hrnet_coam": 2.0, "pose_hrnet": 2.0, "transpose_h": 7.0}
 BF16_STEP = 2.0 ** -8
 # kernel names that are convolutions or the layout transposes around them
@@ -760,6 +788,62 @@ def bwd_bound_ms(bh, l, d, elt, kind) -> tuple:
              else flash_ops(bh, l, d, kind) / PEAK_OPS["bfloat16"])
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cv2_sampling_reference(np, img, trans, out_wh, sub=None):
+    """``cv2.warpAffine(img, trans, out_wh, INTER_LINEAR)`` (border 0) of a
+    uint8 (H, W, 3) image, in numpy and float64: the inverse map as OpenCV
+    inverts ``trans``, then the bilinear blend at the exact source point
+    (``sub`` None: OpenCV 5's float path), or at the point rounded to
+    1/``sub`` px the way OpenCV 4's fixed-point remap tables place it (sub
+    32: coordinates in 1/1024 px, AB_BITS 10, plus half a table step), then
+    rounded to uint8.  Either is within one level of its build's crop."""
+    m = np.asarray(trans, np.float64).reshape(-1)
+    det = m[0] * m[4] - m[1] * m[3]
+    det = 1.0 / det if det else 0.0
+    a, b, c, d = m[4] * det, -m[1] * det, -m[3] * det, m[0] * det
+    inv = ((a, b, -a * m[2] - b * m[5]), (c, d, -c * m[2] - d * m[5]))
+    xs = np.arange(out_wh[0], dtype=np.float64)
+    ys = np.arange(out_wh[1], dtype=np.float64)[:, None]
+
+    def source(r):
+        if sub is None:
+            return r[0] * xs + r[1] * ys + r[2]
+        step = 1024 // sub
+        fixed = np.rint(r[0] * xs * 1024) + np.rint((r[1] * ys + r[2]) * 1024) + step // 2
+        return np.floor(fixed / step) / sub
+
+    sx, sy = source(inv[0]), source(inv[1])
+    x0, y0 = np.floor(sx), np.floor(sy)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    H, W = img.shape[:2]
+    src = img.astype(np.float64)
+
+    def at(yy, xx):
+        ok = ((xx >= 0) & (xx < W) & (yy >= 0) & (yy < H))[..., None]
+        return np.where(ok, src[yy.clip(0, H - 1), xx.clip(0, W - 1)], 0.0)
+
+    v = ((1 - fy) * ((1 - fx) * at(y0, x0) + fx * at(y0, x0 + 1))
+         + fy * ((1 - fx) * at(y0 + 1, x0) + fx * at(y0 + 1, x0 + 1)))
+    return np.floor(v + 0.5).clip(0, 255).astype(np.uint8)
+
+
+def cv2_sampling(np, crops, images, transes, out_wh) -> dict:
+    """Which of ``cv2_sampling_reference``'s two samplings the installed
+    OpenCV reproduces on these (crop, source image, forward affine) triples:
+    per sampling the largest gap in uint8 levels and the share of equal
+    values; 'match' is the sampling within one level of every crop, or None
+    where neither is (a crop off its affine, or a third sampling)."""
+    res = {}
+    for name, sub in (("exact", None), ("1/32 px", 32)):
+        gaps = [np.abs(c.astype(np.int64) - cv2_sampling_reference(np, im, t, out_wh, sub))
+                for c, im, t in zip(crops, images, transes)]
+        res[name] = {"max": int(max(g.max() for g in gaps)),
+                     "equal": float(np.mean([np.mean(g == 0) for g in gaps]))}
+    fits = [k for k, v in res.items() if v["max"] <= 1 and v["equal"] >= 0.99]
+    res["match"] = fits[0] if fits else None
+    return res
 
 
 def warp_read_pixels(torch, tw, trans, hw, out_hw, mask_box=None) -> int:
@@ -1741,12 +1825,13 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
         steps = res["steps"]
         stats = res["stats"][0]
         losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
-        want = {"flash_fwd": k1_per_step * steps, "flash_bwd_dq": k1_per_step * steps,
-                "flash_bwd_dkv": k1_per_step * steps, "warp_resample": steps,
-                "warp_resample_two_pass": 0}
+        want = {"flash_fwd": k1_per_step * steps + res["summary"]["flash_calls"],
+                "flash_bwd_dq": k1_per_step * steps, "flash_bwd_dkv": k1_per_step * steps,
+                "warp_resample": steps, "warp_resample_two_pass": 0}
         print(f"training run: {steps} steps of batch {TRAIN_BATCH} in {wall:.1f} s "
               f"(model build and data included); launches {launches}, expected {want} "
-              f"(K1, dq, dkv: {k1_per_step} per step; K4: 1 per batch)", flush=True)
+              f"(K1, dq, dkv: {k1_per_step} per step, and K1 in the model summary's "
+              f"forward; K4: 1 per batch)", flush=True)
         if launches != want:
             raise AssertionError(f"launch counts {launches} != {want}")
         if steps != TRAIN_STEPS or not np.isfinite(losses).all():
@@ -2002,7 +2087,9 @@ def options_phase(torch, np, fa, tw, k1_per_step: int = 2) -> dict:
             per_step = [d + s for d, s in zip(st["data_wait_s"], st["step_s"])][1:]
             ms = statistics.median(per_step) * 1e3
             peak = torch.cuda.max_memory_allocated() / 2**30
-            want = [k1_per_step * OPTION_STEPS] * 3 + [OPTION_STEPS]
+            # K1 also in the model summary's forward (utils/summary.py)
+            want = ([k1_per_step * OPTION_STEPS + res["summary"]["flash_calls"]]
+                    + [k1_per_step * OPTION_STEPS] * 2 + [OPTION_STEPS])
             print(f"option {name} {opts}: {res['steps']} steps in {wall:.1f} s (model build "
                   f"included), steps 2-{OPTION_STEPS} median {ms:.2f} ms/step, peak memory "
                   f"{peak:.2f} GiB; launches K1, dq, dkv, K4 {launches} (expected {want}); "
@@ -2476,6 +2563,37 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
     return res
 
 
+def write_smooth_images(np, root: Path, ann_file: Path, seed: int = 3) -> None:
+    """The images of ``ann_file`` again under ``root``, smooth: per channel
+    two crossed sinusoids of 40-80 px periods around mid-grey, at most ~18
+    levels a pixel.  There 1/64 px of sampling error stays under a level,
+    while a quarter-pixel misplacement moves a crop by several."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    for im in json.loads(Path(ann_file).read_text())["images"]:
+        h, w = im["height"], im["width"]
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+        chans = [127.5 + 55 * np.sin(2 * np.pi * xs / rng.uniform(40, 80) + rng.uniform(0, 6.3))
+                 + 55 * np.sin(2 * np.pi * ys / rng.uniform(40, 80) + rng.uniform(0, 6.3))
+                 for _ in range(3)]
+        cv2.imwrite(str(root / im["file_name"]), np.rint(np.stack(chans, -1)).astype(np.uint8))
+
+
+def loaders_input_gap(np, first_batch) -> dict:
+    """The host Loader's and the device loader's 'input' for one batch
+    (``first_batch(kind)`` -> the batch of 'host' or 'device'):
+    tests/test_device_pipeline.py's eval measures, the RGB channels' largest
+    gap, a sample's largest mean gap and the share within 0.02, and the
+    condition channels' largest gap."""
+    hb, db = first_batch("host"), first_batch("device")
+    err = (hb["input"][:, :3] - db["input"][:, :3]).abs()
+    return {"max": err.max().item(), "mean": err.flatten(1).mean(1).max().item(),
+            "share": (err < 0.02).float().mean().item(),
+            "cond": (hb["input"][:, 3:] - db["input"][:, 3:]).abs().max().item(),
+            "batches": (hb, db)}
+
+
 def write_bu_predictions(np, ann_file: Path, image_dir: Path, seed: int = 1) -> Path:
     """A BU-prediction json beside ``ann_file``: one entry per image
     ({'preds', 'scores', 'image_paths'}), each person's GT joints jittered by
@@ -2552,7 +2670,9 @@ def eval_phase(torch, np, fa, tw) -> dict:
                     "warp_resample": tw.warp_resample.launches,
                     "warp_resample_two_pass": tw.warp_resample_two_pass.launches}
         batches = -(-EVAL_IMAGES * SYNTH_PEOPLE // EVAL_BATCH)
-        want = {"flash_fwd": 2 * batches * EVAL_ROUNDS, "flash_fwd_kvres": 0,
+        # K1 also in the model summary's forward (utils/summary.py)
+        want = {"flash_fwd": 2 * batches * EVAL_ROUNDS + out["summary"]["flash_calls"],
+                "flash_fwd_kvres": 0,
                 "warp_resample": batches * EVAL_ROUNDS, "warp_resample_two_pass": 0}
         print(f"evaluation run: {EVAL_ROUNDS} rounds in {wall:.1f} s (model build and "
               f"data included); launches {launches}, expected {want} (K1: 2, K4: 1 per "
@@ -2594,7 +2714,8 @@ def eval_phase(torch, np, fa, tw) -> dict:
         print(f"evaluation under BUCTD_FLASH_KVRES=1, one round: AP {r['AP']!r} (K1's "
               f"round 0: {out['rounds'][0]['AP']!r}), {r['crops'] / r['loop_s']:.2f} "
               f"crops/s; launches {kv_launches}", flush=True)
-        if kv_launches != {"flash_fwd": 0, "flash_fwd_kvres": 2 * batches}:
+        if kv_launches != {"flash_fwd": 0,
+                           "flash_fwd_kvres": 2 * batches + kv["summary"]["flash_calls"]}:
             raise AssertionError(f"kv-resident eval launches {kv_launches}")
         res["kvres_launches"] = kv_launches["flash_fwd_kvres"]
         del kv
@@ -2674,8 +2795,9 @@ def eval_phase(torch, np, fa, tw) -> dict:
             finally:
                 del os.environ["BUCTD_FLASH_KVRES"]
             r = run["rounds"][0]
-            want = {"flash_fwd": 2 * batches * (kv == "0"),
-                    "flash_fwd_kvres": 2 * batches * (kv == "1"), "warp_resample": batches}
+            calls = 2 * batches + run["summary"]["flash_calls"]
+            want = {"flash_fwd": calls * (kv == "0"), "flash_fwd_kvres": calls * (kv == "1"),
+                    "warp_resample": batches}
             rows = Path(r["results"]).read_text()
             print(f"bf16 evaluation, one round{' under BUCTD_FLASH_KVRES=1' * (kv == '1')}: AP "
                   f"{r['AP']!r} (f32's round 0: {out['rounds'][0]['AP']!r}), {r['crops']} "
@@ -2768,7 +2890,8 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
                     "warp_resample": tw.warp_resample.launches}
         batch_size = int(cfg.TEST.BATCH_SIZE_PER_GPU)
         batches = -(-TP_EVAL_IMAGES * SYNTH_PEOPLE // batch_size)
-        want = {"flash_fwd": TP_LAYERS * batches, "warp_resample": batches}
+        want = {"flash_fwd": TP_LAYERS * batches + out["summary"]["flash_calls"],
+                "warp_resample": batches}
         r = out["rounds"][0]
         rows = json.loads(Path(r["results"]).read_text())
         print(f"transpose_h evaluation: one round in {wall:.1f} s (model build and data "
@@ -2811,6 +2934,8 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
         run = valid_run.main(["--cfg", str(TRANSPOSE_CONFIG), *bf16_opts])
         got = {"flash_fwd": fa.flash_attention.launches,
                "warp_resample": tw.warp_resample.launches}
+        want = {"flash_fwd": TP_LAYERS * batches + run["summary"]["flash_calls"],
+                "warp_resample": batches}
         r16 = run["rounds"][0]
         print(f"transpose_h bf16 evaluation, one round: AP {r16['AP']!r} (f32: {r['AP']!r}), "
               f"{r16['crops']} crops, eval loop {r16['loop_s']:.3f} s = "
@@ -2860,7 +2985,8 @@ def kvres_training_phase(torch, np, fa) -> dict:
     launches = {k: f.launches for k, f in counted.items()}
     losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
     n = 2 * KVRES_TRAIN_STEPS
-    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_kvres": n,
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_kvres": n + res["summary"]["flash_calls"],
             "flash_bwd_dq_kvres": n, "flash_bwd_dkv_kvres": n}
     print(f"training under BUCTD_FLASH_KVRES=1: {res['steps']} steps, losses "
           f"{[round(x, 6) for x in losses]}; launches {launches}, expected {want}",
@@ -3389,7 +3515,8 @@ def lambda_phase(torch, np, fa, tw) -> dict:
                                       "OUTPUT_DIR", str(root / f"out_{dt}_{sweep}")])
                 got = _run_counts(fa, tw)
                 r = out["rounds"][0]
-                want = {"flash_fwd": 2 * (1 + sweep) * batches, "flash_fwd_kvres": 0,
+                want = {"flash_fwd": 2 * (1 + sweep) * batches + out["summary"]["flash_calls"],
+                        "flash_fwd_kvres": 0,
                         "warp_resample": batches, "warp_resample_two_pass": 0}
                 label = f"{'lambda sweep' if sweep else 'plain round'} {dt}"
                 print(f"{label}: AP {r['AP']!r}, {crops} crops{' x lambda 0 and 1' * sweep} "
@@ -3487,7 +3614,8 @@ def datasets_phase(torch, np, fa, tw) -> dict:
                                   "OUTPUT_DIR", str(root / "out")])
             got = _run_counts(fa, tw)
             r = out["rounds"][0]
-            want = {"flash_fwd": 2 * batches, "flash_fwd_kvres": 0, "warp_resample": batches,
+            want = {"flash_fwd": 2 * batches + out["summary"]["flash_calls"],
+                    "flash_fwd_kvres": 0, "warp_resample": batches,
                     "warp_resample_two_pass": 0}
             print(f"{name} ({SYNTH_JOINTS[name]} joints, {yaml.parent.name} CoAM-W48), one "
                   f"round: AP {r['AP']!r}, {r['crops']} crops, "
@@ -3500,6 +3628,303 @@ def datasets_phase(torch, np, fa, tw) -> dict:
                          "ap": r["AP"], "crops_s": r["crops"] / r["loop_s"]}
             del out
             torch.cuda.empty_cache()
+    return res
+
+
+def host_loader_phase(torch, np, fa, tw) -> dict:
+    """The JAX default data path, TPU.DEVICE_PIPELINE False (no override), at
+    full width on CoAM-W48 (CONFIG, batch 32) and synthetic CrowdPose sets:
+
+    * the trainer through train.run.main, TRAIN_STEPS steps on the host
+      ``Loader`` with the host sampler, then with TPU.DEVICE_SYNTHESIS True
+      in turns with the device loader (host, device, device, host): ms/step
+      (median of steps 3-10), data wait and dispatch, K1 and K2 launches a
+      step (bf16 K1 with dropout, K2 dq and dk/dv; K4 never on the host
+      Loader); then HOST_CHECK_STEPS steps with PRINT_FREQ 1,
+      BUCTD_PROFILE_DIR and DEBUG.DEBUG: one train_loss line a step in
+      metrics.jsonl, a Chrome trace, epoch 0's debug images, the summary's
+      parameter count and GFLOPs a crop;
+    * evaluation rounds of EVAL_IMAGES x SYNTH_PEOPLE crops through valid.run
+      on one .pth of random weights, host Loader and device loader in turns
+      (host, device, device, host; f32 K1 2 a batch; K4 1 a batch on the
+      device loader only): crops/s and AP; one batch's 'input' from the two
+      loaders against each other (tests/test_device_pipeline.py's eval
+      limits: the share within 0.02 on smooth images, the rest on these
+      noise ones too); HOST_CROP_CHECKS host crops within one uint8 level of
+      ``cv2_sampling_reference`` at the installed OpenCV's sampling;
+    * the host Loader's batch on the card against the same batch on the CPU
+      (same seed: the cv2 crops are equal, the normalisation and the render
+      run on each device);
+    * the banded-matmul warp engine (TPU.WARP_ENGINE matmul) at K4's draw,
+      WARP_BATCH -> 384x288, rotations -90..90: against K4's plain version
+      (WARP_MATMUL_ATOL), timed beside K4 on the same inputs, its peak
+      memory."""
+    import os
+
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.data.datasets import get_dataset
+    from buctd_tpu_torch.data.device_pipeline import DeviceLoader
+    from buctd_tpu_torch.data.pipeline import Loader
+    from buctd_tpu_torch.geometry import make_affine
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.train import run as train_run
+    from buctd_tpu_torch.valid import run as valid_run
+
+    res = {"launches": {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                        "warp_resample": 0}}
+    counted = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
+               "flash_bwd_dkv": fa.flash_bwd_dkv, "warp_resample": tw.warp_resample}
+
+    def train(root, ann, label, opts, steps=TRAIN_STEPS, device_loader=False):
+        for f in counted.values():
+            f.launches = 0                                   # the main path's run
+        t0 = time.perf_counter()
+        out = train_run.main(["--cfg", str(CONFIG), "--steps", str(steps), "--no-eval",
+                              "--seed", "0", "DATASET.TRAIN_IMAGE_DIR", str(root),
+                              "DATASET.TRAIN_ANNOTATION_FILE", str(ann),
+                              "OUTPUT_DIR", str(root / f"out_{label}"),
+                              "LOG_DIR", str(root / f"log_{label}"), *opts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counted.items()}
+        for k in got:
+            res["launches"][k] += got[k]
+        calls = out["summary"]["flash_calls"]
+        want = {"flash_fwd": 2 * steps + calls, "flash_bwd_dq": 2 * steps,
+                "flash_bwd_dkv": 2 * steps, "warp_resample": steps * device_loader}
+        losses = [float(m["loss"]) for st in out["stats"] for m in st["metrics"]]
+        st = out["stats"][0]
+        warm = slice(2 if steps > 2 else 0, None)       # steps 3-10; all of a short run
+        per_step = [d + x for d, x in zip(st["data_wait_s"], st["step_s"])]
+        r = {"ms_step": statistics.median(per_step[warm]) * 1e3,
+             "data_ms": statistics.median(st["data_wait_s"][warm]) * 1e3,
+             "dispatch_ms": statistics.median(st["step_s"][warm]) * 1e3,
+             "k1_per_step": (got["flash_fwd"] - calls) / steps,
+             "k2_per_step": (got["flash_bwd_dq"] / steps, got["flash_bwd_dkv"] / steps)}
+        print(f"host_loader trainer {label} ({'DeviceLoader' if device_loader else 'Loader'}"
+              f", {opts}): {out['steps']} steps in {wall:.1f} s (model build and data "
+              f"included); steps {warm.start + 1}-{steps} median {r['ms_step']:.2f} ms/step (data wait "
+              f"{r['data_ms']:.2f}, dispatch {r['dispatch_ms']:.2f}); launches {got}, "
+              f"expected {want} (K1 {r['k1_per_step']:.0f} a step + {calls} in the summary's "
+              f"forward, K2 dq/dkv {r['k2_per_step']} a step); losses "
+              f"{[round(x, 6) for x in losses]}", flush=True)
+        if got != want or out["steps"] != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"host_loader trainer {label}: launches {got} != {want}, "
+                                 f"{out['steps']} steps, losses {losses}")
+        return r, out
+
+    with tempfile.TemporaryDirectory(prefix="buctd_host_loader_") as tmp:
+        root = Path(tmp)
+        ann = write_synthetic_set(np, root, SYNTH_IMAGES, SYNTH_PEOPLE)
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=[]))
+        if cfg.TPU.DEVICE_PIPELINE or int(cfg.TRAIN.BATCH_SIZE_PER_GPU) != TRAIN_BATCH:
+            raise AssertionError("the stock yaml must run the host Loader at batch 32")
+        res["host"] = train(root, ann, "host", [])[0]
+        torch.cuda.empty_cache()
+        synth = ["TPU.DEVICE_SYNTHESIS", "True"]
+        turns = [train(root, ann, f"{kind}_synth{k}",
+                       synth + ["TPU.DEVICE_PIPELINE", "True"] * (kind == "device"),
+                       device_loader=kind == "device")[0]
+                 for k, kind in enumerate(("host", "device", "device", "host"))]
+        torch.cuda.empty_cache()
+        for kind, pair in (("host_synth", turns[0::3]), ("device_synth", turns[1:3])):
+            res[kind] = {key: (pair[0][key] + pair[1][key]) / 2
+                         for key in ("ms_step", "data_ms", "dispatch_ms")}
+        print(f"host_loader trainer, CoAM-W48 batch {TRAIN_BATCH}: host Loader with the host "
+              f"sampler {res['host']['ms_step']:.2f} ms/step (data wait "
+              f"{res['host']['data_ms']:.2f}, dispatch {res['host']['dispatch_ms']:.2f}); "
+              f"with TPU.DEVICE_SYNTHESIS, in turns: host Loader "
+              f"{res['host_synth']['ms_step']:.2f} ms/step (data wait "
+              f"{res['host_synth']['data_ms']:.2f}, dispatch "
+              f"{res['host_synth']['dispatch_ms']:.2f}), DeviceLoader "
+              f"{res['device_synth']['ms_step']:.2f} ms/step (data wait "
+              f"{res['device_synth']['data_ms']:.2f}, dispatch "
+              f"{res['device_synth']['dispatch_ms']:.2f})", flush=True)
+
+        # metrics.jsonl, the Chrome trace, the debug dumps and the summary
+        trace_dir = root / "trace"
+        os.environ["BUCTD_PROFILE_DIR"] = str(trace_dir)
+        try:
+            chk, out = train(root, ann, "checks", synth + [
+                "PRINT_FREQ", "1", "DEBUG.DEBUG", "True", "DEBUG.SAVE_BATCH_IMAGES_GT", "True",
+                "DEBUG.SAVE_BATCH_IMAGES_PRED", "True", "DEBUG.SAVE_HEATMAPS_PRED", "True"],
+                steps=HOST_CHECK_STEPS)
+        finally:
+            del os.environ["BUCTD_PROFILE_DIR"]
+        rows = [json.loads(line) for line in
+                (out["log_dir"] / "metrics.jsonl").read_text().splitlines()]
+        loss_steps = [r["step"] for r in rows if r["tag"] == "train_loss"]
+        traces = list(trace_dir.glob("trace_*.json"))
+        dumps = sorted(p.name for p in out["output_dir"].glob("train_epoch_0_iter_*.jpg"))
+        summary = out["summary"]
+        gflops = summary["flops"] / 1e9
+        print(f"host_loader checks: metrics.jsonl train_loss steps {loss_steps}; Chrome traces "
+              f"{[(p.name, p.stat().st_size) for p in traces]}; debug dumps {dumps}; summary "
+              f"{summary['params']:,} parameters, {gflops:.2f} GFLOPs a crop (K1's products "
+              f"from {summary['flash_calls']} calls added)", flush=True)
+        if loss_steps != list(range(HOST_CHECK_STEPS)) or len(traces) != 1 \
+                or len(dumps) != 3 * HOST_CHECK_STEPS or not summary["params"] > 0 \
+                or not gflops > 0 or summary["flash_calls"] != 2:
+            raise AssertionError("host_loader checks failed")
+        res.update(params=summary["params"], gflops=gflops)
+        del out, chk
+        torch.cuda.empty_cache()
+
+        # evaluation: one round each loader, the same weights and set
+        eroot = root / "eval"
+        eroot.mkdir()
+        eann = write_synthetic_set(np, eroot, EVAL_IMAGES, SYNTH_PEOPLE, seed=11)
+        bu = write_bu_predictions(np, eann, eroot)
+        torch.manual_seed(5)
+        model = get_model(cfg)
+        randomize(torch, model)
+        weights = eroot / "random_weights.pth"
+        torch.save(model.state_dict(), weights)
+        del model
+        opts = ["DATASET.TEST_IMAGE_DIR", str(eroot), "DATASET.TEST_ANNOTATION_FILE", str(eann),
+                "TEST.COCO_BBOX_FILE", str(bu), "TEST.MODEL_FILE", str(weights),
+                "PRINT_FREQ", "100"]
+        batches = -(-EVAL_IMAGES * SYNTH_PEOPLE // EVAL_BATCH)
+        rounds = {"host": [], "device": []}
+        for k, kind in enumerate(("host", "device", "device", "host")):     # in turns
+            _zero_counts(fa, tw)
+            extra = ["TPU.DEVICE_PIPELINE", "True"] if kind == "device" else []
+            ev = valid_run.main(["--cfg", str(CONFIG), *opts, *extra,
+                                 "OUTPUT_DIR", str(eroot / f"out_{kind}{k}"),
+                                 "LOG_DIR", str(eroot / f"log_{kind}{k}")])
+            got = _run_counts(fa, tw)
+            r = ev["rounds"][0]
+            want = {"flash_fwd": 2 * batches + ev["summary"]["flash_calls"],
+                    "flash_fwd_kvres": 0, "warp_resample": batches * (kind == "device"),
+                    "warp_resample_two_pass": 0}
+            print(f"host_loader evaluation, {'DeviceLoader' if kind == 'device' else 'Loader'}: "
+                  f"AP {r['AP']!r}, {r['crops']} crops in {r['loop_s']:.3f} s = "
+                  f"{r['crops'] / r['loop_s']:.2f} crops/s, evaluate {r['evaluate_s']:.3f} s; "
+                  f"launches {got}, expected {want}", flush=True)
+            _check_round(np, f"host_loader evaluation {kind}", r, EVAL_IMAGES * SYNTH_PEOPLE)
+            if got != want:
+                raise AssertionError(f"host_loader evaluation {kind}: launches {got} != {want}")
+            res["launches"]["flash_fwd"] += got["flash_fwd"]
+            res["launches"]["warp_resample"] += got["warp_resample"]
+            rounds[kind].append(r)
+            del ev
+        for kind, pair in rounds.items():
+            if pair[0]["AP"] != pair[1]["AP"]:
+                raise AssertionError(f"host_loader evaluation {kind}: AP {pair[0]['AP']} then "
+                                     f"{pair[1]['AP']} on the same weights and set")
+            res[f"eval_{kind}"] = {"ap": pair[0]["AP"], "crops_s": statistics.mean(
+                r["crops"] / r["loop_s"] for r in pair)}
+
+        # one batch of each loader, and the host Loader on the CPU
+        import cv2
+
+        def first_batch(kind, cfg_=None, ds_=None):
+            cfg_ = cfg_ or ecfg
+            make = DeviceLoader if kind == "device" else Loader
+            loader = make(ds_ or ds, cfg_, num_workers=4,
+                          **({"device": "cpu"} if kind == "host_cpu" else {}))
+            try:
+                return next(iter(loader))
+            finally:
+                loader.close()
+
+        ecfg = default_config()
+        update_config(ecfg, types.SimpleNamespace(cfg=str(CONFIG), opts=opts))
+        ds = get_dataset(ecfg, is_train=False)
+        gap = loaders_input_gap(np, first_batch)
+        hb = gap.pop("batches")[0]
+        cb = first_batch("host_cpu")
+        # tests/test_device_pipeline.py's eval limits, on these noise images
+        # all but the share within 0.02, which is held on smooth images
+        # below: OpenCV 4's uint8 INTER_LINEAR samples at 1/32 px, up to 6
+        # levels off the exact bilinear of K4's plain version on noise
+        print(f"host_loader eval batch (noise images), Loader vs DeviceLoader 'input': RGB "
+              f"max |diff| {gap['max']:.4f} (limit 0.2), a sample's mean {gap['mean']:.5f} "
+              f"(limit 0.15), share within 0.02 {gap['share']:.5f} (held on smooth images); "
+              f"condition channels max |diff| {gap['cond']:.2e} (limit 1e-3)", flush=True)
+        if not (gap["max"] < 0.2 and gap["mean"] < 0.15 and gap["cond"] <= 1e-3):
+            raise AssertionError("the host and device loaders' eval inputs disagree")
+        # the host crops against the sampling the installed OpenCV is known by
+        plans = [ds.plan_sample(i) for i in range(HOST_CROP_CHECKS)]
+        if any(p_["mask_box"] is not None for p_ in plans):
+            raise AssertionError("an eval sample with a crop-aug mask")
+        samp = cv2_sampling(np, [ds.get_sample(i)["image"] for i in range(HOST_CROP_CHECKS)],
+                            [p_["image"] for p_ in plans], [p_["trans"] for p_ in plans],
+                            (int(ecfg.MODEL.IMAGE_SIZE[0]), int(ecfg.MODEL.IMAGE_SIZE[1])))
+        print(f"host_loader crops (OpenCV {cv2.__version__}), {HOST_CROP_CHECKS} eval samples "
+              f"against numpy's bilinear: exact point max {samp['exact']['max']} levels, "
+              f"{samp['exact']['equal']:.5f} equal; 1/32 px point max "
+              f"{samp['1/32 px']['max']} levels, {samp['1/32 px']['equal']:.5f} equal; this "
+              f"build samples {samp['match']}", flush=True)
+        if samp["match"] is None:
+            raise AssertionError("the host crops match neither bilinear sampling")
+        # smooth images: the share within 0.02 of test_device_pipeline.py's
+        # eval test too (0.995)
+        sroot = eroot / "smooth"
+        sroot.mkdir()
+        sann = sroot / eann.name
+        sann.write_text(eann.read_text())
+        write_smooth_images(np, sroot, sann)
+        scfg = default_config()
+        update_config(scfg, types.SimpleNamespace(cfg=str(CONFIG), opts=opts + [
+            "DATASET.TEST_IMAGE_DIR", str(sroot), "DATASET.TEST_ANNOTATION_FILE", str(sann),
+            "TEST.COCO_BBOX_FILE", str(write_bu_predictions(np, sann, sroot))]))
+        sds = get_dataset(scfg, is_train=False)
+        smooth = loaders_input_gap(np, lambda kind: first_batch(kind, scfg, sds))
+        del smooth["batches"]
+        print(f"host_loader eval batch (smooth images), Loader vs DeviceLoader 'input': RGB "
+              f"max |diff| {smooth['max']:.4f} (limit 0.2), share within 0.02 "
+              f"{smooth['share']:.5f} (limit 0.995), a sample's mean {smooth['mean']:.5f}; "
+              f"condition channels max |diff| {smooth['cond']:.2e} (limit 1e-3)", flush=True)
+        if not (smooth["max"] < 0.2 and smooth["share"] > 0.995 and smooth["cond"] <= 1e-3):
+            raise AssertionError("the host and device loaders' eval inputs disagree on "
+                                 "smooth images")
+        res["loader_input"] = {"noise": gap, "smooth": smooth, "sampling": samp,
+                               "opencv": cv2.__version__}
+        gap_rgb = (hb["input"][:, :3].cpu() - cb["input"][:, :3]).abs().max().item()
+        gap_cond = (hb["input"][:, 3:].cpu() - cb["input"][:, 3:]).abs().max().item()
+        gap_tgt = (hb["target"].cpu() - cb["target"]).abs().max().item()
+        print(f"host_loader eval batch, card vs CPU: RGB max |diff| {gap_rgb:.2e} (limit "
+              f"{HOST_CARD_RGB_ATOL:.0e}), condition channels {gap_cond:.2e} (limit 1e-3), "
+              f"targets {gap_tgt:.2e} (limit 1e-6)", flush=True)
+        if not (gap_rgb <= HOST_CARD_RGB_ATOL and gap_cond <= 1e-3 and gap_tgt <= 1e-6):
+            raise AssertionError("the host Loader's batch on the card disagrees with the CPU's")
+        res["card_vs_cpu"] = {"rgb": gap_rgb, "cond": gap_cond, "target": gap_tgt}
+
+    # the banded-matmul engine at K4's draw
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    B, H, W = WARP_BATCH
+    out_hw = (384, 288)
+    images = torch.rand(B, H, W, 3, device="cuda", generator=gen) * 255.0
+    centers = torch.rand(B, 2, device="cuda", generator=gen) * torch.tensor(
+        [440.0, 280.0], device="cuda") + 100.0
+    scales = torch.rand(B, 2, device="cuda", generator=gen) * 1.2 + 0.6
+    rots = torch.rand(B, device="cuda", generator=gen) * 180.0 - 90.0
+    trans = make_affine(centers, scales, rots, out_hw[::-1], inv=True).contiguous()
+    before = tw.warp_resample.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = tw.warp_affine_general(images, trans, out_hw, "matmul")
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if tw.warp_resample.launches != before:
+        raise AssertionError("TPU.WARP_ENGINE matmul launched K4")
+    want = tw.warp_affine_reference(images, trans, out_hw)
+    mm_err = (got - want).abs().max().item()
+    del want
+    mm_ms = timed_ms(lambda: tw.warp_affine_general(images, trans, out_hw, "matmul"), 3)
+    k4_ms = timed_ms(lambda: tw.warp_resample(images, trans, out_hw), 20)
+    tw.warp_resample.launches = before                       # the timing's launches
+    print(f"matmul warp engine ({B}, {H}, {W}, 3) f32 -> {out_hw}, rotations -90..90: max "
+          f"|diff| to K4's plain version {mm_err:.3e} (limit {WARP_MATMUL_ATOL:.3e}); "
+          f"{mm_ms:.4f} ms a batch against K4's {k4_ms:.4f} ms ({mm_ms / k4_ms:.1f}x), the "
+          f"host Loader's step {res['host']['ms_step']:.2f} ms; peak memory above the inputs "
+          f"{peak_gb:.3f} GB", flush=True)
+    if not mm_err <= WARP_MATMUL_ATOL:
+        raise AssertionError(f"the matmul engine disagrees with K4's plain version: {mm_err}")
+    res["matmul"] = {"err": mm_err, "ms": mm_ms, "k4_ms": k4_ms, "peak_gb": peak_gb}
     return res
 
 
@@ -3704,6 +4129,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     inf = inference_phase(torch, np, fa, ev["files"])
     torch.cuda.empty_cache()
+    host = host_loader_phase(torch, np, fa, tw)
+    torch.cuda.empty_cache()
     k5 = fused_block_phase(torch, fb)
     k5_trunk = fused_block_vs_trunk(torch, np, fb)
     k6 = exp_phase(torch, ex)
@@ -3757,9 +4184,12 @@ def main() -> int:
         e = entry(f"flash_bwd_{kind}", "buctd_tpu_torch/csrc/flash_bwd.cu",
                   f"buctd_tpu/ops/flash_attention.py:{replaces}",
                   train["launches"][f"flash_bwd_{kind}"] + more[f"flash_bwd_{kind}"]
-                  + tp_train["launches"][f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
+                  + tp_train["launches"][f"flash_bwd_{kind}"]
+                  + host["launches"][f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
         e["f32"] = f32_bwd(kind, sum(r["shipped"][f"{kind}_ms"] for r in k2_f32),
                            step_launches[f"flash_bwd_{kind}"])
+        # the host Loader's trainer (host_loader_phase), its launches
+        e["host_loader"] = {"launches": host["launches"][f"flash_bwd_{kind}"]}
         # TransPose-H's training at d = 112: its launches, its bf16 kernels
         e["transpose_h"] = {"launches": tp_train["launches"][f"flash_bwd_{kind}"],
                             "bf16_training": tp_bf16(kind, f"{kind}_err")}
@@ -3788,12 +4218,14 @@ def main() -> int:
               "datasets": {k: v["launches"] for k, v in dsets.items()},
               "inference_f32": inf["launches"]["float32_1"] + inf["launches"]["float32_3"],
               "inference_bf16": inf["launches"]["bfloat16_1"] + inf["launches"]["bfloat16_3"],
-              "pose_resnet": rn["eval_launches"]["flash_fwd"] + rn["train_launches"]["flash_fwd"]}
+              "pose_resnet": rn["eval_launches"]["flash_fwd"] + rn["train_launches"]["flash_fwd"],
+              "host_loader": host["launches"]["flash_fwd"]}
     new_k4 = {"pose_resnet": rn["eval_launches"]["warp_resample"]
               + rn["train_launches"]["warp_resample"],
               "lambda": lam["float32"]["warp_launches"] + lam["bfloat16"]["warp_launches"]
               + lam["validate_lambda_warp_launches"],
-              "datasets": sum(v["warp_launches"] for v in dsets.values())}
+              "datasets": sum(v["warp_launches"] for v in dsets.values()),
+              "host_loader_phase_device_loader": host["launches"]["warp_resample"]}
     bf16_launches += new_k1["lambda_bf16"] + new_k1["inference_bf16"]
 
     def kv_bwd_entry(kind, replaces):
@@ -3869,6 +4301,15 @@ def main() -> int:
     print(f"pose_resnet training ms/step {[round(v, 2) for v in rn['train_ms']]}", flush=True)
     print(f"datasets: { {k: (round(v['crops_s'], 2), v['ap']) for k, v in dsets.items()} } "
           f"(crops/s, AP)", flush=True)
+    print(f"host Loader (TPU.DEVICE_PIPELINE False): trainer {host['host']['ms_step']:.2f} "
+          f"ms/step with the host sampler (DeviceLoader's in phase 4: {train['ms_step']:.2f}), "
+          f"{host['host_synth']['ms_step']:.2f} with TPU.DEVICE_SYNTHESIS (DeviceLoader in turns "
+          f"{host['device_synth']['ms_step']:.2f}); one eval round {host['eval_host']['crops_s']:.2f} "
+          f"crops/s, AP {host['eval_host']['ap']!r} (DeviceLoader {host['eval_device']['crops_s']:.2f} "
+          f"crops/s, AP {host['eval_device']['ap']!r}); summary {host['params']:,} parameters, "
+          f"{host['gflops']:.2f} GFLOPs a crop; matmul warp engine {host['matmul']['ms']:.4f} ms "
+          f"(K4 {host['matmul']['k4_ms']:.4f} ms), peak {host['matmul']['peak_gb']:.3f} GB",
+          flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -3879,7 +4320,7 @@ def main() -> int:
                       + ev["launches"]["flash_fwd"] + tp_serving_launches
                       + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]
                       + bf16_launches + new_k1["lambda_f32"] + new_k1["inference_f32"]
-                      + sum(new_k1["datasets"].values())),
+                      + sum(new_k1["datasets"].values()) + new_k1["host_loader"]),
          # its launches on the lambda sweep (f32, bf16), the OCHuman and animal
          # evaluation rounds, inference (f32, bf16) and pose_resnet's paths
          "more_paths": new_k1,
@@ -3961,7 +4402,13 @@ def main() -> int:
          "library_rot0_ms": tk["warp_library_rot0_ms"],
          "rot0_library_gap": tk["warp_rot0_grid_err"],
          "loader_before_render_ms": {"former": tk["loader_before_ms"],
-                                     "fused": tk["loader_ms"]}},
+                                     "fused": tk["loader_ms"]},
+         # TPU.WARP_ENGINE matmul (no kernel: torch.einsum) at K4's draw, beside
+         # K4 in the same run: its error against K4's plain version, its peak
+         # memory above the inputs
+         "matmul_engine": {"ms": host["matmul"]["ms"], "k4_ms": host["matmul"]["k4_ms"],
+                           "max_abs_err": host["matmul"]["err"],
+                           "peak_gb": host["matmul"]["peak_gb"]}},
         {"name": "fused_basic_block", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/fused_block.cu",
          "replaces": "buctd_tpu/ops/pallas_block.py:106",

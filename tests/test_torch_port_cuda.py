@@ -1103,3 +1103,91 @@ def test_gpu_nms_equals_cpu_nms(cuda):
         kept = native.cpu_nms(dets, thresh)
         assert native.gpu_nms(dets, thresh) == kept == nms(dets, thresh)
         assert 0 < len(kept) < 2000
+
+
+def _tiny_crowdpose(root, n_imgs=2, people=2, joints=14, seed=0):
+    """A CrowdPose-format set of random 240x320 images, written without JAX
+    (the card tests import none); returns the annotation file."""
+    import json
+
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    for i in range(n_imgs):
+        name = f"im{i}.png"
+        cv2.imwrite(str(root / name), rng.randint(0, 255, (240, 320, 3), np.uint8))
+        images.append({"id": i + 1, "file_name": name, "width": 320, "height": 240,
+                       "crowdIndex": 0.5})
+        for p in range(people):
+            pts = np.stack([rng.uniform(20 + 140 * p, 120 + 140 * p, joints),
+                            rng.uniform(30, 190, joints)], 1)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
+                         "iscrowd": 0, "num_keypoints": joints,
+                         "keypoints": [float(c) for x, y in pts for c in (x, y, 2)],
+                         "bbox": [20.0 + 140 * p, 30.0, 110.0, 170.0], "area": 18700.0})
+    path = root / "ann.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns, "categories": [
+        {"id": 1, "name": "person", "keypoints": [f"k{j}" for j in range(joints)],
+         "skeleton": []}]}))
+    return str(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_host_loader_on_the_card_matches_the_cpu(cuda, tmp_path, train):
+    """The host cv2 Loader (TPU.DEVICE_PIPELINE False): the same seed gives the
+    same uint8 crops on both devices; the normalised RGB within 1e-5 (the
+    same f32 arithmetic), the condition render within 1e-3 (0..255, sums in
+    another order) and the targets within 1e-6 (exp on each device)."""
+    import random
+
+    from buctd_tpu_torch.data.datasets import get_dataset
+    from buctd_tpu_torch.data.pipeline import Loader
+
+    ann = _tiny_crowdpose(tmp_path)
+    key = "TRAIN" if train else "TEST"
+    cfg = load_cfg("torch", COAM_YAML, [
+        "MODEL.IMAGE_SIZE", "[96, 128]", "MODEL.HEATMAP_SIZE", "[24, 32]",
+        f"DATASET.{key}_IMAGE_DIR", str(tmp_path), f"DATASET.{key}_ANNOTATION_FILE", ann,
+        "TEST.USE_GT_BBOX", "True"])
+    got = {}
+    for dev in ("cpu", "cuda"):
+        np.random.seed(7)
+        random.seed(7)
+        loader = Loader(get_dataset(cfg, is_train=train), cfg, batch_size=4, num_workers=1,
+                        device=dev)
+        got[dev] = next(iter(loader))
+        loader.close()
+    host, card = got["cpu"], got["cuda"]
+    assert card["input"].device.type == "cuda" and card["input"].shape == (4, 6, 128, 96)
+    np.testing.assert_array_equal(card["joints"], host["joints"])
+    torch.testing.assert_close(card["input"][:, :3].cpu(), host["input"][:, :3],
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(card["input"][:, 3:].cpu(), host["input"][:, 3:],
+                               atol=1e-3, rtol=0)
+    torch.testing.assert_close(card["target"].cpu(), host["target"], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_matmul_warp_engine_on_the_card(cuda):
+    """TPU.WARP_ENGINE matmul on the card: against its CPU run and K4's plain
+    version within 1e-4 on [0, 1) images (tests/test_torch_port_warp_matmul.py's
+    limit; f32 with TF32 off, sums in another order), launching no K4."""
+    from buctd_tpu_torch.geometry import make_affine
+    from buctd_tpu_torch.ops import warp as tw
+
+    rng = np.random.RandomState(0)
+    rots = torch.tensor([0.0, 30.0, -30.0, 60.0, -60.0, 90.0, -90.0])
+    imgs = torch.from_numpy(rng.rand(len(rots), 160, 140, 3).astype(np.float32))
+    t = make_affine(torch.from_numpy(rng.uniform(60, 80, (len(rots), 2)).astype(np.float32)),
+                    torch.from_numpy(rng.uniform(0.5, 0.8, (len(rots), 2)).astype(np.float32)),
+                    rots, (96, 128), inv=True)
+    before = tw.warp_resample.launches
+    got = tw.warp_affine_general(imgs.to(cuda), t.to(cuda), (128, 96), "matmul")
+    torch.cuda.synchronize()
+    assert tw.warp_resample.launches == before and got.device.type == "cuda"
+    cpu = tw.warp_affine_general(imgs, t, (128, 96), "matmul")
+    torch.testing.assert_close(got.cpu(), cpu, atol=1e-4, rtol=0)
+    plain = tw.warp_affine_reference(imgs.to(cuda), t.to(cuda), (128, 96))
+    torch.testing.assert_close(got, plain, atol=1e-4, rtol=0)

@@ -490,7 +490,9 @@ def test_check_eval_options_takes_bf16():
     # the lambda sweep and the debug dumps are ported
     check_eval_options(load_cfg("torch", COAM_YAML, BF16 + [
         "TPU.DEVICE_PIPELINE", "True", "TEST.LAMBDA_SWEEP", "True", "DEBUG.DEBUG", "True"]))
-    for bad in (["TPU.DEVICE_PIPELINE", "False"], ["TPU.MESH_SHAPE", "[2]"]):
+    # the host cv2 Loader (the JAX default) is ported
+    check_eval_options(load_cfg("torch", COAM_YAML, BF16 + ["TPU.DEVICE_PIPELINE", "False"]))
+    for bad in (["TPU.MESH_SHAPE", "[2]"], ["TPU.MESH_SHAPE", "[4]"]):
         opts = BF16 + ["TPU.DEVICE_PIPELINE", "True"] + bad
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_eval_options(load_cfg("torch", COAM_YAML, opts))

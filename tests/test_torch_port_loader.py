@@ -100,8 +100,10 @@ def test_host_planning_refuses_unported_paths(tmp_path):
         "TEST.LAMBDA_SWEEP", "True", "DEBUG.DEBUG", "True"])
     assert len(get_dataset(cfg, is_train=False).db) == 4
     check_eval_options(cfg)                 # the lambda sweep and eval debug dumps: ported
-    with pytest.raises(NotImplementedError, match="DEBUG.DEBUG.*ROADMAP"):
-        check_train_options(cfg)            # the train debug dumps: not ported
+    check_train_options(cfg)                # the train debug dumps: ported
+    for bad in (check_eval_options, check_train_options):
+        with pytest.raises(NotImplementedError, match="MESH_SHAPE.*ROADMAP"):
+            bad(load_cfg("torch", COAM_YAML, ["TPU.MESH_SHAPE", "[2]"]))
     coco_ann, _ = _tiny_coco(tmp_path, J=17)
     ochuman = load_cfg("torch", COAM_YAML, ["DATASET.DATASET", "ochuman", "MODEL.NUM_JOINTS",
                                             "17", "DATASET.TRAIN_IMAGE_DIR", str(tmp_path),

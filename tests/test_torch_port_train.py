@@ -224,7 +224,9 @@ def test_train_entry_runs_and_checkpoints(tmp_path):
 
 def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """Validation at EPOCH_EVAL_FREQ runs (results json, best AP tracked in
-    model_best.pth); the options not ported raise and name the ROADMAP."""
+    model_best.pth); TPU.DEVICE_PIPELINE False and DEBUG.DEBUG train; the
+    options not ported (a mesh, an orbax TEST.MODEL_FILE) raise and name the
+    ROADMAP."""
     from buctd_tpu_torch.core import function
     from buctd_tpu_torch.train import run
 
@@ -253,8 +255,10 @@ def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch):
     last = torch.load(out / "checkpoint.pth", weights_only=False)["state_dict"]
     for key, t in best.items():
         torch.testing.assert_close(t, last[key], rtol=0, atol=0)
-    for opts in (["TPU.DEVICE_PIPELINE", "False"], ["DEBUG.DEBUG", "True"],
-                 ["TPU.MESH_SHAPE", "[2]"], ["TEST.MODEL_FILE", str(tmp_path / "orbax")]):
+    # the host cv2 Loader and the train debug dumps run now
+    for opts in (["TPU.DEVICE_PIPELINE", "False"], ["DEBUG.DEBUG", "True"]):
+        assert run.main(args[:2] + ["--steps", "1", "--no-eval"] + args[2:] + opts)["steps"] == 1
+    for opts in (["TPU.MESH_SHAPE", "[2]"], ["TEST.MODEL_FILE", str(tmp_path / "orbax")]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run.main(args[:2] + ["--steps", "1", "--no-eval"] + args[2:] + opts)
     if not torch.cuda.is_available():

@@ -67,8 +67,14 @@ def test_engine_dispatch():
     before = tw.warp_resample.launches
     tw.warp_affine_general(x, tt, (128, 96), engine="pallas")
     assert tw.warp_resample.launches == before          # CPU calls do not count
-    with pytest.raises(NotImplementedError):
-        tw.warp_affine_general(x, tt, (128, 96), engine="matmul")
+    # 'matmul' is the banded-matmul engine, JAX's warp_affine_rotated, never K4
+    from buctd_tpu.ops import warp_affine_rotated
+
+    got = tw.warp_affine_general(x, tt, (128, 96), engine="matmul")
+    assert tw.warp_resample.launches == before
+    want = np.asarray(warp_affine_rotated(jnp.asarray(imgs[:1]), jnp.asarray(t[:1]),
+                                          (128, 96)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
     with pytest.raises(ValueError):
         tw.warp_affine_general(x, tt, (128, 96), engine="nope")
     with pytest.raises(ValueError):                     # the kernel wants a card

@@ -13,9 +13,10 @@ equals the plain warp of ``images.float() * inside`` bit for bit, and JAX's
 Pallas warp (interpret mode) on those masked f32 images within 1e-4 of the
 0..255 range (tests/test_torch_port_warp.py's 1e-4 on [0, 1) images: the same
 f32 tent weights, summed in another order).
-(c) ``DeviceLoader._device_batch`` on the CPU, which now hands the uint8
-bucket and the mask boxes to the warp, gives the loader's former chain (the
-cast, the mask multiply, the warp of f32 images) bit for bit.
+(c) ``DeviceLoader._crops`` on the CPU, which now hands the uint8 bucket and
+the mask boxes to the warp, gives the loader's former chain (the cast, the
+mask multiply, the warp of f32 images) bit for bit, and its 'input' is the
+host Loader's normalisation and render of those crops.
 (d) The warp takes uint8 images with mask boxes and f32 ones without, and
 refuses another pairing; chip_smoke.py's count of the source pixels the warp
 reads (its K4 bytes bounds), with a mask and without, equals the count of
@@ -164,14 +165,10 @@ def test_chip_smoke_read_pixels_match_the_gradient(name, masked):
     assert got == int(used.sum()) > 0
 
 
-def _device_batch_before(loader, images, trans_inv, mask_box, joints, joints_vis,
-                         cond_joints):
-    """The loader's chain before the warp read the bucket itself: cast, mask
-    multiply, then the warp of the f32 images (data/device_pipeline.py as of
-    the two-pass kernel)."""
-    from buctd_tpu_torch.data.pipeline import render_condition
-    from buctd_tpu_torch.ops.heatmap import generate_target
-
+def _crops_before(loader, images, trans_inv, mask_box):
+    """The loader's crops before the warp read the bucket itself: cast, mask
+    multiply, then the warp of the f32 images and the rounding
+    (data/device_pipeline.py as of the two-pass kernel)."""
     B, H, W, _ = images.shape
     x = images.float()
     bx, by, bw, bh = (mask_box[:, i, None, None] for i in range(4))
@@ -180,17 +177,7 @@ def _device_batch_before(loader, images, trans_inv, mask_box, joints, joints_vis
     inside = (xs >= bx) & (xs < bx + bw) & (ys >= by) & (ys < by + bh)
     x = x * inside[..., None]
     crops = tw.warp_affine_general(x, trans_inv, (loader.img_h, loader.img_w), loader.engine)
-    crops = torch.round(crops)
-    inp = (crops / 255.0 - loader.mean) / loader.std
-    if loader.conditional:
-        cond = render_condition(cond_joints, loader.mode, (loader.img_h, loader.img_w),
-                                loader.colors)
-        inp = torch.cat([inp, cond], dim=-1)
-    tgt, tw_ = generate_target(joints, joints_vis[..., 0], (loader.img_w, loader.img_h),
-                               (loader.hm_w, loader.hm_h), loader.sigma)
-    if loader.joints_weight is not None:
-        tw_ = tw_ * loader.joints_weight
-    return inp.permute(0, 3, 1, 2).contiguous(), tgt, tw_
+    return torch.round(crops)
 
 
 def test_device_batch_matches_former_chain(tmp_path):
@@ -219,13 +206,14 @@ def test_device_batch_matches_former_chain(tmp_path):
                                           rng.uniform(40, 120, B), rng.uniform(30, 90, B)],
                                          1).astype(np.float32))
     mask_box[0] = torch.tensor([0.0, 0.0, W, H])        # no crop-aug: the whole image
-    joints = torch.from_numpy(rng.uniform(0, 96, (B, 14, 3)).astype(np.float32))
-    joints_vis = torch.from_numpy((rng.rand(B, 14, 3) > 0.2).astype(np.float32))
-    cond = torch.from_numpy(np.concatenate([rng.uniform(0, 96, (B, 14, 2)),
-                                            np.ones((B, 14, 1))], -1).astype(np.float32))
-    args = (images, trans.float(), mask_box, joints, joints_vis, cond)
-    got = loader._device_batch(*args)
-    want = _device_batch_before(loader, *args)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert got[0].shape == (B, 6, 128, 96)
+    joints = rng.uniform(0, 96, (B, 14, 3)).astype(np.float32)
+    joints_vis = (rng.rand(B, 14, 3) > 0.2).astype(np.float32)
+    cond = np.concatenate([rng.uniform(0, 96, (B, 14, 2)),
+                           np.ones((B, 14, 1))], -1).astype(np.float32)
+    args = (images, trans.float(), mask_box)
+    crops = loader._crops(*args)
+    assert torch.equal(crops, _crops_before(loader, *args))
+    meta = {"joints": joints, "joints_vis": joints_vis, "cond_joints": cond}
+    got = loader._dense(dict(meta), crops)
+    assert got["input"].shape == (B, 6, 128, 96)
+    assert torch.equal(got["input"], loader.input_fn(crops, torch.from_numpy(cond)))
