@@ -25,7 +25,7 @@ from ..data.joints_dataset import IMAGENET_MEAN, IMAGENET_STD
 from ..data.pipeline import condition_mode, render_condition
 from ..geometry import PIXEL_STD, affine_points, make_affine
 from ..models import autocast, compute_dtype
-from ..ops.decode import get_final_preds
+from ..ops.decode import dark_blur, get_final_preds
 from ..ops.warp import warp_affine_aligned
 
 
@@ -39,11 +39,12 @@ def joints2cs(joints, img_w, img_h, margin: float, aspect_ratio: float,
     img_w = torch.as_tensor(img_w, dtype=torch.float32, device=joints.device)
     img_h = torch.as_tensor(img_h, dtype=torch.float32, device=joints.device)
     valid_x, valid_y = x != 0, y != 0
-    big = torch.tensor(1e9, dtype=torch.float32, device=joints.device)
-    xmin = torch.where(valid_x, x, big).amin(dim=-1) - margin
-    xmax = torch.where(valid_x, x, -big).amax(dim=-1) + margin
-    ymin = torch.where(valid_y, y, big).amin(dim=-1) - margin
-    ymax = torch.where(valid_y, y, -big).amax(dim=-1) + margin
+    # +-1e9 as scalars: a tensor made from a host value would be a host copy,
+    # which a CUDA-graph capture refuses
+    xmin = torch.where(valid_x, x, 1e9).amin(dim=-1) - margin
+    xmax = torch.where(valid_x, x, -1e9).amax(dim=-1) + margin
+    ymin = torch.where(valid_y, y, 1e9).amin(dim=-1) - margin
+    ymax = torch.where(valid_y, y, -1e9).amax(dim=-1) + margin
     zero = torch.zeros((), device=joints.device)
     xmin = torch.minimum(torch.maximum(xmin, zero), img_w)
     xmax = torch.minimum(torch.maximum(xmax, zero), img_w)
@@ -90,6 +91,14 @@ def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3):
     colors = torch.as_tensor(kpt_colors, dtype=torch.float32, device=device)
     mean = torch.as_tensor(IMAGENET_MEAN, device=device)
     std = torch.as_tensor(IMAGENET_STD, device=device)
+    # the render's blur matrices and DARK's reflect indices and taps, made now
+    # (ops/heatmap.py caches them per device): a CUDA-graph capture of refine
+    # may make no host copy, and torch.export's trace must find them made
+    with torch.inference_mode():
+        render_condition(torch.zeros((1, colors.shape[0], 3), device=device), mode,
+                         (img_h, img_w), colors, tf32=tf32)
+        if use_dark:
+            dark_blur(torch.zeros((1, 1, hm_h, hm_w), dtype=dtype, device=device))
 
     @torch.inference_mode()
     def refine(image, cond_joints, img_wh=None):
@@ -102,9 +111,11 @@ def make_refine_fn(cfg, model, kpt_colors, n_iters: int = 3):
         images = image.float()
         N, H, W = images.shape[:3]
         P, J = cond.shape[1], cond.shape[2]
-        if img_wh is None:
-            img_wh = torch.tensor([[W, H]], dtype=torch.float32).expand(N, 2)
-        wh = torch.as_tensor(img_wh, dtype=torch.float32, device=device)
+        if img_wh is None:   # the whole image, filled on the device: no host copy
+            wh = torch.empty((N, 2), dtype=torch.float32, device=device)
+            wh[:, 0], wh[:, 1] = W, H
+        else:
+            wh = torch.as_tensor(img_wh, dtype=torch.float32, device=device)
         bw = wh[:, 0].repeat_interleave(P)
         bh = wh[:, 1].repeat_interleave(P)
         cond = cond.reshape(N * P, J, cond.shape[-1])

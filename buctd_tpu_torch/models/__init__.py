@@ -8,6 +8,8 @@ engine is ``cfg.TPU.ATTENTION_ENGINE``, passed to the constructors.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from . import hrnet, hrnet_coam, resnet, transpose
@@ -51,11 +53,16 @@ def autocast(device, dtype: torch.dtype):
     """The context a forward in ``dtype`` runs under: for bf16, autocast on
     ``device``'s type, which keeps the parameters f32 and runs the convs and
     linears in bf16, as JAX's modules built with ``dtype=bfloat16``
-    (buctd_tpu/serving.py:61-62, tools/test.py:85); for f32, none.  The
+    (buctd_tpu/serving.py:61-62, tools/test.py:85); for f32, none, so a
+    traced f32 program (serving_export.py) carries no autocast region.  The
     callers own it (core/refine.py, core/function.py, train/state.py) and
-    wrap only the model's call."""
-    return torch.autocast(torch.device(device).type, dtype=dtype,
-                          enabled=dtype != torch.float32)
+    wrap only the model's call.  Autocast's cache of weight casts is off: a
+    weight is cast at each use, to the same bf16 values, and a CUDA-graph
+    capture or torch.export of the region (serving.py) takes no cache that
+    outlives it."""
+    if dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(torch.device(device).type, dtype=dtype, cache_enabled=False)
 
 
 def compute_dtype(cfg, key: str = "COMPUTE_DTYPE") -> torch.dtype:

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_train
-from .hrnet import Linear
+from .hrnet import Linear, no_autocast
 from .remat import draw_seed
 
 FLASH_MIN_TOKENS = 512 * 512
@@ -80,7 +80,7 @@ def _no_autocast(x):
     sums f32, as JAX's ``preferred_element_type=jnp.float32`` dots
     (buctd_tpu/models/attention.py:85, :118, :192-197).  Under autocast a
     matmul of bf16 operands would round the logits to bf16."""
-    return torch.autocast(x.device.type, enabled=False)
+    return no_autocast(x)
 
 
 def _draw_seed(generator) -> int:

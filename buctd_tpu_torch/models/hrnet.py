@@ -16,6 +16,7 @@ residual blocks, the preNet stems.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -57,6 +58,16 @@ class Linear(nn.Linear):
         return y + self.bias.to(y.dtype)
 
 
+def no_autocast(x):
+    """Autocast off on ``x``'s device inside the block; where it is off
+    already, no context at all, so a traced f32 program (serving_export.py)
+    carries no autocast region."""
+    dev = x.device.type
+    if torch.is_autocast_enabled(dev):
+        return torch.autocast(dev, enabled=False)
+    return contextlib.nullcontext()
+
+
 class Upsample(nn.Upsample):
     """torch's nearest Upsample, run in its input's dtype.  On CUDA, autocast
     runs ``upsample_nearest2d`` in f32, so a bf16 branch came back f32 and
@@ -65,7 +76,7 @@ class Upsample(nn.Upsample):
     any dtype, so autocast is simply turned off for it."""
 
     def forward(self, x):
-        with torch.autocast(x.device.type, enabled=False):
+        with no_autocast(x):
             return super().forward(x)
 
 

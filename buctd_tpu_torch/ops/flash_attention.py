@@ -44,6 +44,11 @@ same hash in int64 torch ops): all the kernels and the plain versions draw
 the same mask bit for bit.  As in JAX, an entry is kept when its bits are
 >= p * 2^32 and scaled by 1 / (1 - p).
 
+The forward is the operator ``torch.ops.buctd.flash_fwd`` (``flash_fwd_op``,
+with a ``register_fake`` for its shapes): ``torch.export`` records it as one
+node (serving_export.py), and a CUDA-graph capture records its launch
+(graphs.py); ``flash_attention`` checks the operands and calls it.
+
 Launch counts (CPU calls do not count): ``flash_attention.launches`` (K1),
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2),
 ``flash_attention_kvres.launches`` (K1'), ``flash_bwd_dq_kvres.launches`` and
@@ -448,6 +453,31 @@ def _launch_dkv(lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout
 
 
 # --------------------------------------------------------------- kernels ----
+@torch.library.custom_op("buctd::flash_fwd", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, float scale, float dropout, "
+                                "int seed, bool kvres) -> (Tensor, Tensor)")
+def flash_fwd_op(q, k, v, scale, dropout, seed, kvres):
+    """``torch.ops.buctd.flash_fwd``: the forward as one operator, so that
+    ``torch.export`` records it as one opaque node (serving_export.py) and a
+    loaded program launches the hand kernel.  CUDA tensors launch K1, or K1'
+    where ``kvres``; CPU tensors run the plain version; any other device
+    raises.  ``flash_attention`` checks the operands and calls it."""
+    if not _on_cuda(q, "flash_attention"):
+        return flash_attention_reference(q, k, v, scale, dropout, seed)
+    if kvres:
+        return flash_attention_kvres(q, k, v, scale, dropout, seed)
+    out, lse = _launch_fwd("flash_fwd", q, k, v, scale, dropout, seed)
+    flash_attention.launches += 1
+    return out, lse
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_shapes(q, k, v, scale, dropout, seed, kvres):
+    bh, lq, d = q.shape
+    return (q.new_empty((bh, lq, d), dtype=torch.float32),
+            q.new_empty((bh, lq), dtype=torch.float32))
+
+
 def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
     """out f32 (BH, Lq, d), lse f32 (BH, Lq) of dropout(softmax(q k^T * scale)) @ v.
 
@@ -455,19 +485,16 @@ def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
     contiguous.  CUDA tensors launch K1, or K1' under ``BUCTD_FLASH_KVRES``;
     CPU tensors take the plain version; any other device raises.
     ``dropout`` p in [0, 1) with ``seed`` in [0, 2^32) picks the mask (see
-    the module docstring).
+    the module docstring).  Both go through ``torch.ops.buctd.flash_fwd``,
+    which takes ``BUCTD_FLASH_KVRES`` as read here: a traced program keeps
+    the kernel it was traced with.
     """
     _check(q, k, v)
     _check_dropout(dropout, seed)
-    if not _on_cuda(q, "flash_attention"):
-        return flash_attention_reference(q, k, v, scale, dropout, seed)
-    if flash_attention.shapes is not None:
+    if _on_cuda(q, "flash_attention") and flash_attention.shapes is not None:
         flash_attention.shapes.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2]))
-    if kvres_enabled():
-        return flash_attention_kvres(q, k, v, scale, dropout, seed)
-    out, lse = _launch_fwd("flash_fwd", q, k, v, scale, dropout, seed)
-    flash_attention.launches += 1
-    return out, lse
+    return torch.ops.buctd.flash_fwd(q, k, v, float(scale), float(dropout), int(seed),
+                                     kvres_enabled())
 
 
 flash_attention.launches = 0

@@ -65,6 +65,22 @@ def _reflect101_index(size: int, r: int) -> np.ndarray:
     return np.where(idx >= size, 2 * size - 2 - idx, idx)
 
 
+# The constants below are made once per device and size and then read from
+# these caches: a render or a decode makes no host copy on later calls, which
+# a CUDA-graph capture refuses, and torch.export's trace finds them made
+# (core/refine.py::make_refine_fn makes them before its first call).  The
+# caches are unbounded, so that nothing made there is evicted: their keys are
+# the sizes of the configs in use.
+@functools.cache
+def _reflect101_on(size: int, r: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_reflect101_index(size, r), device=device)
+
+
+@functools.cache
+def _rounded_taps(kernel: tuple, dtype: torch.dtype) -> list:
+    return torch.tensor(kernel).to(dtype).tolist()
+
+
 def _sep_blur(x, kernel: np.ndarray):
     """Separable blur over the H and W axes of (..., H, W, C), reflect-101
     border (cv2's default BORDER_REFLECT_101).  Each tap is rounded to x's
@@ -73,12 +89,10 @@ def _sep_blur(x, kernel: np.ndarray):
     k = len(kernel)
     r = k // 2
     h, w = x.shape[-3], x.shape[-2]
-    taps = torch.as_tensor(kernel).to(x.dtype).tolist()
-    iy = torch.as_tensor(_reflect101_index(h, r), device=x.device)
-    xp = x.index_select(-3, iy)
+    taps = _rounded_taps(tuple(kernel.tolist()), x.dtype)
+    xp = x.index_select(-3, _reflect101_on(h, r, x.device))
     x = sum(taps[i] * xp.narrow(-3, i, h) for i in range(k))
-    ix = torch.as_tensor(_reflect101_index(w, r), device=x.device)
-    xp = x.index_select(-2, ix)
+    xp = x.index_select(-2, _reflect101_on(w, r, x.device))
     return sum(taps[i] * xp.narrow(-2, i, w) for i in range(k))
 
 
@@ -91,6 +105,11 @@ def _blur_matrix(size: int, ksize: int) -> np.ndarray:
     for t in range(ksize):
         m[np.arange(size), idx[t:t + size]] += kernel[t]
     return m
+
+
+@functools.cache
+def _blur_matrix_on(size: int, ksize: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_blur_matrix(size, ksize), device=device)
 
 
 def _delta_profiles(points, out_hw, ksize: int, overwrite: bool):
@@ -118,8 +137,8 @@ def _delta_profiles(points, out_hw, ksize: int, overwrite: bool):
         clobbered = torch.any(same & later & valid[:, None, :], dim=2)
         keep = valid & ~clobbered
 
-    by = torch.as_tensor(_blur_matrix(H, ksize), device=points.device)
-    bx = torch.as_tensor(_blur_matrix(W, ksize), device=points.device)
+    by = _blur_matrix_on(H, ksize, points.device)
+    bx = _blur_matrix_on(W, ksize, points.device)
     kf = keep[..., None].float()
     ky = by.T[yc] * kf                                      # (B, J, H)
     kx = bx.T[xc] * kf                                      # (B, J, W)

@@ -1,9 +1,9 @@
 """Serving API: conditioned top-down pose estimation on one CUDA device.
 
 Counterpart of buctd_tpu/serving.py::PoseEstimator.  Each call pads its image
-and its condition poses to the bucket tables and runs the refinement loop
-(core/refine.py) on the device; ``predict_batch`` runs the crops of several
-same-bucket images as one N*P batch.
+and its condition poses to the bucket tables (buckets.py) and runs the
+refinement loop (core/refine.py) on the device; ``predict_batch`` runs the
+crops of several same-bucket images as one N*P batch.
 
     est = PoseEstimator(cfg, checkpoint="model.pth", refine_iters=3)
     preds = est.predict(image_rgb, condition_poses)   # (P, J, 3) image coords
@@ -18,44 +18,37 @@ operands, core/refine.py), as JAX's estimator builds its model with that
 dtype.  No call reads or sets the TF32 flags, so an f32 and a bf16
 estimator keep their own numerics in one process.
 
-The JAX estimator's ``max_compiles`` and ``precompile`` bound XLA compiles; an
-eager PyTorch model compiles nothing, so they do not exist here.  The bucket
-tables stay, so that a later per-bucket CUDA graph has a bounded shape set
-(ROADMAP Queue 1).  Data-parallel serving over several cards (the JAX
-``mesh=``) is queued there too.
+The compile bound is JAX's: at most ``max_compiles`` bucket shapes, (h, w, p)
+for ``predict`` and (n, h, w, p) for ``predict_batch``, are ever admitted;
+once the budget is spent a call pads up into the cheapest admitted bucket
+that contains it, a batch into an admitted count bucket or else image by
+image, and a call that no admitted bucket contains raises.
+``precompile=[(h, w, p) or (n, h, w, p), ...]`` admits and warms shapes at
+start-up.  On the card an admitted bucket is one CUDA graph of ``refine``
+(graphs.py::BucketGraphs, captured at its first call or at ``precompile``),
+replayed from then on; on the CPU the same bookkeeping runs ``refine``
+eagerly.  ``refine`` itself stays the eager function.  ``export`` writes the
+admitted kind of program as a ``torch.export`` artifact
+(serving_export.py).  Data-parallel serving over several cards (the JAX
+``mesh=``) is ROADMAP Queue 1 items 6 and 8.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
+from .buckets import (COUNT_BUCKETS, bucket, canonical, finish, image_key, pad_image,
+                      pad_rows, to_host)
 from .core.refine import make_refine_fn
 from .data.joints_dataset import rainbow_colors
+from .graphs import BucketGraphs
 
-IMG_BUCKETS = (256, 384, 512, 640, 768, 1024, 1536, 2048)
-POSE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
-COUNT_BUCKETS = (2, 4, 8)   # images per batched call (1 = the unbatched path)
+logger = logging.getLogger(__name__)
 
-
-def _bucket(v: int, buckets) -> int:
-    for b in buckets:
-        if v <= b:
-            return b
-    return v
-
-
-def _canon(image, condition_poses):
-    """image -> uint8 (H, W, 3); poses -> f32 (P, J, 3) with conf 1 if absent."""
-    image = np.asarray(image)
-    if image.dtype != np.uint8:
-        image = np.clip(image, 0, 255).astype(np.uint8)
-    conds = np.asarray(condition_poses, np.float32)
-    if conds.ndim == 2:
-        conds = conds[None]
-    if conds.shape[-1] == 2:
-        conds = np.concatenate([conds, np.ones((*conds.shape[:-1], 1), np.float32)], -1)
-    return image, conds
+ORBAX_ITEM = "ROADMAP Queue 1 item 10, 'the orbax reader'"
 
 
 class PoseEstimator:
@@ -63,11 +56,12 @@ class PoseEstimator:
 
     ``device`` defaults to "cuda" and the constructor raises where CUDA is
     absent: there is no silent CPU path.  Pass ``device="cpu"`` to run the plain
-    versions of the kernels on the CPU (the tests do).
+    versions of the kernels on the CPU (the tests do).  ``max_compiles`` and
+    ``precompile`` as buctd_tpu/serving.py:41-49 (the module docstring).
     """
 
     def __init__(self, cfg, checkpoint: str | None = None, refine_iters: int = 1,
-                 colors=None, device="cuda"):
+                 colors=None, max_compiles: int = 12, precompile=None, device="cuda"):
         from .convert import load_torch_checkpoint
         from .models import compute_dtype, get_model
 
@@ -86,8 +80,9 @@ class PoseEstimator:
         self.model = get_model(cfg, device=self.device)
         if checkpoint:
             if not checkpoint.endswith((".pth", ".pt")):
-                raise ValueError(f"{checkpoint!r}: buctd_tpu_torch loads BUCTD "
-                                 ".pth/.pt checkpoints only")
+                raise ValueError(f"{checkpoint!r}: buctd_tpu_torch loads BUCTD .pth/.pt "
+                                 f"checkpoints only; an orbax directory waits for "
+                                 f"{ORBAX_ITEM}")
             self.model.load_state_dict(load_torch_checkpoint(checkpoint), strict=True)
         self.model.to(self.device).eval()
         # the eval-time preNet fusion (TPU.FUSED_PRENET), after the load as
@@ -99,34 +94,63 @@ class PoseEstimator:
         self.refine_iters = max(int(refine_iters), 1)
         self.refine = make_refine_fn(cfg, self.model, self.colors,
                                      n_iters=self.refine_iters)
+        self.max_compiles = int(max_compiles)
+        self._compiled: set = set()   # admitted (h, w, p) and (n, h, w, p) buckets
+        self._graphs = BucketGraphs(self.device) if self.device.type == "cuda" else None
+        for key in (precompile or ()):   # (h, w, p), or (n, h, w, p) for predict_batch
+            key = tuple(int(v) for v in key)
+            lead = (bucket(key[0], COUNT_BUCKETS),) if len(key) == 4 else ()
+            key = lead + image_key(*key[-3:])
+            self._compiled.add(key)
+            self._warm(key, np.zeros(key[:-1] + (3,), np.uint8),
+                       np.ones(lead + (key[-1], self.num_joints, 3), np.float32),
+                       np.ones(lead + (2,), np.float32))
 
-    @staticmethod
-    def _to_host(preds, maxvals) -> np.ndarray:
-        """(..., J, 2) and (..., J, 1) device tensors -> (..., J, 3) f32 numpy,
-        one copy (bf16 maxvals widened exactly)."""
-        return torch.cat([preds, maxvals.float()], dim=-1).cpu().numpy()
+    def _warm(self, key, image, conds, img_wh) -> None:
+        """Capture ``key``'s graph on the card; the CPU has nothing to warm."""
+        if self._graphs is not None:
+            self._graphs.capture(key, self.refine, image, conds, img_wh)
 
-    @staticmethod
-    def _finish(res: np.ndarray, P: int, vis_thres: float) -> np.ndarray:
-        out = res[:P]
-        out[out[:, :, 2] < vis_thres] = np.nan
-        return out
+    def _run(self, key, image, conds, img_wh) -> np.ndarray:
+        """``refine`` on inputs padded to bucket ``key`` -> (..., J, 3) on the
+        host: its graph's replay on the card (captured at the first call),
+        the eager function on the CPU."""
+        if self._graphs is None:
+            preds, maxvals = self.refine(*map(torch.from_numpy, (image, conds, img_wh)))
+        else:
+            self._warm(key, image, conds, img_wh)
+            preds, maxvals = self._graphs.run(key, image, conds, img_wh)
+        return to_host(preds, maxvals)
+
+    def _pick_bucket(self, hb: int, wb: int, pb: int):
+        """Bucket key to run at, honoring the compile budget: the call's own
+        bucket if admitted or if the budget has room, else the cheapest
+        admitted bucket that contains it, by h * w * p; none raises."""
+        key = (hb, wb, pb)
+        if key in self._compiled or len(self._compiled) < self.max_compiles:
+            self._compiled.add(key)
+            return key
+        fits = sorted((k for k in self._compiled
+                       if len(k) == 3 and k[0] >= hb and k[1] >= wb and k[2] >= pb),
+                      key=lambda k: (k[0] * k[1] * k[2], k))
+        if not fits:
+            raise RuntimeError(
+                f"shape {key} needs a new compile but the max_compiles="
+                f"{self.max_compiles} budget is spent and no compiled bucket "
+                f"{sorted(self._compiled)} contains it; raise max_compiles or "
+                f"precompile the shapes you serve")
+        logger.warning("serving shape %s padded up into compiled bucket %s "
+                       "(compile budget spent)", key, fits[0])
+        return fits[0]
 
     def predict(self, image, condition_poses, vis_thres: float = 0.0) -> np.ndarray:
         """image: (H, W, 3) RGB, 0..255; condition_poses: (P, J, 2 or 3)
         image-frame poses.  Returns (P, J, 3) [x, y, conf] in image coords."""
-        image, conds = _canon(image, condition_poses)
+        image, conds = canonical(image, condition_poses)
         P = conds.shape[0]
-        hb, wb = _bucket(image.shape[0], IMG_BUCKETS), _bucket(image.shape[1], IMG_BUCKETS)
-        pb = _bucket(P, POSE_BUCKETS)
-        img_pad = np.zeros((hb, wb, 3), np.uint8)
-        img_pad[:image.shape[0], :image.shape[1]] = image
-        if pb != P:   # pad with copies of the first pose
-            conds = np.concatenate([conds, np.repeat(conds[:1], pb - P, 0)])
-        true_wh = torch.tensor([image.shape[1], image.shape[0]], dtype=torch.float32)
-        preds, maxvals = self.refine(torch.from_numpy(img_pad), torch.from_numpy(conds),
-                                     img_wh=true_wh)
-        return self._finish(self._to_host(preds, maxvals), P, vis_thres)
+        hb, wb, pb = self._pick_bucket(*image_key(*image.shape[:2], P))
+        padded = pad_image(image, conds, hb, wb, pb)
+        return finish(self._run((hb, wb, pb), *padded), P, vis_thres)
 
     def predict_many(self, images, conditions, vis_thres: float = 0.0) -> list:
         """``predict`` over (image, condition_poses) pairs, one call each
@@ -134,17 +158,25 @@ class PoseEstimator:
         return [self.predict(img, conds, vis_thres)
                 for img, conds in zip(images, conditions)]
 
+    def export(self, shapes, out_dir: str) -> dict:
+        """Write this estimator's serving programs at ``shapes`` as a
+        ``torch.export`` artifact directory (serving_export.py; serve it back
+        with ExportedPoseEstimator or ``tools/serve.py --exported``)."""
+        from .serving_export import export_estimator
+        return export_estimator(self, shapes, out_dir)
+
     def predict_batch(self, images, conditions, vis_thres: float = 0.0) -> list:
         """Process many (image, condition_poses) pairs: images of one
         (height, width, poses) bucket run as one batch of N*P crops, in chunks
-        of up to COUNT_BUCKETS[-1] images padded to a count bucket.  Returns a
-        list of (P_i, J, 3) arrays in input order."""
-        pairs = [_canon(im, cs) for im, cs in zip(images, conditions)]
+        of up to COUNT_BUCKETS[-1] images padded to a count bucket.  A chunk
+        rides the smallest admitted count bucket that holds it; where the
+        budget admits no batched shape, its images run one by one
+        (buctd_tpu/serving.py:214-282).  Returns a list of (P_i, J, 3) arrays
+        in input order."""
+        pairs = [canonical(im, cs) for im, cs in zip(images, conditions)]
         groups: dict = {}
         for idx, (im, cs) in enumerate(pairs):
-            key = (_bucket(im.shape[0], IMG_BUCKETS), _bucket(im.shape[1], IMG_BUCKETS),
-                   _bucket(cs.shape[0], POSE_BUCKETS))
-            groups.setdefault(key, []).append(idx)
+            groups.setdefault(image_key(*im.shape[:2], cs.shape[0]), []).append(idx)
 
         out: list = [None] * len(pairs)
         for (hb, wb, pb), idxs in groups.items():
@@ -153,21 +185,24 @@ class PoseEstimator:
                 if len(chunk) == 1:
                     out[chunk[0]] = self.predict(*pairs[chunk[0]], vis_thres)
                     continue
-                nb = _bucket(len(chunk), COUNT_BUCKETS)
-                imgs = np.zeros((nb, hb, wb, 3), np.uint8)
-                cnds = np.zeros((nb, pb, self.num_joints, 3), np.float32)
-                whs = np.ones((nb, 2), np.float32)
+                nb = bucket(len(chunk), COUNT_BUCKETS)
+                bkey = (nb, hb, wb, pb)
+                if bkey not in self._compiled:
+                    # pad rows into an admitted count bucket rather than admit
+                    # a new one for a remainder chunk
+                    fits = sorted(k[0] for k in self._compiled
+                                  if len(k) == 4 and k[1:] == (hb, wb, pb)
+                                  and k[0] >= len(chunk))
+                    if fits:
+                        nb, bkey = fits[0], (fits[0], hb, wb, pb)
+                if not (bkey in self._compiled or len(self._compiled) < self.max_compiles):
+                    logger.warning("batched shape %s needs a new compile but the budget "
+                                   "is spent; falling back to the per-image path", bkey)
+                    for q in chunk:
+                        out[q] = self.predict(*pairs[q], vis_thres)
+                    continue
+                self._compiled.add(bkey)
+                res = self._run(bkey, *pad_rows([pairs[q] for q in chunk], *bkey))
                 for row, q in enumerate(chunk):
-                    im, cs = pairs[q]
-                    imgs[row, :im.shape[0], :im.shape[1]] = im
-                    cnds[row, :cs.shape[0]] = cs
-                    cnds[row, cs.shape[0]:] = cs[:1]   # pad with the first pose
-                    whs[row] = (im.shape[1], im.shape[0])
-                for row in range(len(chunk), nb):       # pad rows: repeat the last
-                    imgs[row], cnds[row], whs[row] = imgs[row - 1], cnds[row - 1], whs[row - 1]
-                preds, maxvals = self.refine(torch.from_numpy(imgs), torch.from_numpy(cnds),
-                                             img_wh=torch.from_numpy(whs))
-                res = self._to_host(preds, maxvals)
-                for row, q in enumerate(chunk):
-                    out[q] = self._finish(res[row], pairs[q][1].shape[0], vis_thres)
+                    out[q] = finish(res[row], pairs[q][1].shape[0], vis_thres)
         return out

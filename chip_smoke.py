@@ -76,7 +76,17 @@ Phases (each raises on failure; nothing is caught):
      drift of the warp and render on TF32 operands against exact (median
      within WARP_DRIFT_PX), one bf16 forward card vs CPU (every module's
      output dtype equal, the nn.Upsample control apart; BF16_FORWARD_RATIO),
-     the TF32 flags unchanged by the calls;
+     the TF32 flags unchanged by the calls.  Every estimator serves through
+     per-bucket CUDA graphs (serving.py, graphs.py, PR 16): a bucket's first
+     call runs two eager warm-ups, the capture and a replay, later calls a
+     replay; the kernels' counters count the warm-ups and each replay (the
+     launches the capture recorded), not the capture.  After CoAM-W48's
+     bf16 serving, ``graph_serving_phase``: CoAM-W48 with
+     ``precompile=GRAPH_PRECOMPILE`` in f32 and bf16, replays bit for bit
+     equal to eager ``refine``, K1 by name in a profiled replay, eager and
+     replayed ms/image in turns with the device's idle share, a call past
+     ``max_compiles`` padded up, and a ``torch.export`` program a dtype
+     exported, loaded and held to the live estimator (EXPORT_ATOL);
   4. training: ``buctd_tpu_torch.train.run`` on a synthetic CrowdPose-format
      set (seeded, in a temporary directory) at full width, batch 32, bf16
      autocast, attention dropout 0.1, the device loader; ms/step, images/s,
@@ -463,6 +473,24 @@ WARP_MATMUL_ATOL = 1e-4 * 255
 HOST_CARD_RGB_ATOL = 1e-5
 BF16_FORWARD_RATIO = {"pose_hrnet_coam": 2.0, "pose_hrnet": 2.0, "transpose_h": 7.0}
 BF16_STEP = 2.0 ** -8
+# graph_serving_phase: CoAM-W48 served through per-bucket CUDA graphs
+# (serving.py, graphs.py).  ``precompile`` admits these two buckets at
+# start-up, within a budget of two; a replay must equal ``est.refine`` run
+# eagerly on the same padded inputs bit for bit (the same kernels on the
+# same inputs), in f32 and bf16.  The exported programs run
+# GRAPH_EXPORT_ROUNDS rounds (a trace's length grows with the rounds); they
+# are held to the live estimator of the same rounds within EXPORT_ATOL
+# (pixels and confidences): the same ATen ops and the same K1, so bit for
+# bit is expected, and the limit only leaves room for an ATen op that
+# torch.export decomposes into another kernel.
+GRAPH_PRECOMPILE = [(480, 640, 4), (3, 480, 640, 4)]
+GRAPH_KEYS = {(512, 640, 4), (4, 512, 640, 4)}
+GRAPH_TURNS = 3
+# one program a dtype, each at a bucket the live estimator admits: a trace and
+# a load take tens of seconds at full width
+GRAPH_EXPORT = {"float32": (480, 640, 4), "bfloat16": (4, 480, 640, 4)}
+GRAPH_EXPORT_ROUNDS = 1
+EXPORT_ATOL = 1e-3
 # kernel names that are convolutions or the layout transposes around them
 CONV_NAMES = ("conv", "fprop", "fft", "flip_filter", "cf32", "inograd", "nchwToNhwc",
               "nhwcToNchw")
@@ -1355,11 +1383,12 @@ def serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     images, poses = [b[0] for b in batch], [b[1] for b in batch]
     keep = float("-inf")   # random weights: keep every joint, whatever its confidence
 
-    est.predict(img, conds, keep)                    # first calls: cuDNN set-up
-    est.predict_batch(images, poses, keep)
-    torch.cuda.synchronize()
-
     fa.flash_attention.launches = 0                  # the main path's run
+    est.predict(img, conds, keep)                    # first calls: each bucket's graph
+    est.predict_batch(images, poses, keep)           # (two eager warm-ups, the capture,
+    torch.cuda.synchronize()                         # a replay)
+    first = fa.flash_attention.launches
+    fa.flash_attention.launches = 0                  # the timed replays
     t0 = time.perf_counter()
     for _ in range(REPEATS):
         out = est.predict(img, conds, keep)
@@ -1367,18 +1396,21 @@ def serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     for _ in range(REPEATS):
         outs = est.predict_batch(images, poses, keep)
     t2 = time.perf_counter()
-    launches = fa.flash_attention.launches
+    timed = fa.flash_attention.launches
+    launches = first + timed
 
     if out.shape != (4, joints, 3) or not np.isfinite(out).all():
         raise AssertionError(f"predict gave {out.shape}, finite={np.isfinite(out).all()}")
     for o in outs:
         if o.shape != (4, joints, 3) or not np.isfinite(o).all():
             raise AssertionError(f"predict_batch gave {o.shape}")
-    forwards = 2 * REPEATS   # predict: one forward per round; predict_batch: one chunk
-    want = k1_per_forward * ROUNDS * forwards
-    if launches != want:
-        raise AssertionError(f"flash launches {launches}, expected {k1_per_forward} per "
-                             f"forward x {ROUNDS} rounds x {forwards} forwards = {want}")
+    # K1 counted where it ran: the first calls' two warm-ups and one replay a
+    # bucket (predict's and predict_batch's), then one replay a timed call
+    per_call = k1_per_forward * ROUNDS
+    if first != per_call * 2 * 3 or timed != per_call * 2 * REPEATS:
+        raise AssertionError(f"flash launches {first} in the first calls, {timed} in the "
+                             f"timed replays; expected {k1_per_forward} per forward x "
+                             f"{ROUNDS} rounds x (2 x 3) and x {2 * REPEATS}")
     ms_predict = (t1 - t0) / REPEATS * 1e3
     ms_batch = (t2 - t1) / REPEATS * 1e3
     name = cfg.MODEL.NAME
@@ -1386,8 +1418,9 @@ def serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
           f"{4 * 1e3 / ms_predict:.2f} crops/s", flush=True)
     print(f"{name} predict_batch (3 images x 4 poses, padded to 4 images): "
           f"{ms_batch / 3:.2f} ms/image, {12 * 1e3 / ms_batch:.2f} crops/s", flush=True)
-    print(f"{name} flash launches in the run: {launches} (= {k1_per_forward} x {ROUNDS} x "
-          f"{forwards})", flush=True)
+    print(f"{name} flash launches in the run: {launches} ({first} in two buckets' warm-ups "
+          f"and first replays + {timed} in the {2 * REPEATS} timed replays, {k1_per_forward} "
+          f"x {ROUNDS} a forward)", flush=True)
 
     # one forward on the card vs the same module on the CPU
     x = torch.from_numpy(rng.randn(1, 6, 384, 288).astype(np.float32))
@@ -1518,13 +1551,14 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     batch = [sample_request(np, rng, joints=joints) for _ in range(3)]
     images, poses = [b[0] for b in batch], [b[1] for b in batch]
     keep = float("-inf")
-    for est in (est32, est16):                       # first calls: cuDNN set-up
-        est.predict(img, conds, keep)
-        est.predict_batch(images, poses, keep)
+    est32.predict(img, conds, keep)                  # first calls: the f32 graphs
+    est32.predict_batch(images, poses, keep)
     torch.cuda.synchronize()
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
-    fa.flash_attention.launches = 0                  # the bf16 main path's run
+    fa.flash_attention.launches = 0                  # the bf16 main path's run: each
+    est16.predict(img, conds, keep)                  # bucket's warm-ups, capture and a
+    est16.predict_batch(images, poses, keep)         # replay, then a replay of each
     out = est16.predict(img, conds, keep)
     outs = est16.predict_batch(images, poses, keep)
     launches = fa.flash_attention.launches
@@ -1532,7 +1566,8 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
         if o.shape != (4, joints, 3) or not np.isfinite(o).all():
             raise AssertionError(f"{label}: prediction {o.shape}, finite "
                                  f"{np.isfinite(o).all()}")
-    want = k1_per_forward * ROUNDS * 2
+    # two buckets: two warm-ups and two replays each (the capture runs nothing)
+    want = k1_per_forward * ROUNDS * 2 * 4
     if launches != want:
         raise AssertionError(f"{label}: flash launches {launches}, expected {want}")
     if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != flags:
@@ -1554,7 +1589,8 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
           f"[{spread['batch_bf16']}] against {ms['batch_f32']:.2f} [{spread['batch_f32']}] "
           f"({12e3 / ms['batch_bf16']:.2f} against {12e3 / ms['batch_f32']:.2f} crops/s, "
           f"{ms['batch_f32'] / ms['batch_bf16']:.3f}x); K1 launches in the bf16 run "
-          f"{launches} (= {k1_per_forward} x {ROUNDS} x 2)", flush=True)
+          f"{launches} (= {k1_per_forward} x {ROUNDS} x 2 x 4: two buckets' warm-ups and "
+          f"two replays each)", flush=True)
 
     counts, shares = {}, {}
     for dtype, est in (("float32", est32), ("bfloat16", est16)):
@@ -1652,6 +1688,190 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
                    control_steps=control_steps, control_dtypes_apart=len(control_apart))
     del est32, est16
     torch.cuda.empty_cache()
+    return res
+
+
+def graph_serving_phase(torch, np, fa, card: str) -> dict:
+    """CoAM-W48 (CONFIG, 384x288, ROUNDS rounds, random weights from one
+    .pth) served through per-bucket CUDA graphs, in f32 and in bf16.
+    ``precompile=GRAPH_PRECOMPILE`` with ``max_compiles=2`` admits and
+    captures GRAPH_KEYS at start-up (K1 counted in the two warm-ups a
+    bucket, not in the capture); ``predict`` and ``predict_batch`` replay
+    them (K1 counted k1 x ROUNDS a replay) and equal ``est.refine`` run
+    eagerly on the same padded inputs bit for bit; a profile of one replay
+    names K1's kernel as many times as the replay moved its counter;
+    ms/image eager (the padded inputs through ``refine``, then to the host:
+    the path before the graphs) and replayed,
+    in turns (eager, replay, replay, eager), and a profile of each (the
+    device's idle share); a 300x400 call with 3 poses, beyond the budget,
+    padded up into (512, 640, 4).  Then the single-image program in f32 and
+    the batched one in bf16 (GRAPH_EXPORT) exported at GRAPH_EXPORT_ROUNDS
+    rounds and loaded
+    (ExportedPoseEstimator on the card, replayed as graphs): the seconds to
+    export and to load, and their largest difference from the live
+    estimator of the same rounds (EXPORT_ATOL)."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.buckets import canonical, finish, pad_image, pad_rows, to_host
+    from buctd_tpu_torch.serving import PoseEstimator
+    from buctd_tpu_torch.serving_export import ExportedPoseEstimator
+
+    def config(dtype):
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=["TPU.EVAL_DTYPE", dtype]))
+        return cfg
+
+    rng = np.random.RandomState(16)
+    img, conds = sample_request(np, rng)
+    batch = [sample_request(np, rng) for _ in range(3)]
+    images, poses = [b[0] for b in batch], [b[1] for b in batch]
+    small = sample_request(np, rng, h=300, w=400, poses=3)
+    keep, k1_replay = float("-inf"), 2 * ROUNDS
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(16)
+        model = get_model(config("float32"))
+        randomize(torch, model)
+        weights = Path(tmp) / "coam_w48_random.pth"
+        torch.save(model.state_dict(), weights)
+        del model
+        for dtype in ("float32", "bfloat16"):
+            label = f"CoAM-W48 {dtype} graphs"
+            fa.flash_attention.launches = 0              # the graphs' main path
+            t0 = time.perf_counter()
+            est = PoseEstimator(config(dtype), checkpoint=str(weights), refine_iters=ROUNDS,
+                                max_compiles=2, precompile=GRAPH_PRECOMPILE)
+            torch.cuda.synchronize()
+            start_s = time.perf_counter() - t0
+            captured = fa.flash_attention.launches
+            graphs = est._graphs
+            if est._compiled != GRAPH_KEYS or set(graphs.keys()) != GRAPH_KEYS:
+                raise AssertionError(f"{label}: admitted {est._compiled}, captured "
+                                     f"{graphs.keys()}")
+            # two eager warm-ups a bucket, each ROUNDS forwards; the capture runs none
+            want = 2 * len(GRAPH_KEYS) * k1_replay
+            if captured != want:
+                raise AssertionError(f"{label}: K1 launches at start-up {captured}, want {want}")
+
+            def eager(image, cond):
+                padded = pad_image(*canonical(image, cond), 512, 640, 4)
+                preds, maxvals = est.refine(*(torch.from_numpy(x).cuda() for x in padded[:2]),
+                                            img_wh=torch.from_numpy(padded[2]).cuda())
+                return finish(to_host(preds, maxvals), cond.shape[0], keep)
+
+            def eager_batch(imgs, conds_):
+                padded = pad_rows([canonical(i, c) for i, c in zip(imgs, conds_)],
+                                   4, 512, 640, 4)
+                preds, maxvals = est.refine(*(torch.from_numpy(x).cuda() for x in padded[:2]),
+                                            img_wh=torch.from_numpy(padded[2]).cuda())
+                res_ = to_host(preds, maxvals)
+                return [finish(res_[row], c.shape[0], keep) for row, c in enumerate(conds_)]
+
+            out, outs = est.predict(img, conds, keep), est.predict_batch(images, poses, keep)
+            padded_up = est.predict(*small, keep)
+            launches = fa.flash_attention.launches   # the graphs' main path, read
+            if launches != captured + 3 * k1_replay:
+                raise AssertionError(f"{label}: three replays moved K1's counter from "
+                                     f"{captured} to {launches}, not by {3 * k1_replay}")
+            if est._compiled != GRAPH_KEYS:
+                raise AssertionError(f"{label}: the 300x400 call admitted {est._compiled}")
+            same = [np.array_equal(out, eager(img, conds)),
+                    all(np.array_equal(a, b) for a, b in
+                        zip(outs, eager_batch(images, poses))),
+                    np.array_equal(padded_up, eager(*small))]
+            for o in [out, *outs, padded_up]:
+                if not np.isfinite(o).all():
+                    raise AssertionError(f"{label}: a replay gave non-finite poses")
+            print(f"{label}: start-up with 2 buckets captured {start_s:.2f} s (K1 {captured} "
+                  f"in the warm-ups, {launches} after three replays); replayed predict, "
+                  f"predict_batch and the "
+                  f"300x400 call padded up into (512, 640, 4) bit for bit equal to eager "
+                  f"refine: {same}", flush=True)
+            if not all(same):
+                raise AssertionError(f"{label}: a replay differs from eager refine: {same}")
+
+            kernel = "flash_fwd_tf32_kernel" if dtype == "float32" else "flash_fwd_tc_kernel"
+            counts = {}
+            ticks = fa.flash_attention.launches
+            by_name = kernel_profile(torch, lambda: est.predict(img, conds, keep),
+                                     f"{label}: one predict replay (4 poses, {ROUNDS} rounds)",
+                                     counts)
+            ticks = fa.flash_attention.launches - ticks
+            k1_seen = sum(n for key, n in counts.items() if kernel in key)
+            print(f"{label}: {kernel} launched {k1_seen} times in one replay, the counter "
+                  f"moved {ticks} (want {k1_replay})", flush=True)
+            if not k1_seen == ticks == k1_replay:
+                raise AssertionError(f"{label}: K1 {k1_seen} launches in a replay, counted "
+                                     f"{ticks}")
+            profiles = {"replay": {"kernels_ms": sum(by_name.values())}}
+            for name, fn in (("eager", lambda: eager(img, conds)),
+                             ("batch_replay", lambda: est.predict_batch(images, poses, keep)),
+                             ("batch_eager", lambda: eager_batch(images, poses))):
+                by = kernel_profile(torch, fn, f"{label}: {name} (3 rounds)")
+                profiles[name] = {"kernels_ms": sum(by.values())}
+
+            calls = {key: [] for key in ("eager", "replay", "batch_eager", "batch_replay")}
+            for _ in range(GRAPH_TURNS):
+                for kind in ("eager", "replay", "replay", "eager"):
+                    one = (lambda: eager(img, conds)) if kind == "eager" else (
+                        lambda: est.predict(img, conds, keep))
+                    many = (lambda: eager_batch(images, poses)) if kind == "eager" else (
+                        lambda: est.predict_batch(images, poses, keep))
+                    calls[kind].append(host_ms(one, 1))
+                    calls[f"batch_{kind}"].append(host_ms(many, 1) / 3)
+            ms = {key: statistics.median(v) for key, v in calls.items()}
+            print(f"{label}, medians of {2 * GRAPH_TURNS} calls each in turns (eager, replay, "
+                  f"replay, eager): predict {ms['eager']:.2f} ms/image eager, {ms['replay']:.2f} "
+                  f"replayed ({ms['eager'] / ms['replay']:.3f}x); predict_batch (3 images x 4 "
+                  f"poses) {ms['batch_eager']:.2f} ms/image eager, {ms['batch_replay']:.2f} "
+                  f"replayed ({ms['batch_eager'] / ms['batch_replay']:.3f}x); spreads "
+                  f"{ {k: (round(min(v), 2), round(max(v), 2)) for k, v in calls.items()} }; "
+                  f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: "
+                  f"{card}", flush=True)
+            entry = {"start_s": start_s, "warmup_launches": captured, "launches": launches,
+                     "ms": ms,
+                     "profiles": profiles, "k1_replay": k1_replay, "same": same}
+
+            # the exported programs, at GRAPH_EXPORT_ROUNDS rounds
+            short = PoseEstimator(config(dtype), checkpoint=str(weights),
+                                  refine_iters=GRAPH_EXPORT_ROUNDS)
+            art = Path(tmp) / f"artifact_{dtype}"
+            t0 = time.perf_counter()
+            manifest = short.export([GRAPH_EXPORT[dtype]], str(art))
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = ExportedPoseEstimator(str(art))
+            if len(GRAPH_EXPORT[dtype]) == 3:
+                def serve(e):
+                    return [e.predict(img, conds, keep)]
+            else:
+                def serve(e):
+                    return e.predict_batch(images, poses, keep)
+            got = serve(loaded)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            want_ = serve(short)
+            gap = max(float(np.abs(a - b).max()) for a, b in zip(got, want_))
+            bits = all(np.array_equal(a, b) for a, b in zip(got, want_))
+            counts = {}
+            ticks = fa.flash_attention.launches
+            kernel_profile(torch, lambda: serve(loaded),
+                           f"{label}: one replay of the exported program", counts)
+            ticks = fa.flash_attention.launches - ticks
+            k1_art = sum(n for key, n in counts.items() if kernel in key)
+            print(f"{label}: exported {manifest['programs']} ({GRAPH_EXPORT_ROUNDS} round) in "
+                  f"{export_s:.1f} s ({sum(f.stat().st_size for f in art.iterdir()) / 2**20:.1f} "
+                  f"MiB), loaded and first calls (captures) {load_s:.1f} s; largest difference "
+                  f"from the live estimator {gap:.3e} (limit {EXPORT_ATOL}), bit for bit "
+                  f"{bits}; {kernel} {k1_art} launches in one replay of the exported program, "
+                  f"the counter moved {ticks} (want 2)", flush=True)
+            if not (gap <= EXPORT_ATOL and k1_art == ticks == 2):
+                raise AssertionError(f"{label}: exported programs {gap} from the live "
+                                     f"estimator, K1 {k1_art}, counted {ticks}")
+            entry.update(export_s=export_s, load_s=load_s, export_gap=gap, export_bits=bits)
+            res[dtype] = entry
+            del est, short, loaded
+            torch.cuda.empty_cache()
     return res
 
 
@@ -4090,7 +4310,9 @@ def main() -> int:
 
     serving_launches, serving_profile = serve(CONFIG, 2)
     bf16_serving = bf16_serving_phase(torch, np, fa, CONFIG, 2)
-    tp_serving_launches, tp_serving_profile = serve(TRANSPOSE_CONFIG, TP_LAYERS, True)
+    graph = graph_serving_phase(torch, np, fa, card)
+    tp_serving_launches, tp_serving_profile = serve(
+        TRANSPOSE_CONFIG, TP_LAYERS, True)
     tp_bf16_serving = bf16_serving_phase(torch, np, fa, TRANSPOSE_CONFIG, TP_LAYERS)
     train = training_phase(torch, np, fa, tw)
     torch.cuda.empty_cache()
@@ -4209,6 +4431,7 @@ def main() -> int:
                 "bound_by": bound_by(t["ops_ms"], t["bound_ms"]), "launches": launches,
                 "max_out_err_of_max": t["rel"], "tile_rounding_rms": t["tiled"]}
 
+    graph_k1 = {f"graph_phase_{dt}": r["launches"] for dt, r in graph.items()}
     bf16_launches = (bf16_serving["launches"] + tp_bf16_serving["launches"]
                      + ev["bf16"]["launches"] + tp_ev["bf16"]["launches"])
     # K1 and K4 on the paths of the lambda phase (its plain and swept rounds,
@@ -4283,6 +4506,12 @@ def main() -> int:
               f"convolutions {100 * r['conv']['bfloat16']['share']:.1f}% of kernel time "
               f"(f32 {100 * r['conv']['float32']['share']:.1f}%); K1 launches {r['launches']}",
               flush=True)
+    for dt, r in graph.items():
+        print(f"CUDA graphs, CoAM-W48 {dt}: predict {r['ms']['eager']:.2f} ms/image eager, "
+              f"{r['ms']['replay']:.2f} replayed; predict_batch {r['ms']['batch_eager']:.2f} "
+              f"eager, {r['ms']['batch_replay']:.2f} replayed; start-up (2 captures) "
+              f"{r['start_s']:.2f} s; export {r['export_s']:.1f} s, load {r['load_s']:.1f} s, "
+              f"{r['export_gap']:.3e} from the live estimator; card: {card}", flush=True)
     for name, r in (("CoAM-W48", ev["bf16"]), ("TransPose-H", tp_ev["bf16"])):
         print(f"bf16 evaluation {name}: one round {r['crops_s']:.2f} crops/s, AP {r['ap']!r}, "
               f"K1 launches {r['launches']}; a validate step's convolutions "
@@ -4320,7 +4549,10 @@ def main() -> int:
                       + ev["launches"]["flash_fwd"] + tp_serving_launches
                       + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]
                       + bf16_launches + new_k1["lambda_f32"] + new_k1["inference_f32"]
-                      + sum(new_k1["datasets"].values()) + new_k1["host_loader"]),
+                      + sum(new_k1["datasets"].values()) + new_k1["host_loader"]
+                      + sum(graph_k1.values())),
+         # the graph phase's main path (f32, bf16): warm-ups and replays
+         "graph_launches": graph_k1,
          # its launches on the lambda sweep (f32, bf16), the OCHuman and animal
          # evaluation rounds, inference (f32, bf16) and pose_resnet's paths
          "more_paths": new_k1,

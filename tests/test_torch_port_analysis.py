@@ -17,6 +17,7 @@ the CPU.
   of the same batch and heatmaps.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import json
 
 import cv2

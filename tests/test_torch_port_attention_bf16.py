@@ -34,6 +34,7 @@ model's worst call.
   the port's bf16 model is from its own f32 model.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import contextlib
 
 import jax.numpy as jnp

@@ -40,6 +40,7 @@ prints every number):
   (MODEL_TOL_STEPS), and the per-module tests are the proof.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import copy
 import functools
 

@@ -1,6 +1,7 @@
 """buctd_tpu_torch: config parity, import isolation, and the helpers the other
 port tests share (tiny CoAM configs, JAX weights carried across)."""
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import subprocess
 import sys
 import types

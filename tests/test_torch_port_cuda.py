@@ -48,6 +48,7 @@ matmul of TF32-rounded operands within 1e-4 of the peak of cuBLAS's own
 TF32 product, which the exact product misses.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import numpy as np
 import pytest
 import torch
@@ -274,8 +275,10 @@ def test_tiny_estimator_on_cuda_matches_cpu(cuda):
     before = fa.flash_attention.launches
     got = est.predict(img, conds, float("-inf"))
     # one launch per round: branch 0 runs 32*24 = 768 tokens (>= 512^2 pairs);
-    # branch 1's 192 tokens take the batched matmul
-    assert fa.flash_attention.launches == before + 3
+    # branch 1's 192 tokens take the batched matmul; the first call of a
+    # bucket runs two eager warm-ups, the graph's capture (which launches
+    # nothing) and a replay (graphs.py)
+    assert fa.flash_attention.launches == before + 3 * 3
     want = est_cpu.predict(img, conds, float("-inf"))
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-4)
 
@@ -868,7 +871,8 @@ def test_remat_gradients_on_the_card(cuda, model_name):
 @pytest.mark.cuda
 def test_bf16_estimator_runs_the_tensor_core_forward(cuda, monkeypatch):
     """A tiny bf16 PoseEstimator (TPU.EVAL_DTYPE bfloat16) on the card:
-    finite poses, K1 launched once a round through its tensor-core kernel
+    finite poses, K1 launched once a round (in the first call's two warm-ups and
+    its replay) through its tensor-core kernel
     (flash_fwd_tc_kernel in the profile, no SIMT and no 3xTF32 forward), its
     warp on TF32 operands and an f32 estimator's warp exact in the same
     process, the process's flags as they were after both."""
@@ -897,10 +901,11 @@ def test_bf16_estimator_runs_the_tensor_core_forward(cuda, monkeypatch):
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     before = fa.flash_attention.launches
     out = est.predict(img, conds, float("-inf"))
-    assert fa.flash_attention.launches == before + 2
+    # a round each, in the bucket's two eager warm-ups and its first replay
+    assert fa.flash_attention.launches == before + 2 * 3
     assert out.shape == (2, 14, 3) and np.isfinite(out).all()
     f32.predict(img, conds, float("-inf"))
-    assert seen == [(True, False), (True, False), (False, False)]
+    assert seen == [(True, False)] * (2 * 3) + [(False, False)] * 3
     assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1191,3 +1196,89 @@ def test_matmul_warp_engine_on_the_card(cuda):
     torch.testing.assert_close(got.cpu(), cpu, atol=1e-4, rtol=0)
     plain = tw.warp_affine_reference(imgs.to(cuda), t.to(cuda), (128, 96))
     torch.testing.assert_close(got, plain, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_replay_equals_eager_refine(cuda, dtype):
+    """The tiny estimator's admitted buckets are CUDA graphs (serving.py,
+    graphs.py): precompiled at start-up, replayed by predict and
+    predict_batch bit for bit equal to ``est.refine`` run eagerly on the same
+    padded inputs (the same kernels on the same inputs), each replay
+    counting the K1 launches its capture recorded; a call past the budget
+    pads up into an admitted graph."""
+    from buctd_tpu_torch.buckets import pad_image, pad_rows, to_host
+    from buctd_tpu_torch.serving import PoseEstimator
+
+    cfg = load_cfg("torch", opts=TINY_COAM + ["TPU.EVAL_DTYPE", dtype])
+    torch.manual_seed(3)
+    est = PoseEstimator(cfg, refine_iters=2, max_compiles=2,
+                        precompile=[(256, 256, 4), (2, 256, 256, 4)])
+    _randomize(est.model)   # in place: the captured graphs read the new weights
+    assert sorted(est._graphs.keys()) == [(2, 256, 256, 4), (256, 256, 4)]
+    rng = np.random.RandomState(5)
+    imgs = [rng.randint(0, 256, (200, 240, 3)).astype(np.uint8) for _ in range(2)]
+    conds = [np.concatenate([rng.uniform(40, 180, (3, 14, 2)), np.ones((3, 14, 1))],
+                            -1).astype(np.float32) for _ in range(2)]
+
+    def eager(*padded):
+        preds, maxvals = est.refine(*(torch.from_numpy(x).to(cuda) for x in padded[:2]),
+                                    img_wh=torch.from_numpy(padded[2]).to(cuda))
+        return to_host(preds, maxvals)
+
+    before = fa.flash_attention.launches
+    got = est.predict(imgs[0], conds[0], float("-inf"))
+    got_batch = est.predict_batch(imgs, conds, float("-inf"))
+    padded_up = est.predict(imgs[1][:150], conds[1][:2], float("-inf"))   # (256, 256, 2)
+    # three replays of two rounds, K1 once a round
+    assert fa.flash_attention.launches == before + 3 * 2
+    assert est._compiled == {(256, 256, 4), (2, 256, 256, 4)}
+    np.testing.assert_array_equal(got, eager(*pad_image(imgs[0], conds[0], 256, 256, 4))[:3])
+    want = eager(*pad_rows(list(zip(imgs, conds)), 2, 256, 256, 4))
+    for row in range(2):
+        np.testing.assert_array_equal(got_batch[row], want[row][:3])
+    np.testing.assert_array_equal(
+        padded_up, eager(*pad_image(imgs[1][:150], conds[1][:2], 256, 256, 4))[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exported_artifact_on_cuda_matches_live(cuda, dtype, tmp_path):
+    """The tiny estimator exported on the card (serving_export.py) and loaded
+    there: its programs, replayed as CUDA graphs, launch K1 (the flash
+    operator's CUDA kernel) and give the live estimator's poses within
+    chip_smoke.py's EXPORT_ATOL, bit for bit expected; a CPU load refuses
+    the CUDA artifact."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from buctd_tpu_torch.serving import PoseEstimator
+    from buctd_tpu_torch.serving_export import ExportedPoseEstimator
+
+    cfg = load_cfg("torch", opts=TINY_COAM + ["TPU.EVAL_DTYPE", dtype,
+                                              "TPU.ATTENTION_ENGINE", "flash"])
+    torch.manual_seed(4)
+    est = PoseEstimator(cfg, refine_iters=2)
+    _randomize(est.model)
+    manifest = est.export([(256, 256, 4), (2, 256, 256, 4)], str(tmp_path))
+    assert manifest["platforms"] == ["cuda"] and manifest["eval_dtype"] == dtype
+    art = ExportedPoseEstimator(str(tmp_path))
+    rng = np.random.RandomState(6)
+    imgs = [rng.randint(0, 256, (200, 240, 3)).astype(np.uint8) for _ in range(2)]
+    conds = [rng.uniform(40, 180, (3, 14, 2)).astype(np.float32) for _ in range(2)]
+    got = [art.predict(imgs[0], conds[0], float("-inf")),
+           *art.predict_batch(imgs, conds, float("-inf"))]
+    want = [est.predict(imgs[0], conds[0], float("-inf")),
+            *est.predict_batch(imgs, conds, float("-inf"))]
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, atol=1e-3, rtol=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        art.predict(imgs[0], conds[0], float("-inf"))
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernel = "flash_fwd_tf32_kernel" if dtype == "float32" else "flash_fwd_tc_kernel"
+    assert any(kernel in n for n in names), names
+    with pytest.raises(ValueError, match="exported for"):
+        ExportedPoseEstimator(str(tmp_path), device="cpu")

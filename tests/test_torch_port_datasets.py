@@ -6,6 +6,7 @@ json equal, every AP stat within 1e-6).  OCHuman is COCO's class; the
 animal sets score with a flat 0.1 sigma and NMS with ``joints_weight / 10``.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import json
 
 import numpy as np

@@ -23,6 +23,7 @@
   results, round 1 reading round 0's.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import json
 import pickle
 

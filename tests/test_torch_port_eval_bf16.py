@@ -49,6 +49,7 @@ prints every gap the tests hold.
   ``predict_many`` is a loop of ``predict``.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import functools
 
 import jax

@@ -21,6 +21,7 @@ forward that rounds q' but leaves p * keep * c unrounded misses out by 3.7e-4
 to 8.8e-4: the tolerances tell the rounding from its absence.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import functools
 
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ bits for the same seed, other bits for another.  The CUDA kernels draw the same
 hash; chip_smoke.py holds them against these plain versions on the card.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -26,6 +26,7 @@ csrc/flash_bwd.cu by text substitution; each variant's substitutions must
 still apply to the source.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

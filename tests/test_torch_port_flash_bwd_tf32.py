@@ -33,6 +33,7 @@ plain backward.  Here:
 * ``bwd_loop_tile`` against the .cuh's looped-tile rule.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import re
 
 import jax.numpy as jnp

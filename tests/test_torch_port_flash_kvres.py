@@ -13,6 +13,7 @@ for bit: K1' and K2' are K1's and K2's kernels with a deeper ring) by
 tests/test_torch_port_cuda.py (marked ``cuda``) and chip_smoke.py.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

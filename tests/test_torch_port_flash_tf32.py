@@ -34,6 +34,7 @@ f32 forward.  Here:
   source.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

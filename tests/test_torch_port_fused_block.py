@@ -13,6 +13,7 @@ against the plain version on the card by tests/test_torch_port_cuda.py and
 chip_smoke.py.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -36,6 +36,7 @@ and chip_smoke.py hold it against the plain version.  Here:
   step apart.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import re
 
 import jax.numpy as jnp

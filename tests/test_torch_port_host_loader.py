@@ -24,6 +24,7 @@ Both packages read the same CrowdPose-format set, seeded alike, one loader
 thread each, so the host draws come in the same order.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import json
 import zipfile
 

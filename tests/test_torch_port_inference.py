@@ -19,6 +19,7 @@ weights (JAX through ``torch_to_flax``).
   orbax directory raises and names ROADMAP.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import os
 import sys
 import types

@@ -25,6 +25,7 @@
   tools/test.py:95-98.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import json
 
 import numpy as np

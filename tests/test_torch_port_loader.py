@@ -9,6 +9,7 @@ are the two-pass warp.  Tolerances are those of
 tests/test_device_pipeline.py:48-72 (its device-vs-host comparison).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import numpy as np
 import pytest
 import torch

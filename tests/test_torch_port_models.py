@@ -6,6 +6,7 @@ branch 1 runs 192.  Heatmaps (values up to ~20) agree to 1e-4 absolute: f32
 convs and attention summed in another order differ by ~2e-5 here.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ different summation order, so 1e-4 px / 1e-3 intensity levels on 0..255
 pixels; renders peak at 255, so 1e-3 absolute; decode coordinates 1e-4 px.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

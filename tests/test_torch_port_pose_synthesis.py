@@ -20,6 +20,7 @@ TPU.DEVICE_SYNTHESIS) vs buctd_tpu's (data/pose_synthesis_jax.py), on the CPU.
   batch, the next step other draws, and the conditions differ from GT.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import itertools
 import types
 

@@ -11,6 +11,7 @@ heatmaps' max (the fold reassociates f32 sums); PoseEstimator predictions
 1e-3 px and confidences 1e-3 (as tests/test_torch_port_serving.py).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

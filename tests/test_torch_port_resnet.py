@@ -23,6 +23,7 @@ forward returns JAX's dtype, and the heatmaps lie within
 test_torch_port_bf16_trunk.py's whole-model tolerance in bf16 steps.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

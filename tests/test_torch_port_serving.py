@@ -10,6 +10,7 @@ coordinates and confidences to 1e-3 (f32 crops and forwards in another
 summation order, carried through up to three rounds).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

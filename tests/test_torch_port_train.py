@@ -20,6 +20,7 @@
 * the entry point trains, checkpoints and refuses what is not ported.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import json
 
 import jax

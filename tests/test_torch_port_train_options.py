@@ -27,6 +27,7 @@ warm starts.
   with each option and writes checkpoint_ep{epoch}.pth every 20 epochs.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@
   ``mfu_string`` rates against the H100's bf16 peak.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import json
 import logging
 import math

@@ -42,6 +42,7 @@ inputs.  Tolerances:
   move a difference by 2e-4).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import functools
 
 import jax

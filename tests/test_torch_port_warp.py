@@ -6,6 +6,7 @@ and against the banded-matmul engine, in one batch mixing rotations 0, 30,
 The CUDA kernel is held against this plain version by chip_smoke.py and
 tests/test_torch_port_cuda.py on the card."""
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -25,6 +25,7 @@ The kernel itself is held against its two-pass form and the plain version on
 the card (tests/test_torch_port_cuda.py, chip_smoke.py).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import re
 from pathlib import Path
 

@@ -13,6 +13,7 @@ holds K4's plain version to); ``crop_images`` the same.  The engine through
 loader with ``TPU.WARP_ENGINE matmul`` against JAX's, launching no K4.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest
