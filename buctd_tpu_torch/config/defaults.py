@@ -186,9 +186,9 @@ def default_config() -> CN:
     # COMPUTE_DTYPE, DEVICE_PIPELINE (False: the host cv2 Loader; True: the
     # device loader), WARP_ENGINE (auto/pallas: K4; matmul: torch.einsum),
     # PREFETCH, FUSED_PRENET, DEVICE_SYNTHESIS, REMAT, REMAT_MODE and
-    # FUSED_OPTIMIZER; a MESH_SHAPE over more than one card raises.  The other
-    # keys belong to paths not ported yet; buctd_tpu/config/defaults.py
-    # documents them.
+    # FUSED_OPTIMIZER, and MESH_SHAPE/MESH_AXES (parallel/mesh.py: the mesh
+    # must match the run's cards, one a process).  The other keys belong to
+    # paths not ported yet; buctd_tpu/config/defaults.py documents them.
     _C.TPU = CN()
     _C.TPU.MESH_SHAPE = [-1]
     _C.TPU.MESH_AXES = ["data"]

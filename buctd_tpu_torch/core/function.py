@@ -14,6 +14,15 @@ The lambda sweeps of the legacy loop (lib/core/validate.py:175-430):
 (``TEST.LAMBDA_SWEEP``) and the qualitative ``validate_lambda``.
 ``DEBUG.DEBUG`` makes ``validate``, and ``train_epoch`` every 50th epoch,
 write utils/vis.py's debug images.
+
+In a run of several processes (torch.distributed) each process evaluates
+its contiguous shard of the set (the loaders serve its rows of the global
+batch), then the evaluations merge every process's rows
+(parallel/mesh.py::dcn_merge_rows, JAX function.py:239-252) and every
+process runs the same ``dataset.evaluate`` on the whole set: process 0 in
+``output_dir``, process i in ``output_dir/proc{i}``, so no two write one
+file; debug images carry ``_proc{i}``.  The logged loss and accuracy are
+the global batches' (``_meters``).
 """
 
 from __future__ import annotations
@@ -25,13 +34,15 @@ import time
 import numpy as np
 import torch
 
-from ..data.pipeline import condition_mode, render_condition
+from ..data.pipeline import condition_mode, render_condition, shard_length
 from ..geometry import flip_pairs_to_perm
 from ..models import autocast, compute_dtype
 from ..ops.decode import get_final_preds
+from ..parallel.mesh import dcn_merge_rows, fill_mesh_shape
+from ..utils import distributed
 from ..utils.prefetch import prefetch
 from .loss import joints_lambda_mse_loss, make_loss
-from .metrics import pck_accuracy
+from .metrics import pck_accuracy, pck_counts, pck_from_counts
 
 logger = logging.getLogger(__name__)
 
@@ -105,16 +116,61 @@ def train_epoch(cfg, train_loader, train_step, epoch: int, max_steps=None,
 
 
 def check_eval_options(cfg) -> None:
-    """Raise on the evaluation options of the JAX package not ported yet."""
-    unported = [
-        (list(cfg.TPU.MESH_SHAPE) not in ([-1], [1]),
-         f"TPU.MESH_SHAPE={list(cfg.TPU.MESH_SHAPE)} (the eval set sharded over cards)",
-         "ROADMAP Queue 1 items 6 and 8, 'multi-card'"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported to buctd_tpu_torch "
-                                      f"yet: {item}")
+    """Raise on evaluation options that cannot run: a ``TPU.MESH_SHAPE``
+    that does not match the run's cards (one a process)."""
+    fill_mesh_shape(cfg.TPU.MESH_SHAPE, distributed.process_info()[1])
+
+
+def _meters(steps, counts):
+    """The loss and accuracy meters over a loop's steps.  ``steps``: per
+    step (its valid rows, loss, acc, cnt); ``counts``: per step the
+    per-joint PCK hits and counts (``pck_counts``), kept in a run of
+    several processes only.  One process: each step's loss weighted by
+    its valid rows, its accuracy by its cnt.  Several: one all-reduce makes
+    each step's values the global batch's (the mean of the processes'
+    losses, PCK from the summed counts) and its weights the global ones."""
+    losses, acc = AverageMeter(), AverageMeter()
+    world = distributed.process_info()[1]
+    if world == 1:
+        for (n, loss, a, cnt) in steps:
+            losses.update(float(loss), n)
+            acc.update(float(a), int(cnt))
+        return losses, acc
+    import torch.distributed as dist
+
+    rows = torch.stack([torch.cat([loss.float().view(1) / world,
+                                   loss.new_full((1,), float(n), dtype=torch.float32),
+                                   hits.float(), cnts.float()])
+                        for (n, loss, _, _), (hits, cnts) in zip(steps, counts)])
+    dist.all_reduce(rows)
+    J = (rows.shape[1] - 2) // 2
+    for row in rows:
+        a, cnt = pck_from_counts(row[2:J + 2], row[J + 2:])
+        losses.update(float(row[0]), int(row[1]))
+        acc.update(float(a), int(cnt))
+    return losses, acc
+
+
+def _merge(val_dataset, all_preds, all_boxes, image_path, db_index, output_dir,
+           capacity: int):
+    """Every process's rows of an evaluation, on every process, with the
+    image paths rebuilt from the gathered db indices, and the directory this
+    process evaluates into (``proc{i}`` for i > 0).  One process: as given."""
+    rank, world = distributed.process_info()
+    if world == 1:
+        return all_preds, all_boxes, image_path, str(output_dir)
+    all_preds, all_boxes, db_idx, _ = dcn_merge_rows(all_preds, all_boxes, db_index,
+                                                    len(all_preds), capacity)
+    image_path = [val_dataset.db[int(j)]["image"] for j in db_idx]
+    if rank > 0:
+        output_dir = os.path.join(str(output_dir), f"proc{rank}")
+        os.makedirs(output_dir, exist_ok=True)
+    return all_preds, all_boxes, image_path, str(output_dir)
+
+
+def _proc_tag() -> str:
+    rank, world = distributed.process_info()
+    return f"_proc{rank}" if world > 1 else ""
 
 
 def _eval_step(cfg, model, flip_pairs, mirror):
@@ -220,8 +276,8 @@ def validate(cfg, val_loader, val_dataset, model, output_dir, epoch=-1, writer=N
     check_eval_options(cfg)
     model.eval()
     step = make_validate_step(cfg, model, val_dataset.flip_pairs, val_dataset.kpt_colors)
-    losses, acc = AverageMeter(), AverageMeter()
-    outs, metas = [], []
+    several = distributed.process_info()[1] > 1
+    outs, counts, metas = [], [], []
     t0 = time.perf_counter()
     it = prefetch(val_loader, None, int(getattr(cfg.TPU, "PREFETCH", 2)))
     try:
@@ -229,22 +285,23 @@ def validate(cfg, val_loader, val_dataset, model, output_dir, epoch=-1, writer=N
             preds, maxvals, loss, a, cnt, hm = step(batch)
             n = int(batch["valid"].sum())
             outs.append((preds[:n], maxvals[:n], loss, a, cnt))
+            if several:
+                counts.append(pck_counts(hm, batch["target"])[:2])
             metas.append({k: batch[k][:n] for k in ("center", "scale", "score",
-                                                    "annotation_id", "image_path")})
+                                                    "annotation_id", "image_path",
+                                                    "db_index")})
             if i % cfg.PRINT_FREQ == 0 or i == len(val_loader) - 1:
                 logger.info("Test: [%d/%d]\tLoss %.6f\tAccuracy %.3f", i,
                             len(val_loader) - 1, float(loss), float(a))
                 if cfg.DEBUG.DEBUG:
-                    prefix = os.path.join(str(output_dir),
-                                          f"val_epoch_{epoch:09d}_iter_{i}{print_prefix}")
+                    prefix = os.path.join(str(output_dir), f"val_epoch_{epoch:09d}_iter_{i}"
+                                                           f"{print_prefix}{_proc_tag()}")
                     _debug_dump(cfg, batch, hm, prefix)
     finally:
         it.close()
     preds = torch.cat([o[0] for o in outs]).cpu().numpy()
     maxvals = torch.cat([o[1] for o in outs]).float().cpu().numpy()
-    for (p, _, loss, a, cnt) in outs:
-        losses.update(float(loss), len(p))
-        acc.update(float(a), int(cnt))
+    losses, acc = _meters([(len(o[0]), *o[2:]) for o in outs], counts)
     t1 = time.perf_counter()
 
     N = len(preds)
@@ -259,8 +316,13 @@ def validate(cfg, val_loader, val_dataset, model, output_dir, epoch=-1, writer=N
     all_boxes[:, 5] = np.concatenate([m["score"] for m in metas])
     all_boxes[:, 6] = np.concatenate([m["annotation_id"] for m in metas])
     image_path = [p for m in metas for p in m["image_path"]]
+    all_preds, all_boxes, image_path, eval_dir = _merge(
+        val_dataset, all_preds, all_boxes, image_path,
+        np.concatenate([m["db_index"] for m in metas]), output_dir,
+        shard_length(len(val_dataset)))
+    N = len(all_preds)
 
-    name_values, perf = val_dataset.evaluate(cfg, all_preds, str(output_dir), all_boxes,
+    name_values, perf = val_dataset.evaluate(cfg, all_preds, eval_dir, all_boxes,
                                              image_path, epoch)
     t2 = time.perf_counter()
     logger.info("Test%s: %d crops, loop %.3f s (%.2f crops/s), evaluate %.3f s, "
@@ -305,6 +367,13 @@ def make_validate_lambda_step(cfg, model, flip_pairs, use_lambda: bool = True):
     ``lambda_vec`` (B, 2) to the model's lambda head; without it (a model
     with no head) the two passes of a sweep run the same forward and only
     their score bookkeeping differs."""
+    step = _lambda_step(cfg, model, flip_pairs, use_lambda)
+    return lambda batch, lambda_vec: step(batch, lambda_vec)[:5]
+
+
+def _lambda_step(cfg, model, flip_pairs, use_lambda: bool):
+    """``make_validate_lambda_step``'s step with the heatmaps as a sixth
+    output (the sweep over processes takes their PCK counts)."""
     device = next(model.parameters()).device
     step = _eval_step(cfg, model, flip_pairs,
                       lambda batch, perm: torch.flip(batch["input"], dims=[3]))
@@ -312,7 +381,7 @@ def make_validate_lambda_step(cfg, model, flip_pairs, use_lambda: bool = True):
     def lambda_step(batch, lambda_vec):
         kw = ({"lambda_vec": torch.as_tensor(lambda_vec, dtype=torch.float32, device=device)}
               if use_lambda else {})
-        return step(batch, **kw)[:5]
+        return step(batch, **kw)
 
     return lambda_step
 
@@ -336,10 +405,10 @@ def validate_lambda_quantitative(cfg, val_loader, val_dataset, model, output_dir
     (``crops``: rows x lambdas)."""
     model.eval()
     use_lambda = bool(getattr(model, "lambda_head", False))
-    step = make_validate_lambda_step(cfg, model, val_dataset.flip_pairs, use_lambda)
+    step = _lambda_step(cfg, model, val_dataset.flip_pairs, use_lambda)
     lambda_vals = list(lambda_vals)
-    losses, acc = AverageMeter(), AverageMeter()
-    outs, metas = [], []
+    several = distributed.process_info()[1] > 1
+    outs, counts, metas = [], [], []
     t0 = time.perf_counter()
     it = prefetch(val_loader, None, int(getattr(cfg.TPU, "PREFETCH", 2)))
     try:
@@ -347,10 +416,12 @@ def validate_lambda_quantitative(cfg, val_loader, val_dataset, model, output_dir
             B = batch["input"].shape[0]
             n = int(batch["valid"].sum())
             for lam in lambda_vals:
-                preds, maxvals, loss, a, cnt = step(batch, _lambda_vec(lam, B))
+                preds, maxvals, loss, a, cnt, hm = step(batch, _lambda_vec(lam, B))
                 outs.append((preds[:n], maxvals[:n], loss, a, cnt))
+                if several:
+                    counts.append(pck_counts(hm, batch["target"])[:2])
                 meta = {k: batch[k][:n] for k in ("center", "scale", "annotation_id",
-                                                  "image_path")}
+                                                  "image_path", "db_index")}
                 # lam = 0 keeps a decayed box score (validate.py:245-250)
                 meta["score"] = batch["score"][:n] * (cfg.TEST.DECAY_THRE if lam == 0 else 1.0)
                 meta["lambda"] = float(lam)
@@ -362,9 +433,7 @@ def validate_lambda_quantitative(cfg, val_loader, val_dataset, model, output_dir
         it.close()
     preds = torch.cat([o[0] for o in outs]).cpu().numpy()
     maxvals = torch.cat([o[1] for o in outs]).float().cpu().numpy()
-    for (p, _, loss, a, cnt) in outs:
-        losses.update(float(loss), len(p))
-        acc.update(float(a), int(cnt))
+    losses, acc = _meters([(len(o[0]), *o[2:]) for o in outs], counts)
     t1 = time.perf_counter()
 
     N = len(preds)
@@ -380,8 +449,13 @@ def validate_lambda_quantitative(cfg, val_loader, val_dataset, model, output_dir
     all_boxes[:, 6] = np.concatenate([m["annotation_id"] for m in metas])
     all_boxes[:, 7] = np.concatenate([np.full(len(m["score"]), m["lambda"]) for m in metas])
     image_path = [p for m in metas for p in m["image_path"]]
+    all_preds, all_boxes, image_path, eval_dir = _merge(
+        val_dataset, all_preds, all_boxes, image_path,
+        np.concatenate([m["db_index"] for m in metas]), output_dir,
+        len(lambda_vals) * shard_length(len(val_dataset)))
+    N = len(all_preds)
 
-    nv, nv0, nv1, perf = val_dataset.evaluate(cfg, all_preds, str(output_dir), all_boxes,
+    nv, nv0, nv1, perf = val_dataset.evaluate(cfg, all_preds, eval_dir, all_boxes,
                                               image_path, epoch)
     t2 = time.perf_counter()
     logger.info("Test%s (lambda sweep %s): %d crops, loop %.3f s (%.2f crops/s), "
@@ -408,7 +482,8 @@ def validate_lambda(cfg, val_loader, val_dataset, model, output_dir=None, epoch=
     lambda_vec = [lam, 1 - lam] and the lambda-weighted double loss; the
     reference deep-copies the targets for the 'b' branch (:349-352), so the
     weights sum out and only the model's response to lambda varies.  No
-    decode, no AP; returns {lam: (mean loss, mean acc)}.  The forward runs in
+    decode, no AP; returns {lam: (mean loss, mean acc)}, the global
+    batches' in a run of several processes.  The forward runs in
     ``TPU.EVAL_DTYPE``."""
     del val_dataset, output_dir, epoch, writer, print_prefix
     model.eval()
@@ -426,18 +501,21 @@ def validate_lambda(cfg, val_loader, val_dataset, model, output_dir=None, epoch=
         lam = lambda_vec[:, 0]
         loss = (per_sample * lam).mean() + (per_sample * (1.0 - lam)).mean()
         acc, cnt, _ = pck_accuracy(out, batch["target"])
-        return loss, acc, cnt
+        return loss, acc, cnt, out
 
-    meters = {lam: (AverageMeter(), AverageMeter()) for lam in lambda_vals}
+    several = distributed.process_info()[1] > 1
+    steps = {lam: ([], []) for lam in lambda_vals}
     for batch in val_loader:
         B = batch["input"].shape[0]
         n = int(batch["valid"].sum())
         for lam in lambda_vals:
-            loss, a, cnt = step(batch, _lambda_vec(lam, B))
-            meters[lam][0].update(float(loss), n)
-            meters[lam][1].update(float(a), int(cnt))
+            loss, a, cnt, hm = step(batch, _lambda_vec(lam, B))
+            steps[lam][0].append((n, loss, a, cnt))
+            if several:
+                steps[lam][1].append(pck_counts(hm, batch["target"])[:2])
     out = {}
-    for lam, (lm, am) in meters.items():
+    for lam, (records, counts) in steps.items():
+        lm, am = _meters(records, counts)
         logger.info("lambda %.1f: loss %.6f acc %.3f", lam, lm.avg, am.avg)
         out[lam] = (lm.avg, am.avg)
     return out

@@ -13,12 +13,10 @@ import torch
 from ..ops.decode import get_max_preds
 
 
-def pck_accuracy(pred_heatmaps, target_heatmaps, thr: float = 0.5):
-    """Inputs (B, J, h, w).  Returns (avg_acc, cnt, pred_coords) as tensors.
-
-    cnt is the number of joint TYPES with any valid sample (<= J), what the
-    reference feeds its AverageMeter (evaluate.py:60-70).
-    """
+def pck_counts(pred_heatmaps, target_heatmaps, thr: float = 0.5):
+    """Inputs (B, J, h, w).  Returns the per-joint hits and valid counts
+    (J,) and the predicted coords: what ``pck_from_counts`` reduces, and
+    what processes sum to take the PCK of their global batch."""
     _, _, h, w = pred_heatmaps.shape
     pred, _ = get_max_preds(pred_heatmaps)     # bf16 maps: argmax on bf16, as JAX
     gt, _ = get_max_preds(target_heatmaps)
@@ -27,10 +25,25 @@ def pck_accuracy(pred_heatmaps, target_heatmaps, thr: float = 0.5):
     valid = (gt[..., 0] > 1) & (gt[..., 1] > 1)                   # (B, J)
     dist = torch.linalg.norm((pred - gt) / norm, dim=-1)
     hit = (dist < thr) & valid
-    per_joint_cnt = valid.sum(dim=0)                              # (J,)
+    return hit.sum(dim=0), valid.sum(dim=0), pred
+
+
+def pck_from_counts(hits, per_joint_cnt):
+    """(avg_acc, cnt) from per-joint hits and valid counts (J,)."""
     has = per_joint_cnt > 0
-    per_joint_acc = hit.sum(dim=0) / per_joint_cnt.clamp(min=1)
+    per_joint_acc = hits / per_joint_cnt.clamp(min=1)
     n_valid = has.sum()
     avg = torch.where(has, per_joint_acc, torch.zeros_like(per_joint_acc)).sum()
     avg = torch.where(n_valid > 0, avg / n_valid.clamp(min=1), torch.zeros_like(avg))
+    return avg, n_valid
+
+
+def pck_accuracy(pred_heatmaps, target_heatmaps, thr: float = 0.5):
+    """Inputs (B, J, h, w).  Returns (avg_acc, cnt, pred_coords) as tensors.
+
+    cnt is the number of joint TYPES with any valid sample (<= J), what the
+    reference feeds its AverageMeter (evaluate.py:60-70).
+    """
+    hits, per_joint_cnt, pred = pck_counts(pred_heatmaps, target_heatmaps, thr)
+    avg, n_valid = pck_from_counts(hits, per_joint_cnt)
     return avg, n_valid, pred

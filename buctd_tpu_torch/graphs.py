@@ -10,8 +10,10 @@ stream first (that builds a hand kernel with nvcc at its first launch, sets
 its shared-memory attribute, sets up cuDNN and cuBLAS), then records one
 call into a ``torch.cuda.CUDAGraph`` reading static device copies of the
 inputs.  ``run``
-copies the host inputs into those buffers, replays the graph on the current
-stream and copies the outputs to the host at once.
+copies the host inputs into those buffers, replays the graph and copies the
+outputs to the host at once.  Capture and replay run on the pool's own
+device and stream, whatever device is current: a ``mesh=`` estimator
+(serving.py) keeps one ``BucketGraphs`` a card.
 
 All graphs of one ``BucketGraphs`` share one memory pool
 (``torch.cuda.graph_pool_handle()``).  That is safe because they never run
@@ -51,8 +53,11 @@ class BucketGraphs:
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"BucketGraphs captures CUDA graphs, not on {self.device}")
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(self.device)
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        with torch.cuda.device(self.device):
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
         # key -> (graph, static inputs, static outputs, {wrapper: launches a replay})
         self._graphs: dict = {}
         self._lock = threading.Lock()
@@ -64,7 +69,7 @@ class BucketGraphs:
         """Capture ``fn(*inputs)`` under ``key``, at the shapes and dtypes of
         ``inputs`` (host arrays or tensors, also the warm-up's values); a key
         already captured is left as it is, and ``fn`` is not kept."""
-        with self._lock:
+        with self._lock, torch.cuda.device(self.device):
             if key in self._graphs:
                 return
             static = [torch.as_tensor(x).to(self.device) for x in inputs]
@@ -86,9 +91,9 @@ class BucketGraphs:
 
     def run(self, key, *inputs) -> list:
         """Replay ``key``'s graph on ``inputs`` (the captured shapes and
-        dtypes) on the current stream; returns its outputs copied to the
+        dtypes) on the pool's stream; returns its outputs copied to the
         host (CPU tensors)."""
-        with self._lock:
+        with self._lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             graph, static, outputs, launched = self._graphs[key]
             for buf, x in zip(static, inputs):
                 x = torch.as_tensor(x)

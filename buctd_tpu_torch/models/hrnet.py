@@ -87,6 +87,73 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1, pad=None,
     return Conv2d(cin, cout, kernel, stride=stride, padding=pad, bias=bias)
 
 
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalisation over the GLOBAL batch: the rows of
+    every process of the run, as flax's BatchNorm under a batch-sharded jit.
+
+    Forward: each process takes its per-channel count, mean and sum of
+    squared deviations (in f32, or the input's wider type, then f64), one all-gather brings every
+    process's, and they merge exactly (Chan's pairwise formula) into the
+    global mean and biased variance, which normalise the local rows.
+    Backward: the two per-channel sums the input gradient needs, of dy and
+    of dy * x_hat, are all-reduced; the weight's and bias's gradients stay
+    this process's sums, which DDP's gradient average completes.  So each
+    process's backward is that of the sum of all processes' losses, as
+    torch's SyncBatchNorm does it.  Returns (y, global mean, global biased
+    variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        import torch.distributed as dist
+
+        C = x.shape[1]
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xa = x.to(acc)
+        var, mean = torch.var_mean(xa, dim=(0, 2, 3), correction=0)
+        n = x.numel() // C
+        local = torch.cat([mean.new_full((1,), float(n)), mean, var * n]).double()
+        parts = [torch.empty_like(local) for _ in range(_world_size())]
+        dist.all_gather(parts, local)
+        stats = torch.stack(parts)
+        counts, means, m2 = stats[:, :1], stats[:, 1:C + 1], stats[:, C + 1:]
+        total = counts.sum()
+        g_mean = (counts * means).sum(0) / total
+        g_var = (m2 + counts * (means - g_mean) ** 2).sum(0) / total
+        g_mean, g_var = g_mean.to(acc), g_var.to(acc)
+        invstd = torch.rsqrt(g_var + eps)
+        shape = (1, C, 1, 1)
+        y = ((xa - g_mean.view(shape)) * (invstd * weight.to(acc)).view(shape)
+             + bias.to(acc).view(shape))
+        # the count stays on the device: a host read would wait for the card
+        ctx.save_for_backward(x, weight, g_mean, invstd, total.to(acc))
+        ctx.mark_non_differentiable(g_mean, g_var)
+        return y.to(x.dtype), g_mean, g_var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        import torch.distributed as dist
+
+        x, weight, mean, invstd, total = ctx.saved_tensors
+        acc = mean.dtype
+        shape = (1, -1, 1, 1)
+        dya = dy.to(acc)
+        xhat = (x.to(acc) - mean.view(shape)) * invstd.view(shape)
+        sum_dy = dya.sum((0, 2, 3))
+        sum_dy_xhat = (dya * xhat).sum((0, 2, 3))
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums)
+        g_dy, g_dy_xhat = sums.chunk(2)
+        dx = (weight.to(acc) * invstd).view(shape) * (
+            dya - (g_dy / total).view(shape) - xhat * (g_dy_xhat / total).view(shape))
+        return dx.to(x.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype), None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """torch's BatchNorm2d with the flax running-variance update.
 
@@ -98,11 +165,29 @@ class BatchNorm2d(nn.BatchNorm2d):
     update, while the normalization still runs in torch's own kernel.  The
     recompute of a rematerialized unit runs the same op on copies of the
     statistics: its forward already moved them.
+
+    In a run of several processes (torch.distributed, world size > 1) the
+    statistics are the global batch's, as flax's under a batch-sharded jit
+    (``_GlobalBatchNorm``), and the running statistics move toward the
+    global mean and biased variance, identically on every process; the
+    recompute normalises again and moves nothing.  One process runs the op
+    above unchanged.
     """
 
     def forward(self, x):
         n = x.numel() // x.shape[1]
-        if not (self.training and self.track_running_stats) or n < 2:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        if _world_size() > 1:
+            with no_autocast(x):
+                out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            if not recomputing():
+                self.num_batches_tracked.add_(1)
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(var, self.momentum)
+            return out
+        if n < 2:
             return super().forward(x)
         c = (n - 1) / n
         var = self.running_var / c            # torch updates this copy in place

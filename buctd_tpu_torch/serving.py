@@ -29,8 +29,15 @@ start-up.  On the card an admitted bucket is one CUDA graph of ``refine``
 replayed from then on; on the CPU the same bookkeeping runs ``refine``
 eagerly.  ``refine`` itself stays the eager function.  ``export`` writes the
 admitted kind of program as a ``torch.export`` artifact
-(serving_export.py).  Data-parallel serving over several cards (the JAX
-``mesh=``) is ROADMAP Queue 1 items 6 and 8.
+(serving_export.py).
+
+``mesh=`` (parallel/mesh.py::make_mesh, JAX serving.py:87-133) serves over
+the mesh's local devices: each holds a replica of the model (and, on the
+card, its own pool of graphs), ``predict_batch`` splits a chunk's padded
+image rows into one equal contiguous block a device, runs the blocks at
+once (a thread a device) and concatenates them in order; the count buckets
+are (1, 2, 4, 8) x ``mesh.size``, so every device gets whole rows; and
+``predict`` runs on the first device, as JAX's un-meshed ``refine`` does.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ import logging
 
 import numpy as np
 import torch
+
+from concurrent.futures import ThreadPoolExecutor
 
 from .buckets import (COUNT_BUCKETS, bucket, canonical, finish, image_key, pad_image,
                       pad_rows, to_host)
@@ -58,13 +67,19 @@ class PoseEstimator:
     absent: there is no silent CPU path.  Pass ``device="cpu"`` to run the plain
     versions of the kernels on the CPU (the tests do).  ``max_compiles`` and
     ``precompile`` as buctd_tpu/serving.py:41-49 (the module docstring).
+    ``mesh`` (a parallel/mesh.py ``Mesh``) serves over its local devices, and
+    then the device is its first.
     """
 
     def __init__(self, cfg, checkpoint: str | None = None, refine_iters: int = 1,
-                 colors=None, max_compiles: int = 12, precompile=None, device="cuda"):
+                 colors=None, max_compiles: int = 12, precompile=None, device="cuda",
+                 mesh=None):
         from .convert import load_torch_checkpoint
         from .models import compute_dtype, get_model
 
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PoseEstimator: CUDA is not available; pass "
@@ -92,35 +107,61 @@ class PoseEstimator:
         self.colors = (np.asarray(colors) if colors is not None
                        else rainbow_colors(self.num_joints))
         self.refine_iters = max(int(refine_iters), 1)
-        self.refine = make_refine_fn(cfg, self.model, self.colors,
-                                     n_iters=self.refine_iters)
+        models = [self.model]
+        if mesh is not None:
+            from .parallel.mesh import replicate
+            models = replicate(self.model, mesh)
+        # (refine, graphs) a device; the first serves predict
+        self._replicas = [
+            (make_refine_fn(cfg, m, self.colors, n_iters=self.refine_iters),
+             BucketGraphs(d) if self.device.type == "cuda" else None)
+            for m, d in zip(models, mesh.devices if mesh is not None else [self.device])]
+        self.refine, self._graphs = self._replicas[0]
+        self._pool = (ThreadPoolExecutor(len(self._replicas)) if len(self._replicas) > 1
+                      else None)
+        self.count_buckets = (COUNT_BUCKETS if mesh is None
+                              else tuple(b * mesh.size for b in (1, 2, 4, 8)))
         self.max_compiles = int(max_compiles)
         self._compiled: set = set()   # admitted (h, w, p) and (n, h, w, p) buckets
-        self._graphs = BucketGraphs(self.device) if self.device.type == "cuda" else None
         for key in (precompile or ()):   # (h, w, p), or (n, h, w, p) for predict_batch
             key = tuple(int(v) for v in key)
-            lead = (bucket(key[0], COUNT_BUCKETS),) if len(key) == 4 else ()
+            lead = (bucket(key[0], self.count_buckets),) if len(key) == 4 else ()
             key = lead + image_key(*key[-3:])
             self._compiled.add(key)
-            self._warm(key, np.zeros(key[:-1] + (3,), np.uint8),
-                       np.ones(lead + (key[-1], self.num_joints, 3), np.float32),
-                       np.ones(lead + (2,), np.float32))
+            self._run(key, np.zeros(key[:-1] + (3,), np.uint8),
+                      np.ones(lead + (key[-1], self.num_joints, 3), np.float32),
+                      np.ones(lead + (2,), np.float32), warm_only=True)
 
-    def _warm(self, key, image, conds, img_wh) -> None:
-        """Capture ``key``'s graph on the card; the CPU has nothing to warm."""
-        if self._graphs is not None:
-            self._graphs.capture(key, self.refine, image, conds, img_wh)
-
-    def _run(self, key, image, conds, img_wh) -> np.ndarray:
+    def _run(self, key, image, conds, img_wh, warm_only: bool = False):
         """``refine`` on inputs padded to bucket ``key`` -> (..., J, 3) on the
-        host: its graph's replay on the card (captured at the first call),
-        the eager function on the CPU."""
-        if self._graphs is None:
-            preds, maxvals = self.refine(*map(torch.from_numpy, (image, conds, img_wh)))
+        host: on the card the key's graph replayed (captured at its first
+        call), on the CPU the eager function.  A batched key over a mesh
+        runs one equal block of the rows a device, at once, and concatenates
+        them in order.  ``warm_only`` captures the graphs and runs nothing."""
+        k = len(self._replicas)
+        if len(key) == 4 and k > 1:
+            sub = (key[0] // k,) + key[1:]
+            blocks = [(sub, *parts) for parts in zip(*(np.split(a, k)
+                                                       for a in (image, conds, img_wh)))]
         else:
-            self._warm(key, image, conds, img_wh)
-            preds, maxvals = self._graphs.run(key, image, conds, img_wh)
-        return to_host(preds, maxvals)
+            blocks = [(key, image, conds, img_wh)]
+
+        pairs = list(zip(self._replicas, blocks))
+        # captures one at a time: a capture forbids other threads' CUDA calls
+        for (refine, graphs), (bkey, *inputs) in pairs:
+            if graphs is not None:
+                graphs.capture(bkey, refine, *inputs)
+        if warm_only:
+            return None
+
+        def one(pair):
+            (refine, graphs), (bkey, *inputs) = pair
+            if graphs is not None:
+                return graphs.run(bkey, *inputs)
+            return refine(*map(torch.from_numpy, inputs))
+
+        outs = list(self._pool.map(one, pairs)) if len(pairs) > 1 else [one(pairs[0])]
+        return np.concatenate([to_host(*o) for o in outs], axis=0)
 
     def _pick_bucket(self, hb: int, wb: int, pb: int):
         """Bucket key to run at, honoring the compile budget: the call's own
@@ -168,7 +209,8 @@ class PoseEstimator:
     def predict_batch(self, images, conditions, vis_thres: float = 0.0) -> list:
         """Process many (image, condition_poses) pairs: images of one
         (height, width, poses) bucket run as one batch of N*P crops, in chunks
-        of up to COUNT_BUCKETS[-1] images padded to a count bucket.  A chunk
+        of up to ``count_buckets[-1]`` images padded to a count bucket (over
+        a mesh, one equal block of the rows a device).  A chunk
         rides the smallest admitted count bucket that holds it; where the
         budget admits no batched shape, its images run one by one
         (buctd_tpu/serving.py:214-282).  Returns a list of (P_i, J, 3) arrays
@@ -180,12 +222,12 @@ class PoseEstimator:
 
         out: list = [None] * len(pairs)
         for (hb, wb, pb), idxs in groups.items():
-            for pos in range(0, len(idxs), COUNT_BUCKETS[-1]):
-                chunk = idxs[pos:pos + COUNT_BUCKETS[-1]]
+            for pos in range(0, len(idxs), self.count_buckets[-1]):
+                chunk = idxs[pos:pos + self.count_buckets[-1]]
                 if len(chunk) == 1:
                     out[chunk[0]] = self.predict(*pairs[chunk[0]], vis_thres)
                     continue
-                nb = bucket(len(chunk), COUNT_BUCKETS)
+                nb = bucket(len(chunk), self.count_buckets)
                 bkey = (nb, hb, wb, pb)
                 if bkey not in self._compiled:
                     # pad rows into an admitted count bucket rather than admit

@@ -85,8 +85,11 @@ def export_estimator(est, shapes, out_dir: str) -> dict:
     shapes: (h, w, p) single-image keys and/or (n, h, w, p) batched keys,
     the tuples ``PoseEstimator(precompile=...)`` takes; h, w and p snap up
     to the bucket tables, n is kept (buctd_tpu/serving_export.py:146-151).
-    Each program is traced on ``est``'s device in its dtype.  Returns the
-    manifest.
+    Each program is traced on ``est``'s device in its dtype.  A ``mesh=``
+    estimator exports the per-device program: its first replica's, at the
+    key's own shape, the program an estimator without a mesh exports
+    (buctd_tpu/serving_export.py:97-98; serving over a mesh splits the rows
+    at the call site).  Returns the manifest.
     """
     os.makedirs(out_dir, exist_ok=True)
     state = {k: v.detach() for k, v in est.model.state_dict().items()}

@@ -22,8 +22,10 @@ a "predictions" field per entry ((P, J, 3) [x, y, conf] lists; entries below
 
 ``--exported`` serves a ``tools.export`` artifact (no model code); the live
 estimator's flags are refused beside it, since the artifact fixes them.
-``--data-parallel`` is refused (ROADMAP Queue 1 items 6 and 8), as is an
-orbax ``--checkpoint`` (item 10).
+``--data-parallel`` serves over every local card (JAX tools/serve.py:50,
+:83-94): ``parallel/mesh.py::make_mesh()`` and ``PoseEstimator(mesh=)``,
+one replica a card; with ``--device cpu`` over the CPU alone.  An orbax
+``--checkpoint`` is refused (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import types
 import numpy as np
 
 _LIVE_DEFAULTS = {"cfg": None, "checkpoint": None, "refine_iters": 1, "max_compiles": 12,
-                  "precompile": [], "opts": []}
+                  "precompile": [], "opts": [], "data_parallel": False}
 
 
 def parse_args(argv=None):
@@ -54,7 +56,8 @@ def parse_args(argv=None):
     p.add_argument("--precompile", action="append", default=[],
                    help="h,w,p (or n,h,w,p batched) bucket to warm at start-up (repeatable)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="refused: serving over several cards is not ported yet")
+                   help="shard each batch's images over every local card "
+                        "(a live estimator only)")
     p.add_argument("--device", default="cuda")
     p.add_argument("opts", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -65,10 +68,6 @@ def build_estimator(args):
     PoseEstimator; raises SystemExit on what is refused."""
     from ..serving import ORBAX_ITEM
 
-    if args.data_parallel:
-        from ..train.state import _MULTI_CARD
-        raise SystemExit(f"--data-parallel: serving over several cards is not ported to "
-                         f"buctd_tpu_torch yet: {_MULTI_CARD}")
     if args.exported:
         live = sorted(k for k, v in _LIVE_DEFAULTS.items() if getattr(args, k) != v)
         if live:
@@ -91,9 +90,18 @@ def build_estimator(args):
     cfg = default_config()
     update_config(cfg, types.SimpleNamespace(cfg=args.cfg, opts=args.opts))
     precompile = [tuple(int(v) for v in s.split(",")) for s in args.precompile]
+    mesh = None
+    if args.data_parallel:
+        import torch
+
+        from ..parallel.mesh import make_mesh
+
+        devices = None if torch.device(args.device).type == "cuda" else [args.device]
+        mesh = make_mesh(devices=devices)
+        print(f"# data-parallel over {mesh.size} device(s): {[str(d) for d in mesh.devices]}")
     return PoseEstimator(cfg, checkpoint=args.checkpoint, refine_iters=args.refine_iters,
                          max_compiles=args.max_compiles, precompile=precompile,
-                         device=args.device)
+                         device=args.device, mesh=mesh)
 
 
 def main(argv=None) -> list:

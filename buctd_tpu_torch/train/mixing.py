@@ -21,16 +21,54 @@ batch's device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..utils import distributed
+
+
+def _previous_last_rows(tensors) -> list:
+    """The last row of each of ``tensors`` on the previous process (process
+    0: the last process), through one all-gather of every process's last
+    rows."""
+    import torch.distributed as dist
+
+    rank, world = distributed.process_info()
+    wide = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    last = torch.cat([t[-1:].reshape(-1).to(wide) for t in tensors])
+    parts = [torch.empty_like(last) for _ in range(world)]
+    dist.all_gather(parts, last)
+    flat, rows, at = parts[(rank - 1) % world], [], 0
+    for t in tensors:
+        size = t[-1:].numel()
+        rows.append(flat[at:at + size].view_as(t[-1:]).to(t.dtype))
+        at += size
+    return rows
+
 
 def _pair(batch):
-    """Foreground = batch, background = batch rolled by one (pairs i with i-1)."""
-    roll = lambda a: torch.roll(a, 1, dims=0)  # noqa: E731
+    """Foreground = batch, background = the global batch rolled by one
+    (pairs i with i-1)."""
+    keys = ("input", "target", "target_weight")
+    rolled = {k: torch.roll(batch[k], 1, dims=0) for k in keys}
+    if distributed.process_info()[1] > 1:
+        for k, row in zip(keys, _previous_last_rows([batch[k] for k in keys])):
+            rolled[k] = torch.cat([row, rolled[k][1:]])
     return {"target_f": batch["target"], "target_weight_f": batch["target_weight"],
-            "target_b": roll(batch["target"]),
-            "target_weight_b": roll(batch["target_weight"])}, roll(batch["input"])
+            "target_b": rolled["target"],
+            "target_weight_b": rolled["target_weight"]}, rolled["input"]
+
+
+def local_rows(draws: dict, B: int) -> dict:
+    """This process's rows of draws made for the global batch of B rows a
+    process (contiguous, in process order); the draws themselves in one
+    process."""
+    rank, world = distributed.process_info()
+    if world == 1:
+        return draws
+    return {k: v[rank * B:(rank + 1) * B] for k, v in draws.items()}
 
 
 def _on(x, values, dtype=torch.float32):

@@ -40,10 +40,22 @@ the test set through the host ``Loader``, whatever ``TPU.DEVICE_PIPELINE``
 says, with the best AP so far tracked and its weights in ``model_best.pth``
 beside ``checkpoint.pth`` (``--no-eval`` skips validation).
 
+Several cards, one process a card, as tools/train.py:37-47 and :86-95:
+``--coordinator host:port --num-processes N --process-id R`` on each
+process (or ``torchrun``'s environment) joins them
+(parallel/distributed.py, NCCL on the card, gloo with ``--device cpu``)
+before any CUDA work, and each process trains on ``cuda:<local rank>``.
+The mesh (``TPU.MESH_SHAPE``, parallel/mesh.py) must match the cards.
+The loaders take the GLOBAL batch, ``BATCH_SIZE_PER_GPU x mesh.size``, and
+serve this process's rows of it; the model's parameters are broadcast from
+process 0 and the steps run under DDP with global-batch BatchNorm
+(train/state.py).  Process 0 alone writes the checkpoints, the log file
+and ``metrics.jsonl``, with a barrier after each save; ``AUTO_RESUME``
+loads on every process; validation merges every process's rows
+(core/function.py::validate).
+
 Not ported yet, and refused with the ROADMAP item named: an orbax
-``TEST.MODEL_FILE`` and a mesh over more than one card
-(``train/state.py::check_train_options``,
-``core/function.py::check_eval_options``).
+``TEST.MODEL_FILE``.
 """
 
 from __future__ import annotations
@@ -55,6 +67,8 @@ import pprint
 from pathlib import Path
 
 import torch
+
+from ..parallel.distributed import barrier, is_primary
 
 logger = logging.getLogger("buctd_tpu_torch.train")
 
@@ -73,9 +87,36 @@ def parse_args(argv=None):
     parser.add_argument("--no-eval", dest="no_eval", action="store_true",
                         help="skip validation")
     parser.add_argument("--device", type=str, default="cuda")
+    add_process_flags(parser)
     parser.add_argument("opts", nargs=argparse.REMAINDER,
                         help="Modify config options using the command-line")
     return parser.parse_args(argv)
+
+
+def add_process_flags(parser) -> None:
+    """The multi-process flags of tools/train.py:37-47 and tools/test.py.
+    Run the same command once a card with ``--coordinator <host0:port>
+    --num-processes N --process-id <rank>``, or under ``torchrun`` with
+    none of them."""
+    parser.add_argument("--coordinator", type=str, default=None)
+    parser.add_argument("--num-processes", dest="num_processes", type=int, default=None)
+    parser.add_argument("--process-id", dest="process_id", type=int, default=None)
+
+
+def start_processes(args, who: str) -> torch.device:
+    """Join the run's processes (a no-op in one process) before any CUDA
+    work; returns the device this process runs on: ``cuda:<local rank>`` on
+    the card in a run of several processes, else ``--device``."""
+    from ..parallel.distributed import initialize_distributed, process_device
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: CUDA is not available; pass --device cpu to run on "
+                           "the CPU")
+    if initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                              device=device.type) and device.type == "cuda":
+        device = process_device()
+    return device
 
 
 def _refuse_unported(cfg) -> None:
@@ -107,27 +148,39 @@ def save_checkpoint(model, optimizer, epoch: int, out_dir: Path, perf: float = 0
                     is_best: bool = False, name: str = "checkpoint.pth"):
     """``name`` (checkpoint.pth) in the reference's layout (lib/utils/utils.py:
     save_checkpoint): epoch, model name, state_dict, best_state_dict, perf,
-    optimizer; with ``is_best`` the state dict alone as model_best.pth."""
-    sd = model.state_dict()
-    torch.save({"epoch": epoch, "model": type(model).__name__, "state_dict": sd,
-                "best_state_dict": sd, "perf": perf,
-                "optimizer": optimizer.state_dict()}, out_dir / name)
-    if is_best:
-        torch.save(sd, out_dir / "model_best.pth")
+    optimizer; with ``is_best`` the state dict alone as model_best.pth.
+    Process 0 writes; every process waits at the barrier after it."""
+    if is_primary():
+        sd = model.state_dict()
+        torch.save({"epoch": epoch, "model": type(model).__name__, "state_dict": sd,
+                    "best_state_dict": sd, "perf": perf,
+                    "optimizer": optimizer.state_dict()}, out_dir / name)
+        if is_best:
+            torch.save(sd, out_dir / "model_best.pth")
+    barrier()
 
 
-def make_loader(cfg, dataset, device, train: bool, seed: int = 0):
+def save_final(model, out_dir: Path) -> None:
+    """final_state.pth (the state dict) from process 0, then the barrier."""
+    if is_primary():
+        torch.save(model.state_dict(), out_dir / "final_state.pth")
+    barrier()
+
+
+def make_loader(cfg, dataset, device, train: bool, seed: int = 0, cards: int = 1):
     """The loader tools/train.py:116-128 builds: for training the device
     loader with ``TPU.DEVICE_PIPELINE``, else the host cv2 ``Loader``; for
-    validation (``train`` False) always the host ``Loader``."""
+    validation (``train`` False) always the host ``Loader``.  The batch is
+    the global one, the per-card batch times ``cards`` (the mesh's size);
+    the loader serves this process's rows of it."""
     from ..data.device_pipeline import DeviceLoader
     from ..data.pipeline import Loader
 
     if not train:
-        return Loader(dataset, cfg, batch_size=cfg.TEST.BATCH_SIZE_PER_GPU,
+        return Loader(dataset, cfg, batch_size=cfg.TEST.BATCH_SIZE_PER_GPU * cards,
                       num_workers=cfg.WORKERS, device=device)
     cls = DeviceLoader if cfg.TPU.DEVICE_PIPELINE else Loader
-    return cls(dataset, cfg, batch_size=cfg.TRAIN.BATCH_SIZE_PER_GPU,
+    return cls(dataset, cfg, batch_size=cfg.TRAIN.BATCH_SIZE_PER_GPU * cards,
                shuffle=cfg.TRAIN.SHUFFLE, num_workers=cfg.WORKERS, seed=seed, device=device)
 
 
@@ -140,6 +193,7 @@ def main(argv=None) -> dict:
     from ..data.datasets import get_dataset
     from ..data.pipeline import num_input_channels
     from ..models import get_model
+    from ..parallel.mesh import make_mesh, replicate
     from ..utils.logging_utils import MetricWriter, create_logger, set_seed
     from ..utils.profiler import trace_context
     from ..utils.summary import model_summary
@@ -147,12 +201,10 @@ def main(argv=None) -> dict:
                         make_train_step)
 
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("buctd_tpu_torch.train.run: CUDA is not available; "
-                           "pass --device cpu to train on the CPU")
+    device = start_processes(args, "buctd_tpu_torch.train.run")
     cfg = default_config()
     update_config(cfg, args)
+    mesh = make_mesh(cfg, devices=[device])     # raises where it does not match the cards
     check_train_options(cfg)
     _refuse_unported(cfg)
     if not args.no_eval:
@@ -173,8 +225,10 @@ def main(argv=None) -> dict:
     summary = model_summary(model, (1, num_input_channels(cfg), img_h, img_w))
     logger.info(summary["text"])
     load_warm_start(cfg, model)
+    replicate(model, mesh)                      # process 0's parameters on every process
+    logger.info("=> mesh %s %s over %d card(s)", mesh.axis_names, mesh.shape, mesh.size)
     dataset = get_dataset(cfg, is_train=True)
-    loader = make_loader(cfg, dataset, device, train=True, seed=args.seed)
+    loader = make_loader(cfg, dataset, device, train=True, seed=args.seed, cards=mesh.size)
     steps_per_epoch = max(len(loader), 1)
     optimizer = make_optimizer(cfg, model)
     scheduler = make_lr_schedule(cfg, optimizer, steps_per_epoch)
@@ -213,7 +267,8 @@ def main(argv=None) -> dict:
             perf = 0.0
             if ((epoch + 1) % cfg.EPOCH_EVAL_FREQ == 0
                     or epoch == cfg.TRAIN.END_EPOCH - 1) and valid_set is not None:
-                valid_loader = make_loader(cfg, valid_set, device, train=False)
+                valid_loader = make_loader(cfg, valid_set, device, train=False,
+                                           cards=mesh.size)
                 try:
                     _, perf = validate(cfg, valid_loader, valid_set, model, out_dir,
                                        epoch=epoch, writer=writer)
@@ -229,7 +284,7 @@ def main(argv=None) -> dict:
     finally:
         loader.close()
         writer.close()
-    torch.save(model.state_dict(), out_dir / "final_state.pth")
+    save_final(model, out_dir)
     logger.info("=> %d steps; final state in %s", done, out_dir / "final_state.pth")
     return {"steps": done, "begin_epoch": begin_epoch, "stats": all_stats,
             "perf": perfs, "output_dir": out_dir, "log_dir": Path(log_dir),

@@ -23,33 +23,67 @@ its units (models/remat.py), or the step the whole forward.
 tensors, and ``TrainStep`` with ``DEBUG.DEBUG`` also the heatmaps ``out``
 (for the debug dumps), and makes no host sync, so steps queue up on the
 card.
+
+In a run of several processes (torch.distributed, one a card) the steps run
+the model under ``DistributedDataParallel``: each process's gradients are
+averaged over the processes, so the update is that of the global batch's
+mean loss, as JAX's psum-mean under a batch-sharded jit; BatchNorm takes the
+global batch's statistics (models/hrnet.py::BatchNorm2d); the first k-1
+micro-steps of ``GRAD_ACCUM_STEPS`` run under ``no_sync``; ``loss``, ``acc``
+and ``cnt`` are the global batch's (``global_metrics``).  Every process
+seeds its dropout generator alike: JAX hashes the masks on the replicated
+seed and each shard's local rows (buctd_tpu/ops/flash_attention.py:791-850).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from ..core.loss import make_loss
-from ..core.metrics import pck_accuracy
+from ..core.metrics import pck_accuracy, pck_counts, pck_from_counts
 from ..models import autocast, compute_dtype
 from ..models.attention import set_dropout_generator
 from ..models.remat import checkpoint, remat_mode
-
-_MULTI_CARD = "ROADMAP Queue 1 items 6 and 8, 'multi-card'"
+from ..parallel.mesh import fill_mesh_shape
+from ..utils import distributed
 
 
 def check_train_options(cfg) -> None:
-    """Raise on the training options of the JAX package not ported yet."""
-    unported = [
-        (list(cfg.TPU.MESH_SHAPE) not in ([-1], [1]),
-         f"TPU.MESH_SHAPE={list(cfg.TPU.MESH_SHAPE)} (a mesh: multi-card DDP)"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported to buctd_tpu_torch "
-                                      f"yet: {_MULTI_CARD}")
-    remat_mode(cfg)                     # an unknown REMAT_MODE raises here
+    """Raise on training options that cannot run: a ``TPU.MESH_SHAPE`` that
+    does not match the run's cards (one a process), an unknown REMAT_MODE."""
+    fill_mesh_shape(cfg.TPU.MESH_SHAPE, distributed.process_info()[1])
+    remat_mode(cfg)
+
+
+def global_metrics(loss, out, target):
+    """(loss, acc, cnt) of the global batch: the mean of the processes'
+    losses (equal row counts), and PCK from the summed per-joint hits and
+    counts (core/metrics.py::pck_from_counts), through one all-reduce."""
+    import torch.distributed as dist
+
+    world = distributed.process_info()[1]
+    hits, counts, _ = pck_counts(out, target)
+    vec = torch.cat([loss.detach().float().view(1) / world, hits.float(), counts.float()])
+    dist.all_reduce(vec)
+    J = hits.shape[0]
+    acc, cnt = pck_from_counts(vec[1:J + 1], vec[J + 1:])
+    return vec[0], acc, cnt
+
+
+class _Forward(torch.nn.Module):
+    """The model's forward, or with ``remat`` the whole forward as one
+    checkpointed unit: the module DDP wraps, so that a recompute runs the
+    model's forward and not DDP's."""
+
+    def __init__(self, model, remat: bool):
+        super().__init__()
+        self.model, self.remat = model, remat
+
+    def forward(self, x):
+        return checkpoint(self.model, x) if self.remat else self.model(x)
 
 
 def accum_steps(cfg) -> int:
@@ -98,11 +132,37 @@ class TrainStep:
         self.remat_forward = bool(mode) and (mode == "forward" or not hasattr(model, "remat"))
         self.debug = bool(cfg.DEBUG.DEBUG)
         set_dropout_generator(model, generator)
+        self.run = _Forward(model, self.remat_forward)
+        self.world = distributed.process_info()[1]
+        if self.world > 1:
+            dev = next(model.parameters()).device
+            self.run = torch.nn.parallel.DistributedDataParallel(
+                self.run, device_ids=[dev] if dev.type == "cuda" else None,
+                broadcast_buffers=False)   # global BN keeps them equal on every process
 
     def forward(self, x):
         self.model.train()
         with autocast(x.device, self.dtype):
-            return checkpoint(self.model, x) if self.remat_forward else self.model(x)
+            return self.run(x)
+
+    def sync(self):
+        """The context of one micro-step: DDP's ``no_sync`` for the first
+        k-1 of ``GRAD_ACCUM_STEPS`` in a run of several processes (their
+        gradients accumulate locally and the k-th averages the sum)."""
+        if self.world > 1 and self.micro < self.accum - 1:
+            return self.run.no_sync()
+        return contextlib.nullcontext()
+
+    def metrics(self, loss, out, target) -> dict:
+        """{loss, acc, cnt} of the batch: the global batch's in a run of
+        several processes."""
+        with torch.no_grad():
+            if self.world > 1:
+                loss, acc, cnt = global_metrics(loss, out, target)
+            else:
+                loss = loss.detach()
+                acc, cnt, _ = pck_accuracy(out, target)
+        return {"loss": loss, "acc": acc, "cnt": cnt}
 
     def apply(self, loss) -> None:
         """Backward; the optimizer step on the k-th micro-batch, with the
@@ -122,12 +182,11 @@ class TrainStep:
 
     def __call__(self, batch) -> dict:
         x, target, weight = batch["input"], batch["target"], batch["target_weight"]
-        out = self.forward(x)
-        loss = self.loss_fn(out.float(), target, weight)
-        self.apply(loss)
-        with torch.no_grad():
-            acc, cnt, _ = pck_accuracy(out.detach().float(), target)
-        metrics = {"loss": loss.detach(), "acc": acc, "cnt": cnt}
+        with self.sync():
+            out = self.forward(x)
+            loss = self.loss_fn(out.float(), target, weight)
+            self.apply(loss)
+        metrics = self.metrics(loss, out.detach().float(), target)
         if self.debug:
             # the heatmaps, for train_epoch's debug dumps (JAX state.py:179-181)
             metrics["out"] = out.detach()
@@ -143,15 +202,14 @@ class DoubleTrainStep(TrainStep):
     computes both accuracies and keeps the last (train.py:224-228)."""
 
     def __call__(self, batch) -> dict:
-        out = self.forward(batch["input"]).float()
-        w_f = batch["target_weight_f"] * batch["lambda_f"][:, None]
-        w_b = batch["target_weight_b"] * batch["lambda_b"][:, None]
-        loss = (self.loss_fn(out, batch["target_f"], w_f)
-                + self.loss_fn(out, batch["target_b"], w_b))
-        self.apply(loss)
-        with torch.no_grad():
-            acc, cnt, _ = pck_accuracy(out.detach(), batch["target_b"])
-        return {"loss": loss.detach(), "acc": acc, "cnt": cnt}
+        with self.sync():
+            out = self.forward(batch["input"]).float()
+            w_f = batch["target_weight_f"] * batch["lambda_f"][:, None]
+            w_b = batch["target_weight_b"] * batch["lambda_b"][:, None]
+            loss = (self.loss_fn(out, batch["target_f"], w_f)
+                    + self.loss_fn(out, batch["target_b"], w_b))
+            self.apply(loss)
+        return self.metrics(loss, out.detach(), batch["target_b"])
 
 
 class MixedTrainStep(DoubleTrainStep):
@@ -171,8 +229,14 @@ class MixedTrainStep(DoubleTrainStep):
         self.seed, self.calls = int(seed), 0
 
     def draw(self, batch) -> dict:
+        """The call's draws for this process's rows: drawn for the global
+        batch on every process alike, then its rows taken
+        (train/mixing.py::local_rows)."""
+        from .mixing import local_rows
+
         rng = np.random.default_rng([self.seed, self.calls])
-        return self.draw_fn(rng, batch["input"].shape[0])
+        B = batch["input"].shape[0]
+        return local_rows(self.draw_fn(rng, B * distributed.process_info()[1]), B)
 
     def __call__(self, batch) -> dict:
         draws = self.draw(batch)

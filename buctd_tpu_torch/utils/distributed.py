@@ -10,8 +10,8 @@ from __future__ import annotations
 
 def process_info():
     """(process index, process count): ``torch.distributed``'s rank and world
-    size where it is initialised, else (0, 1).  Nothing in the port starts
-    more than one process yet (ROADMAP Queue 1 item 8, multi-card)."""
+    size where it is initialised, else (0, 1).  The entry points start the
+    group with parallel/distributed.py::initialize_distributed."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():

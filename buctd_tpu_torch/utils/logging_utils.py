@@ -21,18 +21,16 @@ from pathlib import Path
 
 import numpy as np
 
+from ..parallel.distributed import is_primary as _is_primary
 from . import distributed
-
-
-def _is_primary() -> bool:
-    return distributed.process_info()[0] == 0
 
 
 def create_logger(cfg, cfg_name: str, phase: str = "train"):
     """(logger, final output dir, tensorboard dir) for ``cfg`` and its yaml
     ``cfg_name``; the root logger gets a file handler on the timestamped
     log and a console handler (process 0; other processes log warnings to
-    the console, tagged with their rank)."""
+    the console).  In a run of several processes every console line is
+    tagged with its process."""
     root_output_dir = Path(cfg.OUTPUT_DIR or "output")
     dataset, model = cfg.DATASET.DATASET, cfg.MODEL.NAME
     cfg_name = os.path.basename(cfg_name).split(".")[0]
@@ -48,14 +46,15 @@ def create_logger(cfg, cfg_name: str, phase: str = "train"):
     for h in [h for h in logger.handlers if getattr(h, "_buctd_logger", False)]:
         logger.removeHandler(h)
         h.close()
+    rank, world = distributed.process_info()
+    sh = logging.StreamHandler()
+    if world > 1:
+        sh.setFormatter(logging.Formatter(f"[proc {rank}] %(asctime)-15s %(message)s"))
     if _is_primary():
         fh = logging.FileHandler(str(log_file))
         fh.setFormatter(logging.Formatter("%(asctime)-15s %(message)s"))
-        handlers = [fh, logging.StreamHandler()]
+        handlers = [fh, sh]
     else:
-        sh = logging.StreamHandler()
-        sh.setFormatter(logging.Formatter(
-            f"[proc {distributed.process_info()[0]}] %(asctime)-15s %(message)s"))
         sh.setLevel(logging.WARNING)
         handlers = [sh]
     for h in handlers:

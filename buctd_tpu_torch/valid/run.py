@@ -35,8 +35,17 @@ builds its model in that dtype; the loader's inputs stay f32.
 round, so with ``TEST.REFINE_ITERS`` > 1 it raises, as tools/test.py:95-98.
 A checkpoint with pose_hrnet's lambda head (``lambda_fc.*``) builds the
 model with it.  ``DEBUG.DEBUG`` writes utils/vis.py's debug images beside the
-results.  Not ported (see ``core/function.py::check_eval_options``): a
-sharded eval set.
+results.
+
+Several cards, one process a card, as tools/test.py:75-133: the flags
+``--coordinator host:port --num-processes N --process-id R`` (or
+``torchrun``'s environment) join the processes before any CUDA work
+(train/run.py::start_processes); the mesh (``TPU.MESH_SHAPE``) must match
+the cards; the loaders take ``TEST.BATCH_SIZE_PER_GPU x mesh.size`` and
+serve each process its shard; the weights are broadcast from process 0;
+``validate`` merges every process's rows and each process evaluates the
+whole set, process i > 0 under ``<output dir>/proc{i}``, whose results the
+next refinement round of that process reads.
 """
 
 from __future__ import annotations
@@ -48,6 +57,9 @@ from pathlib import Path
 
 import torch
 
+from ..train.run import add_process_flags, start_processes
+from ..utils import distributed
+
 logger = logging.getLogger("buctd_tpu_torch.valid")
 
 
@@ -58,6 +70,7 @@ def parse_args(argv=None):
     parser.add_argument("--logDir", type=str, default="")
     parser.add_argument("--dataDir", type=str, default="")
     parser.add_argument("--device", type=str, default="cuda")
+    add_process_flags(parser)
     parser.add_argument("opts", nargs=argparse.REMAINDER,
                         help="Modify config options using the command-line")
     return parser.parse_args(argv)
@@ -100,17 +113,16 @@ def main(argv=None) -> dict:
     from ..data.device_pipeline import DeviceLoader
     from ..data.pipeline import Loader, num_input_channels
     from ..models.fuse import maybe_fuse_prenet
+    from ..parallel.mesh import make_mesh, replicate
     from ..utils.logging_utils import MetricWriter, create_logger
     from ..utils.profiler import trace_context
     from ..utils.summary import model_summary
 
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("buctd_tpu_torch.valid.run: CUDA is not available; "
-                           "pass --device cpu to evaluate on the CPU")
+    device = start_processes(args, "buctd_tpu_torch.valid.run")
     cfg = default_config()
     update_config(cfg, args)
+    mesh = make_mesh(cfg, devices=[device])     # raises where it does not match the cards
     check_eval_options(cfg)
     if device.type == "cuda":
         # f32 means f32 (the JAX path evaluates at Precision.HIGHEST); a bf16
@@ -122,6 +134,7 @@ def main(argv=None) -> dict:
     logger.info(pprint.pformat(cfg))
     writer = MetricWriter(log_dir)
     model = load_model(cfg, device, out_dir)
+    replicate(model, mesh)                      # process 0's weights on every process
     model = maybe_fuse_prenet(cfg, model)        # as tools/test.py:87-88
     img_w, img_h = int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1])
     summary = model_summary(model, (1, num_input_channels(cfg), img_h, img_w))
@@ -144,7 +157,7 @@ def main(argv=None) -> dict:
                 cfg.freeze()
             dataset = get_dataset(cfg, is_train=False)
             cls = DeviceLoader if cfg.TPU.DEVICE_PIPELINE else Loader
-            loader = cls(dataset, cfg, batch_size=cfg.TEST.BATCH_SIZE_PER_GPU,
+            loader = cls(dataset, cfg, batch_size=cfg.TEST.BATCH_SIZE_PER_GPU * mesh.size,
                          num_workers=cfg.WORKERS, device=device)
             stats = {}
             try:
@@ -161,8 +174,11 @@ def main(argv=None) -> dict:
             finally:
                 loader.close()
             suffix = "_merged" if cfg.TEST.LAMBDA_SWEEP else ""
+            rank = distributed.process_info()[0]
+            # each process reads back what its own evaluate wrote
+            own_dir = out_dir / f"proc{rank}" if rank > 0 else out_dir
             results = cfg.OUTPUT_JSON or str(
-                out_dir / "results" / f"keypoints_test_results_epoch{it}{suffix}.json")
+                own_dir / "results" / f"keypoints_test_results_epoch{it}{suffix}.json")
             logger.info("=> refinement round %d: AP %.4f", it, perf)
             rounds.append({"AP": perf, "name_values": name_values, "results": results,
                            **stats})

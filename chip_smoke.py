@@ -210,6 +210,14 @@ Phases (each raises on failure; nothing is caught):
      plain version (WARP_MATMUL_ATOL), timed beside K4, its peak memory.
      Every entry point logs the model summary, whose forward launches K1
      (2 for CoAM-W48, 6 for TransPose-H): each launch gate counts them.
+ 20. ``multicard_phase`` (last): the multi-card paths on the one card,
+     CoAM-W48 at full width: (a) the DDP step at NCCL world size 1 in the
+     yaml's bf16 bit for bit equal to the step without DDP; (b) two
+     processes of this script (``--multicard-child``) on the one card over
+     gloo, the f32 DDP step with global-batch BatchNorm on a global batch of
+     32, against one process on the 32 rows (losses at JAX's tolerance),
+     ms/step of both; (c) PoseEstimator(mesh=) with two replicas on cuda:0
+     against the one-device estimator; K1/K2 counted in each.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -222,6 +230,7 @@ import contextlib
 import copy
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -497,6 +506,27 @@ CONV_NAMES = ("conv", "fprop", "fft", "flip_filter", "cf32", "inograd", "nchwToN
 # the trainer's step options, OPTION_STEPS steps of CoAM-W48 each, beside a
 # run with none of them (the same length, the same set); REMAT's resident
 # step with and without remat in REMAT_ROUNDS turns (off, on, on, off)
+# multicard_phase: (a) DDP at NCCL world size 1 in the yaml's bf16,
+# MC_NCCL_BATCH rows, 2 steps, bit for bit the steps without DDP; (b) two
+# processes on the one card over gloo, MC_GLOBAL_BATCH rows (half a process)
+# in f32 with the attention dropout at 0, SGD (JAX's own 2-process test:
+# Adam's first step is lr * sign(g), which the order of the sums flips on
+# near-zero gradients) at MC_LR, 2 steps against one process on the same
+# rows at JAX's tolerance, then MC_TIMED_STEPS timed steps each; (c) mesh=
+# serving, two replicas on cuda:0, predict_batch of MC_SERVE_IMAGES against
+# the one-device estimator within EXPORT_ATOL.  MC_LR: at 0.01 the first
+# step takes the random-weight loss from 14.8 to 7.7, and the f32 rounding
+# of that step (cuDNN's algorithms differ by batch size and run) moved the
+# one process's own second loss 5.2e-4 between two runs on an H100 80GB
+# HBM3 at 700 W, against a gate of 7.8e-4 there; at 1e-3 the step, and that
+# rounding with it, is ten times smaller, while a wrong gradient reduction
+# still moves the second loss by a share of the step's whole change
+MC_LR = "0.001"
+MC_NCCL_BATCH = 8
+MC_GLOBAL_BATCH = 32
+MC_TIMED_STEPS = 3
+MC_LOSS_ATOL, MC_LOSS_RTOL = 1e-5, 1e-4
+MC_SERVE_IMAGES = 4
 OPTION_STEPS = 3
 REMAT_ROUNDS = 4
 OPTIONS = {"plain": [], "cutmix": ["TRAIN.MIX", "cutmix"], "mixup": ["TRAIN.MIX", "mixup"],
@@ -4254,6 +4284,412 @@ def inference_phase(torch, np, fa, eval_files) -> dict:
     return res
 
 
+
+def _mc_step(torch, cfg, model):
+    """The trainer's step (train/state.py::make_train_step) on ``model`` with
+    a seeded dropout generator; the model in training mode."""
+    from buctd_tpu_torch.train.state import make_lr_schedule, make_optimizer, make_train_step
+
+    optimizer = make_optimizer(cfg, model)
+    return make_train_step(cfg, model, optimizer, make_lr_schedule(cfg, optimizer, 10),
+                           torch.Generator().manual_seed(0), seed=0)
+
+
+def _mc_config(opts):
+    from buctd_tpu_torch.config import default_config, update_config
+
+    cfg = default_config()
+    update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=list(opts)))
+    return cfg
+
+
+def _mc_batch(torch, np, n: int, seed: int, device) -> dict:
+    rng = np.random.RandomState(seed)
+    return {"input": torch.from_numpy(rng.randn(n, 6, 384, 288).astype(np.float32)).to(device),
+            "target": torch.from_numpy((rng.rand(n, 14, 96, 72) > 0.999).astype(np.float32)
+                                       ).to(device),
+            "target_weight": torch.from_numpy((rng.rand(n, 14) > 0.2).astype(np.float32)
+                                              ).to(device)}
+
+
+def _mc_counts(fa) -> dict:
+    return {"flash_fwd": fa.flash_attention.launches, "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def _mc_zero(fa) -> None:
+    for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        f.launches = 0
+
+
+def _mc_f32_run(torch, np, fa, job: dict, rank: int, world: int) -> dict:
+    """Part (b)'s steps on this process's rows of the global batch: 2 steps
+    whose losses are compared, then MC_TIMED_STEPS timed ones; the losses,
+    ms/step, the K1/K2 launches of the 2 compared steps and the BN running
+    statistics after them."""
+    cfg = _mc_config(job["opts"])
+    from buctd_tpu_torch.models import get_model
+
+    model = get_model(cfg)
+    model.load_state_dict(torch.load(job["weights"], weights_only=True))
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    step = _mc_step(torch, cfg, model)
+    n = MC_GLOBAL_BATCH // world
+    batch = {k: v[rank * n:(rank + 1) * n] for k, v in
+             _mc_batch(torch, np, MC_GLOBAL_BATCH, 17, "cuda").items()}
+    _mc_zero(fa)                                       # the main path's run
+    losses = [float(step(batch)["loss"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = _mc_counts(fa)
+    stats = {k: v.cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    times = []
+    for _ in range(MC_TIMED_STEPS):
+        t0 = time.perf_counter()
+        float(step(batch)["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    # where a step's time goes: one profiled step (the collectives' kernels
+    # apart), and an all-reduce of a gradient-sized f32 buffer alone
+    by_name = kernel_profile(torch, lambda: float(step(batch)["loss"]),
+                             f"multicard step, process {rank} of {world}")
+    split = {"kernels_ms": sum(by_name.values()),
+             "collective_ms": sum(ms for k, ms in by_name.items()
+                                  if "nccl" in k.lower() or "gloo" in k.lower())}
+    if world > 1:
+        import torch.distributed as dist
+
+        buf = torch.zeros(sum(p.numel() for p in model.parameters()), device="cuda")
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        split["grad_allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+    return {"losses": losses, "ms": statistics.median(times), "launches": launches,
+            "stats": stats, **split}
+
+
+def multicard_child(argv) -> int:
+    """One process of part (b): ``chip_smoke.py --multicard-child RANK WORLD
+    PORT DIR``; joins the group (gloo on one card, NCCL over several), runs
+    ``_mc_f32_run`` on its rows and saves what it saw in DIR."""
+    import numpy as np
+    import torch
+
+    from buctd_tpu_torch.ops import flash_attention as fa
+    from buctd_tpu_torch.parallel.distributed import initialize_distributed, shutdown_distributed
+
+    rank, world, port, root = int(argv[0]), int(argv[1]), int(argv[2]), Path(argv[3])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # one card: two processes on it over gloo (NCCL refuses two ranks on one
+    # GPU); several: one process a card over NCCL
+    backend = "gloo" if torch.cuda.device_count() == 1 else None
+    if not initialize_distributed(f"localhost:{port}", world, rank, device="cuda",
+                                  backend=backend):
+        raise AssertionError("no process group")
+    job = torch.load(root / "job.pt", weights_only=False)
+    out = _mc_f32_run(torch, np, fa, job, rank, world)
+    torch.save(out, root / f"out{rank}.pt")
+    shutdown_distributed()
+    return 0
+
+
+def multicard_phase(torch, np, fa, card: str) -> dict:
+    """The multi-card paths on the one H100, CoAM-W48 at full width
+    (CONFIG, random N(0, 1/fan_in) weights):
+
+    (a) DDP at NCCL world size 1 (parallel/distributed.py over
+        tcp://localhost), the yaml's bf16 step: 2 steps of MC_NCCL_BATCH
+        rows under DistributedDataParallel equal 2 steps without it bit for
+        bit (losses and every parameter and buffer; cuDNN deterministic
+        for both);
+    (b) two processes on the one card over gloo (NCCL refuses two ranks on
+        one GPU), MC_GLOBAL_BATCH rows, f32, dropout 0, SGD at MC_LR: the DDP step
+        with global-batch BatchNorm, 2 steps, the losses within
+        MC_LOSS_ATOL + MC_LOSS_RTOL x |one process's| (JAX's tolerance for
+        its own sharded steps); the BN running statistics' largest gap
+        printed; ms/step of both;
+    (c) PoseEstimator(mesh=) with two replicas on cuda:0, f32, ROUNDS
+        rounds: predict_batch of MC_SERVE_IMAGES images within EXPORT_ATOL
+        of the one-device estimator on each replica's block of images (the
+        shapes each replica runs); the gap to it on the whole batch at once
+        printed.
+    K1 and K2 launches of each part's main path are counted.  On a machine
+    with several cards (``chip_smoke.py --multicard``) part (b) runs one
+    process a card over NCCL, part (c) one replica a card, and (d) runs
+    train.run and valid.run under torchrun (``_mc_entry_points``)."""
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.parallel import make_mesh
+    from buctd_tpu_torch.parallel.distributed import initialize_distributed, shutdown_distributed
+    from buctd_tpu_torch.serving import PoseEstimator
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="buctd_multicard_") as tmp:
+        root = Path(tmp)
+        torch.manual_seed(17)
+        model = get_model(_mc_config(["TPU.COMPUTE_DTYPE", "float32"]))
+        randomize(torch, model)
+        torch.save(model.state_dict(), root / "weights.pth")
+        del model
+
+        # (a) NCCL at world size 1: DDP vs no DDP, bit for bit
+        t0 = time.perf_counter()
+        port = _free_port()
+        if not initialize_distributed(f"localhost:{port}", 1, 0, device="cuda"):
+            raise AssertionError("(a): no process group")
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        bench, det = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+        runs = {}
+        try:
+            for ddp in (True, False):
+                torch.manual_seed(5)        # the channel attention's nn.Dropout draws from it
+                cfg = _mc_config([])
+                model = get_model(cfg)
+                model.load_state_dict(torch.load(root / "weights.pth", weights_only=True))
+                step = _mc_step(torch, cfg, model)
+                if ddp:
+                    step.run = torch.nn.parallel.DistributedDataParallel(
+                        step.run, device_ids=[torch.device("cuda", 0)], broadcast_buffers=False)
+                batch = _mc_batch(torch, np, MC_NCCL_BATCH, 5, "cuda")
+                _mc_zero(fa)                           # the main path's run
+                losses = [float(step(batch)["loss"]) for _ in range(2)]
+                torch.cuda.synchronize()
+                runs[ddp] = {"losses": losses, "launches": _mc_counts(fa),
+                             "state": {k: v.clone() for k, v in model.state_dict().items()}}
+                del step, model
+        finally:
+            torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = bench, det
+            shutdown_distributed()
+        same = runs[True]["losses"] == runs[False]["losses"] and all(
+            torch.equal(v, runs[False]["state"][k]) for k, v in runs[True]["state"].items())
+        want = {k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        print(f"multicard (a) {backend} world size 1, CoAM-W48 bf16 batch {MC_NCCL_BATCH}: DDP "
+              f"losses {runs[True]['losses']}, without DDP {runs[False]['losses']}, bit for "
+              f"bit (losses, {len(runs[True]['state'])} tensors): {same}; launches "
+              f"{runs[True]['launches']} (want {want}); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if backend != "nccl" or not same or runs[True]["launches"] != want:
+            raise AssertionError("(a): DDP at NCCL world size 1 differs from the plain steps")
+        res["nccl_launches"] = runs[True]["launches"]
+        del runs
+        torch.cuda.empty_cache()
+
+        # (b) one process on the global batch, then two processes over gloo
+        t0 = time.perf_counter()
+        opts = ["TPU.COMPUTE_DTYPE", "float32", "TRAIN.OPTIMIZER", "sgd", "TRAIN.LR", MC_LR]
+        job = {"opts": opts, "weights": str(root / "weights.pth")}
+        torch.save(job, root / "job.pt")
+        # cuDNN's heuristics, as in the processes (an earlier phase's
+        # CUDNN.BENCHMARK would pick algorithms by timing, run by run)
+        bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        try:
+            one = _mc_f32_run(torch, np, fa, job, 0, 1)
+        finally:
+            torch.backends.cudnn.benchmark = bench
+        torch.cuda.empty_cache()
+        port = _free_port()
+        cards = torch.cuda.device_count()
+        world = 2 if cards == 1 else cards
+        # NCCL names its transports (P2P, SHM, NET) in its INFO lines
+        env = dict(os.environ, NCCL_DEBUG="INFO") if cards > 1 else None
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--multicard-child", str(r), str(world), str(port), str(root)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  env=env)
+                 for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"(b): process {r} failed:\n{out[-4000:]}")
+        two = [torch.load(root / f"out{r}.pt", weights_only=False) for r in range(world)]
+        transports = sorted({line.split(" via ")[1].split()[0] for out in outs
+                             for line in out.splitlines() if " via " in line})
+        gaps = [abs(a - b) for a, b in zip(two[0]["losses"], one["losses"])]
+        stat_gap = max(float((two[0]["stats"][k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                       for k, v in one["stats"].items())
+        want = {k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        where = ("2 processes on the one card over gloo" if cards == 1
+                 else f"{world} processes, one a card, over NCCL")
+        print(f"multicard (b) {where}, CoAM-W48 f32 global batch {MC_GLOBAL_BATCH}: losses "
+              f"{[t['losses'] for t in two]}, one process {one['losses']}, gaps {gaps} (limit "
+              f"{MC_LOSS_ATOL} + {MC_LOSS_RTOL} x |ref|); BN running statistics' largest gap "
+              f"{stat_gap:.3e} of their tensor's max; ms/step: one process "
+              f"{one['ms']:.2f} ({MC_GLOBAL_BATCH} rows), {world} processes "
+              f"{[round(t['ms'], 2) for t in two]} ({MC_GLOBAL_BATCH // world} rows each); "
+              f"launches a process {[t['launches'] for t in two]} (want {want}); card: {card}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"multicard (b) a profiled step: one process {one['kernels_ms']:.2f} ms of "
+              f"kernels; {world} processes {[round(t['kernels_ms'], 2) for t in two]} ms of "
+              f"kernels, of which collectives {[round(t['collective_ms'], 2) for t in two]}; "
+              f"an all-reduce of a gradient-sized f32 buffer alone "
+              f"{[round(t['grad_allreduce_ms'], 2) for t in two]} ms; "
+              f"transports {transports or 'gloo'}", flush=True)
+        if any(t["losses"] != two[0]["losses"] for t in two):
+            raise AssertionError("(b): the processes' global losses differ")
+        if not all(g <= MC_LOSS_ATOL + MC_LOSS_RTOL * abs(r)
+                   for g, r in zip(gaps, one["losses"])):
+            raise AssertionError("(b): two processes' losses off the one process's")
+        if any(t["launches"] != want for t in two) or one["launches"] != want:
+            raise AssertionError("(b): K1/K2 launches off")
+        res.update(one_ms=one["ms"], two_ms=[t["ms"] for t in two], loss_gaps=gaps, world=world,
+                   one_kernels_ms=one["kernels_ms"],
+                   kernels_ms=[t["kernels_ms"] for t in two],
+                   collective_ms=[t["collective_ms"] for t in two],
+                   grad_allreduce_ms=[t["grad_allreduce_ms"] for t in two],
+                   transports=transports,
+                   stat_gap=stat_gap,
+                   gloo_launches={k: sum(t["launches"][k] for t in two) for k in want})
+
+        # (c) mesh= serving: two replicas on cuda:0
+        t0 = time.perf_counter()
+        cfg = _mc_config([])
+        single = PoseEstimator(cfg, checkpoint=str(root / "weights.pth"), refine_iters=ROUNDS)
+        # one card: two replicas on it; several: one a card (make_mesh's default)
+        mesh = make_mesh(devices=["cuda:0", "cuda:0"] if cards == 1 else None)
+        est = PoseEstimator(cfg, checkpoint=str(root / "weights.pth"), refine_iters=ROUNDS,
+                            mesh=mesh)
+        rng = np.random.RandomState(17)
+        reqs = [sample_request(np, rng) for _ in range(MC_SERVE_IMAGES * max(cards // 2, 1))]
+        images, poses = [r[0] for r in reqs], [r[1] for r in reqs]
+        keep = float("-inf")
+        # the one-device estimator on each replica's block (the same shapes),
+        # and on the whole batch (other shapes: cuDNN may pick other
+        # algorithms, and a near-tie in the decode moves a joint)
+        k = len(est._replicas)
+        n = len(reqs) // k
+        want_out = [p for b in range(k) for p in single.predict_batch(
+            images[b * n:(b + 1) * n], poses[b * n:(b + 1) * n], keep)]
+        whole = single.predict_batch(images, poses, keep)
+        fa.flash_attention.launches = 0                # the main path's run
+        got = est.predict_batch(images, poses, keep)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want_out))
+        whole_err = max(float(np.abs(g - w).max()) for g, w in zip(got, whole))
+        # each replica: its block's bucket, two warm-ups and one replay, 2 K1 a
+        # forward, ROUNDS rounds
+        want_k1 = len(est._replicas) * 3 * 2 * ROUNDS
+        print(f"multicard (c) mesh= serving, {len(est._replicas)} replicas on "
+              f"{sorted({str(d) for d in mesh.devices})}, count buckets {est.count_buckets}: "
+              f"predict_batch of {len(reqs)} images {err:.3e} px from the one-device "
+              f"estimator on each replica's {n} images (limit {EXPORT_ATOL}), {whole_err:.3e} "
+              f"px from it on all {len(reqs)} at once; K1 launches "
+              f"{launches} (want {want_k1}); {time.perf_counter() - t0:.1f} s", flush=True)
+        if not all(np.isfinite(g).all() for g in got) or not err <= EXPORT_ATOL:
+            raise AssertionError("(c): mesh= serving off the one-device estimator")
+        if launches != want_k1:
+            raise AssertionError("(c): K1 launches off")
+        res["mesh_launches"] = launches
+        res["mesh_err"] = err
+        res["mesh_whole_err"] = whole_err
+        del est, single
+        torch.cuda.empty_cache()
+        if cards > 1:
+            res["entry"] = _mc_entry_points(np, root, cards)
+    return res
+
+
+def _mc_torchrun(cards: int, module: str, args: list, label: str) -> float:
+    """``module``'s main under torchrun, one process a card (NCCL); raises
+    with the output's tail where it fails; returns its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", str(cards), "-m", module, *args],
+                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    if proc.returncode != 0:
+        raise AssertionError(f"(d) {label}: rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def _mc_entry_points(np, root: Path, cards: int) -> dict:
+    """(d), several cards only: the entry points under torchrun, one process
+    a card over NCCL, on the stock yaml (the host cv2 Loader): train.run one
+    epoch of one global step of MC_GLOBAL_BATCH with its validation (the
+    merge over the gloo group beside NCCL), then valid.run of its
+    final_state.pth; every process's results equal process 0's, and one
+    process's valid.run of the same weights gives the same rows, its
+    keypoints' largest gap printed and the share within EXPORT_ATOL px
+    gated at 0.99 (other batch sizes, other cuDNN algorithms)."""
+    from buctd_tpu_torch.valid import run as valid_run
+
+    train_root, test_root = root / "train", root / "test"
+    train_root.mkdir()
+    test_root.mkdir()
+    images = MC_GLOBAL_BATCH // SYNTH_PEOPLE
+    train_ann = write_synthetic_set(np, train_root, images, SYNTH_PEOPLE)
+    test_ann = write_synthetic_set(np, test_root, images, SYNTH_PEOPLE, seed=11)
+    bu = write_bu_predictions(np, test_ann, test_root)
+    per = str(MC_GLOBAL_BATCH // cards)
+    test = ["DATASET.TEST_IMAGE_DIR", str(test_root), "DATASET.TEST_ANNOTATION_FILE",
+            str(test_ann), "TEST.COCO_BBOX_FILE", str(bu), "TEST.BATCH_SIZE_PER_GPU", per]
+    train_s = _mc_torchrun(cards, "buctd_tpu_torch.train.run", [
+        "--cfg", str(CONFIG), "DATASET.TRAIN_IMAGE_DIR", str(train_root),
+        "DATASET.TRAIN_ANNOTATION_FILE", str(train_ann), "TRAIN.BATCH_SIZE_PER_GPU", per,
+        "TRAIN.END_EPOCH", "1", "OUTPUT_DIR", str(root / "out"), "LOG_DIR", str(root / "log"),
+        *test], "train.run")
+    out = next((root / "out").glob("*/*/*"))
+    checks = {"checkpoint.pth": (out / "checkpoint.pth").exists(),
+              "final_state.pth": (out / "final_state.pth").exists(),
+              "logs": len(list(out.glob("*.log"))),
+              "metrics.jsonl": len(list((root / "log").glob("**/metrics.jsonl")))}
+    name = "results/keypoints_test_results_epoch0.json"
+    dirs = [out] + [out / f"proc{r}" for r in range(1, cards)]
+    train_rows = [json.loads((d / name).read_text()) for d in dirs]
+    valid_s = _mc_torchrun(cards, "buctd_tpu_torch.valid.run", [
+        "--cfg", str(CONFIG), "TEST.MODEL_FILE", str(out / "final_state.pth"),
+        "OUTPUT_DIR", str(root / "eval"), *test], "valid.run")
+    ev = next((root / "eval").glob("*/*/*"))
+    rows = [json.loads((d / name).read_text())
+            for d in [ev] + [ev / f"proc{r}" for r in range(1, cards)]]
+    one = valid_run.main(["--cfg", str(CONFIG), "TEST.MODEL_FILE", str(out / "final_state.pth"),
+                          "OUTPUT_DIR", str(root / "one"), *test])
+    want = json.loads((one["output_dir"] / name).read_text())
+    gaps = np.array([np.abs(np.subtract(g["keypoints"], w["keypoints"])).max()
+                     for g, w in zip(rows[0], want)])
+    same_rows = [(g["image_id"], g["category_id"]) for g in rows[0]] == \
+        [(w["image_id"], w["category_id"]) for w in want]
+    share = float((gaps <= EXPORT_ATOL).mean()) if len(gaps) else 0.0
+    print(f"multicard (d) torchrun, {cards} processes over NCCL: train.run {train_s:.1f} s "
+          f"(files {checks}; its validation's results alike on every process: "
+          f"{all(r == train_rows[0] for r in train_rows)}, {len(train_rows[0])} rows), "
+          f"valid.run {valid_s:.1f} s (results alike on every process: "
+          f"{all(r == rows[0] for r in rows)}); one process's valid.run: same rows "
+          f"{same_rows}, keypoints' largest gap {gaps.max() if len(gaps) else -1:.3e} px, share "
+          f"within {EXPORT_ATOL} px {share:.4f}", flush=True)
+    if checks != {"checkpoint.pth": True, "final_state.pth": True, "logs": 1,
+                  "metrics.jsonl": 1}:
+        raise AssertionError(f"(d): train.run's files {checks}")
+    if not (all(r == train_rows[0] for r in train_rows) and all(r == rows[0] for r in rows)
+            and len(rows[0]) == MC_GLOBAL_BATCH and same_rows and share >= 0.99):
+        raise AssertionError("(d): the processes' or the one process's results differ")
+    return {"train_s": train_s, "valid_s": valid_s, "max_gap_px": float(gaps.max()),
+            "share": share}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
 def main() -> int:
     import torch
 
@@ -4282,6 +4718,14 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
     start = t0 = time.perf_counter()
+    phase_s, last = {}, [start]
+
+    def mark(name):
+        """Seconds since the previous mark, kept as the phase's time."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 1)
+        last[0] = now
+
     names = _build.build_all()
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in names:
@@ -4290,12 +4734,18 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     check_sass()
+    mark("build_and_sass")
     nan_phase(torch, fa, fb)
+    mark("nan")
     k1 = kernel_phase(torch, F, fa)
+    mark("kernel")
     main_k1 = k1["main"]
     tk = train_kernel_phase(torch, F, fa, tw)
+    mark("train_kernel")
     tp_k = transpose_kernel_phase(torch, F, fa, tk)
+    mark("transpose_kernel")
     kv = kvres_kernel_phase(torch, F, fa)
+    mark("kvres_kernel")
 
     def serve(config, k1_per_forward, exact_ref=False):
         serving = serving_phase(torch, np, fa, config, k1_per_forward, exact_ref)
@@ -4309,18 +4759,25 @@ def main() -> int:
         return serving["launches"], profile
 
     serving_launches, serving_profile = serve(CONFIG, 2)
+    mark("serving")
     bf16_serving = bf16_serving_phase(torch, np, fa, CONFIG, 2)
+    mark("bf16_serving")
     graph = graph_serving_phase(torch, np, fa, card)
+    mark("graph_serving")
     tp_serving_launches, tp_serving_profile = serve(
         TRANSPOSE_CONFIG, TP_LAYERS, True)
     tp_bf16_serving = bf16_serving_phase(torch, np, fa, TRANSPOSE_CONFIG, TP_LAYERS)
+    mark("transpose_serving")
     train = training_phase(torch, np, fa, tw)
+    mark("training")
     torch.cuda.empty_cache()
     synth = synthesis_phase(torch, np)
+    mark("synthesis")
     train_synth = training_phase(torch, np, fa, tw, extra_opts=("TPU.DEVICE_SYNTHESIS", "True"),
                                  full=False)
     torch.cuda.empty_cache()
     options = options_phase(torch, np, fa, tw)
+    mark("synth_training_and_options")
     torch.cuda.empty_cache()
     print(f"CoAM-W48 trainer, batch {TRAIN_BATCH}: host synthesis {train['ms_step']:.2f} ms/step "
           f"(data wait {train['data_ms']:.2f}, dispatch {train['dispatch_ms']:.2f}; resident "
@@ -4335,32 +4792,46 @@ def main() -> int:
             for i, key in enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                                      "warp_resample"))}
     tp_train = training_phase(torch, np, fa, tw, TRANSPOSE_CONFIG, "coco", TP_LAYERS, True)
+    mark("transpose_training")
     step_launches = card_vs_cpu_step(torch, np, fa)
+    mark("card_vs_cpu_step")
     torch.cuda.empty_cache()
     ev = eval_phase(torch, np, fa, tw)
+    mark("eval")
     torch.cuda.empty_cache()
     tp_ev = transpose_eval_phase(torch, np, fa, tw)
+    mark("transpose_eval")
     torch.cuda.empty_cache()
     kv_train = kvres_training_phase(torch, np, fa)
+    mark("kvres_training")
     torch.cuda.empty_cache()
     rn = resnet_phase(torch, np, fa, tw)
+    mark("resnet")
     torch.cuda.empty_cache()
     lam = lambda_phase(torch, np, fa, tw)
+    mark("lambda")
     torch.cuda.empty_cache()
     dsets = datasets_phase(torch, np, fa, tw)
+    mark("datasets")
     torch.cuda.empty_cache()
     inf = inference_phase(torch, np, fa, ev["files"])
+    mark("inference")
     torch.cuda.empty_cache()
     host = host_loader_phase(torch, np, fa, tw)
+    mark("host_loader")
     torch.cuda.empty_cache()
     k5 = fused_block_phase(torch, fb)
     k5_trunk = fused_block_vs_trunk(torch, np, fb)
     k6 = exp_phase(torch, ex)
+    mark("k5_k6")
     prenet_serving_phase(torch, np)
     prenet_bf16 = {knob: bf16_serving_phase(torch, np, fa, PRENET_CONFIG, 0,
                                             ("TPU.FUSED_PRENET", knob), knob == "off")
                    for knob in ("off", "auto")}
     tools = tools_phase(torch, fb, ex)
+    mark("prenet_serving_and_tools")
+    mc = multicard_phase(torch, np, fa, card)
+    mark("multicard")
 
     def bound_by(ops_ms, bound_ms):
         return "operations" if ops_ms >= bound_ms else "bytes"
@@ -4407,11 +4878,16 @@ def main() -> int:
                   f"buctd_tpu/ops/flash_attention.py:{replaces}",
                   train["launches"][f"flash_bwd_{kind}"] + more[f"flash_bwd_{kind}"]
                   + tp_train["launches"][f"flash_bwd_{kind}"]
-                  + host["launches"][f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
+                  + host["launches"][f"flash_bwd_{kind}"]
+                  + mc_k2[f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
         e["f32"] = f32_bwd(kind, sum(r["shipped"][f"{kind}_ms"] for r in k2_f32),
                            step_launches[f"flash_bwd_{kind}"])
         # the host Loader's trainer (host_loader_phase), its launches
         e["host_loader"] = {"launches": host["launches"][f"flash_bwd_{kind}"]}
+        # the multi-card steps (multicard_phase): DDP at NCCL world size 1,
+        # the two gloo processes on the one card
+        e["multicard"] = {"nccl_ddp": mc["nccl_launches"][f"flash_bwd_{kind}"],
+                          "gloo_two_processes": mc["gloo_launches"][f"flash_bwd_{kind}"]}
         # TransPose-H's training at d = 112: its launches, its bf16 kernels
         e["transpose_h"] = {"launches": tp_train["launches"][f"flash_bwd_{kind}"],
                             "bf16_training": tp_bf16(kind, f"{kind}_err")}
@@ -4432,6 +4908,12 @@ def main() -> int:
                 "max_out_err_of_max": t["rel"], "tile_rounding_rms": t["tiled"]}
 
     graph_k1 = {f"graph_phase_{dt}": r["launches"] for dt, r in graph.items()}
+    # K1, dq and dkv launched on the multi-card paths (multicard_phase)
+    mc_k2 = {k: mc["nccl_launches"][k] + mc["gloo_launches"][k]
+             for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+    mc_k1 = {"nccl_ddp": mc["nccl_launches"]["flash_fwd"],
+             "gloo_two_processes": mc["gloo_launches"]["flash_fwd"],
+             "mesh_serving": mc["mesh_launches"]}
     bf16_launches = (bf16_serving["launches"] + tp_bf16_serving["launches"]
                      + ev["bf16"]["launches"] + tp_ev["bf16"]["launches"])
     # K1 and K4 on the paths of the lambda phase (its plain and swept rounds,
@@ -4539,6 +5021,11 @@ def main() -> int:
           f"{host['gflops']:.2f} GFLOPs a crop; matmul warp engine {host['matmul']['ms']:.4f} ms "
           f"(K4 {host['matmul']['k4_ms']:.4f} ms), peak {host['matmul']['peak_gb']:.3f} GB",
           flush=True)
+    print(f"multi-card: CoAM-W48 f32 train step, global batch {MC_GLOBAL_BATCH}, one process "
+          f"{mc['one_ms']:.2f} ms/step, two gloo processes on the one card "
+          f"{mc['two_ms'][0]:.2f} and {mc['two_ms'][1]:.2f} ms/step; loss gaps "
+          f"{mc['loss_gaps']}; mesh= serving {mc['mesh_err']:.3e} px; card: {card}", flush=True)
+    print(f"phase seconds: {phase_s}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -4550,7 +5037,9 @@ def main() -> int:
                       + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]
                       + bf16_launches + new_k1["lambda_f32"] + new_k1["inference_f32"]
                       + sum(new_k1["datasets"].values()) + new_k1["host_loader"]
-                      + sum(graph_k1.values())),
+                      + sum(graph_k1.values()) + sum(mc_k1.values())),
+         # its launches on the multi-card paths (multicard_phase)
+         "multicard": mc_k1,
          # the graph phase's main path (f32, bf16): warm-ups and replays
          "graph_launches": graph_k1,
          # its launches on the lambda sweep (f32, bf16), the OCHuman and animal
@@ -4673,5 +5162,35 @@ def main() -> int:
     return 0
 
 
+def multicard_main() -> int:
+    """``chip_smoke.py --multicard``: the kernels' build and
+    ``multicard_phase`` alone, on every card of the machine."""
+    import numpy as np
+    import torch
+
+    from buctd_tpu_torch import _build
+    from buctd_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()
+    print(f"cards: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    print(f"built {_build.build_all()} in {time.perf_counter() - t0:.1f} s", flush=True)
+    res = multicard_phase(torch, np, fa, card[0])
+    print(f"multicard_phase passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps(res, default=str), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multicard-child"]:
+        sys.exit(multicard_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--multicard"]:
+        sys.exit(multicard_main())
     sys.exit(main())

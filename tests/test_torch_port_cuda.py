@@ -1282,3 +1282,63 @@ def test_exported_artifact_on_cuda_matches_live(cuda, dtype, tmp_path):
     assert any(kernel in n for n in names), names
     with pytest.raises(ValueError, match="exported for"):
         ExportedPoseEstimator(str(tmp_path), device="cpu")
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """K1, K2 and K4 on tensors of the second card while the first is
+    current: each wrapper launches under its tensor's device (a launch on
+    the current card would read another card's pointers), and the results
+    equal the plain versions on that card.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: only there can a tensor's card differ from the "
+                    "current one (ROADMAP Queue 2, the multi-card leads)")
+    from buctd_tpu_torch.ops import warp as tw
+
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.requires_grad_(True) for t in _qkv(2, 256, 256, 48, dtype, other))
+        out, lse = fa.flash_attention(q, k, v, 48 ** -0.5)
+        assert out.device == other and torch.cuda.current_device() == 0
+        _assert_fwd_close((out, lse), fa.flash_attention_reference(q, k, v, 48 ** -0.5), dtype)
+    q, k, v = (t.detach().requires_grad_(True) for t in _qkv(2, 256, 256, 48,
+                                                             torch.float32, other))
+    do = torch.randn(2, 256, 48, device=other)
+    grads = torch.autograd.grad(fa.flash_attention_train(q, k, v, 48 ** -0.5, 0.0, 0), (q, k, v),
+                                do)
+    ref = torch.autograd.grad(fa.flash_attention_reference(q, k, v, 48 ** -0.5)[0], (q, k, v), do)
+    _assert_grads_close(grads, ref)
+    images = torch.rand(2, 64, 80, 3, device=other)
+    trans = torch.tensor([[[1.2, 0.1, 3.0], [-0.1, 1.1, 2.0]]] * 2, device=other)
+    before = tw.warp_resample.launches
+    torch.testing.assert_close(tw.warp_affine_general(images, trans, (40, 30)),
+                               tw.warp_affine_reference(images, trans, (40, 30)),
+                               atol=1e-4, rtol=0)
+    assert tw.warp_resample.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_mesh_estimator_with_two_replicas_on_one_card(cuda, tmp_path):
+    """``PoseEstimator(mesh=)`` with two replicas on the one card: each its
+    own graph pool, predict_batch equal to the one-device estimator's."""
+    from buctd_tpu_torch.models import get_model
+    from buctd_tpu_torch.parallel import make_mesh
+    from buctd_tpu_torch.serving import PoseEstimator
+
+    cfg = load_cfg("torch", opts=TINY_COAM + ["TPU.ATTENTION_ENGINE", "flash"])
+    torch.manual_seed(4)
+    model = get_model(cfg)
+    _randomize(model)
+    torch.save(model.state_dict(), tmp_path / "model.pth")
+    single = PoseEstimator(cfg, checkpoint=str(tmp_path / "model.pth"), refine_iters=2)
+    est = PoseEstimator(cfg, checkpoint=str(tmp_path / "model.pth"), refine_iters=2,
+                        mesh=make_mesh(devices=[cuda, cuda]))
+    rng = np.random.RandomState(7)
+    imgs = [rng.randint(0, 256, (200, 240, 3)).astype(np.uint8) for _ in range(4)]
+    conds = [rng.uniform(40, 180, (3, 14, 2)).astype(np.float32) for _ in range(4)]
+    for g, w in zip(est.predict_batch(imgs, conds, float("-inf")),
+                    single.predict_batch(imgs, conds, float("-inf"))):
+        np.testing.assert_allclose(g, w, atol=1e-3, rtol=0)
+    assert est._replicas[0][1] is not est._replicas[1][1]
+    assert est._replicas[1][1].keys() == [(2, 256, 256, 4)]      # 4 rows, 2 a replica

@@ -493,9 +493,10 @@ def test_check_eval_options_takes_bf16():
         "TPU.DEVICE_PIPELINE", "True", "TEST.LAMBDA_SWEEP", "True", "DEBUG.DEBUG", "True"]))
     # the host cv2 Loader (the JAX default) is ported
     check_eval_options(load_cfg("torch", COAM_YAML, BF16 + ["TPU.DEVICE_PIPELINE", "False"]))
+    # a mesh is ported; one over more cards than the run has raises
     for bad in (["TPU.MESH_SHAPE", "[2]"], ["TPU.MESH_SHAPE", "[4]"]):
         opts = BF16 + ["TPU.DEVICE_PIPELINE", "True"] + bad
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="MESH_SHAPE.*does not match"):
             check_eval_options(load_cfg("torch", COAM_YAML, opts))
 
 

@@ -257,6 +257,10 @@ def test_serve_tool_over_a_manifest(artifact, art, tmp_path):
     live = serve.main(["--cfg", str(COAM_YAML), "--out", str(tmp_path / "b.json"),
                        "--precompile", "2,256,256,4", *common, *TINY_COAM])
     assert [np.asarray(e["predictions"]).shape for e in live] == [(3, J, 3), (2, J, 3)]
+    # --data-parallel serves over the local devices (here the CPU alone)
+    mesh = serve.main(["--cfg", str(COAM_YAML), "--out", str(tmp_path / "c.json"),
+                       "--data-parallel", *common, *TINY_COAM])
+    assert [np.asarray(e["predictions"]).shape for e in mesh] == [(3, J, 3), (2, J, 3)]
 
 
 def test_export_tool_selftest_on_the_artifact(artifact, art):
@@ -270,7 +274,7 @@ def test_export_tool_selftest_on_the_artifact(artifact, art):
 
 @pytest.mark.parametrize("argv,match", [
     (["--exported", "x", "--refine-iters", "3"], "--refine-iters apply to a live"),
-    (["--cfg", "x.yaml", "--data-parallel"], "items 6 and 8"),
+    (["--exported", "x", "--data-parallel"], "--data-parallel apply to a live"),
     (["--cfg", "x.yaml", "--checkpoint", "ckpt_dir"], "item 10"),
     ([], "one of --cfg or --exported is required"),
 ])

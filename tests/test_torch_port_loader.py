@@ -103,7 +103,7 @@ def test_host_planning_refuses_unported_paths(tmp_path):
     check_eval_options(cfg)                 # the lambda sweep and eval debug dumps: ported
     check_train_options(cfg)                # the train debug dumps: ported
     for bad in (check_eval_options, check_train_options):
-        with pytest.raises(NotImplementedError, match="MESH_SHAPE.*ROADMAP"):
+        with pytest.raises(ValueError, match="MESH_SHAPE.*does not match"):
             bad(load_cfg("torch", COAM_YAML, ["TPU.MESH_SHAPE", "[2]"]))
     coco_ann, _ = _tiny_coco(tmp_path, J=17)
     ochuman = load_cfg("torch", COAM_YAML, ["DATASET.DATASET", "ochuman", "MODEL.NUM_JOINTS",

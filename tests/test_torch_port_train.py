@@ -226,8 +226,8 @@ def test_train_entry_runs_and_checkpoints(tmp_path):
 def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """Validation at EPOCH_EVAL_FREQ runs (results json, best AP tracked in
     model_best.pth); TPU.DEVICE_PIPELINE False and DEBUG.DEBUG train; the
-    options not ported (a mesh, an orbax TEST.MODEL_FILE) raise and name the
-    ROADMAP."""
+    option not ported (an orbax TEST.MODEL_FILE) raises and names the
+    ROADMAP, and a TPU.MESH_SHAPE over more cards than the run has raises."""
     from buctd_tpu_torch.core import function
     from buctd_tpu_torch.train import run
 
@@ -259,8 +259,11 @@ def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch):
     # the host cv2 Loader and the train debug dumps run now
     for opts in (["TPU.DEVICE_PIPELINE", "False"], ["DEBUG.DEBUG", "True"]):
         assert run.main(args[:2] + ["--steps", "1", "--no-eval"] + args[2:] + opts)["steps"] == 1
-    for opts in (["TPU.MESH_SHAPE", "[2]"], ["TEST.MODEL_FILE", str(tmp_path / "orbax")]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for opts, error, match in (
+            # a mesh is ported; one over more cards than the run has raises
+            (["TPU.MESH_SHAPE", "[2]"], ValueError, "MESH_SHAPE.*does not match"),
+            (["TEST.MODEL_FILE", str(tmp_path / "orbax")], NotImplementedError, "ROADMAP")):
+        with pytest.raises(error, match=match):
             run.main(args[:2] + ["--steps", "1", "--no-eval"] + args[2:] + opts)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
