@@ -15,8 +15,11 @@ transpose_key_map), and a learnable ``pos_embedding`` keeps its (L, 1, d)
 layout; the sine table, which the JAX tree lacks, is supplied by the model
 when the state_dict loads (models/transpose.py::TransPoseH).  Since the port's
 module names are the reference's, a BUCTD ``.pth`` loads with
-``load_state_dict(strict=True)``.  ``load_pretrained_subset`` is the
-ImageNet warm start's subset load (MODEL.PRETRAINED).
+``load_state_dict(strict=True)``.  ``load_orbax_checkpoint`` reads a
+directory that JAX's ``save_params`` wrote (train/checkpoint.py) through
+``from_flax``, and ``load_checkpoint`` picks the reader by the path as JAX's
+callers do.  ``load_pretrained_subset`` is the ImageNet warm start's subset
+load (MODEL.PRETRAINED).
 """
 
 from __future__ import annotations
@@ -87,6 +90,34 @@ def load_torch_checkpoint(path: str) -> dict:
                 ckpt = ckpt[key]
                 break
     return {k[7:] if k.startswith("module.") else k: v for k, v in ckpt.items()}
+
+
+def load_orbax_checkpoint(path) -> dict:
+    """The state_dict of an orbax directory of ``{params, batch_stats}``
+    (JAX's ``save_params``, buctd_tpu/train/checkpoint.py:97).  Any other top
+    level, such as the train state ``save_checkpoint`` writes (``step``,
+    ``params``, ``batch_stats``, ``opt_state``, ``perf``), raises
+    ``ValueError`` naming its keys, as JAX's ``load_params(path,
+    template=variables)`` refuses it."""
+    from .train.checkpoint import load_params
+
+    tree = load_params(path)
+    keys = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+    if keys != ["batch_stats", "params"]:
+        raise ValueError(f"{path}: an orbax checkpoint of {{params, batch_stats}} loads "
+                         f"(JAX's save_params); this one holds {keys}")
+    return from_flax(tree)
+
+
+def load_checkpoint(path) -> dict:
+    """A checkpoint's state_dict: a ``.pth``/``.pt`` through
+    ``load_torch_checkpoint``, anything else as an orbax directory through
+    ``load_orbax_checkpoint`` (the test JAX's callers make, e.g.
+    buctd_tpu/serving.py:66-74)."""
+    path = str(path)
+    if path.endswith((".pth", ".pt")):
+        return load_torch_checkpoint(path)
+    return load_orbax_checkpoint(path)
 
 
 def load_pretrained_subset(model, state_dict: dict, pretrained_layers=("*",)) -> list:

@@ -57,8 +57,6 @@ from .graphs import BucketGraphs
 
 logger = logging.getLogger(__name__)
 
-ORBAX_ITEM = "ROADMAP Queue 1 item 10, 'the orbax reader'"
-
 
 class PoseEstimator:
     """Conditional top-down pose estimation as a persistent service.
@@ -74,7 +72,7 @@ class PoseEstimator:
     def __init__(self, cfg, checkpoint: str | None = None, refine_iters: int = 1,
                  colors=None, max_compiles: int = 12, precompile=None, device="cuda",
                  mesh=None):
-        from .convert import load_torch_checkpoint
+        from .convert import load_checkpoint
         from .models import compute_dtype, get_model
 
         self.mesh = mesh
@@ -93,12 +91,8 @@ class PoseEstimator:
         self.cfg = cfg
         self.num_joints = int(cfg.MODEL.NUM_JOINTS)
         self.model = get_model(cfg, device=self.device)
-        if checkpoint:
-            if not checkpoint.endswith((".pth", ".pt")):
-                raise ValueError(f"{checkpoint!r}: buctd_tpu_torch loads BUCTD .pth/.pt "
-                                 f"checkpoints only; an orbax directory waits for "
-                                 f"{ORBAX_ITEM}")
-            self.model.load_state_dict(load_torch_checkpoint(checkpoint), strict=True)
+        if checkpoint:   # a BUCTD .pth/.pt, or an orbax directory of JAX's save_params
+            self.model.load_state_dict(load_checkpoint(checkpoint), strict=True)
         self.model.to(self.device).eval()
         # the eval-time preNet fusion (TPU.FUSED_PRENET), after the load as
         # buctd_tpu/serving.py:78-80 does it

@@ -16,8 +16,9 @@ batched program); h, w and p snap up to the serving bucket tables
 ``TPU.EVAL_DTYPE`` and run only there (serving_export.py's caveat), so the
 root tool's ``--platforms`` is ``--device`` here.  ``--selftest``
 reloads the artifact and holds its first program against the live
-estimator on a random input (within 1e-5, as JAX's tool).  An orbax
-``--checkpoint`` directory is refused: ROADMAP Queue 1 item 10.
+estimator on a random input (within 1e-5, as JAX's tool).
+``--checkpoint`` takes a BUCTD ``.pth``/``.pt`` or an orbax directory of JAX's
+``save_params`` (convert.py::load_checkpoint).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import numpy as np
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="BUCTD serving export (PyTorch/CUDA)")
     p.add_argument("--cfg", required=True)
-    p.add_argument("--checkpoint", default=None, help="a BUCTD .pth/.pt")
+    p.add_argument("--checkpoint", default=None,
+                   help="a BUCTD .pth/.pt or an orbax directory")
     p.add_argument("--out", required=True, help="artifact directory")
     p.add_argument("--shape", action="append", required=True,
                    help="HxWxP or NxHxWxP bucket to export (repeatable)")
@@ -66,11 +68,6 @@ def selftest(est, loaded, key) -> float:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    from ..serving import ORBAX_ITEM
-
-    if args.checkpoint and not args.checkpoint.endswith((".pth", ".pt")):
-        raise SystemExit(f"{args.checkpoint!r}: an orbax checkpoint waits for {ORBAX_ITEM}; "
-                         f"pass a .pth")
     from ..config import default_config, update_config
     from ..serving import PoseEstimator
     from ..serving_export import ExportedPoseEstimator, export_estimator

@@ -4,7 +4,7 @@ Counterpart of the repository's tools/inference.py (the reference's
 tools/inference.py):
 
     python -m buctd_tpu_torch.tools.inference --cfg <yaml> --image <path>
-        [--model <.pth>] [--vis-thres T] [--device cuda] [KEY VAL ...]
+        [--model <.pth or orbax dir>] [--vis-thres T] [--device cuda] [KEY VAL ...]
 
 ``run_ctd_inference(images, conditions, model_path, vis_thres, ...)``: for each
 image, each condition pose becomes a crop (the nonzero keypoints' box plus a
@@ -63,20 +63,17 @@ def model_config(config):
 
 
 def get_model(config, model_path=None, device="cuda"):
-    """The cfg's model with ``model_path``'s weights (a BUCTD ``.pth``/``.pt``,
-    loaded with ``strict=True``; none: the reference's random init), its
+    """The cfg's model with ``model_path``'s weights (a BUCTD ``.pth``/``.pt``
+    or an orbax directory of JAX's save_params, loaded with ``strict=True``;
+    none: the reference's random init), its
     preNet fused as ``TPU.FUSED_PRENET`` says (tools/inference.py:32)."""
-    from ..convert import load_torch_checkpoint
+    from ..convert import load_checkpoint
     from ..models import get_model as build
     from ..models.fuse import maybe_fuse_prenet
 
     model = build(config, device=device)
-    if model_path and model_path.endswith((".pth", ".pt")):
-        model.load_state_dict(load_torch_checkpoint(model_path), strict=True)
-    elif model_path:
-        raise NotImplementedError(f"{model_path!r}: buctd_tpu_torch loads .pth/.pt "
-                                  "checkpoints only (orbax directories are ROADMAP "
-                                  "Queue 1 items 7 and 8, 'the orbax reader')")
+    if model_path:
+        model.load_state_dict(load_checkpoint(model_path), strict=True)
     return maybe_fuse_prenet(config, model)
 
 

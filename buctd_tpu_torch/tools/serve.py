@@ -24,8 +24,9 @@ a "predictions" field per entry ((P, J, 3) [x, y, conf] lists; entries below
 estimator's flags are refused beside it, since the artifact fixes them.
 ``--data-parallel`` serves over every local card (JAX tools/serve.py:50,
 :83-94): ``parallel/mesh.py::make_mesh()`` and ``PoseEstimator(mesh=)``,
-one replica a card; with ``--device cpu`` over the CPU alone.  An orbax
-``--checkpoint`` is refused (ROADMAP Queue 1 item 10).
+one replica a card; with ``--device cpu`` over the CPU alone.
+``--checkpoint`` takes a BUCTD ``.pth``/``.pt`` or an orbax directory of JAX's
+``save_params`` (convert.py::load_checkpoint).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--exported", default=None,
                    help="serve a tools.export artifact directory instead of "
                         "--cfg/--checkpoint (no model code, no re-tracing)")
-    p.add_argument("--checkpoint", default=None, help="a BUCTD .pth/.pt")
+    p.add_argument("--checkpoint", default=None,
+                   help="a BUCTD .pth/.pt or an orbax directory")
     p.add_argument("--manifest", required=True, help="JSON list of {image, poses} entries")
     p.add_argument("--out", required=True, help="output JSON path")
     p.add_argument("--refine-iters", type=int, default=1)
@@ -66,8 +68,6 @@ def parse_args(argv=None):
 def build_estimator(args):
     """The estimator ``args`` ask for: an ExportedPoseEstimator or a live
     PoseEstimator; raises SystemExit on what is refused."""
-    from ..serving import ORBAX_ITEM
-
     if args.exported:
         live = sorted(k for k, v in _LIVE_DEFAULTS.items() if getattr(args, k) != v)
         if live:
@@ -81,9 +81,6 @@ def build_estimator(args):
         return est
     if not args.cfg:
         raise SystemExit("one of --cfg or --exported is required")
-    if args.checkpoint and not args.checkpoint.endswith((".pth", ".pt")):
-        raise SystemExit(f"{args.checkpoint!r}: an orbax checkpoint waits for {ORBAX_ITEM}; "
-                         f"pass a .pth")
     from ..config import default_config, update_config
     from ..serving import PoseEstimator
 

@@ -19,10 +19,11 @@ dropout through the flash kernels (K1 forward, K2 backward).  ``--steps N``
 stops after N loader batches (micro-steps).  Warm starts as
 tools/train.py:53-77: ``MODEL.PRETRAINED`` loads the
 ``MODEL.EXTRA.PRETRAINED_LAYERS`` subset of a ``.pth``, ``TEST.MODEL_FILE`` a
-whole ``.pth``.  Checkpoints are ``.pth`` files with the reference's
-state-dict keys (``checkpoint.pth`` per epoch, ``checkpoint_ep{epoch}.pth``
-every 20, ``final_state.pth`` at the end), so ``PoseEstimator(checkpoint=...)``
-serves them.
+whole ``.pth`` or an orbax directory of JAX's ``save_params``
+(convert.py::load_checkpoint).  Checkpoints are ``.pth`` files with the
+reference's state-dict keys (``checkpoint.pth`` per epoch,
+``checkpoint_ep{epoch}.pth`` every 20, ``final_state.pth`` at the end), so
+``PoseEstimator(checkpoint=...)`` serves them.
 
 Around the loop, as tools/train.py: ``utils/logging_utils.py`` sets the
 seeds, the output layout ``<OUTPUT_DIR>/<dataset>/<model>/<yaml stem>`` with
@@ -53,9 +54,6 @@ process 0 and the steps run under DDP with global-batch BatchNorm
 and ``metrics.jsonl``, with a barrier after each save; ``AUTO_RESUME``
 loads on every process; validation merges every process's rows
 (core/function.py::validate).
-
-Not ported yet, and refused with the ROADMAP item named: an orbax
-``TEST.MODEL_FILE``.
 """
 
 from __future__ import annotations
@@ -71,8 +69,6 @@ import torch
 from ..parallel.distributed import barrier, is_primary
 
 logger = logging.getLogger("buctd_tpu_torch.train")
-
-_ORBAX_ITEM = "ROADMAP Queue 1 items 7 and 8, 'the orbax reader'"
 
 
 def parse_args(argv=None):
@@ -119,18 +115,11 @@ def start_processes(args, who: str) -> torch.device:
     return device
 
 
-def _refuse_unported(cfg) -> None:
-    path = cfg.TEST.MODEL_FILE
-    if path and not path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"TEST.MODEL_FILE {path!r}: an orbax checkpoint directory is not ported "
-            f"to buctd_tpu_torch yet: {_ORBAX_ITEM}; pass a .pth")
-
-
 def load_warm_start(cfg, model) -> None:
     """MODEL.PRETRAINED (a subset by PRETRAINED_LAYERS), then TEST.MODEL_FILE
-    (the whole model), as tools/train.py:53-77."""
-    from ..convert import load_pretrained_subset, load_torch_checkpoint
+    (the whole model: a .pth, or an orbax directory of JAX's save_params), as
+    tools/train.py:53-77."""
+    from ..convert import load_checkpoint, load_pretrained_subset, load_torch_checkpoint
 
     if cfg.MODEL.INIT_WEIGHTS and cfg.MODEL.PRETRAINED.strip("/"):
         path = cfg.MODEL.PRETRAINED
@@ -140,7 +129,7 @@ def load_warm_start(cfg, model) -> None:
         keys = load_pretrained_subset(model, load_torch_checkpoint(path), layers)
         logger.info("=> %d tensors of %s loaded (layers %s)", len(keys), path, layers)
     if cfg.TEST.MODEL_FILE:
-        model.load_state_dict(load_torch_checkpoint(cfg.TEST.MODEL_FILE), strict=True)
+        model.load_state_dict(load_checkpoint(cfg.TEST.MODEL_FILE), strict=True)
         logger.info("=> weights from %s", cfg.TEST.MODEL_FILE)
 
 
@@ -206,7 +195,6 @@ def main(argv=None) -> dict:
     update_config(cfg, args)
     mesh = make_mesh(cfg, devices=[device])     # raises where it does not match the cards
     check_train_options(cfg)
-    _refuse_unported(cfg)
     if not args.no_eval:
         check_eval_options(cfg)
     set_seed(args.seed)

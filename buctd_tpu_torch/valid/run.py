@@ -16,8 +16,8 @@ tools/test.py, it logs under ``<OUTPUT_DIR>/<dataset>/<model>/<yaml stem>``
 (utils/summary.py) and, with ``BUCTD_PROFILE_DIR`` set, writes a Chrome
 trace of each evaluation round there (utils/profiler.py).
 
-Weights: ``TEST.MODEL_FILE`` (a BUCTD ``.pth``/``.pt``, loaded with
-``strict=True``), else ``<output dir>/model_best.pth``, else the reference's
+Weights: ``TEST.MODEL_FILE`` (a BUCTD ``.pth``/``.pt``, or an orbax
+directory of JAX's ``save_params``; loaded with ``strict=True``), else ``<output dir>/model_best.pth``, else the reference's
 random init with a warning (tools/test.py:44-67); then the preNet fusion of
 ``TPU.FUSED_PRENET`` (models/fuse.py), as tools/test.py:87-88.
 
@@ -79,17 +79,13 @@ def parse_args(argv=None):
 def load_model(cfg, device, out_dir):
     """The cfg's model with TEST.MODEL_FILE's weights, else model_best.pth in
     the output directory, else the random init (with a warning)."""
-    from ..convert import load_torch_checkpoint
+    from ..convert import load_checkpoint
     from ..models import get_model
 
     path = cfg.TEST.MODEL_FILE
     best = out_dir / "model_best.pth"
-    if path and not path.endswith((".pth", ".pt")):
-        raise NotImplementedError(f"TEST.MODEL_FILE {path!r}: buctd_tpu_torch loads "
-                                  ".pth/.pt checkpoints only (orbax directories are "
-                                  "ROADMAP Queue 1 items 7 and 8, 'the orbax reader')")
     if path or best.exists():
-        sd = load_torch_checkpoint(path or str(best))
+        sd = load_checkpoint(path or best)
         model = get_model(cfg, device=device,
                           lambda_head=any(k.startswith("lambda_fc.") for k in sd))
         model.load_state_dict(sd, strict=True)

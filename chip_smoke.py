@@ -177,7 +177,7 @@ Phases (each raises on failure; nothing is caught):
      within PRENET_PX_TOL px, a profile; one evaluation round of 64 crops and
      3 training steps; K1 launched 0 times, K4 once a batch;
  16. TEST.LAMBDA_SWEEP (``lambda_phase``): rounds of CoAM-W48 on
-     eval_phase's set and weights in f32 and bf16, plain and swept in turns:
+     eval_phase's set and weights in f32 and bf16, a plain round and a swept one:
      the sweep's K1 launched 4 and K4 once a batch (lambda 0 and 1), the _l0,
      _l1 and _merged jsons, merged AP in [0, 1], crops/s beside the plain
      round's; validate_lambda over 6 lambdas on 2 batches of preNet-W48 with
@@ -194,8 +194,8 @@ Phases (each raises on failure; nothing is caught):
      round-0 results.
  19. ``host_loader_phase`` (after phase 18): the JAX default data
      path, TPU.DEVICE_PIPELINE False with no override, on CoAM-W48 (batch
-     32): train.run 10 steps on the host cv2 ``Loader`` with the host
-     sampler, then with TPU.DEVICE_SYNTHESIS in turns with the device loader
+     32): train.run 6 steps on the host cv2 ``Loader`` with the host
+     sampler, then 10 with TPU.DEVICE_SYNTHESIS on it and on the device loader
      (ms/step, data wait, dispatch; K1 and K2 2 a step, K4 never on the host
      Loader); a 3-step run with PRINT_FREQ 1, BUCTD_PROFILE_DIR and
      DEBUG.DEBUG (one train_loss line a step in metrics.jsonl, a Chrome
@@ -218,6 +218,14 @@ Phases (each raises on failure; nothing is caught):
      32, against one process on the 32 rows (losses at JAX's tolerance),
      ms/step of both; (c) PoseEstimator(mesh=) with two replicas on cuda:0
      against the one-device estimator; K1/K2 counted in each.
+ 21. ``orbax_phase`` (after phase 20): the orbax reader over the system's
+     libzstd on the committed fixtures (JAX's save_params): CoAM-W48 at
+     full width (tests/fixtures/orbax_coam_w48) read and timed, every leaf
+     against expected.json, libzstd's MB/s; PoseEstimator(checkpoint=<dir>)
+     in f32 and bf16 at the main path's shapes bit for bit the estimator
+     from a .pth of the same state_dict, K1 counted exactly; a narrow CoAM
+     (tests/fixtures/orbax_coam_tiny) against expected.json, valid.run and
+     train.run with TEST.MODEL_FILE <dir>; K1, K2 and K4 counted.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -476,6 +484,11 @@ WARP_DRIFT_PX = 0.05
 # 1e-4 on [0, 1) images on 0..255 ones; the host Loader's RGB input card vs
 # CPU: the same uint8 crops, (x / 255 - mean) / std in f32 on each device
 HOST_CHECK_STEPS = 2
+# host_loader_phase's first trainer run: the host sampler takes ~3 s a step
+# at batch 32, so 6 steps (the median of steps 3-6); the turns with
+# TPU.DEVICE_SYNTHESIS keep TRAIN_STEPS, one epoch, after which the device
+# loader prefetches no further batch, so K4 counts one a step
+HOST_SAMPLER_STEPS = 6
 # eval samples whose host crops are held to numpy's bilinear sampling
 HOST_CROP_CHECKS = 8
 WARP_MATMUL_ATOL = 1e-4 * 255
@@ -557,21 +570,34 @@ def tf32_kernels_expected(lib: str) -> int:
     return {"fused_block": len(TF32_PLANS)}.get(lib, 16 if "bwd" in lib else 8)
 
 
-def check_sass() -> None:
-    """In every flash library and in K5's, HMMA in each tensor-core kernel
-    and in none of the SIMT ones; TF32 HMMA in every f32 kernel (one a
-    head-dim case of K1, K1', K2 and K2', one a tile plan of K5); one bf16
-    K5 kernel a tile plan."""
+def sass_counts() -> dict:
+    """(library, "" or "TF32") -> HMMA counts by kernel, of every flash
+    library and of K5's: the disassemblies (cuobjdump, ~7 s each) all at
+    once, on the host while the first phases use the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from buctd_tpu_torch._build import hmma_counts
+
+    jobs = [(lib, kind) for lib in {**FLASH_SIMT, **K5_SIMT} for kind in ("", "TF32")]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return dict(zip(jobs, pool.map(lambda job: hmma_counts(*job), jobs)))
+
+
+def check_sass(counts: dict) -> None:
+    """In every flash library and in K5's (``counts`` from sass_counts), HMMA
+    in each tensor-core kernel and in none of the SIMT ones; TF32 HMMA in
+    every f32 kernel (one a head-dim case of K1, K1', K2 and K2', one a tile
+    plan of K5); one bf16 K5 kernel a tile plan."""
     from buctd_tpu_torch.ops.fused_block import TC_PLANS
 
-    for lib, simt_names in {**FLASH_SIMT, **K5_SIMT}.items():
-        hmma = hmma_counts(lib)
+    libs = {**FLASH_SIMT, **K5_SIMT}
+    for lib, simt_names in libs.items():
+        hmma = counts[(lib, "")]
         tc = {f: n for f, n in hmma.items()
               if "_tc_kernel" in f or "_tf32_kernel" in f}
         simt = {f: n for f, n in hmma.items() if any(k in f for k in simt_names)
                 and f not in tc}
-        tf32 = {f: n for f, n in hmma_counts(lib, "TF32").items() if "_tf32_kernel" in f}
+        tf32 = {f: n for f, n in counts[(lib, "TF32")].items() if "_tf32_kernel" in f}
         print(f"{lib} SASS: {len(tc)} tensor-core kernels, HMMA {min(tc.values(), default=0)}-"
               f"{max(tc.values(), default=0)} each; {len(tf32)} f32 kernels, TF32 "
               f"HMMA {min(tf32.values(), default=0)}-{max(tf32.values(), default=0)} each; "
@@ -3724,7 +3750,7 @@ def resnet_phase(torch, np, fa, tw) -> dict:
 def lambda_phase(torch, np, fa, tw) -> dict:
     """TEST.LAMBDA_SWEEP: rounds of CoAM-W48 through valid.run on
     eval_phase's synthetic CrowdPose set and weights (the same seeds), f32 and
-    bf16, with and without the sweep in turns (plain, lambda, lambda, plain):
+    bf16, a round without the sweep, then one with it:
     the _l0, _l1 and _merged results, AP in [0, 1], K1 launched 2 x a plain
     round's (lambda 0 and 1), K4 once a batch, the sweep's crops/s beside the
     plain round's.  Then validate_lambda over 6 lambdas on 2 batches of a
@@ -3756,9 +3782,9 @@ def lambda_phase(torch, np, fa, tw) -> dict:
                 "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH), "TEST.MODEL_FILE", str(weights),
                 "PRINT_FREQ", "100"]
         for dt in ("float32", "bfloat16"):
-            # plain and lambda rounds in turns (plain, lambda, lambda, plain)
+            # a plain round, then a lambda round
             runs = {False: [], True: []}
-            for sweep in (False, True, True, False):
+            for sweep in (False, True):
                 _zero_counts(fa, tw)
                 out = valid_run.main(["--cfg", str(CONFIG), *opts, "TPU.EVAL_DTYPE", dt,
                                       "TEST.LAMBDA_SWEEP", str(sweep),
@@ -3789,7 +3815,7 @@ def lambda_phase(torch, np, fa, tw) -> dict:
             lam_s = statistics.mean(v[0] for v in runs[True])
             plain_s = statistics.mean(v[0] for v in runs[False])
             print(f"lambda sweep {dt}: {lam_s:.2f} crops/s against the plain round's "
-                  f"{plain_s:.2f} in turns ({lam_s / plain_s:.3f}x; means of 2)", flush=True)
+                  f"{plain_s:.2f} ({lam_s / plain_s:.3f}x; one round each)", flush=True)
             res[dt] = {"launches": sum(v[1]["flash_fwd"] for vs in runs.values() for v in vs),
                        "warp_launches": sum(v[1]["warp_resample"] for vs in runs.values()
                                             for v in vs),
@@ -3885,10 +3911,11 @@ def host_loader_phase(torch, np, fa, tw) -> dict:
     """The JAX default data path, TPU.DEVICE_PIPELINE False (no override), at
     full width on CoAM-W48 (CONFIG, batch 32) and synthetic CrowdPose sets:
 
-    * the trainer through train.run.main, TRAIN_STEPS steps on the host
-      ``Loader`` with the host sampler, then with TPU.DEVICE_SYNTHESIS True
-      in turns with the device loader (host, device, device, host): ms/step
-      (median of steps 3-10), data wait and dispatch, K1 and K2 launches a
+    * the trainer through train.run.main, HOST_SAMPLER_STEPS steps on the
+      host ``Loader`` with the host sampler, then TRAIN_STEPS with
+      TPU.DEVICE_SYNTHESIS True on the host Loader and on the device
+      loader, one run each: ms/step (median from step 3), data wait and
+      dispatch, K1 and K2 launches a
       step (bf16 K1 with dropout, K2 dq and dk/dv; K4 never on the host
       Loader); then HOST_CHECK_STEPS steps with PRINT_FREQ 1,
       BUCTD_PROFILE_DIR and DEBUG.DEBUG: one train_loss line a step in
@@ -3944,7 +3971,7 @@ def host_loader_phase(torch, np, fa, tw) -> dict:
                 "flash_bwd_dkv": 2 * steps, "warp_resample": steps * device_loader}
         losses = [float(m["loss"]) for st in out["stats"] for m in st["metrics"]]
         st = out["stats"][0]
-        warm = slice(2 if steps > 2 else 0, None)       # steps 3-10; all of a short run
+        warm = slice(2 if steps > 2 else 0, None)       # from step 3; all of a short run
         per_step = [d + x for d, x in zip(st["data_wait_s"], st["step_s"])]
         r = {"ms_step": statistics.median(per_step[warm]) * 1e3,
              "data_ms": statistics.median(st["data_wait_s"][warm]) * 1e3,
@@ -3970,21 +3997,20 @@ def host_loader_phase(torch, np, fa, tw) -> dict:
         update_config(cfg, types.SimpleNamespace(cfg=str(CONFIG), opts=[]))
         if cfg.TPU.DEVICE_PIPELINE or int(cfg.TRAIN.BATCH_SIZE_PER_GPU) != TRAIN_BATCH:
             raise AssertionError("the stock yaml must run the host Loader at batch 32")
-        res["host"] = train(root, ann, "host", [])[0]
+        res["host"] = train(root, ann, "host", [], steps=HOST_SAMPLER_STEPS)[0]
         torch.cuda.empty_cache()
         synth = ["TPU.DEVICE_SYNTHESIS", "True"]
         turns = [train(root, ann, f"{kind}_synth{k}",
                        synth + ["TPU.DEVICE_PIPELINE", "True"] * (kind == "device"),
                        device_loader=kind == "device")[0]
-                 for k, kind in enumerate(("host", "device", "device", "host"))]
+                 for k, kind in enumerate(("host", "device"))]
         torch.cuda.empty_cache()
-        for kind, pair in (("host_synth", turns[0::3]), ("device_synth", turns[1:3])):
-            res[kind] = {key: (pair[0][key] + pair[1][key]) / 2
-                         for key in ("ms_step", "data_ms", "dispatch_ms")}
+        for kind, turn in (("host_synth", turns[0]), ("device_synth", turns[1])):
+            res[kind] = {key: turn[key] for key in ("ms_step", "data_ms", "dispatch_ms")}
         print(f"host_loader trainer, CoAM-W48 batch {TRAIN_BATCH}: host Loader with the host "
               f"sampler {res['host']['ms_step']:.2f} ms/step (data wait "
               f"{res['host']['data_ms']:.2f}, dispatch {res['host']['dispatch_ms']:.2f}); "
-              f"with TPU.DEVICE_SYNTHESIS, in turns: host Loader "
+              f"with TPU.DEVICE_SYNTHESIS, one run each: host Loader "
               f"{res['host_synth']['ms_step']:.2f} ms/step (data wait "
               f"{res['host_synth']['data_ms']:.2f}, dispatch "
               f"{res['host_synth']['dispatch_ms']:.2f}), DeviceLoader "
@@ -4351,12 +4377,16 @@ def _mc_f32_run(torch, np, fa, job: dict, rank: int, world: int) -> dict:
         float(step(batch)["loss"])
         times.append((time.perf_counter() - t0) * 1e3)
     # where a step's time goes: one profiled step (the collectives' kernels
-    # apart), and an all-reduce of a gradient-sized f32 buffer alone
-    by_name = kernel_profile(torch, lambda: float(step(batch)["loss"]),
-                             f"multicard step, process {rank} of {world}")
-    split = {"kernels_ms": sum(by_name.values()),
-             "collective_ms": sum(ms for k, ms in by_name.items()
-                                  if "nccl" in k.lower() or "gloo" in k.lower())}
+    # apart; not for the gloo processes that share one card, which cost the
+    # most and tell the least), and an all-reduce of a gradient-sized f32
+    # buffer alone
+    split = {"kernels_ms": None, "collective_ms": None}
+    if job.get("profile", True):
+        by_name = kernel_profile(torch, lambda: float(step(batch)["loss"]),
+                                 f"multicard step, process {rank} of {world}")
+        split = {"kernels_ms": sum(by_name.values()),
+                 "collective_ms": sum(ms for k, ms in by_name.items()
+                                      if "nccl" in k.lower() or "gloo" in k.lower())}
     if world > 1:
         import torch.distributed as dist
 
@@ -4497,6 +4527,7 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
         port = _free_port()
         cards = torch.cuda.device_count()
         world = 2 if cards == 1 else cards
+        torch.save(dict(job, profile=cards > 1), root / "job.pt")
         # NCCL names its transports (P2P, SHM, NET) in its INFO lines
         env = dict(os.environ, NCCL_DEBUG="INFO") if cards > 1 else None
         procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
@@ -4533,10 +4564,12 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
               f"{[round(t['ms'], 2) for t in two]} ({MC_GLOBAL_BATCH // world} rows each); "
               f"launches a process {[t['launches'] for t in two]} (want {want}); card: {card}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        profiled = (f"{world} processes {[round(t['kernels_ms'], 2) for t in two]} ms of "
+                    f"kernels, of which collectives "
+                    f"{[round(t['collective_ms'], 2) for t in two]}" if cards > 1
+                    else "the gloo processes not profiled")
         print(f"multicard (b) a profiled step: one process {one['kernels_ms']:.2f} ms of "
-              f"kernels; {world} processes {[round(t['kernels_ms'], 2) for t in two]} ms of "
-              f"kernels, of which collectives {[round(t['collective_ms'], 2) for t in two]}; "
-              f"an all-reduce of a gradient-sized f32 buffer alone "
+              f"kernels; {profiled}; an all-reduce of a gradient-sized f32 buffer alone "
               f"{[round(t['grad_allreduce_ms'], 2) for t in two]} ms; "
               f"transports {transports or 'gloo'}", flush=True)
         if any(t["losses"] != two[0]["losses"] for t in two):
@@ -4690,6 +4723,186 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "orbax_coam_tiny"
+# CoAM-W48 at full width (CONFIG, no overrides): 463 MB of f32 in patterns
+ORBAX_FULL = ROOT / "tests" / "fixtures" / "orbax_coam_w48"
+ORBAX_MIN_TIMED_S = 0.5                 # libzstd's MB/s over at least this long
+ORBAX_TRAIN_STEPS = 2
+ORBAX_EVAL_IMAGES = 8                   # x 4 people = 32 crops = 1 batch of 32
+
+
+def orbax_phase(torch, np, fa, tw, card: str) -> dict:
+    """JAX's orbax checkpoints in the port (train/checkpoint.py over the
+    system's libzstd), on the card's host, from the committed fixtures
+    (JAX's save_params, written by tests/make_orbax_fixture.py, with the
+    yaml, overrides and every leaf's SHA-256 in each expected.json):
+
+    * ORBAX_FULL, CoAM-W48 at full width: ``load_params`` timed (the read
+      that decides start-up), its leaves equal to expected.json, libzstd's
+      MB/s over its chunks, each decoded again and again for
+      ORBAX_MIN_TIMED_S on one thread; PoseEstimator(checkpoint=<dir>) in
+      f32 and in bf16 on the card at the main path's shapes (ROUNDS rounds):
+      predict and predict_batch bit for bit equal to the estimator loaded
+      from a .pth of the same state_dict, K1 launched 2 x ROUNDS a forward
+      in each bucket's two warm-ups and first replay;
+    * ORBAX_FIXTURE, a narrow CoAM: its leaves equal to expected.json;
+      valid.run with TEST.MODEL_FILE <dir> (one round of ORBAX_EVAL_IMAGES
+      x SYNTH_PEOPLE crops, the device loader) and train.run --steps
+      ORBAX_TRAIN_STEPS with TEST.MODEL_FILE <dir>: the weights the entry
+      points start from equal the fixture's, AP in [0, 1], finite losses,
+      K1, K2 and K4 counted."""
+    from buctd_tpu_torch.config import default_config, update_config
+    from buctd_tpu_torch.convert import load_orbax_checkpoint
+    from buctd_tpu_torch.serving import PoseEstimator
+    from buctd_tpu_torch.train import run as train_run
+    from buctd_tpu_torch.train.checkpoint import OcdbtStore, leaf_digests, load_params
+    from buctd_tpu_torch.utils import zstd
+    from buctd_tpu_torch.valid import run as valid_run
+
+    def read(fixture):
+        """The fixture's expected.json, directory, tree, read seconds, and
+        the leaves that differ from expected.json."""
+        expected = json.loads((fixture / "expected.json").read_text())
+        ckpt = fixture / "checkpoint"
+        t0 = time.perf_counter()
+        tree = load_params(ckpt)
+        read_s = time.perf_counter() - t0
+        digests = leaf_digests(tree)
+        bad = sorted(k for k in set(digests) | set(expected["leaves"])
+                     if digests.get(k) != expected["leaves"].get(k))
+        if bad:
+            raise AssertionError(f"orbax: {fixture.name}'s leaves {bad[:5]} differ from "
+                                 f"expected.json ({len(bad)} of {len(digests)})")
+        return expected, ckpt, tree, read_s
+
+    t0 = time.perf_counter()
+    zstd._lib()
+    lib_s = time.perf_counter() - t0
+    expected, ckpt, tree, read_s = read(ORBAX_FULL)
+    nbytes = sum(int(np.prod(v["shape"])) * np.dtype(v["dtype"]).itemsize
+                 for v in expected["leaves"].values())
+    del tree
+    with OcdbtStore(ckpt) as store:
+        chunks = [store.get(k) for k in store.keys() if not k.endswith(b"/.zarray")]
+    raw = sum(len(zstd.decompress(c)) for c in chunks)
+    reps, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < ORBAX_MIN_TIMED_S:
+        for c in chunks:
+            zstd.decompress(c)
+        reps += 1
+    mb_s = reps * raw / (time.perf_counter() - t0) / 1e6
+    print(f"orbax: libzstd loaded in {lib_s:.3f} s; CoAM-W48 at full width: "
+          f"{len(expected['leaves'])} leaves, {nbytes} bytes, read by load_params in "
+          f"{read_s:.3f} s ({nbytes / read_s / 1e6:.1f} MB/s, up to 8 threads), equal to "
+          f"expected.json; libzstd {mb_s:.1f} MB/s over its {len(chunks)} chunks "
+          f"({sum(map(len, chunks))} bytes -> {raw} bytes, {reps} passes; one host thread); "
+          f"card: {card}", flush=True)
+    res = {"mb_s": mb_s, "read_s": read_s, "read_bytes": nbytes,
+           "leaves": len(expected["leaves"]),
+           "launches": {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                        "warp_resample": 0}}
+    counted = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
+               "flash_bwd_dkv": fa.flash_bwd_dkv, "warp_resample": tw.warp_resample}
+
+    def config(yaml, opts, *more):
+        cfg = default_config()
+        update_config(cfg, types.SimpleNamespace(cfg=str(yaml), opts=list(opts) + list(more)))
+        return cfg
+
+    t0 = time.perf_counter()
+    sd = load_orbax_checkpoint(ckpt)
+    convert_s = time.perf_counter() - t0
+    rng = np.random.RandomState(18)
+    img, conds = sample_request(np, rng)
+    batch = [sample_request(np, rng) for _ in range(3)]
+    want = 2 * ROUNDS * 2 * 3        # K1 2 a forward; two buckets' warm-ups and first replay
+    with tempfile.TemporaryDirectory(prefix="buctd_orbax_") as tmp:
+        root = Path(tmp)
+        pth = root / "coam_w48.pth"
+        torch.save(sd, pth)
+        del sd
+        for dtype in ("float32", "bfloat16"):
+            outs, k1, start = {}, {}, {}
+            for source in (str(ckpt), str(pth)):
+                fa.flash_attention.launches = 0              # the main path's run
+                t0 = time.perf_counter()
+                est = PoseEstimator(config(CONFIG, (), "TPU.EVAL_DTYPE", dtype),
+                                    checkpoint=source, refine_iters=ROUNDS)
+                start[source] = time.perf_counter() - t0
+                outs[source] = [est.predict(img, conds, float("-inf")),
+                                *est.predict_batch([b[0] for b in batch],
+                                                   [b[1] for b in batch], float("-inf"))]
+                torch.cuda.synchronize()
+                k1[source] = fa.flash_attention.launches
+                del est
+                torch.cuda.empty_cache()
+            same = all(np.array_equal(a, b) for a, b in zip(outs[str(ckpt)], outs[str(pth)]))
+            finite = all(o.shape == (4, 14, 3) and np.isfinite(o).all()
+                         for o in outs[str(ckpt)])
+            print(f"orbax: CoAM-W48 PoseEstimator(checkpoint=<dir>) {dtype}, {ROUNDS} rounds, "
+                  f"480x640 with 4 poses and a batch of 3: predict and predict_batch bit for "
+                  f"bit the .pth estimator's: {same}, finite {finite}; K1 launches "
+                  f"{k1[str(ckpt)]} (the .pth estimator {k1[str(pth)]}, want {want}); "
+                  f"estimator built in {start[str(ckpt)]:.2f} s from the directory, "
+                  f"{start[str(pth)]:.2f} s from the .pth (load_orbax_checkpoint alone "
+                  f"{convert_s:.2f} s)", flush=True)
+            if not (same and finite and k1[str(ckpt)] == k1[str(pth)] == want):
+                raise AssertionError(f"orbax: the {dtype} estimator from the directory "
+                                     f"differs or launched K1 {k1} times (want {want})")
+            res["launches"]["flash_fwd"] += k1[str(ckpt)]
+            res[f"serving_{dtype}"] = {"launches": k1[str(ckpt)], "same": same,
+                                       "start_s": start[str(ckpt)]}
+        res["convert_s"] = convert_s
+
+        expected, ckpt, _, _ = read(ORBAX_FIXTURE)
+        sd = load_orbax_checkpoint(ckpt)
+        yaml, opts = ROOT / expected["cfg"], list(expected["opts"])
+        ann = write_synthetic_set(np, root, ORBAX_EVAL_IMAGES, SYNTH_PEOPLE, seed=18)
+        bu = write_bu_predictions(np, ann, root)
+        data = ["DATASET.TEST_IMAGE_DIR", str(root), "DATASET.TEST_ANNOTATION_FILE", str(ann),
+                "DATASET.TRAIN_IMAGE_DIR", str(root), "DATASET.TRAIN_ANNOTATION_FILE", str(ann),
+                "TPU.DEVICE_PIPELINE", "True", "TEST.MODEL_FILE", str(ckpt)]
+        for f in counted.values():
+            f.launches = 0                                   # the main path's run
+        out = valid_run.main(["--cfg", str(yaml), *opts, *data, "TEST.COCO_BBOX_FILE", str(bu),
+                              "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH), "PRINT_FREQ", "100",
+                              "OUTPUT_DIR", str(root / "eval")])
+        got = {k: f.launches for k, f in counted.items()}
+        r = out["rounds"][0]
+        start_same = all(torch.equal(t.cpu(), sd[k]) for k, t in out["model"].state_dict().items())
+        print(f"orbax: valid.run with TEST.MODEL_FILE <dir>: AP {r['AP']!r}, {r['crops']} "
+              f"crops, {r['crops'] / r['loop_s']:.2f} crops/s, the fixture's weights: "
+              f"{start_same}; launches {got}", flush=True)
+        _check_round(np, "orbax valid.run", r, ORBAX_EVAL_IMAGES * SYNTH_PEOPLE)
+        if not (start_same and got["flash_fwd"] > 0 and got["warp_resample"] > 0):
+            raise AssertionError(f"orbax: valid.run from the directory: weights {start_same}, "
+                                 f"launches {got}")
+        for k in got:
+            res["launches"][k] += got[k]
+        res["eval"] = {"ap": r["AP"], "launches": got}
+
+        for f in counted.values():
+            f.launches = 0                                   # the main path's run
+        # cuDNN's heuristics: with CUDNN.BENCHMARK the narrow model's first
+        # step took 27.6 s on an H100 timing its new shapes (the second 2.6 s)
+        trained = train_run.main(["--cfg", str(yaml), "--steps", str(ORBAX_TRAIN_STEPS),
+                                  "--no-eval", "--seed", "0", *opts, *data,
+                                  "CUDNN.BENCHMARK", "False", "OUTPUT_DIR", str(root / "train")])
+        got = {k: f.launches for k, f in counted.items()}
+        losses = [float(m["loss"]) for st in trained["stats"] for m in st["metrics"]]
+        print(f"orbax: train.run --steps {ORBAX_TRAIN_STEPS} with TEST.MODEL_FILE <dir>: "
+              f"{trained['steps']} steps, losses {[round(x, 6) for x in losses]}; launches "
+              f"{got}", flush=True)
+        if (trained["steps"] != ORBAX_TRAIN_STEPS or not np.isfinite(losses).all()
+                or min(got.values()) == 0):
+            raise AssertionError(f"orbax: train.run from the directory: {trained['steps']} "
+                                 f"steps, losses {losses}, launches {got}")
+        for k in got:
+            res["launches"][k] += got[k]
+        res["train"] = {"losses": losses, "launches": got}
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4725,6 +4938,7 @@ def main() -> int:
         now = time.perf_counter()
         phase_s[name] = round(now - last[0], 1)
         last[0] = now
+        print(f"phase {name}: {phase_s[name]} s", flush=True)
 
     names = _build.build_all()
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4733,8 +4947,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    check_sass()
-    mark("build_and_sass")
+    from concurrent.futures import ThreadPoolExecutor
+
+    sass_pool = ThreadPoolExecutor(1)
+    sass = sass_pool.submit(sass_counts)            # on the host beside the kernel phases
+    mark("build")
     nan_phase(torch, fa, fb)
     mark("nan")
     k1 = kernel_phase(torch, F, fa)
@@ -4746,6 +4963,9 @@ def main() -> int:
     mark("transpose_kernel")
     kv = kvres_kernel_phase(torch, F, fa)
     mark("kvres_kernel")
+    check_sass(sass.result())
+    sass_pool.shutdown()
+    mark("sass")
 
     def serve(config, k1_per_forward, exact_ref=False):
         serving = serving_phase(torch, np, fa, config, k1_per_forward, exact_ref)
@@ -4832,6 +5052,8 @@ def main() -> int:
     mark("prenet_serving_and_tools")
     mc = multicard_phase(torch, np, fa, card)
     mark("multicard")
+    orb = orbax_phase(torch, np, fa, tw, card)
+    mark("orbax")
 
     def bound_by(ops_ms, bound_ms):
         return "operations" if ops_ms >= bound_ms else "bytes"
@@ -4879,11 +5101,14 @@ def main() -> int:
                   train["launches"][f"flash_bwd_{kind}"] + more[f"flash_bwd_{kind}"]
                   + tp_train["launches"][f"flash_bwd_{kind}"]
                   + host["launches"][f"flash_bwd_{kind}"]
-                  + mc_k2[f"flash_bwd_{kind}"], tk[f"{kind}_err"], kind)
+                  + mc_k2[f"flash_bwd_{kind}"] + orb["launches"][f"flash_bwd_{kind}"],
+                  tk[f"{kind}_err"], kind)
         e["f32"] = f32_bwd(kind, sum(r["shipped"][f"{kind}_ms"] for r in k2_f32),
                            step_launches[f"flash_bwd_{kind}"])
         # the host Loader's trainer (host_loader_phase), its launches
         e["host_loader"] = {"launches": host["launches"][f"flash_bwd_{kind}"]}
+        # train.run from the orbax fixture (orbax_phase), its launches
+        e["orbax"] = {"launches": orb["launches"][f"flash_bwd_{kind}"]}
         # the multi-card steps (multicard_phase): DDP at NCCL world size 1,
         # the two gloo processes on the one card
         e["multicard"] = {"nccl_ddp": mc["nccl_launches"][f"flash_bwd_{kind}"],
@@ -4924,13 +5149,15 @@ def main() -> int:
               "inference_f32": inf["launches"]["float32_1"] + inf["launches"]["float32_3"],
               "inference_bf16": inf["launches"]["bfloat16_1"] + inf["launches"]["bfloat16_3"],
               "pose_resnet": rn["eval_launches"]["flash_fwd"] + rn["train_launches"]["flash_fwd"],
-              "host_loader": host["launches"]["flash_fwd"]}
+              "host_loader": host["launches"]["flash_fwd"],
+              "orbax": orb["launches"]["flash_fwd"]}
     new_k4 = {"pose_resnet": rn["eval_launches"]["warp_resample"]
               + rn["train_launches"]["warp_resample"],
               "lambda": lam["float32"]["warp_launches"] + lam["bfloat16"]["warp_launches"]
               + lam["validate_lambda_warp_launches"],
               "datasets": sum(v["warp_launches"] for v in dsets.values()),
-              "host_loader_phase_device_loader": host["launches"]["warp_resample"]}
+              "host_loader_phase_device_loader": host["launches"]["warp_resample"],
+              "orbax": orb["launches"]["warp_resample"]}
     bf16_launches += new_k1["lambda_bf16"] + new_k1["inference_bf16"]
 
     def kv_bwd_entry(kind, replaces):
@@ -5014,7 +5241,7 @@ def main() -> int:
           f"(crops/s, AP)", flush=True)
     print(f"host Loader (TPU.DEVICE_PIPELINE False): trainer {host['host']['ms_step']:.2f} "
           f"ms/step with the host sampler (DeviceLoader's in phase 4: {train['ms_step']:.2f}), "
-          f"{host['host_synth']['ms_step']:.2f} with TPU.DEVICE_SYNTHESIS (DeviceLoader in turns "
+          f"{host['host_synth']['ms_step']:.2f} with TPU.DEVICE_SYNTHESIS (DeviceLoader "
           f"{host['device_synth']['ms_step']:.2f}); one eval round {host['eval_host']['crops_s']:.2f} "
           f"crops/s, AP {host['eval_host']['ap']!r} (DeviceLoader {host['eval_device']['crops_s']:.2f} "
           f"crops/s, AP {host['eval_device']['ap']!r}); summary {host['params']:,} parameters, "
@@ -5025,6 +5252,10 @@ def main() -> int:
           f"{mc['one_ms']:.2f} ms/step, two gloo processes on the one card "
           f"{mc['two_ms'][0]:.2f} and {mc['two_ms'][1]:.2f} ms/step; loss gaps "
           f"{mc['loss_gaps']}; mesh= serving {mc['mesh_err']:.3e} px; card: {card}", flush=True)
+    print(f"orbax reader: CoAM-W48 at full width, {orb['leaves']} leaves, {orb['read_bytes']} "
+          f"bytes read in {orb['read_s']:.3f} s; libzstd {orb['mb_s']:.1f} MB/s over its chunks; "
+          f"served f32 and bf16 from the directory, a narrow CoAM evaluated and trained from "
+          f"its directory; launches {orb['launches']}; card: {card}", flush=True)
     print(f"phase seconds: {phase_s}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
@@ -5037,13 +5268,15 @@ def main() -> int:
                       + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]
                       + bf16_launches + new_k1["lambda_f32"] + new_k1["inference_f32"]
                       + sum(new_k1["datasets"].values()) + new_k1["host_loader"]
-                      + sum(graph_k1.values()) + sum(mc_k1.values())),
+                      + new_k1["orbax"] + sum(graph_k1.values()) + sum(mc_k1.values())),
          # its launches on the multi-card paths (multicard_phase)
          "multicard": mc_k1,
          # the graph phase's main path (f32, bf16): warm-ups and replays
          "graph_launches": graph_k1,
          # its launches on the lambda sweep (f32, bf16), the OCHuman and animal
-         # evaluation rounds, inference (f32, bf16) and pose_resnet's paths
+         # evaluation rounds, inference (f32, bf16), pose_resnet's paths, the
+         # host Loader's and the orbax fixture's (serving f32 and bf16,
+         # valid.run, train.run)
          "more_paths": new_k1,
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"], tp_k["fwd_err"]),
          # f32 (3xTF32) at MAIN_CASES, the SIMT forward it replaced timed in

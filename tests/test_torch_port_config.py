@@ -128,14 +128,16 @@ def test_every_experiment_yaml_loads_in_both_packages(yaml):
 
 def test_import_leaves_jax_out():
     """In a fresh interpreter, importing every module of the port pulls in
-    neither jax nor buctd_tpu (the pytest process already holds JAX)."""
+    none of jax, flax, buctd_tpu, orbax, tensorstore, zstandard and numcodecs
+    (the pytest process already holds JAX)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import buctd_tpu_torch\n"
         "mods = [importlib.import_module(m.name) for m in pkgutil.walk_packages(\n"
         "    buctd_tpu_torch.__path__, 'buctd_tpu_torch.')]\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "             or n == 'buctd_tpu' or n.startswith('buctd_tpu.'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'flax', 'buctd_tpu', 'orbax', 'tensorstore', 'zstandard',\n"
+        "              'numcodecs'))\n"
         "print(bad, len(mods))\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -147,11 +149,13 @@ def test_import_leaves_jax_out():
 def test_source_imports_no_jax():
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|buctd_tpu)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|buctd_tpu|orbax|tensorstore|zstandard|"
+                     r"numcodecs)(\.|\s|$)", re.M)
     files = sorted((REPO / "buctd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     for f in files:
-        assert not pat.search(f.read_text()), f"{f} imports jax/flax/buctd_tpu"
+        assert not pat.search(f.read_text()), (f"{f} imports jax/flax/buctd_tpu/orbax/"
+                                               "tensorstore/zstandard/numcodecs")
 
 
 def test_rainbow_colors_match_jax_without_matplotlib():

@@ -13,6 +13,10 @@ the flash engine, one round, one artifact for the module).
 - params.npz is the port's state_dict of ``from_flax``'s weights, exactly.
 - The contract's refusals: no containing bucket, a batched-only artifact,
   the format guard, another device, the serve tool's refused flags.
+- ``--checkpoint`` of both tools takes an orbax directory of JAX's
+  save_params (the export's params.npz are ``from_flax`` of the saved tree;
+  the serve tool answers as from a ``.pth`` of the same state_dict), and a
+  save_checkpoint train-state directory raises ValueError.
 """
 
 import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
@@ -272,27 +276,77 @@ def test_export_tool_selftest_on_the_artifact(artifact, art):
         assert export.selftest(artifact[0], art, key) == 0.0
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--exported", "x", "--refine-iters", "3"], "--refine-iters apply to a live"),
-    (["--exported", "x", "--data-parallel"], "--data-parallel apply to a live"),
-    (["--cfg", "x.yaml", "--checkpoint", "ckpt_dir"], "item 10"),
-    ([], "one of --cfg or --exported is required"),
+@pytest.fixture(scope="module")
+def orbax_dirs(artifact, tmp_path_factory):
+    """JAX's save_params of the module's weights, a save_checkpoint train
+    state of them, and a .pth of their from_flax state_dict."""
+    from test_torch_port_orbax import write_params_dir, write_train_state_dir
+
+    from buctd_tpu_torch.convert import from_flax
+
+    variables = artifact[4]
+    root = tmp_path_factory.mktemp("orbax")
+    jcfg = load_cfg("jax", opts=OPTS)
+    model, _ = jax_variables(jcfg, seed=5)
+    torch.save(from_flax(variables), root / "weights.pth")
+    return {"PARAMS": write_params_dir(root / "params", variables),
+            "TRAIN_STATE": write_train_state_dir(root, jcfg, model, variables),
+            "PTH": str(root / "weights.pth")}
+
+
+@pytest.mark.parametrize("argv,error,match", [
+    (["--exported", "x", "--refine-iters", "3"], SystemExit, "--refine-iters apply to a live"),
+    (["--exported", "x", "--data-parallel"], SystemExit, "--data-parallel apply to a live"),
+    (["--cfg", str(COAM_YAML), "--checkpoint", "TRAIN_STATE", *OPTS], ValueError,
+     "opt_state"),
+    ([], SystemExit, "one of --cfg or --exported is required"),
 ])
-def test_serve_tool_refusals(tmp_path, argv, match):
+def test_serve_tool_refusals(tmp_path, orbax_dirs, argv, error, match):
     from buctd_tpu_torch.tools import serve
 
+    argv = [orbax_dirs.get(a, a) for a in argv]
     (tmp_path / "m.json").write_text("[]")
-    with pytest.raises(SystemExit, match=match):
-        serve.main([*argv, "--manifest", str(tmp_path / "m.json"),
-                    "--out", str(tmp_path / "o.json"), "--device", "cpu"])
+    with pytest.raises(error, match=match):
+        serve.main(["--manifest", str(tmp_path / "m.json"), "--out", str(tmp_path / "o.json"),
+                    "--device", "cpu", *argv])
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--checkpoint", "ckpt_dir"], "item 10"),
+@pytest.mark.parametrize("argv,error,match", [
+    (["--checkpoint", "TRAIN_STATE"], ValueError, "opt_state"),
 ])
-def test_export_tool_refusals(argv, match):
+def test_export_tool_refusals(tmp_path, orbax_dirs, argv, error, match):
     from buctd_tpu_torch.tools import export
 
-    with pytest.raises(SystemExit, match=match):
-        export.main(["--cfg", "x.yaml", "--out", "o", "--shape", "256x256x4",
-                     "--device", "cpu", *argv])
+    argv = [orbax_dirs.get(a, a) for a in argv]
+    with pytest.raises(error, match=match):
+        export.main(["--cfg", str(COAM_YAML), "--out", str(tmp_path / "o"), "--shape",
+                     "256x256x4", "--device", "cpu", *argv, *OPTS])
+
+
+def test_tools_load_an_orbax_checkpoint(artifact, orbax_dirs, tmp_path):
+    """``tools.export --checkpoint DIR`` writes the module artifact's
+    weights and passes its selftest; ``tools.serve --checkpoint DIR``
+    answers as with a .pth of the same state_dict."""
+    import cv2
+
+    from buctd_tpu_torch.tools import export, serve
+
+    out = tmp_path / "art"
+    export.main(["--cfg", str(COAM_YAML), "--checkpoint", orbax_dirs["PARAMS"], "--out",
+                 str(out), "--shape", "256x256x4", "--device", "cpu", "--selftest", *OPTS])
+    with np.load(out / "params.npz") as z, np.load(os.path.join(artifact[1], "params.npz")) as w:
+        assert z.files == w.files
+        for k in z.files:
+            np.testing.assert_array_equal(z[k], w[k], err_msg=k)
+    img, conds = request(21)
+    cv2.imwrite(str(tmp_path / "0.png"), img[:, :, ::-1])
+    (tmp_path / "m.json").write_text(json.dumps([{"image": str(tmp_path / "0.png"),
+                                                  "poses": conds.tolist()}]))
+    answers = [serve.main(["--cfg", str(COAM_YAML), "--checkpoint", orbax_dirs[key],
+                           "--manifest", str(tmp_path / "m.json"), "--out",
+                           str(tmp_path / f"{key}.json"), "--device", "cpu",
+                           "--vis-thres=-1e9", *OPTS])
+               for key in ("PARAMS", "PTH")]
+    got, want = (np.asarray(a[0]["predictions"], np.float32) for a in answers)
+    assert got.shape == (3, J, 3)
+    np.testing.assert_array_equal(got, want)

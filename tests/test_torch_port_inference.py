@@ -16,7 +16,8 @@ weights (JAX through ``torch_to_flax``).
   move a near-tied argmax).
 * ``vis_thres``: every joint under it is NaN in all three values, on both
   sides.  The CLI on a written image runs the demo pose of JAX's CLI.  An
-  orbax directory raises and names ROADMAP.
+  orbax directory of JAX's save_params loads (``--model DIR``), and a
+  ``save_checkpoint`` train-state directory raises ValueError, as JAX's tool.
 """
 
 import torch_cpu_threads  # noqa: F401  (first: one torch thread a CPU worker)
@@ -165,8 +166,30 @@ def test_cli_on_a_written_image(weights, tmp_path, capsys):
             raise RuntimeError("CUDA present: the default device is the card")
 
 
-def test_orbax_directory_raises(tmp_path):
+def test_orbax_directory_raises(tmp_path, capsys):
+    """``get_model`` and the CLI load a save_params directory (the weights
+    equal ``from_flax`` of the saved tree); a train-state directory raises
+    ValueError naming its keys, as JAX's ``load_params`` with the model's
+    template refuses it."""
+    import cv2
+    from test_torch_port_orbax import write_params_dir, write_train_state_dir
+
+    from buctd_tpu_torch.convert import from_flax
+    from buctd_tpu_torch.tools import inference
     from buctd_tpu_torch.tools.inference import get_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(load_cfg("torch", opts=TINY_COAM), str(tmp_path), device="cpu")
+    jcfg = load_cfg("jax", opts=TINY_COAM)
+    model, variables = jax_variables(jcfg, seed=4)
+    path = write_params_dir(tmp_path / "orbax", variables)
+    port = get_model(load_cfg("torch", opts=TINY_COAM + F32), path, device="cpu")
+    want = from_flax(variables)
+    for key, t in port.state_dict().items():
+        torch.testing.assert_close(t, want[key], rtol=0, atol=0)
+    img = np.random.RandomState(1).randint(0, 255, (160, 120, 3)).astype(np.uint8)
+    cv2.imwrite(str(tmp_path / "person.jpg"), img)
+    got = inference.main(["--cfg", str(COAM_YAML), "--image", str(tmp_path / "person.jpg"),
+                          "--model", path, "--device", "cpu", *TINY_COAM, *F32])
+    assert got.shape == (1, 1, 14, 3) and "[[[[" in capsys.readouterr().out
+    state = write_train_state_dir(tmp_path, jcfg, model, variables)
+    with pytest.raises(ValueError, match="opt_state"):
+        get_model(load_cfg("torch", opts=TINY_COAM), state, device="cpu")

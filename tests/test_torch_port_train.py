@@ -225,9 +225,12 @@ def test_train_entry_runs_and_checkpoints(tmp_path):
 
 def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """Validation at EPOCH_EVAL_FREQ runs (results json, best AP tracked in
-    model_best.pth); TPU.DEVICE_PIPELINE False and DEBUG.DEBUG train; the
-    option not ported (an orbax TEST.MODEL_FILE) raises and names the
-    ROADMAP, and a TPU.MESH_SHAPE over more cards than the run has raises."""
+    model_best.pth); TPU.DEVICE_PIPELINE False and DEBUG.DEBUG train; an
+    orbax TEST.MODEL_FILE of JAX's save_params warm-starts the model (the
+    weights equal from_flax of the saved tree) and trains, while a
+    save_checkpoint train-state directory raises ValueError as JAX's
+    tools/train.py:76-77 does; a TPU.MESH_SHAPE over more cards than the
+    run has raises."""
     from buctd_tpu_torch.core import function
     from buctd_tpu_torch.train import run
 
@@ -259,10 +262,27 @@ def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch):
     # the host cv2 Loader and the train debug dumps run now
     for opts in (["TPU.DEVICE_PIPELINE", "False"], ["DEBUG.DEBUG", "True"]):
         assert run.main(args[:2] + ["--steps", "1", "--no-eval"] + args[2:] + opts)["steps"] == 1
+    from test_torch_port_orbax import write_params_dir, write_train_state_dir
+
+    from buctd_tpu_torch.convert import from_flax
+    from buctd_tpu_torch.models import get_model
+
+    jcfg = load_cfg("jax", opts=TINY_COAM)
+    jmodel, variables = jax_variables(jcfg, seed=7)
+    orbax = write_params_dir(tmp_path / "orbax", variables)
+    cfg = load_cfg("torch", opts=TINY_COAM + ["TEST.MODEL_FILE", orbax])
+    model = get_model(cfg, device="cpu")
+    run.load_warm_start(cfg, model)
+    want = from_flax(variables)
+    for key, t in model.state_dict().items():
+        torch.testing.assert_close(t, want[key], rtol=0, atol=0)
+    assert run.main(args[:2] + ["--steps", "1", "--no-eval"] + args[2:] +
+                    ["TEST.MODEL_FILE", orbax])["steps"] == 1
+    state = write_train_state_dir(tmp_path, jcfg, jmodel, variables)
     for opts, error, match in (
             # a mesh is ported; one over more cards than the run has raises
             (["TPU.MESH_SHAPE", "[2]"], ValueError, "MESH_SHAPE.*does not match"),
-            (["TEST.MODEL_FILE", str(tmp_path / "orbax")], NotImplementedError, "ROADMAP")):
+            (["TEST.MODEL_FILE", state], ValueError, "opt_state")):
         with pytest.raises(error, match=match):
             run.main(args[:2] + ["--steps", "1", "--no-eval"] + args[2:] + opts)
     if not torch.cuda.is_available():
