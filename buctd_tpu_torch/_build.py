@@ -160,20 +160,38 @@ def load_host(name: str) -> ctypes.CDLL:
     return lib
 
 
-def hmma_counts(name: str, kind: str = "") -> dict:
-    """Tensor-core (HMMA) instructions in the SASS of each kernel of the built
-    library of ``csrc/<name>.cu`` (``cuobjdump -sass``), by mangled function
-    name; with ``kind``, only those whose mnemonic holds it (``"TF32"``:
-    ``HMMA.1684.F32.TF32``)."""
+def sass(name: str) -> str:
+    """The SASS of the built library of ``csrc/<name>.cu`` (``cuobjdump
+    -sass``)."""
     tool = shutil.which("cuobjdump") or str(Path(_nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([tool, "-sass", str(library_path(name))], capture_output=True,
+    return subprocess.run([tool, "-sass", str(library_path(name))], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def op_counts(sass_text: str, op: str, kind: str = "") -> dict:
+    """Instructions whose mnemonic starts with ``op`` in each kernel of a
+    disassembly (``sass``), by mangled function name; with ``kind``, only
+    those whose mnemonic holds it.  ``op`` "HMMA": mma.sync on the tensor
+    cores; "HGMMA": wgmma; "UTMALDG": a TMA tensor load."""
     counts, fn = {}, None
-    for line in sass.splitlines():
+    pattern = re.compile(r"\b" + re.escape(op) + r"\S*" + re.escape(kind))
+    for line in sass_text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and re.search(r"\bHMMA\S*" + re.escape(kind), line):
+        elif fn is not None and pattern.search(line):
             counts[fn] += 1
     return counts
+
+
+def sass_op_counts(name: str, op: str, kind: str = "") -> dict:
+    """``op_counts`` of the built library of ``csrc/<name>.cu``."""
+    return op_counts(sass(name), op, kind)
+
+
+def hmma_counts(name: str, kind: str = "") -> dict:
+    """Tensor-core mma.sync (HMMA) instructions of each kernel of the built
+    library of ``csrc/<name>.cu``; with ``kind``, only those whose mnemonic
+    holds it (``"TF32"``: ``HMMA.1684.F32.TF32``)."""
+    return sass_op_counts(name, "HMMA", kind)

@@ -17,9 +17,13 @@
 // 2^-21 relative, as the JAX path's Precision.HIGHEST is on the TPU.  It
 // rounds nothing to a narrower type.
 //
-// bf16 (dtype 1; the autocast training step): flash_fwd_tc_kernel
-// (flash_fwd_tc.cuh).  It rounds q * scale and p * keep * c to bf16 where
-// JAX's kernel does, so the lse it hands K2 is that of K2's logits.
+// bf16 (dtype 1; the autocast training step, bf16 serving and evaluation):
+// flash_fwd_wgmma_kernel (flash_fwd_wgmma.cuh: TMA loads, a producer warp,
+// two consumer warpgroups on wgmma) wherever its TMA loads take the call
+// (hw::takes: d a multiple of 8, q, k and v 16-byte aligned), else
+// flash_fwd_tc_kernel (flash_fwd_tc.cuh: mma.sync, cp.async, any row
+// alignment).  Both round q * scale and p * keep * c to bf16 where JAX's
+// kernel does, so the lse they hand K2 is that of K2's logits.
 //
 // A second C entry, buctd_flash_fwd_simt, launches flash_fwd_kernel below,
 // the f32 forward on the CUDA cores that serving and evaluation ran before
@@ -38,10 +42,17 @@
 // so the backward kernels (flash_bwd.cu) regenerate the same mask.
 // keep_thr == 0 means no dropout.
 //
+// A third, buctd_flash_fwd_mma, launches flash_fwd_tc_kernel for any bf16
+// call: the mma.sync kernel that bf16 ran before the wgmma kernel, kept so
+// that chip_smoke.py and tools/bench_flash_fwd.py can time the two in turns.
+//
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py):
 //   int buctd_flash_fwd(q, k, v, out, lse, bh, lq, lk, d, scale,
 //                       keep_thr, keep_scale, seed, dtype, stream)
 //   int buctd_flash_fwd_simt(the same arguments; dtype must be 0)
+//   int buctd_flash_fwd_mma(the same arguments; dtype must be 1)
+//   int buctd_flash_fwd_blocks_per_sm(d, dropout): blocks of the wgmma
+//       kernel resident on one SM at head dim d (0 where it has none)
 // q (bh, lq, d), k/v (bh, lk, d) contiguous, f32 (dtype 0) or bf16 (dtype 1);
 // out (bh, lq, d) f32 and lse (bh, lq) f32, allocated by the caller.  Returns
 // the cudaError_t of the launch (0 on success).  Launches on `stream` and does
@@ -52,6 +63,7 @@
 #include "dropout_hash.cuh"
 #include "flash_fwd_tc.cuh"
 #include "flash_fwd_tf32.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 namespace {
 
@@ -260,8 +272,26 @@ extern "C" int buctd_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return (int)tf32::launch_fwd<tf32::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s);
   if (dtype == 1)
-    return (int)tc::launch_fwd<tc::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s);
+    return (int)(hw::takes(q, k, v, d)
+                     ? hw::launch_fwd<hw::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s)
+                     : tc::launch_fwd<tc::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s));
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int buctd_flash_fwd_mma(const void* q, const void* k, const void* v, void* out,
+                                   void* lse, int bh, int lq, int lk, int d, float scale,
+                                   unsigned keep_thr, float keep_scale, unsigned seed,
+                                   int dtype, void* stream) {
+  if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0 || d <= 0 || d > 128 || dtype != 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)tc::launch_fwd<tc::kStages>(q, k, v, static_cast<float*>(out),
+                                          static_cast<float*>(lse), bh, lq, lk, d, scale,
+                                          Dropout{keep_thr, keep_scale, seed},
+                                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int buctd_flash_fwd_blocks_per_sm(int d, int dropout) {
+  return hw::blocks_per_sm<hw::kStages>(d, dropout != 0);
 }
 
 extern "C" int buctd_flash_fwd_simt(const void* q, const void* k, const void* v,

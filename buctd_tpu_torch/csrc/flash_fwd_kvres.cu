@@ -13,15 +13,19 @@
 // Here both dtypes launch K1's tensor-core kernels with a ring of
 // kKvresStages K/V slots (K1 takes two): f32 (dtype 0, the evaluation path
 // under the switch) flash_fwd_tf32_kernel (flash_fwd_tf32.cuh, 3xTF32), bf16
-// (dtype 1, the training step under the switch) flash_fwd_tc_kernel
-// (flash_fwd_tc.cuh).  The depth of the ring changes no arithmetic, so K1'
-// equals K1 bit for bit; rows that are not 16-byte aligned take the kernels'
-// register load path.
+// (dtype 1, the training step and bf16 evaluation under the switch)
+// flash_fwd_wgmma_kernel (flash_fwd_wgmma.cuh, TMA and wgmma) where K1 takes
+// it (hw::takes), else flash_fwd_tc_kernel (flash_fwd_tc.cuh), the same
+// choice as K1's.  The depth of the ring changes no arithmetic, so K1'
+// equals K1 bit for bit; rows that are not 16-byte aligned take the mma.sync
+// kernels' register load path.
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py),
 // the same as buctd_flash_fwd:
 //   int buctd_flash_fwd_kvres(q, k, v, out, lse, bh, lq, lk, d, scale,
 //                             keep_thr, keep_scale, seed, dtype, stream)
+//   int buctd_flash_fwd_kvres_blocks_per_sm(d, dropout): blocks of the
+//       wgmma kernel with this ring resident on one SM (0 where it has none)
 // q (bh, lq, d), k/v (bh, lk, d) contiguous, f32 (dtype 0) or bf16 (dtype 1);
 // out (bh, lq, d) and lse (bh, lq) f32, allocated by the caller.  Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue, without launching, on a
@@ -31,6 +35,7 @@
 
 #include "flash_fwd_tc.cuh"
 #include "flash_fwd_tf32.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 extern "C" int buctd_flash_fwd_kvres(const void* q, const void* k, const void* v,
                                      void* out, void* lse, int bh, int lq, int lk, int d,
@@ -46,6 +51,14 @@ extern "C" int buctd_flash_fwd_kvres(const void* q, const void* k, const void* v
     return (int)tf32::launch_fwd<tf32::kKvresStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr,
                                                      s);
   if (dtype == 1)
-    return (int)tc::launch_fwd<tc::kKvresStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s);
+    return (int)(hw::takes(q, k, v, d)
+                     ? hw::launch_fwd<tc::kKvresStages>(q, k, v, o, m, bh, lq, lk, d, scale,
+                                                        dr, s)
+                     : tc::launch_fwd<tc::kKvresStages>(q, k, v, o, m, bh, lq, lk, d, scale,
+                                                        dr, s));
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int buctd_flash_fwd_kvres_blocks_per_sm(int d, int dropout) {
+  return hw::blocks_per_sm<tc::kKvresStages>(d, dropout != 0);
 }

@@ -21,7 +21,8 @@ at once: every replay holds the lock, and its outputs are on the host before
 the lock is let go.  A capture that fails raises; nothing falls back to the
 eager function.
 
-A hand kernel's wrapper counts its launches in its ``launches``.  The
+A hand kernel's wrapper counts its launches in its ``launches`` (K1's and
+K1''s also by bf16 kernel, in ``wgmma_launches`` and ``mma_launches``).  The
 capture records launches and runs none, so ``capture`` takes back what the
 counters moved during it and ``run`` adds that amount at each replay: the
 counters count the kernels that ran on the card, eager or replayed.
@@ -40,10 +41,14 @@ _KERNEL_MODULES = ("flash_attention", "fused_block", "warp", "exp_throughput")
 
 
 def _counted() -> list:
-    """Every hand kernel's wrapper: a function with a ``launches`` count."""
+    """Every launch count of the hand kernels' wrappers (functions with a
+    ``launches`` count): (wrapper, attribute) for ``launches`` and each other
+    int attribute whose name ends in ``_launches``."""
     mods = [importlib.import_module(f"{__package__}.ops.{m}") for m in _KERNEL_MODULES]
-    return [f for m in mods for f in vars(m).values()
-            if callable(f) and isinstance(getattr(f, "launches", None), int)]
+    return [(f, name) for m in mods for f in vars(m).values()
+            if callable(f) and isinstance(getattr(f, "launches", None), int)
+            for name, value in vars(f).items()
+            if (name == "launches" or name.endswith("_launches")) and isinstance(value, int)]
 
 
 class BucketGraphs:
@@ -58,7 +63,8 @@ class BucketGraphs:
         with torch.cuda.device(self.device):
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
-        # key -> (graph, static inputs, static outputs, {wrapper: launches a replay})
+        # key -> (graph, static inputs, static outputs,
+        #         {(wrapper, count attribute): launches a replay})
         self._graphs: dict = {}
         self._lock = threading.Lock()
 
@@ -80,13 +86,14 @@ class BucketGraphs:
                     fn(*static)
             graph = torch.cuda.CUDAGraph()
             counted = _counted()
-            before = [f.launches for f in counted]
+            before = [getattr(f, a) for f, a in counted]
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 outputs = fn(*static)
             current.wait_stream(self.stream)
-            launched = {f: f.launches - n for f, n in zip(counted, before) if f.launches != n}
-            for f, n in launched.items():   # recorded, not run: they count at the replays
-                f.launches -= n
+            launched = {(f, a): getattr(f, a) - n for (f, a), n in zip(counted, before)
+                        if getattr(f, a) != n}
+            for (f, a), n in launched.items():   # recorded, not run: they count at the replays
+                setattr(f, a, getattr(f, a) - n)
             self._graphs[key] = (graph, static, outputs, launched)
 
     def run(self, key, *inputs) -> list:
@@ -102,6 +109,6 @@ class BucketGraphs:
                                      f"{tuple(buf.shape)}, got {x.dtype} {tuple(x.shape)}")
                 buf.copy_(x)
             graph.replay()
-            for f, n in launched.items():
-                f.launches += n
+            for (f, a), n in launched.items():
+                setattr(f, a, getattr(f, a) + n)
             return [t.cpu() for t in outputs]

@@ -15,9 +15,15 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
   back.  Both run both dtypes on the tensor cores: f32 operands (K1:
   serving and evaluation; K2: the f32 train step) in 3xTF32, f32-accurate
   (``forward_tf32`` and ``backward_tf32`` emulate them), bf16 operands (the
-  autocast training step) rounding q * scale, p * keep * c, do and ds to
-  bf16 where JAX's kernels do at Precision.DEFAULT; the plain versions round
-  there too (``_logits``).
+  autocast training step, bf16 serving and evaluation) rounding q * scale,
+  p * keep * c, do and ds to bf16 where JAX's kernels do at
+  Precision.DEFAULT; the plain versions round there too (``_logits``).
+* bf16 K1 and K1' dispatch by shape between two hand-written kernels
+  (``takes_wgmma``, the rule of csrc/flash_fwd_wgmma.cuh::takes): the
+  TMA + wgmma kernel where the head dim is a multiple of 8 and q, k and v
+  start 16-byte aligned (TMA's strides and bases), else the mma.sync kernel
+  of csrc/flash_fwd_tc.cuh.  ``flash_attention_mma`` launches the mma.sync
+  kernel for any bf16 call, for timing the two in turns.
 * ``BUCTD_FLASH_KVRES``, read at every call with JAX's rule (:474, :684: any
   value but "0" turns it on), routes CUDA tensors to the kv/q-resident
   kernels instead: ``csrc/flash_fwd_kvres.cu`` (K1', ``_fwd_kernel_kvres``
@@ -50,10 +56,14 @@ node (serving_export.py), and a CUDA-graph capture records its launch
 (graphs.py); ``flash_attention`` checks the operands and calls it.
 
 Launch counts (CPU calls do not count): ``flash_attention.launches`` (K1),
+and of its bf16 calls ``flash_attention.wgmma_launches`` (the wgmma kernel)
+and ``flash_attention.mma_launches`` (the mma.sync kernel);
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2),
-``flash_attention_kvres.launches`` (K1'), ``flash_bwd_dq_kvres.launches`` and
+``flash_attention_kvres.launches`` (K1', with its own ``wgmma_launches`` and
+``mma_launches``), ``flash_bwd_dq_kvres.launches`` and
 ``flash_bwd_dkv_kvres.launches`` (K2'), ``flash_attention_simt.launches``,
-``flash_bwd_dq_simt.launches``, ``flash_bwd_dkv_simt.launches``.
+``flash_attention_mma.launches``, ``flash_bwd_dq_simt.launches``,
+``flash_bwd_dkv_simt.launches``.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ from .tf32 import tf32_product
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+WGMMA_ROWS = 128   # query rows a block of the wgmma kernel (hw::kRows)
 MAX_BH = 65535   # grid.y of the kernels
 _MASK32 = 0xFFFFFFFF
 _LOG2E = 1.4426950408889634
@@ -187,15 +198,42 @@ def forward_from_logits(s, v, keep, low: bool):
     return torch.matmul(_bf16(p), v.float()) / l, (m + torch.log(l)).squeeze(-1)
 
 
-def forward_tile_rounded(s, v, keep):
+# bf16 K1's key tiles, by head dim rounded up to 16: the wgmma kernel's
+# (csrc/flash_fwd_wgmma.cuh::key_tile, kWideKeyTile above 64) and the mma.sync
+# kernel's (csrc/flash_fwd_tc.cuh::fwd_key_tile)
+WGMMA_KEY_TILE = {"narrow": 128, "wide": 96}
+MMA_KEY_TILE = {"narrow": 64, "wide": 32}
+
+
+def takes_wgmma(q, k, v) -> bool:
+    """Whether bf16 K1 and K1' run the wgmma kernel on these operands
+    (csrc/flash_fwd_wgmma.cuh::takes): bf16, the head dim a multiple of 8
+    and at most 128, q, k and v starting 16-byte aligned (TMA reads 16-byte
+    strides from 16-byte aligned bases); otherwise the mma.sync kernel."""
+    d = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and 0 < d <= MAX_HEAD_DIM and d % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def fwd_key_tile(d: int, wgmma: bool | None = None) -> int:
+    """Keys a tile of the bf16 forward kernel that the dispatch picks at
+    head dim d: the wgmma kernel's where ``wgmma`` (by default: d a multiple
+    of 8, the dispatch for aligned operands), else the mma.sync kernel's."""
+    if wgmma is None:
+        wgmma = d % 8 == 0
+    tiles = WGMMA_KEY_TILE if wgmma else MMA_KEY_TILE
+    return tiles["narrow" if -(-d // 16) * 16 <= 64 else "wide"]
+
+
+def forward_tile_rounded(s, v, keep, bk: int | None = None):
     """bf16 K1's rounding emulated densely, for the checks: from the logits s
     of ``_logits``, p rounded to bf16 relative to the running row max after
-    each key tile of the kernel's width (csrc/flash_fwd_tc.cuh::fwd_key_tile),
-    in the exp2 domain; l and the rescaling as the kernel's online softmax.
-    ``keep`` the dropout multiplier (or None).  Returns that out, and the
-    control: the same with p * keep * c left unrounded, what a kernel that
-    skipped the rounding computes."""
-    bk = 64 if v.shape[-1] <= 64 else 32
+    each key tile of ``bk`` keys (by default ``fwd_key_tile`` of v's head
+    dim), in the exp2 domain; l and the rescaling as the kernel's online
+    softmax.  ``keep`` the dropout multiplier (or None).  Returns that out,
+    and the control: the same with p * keep * c left unrounded, what a kernel
+    that skipped the rounding computes."""
+    bk = bk or fwd_key_tile(v.shape[-1])
     bh, lq, lk = s.shape
     nt, pad = -(-lk // bk), -lk % bk
     tiles = F.pad(s * _LOG2E, (0, pad), value=float("-inf")).view(bh, lq, nt, bk)
@@ -467,8 +505,19 @@ def flash_fwd_op(q, k, v, scale, dropout, seed, kvres):
     if kvres:
         return flash_attention_kvres(q, k, v, scale, dropout, seed)
     out, lse = _launch_fwd("flash_fwd", q, k, v, scale, dropout, seed)
-    flash_attention.launches += 1
+    _count(flash_attention, q, k, v)
     return out, lse
+
+
+def _count(wrapper, q, k, v) -> None:
+    """One launch on ``wrapper`` (K1 or K1'), and on the counter of the
+    bf16 kernel that its C entry picked by the same rule."""
+    wrapper.launches += 1
+    if q.dtype == torch.bfloat16:
+        if takes_wgmma(q, k, v):
+            wrapper.wgmma_launches += 1
+        else:
+            wrapper.mma_launches += 1
 
 
 @flash_fwd_op.register_fake
@@ -497,7 +546,7 @@ def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
                                      kvres_enabled())
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.wgmma_launches = flash_attention.mma_launches = 0
 # a list while utils/summary.py counts a forward's FLOPs: the (BH, Lq, Lk, d)
 # of each CUDA call (K1 or K1'), whose products no torch FLOP counter sees
 flash_attention.shapes = None
@@ -510,11 +559,44 @@ def flash_attention_kvres(q, k, v, scale: float, dropout: float = 0.0, seed: int
     _check_dropout(dropout, seed)
     _require_cuda(q, "flash_attention_kvres", "flash_attention_reference")
     out, lse = _launch_fwd("flash_fwd_kvres", q, k, v, scale, dropout, seed)
-    flash_attention_kvres.launches += 1
+    _count(flash_attention_kvres, q, k, v)
     return out, lse
 
 
 flash_attention_kvres.launches = 0
+flash_attention_kvres.wgmma_launches = flash_attention_kvres.mma_launches = 0
+
+
+def flash_attention_mma(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
+    """``flash_attention``'s function for bf16 CUDA tensors on the mma.sync
+    kernel (``flash_fwd_tc_kernel`` of csrc/flash_fwd_tc.cuh) at any shape,
+    the bf16 forward before the wgmma kernel; kept for timing the two in
+    turns, never on a path where the wgmma kernel takes the call."""
+    _check(q, k, v)
+    _check_dropout(dropout, seed)
+    _require_cuda(q, "flash_attention_mma", "flash_attention_reference")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_mma takes bf16 operands, got {q.dtype}")
+    out, lse = _launch_fwd("flash_fwd", q, k, v, scale, dropout, seed, "buctd_flash_fwd_mma")
+    flash_attention_mma.launches += 1
+    return out, lse
+
+
+flash_attention_mma.launches = 0
+
+
+def wgmma_waves(bh: int, lq: int, d: int, dropout: float = 0.0, kvres: bool = False,
+                device=None) -> dict:
+    """The grid of the wgmma kernel at (bh, lq, d) on a CUDA card: its
+    blocks (128 query rows each), how many the card keeps resident on one SM
+    (CUDA's occupancy calculator on the built kernel), and the waves that
+    makes."""
+    lib = "flash_fwd_kvres" if kvres else "flash_fwd"
+    per_sm = _fn(lib, f"buctd_{lib}_blocks_per_sm", (_I, _I))(d, int(dropout > 0.0))
+    sms = torch.cuda.get_device_properties(device or 0).multi_processor_count
+    blocks = -(-lq // WGMMA_ROWS) * bh
+    return {"blocks": blocks, "blocks_per_sm": per_sm, "sms": sms,
+            "waves": blocks / (sms * per_sm) if per_sm else float("inf")}
 
 
 def flash_attention_simt(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):

@@ -21,7 +21,8 @@ Phases (each raises on failure; nothing is caught):
      four flash libraries and K5's, HMMA in every tensor-core kernel (K5's
      ``fused_block_tc_kernel`` and ``fused_block_tf32_kernel``, one a tile
      plan) and in no SIMT one, and TF32 HMMA in every f32 kernel of K1, K1',
-     K2, K2' and K5; a NaN in q reaches f32 K1's, K1''s, K2's and K2''s
+     K2, K2' and K5, and wgmma (HGMMA) and TMA loads (UTMALDG) in every
+     instantiation of bf16 K1's and K1''s wgmma kernel; a NaN in q reaches f32 K1's, K1''s, K2's and K2''s
      outputs (at d = 48, 96 and 112), and a NaN in x K5's (both dtypes,
      tensor cores and SIMT), where it reaches the plain versions'
      (``nan_phase``);
@@ -37,9 +38,11 @@ Phases (each raises on failure; nothing is caught):
      running tile max, within K1_BF16_TILED_RMS, which p left unrounded
      misses; kernel, plain and F.scaled_dot_product_attention times beside
      the card's bound, and f32 K1 and the SIMT forward it replaced timed in
-     turns; bf16 K1 at dropout 0 (the bf16 serving and evaluation paths)
-     summed over the same serving and evaluation shapes for the kernels
-     line;
+     turns; bf16 K1 at dropout 0 (the bf16 serving and evaluation paths: the
+     TMA + wgmma kernel, flash_fwd_wgmma.cuh), the mma.sync kernel it
+     replaced and SDPA's bf16 forward timed in turns, with the wgmma grid's
+     waves, summed over the same serving and evaluation shapes for the
+     kernels line;
   2. kernels, training shapes: K1 and K2 (flash backward: the dq and the dk/dv
      kernels; on the tensor cores, f32 in 3xTF32) at the shapes a batch-32
      train step gives them, f32 and bf16, dropout 0 and 0.1, vs their plain
@@ -53,9 +56,10 @@ Phases (each raises on failure; nothing is caught):
      bit vs the f32 warp of them; at rotation 0 and the evaluation scales
      vs F.grid_sample, the same function there; the loader's work before the
      render, the former cast-mask-warp chain vs the fused read); their bf16 times
-     beside the f32 SIMT kernels' on the widened operands (what bf16 ran
-     before its tensor-core kernels), the tensor-core, MUFU and dropout-hash
-     floors, SDPA's forward and SDPA's backward alone; then the same bf16
+     beside (K1) the mma.sync kernel and SDPA's forward in turns and (K2) the
+     f32 SIMT kernels on the widened operands (what bf16 ran before its
+     tensor-core kernels), the tensor-core, MUFU and dropout-hash floors and
+     SDPA's backward alone; then the same bf16
      checks and times of K1 and K2 at TransPose-H's training shape
      (TP_TRAIN_CASES, d = 112), their ratios to SDPA beside those at
      TRAIN_CASES, and ptxas's registers and spills of f32 K1 by head dim;
@@ -70,8 +74,8 @@ Phases (each raises on failure; nothing is caught):
      bf16 (TPU.EVAL_DTYPE bfloat16, ``bf16_serving_phase``) beside the f32
      estimator of the same weights: the bf16 run's K1 launches, predict and
      predict_batch timed in turns with f32 (medians), a profile of each
-     dtype (bf16 K1's tensor-core kernel by name and launches, no SIMT or
-     3xTF32 forward; the convolutions' share of kernel time), one round's
+     dtype (bf16 K1's wgmma kernel by name and launches, no mma.sync, SIMT
+     or 3xTF32 forward; the convolutions' share of kernel time), one round's
      bf16 vs f32 keypoints within one heatmap pixel (a report), the decode
      drift of the warp and render on TF32 operands against exact (median
      within WARP_DRIFT_PX), one bf16 forward card vs CPU (every module's
@@ -260,25 +264,32 @@ PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores (the SIMT kern
 # than the gate, which must refuse it (TF32_CONTROL_PASSES).  The lse of bf16
 # K1 takes this gate too: its sum l is never rounded
 KERNEL_ATOL = KERNEL_RTOL = 2e-5
-# bf16 K1 (the tensor-core kernel) vs the plain forward that rounds q' and
-# p * keep * c where it does: out within K1_BF16_RTOL x max |out|, for f32 sums
-# in another order and one-bf16-step flips of a rounded p * keep * c where
-# exp2 and exp, or the kernel's running row max (64- or 32-key tiles) and the
-# plain version's final one, differ.  The last dominates: every p of a tile
-# seen before the row's final max is rounded independently of the plain
-# version's, a relative 2^-9 each, so the error is about 1.6e-3 of the rms of
-# out at any L, and its max about that of max |out| (measured by this script
-# on an H100: 1.02e-3 to 2.12e-3 at the serving, eval and training shapes,
-# dropout 0 and 0.1).  That leaves the rounding itself ungated: a kernel that
-# skipped it would land as far from the dense plain version
+# bf16 K1 (the wgmma kernel, or the mma.sync kernel where the dispatch picks
+# it) vs the plain forward that rounds q' and p * keep * c where it does: out
+# within K1_BF16_RTOL x max |out|, for f32 sums in another order and
+# one-bf16-step flips of a rounded p * keep * c where exp2 and exp, or the
+# kernel's running row max over its key tiles and the plain version's final
+# one, differ.  The last dominates: every p of a tile seen before the row's
+# final max is rounded independently of the plain version's, a relative 2^-9
+# each, so the error is about 1.6e-3 of the rms of out at any L, and its max
+# about that of max |out| (measured by this script on an H100 with the wgmma
+# kernel, two runs: 7.09e-4 to 2.00e-3 at the serving, eval and training
+# shapes, dropout 0 and 0.1; 1.02e-3 to 2.12e-3 with the mma.sync kernel
+# before).
+# That leaves the rounding itself ungated: a kernel that skipped it would land
+# as far from the dense plain version.  The tile is that of the kernel the
+# dispatch picks (ops/flash_attention.py::fwd_key_tile): the wgmma kernel's
+# 128 keys up to d = 64 and 96 above, the mma.sync kernel's 64 and 32
 K1_BF16_RTOL = 4e-3
 # so bf16 K1 and K1' are also held to forward_tile_rounded, which rounds p at the
 # kernel's running tile max: the rms of out - that, relative to its rms, within
 # K1_BF16_TILED_RMS (f32 sums in another order, and one-step flips where exp2
 # rounds differently).  Its control, the same with p unrounded, must miss by
 # more at every check, so the gate tells the rounding from its absence
-# (measured by this script on an H100 at every bf16 K1/K1' check, two runs:
-# the kernels 1.64e-5 to 4.05e-5, the control 1.338e-3 to 1.668e-3)
+# (measured by this script on an H100 at every bf16 K1/K1' check with the
+# wgmma kernel, two runs: the kernels 2.59e-5 to 4.28e-5, the control
+# 1.369e-3 to 1.657e-3; with the mma.sync kernel before, two runs: 1.64e-5
+# to 4.05e-5 and 1.338e-3 to 1.668e-3)
 K1_BF16_TILED_RMS = 2e-4
 # rows of exp(s' - lse), s' = q' k^T the logits K2 recomputes and lse from bf16
 # K1 or K1', sum to 1 within ROWSUM_ATOL: s' summed in f32 in another order on
@@ -555,6 +566,12 @@ FLASH_SIMT = {"flash_fwd": ("flash_fwd_kernel",),
               "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
               "flash_fwd_kvres": (),
               "flash_bwd_kvres": ()}
+# bf16 K1's and K1''s kernel on every model path (d = 48, 96, 112; the dispatch
+# of ops/flash_attention.py::takes_wgmma): TMA loads and wgmma, one
+# instantiation a head-dim case and dropout or not in each of the two
+# libraries; the mma.sync ``flash_fwd_tc_kernel`` takes the other bf16 calls
+BF16_K1_KERNEL = "flash_fwd_wgmma_kernel"
+WGMMA_LIBS = {"flash_fwd": 16, "flash_fwd_kvres": 16}
 # K5's library: the tensor-core kernels (``fused_block_tc_kernel`` bf16,
 # ``fused_block_tf32_kernel`` f32, one instantiation a tile plan) and the
 # SIMT kernels (f32 and bf16, for the A/B)
@@ -572,22 +589,33 @@ def tf32_kernels_expected(lib: str) -> int:
 
 def sass_counts() -> dict:
     """(library, "" or "TF32") -> HMMA counts by kernel, of every flash
-    library and of K5's: the disassemblies (cuobjdump, ~7 s each) all at
-    once, on the host while the first phases use the card."""
+    library and of K5's, and (library, "HGMMA" or "UTMALDG") -> wgmma and TMA
+    load counts of K1's and K1''s libraries: one disassembly a library
+    (cuobjdump, ~7 s each), all at once, on the host while the NaN phase
+    uses the card (main waits for them before the timed kernel phases)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from buctd_tpu_torch._build import hmma_counts
+    from buctd_tpu_torch._build import op_counts, sass
 
-    jobs = [(lib, kind) for lib in {**FLASH_SIMT, **K5_SIMT} for kind in ("", "TF32")]
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        return dict(zip(jobs, pool.map(lambda job: hmma_counts(*job), jobs)))
+    libs = list({**FLASH_SIMT, **K5_SIMT})
+    with ThreadPoolExecutor(len(libs)) as pool:
+        texts = dict(zip(libs, pool.map(sass, libs)))
+    found = {}
+    for lib, text in texts.items():
+        found[(lib, "")] = op_counts(text, "HMMA")
+        found[(lib, "TF32")] = op_counts(text, "HMMA", "TF32")
+        if lib in WGMMA_LIBS:
+            for op in ("HGMMA", "UTMALDG"):
+                found[(lib, op)] = op_counts(text, op)
+    return found
 
 
 def check_sass(counts: dict) -> None:
     """In every flash library and in K5's (``counts`` from sass_counts), HMMA
     in each tensor-core kernel and in none of the SIMT ones; TF32 HMMA in
     every f32 kernel (one a head-dim case of K1, K1', K2 and K2', one a tile
-    plan of K5); one bf16 K5 kernel a tile plan."""
+    plan of K5); one bf16 K5 kernel a tile plan; HGMMA and UTMALDG in every
+    instantiation of bf16 K1's and K1''s wgmma kernel."""
     from buctd_tpu_torch.ops.fused_block import TC_PLANS
 
     libs = {**FLASH_SIMT, **K5_SIMT}
@@ -610,6 +638,17 @@ def check_sass(counts: dict) -> None:
         if lib in K5_SIMT and len(tc) != len(TC_PLANS) + len(tf32):
             raise AssertionError(f"{lib}'s SASS: {len(tc)} tensor-core kernels, not "
                                  f"{len(TC_PLANS)} + {len(tf32)}")
+    # bf16 K1's and K1''s wgmma kernel: HGMMA and TMA loads (UTMALDG) in every
+    # instantiation
+    for lib, n in WGMMA_LIBS.items():
+        got = {op: {f: c for f, c in counts[(lib, op)].items() if BF16_K1_KERNEL in f}
+               for op in ("HGMMA", "UTMALDG")}
+        print(f"{lib} SASS: {len(got['HGMMA'])} {BF16_K1_KERNEL} instantiations, HGMMA "
+              f"{min(got['HGMMA'].values(), default=0)}-{max(got['HGMMA'].values(), default=0)} "
+              f"and UTMALDG {min(got['UTMALDG'].values(), default=0)}-"
+              f"{max(got['UTMALDG'].values(), default=0)} each", flush=True)
+        if any(len(g) != n or min(g.values()) == 0 for g in got.values()):
+            raise AssertionError(f"{lib}'s SASS: the wgmma kernel's HGMMA and UTMALDG {got}")
 
 
 def nan_phase(torch, fa, fb) -> None:
@@ -667,6 +706,23 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def turns_ms(fns: dict, iters: int) -> dict:
+    """Device times of several versions of one function in turns, in order
+    and then reversed (a, b, c, c, b, a), each the mean of ``iters`` launches:
+    the A/B of more than two inside one call."""
+    names = list(fns)
+    got = {n: [] for n in names}
+    for n in names + names[::-1]:
+        got[n].append(timed_ms(fns[n], iters))
+    return {n: sum(v) / len(v) for n, v in got.items()}
+
+
+def wgmma_grid(fa, bh, lq, d, dropout=0.0) -> str:
+    """The wgmma kernel's grid at (bh, lq, d): blocks, blocks an SM, waves."""
+    g = fa.wgmma_waves(bh, lq, d, dropout)
+    return f"{g['blocks']} blocks, {g['blocks_per_sm']} an SM, {g['waves']:.2f} waves"
+
+
 def flash_bound_ms(bh, lq, lk, d, dtype, clock_hz: float | None = None) -> tuple:
     """Least time for softmax(q k^T) v on the card: operations (4 bh lq lk d,
     the CostEstimate of buctd_tpu/ops/flash_attention.py) over the peak rate for
@@ -715,8 +771,10 @@ def kernel_phase(torch, F, fa) -> dict:
     groups = {"main": MAIN_CASES, "eval": EVAL_CASES,
               **{name: [case] for name, case in TP_F32_CASES.items()}}
     sums = {case: {key: 0.0 for key in keys} for case in groups}
-    # bf16 at dropout 0: the bf16 serving and evaluation paths' K1
-    bf16_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "rel", "tiled")
+    # bf16 at dropout 0: the bf16 serving and evaluation paths' K1 (the wgmma
+    # kernel), the mma.sync kernel it replaced and SDPA's bf16 forward in turns
+    bf16_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "mma_ms", "err", "rel",
+                 "tiled")
     bf16 = {case: {key: 0.0 for key in bf16_keys} for case in groups}
     for bh, lq, lk, d in [c for cases in groups.values() for c in cases] + OTHER_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -742,17 +800,28 @@ def kernel_phase(torch, F, fa) -> dict:
                 notes.append(f"{TF32_CONTROL_PASSES}-pass control exceeds the gate by "
                              f"{miss:.3e} (must be > 0)")
             case = next((g for g, cases in groups.items() if (bh, lq, lk, d) in cases), None)
+            q4, k4, v4 = q[:, None], k[:, None], v[:, None]   # (BH, 1 head, L, d)
+            mma_ms = None
             if dtype == torch.float32 and case:
                 simt_ms, ms = ab_ms(lambda: fa.flash_attention_simt(q, k, v, scale),
                                     lambda: fa.flash_attention(q, k, v, scale), 10)
+            elif case:
+                simt_ms = None
+                t3 = turns_ms({"wgmma": lambda: fa.flash_attention(q, k, v, scale),
+                               "mma": lambda: fa.flash_attention_mma(q, k, v, scale),
+                               "sdpa": lambda: F.scaled_dot_product_attention(
+                                   q4, k4, v4, scale=scale)}, 10)
+                ms, mma_ms = t3["wgmma"], t3["mma"]
+                notes.append(f"mma.sync kernel in turns {mma_ms:.4f} ms; wgmma grid "
+                             f"{wgmma_grid(fa, bh, lq, d)}")
             else:
                 simt_ms, ms = None, timed_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
             plain_ms = timed_ms(lambda: chunked(
                 lambda a, b, c: fa.flash_attention_reference(a, b, c, scale), bh, chunk,
                 q, k, v), 2)
-            q4, k4, v4 = q[:, None], k[:, None], v[:, None]   # (BH, 1 head, L, d)
-            lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
-                              10)
+            lib_ms = (t3["sdpa"] if mma_ms is not None else
+                      timed_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
+                               10))
             if dtype == torch.float32 and case == "eval":
                 notes.append("SDPA's kernels " + ", ".join(cuda_kernel_names(
                     torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))))
@@ -769,9 +838,11 @@ def kernel_phase(torch, F, fa) -> dict:
                     sums[case][key] += val
             elif case:
                 t = bf16[case]
-                for key, val in zip(bf16_keys[:5], (ms, plain_ms, lib_ms, bound,
-                                                    bound if by == "operations" else 0.0)):
+                for key, val in zip(bf16_keys[:6], (ms, plain_ms, lib_ms, bound,
+                                                    bound if by == "operations" else 0.0,
+                                                    mma_ms)):
                     t[key] += val
+                t["err"] = max(t["err"], errs[0])
                 t["rel"] = max(t["rel"], errs_note["rel"])
                 t["tiled"] = max(t["tiled"], errs_note["tiled"])
             del q, k, v, q4, k4, v4
@@ -785,11 +856,12 @@ def kernel_phase(torch, F, fa) -> dict:
               f"({t['ms'] / t['bound_ms']:.2f}x), CUDA-core bound {t['core_ms']:.4f} ms",
               flush=True)
         t = bf16[case]
-        print(f"K1 bf16, dropout 0, over {label}: tensor-core kernel {t['ms']:.4f} ms, sdpa "
-              f"{t['library_ms']:.4f} ms (kernel / sdpa {t['ms'] / t['library_ms']:.3f}), "
-              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['ms'] / t['bound_ms']:.2f}x); out within {t['rel']:.3e} of max, "
-              f"{t['tiled']:.3e} rms of the tile rounding", flush=True)
+        print(f"K1 bf16, dropout 0, over {label}: wgmma kernel {t['ms']:.4f} ms, mma.sync "
+              f"kernel {t['mma_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms in turns (wgmma / "
+              f"sdpa {t['ms'] / t['library_ms']:.3f}, wgmma / mma.sync "
+              f"{t['ms'] / t['mma_ms']:.3f}), plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.2f}x); out within "
+              f"{t['rel']:.3e} of max, {t['tiled']:.3e} rms of the tile rounding", flush=True)
     return {**sums, "bf16": bf16, "max_abs_err": worst, "control": control}
 
 
@@ -988,7 +1060,8 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
     where they do, K2's distance to the f32 plain version printed.  Returns
     the worst errors."""
     res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "bf16_rel": 0.0, "f32_gap": 0.0,
-           "fwd_bf16_rel": 0.0, "rowsum": 0.0, "tiled": 0.0, "control": float("inf"),
+           "fwd_bf16_rel": 0.0, "fwd_bf16_err": 0.0, "rowsum": 0.0, "tiled": 0.0,
+           "control": float("inf"),
            "k2_control": float("inf")}
     seed = 1234
     for bh, lq, d in cases:
@@ -1003,6 +1076,8 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
                 fwd, fnote = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, p, seed,
                                                chunk)
                 res["fwd_bf16_rel"] = max(res["fwd_bf16_rel"], fnote.get("rel", 0.0))
+                if dtype == torch.bfloat16:
+                    res["fwd_bf16_err"] = max(res["fwd_bf16_err"], fwd[0])
                 res["rowsum"] = max(res["rowsum"], fnote.get("rowsum", 0.0))
                 res["tiled"] = max(res["tiled"], fnote.get("tiled", 0.0))
                 res["control"] = min(res["control"], fnote.get("control", float("inf")))
@@ -1055,14 +1130,16 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
 def k1_k2_times(torch, F, fa, gen, cases, clock: float) -> dict:
     """bf16 K1 and K2 (the autocast step's operands) at ``cases`` (BH, L, d),
     dropout DROPOUT, on operands from ``gen``, summed over the cases: the
-    kernels, the plain versions, the f32 SIMT kernels on the widened operands
-    (what bf16 ran before its tensor-core kernels), SDPA's forward and SDPA's
-    backward alone (dq, dk and dv: the function of K2's two kernels), and the
+    kernels, the plain versions, K1's wgmma kernel, the mma.sync kernel it
+    replaced and SDPA's forward in turns, K2's f32 SIMT kernels on the widened
+    operands (what bf16 ran before its tensor-core kernels), SDPA's backward
+    alone (dq, dk and dv: the function of K2's two kernels), and the
     tensor-core, MUFU and dropout-hash floors of each at ``clock``."""
     seed = 1234
-    res = {}
+    res = {"fwd_mma_ms": 0.0}
     for name in ("fwd", "dq", "dkv"):
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "simt_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms") + (
+                ("simt_ms",) if name != "fwd" else ()):
             res[f"{name}_{key}"] = 0.0
         for floor in ("tensor", "mufu", "hash"):
             res[f"{name}_{floor}_ms"] = 0.0
@@ -1074,8 +1151,20 @@ def k1_k2_times(torch, F, fa, gen, cases, clock: float) -> dict:
         out, lse = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
         delta = (do * out).sum(-1)
         small = PLAIN_BH[lq]
+        q4, k4, v4 = (x[:, None].detach().clone().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=DROPOUT, scale=scale)
+
+        def sdpa_fwd_alone():
+            with torch.no_grad():
+                return sdpa_fwd()
+
+        t3 = turns_ms({"wgmma": lambda: fa.flash_attention(q, k, v, scale, DROPOUT, seed),
+                       "mma": lambda: fa.flash_attention_mma(q, k, v, scale, DROPOUT, seed),
+                       "sdpa": sdpa_fwd_alone}, 5)
         t = {
-            "fwd_ms": timed_ms(lambda: fa.flash_attention(q, k, v, scale, DROPOUT, seed), 10),
+            "fwd_ms": t3["wgmma"], "fwd_mma_ms": t3["mma"], "fwd_library_ms": t3["sdpa"],
             "dq_ms": timed_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale,
                                                       DROPOUT, seed), 10),
             "dkv_ms": timed_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale,
@@ -1089,26 +1178,17 @@ def k1_k2_times(torch, F, fa, gen, cases, clock: float) -> dict:
                 delta), 2),
         }
         t["dkv_plain_ms"] = t["dq_plain_ms"]   # one plain backward makes dq, dk and dv
-        # the f32 SIMT kernels on the widened operands: what bf16 ran before
+        # K2's f32 SIMT kernels on the widened operands: what bf16 ran before
         # its tensor-core kernels
         qf, kf, vf = q.float(), k.float(), v.float()
         out32, lse32 = fa.flash_attention(qf, kf, vf, scale, DROPOUT, seed)
         delta32 = (do * out32).sum(-1)
-        t["fwd_simt_ms"] = timed_ms(lambda: fa.flash_attention_simt(qf, kf, vf, scale,
-                                                                    DROPOUT, seed), 3)
         t["dq_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dq_simt(qf, kf, vf, do, lse32, delta32,
                                                                 scale, DROPOUT, seed), 3)
         t["dkv_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dkv_simt(qf, kf, vf, do, lse32,
                                                                   delta32, scale, DROPOUT,
                                                                   seed), 3)
         del qf, kf, vf, out32, lse32, delta32
-        q4, k4, v4 = (x[:, None].detach().clone().requires_grad_() for x in (q, k, v))
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=DROPOUT, scale=scale)
-
-        with torch.no_grad():
-            t["fwd_library_ms"] = timed_ms(sdpa_fwd, 10)
         out4, do4 = sdpa_fwd(), do[:, None].to(torch.bfloat16)
         # SDPA's backward alone: dq, dk, dv from the saved forward, dropout 0.1
         t["dq_library_ms"] = t["dkv_library_ms"] = timed_ms(
@@ -1129,7 +1209,9 @@ def k1_k2_times(torch, F, fa, gen, cases, clock: float) -> dict:
             return ", ".join(f"{f} {ms:.4f}" for f, ms in floors[kind].items())
 
         print(f"train kernels ({bh}, {lq}, {d}) bf16 dropout {DROPOUT}: K1 {t['fwd_ms']:.4f} ms "
-              f"(plain {t['fwd_plain_ms']:.4f}, sdpa {t['fwd_library_ms']:.4f}, floors: "
+              f"(mma.sync kernel {t['fwd_mma_ms']:.4f} and sdpa {t['fwd_library_ms']:.4f} in "
+              f"turns; wgmma grid {wgmma_grid(fa, bh, lq, d, DROPOUT)}; plain "
+              f"{t['fwd_plain_ms']:.4f}; floors: "
               f"{floor_text('fwd')}, f32-core bound {f32core:.4f}); K2 dq {t['dq_ms']:.4f} ms "
               f"(floors: {floor_text('dq')}), dkv {t['dkv_ms']:.4f} ms (floors: "
               f"{floor_text('dkv')}); plain backward {t['dq_plain_ms']:.4f} ms; sdpa backward "
@@ -1166,7 +1248,8 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
     clock = sm_clock_hz()
     res.update(k1_k2_times(torch, F, fa, gen, TRAIN_CASES, clock))
     print(f"K1 bf16 over {TRAIN_CASES} at SM clock {clock / 1e6:.0f} MHz, dropout "
-          f"{DROPOUT}: {res['fwd_ms']:.4f} ms (SIMT f32 kernel on the widened operands {res['fwd_simt_ms']:.4f}); floors "
+          f"{DROPOUT}: wgmma kernel {res['fwd_ms']:.4f} ms (mma.sync kernel in turns "
+          f"{res['fwd_mma_ms']:.4f}); floors "
           f"tensor {res['fwd_tensor_ms']:.4f} mufu {res['fwd_mufu_ms']:.4f} hash "
           f"{res['fwd_hash_ms']:.4f}, bound {res['fwd_bound_ms']:.4f} ms; SDPA forward "
           f"{res['fwd_library_ms']:.4f} ms, K1 / SDPA forward "
@@ -1612,12 +1695,13 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     torch.cuda.synchronize()
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
-    fa.flash_attention.launches = 0                  # the bf16 main path's run: each
+    zero_k1(fa)                                      # the bf16 main path's run: each
     est16.predict(img, conds, keep)                  # bucket's warm-ups, capture and a
     est16.predict_batch(images, poses, keep)         # replay, then a replay of each
     out = est16.predict(img, conds, keep)
     outs = est16.predict_batch(images, poses, keep)
     launches = fa.flash_attention.launches
+    wgmma = bf16_k1_launches(fa, label, launches)
     for o in [out, *outs]:
         if o.shape != (4, joints, 3) or not np.isfinite(o).all():
             raise AssertionError(f"{label}: prediction {o.shape}, finite "
@@ -1681,8 +1765,8 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
           f"(limit {WARP_DRIFT_PX}), p99 {p99:.4f}, max {top:.4f}", flush=True)
     if not med <= WARP_DRIFT_PX:
         raise AssertionError(f"{label}: TF32 warp drift {med} px")
-    res = {"launches": launches, "ms": ms, "conv": shares, "k1": k1, "agree": agree,
-           "drift_px": [med, p99, top]}
+    res = {"launches": launches, "wgmma_launches": wgmma, "ms": ms, "conv": shares, "k1": k1,
+           "agree": agree, "drift_px": [med, p99, top]}
 
     if cpu_check:   # one bf16 forward on the card vs the CPU's
         x = torch.from_numpy(rng.randn(1, 6, img_h, img_w).astype(np.float32))
@@ -1793,7 +1877,7 @@ def graph_serving_phase(torch, np, fa, card: str) -> dict:
         del model
         for dtype in ("float32", "bfloat16"):
             label = f"CoAM-W48 {dtype} graphs"
-            fa.flash_attention.launches = 0              # the graphs' main path
+            zero_k1(fa)                                  # the graphs' main path
             t0 = time.perf_counter()
             est = PoseEstimator(config(dtype), checkpoint=str(weights), refine_iters=ROUNDS,
                                 max_compiles=2, precompile=GRAPH_PRECOMPILE)
@@ -1826,6 +1910,8 @@ def graph_serving_phase(torch, np, fa, card: str) -> dict:
             out, outs = est.predict(img, conds, keep), est.predict_batch(images, poses, keep)
             padded_up = est.predict(*small, keep)
             launches = fa.flash_attention.launches   # the graphs' main path, read
+            wgmma = (bf16_k1_launches(fa, label, launches) if dtype == "bfloat16"
+                     else fa.flash_attention.wgmma_launches)
             if launches != captured + 3 * k1_replay:
                 raise AssertionError(f"{label}: three replays moved K1's counter from "
                                      f"{captured} to {launches}, not by {3 * k1_replay}")
@@ -1846,7 +1932,7 @@ def graph_serving_phase(torch, np, fa, card: str) -> dict:
             if not all(same):
                 raise AssertionError(f"{label}: a replay differs from eager refine: {same}")
 
-            kernel = "flash_fwd_tf32_kernel" if dtype == "float32" else "flash_fwd_tc_kernel"
+            kernel = "flash_fwd_tf32_kernel" if dtype == "float32" else BF16_K1_KERNEL
             counts = {}
             ticks = fa.flash_attention.launches
             by_name = kernel_profile(torch, lambda: est.predict(img, conds, keep),
@@ -1885,7 +1971,7 @@ def graph_serving_phase(torch, np, fa, card: str) -> dict:
                   f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: "
                   f"{card}", flush=True)
             entry = {"start_s": start_s, "warmup_launches": captured, "launches": launches,
-                     "ms": ms,
+                     "wgmma_launches": wgmma, "ms": ms,
                      "profiles": profiles, "k1_replay": k1_replay, "same": same}
 
             # the exported programs, at GRAPH_EXPORT_ROUNDS rounds
@@ -2016,15 +2102,16 @@ def conv_share(by_name: dict, label: str) -> dict:
 
 
 def bf16_k1_profile(by_name: dict, counts: dict, label: str, want: int) -> dict:
-    """K1 in a profiled bf16 run: ``want`` launches of its tensor-core kernel
-    (flash_fwd_tc_kernel, by name), its time and share; raises where the run
-    named a SIMT or a 3xTF32 forward."""
+    """K1 in a profiled bf16 run: ``want`` launches of its wgmma kernel
+    (BF16_K1_KERNEL, by name), its time and share; raises where the run named
+    the mma.sync, a SIMT or a 3xTF32 forward."""
     total = sum(by_name.values())
-    tc = {k: ms for k, ms in by_name.items() if "flash_fwd_tc_kernel" in k}
+    tc = {k: ms for k, ms in by_name.items() if BF16_K1_KERNEL in k}
     launched = sum(counts[k] for k in tc)
-    other = [k for k in by_name if "flash_fwd_kernel" in k or "flash_fwd_tf32_kernel" in k]
+    other = [k for k in by_name if any(n in k for n in (
+        "flash_fwd_kernel", "flash_fwd_tf32_kernel", "flash_fwd_tc_kernel"))]
     ms = sum(tc.values())
-    print(f"K1 in the profiled {label}: flash_fwd_tc_kernel {launched} launches (want {want}), "
+    print(f"K1 in the profiled {label}: {BF16_K1_KERNEL} {launched} launches (want {want}), "
           f"{ms:.3f} ms = {100 * ms / total:.1f}% of {total:.2f} ms of kernel time; SIMT or "
           f"3xTF32 forward kernels seen: {other}", flush=True)
     if launched != want or other:
@@ -2086,6 +2173,7 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
         for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, tw.warp_resample,
                   tw.warp_resample_two_pass):
             f.launches = 0                                   # the main path's run
+        zero_k1(fa)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = run.main(["--cfg", str(config), "--steps", str(TRAIN_STEPS), "--no-eval",
@@ -2094,6 +2182,8 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
         wall = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         launches = {"flash_fwd": fa.flash_attention.launches,
+                    "flash_fwd_wgmma": fa.flash_attention.wgmma_launches,
+                    "flash_fwd_mma": fa.flash_attention.mma_launches,
                     "flash_bwd_dq": fa.flash_bwd_dq.launches,
                     "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
                     "warp_resample": tw.warp_resample.launches,
@@ -2101,7 +2191,10 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
         steps = res["steps"]
         stats = res["stats"][0]
         losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
+        # the autocast step's K1 runs the wgmma kernel; the model summary's
+        # forward, outside autocast, f32 K1
         want = {"flash_fwd": k1_per_step * steps + res["summary"]["flash_calls"],
+                "flash_fwd_wgmma": k1_per_step * steps, "flash_fwd_mma": 0,
                 "flash_bwd_dq": k1_per_step * steps, "flash_bwd_dkv": k1_per_step * steps,
                 "warp_resample": steps, "warp_resample_two_pass": 0}
         print(f"training run: {steps} steps of batch {TRAIN_BATCH} in {wall:.1f} s "
@@ -2172,12 +2265,14 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
               f"SIMT K2 kernels seen: {simt}", flush=True)
         if not (k2["dq"] > 0 and k2["dkv"] > 0) or simt:
             raise AssertionError(f"the bf16 step's K2 kernels: tensor-core {k2}, SIMT {simt}")
-        # and its bf16 forward runs K1's tensor-core kernel, never the SIMT
-        # flash_fwd_kernel
-        k1_tc = sum(ms for key, ms in by_name.items() if "flash_fwd_tc_kernel" in key)
-        k1_simt = [key for key in by_name if "flash_fwd_kernel" in key]
-        print(f"K1 in the profiled step: flash_fwd_tc_kernel {k1_tc:.3f} ms = "
-              f"{100 * k1_tc / total:.1f}% of kernel time; SIMT K1 kernels seen: {k1_simt}",
+        # and its bf16 forward runs K1's wgmma kernel, never the mma.sync
+        # flash_fwd_tc_kernel or the SIMT flash_fwd_kernel
+        k1_tc = sum(ms for key, ms in by_name.items() if BF16_K1_KERNEL in key)
+        k1_simt = [key for key in by_name
+                   if "flash_fwd_kernel" in key or "flash_fwd_tc_kernel" in key]
+        print(f"K1 in the profiled step: {BF16_K1_KERNEL} {k1_tc:.3f} ms = "
+              f"{100 * k1_tc / total:.1f}% of kernel time; mma.sync or SIMT K1 kernels seen: "
+              f"{k1_simt}",
               flush=True)
         if not k1_tc > 0 or k1_simt:
             raise AssertionError(f"the bf16 step's K1 kernels: tensor-core {k1_tc} ms, "
@@ -3063,16 +3158,24 @@ def eval_phase(torch, np, fa, tw) -> dict:
             try:
                 for f in counted:
                     f.launches = 0                           # the bf16 main path's run
+                zero_k1(fa)
                 run = valid_run.main(["--cfg", str(CONFIG), *bf16_opts,
                                       "OUTPUT_DIR", str(root / f"out_bf16_kvres{kv}")])
                 got = {"flash_fwd": fa.flash_attention.launches,
                        "flash_fwd_kvres": fa.flash_attention_kvres.launches,
+                       "flash_fwd_wgmma": (fa.flash_attention.wgmma_launches
+                                           + fa.flash_attention_kvres.wgmma_launches),
+                       "flash_fwd_mma": (fa.flash_attention.mma_launches
+                                         + fa.flash_attention_kvres.mma_launches),
                        "warp_resample": tw.warp_resample.launches}
             finally:
                 del os.environ["BUCTD_FLASH_KVRES"]
             r = run["rounds"][0]
             calls = 2 * batches + run["summary"]["flash_calls"]
+            # the bf16 validate steps' K1 (or K1') calls run the wgmma kernel, the
+            # model summary's f32 forward the 3xTF32 one
             want = {"flash_fwd": calls * (kv == "0"), "flash_fwd_kvres": calls * (kv == "1"),
+                    "flash_fwd_wgmma": 2 * batches, "flash_fwd_mma": 0,
                     "warp_resample": batches}
             rows = Path(r["results"]).read_text()
             print(f"bf16 evaluation, one round{' under BUCTD_FLASH_KVRES=1' * (kv == '1')}: AP "
@@ -3089,6 +3192,8 @@ def eval_phase(torch, np, fa, tw) -> dict:
         if runs["1"][1] != runs["0"][1] or runs["1"][0]["AP"] != runs["0"][0]["AP"]:
             raise AssertionError("bf16 evaluation: K1' results differ from K1's")
         res["bf16"] = {"ap": runs["0"][0]["AP"], "launches": runs["0"][2]["flash_fwd"],
+                       "wgmma_launches": runs["0"][2]["flash_fwd_wgmma"],
+                       "kvres_wgmma_launches": runs["1"][2]["flash_fwd_wgmma"],
                        "warp_launches": runs["0"][2]["warp_resample"],
                        "kvres_launches": runs["1"][2]["flash_fwd_kvres"],
                        "crops_s": runs["0"][0]["crops"] / runs["0"][0]["loop_s"],
@@ -3207,10 +3312,14 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
         torch.cuda.synchronize()
         for f in (fa.flash_attention, tw.warp_resample):
             f.launches = 0                                   # the bf16 main path's run
+        zero_k1(fa)
         run = valid_run.main(["--cfg", str(TRANSPOSE_CONFIG), *bf16_opts])
         got = {"flash_fwd": fa.flash_attention.launches,
+               "flash_fwd_wgmma": fa.flash_attention.wgmma_launches,
+               "flash_fwd_mma": fa.flash_attention.mma_launches,
                "warp_resample": tw.warp_resample.launches}
         want = {"flash_fwd": TP_LAYERS * batches + run["summary"]["flash_calls"],
+                "flash_fwd_wgmma": TP_LAYERS * batches, "flash_fwd_mma": 0,
                 "warp_resample": batches}
         r16 = run["rounds"][0]
         print(f"transpose_h bf16 evaluation, one round: AP {r16['AP']!r} (f32: {r['AP']!r}), "
@@ -3224,7 +3333,8 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
         label = f"one transpose_h bf16 validate step (batch {batch_size}, no flip)"
         counts = {}
         by_name = kernel_profile(torch, lambda: step16(batch), label, counts)
-        bf16.update(ap=r16["AP"], launches=got["flash_fwd"], warp_launches=got["warp_resample"],
+        bf16.update(ap=r16["AP"], launches=got["flash_fwd"], wgmma_launches=got["flash_fwd_wgmma"],
+                    warp_launches=got["warp_resample"],
                     crops_s=r16["crops"] / r16["loop_s"],
                     profile=bf16_k1_profile(by_name, counts, label, TP_LAYERS),
                     conv=conv_share(by_name, label))
@@ -3587,6 +3697,25 @@ def tools_phase(torch, fb, ex) -> dict:
         raise AssertionError("bench_stem: fused forward disagrees with the canonical one")
     return {"launches": launches, "f32_launches": launches["fused_basic_block"] - bf16_launches,
             "block": block, "block_f32": block_f32, "k2_f32": k2, "exp": exp, "stem": stem}
+
+
+def zero_k1(fa) -> None:
+    """K1's and K1''s launch counts, all of them and by bf16 kernel, to 0: the
+    start of a main path's run."""
+    for f in (fa.flash_attention, fa.flash_attention_kvres):
+        f.launches = f.wgmma_launches = f.mma_launches = 0
+
+
+def bf16_k1_launches(fa, label: str, launches: int) -> int:
+    """On a bf16 path that launched K1 ``launches`` times since ``zero_k1``
+    (the estimator's forwards: CoAM-W48 and TransPose-H at d = 48, 96 and
+    112), every launch ran the wgmma kernel and none the mma.sync one.
+    Returns the wgmma kernel's launches."""
+    wgmma, mma = fa.flash_attention.wgmma_launches, fa.flash_attention.mma_launches
+    if wgmma != launches or mma:
+        raise AssertionError(f"{label}: K1 launched {launches} times, the wgmma kernel "
+                             f"{wgmma}, the mma.sync kernel {mma}")
+    return wgmma
 
 
 def _run_counts(fa, tw) -> dict:
@@ -4950,10 +5079,15 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     sass_pool = ThreadPoolExecutor(1)
-    sass = sass_pool.submit(sass_counts)            # on the host beside the kernel phases
+    sass = sass_pool.submit(sass_counts)            # on the host beside the NaN phase
     mark("build")
     nan_phase(torch, fa, fb)
     mark("nan")
+    # the disassemblies end before the timed phases: their host threads
+    # delayed the launches there (host gaps inside a CUDA-event timing)
+    check_sass(sass.result())
+    sass_pool.shutdown()
+    mark("sass")
     k1 = kernel_phase(torch, F, fa)
     mark("kernel")
     main_k1 = k1["main"]
@@ -4963,9 +5097,6 @@ def main() -> int:
     mark("transpose_kernel")
     kv = kvres_kernel_phase(torch, F, fa)
     mark("kvres_kernel")
-    check_sass(sass.result())
-    sass_pool.shutdown()
-    mark("sass")
 
     def serve(config, k1_per_forward, exact_ref=False):
         serving = serving_phase(torch, np, fa, config, k1_per_forward, exact_ref)
@@ -5088,11 +5219,13 @@ def main() -> int:
                 "launches": launches, **more}
 
     def tp_bf16(kind, err_key):
-        # bf16 at TP_TRAIN_CASES (d = 112), dropout 0.1
+        # bf16 at TP_TRAIN_CASES (d = 112), dropout 0.1; beside K1 the mma.sync
+        # kernel in turns, beside K2 its f32 SIMT kernels
+        other = "mma_ms" if kind == "fwd" else "simt_ms"
         return {"ms": tp_k[f"{kind}_ms"], "plain_ms": tp_k[f"{kind}_plain_ms"],
                 "bound_ms": tp_k[f"{kind}_bound_ms"],
                 "bound_by": bound_by(tp_k[f"{kind}_ops_ms"], tp_k[f"{kind}_bound_ms"]),
-                "library_ms": tp_k[f"{kind}_library_ms"], "simt_ms": tp_k[f"{kind}_simt_ms"],
+                "library_ms": tp_k[f"{kind}_library_ms"], other: tp_k[f"{kind}_{other}"],
                 "max_abs_err": tp_k[err_key]}
 
     def bwd_entry(kind, replaces):
@@ -5128,7 +5261,8 @@ def main() -> int:
         # bf16 K1 at dropout 0 (the bf16 serving and evaluation paths) over a
         # group's shapes, with the launches of that bf16 path in this run
         t = k1["bf16"][group]
-        return {**{key: t[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        return {**{key: t[key] for key in ("ms", "mma_ms", "plain_ms", "library_ms",
+                                           "bound_ms")},
                 "bound_by": bound_by(t["ops_ms"], t["bound_ms"]), "launches": launches,
                 "max_out_err_of_max": t["rel"], "tile_rounding_rms": t["tiled"]}
 
@@ -5159,6 +5293,22 @@ def main() -> int:
               "host_loader_phase_device_loader": host["launches"]["warp_resample"],
               "orbax": orb["launches"]["warp_resample"]}
     bf16_launches += new_k1["lambda_bf16"] + new_k1["inference_bf16"]
+    # the wgmma kernel's launches on the bf16 serving (PoseEstimator, CUDA-graph
+    # start-up and replays), evaluation (valid.run with K1 and under
+    # BUCTD_FLASH_KVRES=1 K1') and training (train.run) paths, each read just
+    # after its main path's run and equal there to K1's bf16 launches
+    wgmma_paths = {"coam_bf16_serving": bf16_serving["wgmma_launches"],
+                   "transpose_h_bf16_serving": tp_bf16_serving["wgmma_launches"],
+                   "coam_bf16_graphs": graph["bfloat16"]["wgmma_launches"],
+                   "coam_bf16_eval": ev["bf16"]["wgmma_launches"],
+                   "coam_bf16_eval_kvres": ev["bf16"]["kvres_wgmma_launches"],
+                   "transpose_h_bf16_eval": tp_ev["bf16"]["wgmma_launches"],
+                   "coam_training": train["launches"]["flash_fwd_wgmma"],
+                   "coam_training_card_sampler": train_synth["launches"]["flash_fwd_wgmma"],
+                   "transpose_h_training": tp_train["launches"]["flash_fwd_wgmma"]}
+    wgmma_err = max(tk["fwd_bf16_err"], tp_k["fwd_bf16_err"],
+                    *(g["err"] for g in k1["bf16"].values()))
+    main16 = k1["bf16"]["main"]
 
     def kv_bwd_entry(kind, replaces):
         return {"name": f"flash_bwd_{kind}_kvres", "route": "cuda",
@@ -5305,7 +5455,7 @@ def main() -> int:
                            "bound_ms": tk["fwd_bound_ms"],
                            "bound_by": bound_by(tk["fwd_ops_ms"], tk["fwd_bound_ms"]),
                            "library_ms": tk["fwd_library_ms"],
-                           "simt_ms": tk["fwd_simt_ms"],
+                           "mma_ms": tk["fwd_mma_ms"],
                            "max_out_err_of_max": tk["fwd_bf16_rel"]},
          # TransPose-H at d = 112: K1's launches on its three paths, f32 at
          # its serving and evaluation shapes, bf16 at its training shape, and
@@ -5333,6 +5483,28 @@ def main() -> int:
          "library_ms": kv["fwd_library_ms"], "k1_ms": kv["k1_ms"],
          # bf16 (the tensor-core ring variant) at TRAIN_CASES beside K1 in turns
          "bf16_training": {"ms": kv["train_fwd_ms"], "k1_ms": kv["train_k1_ms"]}},
+        {"name": "flash_fwd_wgmma", "route": "cuda",
+         "source": "buctd_tpu_torch/csrc/flash_fwd_wgmma.cuh",
+         "replaces": "buctd_tpu/ops/flash_attention.py:86",
+         "launches": sum(wgmma_paths.values()), "paths": wgmma_paths,
+         "max_abs_err": wgmma_err,
+         # CoAM-W48 bf16 serving at MAIN_CASES, dropout 0: the wgmma kernel,
+         # the mma.sync kernel it replaced and SDPA's bf16 forward in turns
+         "ms": main16["ms"], "mma_ms": main16["mma_ms"], "plain_ms": main16["plain_ms"],
+         "bound_ms": main16["bound_ms"],
+         "bound_by": bound_by(main16["ops_ms"], main16["bound_ms"]),
+         "library_ms": main16["library_ms"],
+         # the same at EVAL_CASES, TransPose-H's serving and evaluation shapes,
+         # and the training shapes at dropout 0.1 (with the hash's floor)
+         "bf16_eval": k1_bf16("eval", ev["bf16"]["wgmma_launches"]),
+         "transpose_h": {
+             "bf16_serving": k1_bf16("tp_serving", tp_bf16_serving["wgmma_launches"]),
+             "bf16_eval": k1_bf16("tp_eval", tp_ev["bf16"]["wgmma_launches"]),
+             "bf16_training": tp_bf16("fwd", "fwd_err")},
+         "bf16_training": {"ms": tk["fwd_ms"], "mma_ms": tk["fwd_mma_ms"],
+                           "plain_ms": tk["fwd_plain_ms"], "bound_ms": tk["fwd_bound_ms"],
+                           "bound_by": bound_by(tk["fwd_ops_ms"], tk["fwd_bound_ms"]),
+                           "library_ms": tk["fwd_library_ms"]}},
         bwd_entry("dq", 212),
         bwd_entry("dkv", 363),
         kv_bwd_entry("dq", 245),

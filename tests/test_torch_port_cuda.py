@@ -11,14 +11,16 @@ in another order, over up to 700 keys; f32 K1 takes its products in 3xTF32,
 within about 5e-7 of f32 at these shapes, while one tf32 pass lands near
 1e-4 and misses); estimator card vs CPU 1e-3 px and 1e-3
 in confidence (f32 convs with TF32 off, summed in another order).  bf16 K1
-(the tensor-core kernel, against the plain forward that rounds q' and
+(the TMA + wgmma kernel where d is a multiple of 8 and the operands 16-byte
+aligned, else the mma.sync kernel; either against the plain forward that rounds q' and
 p * keep * c where it does): lse at 2e-5 absolute and relative (the f32 sum l
 is never rounded), out within K1_BF16_RTOL x max |out|: f32 sums in another
 order, and one-bf16-step flips of p * keep * c where exp2 and exp, or the
 kernel's running row max and the plain version's final one, differ; and
 within K1_BF16_TILED_RMS (relative rms) of ``forward_tile_rounded``, which
-rounds p at the kernel's running tile max, and whose unrounded control must
-miss by more.  The
+rounds p at the running max of the kernel's own key tiles, and whose
+unrounded control must miss by more; the wgmma kernel's SASS holds HGMMA and
+TMA loads (UTMALDG).  The
 backward kernels (K2) vs the plain backward: f32 1e-4 absolute and relative
 (dq, dk, dv sum products of a recomputed p over up to 700 keys or rows); bf16
 (the tensor-core kernels, against the plain backward that rounds where they
@@ -73,6 +75,10 @@ K1_BF16_RTOL = 4e-3
 # 1.338e-3 to 1.668e-3)
 K1_BF16_TILED_RMS = 2e-4
 BF16_GRAD_RTOL = 2e-3
+# bf16 K1 on both of its kernels: the wgmma kernel takes every shape above
+# whose d is a multiple of 8 (40, 48, 96, 112, 128), the mma.sync kernel d = 6;
+# and a TransPose-H-wide one over several key tiles
+WGMMA_SHAPES = K1_BF16_SHAPES + [(2, 1100, 1100, 112)]
 # f32 K1 and K1' (the 3xTF32 kernel): ragged in both L, and d = 7, 47 (rows of
 # 188 bytes, no multiple of 16: the register load path), 48, 96, 112 and 128
 K1_F32_SHAPES = [(2, 100, 130, 7), (2, 130, 200, 47), (3, 200, 333, 48),
@@ -159,6 +165,68 @@ def test_bf16_forward_kernel_matches_rounding_plain(cuda, bh, lq, lk, d, dropout
     rms = [((x - tiled).square().sum() / tiled.square().sum()).sqrt().item()
            for x in (out, control)]
     assert rms[0] <= K1_BF16_TILED_RMS < rms[1], rms
+
+
+def _tile_rms(out, s, v, keep, bk):
+    """Relative rms of out and of the unrounded control from
+    forward_tile_rounded at key tile bk."""
+    tiled, control = fa.forward_tile_rounded(s, v, keep, bk)
+    return [((x - tiled).square().sum() / tiled.square().sum()).sqrt().item()
+            for x in (out, control)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("bh,lq,lk,d", WGMMA_SHAPES)
+def test_bf16_forward_dispatch_wgmma_and_mma(cuda, monkeypatch, bh, lq, lk, d, dropout):
+    """bf16 K1 launches the wgmma kernel where takes_wgmma (counted on
+    flash_attention.wgmma_launches), else the mma.sync kernel (mma_launches);
+    either meets the bf16 gates against the plain forward (lse 2e-5, out
+    K1_BF16_RTOL x max |out|) and K1_BF16_TILED_RMS against the rounding at
+    its own key tile, whose unrounded control misses; K1' (the same kernels,
+    a deeper ring) equals K1 bit for bit; the mma.sync kernel kept for the A/B
+    (flash_attention_mma) meets the same gates at its tile."""
+    monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
+    q, k, v = _qkv(bh, lq, lk, d, torch.bfloat16, cuda)
+    scale, seed = d ** -0.5, 13
+    wgmma = fa.takes_wgmma(q, k, v)
+    assert wgmma == (d % 8 == 0)
+    counters = [fa.flash_attention.wgmma_launches, fa.flash_attention.mma_launches]
+    out, lse = fa.flash_attention(q, k, v, scale, dropout, seed)
+    torch.cuda.synchronize()
+    assert [fa.flash_attention.wgmma_launches - counters[0],
+            fa.flash_attention.mma_launches - counters[1]] == ([1, 0] if wgmma else [0, 1])
+    want = fa.flash_attention_reference(q, k, v, scale, dropout, seed)
+    _assert_fwd_close((out, lse), want, torch.bfloat16)
+    s, _ = fa._logits(q, k, scale)
+    keep = fa.dropout_multiplier(seed, bh, lq, lk, dropout, cuda) if dropout > 0.0 else None
+    rms = _tile_rms(out, s, v, keep, fa.fwd_key_tile(d, wgmma))
+    assert rms[0] <= K1_BF16_TILED_RMS < rms[1], rms
+    kv_before = fa.flash_attention_kvres.wgmma_launches
+    kv = fa.flash_attention_kvres(q, k, v, scale, dropout, seed)
+    assert torch.equal(kv[0], out) and torch.equal(kv[1], lse)
+    assert fa.flash_attention_kvres.wgmma_launches - kv_before == int(wgmma)
+    mma = fa.flash_attention_mma(q, k, v, scale, dropout, seed)
+    torch.cuda.synchronize()
+    _assert_fwd_close(mma, want, torch.bfloat16)
+    rms = _tile_rms(mma[0], s, v, keep, fa.fwd_key_tile(d, wgmma=False))
+    assert rms[0] <= K1_BF16_TILED_RMS < rms[1], rms
+
+
+@pytest.mark.cuda
+def test_bf16_forward_kernels_run_hgmma_and_tma(cuda):
+    """In K1's and K1''s libraries every instantiation of the wgmma kernel (8
+    head-dim cases x dropout or not) holds wgmma (HGMMA) and TMA tensor loads
+    (UTMALDG) in its SASS, and the mma.sync kernel holds HMMA."""
+    from buctd_tpu_torch import _build
+
+    for lib in ("flash_fwd", "flash_fwd_kvres"):
+        _build.build([lib])
+        for op, name, n in (("HGMMA", "flash_fwd_wgmma_kernel", 16),
+                            ("UTMALDG", "flash_fwd_wgmma_kernel", 16),
+                            ("HMMA", "flash_fwd_tc_kernel", 8)):
+            got = {f: c for f, c in _build.sass_op_counts(lib, op).items() if name in f}
+            assert len(got) == n and min(got.values()) > 0, (lib, op, got)
 
 
 @pytest.mark.cuda
@@ -873,7 +941,7 @@ def test_bf16_estimator_runs_the_tensor_core_forward(cuda, monkeypatch):
     """A tiny bf16 PoseEstimator (TPU.EVAL_DTYPE bfloat16) on the card:
     finite poses, K1 launched once a round (in the first call's two warm-ups and
     its replay) through its tensor-core kernel
-    (flash_fwd_tc_kernel in the profile, no SIMT and no 3xTF32 forward), its
+    (flash_fwd_wgmma_kernel in the profile, no SIMT and no 3xTF32 forward), its
     warp on TF32 operands and an f32 estimator's warp exact in the same
     process, the process's flags as they were after both."""
     from torch.autograd import DeviceType
@@ -912,7 +980,7 @@ def test_bf16_estimator_runs_the_tensor_core_forward(cuda, monkeypatch):
         est.predict(img, conds, float("-inf"))
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    assert any("flash_fwd_tc_kernel" in n for n in names), names
+    assert any("flash_fwd_wgmma_kernel" in n for n in names), names
     assert not any("flash_fwd_kernel" in n or "flash_fwd_tf32" in n for n in names), names
 
 
@@ -1278,7 +1346,7 @@ def test_exported_artifact_on_cuda_matches_live(cuda, dtype, tmp_path):
         art.predict(imgs[0], conds[0], float("-inf"))
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kernel = "flash_fwd_tf32_kernel" if dtype == "float32" else "flash_fwd_tc_kernel"
+    kernel = "flash_fwd_tf32_kernel" if dtype == "float32" else "flash_fwd_wgmma_kernel"
     assert any(kernel in n for n in names), names
     with pytest.raises(ValueError, match="exported for"):
         ExportedPoseEstimator(str(tmp_path), device="cpu")

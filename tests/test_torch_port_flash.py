@@ -120,7 +120,8 @@ def test_bf16_check_tells_rounding_from_f32():
                                         (2, 70, 300, 48), (1, 90, 130, 96)])
 def test_tile_rounded_forward(bh, lq, lk, d, dropout):
     """``forward_tile_rounded``, the card checks' emulation of bf16 K1's
-    rounding at its running tile max (64 keys up to d = 64, else 32): its
+    rounding at its running tile max (the key tile of the kernel that the
+    dispatch picks, ``fwd_key_tile``): its
     unrounded control is the dense softmax(s) keep @ v (f32, 2e-6 for sums
     in another order); its out differs from the control by the bf16 rounding
     of p * keep * c, a relative 2^-9 rms each (1e-3 to 3e-3 of out's rms);
@@ -135,7 +136,7 @@ def test_tile_rounded_forward(bh, lq, lk, d, dropout):
     torch.testing.assert_close(control, torch.matmul(pk, v.float()), atol=2e-6, rtol=0)
     rms = ((out - control).square().sum() / out.square().sum()).sqrt().item()
     assert 1e-3 <= rms <= 3e-3, rms
-    if lk <= (64 if d <= 64 else 32):
+    if lk <= fa.fwd_key_tile(d):
         plain, _ = fa.forward_from_logits(s, v, keep, True)
         flips = 2 * 2.0 ** -8 * v.float().abs().max().item()
         assert (out - plain).abs().max().item() <= flips
