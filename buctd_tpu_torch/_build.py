@@ -23,8 +23,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# --split-compile 4: each nvcc runs its optimizations over 4 threads, so the
+# largest sources (the flash backward's) no longer set the build's pace alone
+# (every csrc/*.cu at once: 80.6 s without, 48.0 s with it on the H100's host)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile", "4")
 
 _lock = threading.Lock()
 _loaded: dict = {}

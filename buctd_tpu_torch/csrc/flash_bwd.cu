@@ -37,9 +37,9 @@
 // they are kept so that chip_smoke.py and tools/bench_flash_bwd.py can time
 // the two f32 designs in turns.
 //
-// bf16 (dtype 1, the autocast training step): flash_bwd_dq_tc_kernel,
-// flash_bwd_dkv_tc_kernel, on the tensor cores.  They round where JAX's kernels
-// do at Precision.DEFAULT (the MXU's single bf16 pass) and accumulate in f32:
+// bf16 (dtype 1, the autocast training step): on the tensor cores, two
+// designs (below).  Both round where JAX's kernels do at Precision.DEFAULT
+// (the MXU's single bf16 pass) and accumulate in f32:
 //   q' = bf16(q * bf16(scale))  (q_ref[0] * asarray(scale, q.dtype), :221,
 //        :375), used for s = q' k^T and for dk = ds^T q', which then takes no
 //        scale; dq takes * scale in f32 at the end (:242);
@@ -50,20 +50,33 @@
 // ops/flash_attention.py::flash_attention_backward_reference rounds at the same
 // points for bf16 operands.
 //
-// What bounds the bf16 kernels.  At the training step's two calls (BH 32 at
-// (L, d) = (6912, 48) and (1728, 96): 1.624e9 (row, key) pairs per kernel):
-//   tensor cores  3 (dq) or 4 (dk/dv) products of 2 L_q L_k d operations:
-//                 0.50 and 0.67 ms at 989 TFLOP/s;
-//   MUFU ex2      one exp2 per pair, 16 a clock on each of 132 SMs: 0.39 ms
-//                 at 1.98 GHz;
-//   dropout hash  about 10 integer operations per pair (dropout_hash.cuh), 64
-//                 a clock per SM: about 0.97 ms, the largest of the three.
-// mma.sync (m16n8k16, bf16 in, f32 accumulate) takes the products below the
-// other two floors, so it, and not wgmma/TMA, is the first step: wgmma pays
-// only once the tensor cores set the pace.  The bf16 kernels live in
-// flash_bwd_tc.cuh (their design is described there), on the building blocks of
-// mma_bf16.cuh; this file launches them with a two-stage ring
-// (tc::kStages), flash_bwd_kvres.cu (K2') with the deeper kv-resident one.
+// Two bf16 designs, by shape, behind the same C entries: the TMA + wgmma
+// kernels flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel
+// (flash_bwd_wgmma.cuh: a TMA warp that streams the looped operand through
+// a ring, two consumer warpgroups on wgmma) wherever their TMA loads take
+// the call (hwb::takes: d a multiple of 8 and at most 128, q, k, v and the
+// cast do 16-byte aligned: d = 48, 96 and 112 on every path); the mma.sync
+// kernels flash_bwd_dq_tc_kernel and flash_bwd_dkv_tc_kernel
+// (flash_bwd_tc.cuh, on mma_bf16.cuh, with a cp.async ring and any row
+// alignment) take the other bf16 calls.  What
+// bounds them, at the training steps' calls (BH 32 at (L, d) = (6912, 48),
+// (1728, 96) and TransPose-H's (6912, 112)): the products, 3 (dq) or 4
+// (dk/dv) of 2 L_q L_k d operations at 989 TFLOP/s (0.50 and 0.67 ms at
+// CoAM-W48's two calls, 1.04 and 1.39 ms at TransPose-H's); one MUFU.EX2 a
+// (row, key) pair (0.39 ms at CoAM-W48, 16 a clock on each of 132 SMs at
+// 1.98 GHz); with dropout the hash, about 10 integer operations a pair at 64
+// a clock on each SM (0.97 and 0.91 ms).  So the products lead at d = 112
+// and the hash at d = 48 and 96: the wgmma kernels overlap the exp2 and the
+// hash of S with G's product and take the products off the mma.sync
+// kernels' shared-memory pace.  This file launches the wgmma kernels with a
+// three-stage ring (hwb::kStages) and the mma.sync ones with two
+// (tc::kStages); flash_bwd_kvres.cu (K2') each with a deeper one
+// (hwb::kKvresStages, tc::kKvresStages).
+//
+// A third pair of C entries, buctd_flash_bwd_dq_mma and buctd_flash_bwd_dkv_mma,
+// launches the mma.sync kernels for any bf16 call: the bf16 backward before
+// the wgmma kernels, kept so that chip_smoke.py and tools/bench_flash_bwd.py
+// can time the two in turns.
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py):
 //   int buctd_flash_bwd_dq(q, k, v, dout, lse, delta, dq, bh, lq, lk, d, scale,
@@ -72,6 +85,11 @@
 //                           scale, keep_thr, keep_scale, seed, dtype, stream)
 //   int buctd_flash_bwd_dq_simt, buctd_flash_bwd_dkv_simt (the same
 //                           arguments; dtype must be 0)
+//   int buctd_flash_bwd_dq_mma, buctd_flash_bwd_dkv_mma (the same arguments;
+//                           dtype must be 1)
+//   int buctd_flash_bwd_blocks_per_sm(d, dropout, dq): blocks of the wgmma dq
+//       (dq != 0) or dk/dv kernel resident on one SM at head dim d (0 where
+//       it has none)
 // q (bh, lq, d), k/v (bh, lk, d) and dout (bh, lq, d) contiguous, all f32
 // (dtype 0) or all bf16 (dtype 1); lse and delta (bh, lq) f32; dq (bh, lq, d)
 // and dk/dv (bh, lk, d) f32, allocated by the caller.  Each returns the
@@ -85,6 +103,7 @@
 #include "dropout_hash.cuh"
 #include "flash_bwd_tc.cuh"
 #include "flash_bwd_tf32.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 namespace {
 
@@ -421,16 +440,24 @@ cudaError_t dispatch_simt(const Args& a, cudaStream_t s) {
 #undef BUCTD_BWD_CASE
 }
 
-// f32 operands take the 3xTF32 kernels, bf16 the bf16 ones, both on the
-// tensor cores with a two-stage ring; `simt` the SIMT kernels (f32 only)
+// The kernels of a C entry: the tensor cores by dtype (kAuto), the SIMT
+// kernels (f32 only) or the mma.sync ones (bf16 only)
+enum Kernels { kAuto, kSimt, kMma };
+
+// f32 operands take the 3xTF32 kernels; bf16 the wgmma kernels where
+// hwb::takes, else the mma.sync ones
 template <bool kDq>
-int run(const Args& a, int dtype, void* stream, bool simt = false) {
+int run(const Args& a, int dtype, void* stream, Kernels which = kAuto) {
   if (a.bh <= 0 || a.bh > 65535 || a.lq <= 0 || a.lk <= 0 || a.d <= 0 || a.d > 128 ||
-      (dtype != 0 && dtype != 1) || (simt && dtype != 0))
+      (dtype != 0 && dtype != 1) || (which == kSimt && dtype != 0) ||
+      (which == kMma && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (simt) return (int)dispatch_simt<kDq>(a, s);
-  if (dtype == 1) return (int)tc::launch_bwd<tc::kStages, kDq>(a, s);
+  if (which == kSimt) return (int)dispatch_simt<kDq>(a, s);
+  if (dtype == 1)
+    return (int)(which == kAuto && hwb::takes(a.q, a.k, a.v, a.dout, a.d)
+                     ? hwb::launch_bwd<hwb::kStages, kDq>(a, s)
+                     : tc::launch_bwd<tc::kStages, kDq>(a, s));
   return (int)tf32::launch_bwd<tf32::kStages, kDq>(a, s);
 }
 
@@ -466,7 +493,7 @@ extern "C" int buctd_flash_bwd_dq_simt(const void* q, const void* k, const void*
                                        void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, lq, lk, d, scale,
                Dropout{keep_thr, keep_scale, seed}};
-  return run<true>(a, dtype, stream, true);
+  return run<true>(a, dtype, stream, kSimt);
 }
 
 extern "C" int buctd_flash_bwd_dkv_simt(const void* q, const void* k, const void* v,
@@ -477,5 +504,31 @@ extern "C" int buctd_flash_bwd_dkv_simt(const void* q, const void* k, const void
                                         unsigned seed, int dtype, void* stream) {
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, bh, lq, lk, d, scale,
                Dropout{keep_thr, keep_scale, seed}};
-  return run<false>(a, dtype, stream, true);
+  return run<false>(a, dtype, stream, kSimt);
+}
+
+extern "C" int buctd_flash_bwd_dq_mma(const void* q, const void* k, const void* v,
+                                      const void* dout, const float* lse,
+                                      const float* delta, float* dq, int bh, int lq,
+                                      int lk, int d, float scale, unsigned keep_thr,
+                                      float keep_scale, unsigned seed, int dtype,
+                                      void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, lq, lk, d, scale,
+               Dropout{keep_thr, keep_scale, seed}};
+  return run<true>(a, dtype, stream, kMma);
+}
+
+extern "C" int buctd_flash_bwd_dkv_mma(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse,
+                                       const float* delta, float* dk, float* dv, int bh,
+                                       int lq, int lk, int d, float scale,
+                                       unsigned keep_thr, float keep_scale,
+                                       unsigned seed, int dtype, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, bh, lq, lk, d, scale,
+               Dropout{keep_thr, keep_scale, seed}};
+  return run<false>(a, dtype, stream, kMma);
+}
+
+extern "C" int buctd_flash_bwd_blocks_per_sm(int d, int dropout, int dq) {
+  return hwb::blocks_per_sm<hwb::kStages>(d, dropout != 0, dq != 0);
 }

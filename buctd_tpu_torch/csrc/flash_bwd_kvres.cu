@@ -10,14 +10,17 @@
 // double-buffered DMA pair; the dk/dv kernel keeps a kv block resident and
 // streams the q-side operands (q, do, lse, delta) through four such pairs.
 //
-// Here both dtypes launch K2's tensor-core kernels with a ring of
-// kKvresStages slots for the looped operand (K2 takes two): f32 (dtype 0)
+// Here both dtypes launch K2's tensor-core kernels with a deeper ring for
+// the looped operand (K2's depth plus one: tf32::kKvresStages and
+// tc::kKvresStages, 3 slots; hwb::kKvresStages, 4): f32 (dtype 0)
 // flash_bwd_dq_tf32_kernel / flash_bwd_dkv_tf32_kernel (flash_bwd_tf32.cuh,
-// 3xTF32), bf16 (dtype 1, the training step under the switch)
-// flash_bwd_dq_tc_kernel / flash_bwd_dkv_tc_kernel (flash_bwd_tc.cuh), which
-// round as K2 does (q * scale, do, ds and p * keep * c to bf16).  The depth of
-// the ring changes no arithmetic, so K2' equals K2 bit for bit; rows that are
-// not 16-byte aligned take the kernels' register load path.
+// 3xTF32); bf16 (dtype 1, the training step under the switch)
+// flash_bwd_dq_wgmma_kernel / flash_bwd_dkv_wgmma_kernel (flash_bwd_wgmma.cuh,
+// TMA and wgmma) where K2 takes them (hwb::takes), else
+// flash_bwd_dq_tc_kernel / flash_bwd_dkv_tc_kernel (flash_bwd_tc.cuh), all of
+// which round as K2 does (q * scale, do, ds and p * keep * c to bf16).  The
+// depth of the ring changes no arithmetic, so K2' equals K2 bit for bit; rows
+// that are not 16-byte aligned take the mma.sync kernels' register load path.
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py),
 // the same as buctd_flash_bwd_dq / buctd_flash_bwd_dkv:
@@ -36,6 +39,7 @@
 
 #include "flash_bwd_tc.cuh"
 #include "flash_bwd_tf32.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 namespace {
 
@@ -45,7 +49,10 @@ int run(const tc::BwdArgs& a, int dtype, void* stream) {
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)tf32::launch_bwd<tf32::kKvresStages, kDq>(a, s);
-  if (dtype == 1) return (int)tc::launch_bwd<tc::kKvresStages, kDq>(a, s);
+  if (dtype == 1)
+    return (int)(hwb::takes(a.q, a.k, a.v, a.dout, a.d)
+                     ? hwb::launch_bwd<hwb::kKvresStages, kDq>(a, s)
+                     : tc::launch_bwd<tc::kKvresStages, kDq>(a, s));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,14 @@
-// K2's bf16 kernels on the tensor cores: flash_bwd_dq_tc_kernel and
+// K2's mma.sync bf16 kernels: flash_bwd_dq_tc_kernel and
 // flash_bwd_dkv_tc_kernel (see flash_bwd.cu's header for the math, the
-// rounding points and what bounds them).  Included by flash_bwd.cu, which
-// launches them with a two-stage ring (K2), and by flash_bwd_kvres.cu, which
-// launches the same kernels with the deeper ring of the kv-resident schedule
-// (K2', tc::kKvresStages): the ring depth is the template parameter Stages.
+// rounding points and what bounds them).  bf16 K2 and K2' run them where the
+// TMA + wgmma kernels of flash_bwd_wgmma.cuh do not take the call (hwb::takes:
+// a head dim that is no multiple of 8, such as 6 or 47, or a base that is not
+// 16-byte aligned; no model path), and buctd_flash_bwd_dq_mma /
+// buctd_flash_bwd_dkv_mma launch them at any shape, for the A/B against the
+// wgmma kernels.  Included by flash_bwd.cu, which launches them with a
+// two-stage ring (K2), and by flash_bwd_kvres.cu, which launches the same
+// kernels with the deeper ring of the kv-resident schedule (K2',
+// tc::kKvresStages): the ring depth is the template parameter Stages.
 //
 // The design, for both kernels:
 //   * each of a block's 4 warps owns 16 rows of the block's 64-row tile (q

@@ -1,6 +1,6 @@
 // The Tensor Memory Accelerator (TMA, sm_90) and the shared-memory barriers
-// (mbarrier) that report its copies, for the bf16 flash forward
-// (flash_fwd_wgmma.cuh).
+// (mbarrier) that report its copies, for the bf16 flash forward and backward
+// (flash_fwd_wgmma.cuh, flash_bwd_wgmma.cuh).
 //
 // One thread asks for a whole box of a tensor to be copied into shared
 // memory; the hardware computes the addresses, applies the 128-byte swizzle

@@ -1,8 +1,9 @@
 // Hopper warpgroup matrix multiply (wgmma, sm_90a) for the bf16 flash forward
-// (flash_fwd_wgmma.cuh): shared-memory matrix descriptors for tiles that TMA
-// wrote with the 128-byte swizzle, the fence / commit / wait of the
-// asynchronous products, and wgmma.mma_async m64nNk16 with A in registers
-// (bf16 in, f32 accumulate) at every N the kernel issues.
+// and backward (flash_fwd_wgmma.cuh, flash_bwd_wgmma.cuh): shared-memory
+// matrix descriptors for tiles that TMA wrote with the 128-byte swizzle, the
+// fence / commit / wait of the asynchronous products, and wgmma.mma_async
+// m64nNk16 with A in registers (bf16 in, f32 accumulate) at every N the
+// kernels issue.
 //
 // Layouts.  The four warps of a warpgroup own 16 rows each of the product's
 // 64.  In the f32 accumulator of m64nN a lane holds rows gid and gid + 8 of
@@ -365,9 +366,56 @@ struct Rs<128> {
 
 // d (64 x N, f32) += a b (mma) or d = a b (mma_zero), a (64 x 16) and b (16 x
 // N) bf16 in shared memory, both K-major (descriptors a, b).  One
-// specialisation for each key tile the forward takes.
+// specialisation for each key tile the forward takes and each looped tile of
+// the backward (flash_bwd_wgmma.cuh: 16 or 32 q rows of dk/dv above d = 64).
 template <int N>
 struct Ss;
+
+template <>
+struct Ss<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        " %0, %1, %2, %3, %4, %5, %6, %7},"
+        " %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void mma_zero(float (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        " %0, %1, %2, %3, %4, %5, %6, %7},"
+        " %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+        : "l"(a), "l"(b), "r"(0));
+  }
+};
+
+template <>
+struct Ss<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void mma_zero(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "l"(a), "l"(b), "r"(0));
+  }
+};
 
 template <>
 struct Ss<64> {

@@ -24,6 +24,12 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
   start 16-byte aligned (TMA's strides and bases), else the mma.sync kernel
   of csrc/flash_fwd_tc.cuh.  ``flash_attention_mma`` launches the mma.sync
   kernel for any bf16 call, for timing the two in turns.
+* bf16 K2 and K2' dispatch the same way (``takes_wgmma_bwd``, the rule of
+  csrc/flash_bwd_wgmma.cuh::takes): the TMA + wgmma dq and dk/dv kernels
+  where the head dim is a multiple of 8 and q, k, v and the cast do start
+  16-byte aligned, else the mma.sync kernels of csrc/flash_bwd_tc.cuh.
+  ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma`` launch the mma.sync kernels
+  for any bf16 call, for timing the two in turns.
 * ``BUCTD_FLASH_KVRES``, read at every call with JAX's rule (:474, :684: any
   value but "0" turns it on), routes CUDA tensors to the kv/q-resident
   kernels instead: ``csrc/flash_fwd_kvres.cu`` (K1', ``_fwd_kernel_kvres``
@@ -58,12 +64,14 @@ node (serving_export.py), and a CUDA-graph capture records its launch
 Launch counts (CPU calls do not count): ``flash_attention.launches`` (K1),
 and of its bf16 calls ``flash_attention.wgmma_launches`` (the wgmma kernel)
 and ``flash_attention.mma_launches`` (the mma.sync kernel);
-``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2),
+``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2), each with
+``wgmma_launches`` and ``mma_launches`` of its bf16 calls;
 ``flash_attention_kvres.launches`` (K1', with its own ``wgmma_launches`` and
 ``mma_launches``), ``flash_bwd_dq_kvres.launches`` and
-``flash_bwd_dkv_kvres.launches`` (K2'), ``flash_attention_simt.launches``,
+``flash_bwd_dkv_kvres.launches`` (K2', likewise), ``flash_attention_simt.launches``,
 ``flash_attention_mma.launches``, ``flash_bwd_dq_simt.launches``,
-``flash_bwd_dkv_simt.launches``.
+``flash_bwd_dkv_simt.launches``, ``flash_bwd_dq_mma.launches``,
+``flash_bwd_dkv_mma.launches``.
 """
 
 from __future__ import annotations
@@ -80,6 +88,12 @@ from .tf32 import tf32_product
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 WGMMA_ROWS = 128   # query rows a block of the wgmma kernel (hw::kRows)
+# the wgmma backward kernels (csrc/flash_bwd_wgmma.cuh): a block's own rows
+# (q rows for dq, keys for dk/dv; hwb::kRows), dq's key tile and dk/dv's q
+# tile by head dim rounded up to 16 (hwb::dq_key_tile, hwb::dkv_q_tile)
+WGMMA_BWD_ROWS = 128
+WGMMA_DQ_KEY_TILE = 64
+WGMMA_DKV_Q_TILE = {"narrow": 64, "wide": 32}
 MAX_BH = 65535   # grid.y of the kernels
 _MASK32 = 0xFFFFFFFF
 _LOG2E = 1.4426950408889634
@@ -213,6 +227,21 @@ def takes_wgmma(q, k, v) -> bool:
     d = q.shape[-1]
     return (q.dtype == torch.bfloat16 and 0 < d <= MAX_HEAD_DIM and d % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def takes_wgmma_bwd(q, k, v, dout) -> bool:
+    """Whether bf16 K2 and K2' run the wgmma kernels on these operands
+    (csrc/flash_bwd_wgmma.cuh::takes): K1's rule (``takes_wgmma``) with do as
+    the kernels read it (the bf16 cast of ``_k2_dout``) starting 16-byte
+    aligned too; otherwise the mma.sync kernels."""
+    return takes_wgmma(q, k, v) and dout.data_ptr() % 16 == 0
+
+
+def wgmma_bwd_tiles(d: int) -> dict:
+    """The wgmma backward kernels' looped tiles at head dim d: dq's keys,
+    dk/dv's q rows (64 while d rounded up to 16 is at most 64, else 32)."""
+    width = "narrow" if -(-d // 16) * 16 <= 64 else "wide"
+    return {"dq": WGMMA_DQ_KEY_TILE, "dkv": WGMMA_DKV_Q_TILE[width]}
 
 
 def fwd_key_tile(d: int, wgmma: bool | None = None) -> int:
@@ -599,6 +628,22 @@ def wgmma_waves(bh: int, lq: int, d: int, dropout: float = 0.0, kvres: bool = Fa
             "waves": blocks / (sms * per_sm) if per_sm else float("inf")}
 
 
+def wgmma_bwd_waves(bh: int, l: int, d: int, dropout: float = 0.0, device=None) -> dict:
+    """The grids of the wgmma backward kernels at (bh, l, d) (L_q = L_k = l)
+    on a CUDA card: for dq and dk/dv, their blocks (128 rows each), how many
+    the card keeps resident on one SM, the waves that makes, and the looped
+    tile (``wgmma_bwd_tiles``)."""
+    fn = _fn("flash_bwd", "buctd_flash_bwd_blocks_per_sm", (_I, _I, _I))
+    sms = torch.cuda.get_device_properties(device or 0).multi_processor_count
+    blocks = -(-l // WGMMA_BWD_ROWS) * bh
+    out = {}
+    for kind, tile in wgmma_bwd_tiles(d).items():
+        per_sm = fn(d, int(dropout > 0.0), int(kind == "dq"))
+        out[kind] = {"blocks": blocks, "blocks_per_sm": per_sm, "sms": sms, "tile": tile,
+                     "waves": blocks / (sms * per_sm) if per_sm else float("inf")}
+    return out
+
+
 def flash_attention_simt(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
     """``flash_attention``'s function for f32 CUDA tensors on the CUDA cores'
     FMAs (``flash_fwd_kernel`` of csrc/flash_fwd.cu), the f32 forward before
@@ -624,29 +669,47 @@ def _k2_dout(q, dout):
     return dout.to(torch.bfloat16) if q.dtype == torch.bfloat16 else dout
 
 
-def _bwd_dq(wrapper, lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout,
-            seed):
-    """dq from the C entry ``symbol`` of csrc/<lib>.cu, counted on ``wrapper``."""
+def _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed, mma: bool):
+    """The checked operands of a backward C entry, do as its kernels read
+    it; ``mma``: the wrapper takes bf16 only."""
     _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
     _require_cuda(q, wrapper.__name__, "flash_attention_backward_reference")
+    if mma and q.dtype != torch.bfloat16:
+        raise TypeError(f"{wrapper.__name__} takes bf16 operands, got {q.dtype}")
     if q.dtype == torch.float32:
         _check_copyable(q, k, v, dout)
-    dq = _launch_dq(lib, symbol, q, k, v, _k2_dout(q, dout), lse, delta, scale, dropout, seed)
+    return _k2_dout(q, dout)
+
+
+def _count_bwd(wrapper, q, k, v, do, mma: bool) -> None:
+    """One launch on a backward wrapper; on K2's and K2''s bf16 calls (not
+    ``mma``, the mma.sync A/B) also on the counter of the kernel that the C
+    entry picked by the same rule (``takes_wgmma_bwd``)."""
     wrapper.launches += 1
+    if q.dtype == torch.bfloat16 and not mma:
+        if takes_wgmma_bwd(q, k, v, do):
+            wrapper.wgmma_launches += 1
+        else:
+            wrapper.mma_launches += 1
+
+
+def _bwd_dq(wrapper, lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout,
+            seed, mma: bool = False):
+    """dq from the C entry ``symbol`` of csrc/<lib>.cu, counted on
+    ``wrapper``."""
+    do = _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed, mma)
+    dq = _launch_dq(lib, symbol, q, k, v, do, lse, delta, scale, dropout, seed)
+    _count_bwd(wrapper, q, k, v, do, mma)
     return dq
 
 
 def _bwd_dkv(wrapper, lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout,
-             seed):
+             seed, mma: bool = False):
     """dk, dv from the C entry ``symbol`` of csrc/<lib>.cu, counted on
-    ``wrapper``."""
-    _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
-    _require_cuda(q, wrapper.__name__, "flash_attention_backward_reference")
-    if q.dtype == torch.float32:
-        _check_copyable(q, k, v, dout)
-    dk, dv = _launch_dkv(lib, symbol, q, k, v, _k2_dout(q, dout), lse, delta, scale, dropout,
-                         seed)
-    wrapper.launches += 1
+    ``wrapper`` (as ``_bwd_dq``)."""
+    do = _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed, mma)
+    dk, dv = _launch_dkv(lib, symbol, q, k, v, do, lse, delta, scale, dropout, seed)
+    _count_bwd(wrapper, q, k, v, do, mma)
     return dk, dv
 
 
@@ -654,13 +717,14 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                  seed: int = 0):
     """dq f32 (BH, Lq, d) of the attention above, from do, the forward's lse
     and delta = rowsum(do * out), on CUDA tensors (K2's dq kernel on the
-    tensor cores: 3xTF32 for f32 operands, bf16 rounding as the plain
-    backward for bf16)."""
+    tensor cores: 3xTF32 for f32 operands; for bf16, rounding as the plain
+    backward, the wgmma kernel where ``takes_wgmma_bwd``, else the mma.sync
+    one)."""
     return _bwd_dq(flash_bwd_dq, "flash_bwd", "buctd_flash_bwd_dq", q, k, v, dout, lse,
                    delta, scale, dropout, seed)
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.wgmma_launches = flash_bwd_dq.mma_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
@@ -671,7 +735,31 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                     delta, scale, dropout, seed)
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.wgmma_launches = flash_bwd_dkv.mma_launches = 0
+
+
+def flash_bwd_dq_mma(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
+                     seed: int = 0):
+    """``flash_bwd_dq``'s function for bf16 CUDA tensors on the mma.sync
+    kernel (``flash_bwd_dq_tc_kernel`` of csrc/flash_bwd_tc.cuh) at any shape,
+    the bf16 dq kernel before the wgmma one; kept for timing the two in turns,
+    never on a path where the wgmma kernel takes the call."""
+    return _bwd_dq(flash_bwd_dq_mma, "flash_bwd", "buctd_flash_bwd_dq_mma", q, k, v, dout,
+                   lse, delta, scale, dropout, seed, mma=True)
+
+
+flash_bwd_dq_mma.launches = 0
+
+
+def flash_bwd_dkv_mma(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
+                      seed: int = 0):
+    """``flash_bwd_dkv``'s function on the mma.sync kernel
+    (``flash_bwd_dkv_tc_kernel``), as ``flash_bwd_dq_mma``."""
+    return _bwd_dkv(flash_bwd_dkv_mma, "flash_bwd", "buctd_flash_bwd_dkv_mma", q, k, v, dout,
+                    lse, delta, scale, dropout, seed, mma=True)
+
+
+flash_bwd_dkv_mma.launches = 0
 
 
 def flash_bwd_dq_simt(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
@@ -705,24 +793,26 @@ flash_bwd_dkv_simt.launches = 0
 def flash_bwd_dq_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                        seed: int = 0):
     """K2' dq: ``flash_bwd_dq``'s function with K/V streamed through a
-    deeper cp.async ring (K2's kernels: equal to K2 bit for bit)."""
+    deeper ring (K2's kernels: equal to K2 bit for bit)."""
     return _bwd_dq(flash_bwd_dq_kvres, "flash_bwd_kvres", "buctd_flash_bwd_dq_kvres", q, k,
                    v, dout, lse, delta, scale, dropout, seed)
 
 
 flash_bwd_dq_kvres.launches = 0
+flash_bwd_dq_kvres.wgmma_launches = flash_bwd_dq_kvres.mma_launches = 0
 
 
 def flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                         seed: int = 0):
     """K2' dk/dv: ``flash_bwd_dkv``'s function with q, do, lse and delta
-    streamed through a deeper cp.async ring (K2's kernels: equal to K2 bit
-    for bit)."""
+    streamed through a deeper ring (K2's kernels: equal to K2 bit for
+    bit)."""
     return _bwd_dkv(flash_bwd_dkv_kvres, "flash_bwd_kvres", "buctd_flash_bwd_dkv_kvres", q,
                     k, v, dout, lse, delta, scale, dropout, seed)
 
 
 flash_bwd_dkv_kvres.launches = 0
+flash_bwd_dkv_kvres.wgmma_launches = flash_bwd_dkv_kvres.mma_launches = 0
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, scale: float,

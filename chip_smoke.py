@@ -22,7 +22,8 @@ Phases (each raises on failure; nothing is caught):
      ``fused_block_tc_kernel`` and ``fused_block_tf32_kernel``, one a tile
      plan) and in no SIMT one, and TF32 HMMA in every f32 kernel of K1, K1',
      K2, K2' and K5, and wgmma (HGMMA) and TMA loads (UTMALDG) in every
-     instantiation of bf16 K1's and K1''s wgmma kernel; a NaN in q reaches f32 K1's, K1''s, K2's and K2''s
+     instantiation of bf16 K1's and K1''s wgmma kernel and of bf16 K2's and
+     K2''s wgmma pair; a NaN in q reaches f32 K1's, K1''s, K2's and K2''s
      outputs (at d = 48, 96 and 112), and a NaN in x K5's (both dtypes,
      tensor cores and SIMT), where it reaches the plain versions'
      (``nan_phase``);
@@ -44,7 +45,8 @@ Phases (each raises on failure; nothing is caught):
      waves, summed over the same serving and evaluation shapes for the
      kernels line;
   2. kernels, training shapes: K1 and K2 (flash backward: the dq and the dk/dv
-     kernels; on the tensor cores, f32 in 3xTF32) at the shapes a batch-32
+     kernels; on the tensor cores, f32 in 3xTF32, bf16 on TMA + wgmma,
+     flash_bwd_wgmma.cuh, which the dispatch must pick) at the shapes a batch-32
      train step gives them, f32 and bf16, dropout 0 and 0.1, vs their plain
      versions over BH chunks (f32 K2's one-pass tf32 control must miss the
      gate; bf16 against the plain versions that round where they do, K2's
@@ -56,10 +58,9 @@ Phases (each raises on failure; nothing is caught):
      bit vs the f32 warp of them; at rotation 0 and the evaluation scales
      vs F.grid_sample, the same function there; the loader's work before the
      render, the former cast-mask-warp chain vs the fused read); their bf16 times
-     beside (K1) the mma.sync kernel and SDPA's forward in turns and (K2) the
-     f32 SIMT kernels on the widened operands (what bf16 ran before its
-     tensor-core kernels), the tensor-core, MUFU and dropout-hash floors and
-     SDPA's backward alone; then the same bf16
+     beside (K1) the mma.sync kernel and SDPA's forward and (K2, at dropout
+     0.1 and 0) the mma.sync kernels and SDPA's backward alone in turns, the
+     wgmma grids, the tensor-core, MUFU and dropout-hash floors; then the same bf16
      checks and times of K1 and K2 at TransPose-H's training shape
      (TP_TRAIN_CASES, d = 112), their ratios to SDPA beside those at
      TRAIN_CASES, and ptxas's registers and spills of f32 K1 by head dim;
@@ -97,10 +98,12 @@ Phases (each raises on failure; nothing is caught):
      data-wait per step, the launch counts of K1, K2 and K4 (one per batch)
      in that run; the
      loss over a repeated batch (finite, falling); a profile of one step,
-     which must name K1's and K2's tensor-core kernels and no SIMT K1 or K2
-     kernel; the same for TransPose-H on a synthetic COCO-format set whose
-     people carry ``cond_kpts`` (the yaml trains from them, SYNTHESIS_POSE
-     false), K1, K2 dq and K2 dk/dv launched 6 times a step; then
+     which must name K1's and K2's wgmma kernels and no mma.sync or SIMT K1
+     or K2 kernel, and every bf16 K2 launch counted on the wgmma kernels
+     (here and on every bf16 training path below); the same for TransPose-H
+     on a synthetic COCO-format set whose people carry ``cond_kpts`` (the
+     yaml trains from them, SYNTHESIS_POSE false), K1, K2 dq and K2 dk/dv
+     launched 6 times a step; then
      TPU.DEVICE_SYNTHESIS (``synthesis_phase``): plan_sample's host time a
      sample, split into the host sampler and the rest, the card sampler's
      device time a batch of 32, its CUDA kernel launches and its wall time
@@ -571,7 +574,13 @@ FLASH_SIMT = {"flash_fwd": ("flash_fwd_kernel",),
 # instantiation a head-dim case and dropout or not in each of the two
 # libraries; the mma.sync ``flash_fwd_tc_kernel`` takes the other bf16 calls
 BF16_K1_KERNEL = "flash_fwd_wgmma_kernel"
-WGMMA_LIBS = {"flash_fwd": 16, "flash_fwd_kvres": 16}
+# and bf16 K2's and K2''s pair (the dispatch of takes_wgmma_bwd), the mma.sync
+# flash_bwd_{dq,dkv}_tc_kernel taking the other bf16 calls
+BF16_K2_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+# each library's wgmma kernels and their instantiations (a head-dim case and
+# dropout or not, for each kernel)
+WGMMA_LIBS = {"flash_fwd": ((BF16_K1_KERNEL,), 16), "flash_fwd_kvres": ((BF16_K1_KERNEL,), 16),
+              "flash_bwd": (BF16_K2_KERNELS, 32), "flash_bwd_kvres": (BF16_K2_KERNELS, 32)}
 # K5's library: the tensor-core kernels (``fused_block_tc_kernel`` bf16,
 # ``fused_block_tf32_kernel`` f32, one instantiation a tile plan) and the
 # SIMT kernels (f32 and bf16, for the A/B)
@@ -590,8 +599,8 @@ def tf32_kernels_expected(lib: str) -> int:
 def sass_counts() -> dict:
     """(library, "" or "TF32") -> HMMA counts by kernel, of every flash
     library and of K5's, and (library, "HGMMA" or "UTMALDG") -> wgmma and TMA
-    load counts of K1's and K1''s libraries: one disassembly a library
-    (cuobjdump, ~7 s each), all at once, on the host while the NaN phase
+    load counts of the libraries of K1, K1', K2 and K2': one disassembly a
+    library (cuobjdump, ~7 s each), all at once, on the host while the NaN phase
     uses the card (main waits for them before the timed kernel phases)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -615,7 +624,8 @@ def check_sass(counts: dict) -> None:
     in each tensor-core kernel and in none of the SIMT ones; TF32 HMMA in
     every f32 kernel (one a head-dim case of K1, K1', K2 and K2', one a tile
     plan of K5); one bf16 K5 kernel a tile plan; HGMMA and UTMALDG in every
-    instantiation of bf16 K1's and K1''s wgmma kernel."""
+    instantiation of bf16 K1's and K1''s wgmma kernel and of bf16 K2's and
+    K2''s wgmma pair."""
     from buctd_tpu_torch.ops.fused_block import TC_PLANS
 
     libs = {**FLASH_SIMT, **K5_SIMT}
@@ -638,12 +648,12 @@ def check_sass(counts: dict) -> None:
         if lib in K5_SIMT and len(tc) != len(TC_PLANS) + len(tf32):
             raise AssertionError(f"{lib}'s SASS: {len(tc)} tensor-core kernels, not "
                                  f"{len(TC_PLANS)} + {len(tf32)}")
-    # bf16 K1's and K1''s wgmma kernel: HGMMA and TMA loads (UTMALDG) in every
-    # instantiation
-    for lib, n in WGMMA_LIBS.items():
-        got = {op: {f: c for f, c in counts[(lib, op)].items() if BF16_K1_KERNEL in f}
+    # the wgmma kernels of bf16 K1, K1', K2 and K2': HGMMA and TMA loads
+    # (UTMALDG) in every instantiation
+    for lib, (names, n) in WGMMA_LIBS.items():
+        got = {op: {f: c for f, c in counts[(lib, op)].items() if any(k in f for k in names)}
                for op in ("HGMMA", "UTMALDG")}
-        print(f"{lib} SASS: {len(got['HGMMA'])} {BF16_K1_KERNEL} instantiations, HGMMA "
+        print(f"{lib} SASS: {len(got['HGMMA'])} {' and '.join(names)} instantiations, HGMMA "
               f"{min(got['HGMMA'].values(), default=0)}-{max(got['HGMMA'].values(), default=0)} "
               f"and UTMALDG {min(got['UTMALDG'].values(), default=0)}-"
               f"{max(got['UTMALDG'].values(), default=0)} each", flush=True)
@@ -1055,10 +1065,10 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
     operands from ``gen``, against the plain versions over BH chunks (the
     kernels and the plain versions draw the same hash mask): f32 K1 and K2 at
     KERNEL_ATOL/RTOL and BWD_ATOL/RTOL, where K2's one-pass tf32 control
-    (``k2_control_miss``) must miss; bf16 K1 (check_fwd_chunked) and K2
-    (within K2_BF16_RTOL x max |grad|) against the plain versions that round
-    where they do, K2's distance to the f32 plain version printed.  Returns
-    the worst errors."""
+    (``k2_control_miss``) must miss; bf16 K1 (check_fwd_chunked) and K2 (the
+    wgmma kernels, which the dispatch must pick: within K2_BF16_RTOL x max
+    |grad|) against the plain versions that round where they do, K2's
+    distance to the f32 plain version printed.  Returns the worst errors."""
     res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "bf16_rel": 0.0, "f32_gap": 0.0,
            "fwd_bf16_rel": 0.0, "fwd_bf16_err": 0.0, "rowsum": 0.0, "tiled": 0.0,
            "control": float("inf"),
@@ -1082,9 +1092,15 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
                 res["tiled"] = max(res["tiled"], fnote.get("tiled", 0.0))
                 res["control"] = min(res["control"], fnote.get("control", float("inf")))
                 delta = (do * out).sum(-1)
+                before = k2_by_kernel(fa)
                 dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, p, seed)
                 dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, p, seed)
                 torch.cuda.synchronize()
+                # bf16 (d = 48, 96, 112) on the wgmma kernels; f32 on no bf16 kernel
+                moved = {key: n - before[key] for key, n in k2_by_kernel(fa).items()}
+                if moved != k2_wgmma_want(int(dtype == torch.bfloat16)):
+                    raise AssertionError(f"K2 ({bh}, {lq}, {d}) {dtype}: launches by kernel "
+                                         f"{moved}")
 
                 def plain(i, a, b, c, g, l, e, widen=False):
                     if widen:
@@ -1129,70 +1145,74 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
 
 def k1_k2_times(torch, F, fa, gen, cases, clock: float) -> dict:
     """bf16 K1 and K2 (the autocast step's operands) at ``cases`` (BH, L, d),
-    dropout DROPOUT, on operands from ``gen``, summed over the cases: the
-    kernels, the plain versions, K1's wgmma kernel, the mma.sync kernel it
-    replaced and SDPA's forward in turns, K2's f32 SIMT kernels on the widened
-    operands (what bf16 ran before its tensor-core kernels), SDPA's backward
-    alone (dq, dk and dv: the function of K2's two kernels), and the
-    tensor-core, MUFU and dropout-hash floors of each at ``clock``."""
+    on operands from ``gen``, summed over the cases: at dropout DROPOUT the
+    kernels and the plain versions, K1's wgmma kernel, the mma.sync kernel it
+    replaced and SDPA's forward in turns, and K2's wgmma kernels, the mma.sync
+    kernels they replaced and SDPA's backward alone (dq, dk and dv: the
+    function of K2's two kernels) in turns; K2's three again at dropout 0
+    (``*_p0_*``), where the hash drops out; the tensor-core, MUFU and
+    dropout-hash floors of each at ``clock``, and the wgmma grids."""
     seed = 1234
-    res = {"fwd_mma_ms": 0.0}
+    res = {"fwd_mma_ms": 0.0, "k2_p0_library_ms": 0.0}
     for name in ("fwd", "dq", "dkv"):
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms") + (
-                ("simt_ms",) if name != "fwd" else ()):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "mma_ms"):
             res[f"{name}_{key}"] = 0.0
         for floor in ("tensor", "mufu", "hash"):
             res[f"{name}_{floor}_ms"] = 0.0
+    for name in ("dq", "dkv"):
+        for key in ("ms", "mma_ms", "bound_ms", "ops_ms"):
+            res[f"{name}_p0_{key}"] = 0.0
     for bh, lq, d in cases:
         q, k, v = (torch.randn(bh, lq, d, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
         do = torch.randn(bh, lq, d, device="cuda", generator=gen)
         scale = d ** -0.5
-        out, lse = fa.flash_attention(q, k, v, scale, DROPOUT, seed)
-        delta = (do * out).sum(-1)
         small = PLAIN_BH[lq]
         q4, k4, v4 = (x[:, None].detach().clone().requires_grad_() for x in (q, k, v))
+        do4 = do[:, None].to(torch.bfloat16)
 
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=DROPOUT, scale=scale)
+        def sdpa_fwd(p):
+            return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=p, scale=scale)
 
         def sdpa_fwd_alone():
             with torch.no_grad():
-                return sdpa_fwd()
+                return sdpa_fwd(DROPOUT)
+
+        def k2_turns(p):
+            """K2's wgmma kernels, its mma.sync kernels and SDPA's backward
+            alone at dropout p, in turns"""
+            out, lse = fa.flash_attention(q, k, v, scale, p, seed)
+            args = (q, k, v, do, lse, (do * out).sum(-1), scale, p, seed)
+            out4 = sdpa_fwd(p)
+            got = turns_ms({"dq": lambda: fa.flash_bwd_dq(*args),
+                            "dkv": lambda: fa.flash_bwd_dkv(*args),
+                            "dq_mma": lambda: fa.flash_bwd_dq_mma(*args),
+                            "dkv_mma": lambda: fa.flash_bwd_dkv_mma(*args),
+                            "sdpa": lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                                retain_graph=True)}, 5)
+            return got, args
 
         t3 = turns_ms({"wgmma": lambda: fa.flash_attention(q, k, v, scale, DROPOUT, seed),
                        "mma": lambda: fa.flash_attention_mma(q, k, v, scale, DROPOUT, seed),
                        "sdpa": sdpa_fwd_alone}, 5)
+        k2, args = k2_turns(DROPOUT)
+        k2_p0, _ = k2_turns(0.0)
         t = {
             "fwd_ms": t3["wgmma"], "fwd_mma_ms": t3["mma"], "fwd_library_ms": t3["sdpa"],
-            "dq_ms": timed_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale,
-                                                      DROPOUT, seed), 10),
-            "dkv_ms": timed_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                                        DROPOUT, seed), 10),
+            "dq_ms": k2["dq"], "dkv_ms": k2["dkv"], "dq_mma_ms": k2["dq_mma"],
+            "dkv_mma_ms": k2["dkv_mma"],
+            "dq_library_ms": k2["sdpa"], "dkv_library_ms": k2["sdpa"],
+            "dq_p0_ms": k2_p0["dq"], "dkv_p0_ms": k2_p0["dkv"],
+            "dq_p0_mma_ms": k2_p0["dq_mma"], "dkv_p0_mma_ms": k2_p0["dkv_mma"],
+            "k2_p0_library_ms": k2_p0["sdpa"],
             "fwd_plain_ms": timed_ms(lambda: chunked(
                 lambda a, b, c: fa.flash_attention_reference(a, b, c, scale, DROPOUT, seed),
                 bh, small, q, k, v), 2),
             "dq_plain_ms": timed_ms(lambda: chunked(
                 lambda a, b, c, g, l, e: fa.flash_attention_backward_reference(
-                    a, b, c, g, l, e, scale, DROPOUT, seed), bh, small, q, k, v, do, lse,
-                delta), 2),
+                    a, b, c, g, l, e, scale, DROPOUT, seed), bh, small, *args[:6]), 2),
         }
         t["dkv_plain_ms"] = t["dq_plain_ms"]   # one plain backward makes dq, dk and dv
-        # K2's f32 SIMT kernels on the widened operands: what bf16 ran before
-        # its tensor-core kernels
-        qf, kf, vf = q.float(), k.float(), v.float()
-        out32, lse32 = fa.flash_attention(qf, kf, vf, scale, DROPOUT, seed)
-        delta32 = (do * out32).sum(-1)
-        t["dq_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dq_simt(qf, kf, vf, do, lse32, delta32,
-                                                                scale, DROPOUT, seed), 3)
-        t["dkv_simt_ms"] = timed_ms(lambda: fa.flash_bwd_dkv_simt(qf, kf, vf, do, lse32,
-                                                                  delta32, scale, DROPOUT,
-                                                                  seed), 3)
-        del qf, kf, vf, out32, lse32, delta32
-        out4, do4 = sdpa_fwd(), do[:, None].to(torch.bfloat16)
-        # SDPA's backward alone: dq, dk, dv from the saved forward, dropout 0.1
-        t["dq_library_ms"] = t["dkv_library_ms"] = timed_ms(
-            lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 10)
         floors = {}
         for kind in ("fwd", "dq", "dkv"):
             floors[kind] = flash_floors_ms(bh, lq, d, kind, clock, DROPOUT)
@@ -1201,6 +1221,11 @@ def k1_k2_times(torch, F, fa, gen, cases, clock: float) -> dict:
             t[f"{kind}_ops_ms"] = max(floors[kind].values())
             t[f"{kind}_bound_ms"] = max(t[f"{kind}_ops_ms"], bytes_bound)
             t.update({f"{kind}_{f}_ms": ms for f, ms in floors[kind].items()})
+            if kind != "fwd":
+                # at dropout 0: no hash
+                t[f"{kind}_p0_ops_ms"] = max(flash_floors_ms(bh, lq, d, kind, clock,
+                                                             0.0).values())
+                t[f"{kind}_p0_bound_ms"] = max(t[f"{kind}_p0_ops_ms"], bytes_bound)
         for key, val in t.items():
             res[key] += val
         f32core = 4.0 * bh * lq * lq * d / PEAK_OPS["float32"] * 1e3
@@ -1208,17 +1233,43 @@ def k1_k2_times(torch, F, fa, gen, cases, clock: float) -> dict:
         def floor_text(kind):
             return ", ".join(f"{f} {ms:.4f}" for f, ms in floors[kind].items())
 
+        grids = fa.wgmma_bwd_waves(bh, lq, d, DROPOUT)
         print(f"train kernels ({bh}, {lq}, {d}) bf16 dropout {DROPOUT}: K1 {t['fwd_ms']:.4f} ms "
               f"(mma.sync kernel {t['fwd_mma_ms']:.4f} and sdpa {t['fwd_library_ms']:.4f} in "
               f"turns; wgmma grid {wgmma_grid(fa, bh, lq, d, DROPOUT)}; plain "
-              f"{t['fwd_plain_ms']:.4f}; floors: "
-              f"{floor_text('fwd')}, f32-core bound {f32core:.4f}); K2 dq {t['dq_ms']:.4f} ms "
-              f"(floors: {floor_text('dq')}), dkv {t['dkv_ms']:.4f} ms (floors: "
-              f"{floor_text('dkv')}); plain backward {t['dq_plain_ms']:.4f} ms; sdpa backward "
-              f"alone {t['dq_library_ms']:.4f} ms", flush=True)
-        del q, k, v, do, out, lse, delta, q4, k4, v4, out4, do4
+              f"{t['fwd_plain_ms']:.4f}; floors: {floor_text('fwd')}, f32-core bound "
+              f"{f32core:.4f}); K2 wgmma dq {t['dq_ms']:.4f} ms (floors: {floor_text('dq')}), "
+              f"dkv {t['dkv_ms']:.4f} ms (floors: {floor_text('dkv')}), mma.sync dq "
+              f"{t['dq_mma_ms']:.4f} dkv {t['dkv_mma_ms']:.4f} and sdpa backward alone "
+              f"{t['dq_library_ms']:.4f} ms in turns; wgmma grids " + ", ".join(
+                  f"{kind} {g['blocks']} blocks, {g['blocks_per_sm']} an SM, {g['waves']:.2f} "
+                  f"waves, {g['tile']}-wide looped tile" for kind, g in grids.items()) +
+              f"; plain backward {t['dq_plain_ms']:.4f} ms; at dropout 0 (in turns): wgmma dq "
+              f"{t['dq_p0_ms']:.4f} dkv {t['dkv_p0_ms']:.4f}, mma.sync dq "
+              f"{t['dq_p0_mma_ms']:.4f} dkv {t['dkv_p0_mma_ms']:.4f}, sdpa backward "
+              f"{t['k2_p0_library_ms']:.4f}, bounds dq {t['dq_p0_bound_ms']:.4f} dkv "
+              f"{t['dkv_p0_bound_ms']:.4f}", flush=True)
+        del q, k, v, do, q4, k4, v4, do4, args, k2, k2_p0
         torch.cuda.empty_cache()
     return res
+
+
+def k2_text(r: dict) -> str:
+    """K2's bf16 times of ``k1_k2_times`` (summed over its cases) at dropout
+    DROPOUT and 0: the wgmma kernels, the mma.sync ones and SDPA's backward in
+    turns, with the bounds."""
+    parts = []
+    for label, sfx, lib in ((f"dropout {DROPOUT}", "", "dq_library_ms"),
+                            ("dropout 0", "_p0", "k2_p0_library_ms")):
+        wg = r[f"dq{sfx}_ms"] + r[f"dkv{sfx}_ms"]
+        mma = r[f"dq{sfx}_mma_ms"] + r[f"dkv{sfx}_mma_ms"]
+        parts.append(f"{label}: wgmma dq {r[f'dq{sfx}_ms']:.4f} + dkv {r[f'dkv{sfx}_ms']:.4f} = "
+                     f"{wg:.4f} ms (bounds {r[f'dq{sfx}_bound_ms']:.4f}, "
+                     f"{r[f'dkv{sfx}_bound_ms']:.4f}), mma.sync {r[f'dq{sfx}_mma_ms']:.4f} + "
+                     f"{r[f'dkv{sfx}_mma_ms']:.4f} = {mma:.4f}, SDPA backward alone "
+                     f"{r[lib]:.4f}: wgmma / SDPA {wg / r[lib]:.3f}, mma.sync / SDPA "
+                     f"{mma / r[lib]:.3f}")
+    return "; ".join(parts)
 
 
 def train_kernel_phase(torch, F, fa, tw) -> dict:
@@ -1233,10 +1284,11 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
     within ROWSUM_ATOL of 1) and K2 (within K2_BF16_RTOL x max |grad|) against
     the plain versions that round where they do, K2's distance to the f32
     plain version printed.  Then timed at BH 32 in bf16 (the autocast step's
-    operands), dropout 0.1, beside the f32 SIMT kernels on the widened
-    operands and the tensor-core, MUFU and dropout-hash floors of each.  Library yardsticks:
-    SDPA's forward (K1) and SDPA's backward alone (K2: dq, dk and dv, the
-    function of K2's two kernels), with dropout 0.1.  K4: ``warp_phase``.
+    operands), dropout 0.1 (K2 also 0), beside the mma.sync kernels they
+    replaced in turns and the tensor-core, MUFU and dropout-hash floors of
+    each.  Library yardsticks: SDPA's forward (K1) and SDPA's backward alone
+    (K2: dq, dk and dv, the function of K2's two kernels), with the same
+    dropout.  K4: ``warp_phase``.
     f32 K2's times, beside its SIMT kernels' and SDPA's f32 backward, come
     from the tools phase (tools/bench_flash_bwd.py --dtype float32).
     """
@@ -1257,14 +1309,10 @@ def train_kernel_phase(torch, F, fa, tw) -> dict:
           f"of max |out| (limit {K1_BF16_RTOL:.0e}), vs the tile rounding rms {res['tiled']:.3e} "
           f"(limit {K1_BF16_TILED_RMS:.0e}; unrounded control {res['control']:.3e} at least), "
           f"rows of exp(s' - lse) within {res['rowsum']:.3e} of 1", flush=True)
-    k2_ms = res["dq_ms"] + res["dkv_ms"]
-    print(f"K2 bf16 over {TRAIN_CASES} at SM clock {clock / 1e6:.0f} MHz: dq "
-          f"{res['dq_ms']:.4f} ms (SIMT {res['dq_simt_ms']:.4f}), dkv "
-          f"{res['dkv_ms']:.4f} ms (SIMT {res['dkv_simt_ms']:.4f}); floors dq tensor "
-          f"{res['dq_tensor_ms']:.4f} mufu {res['dq_mufu_ms']:.4f} hash {res['dq_hash_ms']:.4f}, "
-          f"dkv tensor {res['dkv_tensor_ms']:.4f} mufu {res['dkv_mufu_ms']:.4f} hash "
-          f"{res['dkv_hash_ms']:.4f}; SDPA backward alone {res['dq_library_ms']:.4f} ms, "
-          f"K2 / SDPA backward {k2_ms / res['dq_library_ms']:.3f}; worst bf16 check "
+    print(f"K2 bf16 over {TRAIN_CASES} at SM clock {clock / 1e6:.0f} MHz: {k2_text(res)}; "
+          f"floors dq tensor {res['dq_tensor_ms']:.4f} mufu {res['dq_mufu_ms']:.4f} hash "
+          f"{res['dq_hash_ms']:.4f}, dkv tensor {res['dkv_tensor_ms']:.4f} mufu "
+          f"{res['dkv_mufu_ms']:.4f} hash {res['dkv_hash_ms']:.4f}; worst bf16 check "
           f"{res['bf16_rel']:.3e} of max |grad|, distance to the f32 plain version "
           f"{res['f32_gap']:.3e}", flush=True)
     print(f"K2 f32 (3xTF32) over {TRAIN_CASES}, dropout 0 and {DROPOUT}: within atol = rtol = "
@@ -1283,13 +1331,18 @@ def transpose_kernel_phase(torch, F, fa, tk: dict) -> dict:
     those at TRAIN_CASES (``tk``, the training kernel phase's).  f32 K1 at
     d = 112 is in the kernel phase (TP_F32_CASES).  Prints ptxas's registers
     and spills of f32 K1's kernels at every head dim
-    (tools/bench_flash_fwd.py::register_summary)."""
+    (tools/bench_flash_fwd.py::register_summary) and of every instantiation
+    of bf16 K2's two pairs (tools/bench_flash_bwd.py::register_summary)."""
     from buctd_tpu_torch import _build
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
+    from buctd_tpu_torch.tools.bench_flash_bwd import register_summary as bwd_register_summary
     from buctd_tpu_torch.tools.bench_flash_fwd import register_summary
 
     print(f"f32 K1 registers (spills) by head dim: "
           f"{register_summary(_build.build_log('flash_fwd'))}", flush=True)
+    print(f"bf16 K2 registers (spills; serialized wgmma) of every instantiation, the wgmma "
+          f"pair (wg_) and the mma.sync pair: "
+          f"{bwd_register_summary(_build.build_log('flash_bwd'))}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(11)
     res = k1_k2_checks(torch, fa, gen, TP_TRAIN_CASES, (torch.bfloat16,), (DROPOUT,))
     res.update(k1_k2_times(torch, F, fa, gen, TP_TRAIN_CASES, sm_clock_hz()))
@@ -1301,7 +1354,7 @@ def transpose_kernel_phase(torch, F, fa, tk: dict) -> dict:
               f"{theirs / tk[lib]:.3f} over {TRAIN_CASES}", flush=True)
     print(f"bf16 at d = 112: worst K1 check {res['fwd_bf16_rel']:.3e} of max |out|, tile "
           f"rounding rms {res['tiled']:.3e}; worst K2 check {res['bf16_rel']:.3e} of max "
-          f"|grad|", flush=True)
+          f"|grad|; K2 at {TP_TRAIN_CASES}: {k2_text(res)}", flush=True)
     return res
 
 
@@ -2174,6 +2227,7 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
                   tw.warp_resample_two_pass):
             f.launches = 0                                   # the main path's run
         zero_k1(fa)
+        zero_k2(fa)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = run.main(["--cfg", str(config), "--steps", str(TRAIN_STEPS), "--no-eval",
@@ -2187,16 +2241,18 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
                     "flash_bwd_dq": fa.flash_bwd_dq.launches,
                     "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
                     "warp_resample": tw.warp_resample.launches,
-                    "warp_resample_two_pass": tw.warp_resample_two_pass.launches}
+                    "warp_resample_two_pass": tw.warp_resample_two_pass.launches,
+                    **k2_by_kernel(fa)}
         steps = res["steps"]
         stats = res["stats"][0]
         losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
-        # the autocast step's K1 runs the wgmma kernel; the model summary's
-        # forward, outside autocast, f32 K1
+        # the autocast step's K1 and K2 run the wgmma kernels; the model
+        # summary's forward, outside autocast, f32 K1
         want = {"flash_fwd": k1_per_step * steps + res["summary"]["flash_calls"],
                 "flash_fwd_wgmma": k1_per_step * steps, "flash_fwd_mma": 0,
                 "flash_bwd_dq": k1_per_step * steps, "flash_bwd_dkv": k1_per_step * steps,
-                "warp_resample": steps, "warp_resample_two_pass": 0}
+                "warp_resample": steps, "warp_resample_two_pass": 0,
+                **k2_wgmma_want(k1_per_step * steps)}
         print(f"training run: {steps} steps of batch {TRAIN_BATCH} in {wall:.1f} s "
               f"(model build and data included); launches {launches}, expected {want} "
               f"(K1, dq, dkv: {k1_per_step} per step, and K1 in the model summary's "
@@ -2252,19 +2308,21 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
                     "peak_gib": peak_gib}
         by_name = kernel_profile(torch, lambda: step(batch),
                                  f"one {config.stem} train step (batch {TRAIN_BATCH}, bf16)")
-        # the autocast step's bf16 backward runs K2's tensor-core kernels, and
-        # neither of its SIMT kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
+        # the autocast step's bf16 backward runs K2's wgmma kernels, neither
+        # the mma.sync ones (flash_bwd_{dq,dkv}_tc_kernel) nor the SIMT ones
+        # (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
         k2 = {kind: sum(ms for key, ms in by_name.items()
-                        if f"flash_bwd_{kind}_tc_kernel" in key) for kind in ("dq", "dkv")}
-        simt = [key for key in by_name
-                if "flash_bwd_dq_kernel" in key or "flash_bwd_dkv_kernel" in key]
+                        if f"flash_bwd_{kind}_wgmma_kernel" in key) for kind in ("dq", "dkv")}
+        other = [key for key in by_name
+                 if any(f"flash_bwd_{kind}_{k}" in key for kind in ("dq", "dkv")
+                        for k in ("kernel", "tc_kernel"))]
         total = sum(by_name.values())
-        print(f"K2 in the profiled step: flash_bwd_dq_tc_kernel {k2['dq']:.3f} ms, "
-              f"flash_bwd_dkv_tc_kernel {k2['dkv']:.3f} ms, together "
+        print(f"K2 in the profiled step: flash_bwd_dq_wgmma_kernel {k2['dq']:.3f} ms, "
+              f"flash_bwd_dkv_wgmma_kernel {k2['dkv']:.3f} ms, together "
               f"{100 * (k2['dq'] + k2['dkv']) / total:.1f}% of {total:.2f} ms of kernel time; "
-              f"SIMT K2 kernels seen: {simt}", flush=True)
-        if not (k2["dq"] > 0 and k2["dkv"] > 0) or simt:
-            raise AssertionError(f"the bf16 step's K2 kernels: tensor-core {k2}, SIMT {simt}")
+              f"mma.sync or SIMT K2 kernels seen: {other}", flush=True)
+        if not (k2["dq"] > 0 and k2["dkv"] > 0) or other:
+            raise AssertionError(f"the bf16 step's K2 kernels: wgmma {k2}, others {other}")
         # and its bf16 forward runs K1's wgmma kernel, never the mma.sync
         # flash_fwd_tc_kernel or the SIMT flash_fwd_kernel
         k1_tc = sum(ms for key, ms in by_name.items() if BF16_K1_KERNEL in key)
@@ -2446,13 +2504,15 @@ def options_phase(torch, np, fa, tw, k1_per_step: int = 2) -> dict:
         for name, opts in OPTIONS.items():
             for f in counters:
                 f.launches = 0                               # this option's run
+            zero_k2(fa)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = run.main(["--cfg", str(CONFIG), "--steps", str(OPTION_STEPS), "--no-eval",
                             "--seed", "0", *base, *opts])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = [f.launches for f in counters]
+            # K1, dq, dkv, K4; then dq and dkv on the wgmma and the mma.sync kernels
+            launches = [f.launches for f in counters] + list(k2_by_kernel(fa).values())
             losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
             st = res["stats"][0]
             per_step = [d + s for d, s in zip(st["data_wait_s"], st["step_s"])][1:]
@@ -2460,10 +2520,12 @@ def options_phase(torch, np, fa, tw, k1_per_step: int = 2) -> dict:
             peak = torch.cuda.max_memory_allocated() / 2**30
             # K1 also in the model summary's forward (utils/summary.py)
             want = ([k1_per_step * OPTION_STEPS + res["summary"]["flash_calls"]]
-                    + [k1_per_step * OPTION_STEPS] * 2 + [OPTION_STEPS])
+                    + [k1_per_step * OPTION_STEPS] * 2 + [OPTION_STEPS]
+                    + list(k2_wgmma_want(k1_per_step * OPTION_STEPS).values()))
             print(f"option {name} {opts}: {res['steps']} steps in {wall:.1f} s (model build "
                   f"included), steps 2-{OPTION_STEPS} median {ms:.2f} ms/step, peak memory "
-                  f"{peak:.2f} GiB; launches K1, dq, dkv, K4 {launches} (expected {want}); "
+                  f"{peak:.2f} GiB; launches K1, dq, dkv, K4, dq and dkv by kernel (wgmma, "
+                  f"mma.sync) {launches} (expected {want}); "
                   f"losses {[round(x, 6) for x in losses]}", flush=True)
             if (res["steps"] != OPTION_STEPS or not np.isfinite(losses).all()
                     or launches != want):
@@ -2819,9 +2881,14 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
             scale = d ** -0.5
             out, lse = fa.flash_attention_kvres(q, k, v, scale, DROPOUT, seed)
             delta = (do * out).sum(-1)
+            before = k2_by_kernel(fa, True)
             dq = fa.flash_bwd_dq_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed)
             dk, dv = fa.flash_bwd_dkv_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed)
             torch.cuda.synchronize()
+            # bf16 K2' on K2's wgmma kernels (d = 48, 96)
+            moved = {key: n - before[key] for key, n in k2_by_kernel(fa, True).items()}
+            if moved != k2_wgmma_want(int(dtype == torch.bfloat16), True):
+                raise AssertionError(f"K2' ({bh}, {lq}, {d}) {dtype}: launches by kernel {moved}")
             fwd_errs, note = check_fwd_kv(out, lse, q, k, v, scale, DROPOUT, seed, chunk)
             bwd_text = check_bwd_kv((dq, dk, dv), q, k, v, do, lse, delta, scale, DROPOUT,
                                     seed, chunk)
@@ -2909,12 +2976,17 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
     finally:
         del os.environ["BUCTD_FLASH_KVRES"]
     delta = (do * out).sum(-1)
+    k2_before = k2_by_kernel(fa, True)
     grads = (fa.flash_bwd_dq_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed),
              *fa.flash_bwd_dkv_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed))
     torch.cuda.synchronize()
     launched = [f.launches - b for f, b in zip(counters, before)]
     if launched != [0, 1]:
         raise AssertionError(f"odd-d bf16 under BUCTD_FLASH_KVRES=1: K1, K1' launched {launched}")
+    # d = 47 is no multiple of 8: K2' on the mma.sync kernels
+    moved = {key: n - k2_before[key] for key, n in k2_by_kernel(fa, True).items()}
+    if moved != {key: int(key.endswith("_mma")) for key in moved}:
+        raise AssertionError(f"odd-d bf16 K2': launches by kernel {moved}")
     chunk = PLAIN_BH.get(lq, bh)
     fwd_errs, note = check_fwd_kv(out, lse, q, k, v, scale, DROPOUT, seed, chunk)
     bwd_text = check_bwd_kv(grads, q, k, v, do, lse, delta, scale, DROPOUT, seed, chunk)
@@ -3358,6 +3430,7 @@ def kvres_training_phase(torch, np, fa) -> dict:
         ann = write_synthetic_set(np, root, 24, SYNTH_PEOPLE, seed=3)
         for f in counted.values():
             f.launches = 0
+        zero_k2(fa)
         os.environ["BUCTD_FLASH_KVRES"] = "1"
         try:
             res = run.main(["--cfg", str(CONFIG), "--steps", str(KVRES_TRAIN_STEPS),
@@ -3368,12 +3441,12 @@ def kvres_training_phase(torch, np, fa) -> dict:
             torch.cuda.synchronize()
         finally:
             del os.environ["BUCTD_FLASH_KVRES"]
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = {**{k: f.launches for k, f in counted.items()}, **k2_by_kernel(fa, True)}
     losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
     n = 2 * KVRES_TRAIN_STEPS
     want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_kvres": n + res["summary"]["flash_calls"],
-            "flash_bwd_dq_kvres": n, "flash_bwd_dkv_kvres": n}
+            "flash_bwd_dq_kvres": n, "flash_bwd_dkv_kvres": n, **k2_wgmma_want(n, True)}
     print(f"training under BUCTD_FLASH_KVRES=1: {res['steps']} steps, losses "
           f"{[round(x, 6) for x in losses]}; launches {launches}, expected {want}",
           flush=True)
@@ -3704,6 +3777,31 @@ def zero_k1(fa) -> None:
     start of a main path's run."""
     for f in (fa.flash_attention, fa.flash_attention_kvres):
         f.launches = f.wgmma_launches = f.mma_launches = 0
+
+
+def zero_k2(fa) -> None:
+    """K2's and K2''s launch counts, all of them and by bf16 kernel, to 0: the
+    start of a main path's run."""
+    for f in (fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dq_kvres, fa.flash_bwd_dkv_kvres):
+        f.launches = f.wgmma_launches = f.mma_launches = 0
+
+
+def k2_by_kernel(fa, kvres: bool = False) -> dict:
+    """K2's (``kvres``: K2''s) dq and dk/dv launches since ``zero_k2`` by bf16
+    kernel: {"flash_bwd_dq_wgmma": n, "flash_bwd_dq_mma": n, ...}."""
+    sfx = "_kvres" if kvres else ""
+    return {f"flash_bwd_{kind}{sfx}_{k}": getattr(getattr(fa, f"flash_bwd_{kind}{sfx}"),
+                                                 f"{k}_launches")
+            for kind in ("dq", "dkv") for k in ("wgmma", "mma")}
+
+
+def k2_wgmma_want(n: int, kvres: bool = False) -> dict:
+    """``k2_by_kernel`` of a bf16 training path that launched K2 (K2') ``n``
+    times a kernel: every launch on the wgmma kernels (d = 48, 96 and 112),
+    none on the mma.sync ones."""
+    sfx = "_kvres" if kvres else ""
+    return {f"flash_bwd_{kind}{sfx}_{k}": n if k == "wgmma" else 0
+            for kind in ("dq", "dkv") for k in ("wgmma", "mma")}
 
 
 def bf16_k1_launches(fa, label: str, launches: int) -> int:
@@ -4084,6 +4182,7 @@ def host_loader_phase(torch, np, fa, tw) -> dict:
     def train(root, ann, label, opts, steps=TRAIN_STEPS, device_loader=False):
         for f in counted.values():
             f.launches = 0                                   # the main path's run
+        zero_k2(fa)
         t0 = time.perf_counter()
         out = train_run.main(["--cfg", str(CONFIG), "--steps", str(steps), "--no-eval",
                               "--seed", "0", "DATASET.TRAIN_IMAGE_DIR", str(root),
@@ -4092,12 +4191,13 @@ def host_loader_phase(torch, np, fa, tw) -> dict:
                               "LOG_DIR", str(root / f"log_{label}"), *opts])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {k: f.launches for k, f in counted.items()}
+        got = {**{k: f.launches for k, f in counted.items()}, **k2_by_kernel(fa)}
         for k in got:
-            res["launches"][k] += got[k]
+            res["launches"][k] = res["launches"].get(k, 0) + got[k]
         calls = out["summary"]["flash_calls"]
         want = {"flash_fwd": 2 * steps + calls, "flash_bwd_dq": 2 * steps,
-                "flash_bwd_dkv": 2 * steps, "warp_resample": steps * device_loader}
+                "flash_bwd_dkv": 2 * steps, "warp_resample": steps * device_loader,
+                **k2_wgmma_want(2 * steps)}
         losses = [float(m["loss"]) for st in out["stats"] for m in st["metrics"]]
         st = out["stats"][0]
         warm = slice(2 if steps > 2 else 0, None)       # from step 3; all of a short run
@@ -4469,12 +4569,12 @@ def _mc_batch(torch, np, n: int, seed: int, device) -> dict:
 
 def _mc_counts(fa) -> dict:
     return {"flash_fwd": fa.flash_attention.launches, "flash_bwd_dq": fa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches, **k2_by_kernel(fa)}
 
 
 def _mc_zero(fa) -> None:
-    for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
-        f.launches = 0
+    fa.flash_attention.launches = 0
+    zero_k2(fa)
 
 
 def _mc_f32_run(torch, np, fa, job: dict, rank: int, world: int) -> dict:
@@ -4627,7 +4727,9 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
             shutdown_distributed()
         same = runs[True]["losses"] == runs[False]["losses"] and all(
             torch.equal(v, runs[False]["state"][k]) for k, v in runs[True]["state"].items())
-        want = {k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        # bf16: K2 on the wgmma kernels
+        want = {**{k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+                **k2_wgmma_want(2 * 2)}
         print(f"multicard (a) {backend} world size 1, CoAM-W48 bf16 batch {MC_NCCL_BATCH}: DDP "
               f"losses {runs[True]['losses']}, without DDP {runs[False]['losses']}, bit for "
               f"bit (losses, {len(runs[True]['state'])} tensors): {same}; launches "
@@ -4682,7 +4784,9 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
         gaps = [abs(a - b) for a, b in zip(two[0]["losses"], one["losses"])]
         stat_gap = max(float((two[0]["stats"][k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
                        for k, v in one["stats"].items())
-        want = {k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        # f32: no K2 launch counts on a bf16 kernel
+        want = {**{k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+                **k2_wgmma_want(0)}
         where = ("2 processes on the one card over gloo" if cards == 1
                  else f"{world} processes, one a card, over NCCL")
         print(f"multicard (b) {where}, CoAM-W48 f32 global batch {MC_GLOBAL_BATCH}: losses "
@@ -5012,23 +5116,25 @@ def orbax_phase(torch, np, fa, tw, card: str) -> dict:
 
         for f in counted.values():
             f.launches = 0                                   # the main path's run
+        zero_k2(fa)
         # cuDNN's heuristics: with CUDNN.BENCHMARK the narrow model's first
         # step took 27.6 s on an H100 timing its new shapes (the second 2.6 s)
         trained = train_run.main(["--cfg", str(yaml), "--steps", str(ORBAX_TRAIN_STEPS),
                                   "--no-eval", "--seed", "0", *opts, *data,
                                   "CUDNN.BENCHMARK", "False", "OUTPUT_DIR", str(root / "train")])
         got = {k: f.launches for k, f in counted.items()}
+        by_kernel = k2_by_kernel(fa)
         losses = [float(m["loss"]) for st in trained["stats"] for m in st["metrics"]]
         print(f"orbax: train.run --steps {ORBAX_TRAIN_STEPS} with TEST.MODEL_FILE <dir>: "
               f"{trained['steps']} steps, losses {[round(x, 6) for x in losses]}; launches "
-              f"{got}", flush=True)
+              f"{got}, K2 by bf16 kernel {by_kernel}", flush=True)
         if (trained["steps"] != ORBAX_TRAIN_STEPS or not np.isfinite(losses).all()
                 or min(got.values()) == 0):
             raise AssertionError(f"orbax: train.run from the directory: {trained['steps']} "
                                  f"steps, losses {losses}, launches {got}")
         for k in got:
             res["launches"][k] += got[k]
-        res["train"] = {"losses": losses, "launches": got}
+        res["train"] = {"losses": losses, "launches": got, "k2_by_kernel": by_kernel}
     return res
 
 
@@ -5218,15 +5324,35 @@ def main() -> int:
                 "bound_ms": f32_bounds[kind][0], "bound_by": f32_bounds[kind][1],
                 "launches": launches, **more}
 
+    def k2_p0(r, kind):
+        # bf16 K2 at dropout 0 over a phase's cases: the wgmma kernel, the
+        # mma.sync one and SDPA's backward alone in turns, the bound
+        return {"ms": r[f"{kind}_p0_ms"], "mma_ms": r[f"{kind}_p0_mma_ms"],
+                "library_ms": r["k2_p0_library_ms"], "bound_ms": r[f"{kind}_p0_bound_ms"],
+                "bound_by": bound_by(r[f"{kind}_p0_ops_ms"], r[f"{kind}_p0_bound_ms"])}
+
     def tp_bf16(kind, err_key):
-        # bf16 at TP_TRAIN_CASES (d = 112), dropout 0.1; beside K1 the mma.sync
-        # kernel in turns, beside K2 its f32 SIMT kernels
-        other = "mma_ms" if kind == "fwd" else "simt_ms"
-        return {"ms": tp_k[f"{kind}_ms"], "plain_ms": tp_k[f"{kind}_plain_ms"],
-                "bound_ms": tp_k[f"{kind}_bound_ms"],
-                "bound_by": bound_by(tp_k[f"{kind}_ops_ms"], tp_k[f"{kind}_bound_ms"]),
-                "library_ms": tp_k[f"{kind}_library_ms"], other: tp_k[f"{kind}_{other}"],
-                "max_abs_err": tp_k[err_key]}
+        # bf16 at TP_TRAIN_CASES (d = 112), dropout 0.1 (K2 also 0); beside
+        # each the mma.sync kernel in turns
+        e = {"ms": tp_k[f"{kind}_ms"], "plain_ms": tp_k[f"{kind}_plain_ms"],
+             "bound_ms": tp_k[f"{kind}_bound_ms"],
+             "bound_by": bound_by(tp_k[f"{kind}_ops_ms"], tp_k[f"{kind}_bound_ms"]),
+             "library_ms": tp_k[f"{kind}_library_ms"], "mma_ms": tp_k[f"{kind}_mma_ms"],
+             "max_abs_err": tp_k[err_key]}
+        if kind != "fwd":
+            e["dropout_0"] = k2_p0(tp_k, kind)
+        return e
+
+    def k2_kernel_launches(kind, k):
+        # K2's launches on its wgmma (k "wgmma") or mma.sync ("mma") kernels
+        # over the training paths whose launches its entry counts
+        key = f"flash_bwd_{kind}_{k}"
+        idx = 4 + 2 * (kind == "dkv") + (k == "mma")   # options_phase's launch list
+        return (train["launches"][key] + train_synth["launches"][key]
+                + sum(o["launches"][idx] for o in options.values())
+                + tp_train["launches"][key] + host["launches"][key]
+                + mc["nccl_launches"][key] + mc["gloo_launches"][key]
+                + orb["train"]["k2_by_kernel"][key])
 
     def bwd_entry(kind, replaces):
         e = entry(f"flash_bwd_{kind}", "buctd_tpu_torch/csrc/flash_bwd.cu",
@@ -5238,6 +5364,13 @@ def main() -> int:
                   tk[f"{kind}_err"], kind)
         e["f32"] = f32_bwd(kind, sum(r["shipped"][f"{kind}_ms"] for r in k2_f32),
                            step_launches[f"flash_bwd_{kind}"])
+        # bf16: the launches on the wgmma kernels (every bf16 training path's)
+        # and on the mma.sync ones (none); the mma.sync kernels in turns and
+        # the same at dropout 0
+        e["wgmma_launches"] = k2_kernel_launches(kind, "wgmma")
+        e["mma_launches"] = k2_kernel_launches(kind, "mma")
+        e["mma_ms"] = tk[f"{kind}_mma_ms"]
+        e["dropout_0"] = k2_p0(tk, kind)
         # the host Loader's trainer (host_loader_phase), its launches
         e["host_loader"] = {"launches": host["launches"][f"flash_bwd_{kind}"]}
         # train.run from the orbax fixture (orbax_phase), its launches
@@ -5321,6 +5454,9 @@ def main() -> int:
                 "plain_ms": tk[f"{kind}_plain_ms"], "bound_ms": kv[f"{kind}_bound_ms"],
                 "bound_by": bound_by(kv[f"{kind}_ops_ms"], kv[f"{kind}_bound_ms"]),
                 "library_ms": tk[f"{kind}_library_ms"],
+                # bf16 K2' on K2's wgmma kernels, as its training path ran it
+                "wgmma_launches": kv_train[f"flash_bwd_{kind}_kvres_wgmma"],
+                "mma_launches": kv_train[f"flash_bwd_{kind}_kvres_mma"],
                 "f32": f32_bwd(kind, kv[f"{kind}_f32_ms"], 0, k2_ms=kv[f"{kind}_f32_k2_ms"])}
 
     # K5: ms per block summed over the 4 branches, from bench_block's chained,

@@ -23,9 +23,12 @@ unrounded control must miss by more; the wgmma kernel's SASS holds HGMMA and
 TMA loads (UTMALDG).  The
 backward kernels (K2) vs the plain backward: f32 1e-4 absolute and relative
 (dq, dk, dv sum products of a recomputed p over up to 700 keys or rows); bf16
-(the tensor-core kernels, against the plain backward that rounds where they
-do) 2e-3 x max |grad|: f32 sums in another order, and one-bf16-step flips of a
-rounded ds or p * keep * c where exp2 and exp differ in the last bit; f32 K2
+(the TMA + wgmma pair where d is a multiple of 8 and q, k, v and the cast do
+16-byte aligned, else the mma.sync pair; either against the plain backward
+that rounds where they do) 2e-3 x max |grad|: f32 sums in another order, and
+one-bf16-step flips of a rounded ds or p * keep * c where exp2 and exp differ
+in the last bit; the wgmma pair's launches deterministic (two equal bit for
+bit) and its SASS holding HGMMA and UTMALDG; f32 K2
 takes its products in 3xTF32 (about 1e-6 from f32 here), while one tf32 pass
 lands near 4e-4 and misses.  K1' and K2' take K1's and K2's gates against the
 plain versions and equal K1/K2 bit for bit in both dtypes (the same
@@ -79,6 +82,11 @@ BF16_GRAD_RTOL = 2e-3
 # whose d is a multiple of 8 (40, 48, 96, 112, 128), the mma.sync kernel d = 6;
 # and a TransPose-H-wide one over several key tiles
 WGMMA_SHAPES = K1_BF16_SHAPES + [(2, 1100, 1100, 112)]
+# bf16 K2 on both of its pairs: the wgmma kernels at d = 48, 96 and 112 (and a
+# TransPose-H-wide one ragged against every tile), the mma.sync ones at d = 6
+# and 47
+K2_BF16_SHAPES = [(2, 256, 256, 48), (3, 640, 384, 96), (1, 300, 300, 112),
+                  (2, 1100, 1100, 112), (2, 100, 130, 6), (2, 90, 75, 47)]
 # f32 K1 and K1' (the 3xTF32 kernel): ragged in both L, and d = 7, 47 (rows of
 # 188 bytes, no multiple of 16: the register load path), 48, 96, 112 and 128
 K1_F32_SHAPES = [(2, 100, 130, 7), (2, 130, 200, 47), (3, 200, 333, 48),
@@ -373,6 +381,63 @@ def test_forward_and_backward_kernels_match_plain(cuda, bh, lq, lk, d, dtype, dr
                                                  dropout, seed)
     _assert_grads_close((dq, dk, dv), want,
                         BF16_GRAD_RTOL if dtype == torch.bfloat16 else None)
+
+
+def _k2_by_kernel():
+    return [getattr(getattr(fa, name), f"{k}_launches") for name in
+            ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_kvres", "flash_bwd_dkv_kvres")
+            for k in ("wgmma", "mma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("bh,lq,lk,d", K2_BF16_SHAPES)
+def test_bf16_backward_dispatch_wgmma_and_mma(cuda, monkeypatch, bh, lq, lk, d, dropout):
+    """bf16 K2 launches the wgmma pair where takes_wgmma_bwd (counted on
+    wgmma_launches), else the mma.sync pair (mma_launches); either meets the
+    bf16 gate against the plain backward; a second launch equals the first
+    bit for bit (no atomics); K2' (the same kernels, a deeper ring) equals K2
+    bit for bit; the mma.sync pair kept for the A/B (flash_bwd_dq_mma,
+    flash_bwd_dkv_mma) meets the same gate."""
+    monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
+    q, k, v = _qkv(bh, lq, lk, d, torch.bfloat16, cuda)
+    scale, seed = d ** -0.5, 21
+    out, lse = fa.flash_attention(q, k, v, scale, dropout, seed)
+    dout = torch.randn(bh, lq, d, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    args = (q, k, v, dout, lse, (dout * out).sum(-1), scale, dropout, seed)
+    wgmma = fa.takes_wgmma_bwd(q, k, v, dout.to(torch.bfloat16))
+    assert wgmma == (d % 8 == 0)
+    before = _k2_by_kernel()
+    got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    kv = (fa.flash_bwd_dq_kvres(*args), *fa.flash_bwd_dkv_kvres(*args))
+    torch.cuda.synchronize()
+    on = [1, 0] if wgmma else [0, 1]
+    assert [a - b for a, b in zip(_k2_by_kernel(), before)] == on * 4
+    want = fa.flash_attention_backward_reference(*args)
+    _assert_grads_close(got, want, BF16_GRAD_RTOL)
+    again = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    for a, b, c in zip(got, again, kv):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    mma = (fa.flash_bwd_dq_mma(*args), *fa.flash_bwd_dkv_mma(*args))
+    torch.cuda.synchronize()
+    _assert_grads_close(mma, want, BF16_GRAD_RTOL)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_kernels_run_hgmma_and_tma(cuda):
+    """In K2's and K2''s libraries every instantiation of the wgmma pair (8
+    head-dim cases x dropout or not, each kernel) holds wgmma (HGMMA) and TMA
+    tensor loads (UTMALDG) in its SASS, and the mma.sync pair holds HMMA."""
+    from buctd_tpu_torch import _build
+
+    wgmma = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+    mma = ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+    for lib in ("flash_bwd", "flash_bwd_kvres"):
+        _build.build([lib])
+        for op, names, n in (("HGMMA", wgmma, 32), ("UTMALDG", wgmma, 32), ("HMMA", mma, 16)):
+            got = {f: c for f, c in _build.sass_op_counts(lib, op).items()
+                   if any(name in f for name in names)}
+            assert len(got) == n and min(got.values()) > 0, (lib, op, got)
 
 
 @pytest.mark.cuda
