@@ -76,9 +76,12 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def load_model(cfg, device, out_dir):
+def load_model(cfg, device, out_dir, lambda_head: bool = True):
     """The cfg's model with TEST.MODEL_FILE's weights, else model_best.pth in
-    the output directory, else the random init (with a warning)."""
+    the output directory, else the random init (with a warning).  With
+    ``lambda_head`` a checkpoint with pose_hrnet's lambda head
+    (``lambda_fc.*``) builds the model with it; without, its keys are
+    unexpected and the strict load raises."""
     from ..convert import load_checkpoint
     from ..models import get_model
 
@@ -86,8 +89,8 @@ def load_model(cfg, device, out_dir):
     best = out_dir / "model_best.pth"
     if path or best.exists():
         sd = load_checkpoint(path or best)
-        model = get_model(cfg, device=device,
-                          lambda_head=any(k.startswith("lambda_fc.") for k in sd))
+        model = get_model(cfg, device=device, lambda_head=lambda_head and any(
+            k.startswith("lambda_fc.") for k in sd))
         model.load_state_dict(sd, strict=True)
         logger.info("=> weights from %s", path or best)
     else:
@@ -98,21 +101,10 @@ def load_model(cfg, device, out_dir):
 
 
 def main(argv=None) -> dict:
-    """Evaluate; returns {'ap': [AP per round], 'rounds': [per-round dicts:
-    AP, name_values, loop_s, evaluate_s, crops, results], 'output_dir',
-    'log_dir' (metrics.jsonl), 'summary' (utils/summary.py::model_summary),
-    'model'}."""
+    """Evaluate; returns ``evaluate``'s dict."""
     from ..config import default_config, update_config
-    from ..core.function import (check_eval_options, validate,
-                                 validate_lambda_quantitative)
-    from ..data.datasets import get_dataset
-    from ..data.device_pipeline import DeviceLoader
-    from ..data.pipeline import Loader, num_input_channels
-    from ..models.fuse import maybe_fuse_prenet
-    from ..parallel.mesh import make_mesh, replicate
-    from ..utils.logging_utils import MetricWriter, create_logger
-    from ..utils.profiler import trace_context
-    from ..utils.summary import model_summary
+    from ..core.function import check_eval_options
+    from ..parallel.mesh import make_mesh
 
     args = parse_args(argv)
     device = start_processes(args, "buctd_tpu_torch.valid.run")
@@ -120,27 +112,58 @@ def main(argv=None) -> dict:
     update_config(cfg, args)
     mesh = make_mesh(cfg, devices=[device])     # raises where it does not match the cards
     check_eval_options(cfg)
+    return evaluate(cfg, args.cfg, device, mesh)
+
+
+def evaluate(cfg, cfg_file, device, mesh, loader_cls=None, fuse_prenet: bool = True,
+             lambda_options: bool = True, phase: str = "valid") -> dict:
+    """Load the model and run the ``TEST.REFINE_ITERS`` rounds, logging under
+    ``phase``.  The defaults are tools/test.py's protocol: the loader
+    ``TPU.DEVICE_PIPELINE`` picks (``loader_cls`` None), the preNet fused as
+    ``TPU.FUSED_PRENET`` says, and pose_hrnet's lambda options (a lambda head
+    for a checkpoint with ``lambda_fc.*``, ``TEST.LAMBDA_SWEEP``).
+    tools/parity_eval.py's protocol takes the host Loader, no fusion and
+    no lambda option.
+
+    Returns {'ap': [AP per round], 'rounds': [per-round dicts: AP,
+    name_values, loop_s, evaluate_s, crops, results], 'output_dir',
+    'log_dir' (metrics.jsonl), 'summary' (utils/summary.py::model_summary),
+    'model'}."""
+    from ..core.function import validate, validate_lambda_quantitative
+    from ..data.datasets import get_dataset
+    from ..data.device_pipeline import DeviceLoader
+    from ..data.pipeline import Loader, num_input_channels
+    from ..models.fuse import maybe_fuse_prenet
+    from ..parallel.mesh import replicate
+    from ..utils.logging_utils import MetricWriter, create_logger
+    from ..utils.profiler import trace_context
+    from ..utils.summary import model_summary
+
     if device.type == "cuda":
         # f32 means f32 (the JAX path evaluates at Precision.HIGHEST); a bf16
         # model's convs and linears run in bf16 whatever these say
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    _, out_dir, log_dir = create_logger(cfg, args.cfg, "valid")
+    _, out_dir, log_dir = create_logger(cfg, cfg_file, phase)
     out_dir = Path(out_dir)
     logger.info(pprint.pformat(cfg))
     writer = MetricWriter(log_dir)
-    model = load_model(cfg, device, out_dir)
+    model = load_model(cfg, device, out_dir, lambda_options)
     replicate(model, mesh)                      # process 0's weights on every process
-    model = maybe_fuse_prenet(cfg, model)        # as tools/test.py:87-88
+    if fuse_prenet:
+        model = maybe_fuse_prenet(cfg, model)    # as tools/test.py:87-88
     img_w, img_h = int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1])
     summary = model_summary(model, (1, num_input_channels(cfg), img_h, img_w))
     logger.info(summary["text"])
 
     refine_iters = max(int(cfg.TEST.REFINE_ITERS), 1)
-    if cfg.TEST.LAMBDA_SWEEP and refine_iters > 1:
+    sweep = lambda_options and cfg.TEST.LAMBDA_SWEEP
+    if sweep and refine_iters > 1:
         raise ValueError("TEST.LAMBDA_SWEEP writes per-mode/_merged results, "
                          "which the refinement feedback loop cannot consume; "
                          "use one or the other")
+    if loader_cls is None:
+        loader_cls = DeviceLoader if cfg.TPU.DEVICE_PIPELINE else Loader
     user_output_json = cfg.OUTPUT_JSON
     rounds = []
     try:
@@ -152,13 +175,13 @@ def main(argv=None) -> dict:
                 cfg.OUTPUT_JSON = user_output_json if it == refine_iters - 1 else None
                 cfg.freeze()
             dataset = get_dataset(cfg, is_train=False)
-            cls = DeviceLoader if cfg.TPU.DEVICE_PIPELINE else Loader
-            loader = cls(dataset, cfg, batch_size=cfg.TEST.BATCH_SIZE_PER_GPU * mesh.size,
-                         num_workers=cfg.WORKERS, device=device)
+            loader = loader_cls(dataset, cfg,
+                                batch_size=cfg.TEST.BATCH_SIZE_PER_GPU * mesh.size,
+                                num_workers=cfg.WORKERS, device=device)
             stats = {}
             try:
                 with trace_context():       # BUCTD_PROFILE_DIR: a Chrome trace of the round
-                    if cfg.TEST.LAMBDA_SWEEP:
+                    if sweep:
                         perf = validate_lambda_quantitative(
                             cfg, loader, dataset, model, out_dir, epoch=it, writer=writer,
                             print_prefix=f"refine{it}", stats=stats)
@@ -169,7 +192,7 @@ def main(argv=None) -> dict:
                                                      print_prefix=f"refine{it}", stats=stats)
             finally:
                 loader.close()
-            suffix = "_merged" if cfg.TEST.LAMBDA_SWEEP else ""
+            suffix = "_merged" if sweep else ""
             rank = distributed.process_info()[0]
             # each process reads back what its own evaluate wrote
             own_dir = out_dir / f"proc{rank}" if rank > 0 else out_dir

@@ -10,8 +10,8 @@ evaluates each family in bf16 as well (TPU.EVAL_DTYPE bfloat16), serves,
 evaluates and trains pose_resnet-50 with the preNet, runs the lambda sweep,
 the OCHuman and animal evaluation rounds and the standalone inference entry,
 trains and evaluates on the host cv2 Loader (the JAX default data path),
-and runs the port's benchmarks of the fused basic block (K5) and exp
-throughput (K6).
+runs the AP-parity runner on an orbax checkpoint, and runs the port's
+benchmarks of the fused basic block (K5) and exp throughput (K6).
 
     python3 chip_smoke.py
 
@@ -201,7 +201,7 @@ Phases (each raises on failure; nothing is caught):
      round-0 results.
  19. ``host_loader_phase`` (after phase 18): the JAX default data
      path, TPU.DEVICE_PIPELINE False with no override, on CoAM-W48 (batch
-     32): train.run 6 steps on the host cv2 ``Loader`` with the host
+     32): train.run 4 steps on the host cv2 ``Loader`` with the host
      sampler, then 10 with TPU.DEVICE_SYNTHESIS on it and on the device loader
      (ms/step, data wait, dispatch; K1 and K2 2 a step, K4 never on the host
      Loader); a 3-step run with PRINT_FREQ 1, BUCTD_PROFILE_DIR and
@@ -233,6 +233,16 @@ Phases (each raises on failure; nothing is caught):
      from a .pth of the same state_dict, K1 counted exactly; a narrow CoAM
      (tests/fixtures/orbax_coam_tiny) against expected.json, valid.run and
      train.run with TEST.MODEL_FILE <dir>; K1, K2 and K4 counted.
+ 22. ``parity_phase`` (after phase 21): the AP-parity runner
+     (buctd_tpu_torch/tools/parity_eval.py) through its ``main``: CoAM-W48
+     at full width from the orbax fixture of phase 21, f32, 3 refinement
+     rounds of 32 synthetic CrowdPose crops (one batch a round) through the
+     host cv2 Loader: exit code 1 and FAIL against the README's 78.5 at
+     random weights, the table row, the last JSON line (its ap the
+     trajectory's last, 3 finite APs in [0, 100], pass as delta says), 32
+     results a round and round 1's centers moved; K1 launched 2 a round plus
+     the summary forward's, K1' and K4 never; the orbax read's seconds and
+     each round's crops/s.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -244,6 +254,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import io
 import json
 import os
 import statistics
@@ -491,7 +502,7 @@ SYNTH_HOST_REPS, SYNTH_CARD_REPS = 4, 16
 # trunk's few-step differences at the tokens move that layer's attention
 # output by many more (both printed); hence its own ratio.  BUCTD_FLASH_KVRES=1's bf16 eval heatmaps equal K1's
 # bit for bit.
-BF16_REPEATS = 4
+BF16_REPEATS = 3
 WARP_DRIFT_PX = 0.05
 # host_loader_phase: steps of the checks run (metrics, trace, debug dumps);
 # the matmul engine vs K4's plain version, tests/test_torch_port_warp_matmul.py's
@@ -499,10 +510,10 @@ WARP_DRIFT_PX = 0.05
 # CPU: the same uint8 crops, (x / 255 - mean) / std in f32 on each device
 HOST_CHECK_STEPS = 2
 # host_loader_phase's first trainer run: the host sampler takes ~3 s a step
-# at batch 32, so 6 steps (the median of steps 3-6); the turns with
+# at batch 32, so 4 steps (the median of steps 3-4); the turns with
 # TPU.DEVICE_SYNTHESIS keep TRAIN_STEPS, one epoch, after which the device
 # loader prefetches no further batch, so K4 counts one a step
-HOST_SAMPLER_STEPS = 6
+HOST_SAMPLER_STEPS = 4
 # eval samples whose host crops are held to numpy's bilinear sampling
 HOST_CROP_CHECKS = 8
 WARP_MATMUL_ATOL = 1e-4 * 255
@@ -551,7 +562,7 @@ CONV_NAMES = ("conv", "fprop", "fft", "flip_filter", "cf32", "inograd", "nchwToN
 MC_LR = "0.001"
 MC_NCCL_BATCH = 8
 MC_GLOBAL_BATCH = 32
-MC_TIMED_STEPS = 3
+MC_TIMED_STEPS = 2
 MC_LOSS_ATOL, MC_LOSS_RTOL = 1e-5, 1e-4
 MC_SERVE_IMAGES = 4
 OPTION_STEPS = 3
@@ -5138,6 +5149,102 @@ def orbax_phase(torch, np, fa, tw, card: str) -> dict:
     return res
 
 
+PARITY_IMAGES = 8                       # x 4 people = 32 crops = 1 batch of 32
+PARITY_ROUNDS = 3
+
+
+def parity_phase(torch, np, fa, tw, card: str) -> dict:
+    """The AP-parity runner (buctd_tpu_torch/tools/parity_eval.py) in
+    process through its ``main``, on the card at full width: CoAM-W48 from
+    the committed orbax fixture ORBAX_FULL with its expected.json's yaml
+    (the README's crowdpose CoAM row, target 78.5), f32 (3xTF32 K1),
+    PARITY_ROUNDS refinement rounds on a seeded synthetic CrowdPose set of
+    PARITY_IMAGES x SYNTH_PEOPLE crops from a BU json, one batch of
+    EVAL_BATCH a round, through the host cv2 Loader.  At random weights the
+    verdict must be FAIL with exit code 1; the table row is printed; the
+    last JSON line's keys are there, its ap the trajectory's last, three
+    finite APs in [0, 100] and ``pass`` as ``delta`` says; each round's
+    results json has one entry a crop with finite keypoints, and round 1's
+    centers differ from round 0's; K1 launched 2 a batch a round plus the
+    summary forward's, K1' and K4 never."""
+    from buctd_tpu_torch import convert
+    from buctd_tpu_torch.tools import parity_eval
+
+    expected = json.loads((ORBAX_FULL / "expected.json").read_text())
+    counted = {"flash_fwd": fa.flash_attention, "flash_fwd_kvres": fa.flash_attention_kvres,
+               "warp_resample": tw.warp_resample}
+    crops = PARITY_IMAGES * SYNTH_PEOPLE
+    batches = -(-crops // EVAL_BATCH)
+    read_s = []
+    load = convert.load_checkpoint
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        sd = load(path)
+        read_s.append(time.perf_counter() - t0)
+        return sd
+
+    with tempfile.TemporaryDirectory(prefix="buctd_parity_") as tmp:
+        root = Path(tmp)
+        ann = write_synthetic_set(np, root, PARITY_IMAGES, SYNTH_PEOPLE, seed=21)
+        bu = write_bu_predictions(np, ann, root)
+        argv = ["--cfg", str(ROOT / expected["cfg"]), "--pth", str(ORBAX_FULL / "checkpoint"),
+                "--ann", str(ann), "--img-dir", str(root), "--refine-iters", str(PARITY_ROUNDS),
+                "--out", str(root / "out"), *expected["opts"], "TEST.COCO_BBOX_FILE", str(bu),
+                "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH), "PRINT_FREQ", "100",
+                "LOG_DIR", str(root / "log")]
+        out = io.StringIO()
+        convert.load_checkpoint = timed_load
+        try:
+            for f in counted.values():
+                f.launches = 0                               # the main path's run
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                verdict, rc = parity_eval.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            convert.load_checkpoint = load
+        got = {k: f.launches for k, f in counted.items()}
+        printed = out.getvalue()
+        print(printed, end="", flush=True)
+        run = verdict["run"]
+        want = {"flash_fwd": 2 * batches * PARITY_ROUNDS + run["summary"]["flash_calls"],
+                "flash_fwd_kvres": 0, "warp_resample": 0}
+        lines = printed.strip().splitlines()
+        last = json.loads(lines[-1])
+        traj = last["refine_trajectory"]
+        rows = [json.loads(Path(r["results"]).read_text()) for r in run["rounds"]]
+        crops_s = [r["crops"] / r["loop_s"] for r in run["rounds"]]
+        print(f"parity: tools/parity_eval.py main, CoAM-W48 from the orbax fixture (read in "
+              f"{read_s[0]:.3f} s), {PARITY_ROUNDS} rounds of {crops} crops: rc {rc}, verdict "
+              f"{verdict['verdict']}, trajectory {traj}; crops/s by round "
+              f"{[round(c, 2) for c in crops_s]}; launches {got}, expected {want}; phase "
+              f"{seconds:.1f} s; card: {card}", flush=True)
+        row = (f"| crowdpose | pose_hrnet_coam | {last['ap']:.2f} | 78.5 | "
+               f"{last['delta']:+.2f} | FAIL |")
+        if not (rc == 1 and verdict["verdict"] == "FAIL" and row in lines):
+            raise AssertionError(f"parity: rc {rc}, verdict {verdict['verdict']}, the row "
+                                 f"{row!r} printed: {row in lines}")
+        if not (set(last) == {"ap", "expected", "delta", "pass", "refine_trajectory"}
+                and last["expected"] == 78.5 and len(traj) == PARITY_ROUNDS
+                and last["ap"] == traj[-1] and np.isfinite(traj).all()
+                and all(0.0 <= a <= 100.0 for a in traj)
+                and last["pass"] == (abs(last["delta"]) <= parity_eval.AP_TOLERANCE
+                                     or last["delta"] > 0)):
+            raise AssertionError(f"parity: the last line {last}")
+        finite = all(np.isfinite(e["keypoints"]).all() for r in rows for e in r)
+        if [len(r) for r in rows] != [crops] * PARITY_ROUNDS or not finite or all(
+                a["center"] == b["center"] for a, b in zip(rows[0], rows[1])):
+            raise AssertionError(f"parity: results {[len(r) for r in rows]} (want {crops} "
+                                 f"each), keypoints finite {finite}, or round 1's centers "
+                                 f"as round 0's")
+        if got != want:
+            raise AssertionError(f"parity: launches {got} != {want}")
+    return {"launches": got, "read_s": read_s[0], "crops_s": crops_s, "seconds": seconds,
+            "trajectory": traj}
+
+
 def main() -> int:
     import torch
 
@@ -5291,6 +5398,9 @@ def main() -> int:
     mark("multicard")
     orb = orbax_phase(torch, np, fa, tw, card)
     mark("orbax")
+    torch.cuda.empty_cache()
+    par = parity_phase(torch, np, fa, tw, card)
+    mark("parity")
 
     def bound_by(ops_ms, bound_ms):
         return "operations" if ops_ms >= bound_ms else "bytes"
@@ -5417,14 +5527,16 @@ def main() -> int:
               "inference_bf16": inf["launches"]["bfloat16_1"] + inf["launches"]["bfloat16_3"],
               "pose_resnet": rn["eval_launches"]["flash_fwd"] + rn["train_launches"]["flash_fwd"],
               "host_loader": host["launches"]["flash_fwd"],
-              "orbax": orb["launches"]["flash_fwd"]}
+              "orbax": orb["launches"]["flash_fwd"],
+              "parity_eval": par["launches"]["flash_fwd"]}
     new_k4 = {"pose_resnet": rn["eval_launches"]["warp_resample"]
               + rn["train_launches"]["warp_resample"],
               "lambda": lam["float32"]["warp_launches"] + lam["bfloat16"]["warp_launches"]
               + lam["validate_lambda_warp_launches"],
               "datasets": sum(v["warp_launches"] for v in dsets.values()),
               "host_loader_phase_device_loader": host["launches"]["warp_resample"],
-              "orbax": orb["launches"]["warp_resample"]}
+              "orbax": orb["launches"]["warp_resample"],
+              "parity_eval": par["launches"]["warp_resample"]}
     bf16_launches += new_k1["lambda_bf16"] + new_k1["inference_bf16"]
     # the wgmma kernel's launches on the bf16 serving (PoseEstimator, CUDA-graph
     # start-up and replays), evaluation (valid.run with K1 and under
@@ -5542,6 +5654,10 @@ def main() -> int:
           f"bytes read in {orb['read_s']:.3f} s; libzstd {orb['mb_s']:.1f} MB/s over its chunks; "
           f"served f32 and bf16 from the directory, a narrow CoAM evaluated and trained from "
           f"its directory; launches {orb['launches']}; card: {card}", flush=True)
+    print(f"parity runner: CoAM-W48 from the orbax fixture (read in {par['read_s']:.3f} s), "
+          f"{PARITY_ROUNDS} rounds, crops/s by round {[round(c, 2) for c in par['crops_s']]}, "
+          f"AP trajectory {par['trajectory']}, {par['seconds']:.1f} s; launches "
+          f"{par['launches']}; card: {card}", flush=True)
     print(f"phase seconds: {phase_s}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
@@ -5554,15 +5670,16 @@ def main() -> int:
                       + tp_train["launches"]["flash_fwd"] + tp_ev["launches"]["flash_fwd"]
                       + bf16_launches + new_k1["lambda_f32"] + new_k1["inference_f32"]
                       + sum(new_k1["datasets"].values()) + new_k1["host_loader"]
-                      + new_k1["orbax"] + sum(graph_k1.values()) + sum(mc_k1.values())),
+                      + new_k1["orbax"] + new_k1["parity_eval"] + sum(graph_k1.values())
+                      + sum(mc_k1.values())),
          # its launches on the multi-card paths (multicard_phase)
          "multicard": mc_k1,
          # the graph phase's main path (f32, bf16): warm-ups and replays
          "graph_launches": graph_k1,
          # its launches on the lambda sweep (f32, bf16), the OCHuman and animal
          # evaluation rounds, inference (f32, bf16), pose_resnet's paths, the
-         # host Loader's and the orbax fixture's (serving f32 and bf16,
-         # valid.run, train.run)
+         # host Loader's, the orbax fixture's (serving f32 and bf16,
+         # valid.run, train.run) and the parity runner's
          "more_paths": new_k1,
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"], tp_k["fwd_err"]),
          # f32 (3xTF32) at MAIN_CASES, the SIMT forward it replaced timed in

@@ -126,6 +126,49 @@ def test_every_experiment_yaml_loads_in_both_packages(yaml):
     assert num_input_channels(cfg) == jax_channels(jcfg)
 
 
+def launcher_command(script: Path) -> tuple:
+    """The yaml and ``KEY VALUE`` overrides of a stock launcher's ``python
+    tools/X.py --cfg <yaml> ...`` command (line continuations, quotes and
+    comments as bash reads them)."""
+    import shlex
+
+    text = script.read_text().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if ln.strip().startswith("python tools/"))
+    words = shlex.split(line, comments=True)
+    at = words.index("--cfg")
+    assert at == 2 and len(words[at + 2:]) % 2 == 0, words
+    return REPO / words[at + 1], words[at + 2:]
+
+
+LAUNCHERS = sorted((REPO / "scripts").glob("t*/*.sh"))
+
+
+@pytest.mark.parametrize("script", LAUNCHERS, ids=lambda p: str(p.relative_to(REPO / "scripts")))
+def test_stock_launcher_overrides_load_in_both_packages(script):
+    """The published protocols (scripts/test/*.sh, scripts/train/*.sh) with
+    their overrides, which a user runs through valid.run / train.run: the
+    same flattened config, condition mode and input channels in both."""
+    from buctd_tpu.data.pipeline import condition_mode as jax_mode
+    from buctd_tpu.data.pipeline import num_input_channels as jax_channels
+    from buctd_tpu_torch.data.pipeline import condition_mode, num_input_channels
+
+    yaml, opts = launcher_command(script)
+    assert yaml.is_file() and opts, (yaml, opts)
+    cfg, jcfg = load_cfg("torch", yaml, opts), load_cfg("jax", yaml, opts)
+    assert _flatten(cfg) == _flatten(jcfg)
+    assert condition_mode(cfg) == jax_mode(jcfg)
+    assert num_input_channels(cfg) == jax_channels(jcfg)
+
+
+def test_launchers_parsed_whole():
+    """All seven launchers are found, and the parser reads every override of
+    one with comments after its command."""
+    assert len(LAUNCHERS) == 7
+    yaml, opts = launcher_command(REPO / "scripts" / "train" / "train_BUCTD_COAM_tpu_native.sh")
+    assert yaml == REPO / "experiments" / "coco" / "buctd" / "coam_w48_384x288.yaml"
+    assert opts[-2:] == ["TPU.COMPUTE_DTYPE", "bfloat16"] and len(opts) == 30
+
+
 def test_import_leaves_jax_out():
     """In a fresh interpreter, importing every module of the port pulls in
     none of jax, flax, buctd_tpu, orbax, tensorstore, zstandard and numcodecs
