@@ -11,11 +11,15 @@
 // Both dtypes run on the tensor cores, behind one C entry, each with a
 // two-stage K/V ring:
 //
-// f32 (dtype 0; serving and evaluation): flash_fwd_tf32_kernel
-// (flash_fwd_tf32.cuh), 3xTF32 mma.sync: every operand split into two tf32
-// halves and every product taken in three passes, f32-accurate to about
-// 2^-21 relative, as the JAX path's Precision.HIGHEST is on the TPU.  It
-// rounds nothing to a narrower type.
+// f32 (dtype 0; serving and evaluation): flash_fwd_tf32_wgmma_kernel
+// (flash_fwd_tf32_wgmma.cuh: TMA loads, a producer warp, split warps, two
+// consumer warpgroups on wgmma) wherever its TMA loads take the call
+// (t3::takes: d a multiple of 8, q, k and v 16-byte aligned), else
+// flash_fwd_tf32_kernel (flash_fwd_tf32.cuh: mma.sync, cp.async, any row
+// alignment).  Both are 3xTF32: every operand split into two tf32 halves and
+// every product taken in three passes, f32-accurate to about 2^-21 relative,
+// as the JAX path's Precision.HIGHEST is on the TPU.  They round nothing to a
+// narrower type.
 //
 // bf16 (dtype 1; the autocast training step, bf16 serving and evaluation):
 // flash_fwd_wgmma_kernel (flash_fwd_wgmma.cuh: TMA loads, a producer warp,
@@ -31,8 +35,9 @@
 // patch of the 64 x 64 logit tile and a 4 x D/8 patch of the output, operands
 // staged in shared memory with odd row strides, the softmax in the exp2
 // domain with log2(e) folded into the query scale), bound by its shared-memory
-// reads (12 words a thread per 32 FMAs).  No path calls it: it is kept so that
-// chip_smoke.py can time the two f32 kernels in turns.
+// reads (12 words a thread per 32 FMAs).  No path calls it: it is kept as the
+// accuracy yardstick of the card tests, which hold f32 K1 at 6912 keys to
+// twice its error against the plain forward.
 //
 // Dropout (training), as in the TPU kernel (:120-125): the un-normalized p of
 // the online softmax is masked and scaled by 1/(1-p) AFTER it entered the
@@ -42,17 +47,20 @@
 // so the backward kernels (flash_bwd.cu) regenerate the same mask.
 // keep_thr == 0 means no dropout.
 //
-// A third, buctd_flash_fwd_mma, launches flash_fwd_tc_kernel for any bf16
-// call: the mma.sync kernel that bf16 ran before the wgmma kernel, kept so
+// A third, buctd_flash_fwd_mma, launches the mma.sync kernel of either
+// dtype for any call (flash_fwd_tf32_kernel for f32, flash_fwd_tc_kernel for
+// bf16): the kernels that each dtype ran before its wgmma kernel, kept so
 // that chip_smoke.py and tools/bench_flash_fwd.py can time the two in turns.
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py):
 //   int buctd_flash_fwd(q, k, v, out, lse, bh, lq, lk, d, scale,
 //                       keep_thr, keep_scale, seed, dtype, stream)
 //   int buctd_flash_fwd_simt(the same arguments; dtype must be 0)
-//   int buctd_flash_fwd_mma(the same arguments; dtype must be 1)
-//   int buctd_flash_fwd_blocks_per_sm(d, dropout): blocks of the wgmma
+//   int buctd_flash_fwd_mma(the same arguments)
+//   int buctd_flash_fwd_blocks_per_sm(d, dropout): blocks of the bf16 wgmma
 //       kernel resident on one SM at head dim d (0 where it has none)
+//   int buctd_flash_fwd_tf32_blocks_per_sm(d, dropout): the same for the
+//       f32 wgmma kernel
 // q (bh, lq, d), k/v (bh, lk, d) contiguous, f32 (dtype 0) or bf16 (dtype 1);
 // out (bh, lq, d) f32 and lse (bh, lq) f32, allocated by the caller.  Returns
 // the cudaError_t of the launch (0 on success).  Launches on `stream` and does
@@ -63,6 +71,7 @@
 #include "dropout_hash.cuh"
 #include "flash_fwd_tc.cuh"
 #include "flash_fwd_tf32.cuh"
+#include "flash_fwd_tf32_wgmma.cuh"
 #include "flash_fwd_wgmma.cuh"
 
 namespace {
@@ -270,7 +279,10 @@ extern "C" int buctd_flash_fwd(const void* q, const void* k, const void* v,
   auto* o = static_cast<float*>(out);
   auto* m = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)tf32::launch_fwd<tf32::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s);
+    return (int)(t3::takes(q, k, v, d)
+                     ? t3::launch_fwd<t3::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s)
+                     : tf32::launch_fwd<tf32::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr,
+                                                       s));
   if (dtype == 1)
     return (int)(hw::takes(q, k, v, d)
                      ? hw::launch_fwd<hw::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s)
@@ -282,16 +294,25 @@ extern "C" int buctd_flash_fwd_mma(const void* q, const void* k, const void* v, 
                                    void* lse, int bh, int lq, int lk, int d, float scale,
                                    unsigned keep_thr, float keep_scale, unsigned seed,
                                    int dtype, void* stream) {
-  if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0 || d <= 0 || d > 128 || dtype != 1)
+  if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0 || d <= 0 || d > 128)
     return (int)cudaErrorInvalidValue;
-  return (int)tc::launch_fwd<tc::kStages>(q, k, v, static_cast<float*>(out),
-                                          static_cast<float*>(lse), bh, lq, lk, d, scale,
-                                          Dropout{keep_thr, keep_scale, seed},
-                                          static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout dr{keep_thr, keep_scale, seed};
+  auto* o = static_cast<float*>(out);
+  auto* m = static_cast<float*>(lse);
+  if (dtype == 0)
+    return (int)tf32::launch_fwd<tf32::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s);
+  if (dtype == 1)
+    return (int)tc::launch_fwd<tc::kStages>(q, k, v, o, m, bh, lq, lk, d, scale, dr, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int buctd_flash_fwd_blocks_per_sm(int d, int dropout) {
   return hw::blocks_per_sm<hw::kStages>(d, dropout != 0);
+}
+
+extern "C" int buctd_flash_fwd_tf32_blocks_per_sm(int d, int dropout) {
+  return t3::blocks_per_sm<t3::kStages>(d, dropout != 0);
 }
 
 extern "C" int buctd_flash_fwd_simt(const void* q, const void* k, const void* v,

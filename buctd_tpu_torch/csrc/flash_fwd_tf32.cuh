@@ -3,7 +3,10 @@
 // f32 operands (serving and evaluation).  Included by flash_fwd.cu, which
 // launches it with a two-stage ring (K1, tf32::kStages), and by
 // flash_fwd_kvres.cu, which launches the same kernel with the deeper ring of
-// the kv-resident schedule (K1', tf32::kKvresStages).
+// the kv-resident schedule (K1', tf32::kKvresStages), for the f32 calls that
+// the TMA + wgmma kernel does not take (flash_fwd_tf32_wgmma.cuh::takes: a
+// head dim no multiple of 8, unaligned bases), and by buctd_flash_fwd_mma for
+// any f32 call (the A/B).
 //
 // It computes what JAX's _fwd_kernel (buctd_tpu/ops/flash_attention.py:86)
 // computes for f32 operands at Precision.HIGHEST, and rounds nothing to a

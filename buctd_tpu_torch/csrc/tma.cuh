@@ -1,10 +1,12 @@
 // The Tensor Memory Accelerator (TMA, sm_90) and the shared-memory barriers
 // (mbarrier) that report its copies, for the bf16 flash forward and backward
-// (flash_fwd_wgmma.cuh, flash_bwd_wgmma.cuh).
+// (flash_fwd_wgmma.cuh, flash_bwd_wgmma.cuh) and the f32 flash forward
+// (flash_fwd_tf32_wgmma.cuh).
 //
 // One thread asks for a whole box of a tensor to be copied into shared
-// memory; the hardware computes the addresses, applies the 128-byte swizzle
-// that wgmma's descriptors expect (wgmma_bf16.cuh), fills coordinates past
+// memory; the hardware computes the addresses, applies the 128-byte or
+// 64-byte swizzle that wgmma's descriptors expect (wgmma_bf16.cuh,
+// wgmma_tf32.cuh) or none, fills coordinates past
 // the tensor's edge with zeros, and counts the bytes it wrote against the
 // barrier named in the request.  A consumer waits on the barrier's phase.
 //
@@ -133,6 +135,27 @@ inline bool encode_bf16_3d(CUtensorMap* map, const void* base, int cols, int row
   const cuuint32_t step[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
             box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of a contiguous f32 (batch, rows, cols) tensor at base (16-byte
+// aligned, cols a multiple of 4) read in boxes of box_rows x box_cols of one
+// batch entry: box_cols 16 (64 bytes) with the 64-byte swizzle where
+// swizzle64, else any multiple of 4 up to 256 unswizzled (rows of box_cols
+// f32, one after the other); coordinates past any edge read as zeros.  False
+// where the encoding fails.
+inline bool encode_f32_3d(CUtensorMap* map, const void* base, int cols, int rows, int batch,
+                          int box_cols, int box_rows, bool swizzle64) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4, (cuuint64_t)cols * rows * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
+            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -22,7 +22,8 @@ the lock is let go.  A capture that fails raises; nothing falls back to the
 eager function.
 
 A hand kernel's wrapper counts its launches in its ``launches`` (K1's and
-K1''s also by bf16 kernel, in ``wgmma_launches`` and ``mma_launches``).  The
+K1''s also by kernel, in ``wgmma_launches`` and ``mma_launches`` for bf16,
+``f32_wgmma_launches`` and ``f32_mma_launches`` for f32).  The
 capture records launches and runs none, so ``capture`` takes back what the
 counters moved during it and ``run`` adds that amount at each replay: the
 counters count the kernels that ran on the card, eager or replayed.

@@ -22,8 +22,12 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
   (``takes_wgmma``, the rule of csrc/flash_fwd_wgmma.cuh::takes): the
   TMA + wgmma kernel where the head dim is a multiple of 8 and q, k and v
   start 16-byte aligned (TMA's strides and bases), else the mma.sync kernel
-  of csrc/flash_fwd_tc.cuh.  ``flash_attention_mma`` launches the mma.sync
-  kernel for any bf16 call, for timing the two in turns.
+  of csrc/flash_fwd_tc.cuh.  f32 K1 and K1' dispatch by the same rule
+  (``takes_wgmma_f32``, csrc/flash_fwd_tf32_wgmma.cuh::takes) between the
+  TMA + wgmma 3xTF32 kernel of csrc/flash_fwd_tf32_wgmma.cuh and the
+  mma.sync 3xTF32 kernel of csrc/flash_fwd_tf32.cuh.  ``flash_attention_mma``
+  launches the mma.sync kernel of either dtype for any call, for timing the
+  two in turns.
 * bf16 K2 and K2' dispatch the same way (``takes_wgmma_bwd``, the rule of
   csrc/flash_bwd_wgmma.cuh::takes): the TMA + wgmma dq and dk/dv kernels
   where the head dim is a multiple of 8 and q, k, v and the cast do start
@@ -45,8 +49,9 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
   which the CPU tests hold against the JAX kernels.
 * ``flash_attention_simt``, ``flash_bwd_dq_simt`` and ``flash_bwd_dkv_simt``
   launch the f32 SIMT kernels (exact f32 on the CUDA cores) that the f32
-  paths ran before the 3xTF32 ones; no path calls them, and ``chip_smoke.py``
-  times them in turns with K1 and K2.
+  paths ran before the 3xTF32 ones; no path calls them: the card tests hold
+  the f32 kernels' accuracy at long rows to theirs, and ``chip_smoke.py``
+  times the backward's in turns with K2.
 
 Dropout masks: the TPU kernels draw theirs from the TPU PRNG per tile, so
 they cannot be reproduced and depend on the tile shape.  Here every weight
@@ -62,12 +67,12 @@ node (serving_export.py), and a CUDA-graph capture records its launch
 (graphs.py); ``flash_attention`` checks the operands and calls it.
 
 Launch counts (CPU calls do not count): ``flash_attention.launches`` (K1),
-and of its bf16 calls ``flash_attention.wgmma_launches`` (the wgmma kernel)
-and ``flash_attention.mma_launches`` (the mma.sync kernel);
+of its bf16 calls ``flash_attention.wgmma_launches`` (the wgmma kernel) and
+``flash_attention.mma_launches`` (the mma.sync kernel), and of its f32 calls
+``flash_attention.f32_wgmma_launches`` and ``f32_mma_launches`` (likewise);
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2), each with
 ``wgmma_launches`` and ``mma_launches`` of its bf16 calls;
-``flash_attention_kvres.launches`` (K1', with its own ``wgmma_launches`` and
-``mma_launches``), ``flash_bwd_dq_kvres.launches`` and
+``flash_attention_kvres.launches`` (K1', with its own four by kernel), ``flash_bwd_dq_kvres.launches`` and
 ``flash_bwd_dkv_kvres.launches`` (K2', likewise), ``flash_attention_simt.launches``,
 ``flash_attention_mma.launches``, ``flash_bwd_dq_simt.launches``,
 ``flash_bwd_dkv_simt.launches``, ``flash_bwd_dq_mma.launches``,
@@ -219,14 +224,63 @@ WGMMA_KEY_TILE = {"narrow": 128, "wide": 96}
 MMA_KEY_TILE = {"narrow": 64, "wide": 32}
 
 
+def _tma_operands(q, k, v) -> bool:
+    """The head dim a multiple of 8 and at most 128, q, k and v starting
+    16-byte aligned: what the forward's TMA loads take (16-byte strides from
+    16-byte aligned bases), in either dtype."""
+    d = q.shape[-1]
+    return 0 < d <= MAX_HEAD_DIM and d % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                                        for t in (q, k, v))
+
+
 def takes_wgmma(q, k, v) -> bool:
     """Whether bf16 K1 and K1' run the wgmma kernel on these operands
-    (csrc/flash_fwd_wgmma.cuh::takes): bf16, the head dim a multiple of 8
-    and at most 128, q, k and v starting 16-byte aligned (TMA reads 16-byte
-    strides from 16-byte aligned bases); otherwise the mma.sync kernel."""
-    d = q.shape[-1]
-    return (q.dtype == torch.bfloat16 and 0 < d <= MAX_HEAD_DIM and d % 8 == 0
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    (csrc/flash_fwd_wgmma.cuh::takes): bf16 and ``_tma_operands``;
+    otherwise the mma.sync kernel."""
+    return q.dtype == torch.bfloat16 and _tma_operands(q, k, v)
+
+
+def takes_wgmma_f32(q, k, v) -> bool:
+    """Whether f32 K1 and K1' run the TMA + wgmma kernel on these operands
+    (csrc/flash_fwd_tf32_wgmma.cuh::takes): f32 and ``_tma_operands``;
+    otherwise the mma.sync kernel of csrc/flash_fwd_tf32.cuh."""
+    return q.dtype == torch.float32 and _tma_operands(q, k, v)
+
+
+# f32 K1's wgmma kernel (csrc/flash_fwd_tf32_wgmma.cuh): its key tiles
+# (kNarrowKeyTile up to d = 64, kWideKeyTile above, halved until two ring
+# slots fit), the slots K1 and K1' ask for (kStages, kKvresStages: the most
+# that fit), and the shared memory that decides both (smem_for)
+TF32_WGMMA_KEY_TILE = {"narrow": 64, "wide": 32}
+TF32_WGMMA_STAGES = {"k1": 2, "k1_kvres": 3}
+SMEM_LIMIT = 232448   # a block's shared memory on the H100
+
+
+def tf32_wgmma_smem(d: int, bk: int, stages: int) -> int:
+    """The f32 wgmma kernel's shared memory at head dim d (padded to 16),
+    key tile bk and ``stages`` ring slots (csrc/flash_fwd_tf32_wgmma.cuh::
+    smem_for): alignment slack, q' hi and lo of 128 rows, 4 tiles a slot
+    (K hi, K lo, V^T hi, V^T lo), the barriers."""
+    dp = -(-d // 16) * 16
+    return 1024 + 2 * WGMMA_ROWS * dp * 4 + stages * 4 * bk * dp * 4 + 8 * (2 + 6 * stages)
+
+
+def tf32_wgmma_key_tile(d: int) -> int:
+    """Keys a tile of the f32 wgmma kernel at head dim d (::key_tile)."""
+    bk = TF32_WGMMA_KEY_TILE["narrow" if -(-d // 16) * 16 <= 64 else "wide"]
+    while bk > 8 and tf32_wgmma_smem(d, bk, 2) > SMEM_LIMIT:
+        bk //= 2
+    return bk
+
+
+def tf32_wgmma_stages(d: int, kvres: bool = False) -> int:
+    """Ring slots the f32 wgmma kernel runs at head dim d for K1 or K1'
+    (::ring): the slots asked for, fewer where they do not fit (never under
+    2)."""
+    s = TF32_WGMMA_STAGES["k1_kvres" if kvres else "k1"]
+    while s > 2 and tf32_wgmma_smem(d, tf32_wgmma_key_tile(d), s) > SMEM_LIMIT:
+        s -= 1
+    return s
 
 
 def takes_wgmma_bwd(q, k, v, dout) -> bool:
@@ -540,13 +594,16 @@ def flash_fwd_op(q, k, v, scale, dropout, seed, kvres):
 
 def _count(wrapper, q, k, v) -> None:
     """One launch on ``wrapper`` (K1 or K1'), and on the counter of the
-    bf16 kernel that its C entry picked by the same rule."""
+    kernel that its C entry picked by the same rule: ``wgmma_launches`` or
+    ``mma_launches`` for bf16 (``takes_wgmma``), ``f32_wgmma_launches`` or
+    ``f32_mma_launches`` for f32 (``takes_wgmma_f32``)."""
     wrapper.launches += 1
     if q.dtype == torch.bfloat16:
-        if takes_wgmma(q, k, v):
-            wrapper.wgmma_launches += 1
-        else:
-            wrapper.mma_launches += 1
+        kind = "wgmma" if takes_wgmma(q, k, v) else "mma"
+    else:
+        kind = "f32_wgmma" if takes_wgmma_f32(q, k, v) else "f32_mma"
+    name = f"{kind}_launches"
+    setattr(wrapper, name, getattr(wrapper, name, 0) + 1)
 
 
 @flash_fwd_op.register_fake
@@ -576,6 +633,7 @@ def flash_attention(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
 
 
 flash_attention.launches = flash_attention.wgmma_launches = flash_attention.mma_launches = 0
+flash_attention.f32_wgmma_launches = flash_attention.f32_mma_launches = 0
 # a list while utils/summary.py counts a forward's FLOPs: the (BH, Lq, Lk, d)
 # of each CUDA call (K1 or K1'), whose products no torch FLOP counter sees
 flash_attention.shapes = None
@@ -583,7 +641,7 @@ flash_attention.shapes = None
 
 def flash_attention_kvres(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
     """K1': ``flash_attention``'s function with K/V streamed through a deeper
-    cp.async ring, on CUDA tensors (K1's kernels: equal to K1 bit for bit)."""
+    ring, on CUDA tensors (K1's kernels: equal to K1 bit for bit)."""
     _check(q, k, v)
     _check_dropout(dropout, seed)
     _require_cuda(q, "flash_attention_kvres", "flash_attention_reference")
@@ -594,18 +652,19 @@ def flash_attention_kvres(q, k, v, scale: float, dropout: float = 0.0, seed: int
 
 flash_attention_kvres.launches = 0
 flash_attention_kvres.wgmma_launches = flash_attention_kvres.mma_launches = 0
+flash_attention_kvres.f32_wgmma_launches = flash_attention_kvres.f32_mma_launches = 0
 
 
 def flash_attention_mma(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
-    """``flash_attention``'s function for bf16 CUDA tensors on the mma.sync
-    kernel (``flash_fwd_tc_kernel`` of csrc/flash_fwd_tc.cuh) at any shape,
-    the bf16 forward before the wgmma kernel; kept for timing the two in
-    turns, never on a path where the wgmma kernel takes the call."""
+    """``flash_attention``'s function for CUDA tensors on the mma.sync kernel
+    of their dtype at any shape (``flash_fwd_tf32_kernel`` of
+    csrc/flash_fwd_tf32.cuh for f32, ``flash_fwd_tc_kernel`` of
+    csrc/flash_fwd_tc.cuh for bf16), the forward before each dtype's wgmma
+    kernel; kept for timing the two in turns, never on a path where the
+    wgmma kernel takes the call."""
     _check(q, k, v)
     _check_dropout(dropout, seed)
     _require_cuda(q, "flash_attention_mma", "flash_attention_reference")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_mma takes bf16 operands, got {q.dtype}")
     out, lse = _launch_fwd("flash_fwd", q, k, v, scale, dropout, seed, "buctd_flash_fwd_mma")
     flash_attention_mma.launches += 1
     return out, lse
@@ -615,17 +674,22 @@ flash_attention_mma.launches = 0
 
 
 def wgmma_waves(bh: int, lq: int, d: int, dropout: float = 0.0, kvres: bool = False,
-                device=None) -> dict:
-    """The grid of the wgmma kernel at (bh, lq, d) on a CUDA card: its
-    blocks (128 query rows each), how many the card keeps resident on one SM
-    (CUDA's occupancy calculator on the built kernel), and the waves that
-    makes."""
+                device=None, f32: bool = False) -> dict:
+    """The grid of the bf16 (``f32``: the f32) wgmma forward kernel at (bh,
+    lq, d) on a CUDA card: its blocks (128 query rows each), how many the
+    card keeps resident on one SM (CUDA's occupancy calculator on the built
+    kernel), the waves that makes, and for f32 its key tile and ring
+    slots."""
     lib = "flash_fwd_kvres" if kvres else "flash_fwd"
-    per_sm = _fn(lib, f"buctd_{lib}_blocks_per_sm", (_I, _I))(d, int(dropout > 0.0))
+    symbol = f"buctd_{lib}_tf32_blocks_per_sm" if f32 else f"buctd_{lib}_blocks_per_sm"
+    per_sm = _fn(lib, symbol, (_I, _I))(d, int(dropout > 0.0))
     sms = torch.cuda.get_device_properties(device or 0).multi_processor_count
     blocks = -(-lq // WGMMA_ROWS) * bh
-    return {"blocks": blocks, "blocks_per_sm": per_sm, "sms": sms,
+    grid = {"blocks": blocks, "blocks_per_sm": per_sm, "sms": sms,
             "waves": blocks / (sms * per_sm) if per_sm else float("inf")}
+    if f32:   # the f32 kernel's key tile and ring slots at this d
+        grid.update(key_tile=tf32_wgmma_key_tile(d), slots=tf32_wgmma_stages(d, kvres))
+    return grid
 
 
 def wgmma_bwd_waves(bh: int, l: int, d: int, dropout: float = 0.0, device=None) -> dict:
@@ -647,7 +711,8 @@ def wgmma_bwd_waves(bh: int, l: int, d: int, dropout: float = 0.0, device=None) 
 def flash_attention_simt(q, k, v, scale: float, dropout: float = 0.0, seed: int = 0):
     """``flash_attention``'s function for f32 CUDA tensors on the CUDA cores'
     FMAs (``flash_fwd_kernel`` of csrc/flash_fwd.cu), the f32 forward before
-    the 3xTF32 kernel; kept for timing the two in turns, never on a path."""
+    the 3xTF32 kernels; kept as the card tests' accuracy yardstick at long
+    rows, never on a path."""
     _check(q, k, v)
     _check_dropout(dropout, seed)
     _require_cuda(q, "flash_attention_simt", "flash_attention_reference")

@@ -3,7 +3,7 @@ and training paths' shapes against variants of their launch choices, on one
 CUDA card.
 
     python -m buctd_tpu_torch.tools.bench_flash_fwd [--dtype float32|bfloat16]
-        [--rounds 2] [--seed 3] [--only NAME ...]
+        [--mma] [--rounds 2] [--seed 3] [--only NAME ...]
 
 Each variant is the kernel's headers with one choice changed, written beside
 a copy of csrc/flash_fwd.cu into buctd_tpu_torch/_build/variants/fwd_<name>/
@@ -11,8 +11,41 @@ a copy of csrc/flash_fwd.cu into buctd_tpu_torch/_build/variants/fwd_<name>/
 ptxas's registers and spills of the kernels are printed for each.  ``--only``
 names the variants to build besides the shipped source (none given: all).
 
-f32 (csrc/flash_fwd_tf32.cuh and csrc/mma_tf32.cuh, 3xTF32), at BH 64 and
-(L, d) = (6912, 48) and (1728, 96), without dropout:
+f32 (csrc/flash_fwd_tf32_wgmma.cuh: TMA loads, split warps, wgmma in
+3xTF32), at the f32 paths' shapes without dropout: CoAM-W48 serving (BH 16
+at (L, d) = (6912, 48) and (1728, 96)) and evaluation (BH 64 at the same),
+TransPose-H serving (BH 16 at (6912, 112)) and evaluation (BH 32):
+
+  shipped   the source as it is: two consumer warpgroups of 64 q rows, taking
+            turns at the tensor cores from d = 64 (kTurnsFrom), three split
+            warps, q' hi in registers up to d = 48 (kQRegsUpTo) and read
+            from shared memory above, q' lo from shared memory, 64-key tiles
+            up to d = 64 and 32 above (kNarrowKeyTile, kWideKeyTile), P V
+            one product (kPvSplitFrom), a two-slot ring (kStages);
+  solo      no turns at any d: each warpgroup issues its products when
+            ready;
+  turns_all turns at every d;
+  ring3     a three-slot ring where it fits (d = 48; K1''s depth);
+  keys32    32-key tiles up to d = 64;
+  keys16    16-key tiles above d = 64;
+  pv_halves P V in two halves of d (two products, half the accumulators)
+            at every d;
+  pv_halves_wide  the same from d = 80;
+  qsmem     q' hi read from shared memory at every d;
+  rows64    one consumer warpgroup (64 rows a block, no turns): 8 warps, up
+            to 255 registers a thread, but every K and V tile split for half
+            the rows.
+
+Beside them, in the same turns, the mma.sync kernel that f32 K1 ran before
+(``flash_attention_mma``: csrc/flash_fwd_tf32.cuh) and SDPA's f32 forward
+(TF32 off), and for each shape the wgmma kernel's grid.  Every f32 variant's
+out and lse must match the shipped kernel's within 2e-5, the f32 gate
+(another tile width or schedule sums in another order).
+
+``--mma``: the f32 mma.sync kernel's own variants instead
+(csrc/flash_fwd_tf32.cuh and csrc/mma_tf32.cuh, timed through
+``flash_attention_mma``), at BH 64 and (L, d) = (6912, 48) and (1728, 96),
+without dropout:
 
   shipped  the source as it is: 8 warps (128 query rows) a block share each
            K/V tile (64 keys below d = 96, 32 from there), split once a tile
@@ -27,8 +60,7 @@ f32 (csrc/flash_fwd_tf32.cuh and csrc/mma_tf32.cuh, 3xTF32), at BH 64 and
   nanfree  the integer rounding without the fma that carries a NaN into lo
            (a NaN operand then reads as 0 or inf: what keeping NaN costs).
 
-Every f32 variant's out and lse must match the shipped kernel's within 2e-5,
-the f32 gate (another tile width sums in another order).
+Each must match the shipped mma.sync kernel within 2e-5.
 
 bf16 (csrc/flash_fwd_wgmma.cuh: TMA loads, wgmma), at the six shapes of the
 bf16 paths: CoAM-W48 serving (BH 16 at (6912, 48) and (1728, 96)) and
@@ -77,13 +109,33 @@ ROUNDS = 2
 LAUNCHES = 10
 K1_BF16_RTOL = 4e-3
 # (BH, L, d, dropout) of each dtype's timed shapes
-SHAPES = {"float32": [(64, 6912, 48, 0.0), (64, 1728, 96, 0.0)],
+SHAPES = {"tf32_wgmma": [(16, 6912, 48, 0.0), (16, 1728, 96, 0.0), (64, 6912, 48, 0.0),
+                         (64, 1728, 96, 0.0), (16, 6912, 112, 0.0), (32, 6912, 112, 0.0)],
+          "float32": [(64, 6912, 48, 0.0), (64, 1728, 96, 0.0)],
           "bfloat16": [(16, 6912, 48, 0.0), (16, 1728, 96, 0.0), (16, 6912, 112, 0.0),
                        (32, 6912, 48, 0.1), (32, 1728, 96, 0.1), (32, 6912, 112, 0.1)]}
-HEADERS = {"float32": ("flash_fwd_tf32.cuh", "mma_tf32.cuh"),
+# the variant sets by kernel: "tf32_wgmma" f32 K1's wgmma kernel, "float32"
+# its mma.sync kernel, "bfloat16" bf16 K1's wgmma kernel
+HEADERS = {"tf32_wgmma": ("flash_fwd_tf32_wgmma.cuh",),
+           "float32": ("flash_fwd_tf32.cuh", "mma_tf32.cuh"),
            "bfloat16": ("flash_fwd_wgmma.cuh",)}
 _WG = "flash_fwd_wgmma.cuh"
-# (header, old, new) source substitutions of each variant: f32, bf16
+_T3 = "flash_fwd_tf32_wgmma.cuh"
+# (header, old, new) source substitutions of each variant: f32's wgmma
+# kernel, its mma.sync kernel, bf16
+TF32_WGMMA_VARIANTS = {
+    "shipped": [],
+    "solo": [(_T3, "constexpr int kTurnsFrom = 64;", "constexpr int kTurnsFrom = 256;")],
+    "turns_all": [(_T3, "constexpr int kTurnsFrom = 64;", "constexpr int kTurnsFrom = 0;")],
+    "ring3": [(_T3, "constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+    "keys32": [(_T3, "constexpr int kNarrowKeyTile = 64;", "constexpr int kNarrowKeyTile = 32;")],
+    "keys16": [(_T3, "constexpr int kWideKeyTile = 32;", "constexpr int kWideKeyTile = 16;")],
+    "pv_halves": [(_T3, "constexpr int kPvSplitFrom = 256;", "constexpr int kPvSplitFrom = 16;")],
+    "pv_halves_wide": [(_T3, "constexpr int kPvSplitFrom = 256;",
+                        "constexpr int kPvSplitFrom = 80;")],
+    "qsmem": [(_T3, "constexpr int kQRegsUpTo = 48;", "constexpr int kQRegsUpTo = 0;")],
+    "rows64": [(_T3, "constexpr int kConsumers = 2;", "constexpr int kConsumers = 1;")],
+}
 VARIANTS = {
     "shipped": [],
     "one_sm": [("flash_fwd_tf32.cuh", "return D < 96 ? 2 : 1;", "return 1;")],
@@ -102,20 +154,22 @@ BF16_VARIANTS = {
               (_WG, "constexpr int kWideKeyTile = 96;", "constexpr int kWideKeyTile = 64;")],
     "qsmem_all": [(_WG, "constexpr int kQSmemFrom = 64;", "constexpr int kQSmemFrom = 16;")],
 }
-DTYPE_VARIANTS = {"float32": VARIANTS, "bfloat16": BF16_VARIANTS}
-# variants whose arithmetic is the shipped kernel's
+DTYPE_VARIANTS = {"tf32_wgmma": TF32_WGMMA_VARIANTS, "float32": VARIANTS,
+                  "bfloat16": BF16_VARIANTS}
+# bf16 variants whose arithmetic is the shipped kernel's
 SAME_BITS = {"solo", "ring3"}
-# the kernels whose ptxas lines register_summary reads, by dtype
-KERNELS = {"float32": "flash_fwd_tf32_kernel", "bfloat16": "flash_fwd_wgmma_kernel"}
+# the kernels whose ptxas lines register_summary reads, by variant set
+KERNELS = {"tf32_wgmma": "flash_fwd_tf32_wgmma_kernel", "float32": "flash_fwd_tf32_kernel",
+           "bfloat16": "flash_fwd_wgmma_kernel"}
 
 
-def variant_sources(name: str, dtype: str = "float32") -> dict:
-    """The headers with the variant's substitutions, each of which must
-    apply."""
+def variant_sources(name: str, kind: str = "float32") -> dict:
+    """The headers of the variant set ``kind`` (HEADERS) with the variant's
+    substitutions, each of which must apply."""
     from .. import _build
 
-    texts = {h: (_build.CSRC / h).read_text() for h in HEADERS[dtype]}
-    for header, old, new in DTYPE_VARIANTS[dtype][name]:
+    texts = {h: (_build.CSRC / h).read_text() for h in HEADERS[kind]}
+    for header, old, new in DTYPE_VARIANTS[kind][name]:
         if old not in texts[header]:
             raise RuntimeError(f"variant {name}: {old!r} is not in csrc/{header}")
         texts[header] = texts[header].replace(old, new)
@@ -125,7 +179,7 @@ def variant_sources(name: str, dtype: str = "float32") -> dict:
 def register_summary(log: str, kernel: str = KERNELS["float32"]) -> str:
     """'d48:128 d96:... ' for the two-stage instantiations of ``kernel`` in a
     ptxas -v log (without dropout where it is a parameter), with their spills
-    and, for the wgmma kernel, whether ptxas serialized its wgmma."""
+    and, for the wgmma kernels, whether ptxas serialized their wgmma."""
     out, fn = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -152,7 +206,9 @@ def main(argv=None) -> dict:
     from ..ops import flash_attention as fa
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dtype", choices=tuple(SHAPES), default="float32")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--mma", action="store_true",
+                    help="f32: the mma.sync kernel's variants instead of the wgmma kernel's")
     ap.add_argument("--rounds", type=int, default=ROUNDS)
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--only", nargs="*", help="variants to build besides the shipped source")
@@ -163,26 +219,31 @@ def main(argv=None) -> dict:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     dtype = getattr(torch, args.dtype)
-    names = [n for n in DTYPE_VARIANTS[args.dtype] if n != "shipped"
+    torch.backends.cuda.matmul.allow_tf32 = False     # SDPA's f32 forward in f32
+    kind = ("float32" if args.mma else "tf32_wgmma") if dtype == torch.float32 else "bfloat16"
+    names = [n for n in DTYPE_VARIANTS[kind] if n != "shipped"
              and (args.only is None or n in args.only)]
     _build.build(["flash_fwd"])
     built = kernel_variants.build(
-        "flash_fwd", {f"fwd_{n}": variant_sources(n, args.dtype) for n in names})
+        "flash_fwd", {f"fwd_{n}": variant_sources(n, kind) for n in names})
     libs = {"shipped": (None, _build.build_log("flash_fwd")),
             **{tag[len("fwd_"):]: lib for tag, lib in built.items()}}
-    print(f"# {card}; {args.dtype} K1 at {SHAPES[args.dtype]} (BH, L, d, dropout), "
-          f"{LAUNCHES} launches per timing, {args.rounds} rounds in turns; ms (median)")
+    print(f"# {card}; {args.dtype} K1 ({KERNELS[kind]}) at {SHAPES[kind]} (BH, L, d, "
+          f"dropout), {LAUNCHES} launches per timing, {args.rounds} rounds in turns; ms "
+          f"(median)")
     for name, (_, log) in libs.items():
-        print(f"# {name} registers: {register_summary(log, KERNELS[args.dtype])}", flush=True)
+        print(f"# {name} registers: {register_summary(log, KERNELS[kind])}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = {}
-    for bh, l, d, p in SHAPES[args.dtype]:
+    for bh, l, d, p in SHAPES[kind]:
         q, k, v = (torch.randn(bh, l, d, device="cuda", generator=gen).to(dtype)
                    for _ in range(3))
         scale = d ** -0.5
-        runs = {n: (lambda lib=lib: (lib, fa.flash_attention)) for n, (lib, _) in libs.items()}
-        if dtype == torch.bfloat16:
+        # the variants of the mma.sync kernel launch through its A/B wrapper
+        shipped_fn = fa.flash_attention_mma if kind == "float32" else fa.flash_attention
+        runs = {n: (lambda lib=lib: (lib, shipped_fn)) for n, (lib, _) in libs.items()}
+        if kind != "float32":
             q4, k4, v4 = q[:, None], k[:, None], v[:, None]
 
             def sdpa():
@@ -209,8 +270,8 @@ def main(argv=None) -> dict:
                 elif r == 0 and ref is not None:
                     check(dtype, name, got, ref)
         results[(bh, l, d, p)] = {n: statistics.median(t) for n, t in times.items()}
-        grid = (f"; wgmma grid {fa.wgmma_waves(bh, l, d, p)}" if dtype == torch.bfloat16
-                else "")
+        grid = ("" if kind == "float32" else
+                f"; wgmma grid {fa.wgmma_waves(bh, l, d, p, f32=kind == 'tf32_wgmma')}")
         print(f"({bh}, {l}, {d}) dropout {p}: " + "; ".join(
             f"{n} {t:.4f}" for n, t in results[(bh, l, d, p)].items()) + grid, flush=True)
         del q, k, v, ref, got

@@ -20,15 +20,18 @@ Phases (each raises on failure; nothing is caught):
      nvcc per source, all started together); in the SASS (cuobjdump) of the
      four flash libraries and K5's, HMMA in every tensor-core kernel (K5's
      ``fused_block_tc_kernel`` and ``fused_block_tf32_kernel``, one a tile
-     plan) and in no SIMT one, and TF32 HMMA in every f32 kernel of K1, K1',
-     K2, K2' and K5, and wgmma (HGMMA) and TMA loads (UTMALDG) in every
-     instantiation of bf16 K1's and K1''s wgmma kernel and of bf16 K2's and
-     K2''s wgmma pair; a NaN in q reaches f32 K1's, K1''s, K2's and K2''s
-     outputs (at d = 48, 96 and 112), and a NaN in x K5's (both dtypes,
-     tensor cores and SIMT), where it reaches the plain versions'
+     plan) and in no SIMT one, and TF32 HMMA in every f32 mma.sync kernel of
+     K1, K1', K2, K2' and K5, and wgmma (HGMMA) and TMA loads (UTMALDG) in
+     every instantiation of bf16 K1's and K1''s wgmma kernel and of bf16 K2's
+     and K2''s wgmma pair, and TF32 HGMMA and UTMALDG (and no HMMA) in every
+     instantiation of f32 K1's and K1''s wgmma kernel (F32_K1_KERNEL); a NaN
+     in q reaches f32 K1's (its wgmma kernel and its mma.sync kernel), K1''s,
+     K2's and K2''s outputs (at d = 48, 96 and 112), and a NaN in x K5's (both
+     dtypes, tensor cores and SIMT), where it reaches the plain versions'
      (``nan_phase``);
   1. kernels, serving and evaluation shapes: K1 (flash-attention forward on
-     the tensor cores: f32 in 3xTF32, bf16) vs its plain version at the
+     the tensor cores: f32 in 3xTF32 on TMA + wgmma, flash_fwd_tf32_wgmma.cuh,
+     bf16) vs its plain version at the
      CoAM-W48 shapes (16 crops, as predict_batch gives them, 64 as a
      flip-test validate batch of 32 gives them, and 8) and at TransPose-H's
      d = 112 (TP_F32_CASES: BH 16 and 32, L 6912) in f32 and bf16, plus a
@@ -38,8 +41,9 @@ Phases (each raises on failure; nothing is caught):
      does, within K1_BF16_RTOL, and against the rounding at the kernel's
      running tile max, within K1_BF16_TILED_RMS, which p left unrounded
      misses; kernel, plain and F.scaled_dot_product_attention times beside
-     the card's bound, and f32 K1 and the SIMT forward it replaced timed in
-     turns; bf16 K1 at dropout 0 (the bf16 serving and evaluation paths: the
+     the card's bound; f32 K1 (its wgmma kernel), the mma.sync kernel it
+     replaced and SDPA's f32 forward timed in turns, with the wgmma grid's
+     waves; bf16 K1 at dropout 0 (the bf16 serving and evaluation paths: the
      TMA + wgmma kernel, flash_fwd_wgmma.cuh), the mma.sync kernel it
      replaced and SDPA's bf16 forward timed in turns, with the wgmma grid's
      waves, summed over the same serving and evaluation shapes for the
@@ -69,7 +73,9 @@ Phases (each raises on failure; nothing is caught):
      and ``predict_batch`` on 3 images; finite outputs of the right shapes, the
      flash launch count of the run, one forward on the card vs the same module
      on the CPU, ms per image and crops/s; a profile of one predict_batch,
-     with K1's 3xTF32 kernel's time and share and no SIMT forward; the same
+     with K1's f32 wgmma kernel's time and share, the share with the
+     mma.sync kernel's time at those shapes beside it, and no SIMT or
+     mma.sync forward; the same
      for TransPose-H (coco 384x288, 17 joints, 6 encoder layers of one
      d = 112 head: 6 K1 launches a forward); after each, the same model in
      bf16 (TPU.EVAL_DTYPE bfloat16, ``bf16_serving_phase``) beside the f32
@@ -134,8 +140,9 @@ Phases (each raises on failure; nothing is caught):
      .pth, full width, flip test, 3 refinement rounds: a results json with
      one entry per crop and a finite AP in [0, 1] each round, K1 launched 2
      and K4 1 per batch per round, crops/s per round; a profile of one
-     validate step, with K1's 3xTF32 kernel's time and share and no SIMT
-     forward, and the convolutions' share;
+     validate step, with K1's f32 wgmma kernel's time and share (and the
+     share with the mma.sync kernel) and no SIMT or mma.sync forward, and the
+     convolutions' share;
   8. the same evaluation, one round, under BUCTD_FLASH_KVRES=1: K1' launched 2
      per batch and K1 never; one batch's heatmaps from K1 and K1' agree; one
      validate step at batch 2 on the card vs the CPU; one bf16 round
@@ -243,6 +250,11 @@ Phases (each raises on failure; nothing is caught):
      results a round and round 1's centers moved; K1 launched 2 a round plus
      the summary forward's, K1' and K4 never; the orbax read's seconds and
      each round's crops/s.
+
+On every main path, each f32 K1 and K1' launch must have run the f32 wgmma
+kernel (``f32_k1_wgmma``: the launches less the bf16 kernels' equal the
+wgmma kernel's, the mma.sync kernel's are 0), recorded by path in
+F32_WGMMA_PATHS for the kernels line.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -592,6 +604,24 @@ BF16_K2_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
 # dropout or not, for each kernel)
 WGMMA_LIBS = {"flash_fwd": ((BF16_K1_KERNEL,), 16), "flash_fwd_kvres": ((BF16_K1_KERNEL,), 16),
               "flash_bwd": (BF16_K2_KERNELS, 32), "flash_bwd_kvres": (BF16_K2_KERNELS, 32)}
+# f32 K1's and K1''s kernel on every model path (d = 48, 96, 112; the dispatch
+# of ops/flash_attention.py::takes_wgmma_f32): TMA loads and wgmma in 3xTF32,
+# one instantiation a head-dim case and dropout or not in each of the two
+# libraries; the mma.sync ``flash_fwd_tf32_kernel`` takes the other f32 calls
+F32_K1_KERNEL = "flash_fwd_tf32_wgmma_kernel"
+F32_WGMMA_LIBS = {"flash_fwd": 16, "flash_fwd_kvres": 16}
+# the K1 and K1' launch counters: all launches, and by kernel (bf16: the wgmma
+# and mma.sync kernels; f32: likewise)
+K1_COUNTS = ("launches", "wgmma_launches", "mma_launches", "f32_wgmma_launches",
+             "f32_mma_launches")
+# f32 K1's and K1''s launches on each main path of this run, all and on the
+# f32 wgmma kernel, by label (``f32_k1_wgmma``): the kernels line's entry of
+# that kernel
+F32_WGMMA_PATHS: dict = {}
+# the mma.sync kernel's time over the f32 wgmma kernel's at each f32 group of
+# the kernel phase (in turns), by group ("main", "eval", "tp_serving",
+# "tp_eval"): what K1's profiled share would be with the kernel it replaced
+K1_MMA_RATIO: dict = {}
 # K5's library: the tensor-core kernels (``fused_block_tc_kernel`` bf16,
 # ``fused_block_tf32_kernel`` f32, one instantiation a tile plan) and the
 # SIMT kernels (f32 and bf16, for the A/B)
@@ -609,8 +639,9 @@ def tf32_kernels_expected(lib: str) -> int:
 
 def sass_counts() -> dict:
     """(library, "" or "TF32") -> HMMA counts by kernel, of every flash
-    library and of K5's, and (library, "HGMMA" or "UTMALDG") -> wgmma and TMA
-    load counts of the libraries of K1, K1', K2 and K2': one disassembly a
+    library and of K5's, (library, "HGMMA" or "UTMALDG") -> wgmma and TMA
+    load counts of the libraries of K1, K1', K2 and K2', and (library,
+    "HGMMA_TF32") -> tf32 wgmma counts of K1's and K1''s: one disassembly a
     library (cuobjdump, ~7 s each), all at once, on the host while the NaN phase
     uses the card (main waits for them before the timed kernel phases)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -627,6 +658,8 @@ def sass_counts() -> dict:
         if lib in WGMMA_LIBS:
             for op in ("HGMMA", "UTMALDG"):
                 found[(lib, op)] = op_counts(text, op)
+        if lib in F32_WGMMA_LIBS:
+            found[(lib, "HGMMA_TF32")] = op_counts(text, "HGMMA", "TF32")
     return found
 
 
@@ -636,7 +669,8 @@ def check_sass(counts: dict) -> None:
     every f32 kernel (one a head-dim case of K1, K1', K2 and K2', one a tile
     plan of K5); one bf16 K5 kernel a tile plan; HGMMA and UTMALDG in every
     instantiation of bf16 K1's and K1''s wgmma kernel and of bf16 K2's and
-    K2''s wgmma pair."""
+    K2''s wgmma pair; TF32 HGMMA and UTMALDG, and no HMMA, in every
+    instantiation of f32 K1's and K1''s wgmma kernel (F32_K1_KERNEL)."""
     from buctd_tpu_torch.ops.fused_block import TC_PLANS
 
     libs = {**FLASH_SIMT, **K5_SIMT}
@@ -670,11 +704,28 @@ def check_sass(counts: dict) -> None:
               f"{max(got['UTMALDG'].values(), default=0)} each", flush=True)
         if any(len(g) != n or min(g.values()) == 0 for g in got.values()):
             raise AssertionError(f"{lib}'s SASS: the wgmma kernel's HGMMA and UTMALDG {got}")
+    # f32 K1's and K1''s wgmma kernel: TF32 HGMMA and TMA loads in every
+    # instantiation, no HMMA (mma.sync) in any
+    for lib, n in F32_WGMMA_LIBS.items():
+        got = {op: {f: c for f, c in counts[(lib, op)].items() if F32_K1_KERNEL in f}
+               for op in ("HGMMA_TF32", "UTMALDG", "")}
+        print(f"{lib} SASS: {len(got['HGMMA_TF32'])} {F32_K1_KERNEL} instantiations, TF32 "
+              f"HGMMA {min(got['HGMMA_TF32'].values(), default=0)}-"
+              f"{max(got['HGMMA_TF32'].values(), default=0)} and UTMALDG "
+              f"{min(got['UTMALDG'].values(), default=0)}-"
+              f"{max(got['UTMALDG'].values(), default=0)} each, HMMA "
+              f"{sum(got[''].values())} in all", flush=True)
+        if (any(len(got[op]) != n or min(got[op].values()) == 0
+                for op in ("HGMMA_TF32", "UTMALDG")) or sum(got[""].values())):
+            raise AssertionError(f"{lib}'s SASS: the f32 wgmma kernel's TF32 HGMMA, UTMALDG "
+                                 f"and HMMA {got}")
 
 
 def nan_phase(torch, fa, fb) -> None:
     """A NaN operand reaches every f32 tensor-core kernel's output (the 3xTF32
-    split's lo carries it) and K5's in both dtypes (relu keeps it): the
+    split's lo carries it: f32 K1's wgmma kernel, where the dispatch sends
+    these shapes, and its mma.sync kernel, through flash_attention_mma) and
+    K5's in both dtypes (relu keeps it): the
     entries that are not finite are those of the plain version's output,
     at small shapes, dropout 0 (a dropped entry is 0 by selection in the
     kernels, NaN times 0 in the plain version)."""
@@ -701,6 +752,9 @@ def nan_phase(torch, fa, fb) -> None:
                  fa.flash_bwd_dkv_kvres)):
             alike(f"f32 {tag} forward ({bh}, {l}, {d})", fwd(q, k, v, scale), (out, lse))
             alike(f"f32 {tag} backward ({bh}, {l}, {d})", (dq(*args), *dkv(*args)), want)
+        # K1's f32 mma.sync kernel, which the wgmma kernel took over at these d
+        alike(f"f32 K1 mma.sync kernel ({bh}, {l}, {d})", fa.flash_attention_mma(q, k, v, scale),
+              (out, lse))
     for b, h, w, c in ((2, 24, 18, 48), (2, 12, 9, 384)):
         for dtype in (torch.float32, torch.bfloat16):
             args = bv.random_block(gen, b, h, w, c, dtype=dtype)
@@ -708,8 +762,8 @@ def nan_phase(torch, fa, fb) -> None:
             want = fb.fused_basic_block_plain(*args)
             for fn in (fb.fused_basic_block, fb.fused_basic_block_simt):
                 alike(f"K5 {fn.__name__} ({b}, {h}, {w}, {c}) {dtype}", [fn(*args)], [want])
-    print("NaN operands: f32 K1, K1', K2, K2' and K5 (both dtypes, tensor cores and SIMT) "
-          "not finite where the plain versions are", flush=True)
+    print("NaN operands: f32 K1 (its wgmma and mma.sync kernels), K1', K2, K2' and K5 (both "
+          "dtypes, tensor cores and SIMT) not finite where the plain versions are", flush=True)
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -738,10 +792,12 @@ def turns_ms(fns: dict, iters: int) -> dict:
     return {n: sum(v) / len(v) for n, v in got.items()}
 
 
-def wgmma_grid(fa, bh, lq, d, dropout=0.0) -> str:
-    """The wgmma kernel's grid at (bh, lq, d): blocks, blocks an SM, waves."""
-    g = fa.wgmma_waves(bh, lq, d, dropout)
-    return f"{g['blocks']} blocks, {g['blocks_per_sm']} an SM, {g['waves']:.2f} waves"
+def wgmma_grid(fa, bh, lq, d, dropout=0.0, f32=False) -> str:
+    """The wgmma kernel's grid at (bh, lq, d) (``f32``: the f32 one's):
+    blocks, blocks an SM, waves."""
+    g = fa.wgmma_waves(bh, lq, d, dropout, f32=f32)
+    tiles = f", {g['key_tile']}-key tiles, {g['slots']} slots" if f32 else ""
+    return f"{g['blocks']} blocks, {g['blocks_per_sm']} an SM, {g['waves']:.2f} waves{tiles}"
 
 
 def flash_bound_ms(bh, lq, lk, d, dtype, clock_hz: float | None = None) -> tuple:
@@ -774,21 +830,26 @@ def f32_core_ms(bh, lq, lk, d) -> float:
 
 def kernel_phase(torch, F, fa) -> dict:
     """K1 vs its plain version in f32 and bf16, at MAIN_CASES, EVAL_CASES,
-    TransPose-H's TP_F32_CASES (d = 112) and OTHER_CASES.  f32 (the 3xTF32 tensor-core kernel) with dropout 0 and 0.1
-    at KERNEL_ATOL/RTOL; at EVAL_CASES the one-pass control
+    TransPose-H's TP_F32_CASES (d = 112) and OTHER_CASES.  f32 (3xTF32: the
+    TMA + wgmma kernel, F32_K1_KERNEL, where the dispatch takes the call,
+    the mma.sync kernel at d = 47) with dropout 0 and 0.1 at
+    KERNEL_ATOL/RTOL; at EVAL_CASES the one-pass control
     (TF32_CONTROL_PASSES) must miss that gate, and the kernels SDPA launches
-    in f32 are named.  Times: f32 K1 and the SIMT
-    forward it replaced in turns (ab_ms) at MAIN_CASES and EVAL_CASES, the
-    plain version and SDPA beside them, also at TP_F32_CASES.  Returns the f32
-    sums over MAIN_CASES (one forward of the serving phase's batch), over
-    EVAL_CASES (one validate step's forward) and at each TP_F32_CASES shape
-    (one TransPose-H encoder layer), and the worst error."""
+    in f32 are named.  Times at MAIN_CASES, EVAL_CASES and TP_F32_CASES: f32
+    K1, the mma.sync kernel it replaced (``flash_attention_mma``) and SDPA's
+    f32 forward in turns, with the wgmma grid; the plain version beside them.
+    Returns the f32 sums over MAIN_CASES (one forward of the serving phase's
+    batch), over EVAL_CASES (one validate step's forward) and at each
+    TP_F32_CASES shape (one TransPose-H encoder layer), the bf16 sums, the
+    worst error and the f32 wgmma kernel's worst; K1_MMA_RATIO takes each
+    f32 group's mma.sync / wgmma time."""
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
 
     clock = sm_clock_hz()
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst, control = 0.0, float("inf")
-    keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "core_ms")
+    keys = ("ms", "mma_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "core_ms")
+    f32_wgmma_err = 0.0
     groups = {"main": MAIN_CASES, "eval": EVAL_CASES,
               **{name: [case] for name, case in TP_F32_CASES.items()}}
     sums = {case: {key: 0.0 for key in keys} for case in groups}
@@ -812,6 +873,8 @@ def kernel_phase(torch, F, fa) -> dict:
                 errs, note = check_fwd_chunked(torch, fa, (out, lse), q, k, v, scale, p, 7, chunk)
                 errs_note = note
                 worst = max(worst, *errs)
+                if fa.takes_wgmma_f32(q, k, v):
+                    f32_wgmma_err = max(f32_wgmma_err, *errs)
                 notes.append(f"dropout {p}: out {errs[0]:.3e} lse {errs[1]:.3e}"
                              f"{note.get('text', '')}")
                 del out, lse
@@ -823,20 +886,18 @@ def kernel_phase(torch, F, fa) -> dict:
             case = next((g for g, cases in groups.items() if (bh, lq, lk, d) in cases), None)
             q4, k4, v4 = q[:, None], k[:, None], v[:, None]   # (BH, 1 head, L, d)
             mma_ms = None
-            if dtype == torch.float32 and case:
-                simt_ms, ms = ab_ms(lambda: fa.flash_attention_simt(q, k, v, scale),
-                                    lambda: fa.flash_attention(q, k, v, scale), 10)
-            elif case:
-                simt_ms = None
+            if case:
+                # the wgmma kernel of the dtype, the mma.sync kernel it
+                # replaced and SDPA's forward in turns
                 t3 = turns_ms({"wgmma": lambda: fa.flash_attention(q, k, v, scale),
                                "mma": lambda: fa.flash_attention_mma(q, k, v, scale),
                                "sdpa": lambda: F.scaled_dot_product_attention(
                                    q4, k4, v4, scale=scale)}, 10)
                 ms, mma_ms = t3["wgmma"], t3["mma"]
                 notes.append(f"mma.sync kernel in turns {mma_ms:.4f} ms; wgmma grid "
-                             f"{wgmma_grid(fa, bh, lq, d)}")
+                             f"{wgmma_grid(fa, bh, lq, d, f32=dtype == torch.float32)}")
             else:
-                simt_ms, ms = None, timed_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
+                ms = timed_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
             plain_ms = timed_ms(lambda: chunked(
                 lambda a, b, c: fa.flash_attention_reference(a, b, c, scale), bh, chunk,
                 q, k, v), 2)
@@ -848,14 +909,13 @@ def kernel_phase(torch, F, fa) -> dict:
                     torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))))
             bound, by = flash_bound_ms(bh, lq, lk, d, name, clock)
             core = f32_core_ms(bh, lq, lk, d)
-            simt = f" (SIMT in turns {simt_ms:.4f} ms)" if simt_ms else ""
             print(f"K1 flash_fwd ({bh}, {lq}, {lk}, {d}) {name}: {'; '.join(notes)}; kernel "
-                  f"{ms:.4f} ms{simt}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                   f"{bound:.4f} ms ({by}; CUDA-core f32 {core:.4f}), "
                   f"{4.0 * bh * lq * lk * d / ms / 1e9:.2f} TFLOP/s", flush=True)
             if dtype == torch.float32 and case:
                 ops_ms = (bound if by == "operations" else 0.0)
-                for key, val in zip(keys, (ms, simt_ms, plain_ms, lib_ms, bound, ops_ms, core)):
+                for key, val in zip(keys, (ms, mma_ms, plain_ms, lib_ms, bound, ops_ms, core)):
                     sums[case][key] += val
             elif case:
                 t = bf16[case]
@@ -870,12 +930,13 @@ def kernel_phase(torch, F, fa) -> dict:
     torch.cuda.empty_cache()
     for case, label in groups.items():
         t = sums[case]
-        print(f"K1 f32 over {label} at SM clock {clock / 1e6:.0f} MHz: 3xTF32 kernel "
-              f"{t['ms']:.4f} ms, SIMT in turns {t['simt_ms']:.4f} ms "
-              f"({t['simt_ms'] / t['ms']:.2f}x), sdpa {t['library_ms']:.4f} ms (kernel / sdpa "
-              f"{t['ms'] / t['library_ms']:.3f}), bound {t['bound_ms']:.4f} ms "
-              f"({t['ms'] / t['bound_ms']:.2f}x), CUDA-core bound {t['core_ms']:.4f} ms",
-              flush=True)
+        K1_MMA_RATIO[case] = t["mma_ms"] / t["ms"]
+        print(f"K1 f32 over {label} at SM clock {clock / 1e6:.0f} MHz: wgmma kernel "
+              f"{t['ms']:.4f} ms, mma.sync kernel {t['mma_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms in turns (wgmma / mma.sync "
+              f"{t['ms'] / t['mma_ms']:.3f}, wgmma / sdpa {t['ms'] / t['library_ms']:.3f}), "
+              f"bound {t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.2f}x), CUDA-core bound "
+              f"{t['core_ms']:.4f} ms", flush=True)
         t = bf16[case]
         print(f"K1 bf16, dropout 0, over {label}: wgmma kernel {t['ms']:.4f} ms, mma.sync "
               f"kernel {t['mma_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms in turns (wgmma / "
@@ -883,7 +944,8 @@ def kernel_phase(torch, F, fa) -> dict:
               f"{t['ms'] / t['mma_ms']:.3f}), plain {t['plain_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.2f}x); out within "
               f"{t['rel']:.3e} of max, {t['tiled']:.3e} rms of the tile rounding", flush=True)
-    return {**sums, "bf16": bf16, "max_abs_err": worst, "control": control}
+    return {**sums, "bf16": bf16, "max_abs_err": worst, "control": control,
+            "f32_wgmma_err": f32_wgmma_err}
 
 
 def cuda_kernel_names(torch, fn) -> list:
@@ -1341,7 +1403,7 @@ def transpose_kernel_phase(torch, F, fa, tk: dict) -> dict:
     the floors (``k1_k2_times``); the kernel / SDPA ratios printed beside
     those at TRAIN_CASES (``tk``, the training kernel phase's).  f32 K1 at
     d = 112 is in the kernel phase (TP_F32_CASES).  Prints ptxas's registers
-    and spills of f32 K1's kernels at every head dim
+    and spills of f32 K1's two kernels at every head dim
     (tools/bench_flash_fwd.py::register_summary) and of every instantiation
     of bf16 K2's two pairs (tools/bench_flash_bwd.py::register_summary)."""
     from buctd_tpu_torch import _build
@@ -1349,8 +1411,9 @@ def transpose_kernel_phase(torch, F, fa, tk: dict) -> dict:
     from buctd_tpu_torch.tools.bench_flash_bwd import register_summary as bwd_register_summary
     from buctd_tpu_torch.tools.bench_flash_fwd import register_summary
 
-    print(f"f32 K1 registers (spills) by head dim: "
-          f"{register_summary(_build.build_log('flash_fwd'))}", flush=True)
+    for name in (F32_K1_KERNEL, "flash_fwd_tf32_kernel"):
+        print(f"f32 K1 registers (spills; serialized wgmma) by head dim, {name}: "
+              f"{register_summary(_build.build_log('flash_fwd'), name)}", flush=True)
     print(f"bf16 K2 registers (spills; serialized wgmma) of every instantiation, the wgmma "
           f"pair (wg_) and the mma.sync pair: "
           f"{bwd_register_summary(_build.build_log('flash_bwd'))}", flush=True)
@@ -1586,12 +1649,13 @@ def serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     images, poses = [b[0] for b in batch], [b[1] for b in batch]
     keep = float("-inf")   # random weights: keep every joint, whatever its confidence
 
-    fa.flash_attention.launches = 0                  # the main path's run
+    zero_k1(fa)                                      # the main path's run
     est.predict(img, conds, keep)                    # first calls: each bucket's graph
     est.predict_batch(images, poses, keep)           # (two eager warm-ups, the capture,
     torch.cuda.synchronize()                         # a replay)
     first = fa.flash_attention.launches
-    fa.flash_attention.launches = 0                  # the timed replays
+    f32_k1_wgmma(fa, f"{cfg.MODEL.NAME} serving")
+    zero_k1(fa)                                      # the timed replays
     t0 = time.perf_counter()
     for _ in range(REPEATS):
         out = est.predict(img, conds, keep)
@@ -1600,6 +1664,7 @@ def serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
         outs = est.predict_batch(images, poses, keep)
     t2 = time.perf_counter()
     timed = fa.flash_attention.launches
+    f32_k1_wgmma(fa, f"{cfg.MODEL.NAME} serving")
     launches = first + timed
 
     if out.shape != (4, joints, 3) or not np.isfinite(out).all():
@@ -1766,6 +1831,7 @@ def bf16_serving_phase(torch, np, fa, config=CONFIG, k1_per_forward: int = 2,
     outs = est16.predict_batch(images, poses, keep)
     launches = fa.flash_attention.launches
     wgmma = bf16_k1_launches(fa, label, launches)
+    f32_k1_wgmma(fa, label)
     for o in [out, *outs]:
         if o.shape != (4, joints, 3) or not np.isfinite(o).all():
             raise AssertionError(f"{label}: prediction {o.shape}, finite "
@@ -1974,6 +2040,7 @@ def graph_serving_phase(torch, np, fa, card: str) -> dict:
             out, outs = est.predict(img, conds, keep), est.predict_batch(images, poses, keep)
             padded_up = est.predict(*small, keep)
             launches = fa.flash_attention.launches   # the graphs' main path, read
+            f32_k1_wgmma(fa, label)
             wgmma = (bf16_k1_launches(fa, label, launches) if dtype == "bfloat16"
                      else fa.flash_attention.wgmma_launches)
             if launches != captured + 3 * k1_replay:
@@ -1996,7 +2063,7 @@ def graph_serving_phase(torch, np, fa, card: str) -> dict:
             if not all(same):
                 raise AssertionError(f"{label}: a replay differs from eager refine: {same}")
 
-            kernel = "flash_fwd_tf32_kernel" if dtype == "float32" else BF16_K1_KERNEL
+            kernel = F32_K1_KERNEL if dtype == "float32" else BF16_K1_KERNEL
             counts = {}
             ticks = fa.flash_attention.launches
             by_name = kernel_profile(torch, lambda: est.predict(img, conds, keep),
@@ -2184,19 +2251,28 @@ def bf16_k1_profile(by_name: dict, counts: dict, label: str, want: int) -> dict:
     return {"k1_ms": ms, "total_ms": total}
 
 
-def f32_k1_profile(by_name: dict, label: str) -> dict:
-    """K1's 3xTF32 kernel in a profiled f32 run (``kernel_profile``'s ms by
-    kernel name): its time and share of the kernel time.  Raises where the
-    run named a SIMT forward or no 3xTF32 one."""
+def f32_k1_profile(by_name: dict, label: str, group: str) -> dict:
+    """K1's f32 wgmma kernel in a profiled f32 run (``kernel_profile``'s ms
+    by kernel name): its time and share of the kernel time, and beside them
+    the share K1 would have with the mma.sync kernel it replaced, its time
+    scaled by that kernel's ratio at the kernel phase's shapes of ``group``
+    (K1_MMA_RATIO).  Raises where the run named a SIMT or mma.sync forward,
+    or no wgmma one."""
     total = sum(by_name.values())
-    k1 = sum(ms for key, ms in by_name.items() if "flash_fwd_tf32_kernel" in key)
-    simt = [key for key in by_name if "flash_fwd_kernel" in key]
-    print(f"K1 in the profiled {label}: flash_fwd_tf32_kernel {k1:.3f} ms = "
-          f"{100 * k1 / total:.1f}% of {total:.2f} ms of kernel time; SIMT forward kernels "
-          f"seen: {simt}", flush=True)
-    if not k1 > 0 or simt:
-        raise AssertionError(f"the f32 {label}'s K1 kernels: 3xTF32 {k1} ms, SIMT {simt}")
-    return {"k1_ms": k1, "total_ms": total}
+    k1 = sum(ms for key, ms in by_name.items() if F32_K1_KERNEL in key)
+    other = [key for key in by_name
+             if "flash_fwd_kernel" in key or "flash_fwd_tf32_kernel" in key]
+    ratio = K1_MMA_RATIO[group]
+    old = k1 * ratio
+    print(f"K1 in the profiled {label}: {F32_K1_KERNEL} {k1:.3f} ms = "
+          f"{100 * k1 / total:.1f}% of {total:.2f} ms of kernel time; with the mma.sync "
+          f"kernel ({ratio:.3f}x at these shapes in the kernel phase) {old:.3f} ms = "
+          f"{100 * old / (total - k1 + old):.1f}% of {total - k1 + old:.2f} ms; SIMT or "
+          f"mma.sync forward kernels seen: {other}", flush=True)
+    if not k1 > 0 or other:
+        raise AssertionError(f"the f32 {label}'s K1 kernels: wgmma {k1} ms, others {other}")
+    return {"k1_ms": k1, "total_ms": total, "share": k1 / total,
+            "mma_share": old / (total - k1 + old)}
 
 
 def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
@@ -2246,6 +2322,7 @@ def training_phase(torch, np, fa, tw, config=CONFIG, layout: str = "crowdpose",
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        f32_k1_wgmma(fa, f"training {config.stem} {' '.join(extra_opts)}".strip())
         launches = {"flash_fwd": fa.flash_attention.launches,
                     "flash_fwd_wgmma": fa.flash_attention.wgmma_launches,
                     "flash_fwd_mma": fa.flash_attention.mma_launches,
@@ -2515,6 +2592,7 @@ def options_phase(torch, np, fa, tw, k1_per_step: int = 2) -> dict:
         for name, opts in OPTIONS.items():
             for f in counters:
                 f.launches = 0                               # this option's run
+            zero_k1(fa)
             zero_k2(fa)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2524,6 +2602,7 @@ def options_phase(torch, np, fa, tw, k1_per_step: int = 2) -> dict:
             wall = time.perf_counter() - t0
             # K1, dq, dkv, K4; then dq and dkv on the wgmma and the mma.sync kernels
             launches = [f.launches for f in counters] + list(k2_by_kernel(fa).values())
+            f32_k1_wgmma(fa, f"training option {name}")
             losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
             st = res["stats"][0]
             per_step = [d + s for d, s in zip(st["data_wait_s"], st["step_s"])][1:]
@@ -3114,11 +3193,13 @@ def eval_phase(torch, np, fa, tw) -> dict:
                    tw.warp_resample_two_pass)
         for f in counted:
             f.launches = 0                                   # the main path's run
+        zero_k1(fa)
         t0 = time.perf_counter()
         out = valid_run.main(["--cfg", str(CONFIG), *opts, "OUTPUT_DIR", str(root / "out"),
                               "TEST.REFINE_ITERS", str(EVAL_ROUNDS)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        f32_k1_wgmma(fa, "pose_hrnet_coam evaluation")
         launches = {"flash_fwd": fa.flash_attention.launches,
                     "flash_fwd_kvres": fa.flash_attention_kvres.launches,
                     "warp_resample": tw.warp_resample.launches,
@@ -3158,10 +3239,12 @@ def eval_phase(torch, np, fa, tw) -> dict:
         try:
             for f in counted:
                 f.launches = 0
+            zero_k1(fa)
             kv = valid_run.main(["--cfg", str(CONFIG), *opts,
                                  "OUTPUT_DIR", str(root / "out_kvres")])
             kv_launches = {"flash_fwd": fa.flash_attention.launches,
                            "flash_fwd_kvres": fa.flash_attention_kvres.launches}
+            f32_k1_wgmma(fa, "pose_hrnet_coam evaluation under BUCTD_FLASH_KVRES=1")
         finally:
             del os.environ["BUCTD_FLASH_KVRES"]
         r = kv["rounds"][0]
@@ -3210,7 +3293,7 @@ def eval_phase(torch, np, fa, tw) -> dict:
             raise AssertionError("K1' heatmaps disagree with K1's")
         label = f"one validate step (batch {EVAL_BATCH}, flip test: 64 crops, f32)"
         by_name = kernel_profile(torch, lambda: step(batch), label)
-        res["profile"] = f32_k1_profile(by_name, "validate step")
+        res["profile"] = f32_k1_profile(by_name, "validate step", "eval")
         res["conv_f32"] = conv_share(by_name, label)
 
         small = {k: v[:2] for k, v in batch.items()}
@@ -3244,6 +3327,8 @@ def eval_phase(torch, np, fa, tw) -> dict:
                 zero_k1(fa)
                 run = valid_run.main(["--cfg", str(CONFIG), *bf16_opts,
                                       "OUTPUT_DIR", str(root / f"out_bf16_kvres{kv}")])
+                f32_k1_wgmma(fa, "pose_hrnet_coam bf16 evaluation" + " under "
+                             "BUCTD_FLASH_KVRES=1" * (kv == "1"))
                 got = {"flash_fwd": fa.flash_attention.launches,
                        "flash_fwd_kvres": fa.flash_attention_kvres.launches,
                        "flash_fwd_wgmma": (fa.flash_attention.wgmma_launches
@@ -3346,10 +3431,12 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
                 "OUTPUT_DIR", str(root / "out")]
         for f in (fa.flash_attention, tw.warp_resample):
             f.launches = 0                                   # the main path's run
+        zero_k1(fa)
         t0 = time.perf_counter()
         out = valid_run.main(["--cfg", str(TRANSPOSE_CONFIG), *opts])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        f32_k1_wgmma(fa, "transpose_h evaluation")
         launches = {"flash_fwd": fa.flash_attention.launches,
                     "warp_resample": tw.warp_resample.launches}
         batch_size = int(cfg.TEST.BATCH_SIZE_PER_GPU)
@@ -3381,7 +3468,7 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
         step = make_validate_step(cfg, out["model"], ds.flip_pairs, ds.kpt_colors)
         label = f"one transpose_h validate step (batch {batch_size}, no flip, f32)"
         by_name = kernel_profile(torch, lambda: step(batch), label)
-        profile = f32_k1_profile(by_name, "transpose_h validate step")
+        profile = f32_k1_profile(by_name, "transpose_h validate step", "tp_eval")
         conv_f32 = conv_share(by_name, label)
 
         # one round in bf16 (TPU.EVAL_DTYPE bfloat16), after one bf16
@@ -3397,6 +3484,7 @@ def transpose_eval_phase(torch, np, fa, tw) -> dict:
             f.launches = 0                                   # the bf16 main path's run
         zero_k1(fa)
         run = valid_run.main(["--cfg", str(TRANSPOSE_CONFIG), *bf16_opts])
+        f32_k1_wgmma(fa, "transpose_h bf16 evaluation")
         got = {"flash_fwd": fa.flash_attention.launches,
                "flash_fwd_wgmma": fa.flash_attention.wgmma_launches,
                "flash_fwd_mma": fa.flash_attention.mma_launches,
@@ -3441,6 +3529,7 @@ def kvres_training_phase(torch, np, fa) -> dict:
         ann = write_synthetic_set(np, root, 24, SYNTH_PEOPLE, seed=3)
         for f in counted.values():
             f.launches = 0
+        zero_k1(fa)
         zero_k2(fa)
         os.environ["BUCTD_FLASH_KVRES"] = "1"
         try:
@@ -3453,6 +3542,7 @@ def kvres_training_phase(torch, np, fa) -> dict:
         finally:
             del os.environ["BUCTD_FLASH_KVRES"]
     launches = {**{k: f.launches for k, f in counted.items()}, **k2_by_kernel(fa, True)}
+    f32_k1_wgmma(fa, "training under BUCTD_FLASH_KVRES=1")
     losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
     n = 2 * KVRES_TRAIN_STEPS
     want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
@@ -3784,10 +3874,35 @@ def tools_phase(torch, fb, ex) -> dict:
 
 
 def zero_k1(fa) -> None:
-    """K1's and K1''s launch counts, all of them and by bf16 kernel, to 0: the
+    """K1's and K1''s launch counts, all of them and by kernel, to 0: the
     start of a main path's run."""
     for f in (fa.flash_attention, fa.flash_attention_kvres):
-        f.launches = f.wgmma_launches = f.mma_launches = 0
+        for name in K1_COUNTS:
+            setattr(f, name, 0)
+
+
+def f32_k1_wgmma(fa, label: str, model_path: bool = True) -> int:
+    """On a path run since ``zero_k1``: its f32 K1 and K1' launches (all
+    launches less the bf16 kernels'; the model summary's forward is f32 in
+    every run) and those of the f32 wgmma kernel, recorded under ``label``
+    in F32_WGMMA_PATHS (added to what it holds).  On a model path (d = 48,
+    96 and 112 at full width) every f32 launch must have run the wgmma
+    kernel and none the mma.sync one; a narrow model's (``model_path``
+    False: the orbax fixture's d = 4 and 8) are recorded as they split.
+    Returns the wgmma kernel's launches."""
+    f32 = wgmma = mma = 0
+    for f in (fa.flash_attention, fa.flash_attention_kvres):
+        f32 += f.launches - f.wgmma_launches - f.mma_launches
+        wgmma, mma = wgmma + f.f32_wgmma_launches, mma + f.f32_mma_launches
+    if wgmma + mma != f32 or (model_path and mma):
+        raise AssertionError(f"{label}: {f32} f32 K1 launches, {wgmma} on the f32 wgmma "
+                             f"kernel, {mma} on the mma.sync one")
+    if f32:
+        got = F32_WGMMA_PATHS.setdefault(label, {"f32_k1": 0, "f32_wgmma": 0, "f32_mma": 0})
+        got["f32_k1"] += f32
+        got["f32_wgmma"] += wgmma
+        got["f32_mma"] += mma
+    return wgmma
 
 
 def zero_k2(fa) -> None:
@@ -3827,7 +3942,11 @@ def bf16_k1_launches(fa, label: str, launches: int) -> int:
     return wgmma
 
 
-def _run_counts(fa, tw) -> dict:
+def _run_counts(fa, tw, label: str) -> dict:
+    """The launches since ``_zero_counts`` of K1, K1', K4 and its two-pass
+    form; f32 K1's on its wgmma kernel recorded under ``label``
+    (``f32_k1_wgmma``)."""
+    f32_k1_wgmma(fa, label)
     return {"flash_fwd": fa.flash_attention.launches,
             "flash_fwd_kvres": fa.flash_attention_kvres.launches,
             "warp_resample": tw.warp_resample.launches,
@@ -3835,9 +3954,9 @@ def _run_counts(fa, tw) -> dict:
 
 
 def _zero_counts(fa, tw) -> None:
-    for f in (fa.flash_attention, fa.flash_attention_kvres, tw.warp_resample,
-              tw.warp_resample_two_pass):
+    for f in (tw.warp_resample, tw.warp_resample_two_pass):
         f.launches = 0                                       # the main path's run
+    zero_k1(fa)
 
 
 def _check_round(np, label: str, r: dict, crops: int) -> None:
@@ -3945,7 +4064,7 @@ def resnet_phase(torch, np, fa, tw) -> dict:
                               "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH),
                               "TEST.MODEL_FILE", str(weights), "PRINT_FREQ", "100",
                               "OUTPUT_DIR", str(root / "out")])
-        ev = _run_counts(fa, tw)
+        ev = _run_counts(fa, tw, "pose_resnet evaluation")
         r = out["rounds"][0]
         batches = -(-crops // EVAL_BATCH)
         print(f"pose_resnet evaluation, one round: AP {r['AP']!r}, {r['crops']} crops, "
@@ -3970,7 +4089,7 @@ def resnet_phase(torch, np, fa, tw) -> dict:
                              "OUTPUT_DIR", str(root / "train")])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        tl = _run_counts(fa, tw)
+        tl = _run_counts(fa, tw, "pose_resnet training")
         losses = [float(m["loss"]) for st in tr["stats"] for m in st["metrics"]]
         step_ms = [(d + s) * 1e3 for st in tr["stats"]
                    for d, s in zip(st["data_wait_s"], st["step_s"])]
@@ -4027,7 +4146,7 @@ def lambda_phase(torch, np, fa, tw) -> dict:
                 out = valid_run.main(["--cfg", str(CONFIG), *opts, "TPU.EVAL_DTYPE", dt,
                                       "TEST.LAMBDA_SWEEP", str(sweep),
                                       "OUTPUT_DIR", str(root / f"out_{dt}_{sweep}")])
-                got = _run_counts(fa, tw)
+                got = _run_counts(fa, tw, f"lambda {dt}" + " sweep" * sweep)
                 r = out["rounds"][0]
                 want = {"flash_fwd": 2 * (1 + sweep) * batches + out["summary"]["flash_calls"],
                         "flash_fwd_kvres": 0,
@@ -4077,7 +4196,7 @@ def lambda_phase(torch, np, fa, tw) -> dict:
         t0 = time.perf_counter()
         sweep = validate_lambda(cfg, two, ds, model)
         torch.cuda.synchronize()
-        got = _run_counts(fa, tw)
+        got = _run_counts(fa, tw, "validate_lambda")
         print(f"validate_lambda, preNet-W48 with the lambda head, 2 batches of {EVAL_BATCH}, "
               f"6 lambdas in {time.perf_counter() - t0:.3f} s: "
               f"{ {k: (round(v[0], 6), round(v[1], 4)) for k, v in sweep.items()} }; "
@@ -4126,7 +4245,7 @@ def datasets_phase(torch, np, fa, tw) -> dict:
                                   "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH),
                                   "TEST.MODEL_FILE", str(weights), "PRINT_FREQ", "100",
                                   "OUTPUT_DIR", str(root / "out")])
-            got = _run_counts(fa, tw)
+            got = _run_counts(fa, tw, f"datasets {name}")
             r = out["rounds"][0]
             want = {"flash_fwd": 2 * batches + out["summary"]["flash_calls"],
                     "flash_fwd_kvres": 0, "warp_resample": batches,
@@ -4193,6 +4312,7 @@ def host_loader_phase(torch, np, fa, tw) -> dict:
     def train(root, ann, label, opts, steps=TRAIN_STEPS, device_loader=False):
         for f in counted.values():
             f.launches = 0                                   # the main path's run
+        zero_k1(fa)
         zero_k2(fa)
         t0 = time.perf_counter()
         out = train_run.main(["--cfg", str(CONFIG), "--steps", str(steps), "--no-eval",
@@ -4203,6 +4323,7 @@ def host_loader_phase(torch, np, fa, tw) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {**{k: f.launches for k, f in counted.items()}, **k2_by_kernel(fa)}
+        f32_k1_wgmma(fa, f"host_loader training {label}")
         for k in got:
             res["launches"][k] = res["launches"].get(k, 0) + got[k]
         calls = out["summary"]["flash_calls"]
@@ -4309,7 +4430,7 @@ def host_loader_phase(torch, np, fa, tw) -> dict:
             ev = valid_run.main(["--cfg", str(CONFIG), *opts, *extra,
                                  "OUTPUT_DIR", str(eroot / f"out_{kind}{k}"),
                                  "LOG_DIR", str(eroot / f"log_{kind}{k}")])
-            got = _run_counts(fa, tw)
+            got = _run_counts(fa, tw, f"host_loader evaluation {kind}")
             r = ev["rounds"][0]
             want = {"flash_fwd": 2 * batches + ev["summary"]["flash_calls"],
                     "flash_fwd_kvres": 0, "warp_resample": batches * (kind == "device"),
@@ -4488,10 +4609,11 @@ def inference_phase(torch, np, fa, eval_files) -> dict:
         runs = {}
         for dt in ("bfloat16", "float32"):
             for iters in (1, 3):
-                fa.flash_attention.launches = 0              # the main path's run
+                zero_k1(fa)                                  # the main path's run
                 out = inference.run_ctd_inference([img], [conds], weights, keep,
                                                   config=cfgs[dt], refine_iters=iters)
                 n = fa.flash_attention.launches
+                f32_k1_wgmma(fa, f"inference {dt}")
                 res["launches"][f"{dt}_{iters}"] = n
                 if out.shape != (1, 4, 14, 3) or not np.isfinite(out).all() or n != 2 * iters:
                     raise AssertionError(f"inference {dt} x{iters}: {out.shape}, K1 {n}")
@@ -4580,11 +4702,20 @@ def _mc_batch(torch, np, n: int, seed: int, device) -> dict:
 
 def _mc_counts(fa) -> dict:
     return {"flash_fwd": fa.flash_attention.launches, "flash_bwd_dq": fa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": fa.flash_bwd_dkv.launches, **k2_by_kernel(fa)}
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches, **k2_by_kernel(fa),
+            **{f"flash_fwd_{name}": getattr(fa.flash_attention, name)
+               for name in K1_COUNTS[1:]}}
+
+
+def _mc_k1_want(n: int, f32: bool) -> dict:
+    """``_mc_counts``' K1 launches by kernel on a CoAM-W48 path that launched
+    K1 ``n`` times: all on the wgmma kernel of its dtype."""
+    return {"flash_fwd_wgmma_launches": 0 if f32 else n, "flash_fwd_mma_launches": 0,
+            "flash_fwd_f32_wgmma_launches": n if f32 else 0, "flash_fwd_f32_mma_launches": 0}
 
 
 def _mc_zero(fa) -> None:
-    fa.flash_attention.launches = 0
+    zero_k1(fa)
     zero_k2(fa)
 
 
@@ -4738,9 +4869,9 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
             shutdown_distributed()
         same = runs[True]["losses"] == runs[False]["losses"] and all(
             torch.equal(v, runs[False]["state"][k]) for k, v in runs[True]["state"].items())
-        # bf16: K2 on the wgmma kernels
+        # bf16: K1 and K2 on the wgmma kernels
         want = {**{k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
-                **k2_wgmma_want(2 * 2)}
+                **k2_wgmma_want(2 * 2), **_mc_k1_want(2 * 2, False)}
         print(f"multicard (a) {backend} world size 1, CoAM-W48 bf16 batch {MC_NCCL_BATCH}: DDP "
               f"losses {runs[True]['losses']}, without DDP {runs[False]['losses']}, bit for "
               f"bit (losses, {len(runs[True]['state'])} tensors): {same}; launches "
@@ -4795,9 +4926,9 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
         gaps = [abs(a - b) for a, b in zip(two[0]["losses"], one["losses"])]
         stat_gap = max(float((two[0]["stats"][k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
                        for k, v in one["stats"].items())
-        # f32: no K2 launch counts on a bf16 kernel
+        # f32: no K2 launch counts on a bf16 kernel; K1 on the f32 wgmma kernel
         want = {**{k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
-                **k2_wgmma_want(0)}
+                **k2_wgmma_want(0), **_mc_k1_want(2 * 2, True)}
         where = ("2 processes on the one card over gloo" if cards == 1
                  else f"{world} processes, one a card, over NCCL")
         print(f"multicard (b) {where}, CoAM-W48 f32 global batch {MC_GLOBAL_BATCH}: losses "
@@ -4823,6 +4954,11 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
             raise AssertionError("(b): two processes' losses off the one process's")
         if any(t["launches"] != want for t in two) or one["launches"] != want:
             raise AssertionError("(b): K1/K2 launches off")
+        for label, runs_b in (("multicard (b) one process", [one]),
+                              (f"multicard (b) {where}", two)):
+            n = sum(t["launches"]["flash_fwd"] for t in runs_b)
+            F32_WGMMA_PATHS[label] = {"f32_k1": n, "f32_mma": 0, "f32_wgmma": sum(
+                t["launches"]["flash_fwd_f32_wgmma_launches"] for t in runs_b)}
         res.update(one_ms=one["ms"], two_ms=[t["ms"] for t in two], loss_gaps=gaps, world=world,
                    one_kernels_ms=one["kernels_ms"],
                    kernels_ms=[t["kernels_ms"] for t in two],
@@ -4852,10 +4988,11 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
         want_out = [p for b in range(k) for p in single.predict_batch(
             images[b * n:(b + 1) * n], poses[b * n:(b + 1) * n], keep)]
         whole = single.predict_batch(images, poses, keep)
-        fa.flash_attention.launches = 0                # the main path's run
+        zero_k1(fa)                                    # the main path's run
         got = est.predict_batch(images, poses, keep)
         torch.cuda.synchronize()
         launches = fa.flash_attention.launches
+        f32_k1_wgmma(fa, "multicard mesh= serving")
         err = max(float(np.abs(g - w).max()) for g, w in zip(got, want_out))
         whole_err = max(float(np.abs(g - w).max()) for g, w in zip(got, whole))
         # each replica: its block's bucket, two warm-ups and one replay, 2 K1 a
@@ -5068,7 +5205,7 @@ def orbax_phase(torch, np, fa, tw, card: str) -> dict:
         for dtype in ("float32", "bfloat16"):
             outs, k1, start = {}, {}, {}
             for source in (str(ckpt), str(pth)):
-                fa.flash_attention.launches = 0              # the main path's run
+                zero_k1(fa)                                  # the main path's run
                 t0 = time.perf_counter()
                 est = PoseEstimator(config(CONFIG, (), "TPU.EVAL_DTYPE", dtype),
                                     checkpoint=source, refine_iters=ROUNDS)
@@ -5078,6 +5215,7 @@ def orbax_phase(torch, np, fa, tw, card: str) -> dict:
                                                    [b[1] for b in batch], float("-inf"))]
                 torch.cuda.synchronize()
                 k1[source] = fa.flash_attention.launches
+                f32_k1_wgmma(fa, f"orbax serving {dtype}")
                 del est
                 torch.cuda.empty_cache()
             same = all(np.array_equal(a, b) for a, b in zip(outs[str(ckpt)], outs[str(pth)]))
@@ -5108,10 +5246,12 @@ def orbax_phase(torch, np, fa, tw, card: str) -> dict:
                 "TPU.DEVICE_PIPELINE", "True", "TEST.MODEL_FILE", str(ckpt)]
         for f in counted.values():
             f.launches = 0                                   # the main path's run
+        zero_k1(fa)
         out = valid_run.main(["--cfg", str(yaml), *opts, *data, "TEST.COCO_BBOX_FILE", str(bu),
                               "TEST.BATCH_SIZE_PER_GPU", str(EVAL_BATCH), "PRINT_FREQ", "100",
                               "OUTPUT_DIR", str(root / "eval")])
         got = {k: f.launches for k, f in counted.items()}
+        f32_k1_wgmma(fa, "orbax valid.run (the narrow fixture: d = 4 and 8)", model_path=False)
         r = out["rounds"][0]
         start_same = all(torch.equal(t.cpu(), sd[k]) for k, t in out["model"].state_dict().items())
         print(f"orbax: valid.run with TEST.MODEL_FILE <dir>: AP {r['AP']!r}, {r['crops']} "
@@ -5127,6 +5267,7 @@ def orbax_phase(torch, np, fa, tw, card: str) -> dict:
 
         for f in counted.values():
             f.launches = 0                                   # the main path's run
+        zero_k1(fa)
         zero_k2(fa)
         # cuDNN's heuristics: with CUDNN.BENCHMARK the narrow model's first
         # step took 27.6 s on an H100 timing its new shapes (the second 2.6 s)
@@ -5134,6 +5275,7 @@ def orbax_phase(torch, np, fa, tw, card: str) -> dict:
                                   "--no-eval", "--seed", "0", *opts, *data,
                                   "CUDNN.BENCHMARK", "False", "OUTPUT_DIR", str(root / "train")])
         got = {k: f.launches for k, f in counted.items()}
+        f32_k1_wgmma(fa, "orbax train.run (the narrow fixture: d = 4 and 8)", model_path=False)
         by_kernel = k2_by_kernel(fa)
         losses = [float(m["loss"]) for st in trained["stats"] for m in st["metrics"]]
         print(f"orbax: train.run --steps {ORBAX_TRAIN_STEPS} with TEST.MODEL_FILE <dir>: "
@@ -5198,6 +5340,7 @@ def parity_phase(torch, np, fa, tw, card: str) -> dict:
         try:
             for f in counted.values():
                 f.launches = 0                               # the main path's run
+            zero_k1(fa)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 verdict, rc = parity_eval.main(argv)
@@ -5206,6 +5349,7 @@ def parity_phase(torch, np, fa, tw, card: str) -> dict:
         finally:
             convert.load_checkpoint = load
         got = {k: f.launches for k, f in counted.items()}
+        f32_k1_wgmma(fa, "parity_eval")
         printed = out.getvalue()
         print(printed, end="", flush=True)
         run = verdict["run"]
@@ -5311,25 +5455,26 @@ def main() -> int:
     kv = kvres_kernel_phase(torch, F, fa)
     mark("kvres_kernel")
 
-    def serve(config, k1_per_forward, exact_ref=False):
+    def serve(config, k1_per_forward, group, exact_ref=False):
         serving = serving_phase(torch, np, fa, config, k1_per_forward, exact_ref)
         est = serving["est"]
         profile = f32_k1_profile(kernel_profile(
             torch, lambda: est.predict_batch(serving["images"], serving["poses"],
                                              float("-inf")),
-            f"{config.stem} predict_batch (3 images x 4 poses, 3 rounds)"), "predict_batch")
+            f"{config.stem} predict_batch (3 images x 4 poses, 3 rounds)"), "predict_batch",
+            group)
         del est, serving["est"]
         torch.cuda.empty_cache()
         return serving["launches"], profile
 
-    serving_launches, serving_profile = serve(CONFIG, 2)
+    serving_launches, serving_profile = serve(CONFIG, 2, "main")
     mark("serving")
     bf16_serving = bf16_serving_phase(torch, np, fa, CONFIG, 2)
     mark("bf16_serving")
     graph = graph_serving_phase(torch, np, fa, card)
     mark("graph_serving")
     tp_serving_launches, tp_serving_profile = serve(
-        TRANSPOSE_CONFIG, TP_LAYERS, True)
+        TRANSPOSE_CONFIG, TP_LAYERS, "tp_serving", True)
     tp_bf16_serving = bf16_serving_phase(torch, np, fa, TRANSPOSE_CONFIG, TP_LAYERS)
     mark("transpose_serving")
     train = training_phase(torch, np, fa, tw)
@@ -5496,7 +5641,7 @@ def main() -> int:
 
     def tp_f32(group):
         t = k1[group]
-        return {**{key: t[key] for key in ("ms", "simt_ms", "plain_ms", "library_ms",
+        return {**{key: t[key] for key in ("ms", "mma_ms", "plain_ms", "library_ms",
                                            "bound_ms", "core_ms")},
                 "bound_by": bound_by(t["ops_ms"], t["bound_ms"]), "case": TP_F32_CASES[group]}
 
@@ -5682,15 +5827,15 @@ def main() -> int:
          # valid.run, train.run) and the parity runner's
          "more_paths": new_k1,
          "max_abs_err": max(k1["max_abs_err"], tk["fwd_err"], tp_k["fwd_err"]),
-         # f32 (3xTF32) at MAIN_CASES, the SIMT forward it replaced timed in
-         # turns beside it
+         # f32 (3xTF32, the wgmma kernel) at MAIN_CASES, the mma.sync kernel
+         # it replaced timed in turns beside it
          "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
          "bound_ms": main_k1["bound_ms"],
          "bound_by": bound_by(main_k1["ops_ms"], main_k1["bound_ms"]),
-         "library_ms": main_k1["library_ms"], "simt_ms": main_k1["simt_ms"],
+         "library_ms": main_k1["library_ms"], "mma_ms": main_k1["mma_ms"],
          "f32_core_bound_ms": main_k1["core_ms"],
          # the same at EVAL_CASES, and K1's time in the profiled f32 runs
-         "f32_eval": {key: k1["eval"][key] for key in ("ms", "simt_ms", "plain_ms",
+         "f32_eval": {key: k1["eval"][key] for key in ("ms", "mma_ms", "plain_ms",
                                                        "library_ms", "bound_ms", "core_ms")},
          "profiled_ms": {"predict_batch": serving_profile["k1_ms"],
                          "validate_step": ev["profile"]["k1_ms"]},
@@ -5736,6 +5881,29 @@ def main() -> int:
          "library_ms": kv["fwd_library_ms"], "k1_ms": kv["k1_ms"],
          # bf16 (the tensor-core ring variant) at TRAIN_CASES beside K1 in turns
          "bf16_training": {"ms": kv["train_fwd_ms"], "k1_ms": kv["train_k1_ms"]}},
+        {"name": "flash_fwd_tf32_wgmma", "route": "cuda",
+         "source": "buctd_tpu_torch/csrc/flash_fwd_tf32_wgmma.cuh",
+         "replaces": "buctd_tpu/ops/flash_attention.py:86",
+         # every f32 K1 and K1' launch of each main path, all on this kernel
+         # (the narrow orbax fixture's d = 4 apart, on the mma.sync kernel)
+         "launches": sum(r["f32_wgmma"] for r in F32_WGMMA_PATHS.values()),
+         "paths": F32_WGMMA_PATHS, "max_abs_err": k1["f32_wgmma_err"],
+         # CoAM-W48 f32 serving at MAIN_CASES, dropout 0: this kernel, the
+         # mma.sync kernel it replaced and SDPA's f32 forward in turns
+         "ms": main_k1["ms"], "mma_ms": main_k1["mma_ms"], "plain_ms": main_k1["plain_ms"],
+         "bound_ms": main_k1["bound_ms"],
+         "bound_by": bound_by(main_k1["ops_ms"], main_k1["bound_ms"]),
+         "library_ms": main_k1["library_ms"],
+         # the same at EVAL_CASES and TransPose-H's serving and evaluation
+         # shapes, and K1's share of the profiled f32 runs beside the share
+         # it would have with the mma.sync kernel
+         "f32_eval": {key: k1["eval"][key] for key in ("ms", "mma_ms", "plain_ms",
+                                                       "library_ms", "bound_ms")},
+         "transpose_h": {"f32_serving": tp_f32("tp_serving"), "f32_eval": tp_f32("tp_eval")},
+         "profiled_share": {
+             "coam_predict_batch": serving_profile, "coam_validate_step": ev["profile"],
+             "transpose_h_predict_batch": tp_serving_profile,
+             "transpose_h_validate_step": tp_ev["profile"]}},
         {"name": "flash_fwd_wgmma", "route": "cuda",
          "source": "buctd_tpu_torch/csrc/flash_fwd_wgmma.cuh",
          "replaces": "buctd_tpu/ops/flash_attention.py:86",

@@ -87,8 +87,9 @@ WGMMA_SHAPES = K1_BF16_SHAPES + [(2, 1100, 1100, 112)]
 # and 47
 K2_BF16_SHAPES = [(2, 256, 256, 48), (3, 640, 384, 96), (1, 300, 300, 112),
                   (2, 1100, 1100, 112), (2, 100, 130, 6), (2, 90, 75, 47)]
-# f32 K1 and K1' (the 3xTF32 kernel): ragged in both L, and d = 7, 47 (rows of
-# 188 bytes, no multiple of 16: the register load path), 48, 96, 112 and 128
+# f32 K1 and K1' (3xTF32): ragged in both L; the dispatch sends d = 48, 96, 112
+# and 128 to the TMA + wgmma kernel and d = 7 and 47 (rows of 188 bytes, no
+# multiple of 16: the register load path) to the mma.sync kernel
 K1_F32_SHAPES = [(2, 100, 130, 7), (2, 130, 200, 47), (3, 200, 333, 48),
                  (2, 129, 257, 96), (1, 300, 300, 112), (1, 65, 700, 128)]
 
@@ -241,23 +242,34 @@ def test_bf16_forward_kernels_run_hgmma_and_tma(cuda):
 @pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("bh,lq,lk,d", K1_F32_SHAPES)
 def test_f32_forward_kernels_match_plain(cuda, monkeypatch, bh, lq, lk, d, dropout):
-    """f32 K1 (3xTF32 on the tensor cores) and K1' vs the plain f32 forward
-    at 2e-5 (out and lse), K1' bit for bit equal to K1 (the same kernel with a
-    deeper ring), and the one-pass control misses the gate (the d = 7 case,
-    seven terms a logit, is left out of that)."""
+    """f32 K1 (3xTF32 on the tensor cores: the wgmma kernel where
+    takes_wgmma_f32, counted on f32_wgmma_launches, else the mma.sync kernel,
+    f32_mma_launches) and K1' vs the plain f32 forward at 2e-5 (out and lse),
+    K1' bit for bit equal to K1 (the same kernel with a deeper ring), the
+    mma.sync kernel kept for the A/B (flash_attention_mma) within the same
+    gate, and the one-pass control misses the gate (the d = 7 case, seven
+    terms a logit, is left out of that)."""
     monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
     q, k, v = _qkv(bh, lq, lk, d, torch.float32, cuda)
     scale, seed = d ** -0.5, 11
-    before = [fa.flash_attention.launches, fa.flash_attention_kvres.launches]
+    wgmma = fa.takes_wgmma_f32(q, k, v)
+    assert wgmma == (d % 8 == 0)
+    names = ("launches", "f32_wgmma_launches", "f32_mma_launches")
+    wrappers = (fa.flash_attention, fa.flash_attention_kvres)
+    before = [getattr(f, n) for f in wrappers for n in names]
     got = fa.flash_attention(q, k, v, scale, dropout, seed)
     kvres = fa.flash_attention_kvres(q, k, v, scale, dropout, seed)
     torch.cuda.synchronize()
-    assert [fa.flash_attention.launches, fa.flash_attention_kvres.launches] == \
-        [b + 1 for b in before]
-    _assert_fwd_close(got, fa.flash_attention_reference(q, k, v, scale, dropout, seed),
-                      torch.float32)
+    assert [getattr(f, n) - b for (f, n), b in
+            zip([(f, n) for f in wrappers for n in names], before)] == \
+        [1, int(wgmma), int(not wgmma)] * 2
+    want = fa.flash_attention_reference(q, k, v, scale, dropout, seed)
+    _assert_fwd_close(got, want, torch.float32)
     for a, b in zip(kvres, got):
         assert torch.equal(a, b)
+    mma = fa.flash_attention_mma(q, k, v, scale, dropout, seed)
+    torch.cuda.synchronize()
+    _assert_fwd_close(mma, want, torch.float32)
     keep = fa.dropout_multiplier(seed, bh, lq, lk, dropout, cuda) if dropout > 0.0 else None
     one_pass, _ = fa.forward_tf32(q, k, v, scale, 1, keep)
     if d > 7:
@@ -266,15 +278,17 @@ def test_f32_forward_kernels_match_plain(cuda, monkeypatch, bh, lq, lk, d, dropo
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 112])
 @pytest.mark.parametrize("offset", [0.0, 3.0], ids=["v", "v+3"])
-def test_f32_forward_long_rows_as_accurate_as_simt(cuda, offset):
+def test_f32_forward_long_rows_as_accurate_as_simt(cuda, offset, d):
     """At 6912 keys, with and without a common component in v (as fc_v's
-    bias gives), f32 K1's out is no further from the plain f32 forward than
-    twice the SIMT forward's: each tile's p v enters o with an f32 fma, not
+    bias gives), f32 K1's out (the wgmma kernel at CoAM-W48's d = 48 and
+    TransPose-H's 112) is no further from the plain f32 forward than twice
+    the SIMT forward's: each tile's p v enters o with an f32 fma, not
     through the tensor cores' accumulator, whose error grows with L_k."""
-    q, k, v = _qkv(2, 6912, 6912, 48, torch.float32, cuda)
+    q, k, v = _qkv(2, 6912, 6912, d, torch.float32, cuda)
     v = v + offset
-    scale = 48 ** -0.5
+    scale = d ** -0.5
     want, _ = fa.flash_attention_reference(q, k, v, scale)
     got, _ = fa.flash_attention(q, k, v, scale)
     simt, _ = fa.flash_attention_simt(q, k, v, scale)
@@ -284,8 +298,11 @@ def test_f32_forward_long_rows_as_accurate_as_simt(cuda, offset):
 
 @pytest.mark.cuda
 def test_f32_forward_kernels_run_tf32_hmma(cuda):
-    """The f32 forward kernels show TF32 HMMA in their SASS (cuobjdump),
-    in K1's and K1''s libraries, and the SIMT forward kept beside K1 none."""
+    """The f32 forward kernels show their tensor-core instructions in their
+    SASS (cuobjdump), in K1's and K1''s libraries: TF32 HMMA in the mma.sync
+    kernel (8 head-dim cases), TF32 wgmma (HGMMA) and TMA loads (UTMALDG) in
+    every instantiation of the wgmma kernel (8 head-dim cases x dropout or
+    not) and no HMMA there; the SIMT forward kept beside K1 none."""
     from buctd_tpu_torch import _build
 
     for lib in ("flash_fwd", "flash_fwd_kvres"):
@@ -295,12 +312,42 @@ def test_f32_forward_kernels_run_tf32_hmma(cuda):
         simt = {f: n for f, n in _build.hmma_counts(lib).items() if "flash_fwd_kernel" in f}
         assert len(tf32) == 8 and min(tf32.values()) > 0, tf32   # 8 head-dim cases
         assert sum(simt.values()) == 0 and (lib == "flash_fwd") == bool(simt), simt
+        name = "flash_fwd_tf32_wgmma_kernel"
+        for op, kind in (("HGMMA", "TF32"), ("UTMALDG", "")):
+            got = {f: c for f, c in _build.sass_op_counts(lib, op, kind).items() if name in f}
+            assert len(got) == 16 and min(got.values()) > 0, (lib, op, got)
+        hmma = {f: c for f, c in _build.hmma_counts(lib).items() if name in f}
+        assert len(hmma) == 16 and sum(hmma.values()) == 0, hmma
+
+
+@pytest.mark.cuda
+def test_f32_forward_unaligned_base_takes_the_mma_kernel(cuda):
+    """An f32 view 8 bytes into its storage (no 16-byte base, so no TMA)
+    runs the mma.sync kernel at d = 48 (counted on f32_mma_launches) and
+    meets the f32 gate; the aligned copy runs the wgmma kernel, within the
+    same gate of it."""
+    q, k, v = _qkv(2, 130, 200, 48, torch.float32, cuda)
+    shifted = torch.empty(q.numel() + 2, device=cuda)[2:].view_as(q)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 == 8 and not fa.takes_wgmma_f32(shifted, k, v)
+    before = [fa.flash_attention.f32_wgmma_launches, fa.flash_attention.f32_mma_launches]
+    got = fa.flash_attention(shifted, k, v, 0.2)
+    aligned = fa.flash_attention(q, k, v, 0.2)
+    torch.cuda.synchronize()
+    assert [fa.flash_attention.f32_wgmma_launches - before[0],
+            fa.flash_attention.f32_mma_launches - before[1]] == [1, 1]
+    want = fa.flash_attention_reference(q, k, v, 0.2)
+    _assert_fwd_close(got, want, torch.float32)
+    _assert_fwd_close(aligned, want, torch.float32)
+    for a, b in zip(got, aligned):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda
 def test_f32_serving_profile_names_no_simt_forward(cuda):
-    """A profiled f32 predict of the tiny estimator runs K1's 3xTF32 kernel
-    and no SIMT forward (chip_smoke.py checks a full-width validate step)."""
+    """A profiled f32 predict of the tiny estimator (its attention at d = 8
+    and 16) runs K1's f32 wgmma kernel and no SIMT or mma.sync forward
+    (chip_smoke.py checks a full-width validate step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -318,8 +365,8 @@ def test_f32_serving_profile_names_no_simt_forward(cuda):
         est.predict(img, conds, float("-inf"))
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    assert any("flash_fwd_tf32_kernel" in n for n in names), names
-    assert not any("flash_fwd_kernel" in n for n in names), names
+    assert any("flash_fwd_tf32_wgmma_kernel" in n for n in names), names
+    assert not any("flash_fwd_kernel" in n or "flash_fwd_tf32_kernel" in n for n in names), names
 
 
 @pytest.mark.cuda
@@ -758,10 +805,11 @@ def _assert_nonfinite_alike(got, want):
 @pytest.mark.parametrize("kvres", [False, True], ids=["k1_k2", "kvres"])
 @pytest.mark.parametrize("bh,lq,lk,d", [(2, 128, 128, 48), (1, 100, 130, 96)])
 def test_f32_flash_kernels_take_nan_as_plain(cuda, bh, lq, lk, d, kvres):
-    """A NaN in q reaches f32 K1's out and lse and f32 K2's dq, dk and dv (and
-    K1''s and K2''s) where it reaches the plain versions': the split's lo
-    carries a NaN operand (dropout 0: a dropped entry is 0 by selection in
-    the kernels and NaN times 0 in the plain version)."""
+    """A NaN in q reaches f32 K1's out and lse (its wgmma kernel, where the
+    dispatch sends these shapes, and its mma.sync kernel) and f32 K2's dq, dk
+    and dv (and K1''s and K2''s) where it reaches the plain versions': the
+    split's lo carries a NaN operand (dropout 0: a dropped entry is 0 by
+    selection in the kernels and NaN times 0 in the plain version)."""
     q, k, v = _qkv(bh, lq, lk, d, torch.float32, cuda)
     q[-1, lq // 2, d // 3] = float("nan")
     scale = d ** -0.5
@@ -769,7 +817,9 @@ def test_f32_flash_kernels_take_nan_as_plain(cuda, bh, lq, lk, d, kvres):
                            fa.flash_bwd_dkv_kvres) if kvres else
                           (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv))
     out, lse = fa.flash_attention_reference(q, k, v, scale)
+    assert fa.takes_wgmma_f32(q, k, v)
     _assert_nonfinite_alike(fwd(q, k, v, scale), (out, lse))
+    _assert_nonfinite_alike(fa.flash_attention_mma(q, k, v, scale), (out, lse))
     dout = torch.randn(bh, lq, d, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
     delta = (dout * out).sum(-1)
     args = (q, k, v, dout, lse, delta, scale)
@@ -1411,7 +1461,7 @@ def test_exported_artifact_on_cuda_matches_live(cuda, dtype, tmp_path):
         art.predict(imgs[0], conds[0], float("-inf"))
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kernel = "flash_fwd_tf32_kernel" if dtype == "float32" else "flash_fwd_wgmma_kernel"
+    kernel = "flash_fwd_tf32_wgmma_kernel" if dtype == "float32" else "flash_fwd_wgmma_kernel"
     assert any(kernel in n for n in names), names
     with pytest.raises(ValueError, match="exported for"):
         ExportedPoseEstimator(str(tmp_path), device="cpu")
