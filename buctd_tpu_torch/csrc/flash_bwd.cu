@@ -18,13 +18,21 @@
 // the natural log), and the dropout mask is regenerated from dropout_hash.cuh,
 // keyed by the global (bh, row, col).  Two designs, by the operands' dtype:
 //
-// f32 (dtype 0; the f32 train step): flash_bwd_dq_tf32_kernel,
-// flash_bwd_dkv_tf32_kernel (flash_bwd_tf32.cuh), on the tensor cores in
-// 3xTF32: every operand split into two tf32 halves and every product taken in
-// three passes, f32-accurate to about 2^-21 relative, as JAX's f32 kernels
-// are at Precision.HIGHEST (_mxu_precision :68).  They round nothing to a
-// narrower type.  Their design, and what bounds them, is described there.
-//
+// f32 (dtype 0; the f32 train step): on the tensor cores in 3xTF32: every
+// operand split into two tf32 halves and every product taken in three
+// passes, f32-accurate to about 2^-21 relative, as JAX's f32 kernels are at
+// Precision.HIGHEST (_mxu_precision :68).  They round nothing to a narrower
+// type.  Two designs, by shape, behind the same C entries: the TMA + wgmma
+// kernels flash_bwd_dq_tf32_wgmma_kernel and flash_bwd_dkv_tf32_wgmma_kernel
+// (flash_bwd_tf32_wgmma.cuh: a TMA warp, split warps that write the looped
+// operand's tf32 halves as read and transposed, consumer warpgroups on tf32
+// wgmma) wherever their TMA loads take the call (t3b::takes: d a multiple of
+// 8 and at most 128, q, k, v and do 16-byte aligned: d = 48, 96 and 112 on
+// every path); the mma.sync kernels flash_bwd_dq_tf32_kernel and
+// flash_bwd_dkv_tf32_kernel (flash_bwd_tf32.cuh, with a cp.async ring and any
+// 4-byte row alignment) take the other f32 calls.  Their designs, and what
+// bounds them, are described there.
+
 // A second pair of C entries, buctd_flash_bwd_dq_simt and
 // buctd_flash_bwd_dkv_simt, launches flash_bwd_dq_kernel and
 // flash_bwd_dkv_kernel below, the exact-f32 SIMT kernels that the f32 path
@@ -74,8 +82,9 @@
 // (hwb::kKvresStages, tc::kKvresStages).
 //
 // A third pair of C entries, buctd_flash_bwd_dq_mma and buctd_flash_bwd_dkv_mma,
-// launches the mma.sync kernels for any bf16 call: the bf16 backward before
-// the wgmma kernels, kept so that chip_smoke.py and tools/bench_flash_bwd.py
+// launches the mma.sync kernels of either dtype for any call (bf16:
+// flash_bwd_tc.cuh; f32: flash_bwd_tf32.cuh): each dtype's backward before
+// its wgmma kernels, kept so that chip_smoke.py and tools/bench_flash_bwd.py
 // can time the two in turns.
 //
 // C interface (bound with ctypes by buctd_tpu_torch/ops/flash_attention.py):
@@ -85,11 +94,12 @@
 //                           scale, keep_thr, keep_scale, seed, dtype, stream)
 //   int buctd_flash_bwd_dq_simt, buctd_flash_bwd_dkv_simt (the same
 //                           arguments; dtype must be 0)
-//   int buctd_flash_bwd_dq_mma, buctd_flash_bwd_dkv_mma (the same arguments;
-//                           dtype must be 1)
-//   int buctd_flash_bwd_blocks_per_sm(d, dropout, dq): blocks of the wgmma dq
-//       (dq != 0) or dk/dv kernel resident on one SM at head dim d (0 where
-//       it has none)
+//   int buctd_flash_bwd_dq_mma, buctd_flash_bwd_dkv_mma (the same arguments)
+//   int buctd_flash_bwd_blocks_per_sm(d, dropout, dq): blocks of the bf16
+//       wgmma dq (dq != 0) or dk/dv kernel resident on one SM at head dim d
+//       (0 where it has none)
+//   int buctd_flash_bwd_tf32_blocks_per_sm(d, dropout, dq): the same for the
+//       f32 wgmma kernels
 // q (bh, lq, d), k/v (bh, lk, d) and dout (bh, lq, d) contiguous, all f32
 // (dtype 0) or all bf16 (dtype 1); lse and delta (bh, lq) f32; dq (bh, lq, d)
 // and dk/dv (bh, lk, d) f32, allocated by the caller.  Each returns the
@@ -103,6 +113,7 @@
 #include "dropout_hash.cuh"
 #include "flash_bwd_tc.cuh"
 #include "flash_bwd_tf32.cuh"
+#include "flash_bwd_tf32_wgmma.cuh"
 #include "flash_bwd_wgmma.cuh"
 
 namespace {
@@ -440,17 +451,16 @@ cudaError_t dispatch_simt(const Args& a, cudaStream_t s) {
 #undef BUCTD_BWD_CASE
 }
 
-// The kernels of a C entry: the tensor cores by dtype (kAuto), the SIMT
-// kernels (f32 only) or the mma.sync ones (bf16 only)
+// The kernels of a C entry: the tensor cores by dtype and shape (kAuto), the
+// SIMT kernels (f32 only) or the mma.sync ones of either dtype
 enum Kernels { kAuto, kSimt, kMma };
 
-// f32 operands take the 3xTF32 kernels; bf16 the wgmma kernels where
-// hwb::takes, else the mma.sync ones
+// each dtype takes its wgmma kernels where their rule holds (bf16:
+// hwb::takes; f32: t3b::takes), else its mma.sync ones
 template <bool kDq>
 int run(const Args& a, int dtype, void* stream, Kernels which = kAuto) {
   if (a.bh <= 0 || a.bh > 65535 || a.lq <= 0 || a.lk <= 0 || a.d <= 0 || a.d > 128 ||
-      (dtype != 0 && dtype != 1) || (which == kSimt && dtype != 0) ||
-      (which == kMma && dtype != 1))
+      (dtype != 0 && dtype != 1) || (which == kSimt && dtype != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (which == kSimt) return (int)dispatch_simt<kDq>(a, s);
@@ -458,7 +468,9 @@ int run(const Args& a, int dtype, void* stream, Kernels which = kAuto) {
     return (int)(which == kAuto && hwb::takes(a.q, a.k, a.v, a.dout, a.d)
                      ? hwb::launch_bwd<hwb::kStages, kDq>(a, s)
                      : tc::launch_bwd<tc::kStages, kDq>(a, s));
-  return (int)tf32::launch_bwd<tf32::kStages, kDq>(a, s);
+  return (int)(which == kAuto && t3b::takes(a.q, a.k, a.v, a.dout, a.d)
+                   ? t3b::launch_bwd<t3b::kStages, kDq>(a, s)
+                   : tf32::launch_bwd<tf32::kStages, kDq>(a, s));
 }
 
 }  // namespace
@@ -531,4 +543,8 @@ extern "C" int buctd_flash_bwd_dkv_mma(const void* q, const void* k, const void*
 
 extern "C" int buctd_flash_bwd_blocks_per_sm(int d, int dropout, int dq) {
   return hwb::blocks_per_sm<hwb::kStages>(d, dropout != 0, dq != 0);
+}
+
+extern "C" int buctd_flash_bwd_tf32_blocks_per_sm(int d, int dropout, int dq) {
+  return t3b::blocks_per_sm<t3b::kStages>(d, dropout != 0, dq != 0);
 }

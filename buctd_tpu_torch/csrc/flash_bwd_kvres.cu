@@ -10,13 +10,16 @@
 // double-buffered DMA pair; the dk/dv kernel keeps a kv block resident and
 // streams the q-side operands (q, do, lse, delta) through four such pairs.
 //
-// Here both dtypes launch K2's tensor-core kernels with a deeper ring for
-// the looped operand (K2's depth plus one: tf32::kKvresStages and
-// tc::kKvresStages, 3 slots; hwb::kKvresStages, 4): f32 (dtype 0)
-// flash_bwd_dq_tf32_kernel / flash_bwd_dkv_tf32_kernel (flash_bwd_tf32.cuh,
-// 3xTF32); bf16 (dtype 1, the training step under the switch)
-// flash_bwd_dq_wgmma_kernel / flash_bwd_dkv_wgmma_kernel (flash_bwd_wgmma.cuh,
-// TMA and wgmma) where K2 takes them (hwb::takes), else
+// Here both dtypes launch K2's tensor-core kernels, by K2's rules, with a
+// deeper ring for the looped operand (K2's depth plus one: tf32::kKvresStages,
+// tc::kKvresStages and t3b::kKvresStages, 3 slots, t3b's where shared memory
+// holds them (d = 48 and 96 for dq; else K2's 2); hwb::kKvresStages, 4): f32
+// (dtype 0) flash_bwd_dq_tf32_wgmma_kernel / flash_bwd_dkv_tf32_wgmma_kernel
+// (flash_bwd_tf32_wgmma.cuh, TMA and wgmma, 3xTF32) where K2 takes them
+// (t3b::takes), else flash_bwd_dq_tf32_kernel / flash_bwd_dkv_tf32_kernel
+// (flash_bwd_tf32.cuh, mma.sync, 3xTF32); bf16 (dtype 1, the training step
+// under the switch) flash_bwd_dq_wgmma_kernel / flash_bwd_dkv_wgmma_kernel
+// (flash_bwd_wgmma.cuh, TMA and wgmma) where K2 takes them (hwb::takes), else
 // flash_bwd_dq_tc_kernel / flash_bwd_dkv_tc_kernel (flash_bwd_tc.cuh), all of
 // which round as K2 does (q * scale, do, ds and p * keep * c to bf16).  The
 // depth of the ring changes no arithmetic, so K2' equals K2 bit for bit; rows
@@ -39,6 +42,7 @@
 
 #include "flash_bwd_tc.cuh"
 #include "flash_bwd_tf32.cuh"
+#include "flash_bwd_tf32_wgmma.cuh"
 #include "flash_bwd_wgmma.cuh"
 
 namespace {
@@ -48,7 +52,10 @@ int run(const tc::BwdArgs& a, int dtype, void* stream) {
   if (a.bh <= 0 || a.bh > 65535 || a.lq <= 0 || a.lk <= 0 || a.d <= 0 || a.d > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)tf32::launch_bwd<tf32::kKvresStages, kDq>(a, s);
+  if (dtype == 0)
+    return (int)(t3b::takes(a.q, a.k, a.v, a.dout, a.d)
+                     ? t3b::launch_bwd<t3b::kKvresStages, kDq>(a, s)
+                     : tf32::launch_bwd<tf32::kKvresStages, kDq>(a, s));
   if (dtype == 1)
     return (int)(hwb::takes(a.q, a.k, a.v, a.dout, a.d)
                      ? hwb::launch_bwd<hwb::kKvresStages, kDq>(a, s)

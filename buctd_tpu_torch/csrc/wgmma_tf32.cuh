@@ -1,5 +1,6 @@
 // Hopper warpgroup matrix multiply (wgmma, sm_90a) on tf32 operands, for the
-// f32 flash forward (flash_fwd_tf32_wgmma.cuh): shared-memory matrix
+// f32 flash forward (flash_fwd_tf32_wgmma.cuh) and backward
+// (flash_bwd_tf32_wgmma.cuh): shared-memory matrix
 // descriptors for the two K-major layouts it reads, and
 // wgmma.mma_async m64nNk8 .tf32 with f32 accumulators, A in registers (Rs)
 // or in shared memory (Ss), at every N the kernel issues.  The fence, commit,
@@ -53,8 +54,9 @@ __device__ __forceinline__ uint64_t il_desc(uint32_t smem_addr, uint32_t lbo_byt
 // d (64 x N, f32) += a b (mma) or d = a b (mma_zero: d is written only), a
 // (64 x 8 tf32) the A fragment in registers (Rs) or a descriptor (Ss), b (8 x
 // N tf32) a descriptor, both K-major.  Rs: the N of P V over a padded d or
-// half of it, and of S at the key tiles (q' hi in registers); Ss: the key
-// tiles of q' K^T.
+// half of it, and of S at the key tiles (q' hi in registers), and the
+// backward's dq, dk and dv over a padded d; Ss: the key tiles of q' K^T and
+// the backward's looped tiles of s and g (8 to 32).
 template <int N>
 struct Rs;
 
@@ -418,6 +420,28 @@ struct Rs<128> {
           "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
           "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  }
+};
+
+template <>
+struct Ss<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        " %0, %1, %2, %3},"
+        " %4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void mma_zero(float (&d)[4], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        " %0, %1, %2, %3},"
+        " %4, %5, p, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "l"(a), "l"(b), "r"(0));
   }
 };
 

@@ -31,9 +31,13 @@ buctd_tpu/ops/flash_attention.py::flash_attention (:941-971).
 * bf16 K2 and K2' dispatch the same way (``takes_wgmma_bwd``, the rule of
   csrc/flash_bwd_wgmma.cuh::takes): the TMA + wgmma dq and dk/dv kernels
   where the head dim is a multiple of 8 and q, k, v and the cast do start
-  16-byte aligned, else the mma.sync kernels of csrc/flash_bwd_tc.cuh.
-  ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma`` launch the mma.sync kernels
-  for any bf16 call, for timing the two in turns.
+  16-byte aligned, else the mma.sync kernels of csrc/flash_bwd_tc.cuh.  f32
+  K2 and K2' by the same rule (``takes_wgmma_bwd_f32``,
+  csrc/flash_bwd_tf32_wgmma.cuh::takes): the TMA + wgmma 3xTF32 dq and dk/dv
+  kernels of csrc/flash_bwd_tf32_wgmma.cuh, else the mma.sync 3xTF32 ones of
+  csrc/flash_bwd_tf32.cuh.  ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma``
+  launch the mma.sync kernels of either dtype for any call, for timing the
+  two in turns.
 * ``BUCTD_FLASH_KVRES``, read at every call with JAX's rule (:474, :684: any
   value but "0" turns it on), routes CUDA tensors to the kv/q-resident
   kernels instead: ``csrc/flash_fwd_kvres.cu`` (K1', ``_fwd_kernel_kvres``
@@ -71,7 +75,8 @@ of its bf16 calls ``flash_attention.wgmma_launches`` (the wgmma kernel) and
 ``flash_attention.mma_launches`` (the mma.sync kernel), and of its f32 calls
 ``flash_attention.f32_wgmma_launches`` and ``f32_mma_launches`` (likewise);
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` (K2), each with
-``wgmma_launches`` and ``mma_launches`` of its bf16 calls;
+``wgmma_launches`` and ``mma_launches`` of its bf16 calls and
+``f32_wgmma_launches`` and ``f32_mma_launches`` of its f32 calls;
 ``flash_attention_kvres.launches`` (K1', with its own four by kernel), ``flash_bwd_dq_kvres.launches`` and
 ``flash_bwd_dkv_kvres.launches`` (K2', likewise), ``flash_attention_simt.launches``,
 ``flash_attention_mma.launches``, ``flash_bwd_dq_simt.launches``,
@@ -298,6 +303,58 @@ def wgmma_bwd_tiles(d: int) -> dict:
     return {"dq": WGMMA_DQ_KEY_TILE, "dkv": WGMMA_DKV_Q_TILE[width]}
 
 
+def takes_wgmma_bwd_f32(q, k, v, dout) -> bool:
+    """Whether f32 K2 and K2' run the TMA + wgmma 3xTF32 kernels on these
+    operands (csrc/flash_bwd_tf32_wgmma.cuh::takes): f32, ``_tma_operands``
+    and do starting 16-byte aligned too; otherwise the mma.sync kernels of
+    csrc/flash_bwd_tf32.cuh."""
+    return (q.dtype == torch.float32 and _tma_operands(q, k, v)
+            and dout.data_ptr() % 16 == 0)
+
+
+# f32 K2's wgmma kernels (csrc/flash_bwd_tf32_wgmma.cuh): the plans (consumer
+# warpgroups of 64 own rows, looped tile) in order of preference
+# (plan_consumers, plan_tile), the slots K2 and K2' ask for (kStages,
+# kKvresStages: the most that fit), and the shared memory that decides both
+# (smem_for)
+TF32_WGMMA_BWD_PLANS = ((2, 32), (1, 32), (1, 16), (1, 8))
+TF32_WGMMA_BWD_STAGES = {"k2": 2, "k2_kvres": 3}
+
+
+def tf32_wgmma_bwd_smem(d: int, dq: bool, consumers: int, tile: int, stages: int) -> int:
+    """The f32 wgmma dq (``dq``) or dk/dv kernel's shared memory at head dim
+    d (padded to 16) (csrc/flash_bwd_tf32_wgmma.cuh::smem_for): alignment
+    slack; the own rows' two operands in hi and lo (64 rows a consumer
+    warpgroup); ``stages`` slots of the looped tile (dq: K, V and K^T in hi
+    and lo; dk/dv: q', do, q'^T and do^T in hi and lo, and the stats); the
+    barriers."""
+    dp = -(-d // 16) * 16
+    slot = 6 * tile * dp * 4 if dq else 8 * tile * dp * 4 + 3 * tile * 4
+    return 1024 + 4 * 64 * consumers * dp * 4 + stages * slot + 8 * (consumers + 3 * stages)
+
+
+def tf32_wgmma_bwd_plan(d: int, dq: bool) -> tuple:
+    """(consumer warpgroups, looped tile) of the f32 wgmma dq (``dq``) or
+    dk/dv kernel at head dim d (::plan): the first plan whose two slots fit
+    SMEM_LIMIT."""
+    for c, t in TF32_WGMMA_BWD_PLANS[:-1]:
+        if tf32_wgmma_bwd_smem(d, dq, c, t, TF32_WGMMA_BWD_STAGES["k2"]) <= SMEM_LIMIT:
+            return c, t
+    return TF32_WGMMA_BWD_PLANS[-1]
+
+
+def tf32_wgmma_bwd_stages(d: int, dq: bool, kvres: bool = False) -> int:
+    """Ring slots the f32 wgmma dq (``dq``) or dk/dv kernel runs at head dim
+    d for K2 or K2' (::ring): the slots asked for, fewer where they do not
+    fit (never under K2's)."""
+    k2 = TF32_WGMMA_BWD_STAGES["k2"]
+    s = TF32_WGMMA_BWD_STAGES["k2_kvres" if kvres else "k2"]
+    c, t = tf32_wgmma_bwd_plan(d, dq)
+    while s > k2 and tf32_wgmma_bwd_smem(d, dq, c, t, s) > SMEM_LIMIT:
+        s -= 1
+    return s
+
+
 def fwd_key_tile(d: int, wgmma: bool | None = None) -> int:
     """Keys a tile of the bf16 forward kernel that the dispatch picks at
     head dim d: the wgmma kernel's where ``wgmma`` (by default: d a multiple
@@ -353,11 +410,18 @@ def forward_tf32(q, k, v, scale: float, passes: int = 3, keep=None):
     return out, ((m + torch.log2(l)) * _LN2).squeeze(-1)
 
 
-def bwd_loop_tile(d: int, dq: bool) -> int:
-    """f32 K2's looped tile (csrc/flash_bwd_tf32.cuh::bwd_loop_tile): keys
-    for the dq kernel, 64 while the head dim rounded up to 16 is at most 48
-    (its q' and do fragments in registers), else 32; q rows for the dk/dv
-    kernel, 32."""
+def bwd_loop_tile(d: int, dq: bool, wgmma: bool | None = None) -> int:
+    """f32 K2's looped tile (keys for the dq kernel, q rows for the dk/dv
+    kernel) in the kernel that the dispatch picks at head dim d: the wgmma
+    kernels' (``tf32_wgmma_bwd_plan``) where ``wgmma`` (by default: d a
+    multiple of 8, the dispatch for aligned operands), else the mma.sync
+    kernels' (csrc/flash_bwd_tf32.cuh::bwd_loop_tile: dq 64 keys while the
+    head dim rounded up to 16 is at most 48, its q' and do fragments in
+    registers, else 32; dk/dv 32 q rows)."""
+    if wgmma is None:
+        wgmma = 0 < d <= MAX_HEAD_DIM and d % 8 == 0
+    if wgmma:
+        return tf32_wgmma_bwd_plan(d, dq)[1]
     return 64 if dq and -(-d // 16) * 16 <= 48 else 32
 
 
@@ -371,15 +435,18 @@ def _tf32_folded(a, b, tile: int, passes: int):
     return out
 
 
-def backward_tf32(q, k, v, dout, lse, delta, scale: float, passes: int = 3, keep=None):
+def backward_tf32(q, k, v, dout, lse, delta, scale: float, passes: int = 3, keep=None,
+                  wgmma: bool | None = None):
     """f32 K2's arithmetic emulated densely, for the checks: q' = q * scale *
     log2 e rounded to f32, s = q' k^T and g = do v^T, p = exp2(s - lse log2
     e), ds = p (g keep - delta), then dq = (ds k) scale, dv = (p keep)^T do
     and dk = (ds^T q') ln 2, each product in ``passes`` tf32 passes (3: the
     kernels' 3xTF32; 1: the control a single-pass kernel would compute), the
-    last three folded over the kernels' looped tiles (``bwd_loop_tile``).
-    ``keep`` is the dropout multiplier (or None).  Returns f32 dq, dk, dv.
-    Nothing on the main path calls it."""
+    last three folded over the kernels' looped tiles (``bwd_loop_tile`` of
+    the wgmma kernels where ``wgmma``, by default where the dispatch picks
+    them for aligned operands, else of the mma.sync kernels).  ``keep`` is
+    the dropout multiplier (or None).  Returns f32 dq, dk, dv.  Nothing on
+    the main path calls it."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     kf, vf, do = k.float(), v.float(), dout.float()
@@ -391,9 +458,10 @@ def backward_tf32(q, k, v, dout, lse, delta, scale: float, passes: int = 3, keep
         g, pk = g * keep, p * keep
     ds = p * (g - delta[..., None])
     d = q.shape[-1]
-    dq = _tf32_folded(ds, kf, bwd_loop_tile(d, True), passes) * scale
-    dv = _tf32_folded(pk.transpose(1, 2), do, bwd_loop_tile(d, False), passes)
-    dk = _tf32_folded(ds.transpose(1, 2), qs, bwd_loop_tile(d, False), passes) * _LN2
+    t_dq, t_dkv = bwd_loop_tile(d, True, wgmma), bwd_loop_tile(d, False, wgmma)
+    dq = _tf32_folded(ds, kf, t_dq, passes) * scale
+    dv = _tf32_folded(pk.transpose(1, 2), do, t_dkv, passes)
+    dk = _tf32_folded(ds.transpose(1, 2), qs, t_dkv, passes) * _LN2
     return dq, dk, dv
 
 
@@ -692,16 +760,24 @@ def wgmma_waves(bh: int, lq: int, d: int, dropout: float = 0.0, kvres: bool = Fa
     return grid
 
 
-def wgmma_bwd_waves(bh: int, l: int, d: int, dropout: float = 0.0, device=None) -> dict:
-    """The grids of the wgmma backward kernels at (bh, l, d) (L_q = L_k = l)
-    on a CUDA card: for dq and dk/dv, their blocks (128 rows each), how many
-    the card keeps resident on one SM, the waves that makes, and the looped
-    tile (``wgmma_bwd_tiles``)."""
-    fn = _fn("flash_bwd", "buctd_flash_bwd_blocks_per_sm", (_I, _I, _I))
+def wgmma_bwd_waves(bh: int, l: int, d: int, dropout: float = 0.0, device=None,
+                    f32: bool = False) -> dict:
+    """The grids of the bf16 (``f32``: the f32) wgmma backward kernels at
+    (bh, l, d) (L_q = L_k = l) on a CUDA card: for dq and dk/dv, their blocks
+    (128 rows each in bf16; 64 a consumer warpgroup of the plan in f32), how
+    many the card keeps resident on one SM, the waves that makes, and the
+    looped tile (``wgmma_bwd_tiles``, ``tf32_wgmma_bwd_plan``)."""
+    symbol = "buctd_flash_bwd_tf32_blocks_per_sm" if f32 else "buctd_flash_bwd_blocks_per_sm"
+    fn = _fn("flash_bwd", symbol, (_I, _I, _I))
     sms = torch.cuda.get_device_properties(device or 0).multi_processor_count
-    blocks = -(-l // WGMMA_BWD_ROWS) * bh
     out = {}
-    for kind, tile in wgmma_bwd_tiles(d).items():
+    for kind in ("dq", "dkv"):
+        if f32:
+            consumers, tile = tf32_wgmma_bwd_plan(d, kind == "dq")
+            rows = 64 * consumers
+        else:
+            rows, tile = WGMMA_BWD_ROWS, wgmma_bwd_tiles(d)[kind]
+        blocks = -(-l // rows) * bh
         per_sm = fn(d, int(dropout > 0.0), int(kind == "dq"))
         out[kind] = {"blocks": blocks, "blocks_per_sm": per_sm, "sms": sms, "tile": tile,
                      "waves": blocks / (sms * per_sm) if per_sm else float("inf")}
@@ -734,47 +810,50 @@ def _k2_dout(q, dout):
     return dout.to(torch.bfloat16) if q.dtype == torch.bfloat16 else dout
 
 
-def _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed, mma: bool):
+def _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed):
     """The checked operands of a backward C entry, do as its kernels read
-    it; ``mma``: the wrapper takes bf16 only."""
+    it."""
     _check_bwd(q, k, v, dout, lse, delta, dropout, seed)
     _require_cuda(q, wrapper.__name__, "flash_attention_backward_reference")
-    if mma and q.dtype != torch.bfloat16:
-        raise TypeError(f"{wrapper.__name__} takes bf16 operands, got {q.dtype}")
     if q.dtype == torch.float32:
         _check_copyable(q, k, v, dout)
     return _k2_dout(q, dout)
 
 
-def _count_bwd(wrapper, q, k, v, do, mma: bool) -> None:
-    """One launch on a backward wrapper; on K2's and K2''s bf16 calls (not
-    ``mma``, the mma.sync A/B) also on the counter of the kernel that the C
-    entry picked by the same rule (``takes_wgmma_bwd``)."""
+def _count_bwd(wrapper, q, k, v, do, ab: bool) -> None:
+    """One launch on a backward wrapper; on K2's and K2''s calls (not ``ab``,
+    the mma.sync and SIMT A/B wrappers) also on the counter of the kernel
+    that the C entry picked by the same rule: ``wgmma_launches`` or
+    ``mma_launches`` for bf16 (``takes_wgmma_bwd``), ``f32_wgmma_launches``
+    or ``f32_mma_launches`` for f32 (``takes_wgmma_bwd_f32``)."""
     wrapper.launches += 1
-    if q.dtype == torch.bfloat16 and not mma:
-        if takes_wgmma_bwd(q, k, v, do):
-            wrapper.wgmma_launches += 1
-        else:
-            wrapper.mma_launches += 1
+    if ab:
+        return
+    if q.dtype == torch.bfloat16:
+        kind = "wgmma" if takes_wgmma_bwd(q, k, v, do) else "mma"
+    else:
+        kind = "f32_wgmma" if takes_wgmma_bwd_f32(q, k, v, do) else "f32_mma"
+    name = f"{kind}_launches"
+    setattr(wrapper, name, getattr(wrapper, name, 0) + 1)
 
 
 def _bwd_dq(wrapper, lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout,
-            seed, mma: bool = False):
+            seed, ab: bool = False):
     """dq from the C entry ``symbol`` of csrc/<lib>.cu, counted on
-    ``wrapper``."""
-    do = _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed, mma)
+    ``wrapper`` (and by kernel unless ``ab``, as ``_count_bwd``)."""
+    do = _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed)
     dq = _launch_dq(lib, symbol, q, k, v, do, lse, delta, scale, dropout, seed)
-    _count_bwd(wrapper, q, k, v, do, mma)
+    _count_bwd(wrapper, q, k, v, do, ab)
     return dq
 
 
 def _bwd_dkv(wrapper, lib: str, symbol: str, q, k, v, dout, lse, delta, scale, dropout,
-             seed, mma: bool = False):
+             seed, ab: bool = False):
     """dk, dv from the C entry ``symbol`` of csrc/<lib>.cu, counted on
     ``wrapper`` (as ``_bwd_dq``)."""
-    do = _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed, mma)
+    do = _bwd_operands(wrapper, q, k, v, dout, lse, delta, dropout, seed)
     dk, dv = _launch_dkv(lib, symbol, q, k, v, do, lse, delta, scale, dropout, seed)
-    _count_bwd(wrapper, q, k, v, do, mma)
+    _count_bwd(wrapper, q, k, v, do, ab)
     return dk, dv
 
 
@@ -782,14 +861,16 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                  seed: int = 0):
     """dq f32 (BH, Lq, d) of the attention above, from do, the forward's lse
     and delta = rowsum(do * out), on CUDA tensors (K2's dq kernel on the
-    tensor cores: 3xTF32 for f32 operands; for bf16, rounding as the plain
-    backward, the wgmma kernel where ``takes_wgmma_bwd``, else the mma.sync
-    one)."""
+    tensor cores: for f32, 3xTF32, the wgmma kernel where
+    ``takes_wgmma_bwd_f32``, else the mma.sync one; for bf16, rounding as the
+    plain backward, the wgmma kernel where ``takes_wgmma_bwd``, else the
+    mma.sync one)."""
     return _bwd_dq(flash_bwd_dq, "flash_bwd", "buctd_flash_bwd_dq", q, k, v, dout, lse,
                    delta, scale, dropout, seed)
 
 
 flash_bwd_dq.launches = flash_bwd_dq.wgmma_launches = flash_bwd_dq.mma_launches = 0
+flash_bwd_dq.f32_wgmma_launches = flash_bwd_dq.f32_mma_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
@@ -801,16 +882,19 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
 
 
 flash_bwd_dkv.launches = flash_bwd_dkv.wgmma_launches = flash_bwd_dkv.mma_launches = 0
+flash_bwd_dkv.f32_wgmma_launches = flash_bwd_dkv.f32_mma_launches = 0
 
 
 def flash_bwd_dq_mma(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                      seed: int = 0):
-    """``flash_bwd_dq``'s function for bf16 CUDA tensors on the mma.sync
-    kernel (``flash_bwd_dq_tc_kernel`` of csrc/flash_bwd_tc.cuh) at any shape,
-    the bf16 dq kernel before the wgmma one; kept for timing the two in turns,
-    never on a path where the wgmma kernel takes the call."""
+    """``flash_bwd_dq``'s function for CUDA tensors on the mma.sync kernel
+    of their dtype at any shape (``flash_bwd_dq_tc_kernel`` of
+    csrc/flash_bwd_tc.cuh for bf16, ``flash_bwd_dq_tf32_kernel`` of
+    csrc/flash_bwd_tf32.cuh for f32), the dq kernel before each dtype's wgmma
+    one; kept for timing the two in turns, never on a path where the wgmma
+    kernel takes the call."""
     return _bwd_dq(flash_bwd_dq_mma, "flash_bwd", "buctd_flash_bwd_dq_mma", q, k, v, dout,
-                   lse, delta, scale, dropout, seed, mma=True)
+                   lse, delta, scale, dropout, seed, ab=True)
 
 
 flash_bwd_dq_mma.launches = 0
@@ -818,10 +902,11 @@ flash_bwd_dq_mma.launches = 0
 
 def flash_bwd_dkv_mma(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
                       seed: int = 0):
-    """``flash_bwd_dkv``'s function on the mma.sync kernel
-    (``flash_bwd_dkv_tc_kernel``), as ``flash_bwd_dq_mma``."""
+    """``flash_bwd_dkv``'s function on the mma.sync kernel of the operands'
+    dtype (``flash_bwd_dkv_tc_kernel``, ``flash_bwd_dkv_tf32_kernel``), as
+    ``flash_bwd_dq_mma``."""
     return _bwd_dkv(flash_bwd_dkv_mma, "flash_bwd", "buctd_flash_bwd_dkv_mma", q, k, v, dout,
-                    lse, delta, scale, dropout, seed, mma=True)
+                    lse, delta, scale, dropout, seed, ab=True)
 
 
 flash_bwd_dkv_mma.launches = 0
@@ -836,7 +921,7 @@ def flash_bwd_dq_simt(q, k, v, dout, lse, delta, scale: float, dropout: float = 
     if q.dtype != torch.float32:
         raise TypeError(f"flash_bwd_dq_simt takes f32 operands, got {q.dtype}")
     return _bwd_dq(flash_bwd_dq_simt, "flash_bwd", "buctd_flash_bwd_dq_simt", q, k, v, dout,
-                   lse, delta, scale, dropout, seed)
+                   lse, delta, scale, dropout, seed, ab=True)
 
 
 flash_bwd_dq_simt.launches = 0
@@ -849,7 +934,7 @@ def flash_bwd_dkv_simt(q, k, v, dout, lse, delta, scale: float, dropout: float =
     if q.dtype != torch.float32:
         raise TypeError(f"flash_bwd_dkv_simt takes f32 operands, got {q.dtype}")
     return _bwd_dkv(flash_bwd_dkv_simt, "flash_bwd", "buctd_flash_bwd_dkv_simt", q, k, v,
-                    dout, lse, delta, scale, dropout, seed)
+                    dout, lse, delta, scale, dropout, seed, ab=True)
 
 
 flash_bwd_dkv_simt.launches = 0
@@ -865,6 +950,7 @@ def flash_bwd_dq_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float =
 
 flash_bwd_dq_kvres.launches = 0
 flash_bwd_dq_kvres.wgmma_launches = flash_bwd_dq_kvres.mma_launches = 0
+flash_bwd_dq_kvres.f32_wgmma_launches = flash_bwd_dq_kvres.f32_mma_launches = 0
 
 
 def flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float = 0.0,
@@ -878,6 +964,7 @@ def flash_bwd_dkv_kvres(q, k, v, dout, lse, delta, scale: float, dropout: float 
 
 flash_bwd_dkv_kvres.launches = 0
 flash_bwd_dkv_kvres.wgmma_launches = flash_bwd_dkv_kvres.mma_launches = 0
+flash_bwd_dkv_kvres.f32_wgmma_launches = flash_bwd_dkv_kvres.f32_mma_launches = 0
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, scale: float,

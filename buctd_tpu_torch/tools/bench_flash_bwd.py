@@ -36,11 +36,30 @@ variants
   cap4     both kernels held to 4 blocks a SM (128 registers) at every d;
   tiles32  32-wide looped tiles (keys for dq, q rows for dk/dv) at every d.
 
-f32 (csrc/flash_bwd_tf32.cuh, 3xTF32):
+f32 (3xTF32), the TMA + wgmma kernels (csrc/flash_bwd_tf32_wgmma.cuh),
+which the f32 paths run:
 
-  shipped  the source as it is: dq's own operands (q' and do) as register
-           fragments, split once, at d <= 48; dk/dv's (K and V) read from
-           shared memory and split each looped tile;
+  shipped     the source as it is: the plans (consumer warpgroups, looped
+              tile) of flash_bwd_tf32_wgmma.cuh, four split warps in dq and
+              six in dk/dv, a two-stage ring, each tile product waited for
+              at once, the own operands' addresses opaque at every looped
+              tile;
+  overlap     dq's tile product in flight across the next tile's s and g,
+              folded once g is done (its slot freed then);
+  stale_desc  the own operands' addresses left to the compiler (it keeps
+              their descriptors live across the loop);
+  split3      three split warps in each kernel;
+  dq_split8   eight in dq;
+  dkv_split4  four in dk/dv;
+  ring3       a three-stage ring (K2''s depth; where it does not fit, the
+              plan takes a narrower tile or one consumer warpgroup);
+
+the mma.sync kernels (csrc/flash_bwd_tf32.cuh), the f32 backward before
+them, timed through ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma``: ``mma``
+the source as it is (dq's own operands, q' and do, as register fragments,
+split once, at d <= 48; dk/dv's, K and V, read from shared memory and split
+each looped tile), and its variants
+
   smem_a   dq's read from shared memory too, at every d;
   cvtsplit every operand split by cvt.rna.tf32.f32 (csrc/mma_tf32.cuh's first
            split; the same values as the integer rounding shipped for
@@ -51,7 +70,7 @@ f32 (csrc/flash_bwd_tf32.cuh, 3xTF32):
 beside them the SIMT kernels that f32 ran before (``flash_bwd_dq_simt``,
 ``flash_bwd_dkv_simt``) and SDPA's f32 backward with TF32 off.  ``--only``
 names the variants to build besides the shipped source (``--only`` alone:
-none, the shipped source and in bf16 the mma.sync kernels; without it: all).
+none, the shipped source and the mma.sync kernels; without it: all).
 
 dq and dk/dv are timed with CUDA events around 10 launches, the variants in
 turns (the order reversed every other round) over ``--rounds`` rounds, at BH
@@ -61,7 +80,7 @@ that changes no arithmetic (SAME_BITS) must equal the shipped kernels bit for
 bit; the others, and the mma.sync kernels, within K2_BF16_RTOL x max |grad|
 of them (other tiles sum in another order); f32 variants and the SIMT kernels
 within 1e-3.  The wgmma kernels' grids (blocks, blocks an SM, waves) are
-printed for each shape.  Returns {(L, d): {dropout: {impl: {"dq_ms",
+printed for each shape.  The card's name and power limit head the output.  Returns {(L, d): {dropout: {impl: {"dq_ms",
 "dkv_ms"}, "sdpa_ms": ms}}}, medians.
 """
 
@@ -77,14 +96,14 @@ import torch
 from . import kernel_variants
 from .kernel_variants import CVT_SPLIT, INT_SPLIT, NANFREE_SPLIT, substituted
 
-# (BH, L, d) by dtype: CoAM-W48's two calls; in bf16 TransPose-H's too
+# (BH, L, d): CoAM-W48's two calls and TransPose-H's, in both dtypes
 SHAPES = {"bfloat16": [(32, 6912, 48), (32, 1728, 96), (32, 6912, 112)],
-          "float32": [(32, 6912, 48), (32, 1728, 96)]}
+          "float32": [(32, 6912, 48), (32, 1728, 96), (32, 6912, 112)]}
 DROPOUTS = (0.1, 0.0)
 ROUNDS = 2
 LAUNCHES = 10
 K2_BF16_RTOL = 2e-3   # chip_smoke.py's
-_TC, _WG = "flash_bwd_tc.cuh", "flash_bwd_wgmma.cuh"
+_TC, _WG, _TW = "flash_bwd_tc.cuh", "flash_bwd_wgmma.cuh", "flash_bwd_tf32_wgmma.cuh"
 # (old, new) source substitutions of each variant: the mma.sync kernels'
 _CAP = "constexpr int kDkvMinBlocks = D <= 48 ? 3 : 1;"
 _DQ_BOUNDS = "__launch_bounds__(kThreads)\nflash_bwd_dq_tc_kernel("
@@ -108,6 +127,18 @@ WGMMA_VARIANTS = {
 }
 # wgmma variants whose arithmetic is the shipped kernels'
 SAME_BITS = {"ring4", "one_wg", "no_overlap", "helper1"}
+# the f32 wgmma kernels'
+F32_WGMMA_VARIANTS = {
+    "overlap": [("constexpr bool kDqOverlap = false;", "constexpr bool kDqOverlap = true;")],
+    "stale_desc": [("constexpr bool kFreshDescriptors = true;",
+                    "constexpr bool kFreshDescriptors = false;")],
+    "split3": [("constexpr int kDqSplitWarps = 4;", "constexpr int kDqSplitWarps = 3;"),
+               ("constexpr int kDkvSplitWarps = 6;", "constexpr int kDkvSplitWarps = 3;")],
+    "dq_split8": [("constexpr int kDqSplitWarps = 4;", "constexpr int kDqSplitWarps = 8;")],
+    "dkv_split4": [("constexpr int kDkvSplitWarps = 6;", "constexpr int kDkvSplitWarps = 4;")],
+    "ring3": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+}
+# the f32 mma.sync kernels'
 F32_VARIANTS = {
     "shipped": [],
     "smem_a": [("constexpr bool bwd_reg_a() { return D <= 48; }",
@@ -117,19 +148,22 @@ F32_VARIANTS = {
 }
 # each dtype's kernel header, variants and kernels (by a part of their name)
 DTYPES = {"bfloat16": (_TC, {**VARIANTS, **WGMMA_VARIANTS}, ("_wgmma_kernel", "_tc_kernel")),
-          "float32": ("flash_bwd_tf32.cuh", F32_VARIANTS, ("_tf32_kernel",))}
+          "float32": ("flash_bwd_tf32.cuh", {**F32_VARIANTS, **F32_WGMMA_VARIANTS},
+                      ("_tf32_wgmma_kernel", "_tf32_kernel"))}
 
 
 def variant_sources(name: str, dtype: str = "bfloat16") -> dict:
     """{header: text} of a variant: its substitutions in the header they
-    apply to (a wgmma variant's in flash_bwd_wgmma.cuh, any other bf16
-    variant's in flash_bwd_tc.cuh, an f32 variant's in the dtype's kernel
-    header or in the headers it names, a dict of them, with the kernel
-    header unchanged beside them)."""
+    apply to (a wgmma variant's in flash_bwd_wgmma.cuh or, f32,
+    flash_bwd_tf32_wgmma.cuh; any other bf16 variant's in flash_bwd_tc.cuh;
+    any other f32 variant's in flash_bwd_tf32.cuh or in the headers it
+    names, a dict of them, with the kernel header unchanged beside them)."""
     header, variants, _ = DTYPES[dtype]
     subs = variants[name]
     if name in WGMMA_VARIANTS and dtype == "bfloat16":
         return {_WG: substituted(_WG, subs, name)}
+    if name in F32_WGMMA_VARIANTS and dtype == "float32":
+        return {_TW: substituted(_TW, subs, name)}
     if isinstance(subs, dict):
         # the kernel header goes beside the changed ones unchanged: its quoted
         # includes then find them in the variant's directory, not in csrc/
@@ -139,8 +173,8 @@ def variant_sources(name: str, dtype: str = "bfloat16") -> dict:
 
 
 def variant_source(name: str, dtype: str = "bfloat16") -> str:
-    """The dtype's kernel header with the variant's substitutions, each of
-    which must apply (the mma.sync kernels' header for bf16)."""
+    """The dtype's mma.sync kernel header with the variant's substitutions,
+    each of which must apply."""
     return variant_sources(name, dtype)[DTYPES[dtype][0]]
 
 
@@ -230,14 +264,12 @@ def main(argv=None) -> dict:
     dtype = getattr(torch, args.dtype)
     f32 = dtype == torch.float32
     # impl: (library, dq wrapper, dk/dv wrapper)
+    impls = {"shipped": (None, fa.flash_bwd_dq, fa.flash_bwd_dkv),
+             "mma": (None, fa.flash_bwd_dq_mma, fa.flash_bwd_dkv_mma)}
     if f32:
-        impls = {"shipped": (None, fa.flash_bwd_dq, fa.flash_bwd_dkv),
-                 "simt": (None, fa.flash_bwd_dq_simt, fa.flash_bwd_dkv_simt)}
-    else:
-        impls = {"shipped": (None, fa.flash_bwd_dq, fa.flash_bwd_dkv),
-                 "mma": (None, fa.flash_bwd_dq_mma, fa.flash_bwd_dkv_mma)}
+        impls["simt"] = (None, fa.flash_bwd_dq_simt, fa.flash_bwd_dkv_simt)
     for name, (path, _) in built.items():
-        wgmma = f32 or name in WGMMA_VARIANTS
+        wgmma = name in (F32_WGMMA_VARIANTS if f32 else WGMMA_VARIANTS)
         impls[name if wgmma else f"mma_{name}"] = (
             path, fa.flash_bwd_dq if wgmma else fa.flash_bwd_dq_mma,
             fa.flash_bwd_dkv if wgmma else fa.flash_bwd_dkv_mma)
@@ -285,11 +317,10 @@ def main(argv=None) -> dict:
                 text = "; ".join(f"{n} dq {t['dq_ms']:.4f} dkv {t['dkv_ms']:.4f}"
                                  for n, t in res.items() if n != "sdpa_ms")
                 text += f"; SDPA {args.dtype} backward alone {res['sdpa_ms']:.4f}"
-                if not f32:
-                    grids = fa.wgmma_bwd_waves(bh, l, d, p)
-                    text += "; wgmma grids " + ", ".join(
-                        f"{kind} {g['blocks']} blocks, {g['blocks_per_sm']} an SM, "
-                        f"{g['waves']:.2f} waves" for kind, g in grids.items())
+                grids = fa.wgmma_bwd_waves(bh, l, d, p, f32=f32)
+                text += "; wgmma grids " + ", ".join(
+                    f"{kind} {g['blocks']} blocks, {g['blocks_per_sm']} an SM, "
+                    f"{g['waves']:.2f} waves, {g['tile']}-row tiles" for kind, g in grids.items())
                 results[(l, d)][p] = res
                 print(f"({bh}, {l}, {d}) dropout {p}: {text}", flush=True)
                 del out, lse, delta, call, sdpa, ref, got

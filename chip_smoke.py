@@ -24,9 +24,10 @@ Phases (each raises on failure; nothing is caught):
      K1, K1', K2, K2' and K5, and wgmma (HGMMA) and TMA loads (UTMALDG) in
      every instantiation of bf16 K1's and K1''s wgmma kernel and of bf16 K2's
      and K2''s wgmma pair, and TF32 HGMMA and UTMALDG (and no HMMA) in every
-     instantiation of f32 K1's and K1''s wgmma kernel (F32_K1_KERNEL); a NaN
-     in q reaches f32 K1's (its wgmma kernel and its mma.sync kernel), K1''s,
-     K2's and K2''s outputs (at d = 48, 96 and 112), and a NaN in x K5's (both
+     instantiation of f32 K1's and K1''s wgmma kernel (F32_K1_KERNEL) and of
+     f32 K2's and K2''s wgmma pair (F32_K2_KERNELS); a NaN in q reaches f32
+     K1's and K2's (their wgmma kernels and their mma.sync kernels), K1''s
+     and K2''s outputs (at d = 48, 96 and 112), and a NaN in x K5's (both
      dtypes, tensor cores and SIMT), where it reaches the plain versions'
      (``nan_phase``);
   1. kernels, serving and evaluation shapes: K1 (flash-attention forward on
@@ -37,7 +38,9 @@ Phases (each raises on failure; nothing is caught):
      d = 112 (TP_F32_CASES: BH 16 and 32, L 6912) in f32 and bf16, plus a
      ragged case and d = 47; f32 with dropout 0 and 0.1 at
      KERNEL_ATOL/RTOL, where the one-pass tf32 control must miss at the
-     evaluation shapes; bf16 against the plain forward that rounds where it
+     evaluation shapes, and f32 K2 at the ragged case and d = 47 (its wgmma
+     pair and its mma.sync pair, by the dispatch) at BWD_ATOL/RTOL;
+     bf16 against the plain forward that rounds where it
      does, within K1_BF16_RTOL, and against the rounding at the kernel's
      running tile max, within K1_BF16_TILED_RMS, which p left unrounded
      misses; kernel, plain and F.scaled_dot_product_attention times beside
@@ -49,8 +52,9 @@ Phases (each raises on failure; nothing is caught):
      waves, summed over the same serving and evaluation shapes for the
      kernels line;
   2. kernels, training shapes: K1 and K2 (flash backward: the dq and the dk/dv
-     kernels; on the tensor cores, f32 in 3xTF32, bf16 on TMA + wgmma,
-     flash_bwd_wgmma.cuh, which the dispatch must pick) at the shapes a batch-32
+     kernels; on the tensor cores and TMA + wgmma, f32 in 3xTF32,
+     flash_bwd_tf32_wgmma.cuh, bf16 flash_bwd_wgmma.cuh, which the dispatch
+     must pick and the counters show) at the shapes a batch-32
      train step gives them, f32 and bf16, dropout 0 and 0.1, vs their plain
      versions over BH chunks (f32 K2's one-pass tf32 control must miss the
      gate; bf16 against the plain versions that round where they do, K2's
@@ -67,7 +71,9 @@ Phases (each raises on failure; nothing is caught):
      wgmma grids, the tensor-core, MUFU and dropout-hash floors; then the same bf16
      checks and times of K1 and K2 at TransPose-H's training shape
      (TP_TRAIN_CASES, d = 112), their ratios to SDPA beside those at
-     TRAIN_CASES, and ptxas's registers and spills of f32 K1 by head dim;
+     TRAIN_CASES, f32 K1 and K2 there at the f32 gates (dropout 0 and 0.1),
+     and ptxas's registers and spills of f32 K1 by head dim and of every
+     instantiation of bf16 and f32 K2;
   3. serving: CoAM-W48 crowdpose 384x288 (14 joints, random weights from
      torch.manual_seed), ``predict`` on a 480x640 image with 4 condition poses
      and ``predict_batch`` on 3 images; finite outputs of the right shapes, the
@@ -123,7 +129,8 @@ Phases (each raises on failure; nothing is caught):
   5. one f32 (TF32 off), dropout-0 train step at batch 1 on the card vs the
      same step on the CPU: loss, the gradients (all, and the position
      attention's alone), BN running statistics; the step's K2 calls (3xTF32)
-     vs float64 on their own inputs; f32 K2's launches in that step;
+     vs float64 on their own inputs; f32 K2's launches in that step, every
+     one on its wgmma pair (flash_bwd_tf32_wgmma.cuh);
   6. kernels, kv-resident: K1' (flash_fwd_kvres) vs the plain version at the
      serving shapes, the eval shapes (64 = 2 x 32 flip-test crops) in f32 and
      bf16, a ragged case and d = 47, and vs K1; at the training shapes (BH
@@ -133,7 +140,8 @@ Phases (each raises on failure; nothing is caught):
      tensor-core kernels with a deeper ring); an odd head dim in bf16 under
      BUCTD_FLASH_KVRES=1; times of each beside K1's/K2's (A/B in turns: old,
      new, new, old), the plain version's, the bound and SDPA's; f32 K2'
-     beside f32 K2 in turns at the training shapes;
+     beside f32 K2 in turns at the training shapes; K2' counted on its
+     dtype's wgmma kernels;
   7. evaluation: ``buctd_tpu_torch.valid.run`` on a seeded synthetic
      CrowdPose test set (64 480x640 images x 4 people = 256 crops = 8 batches
      of 32) from a BU-prediction json, with N(0, 1/fan_in) weights saved as a
@@ -177,11 +185,12 @@ Phases (each raises on failure; nothing is caught):
      in bf16 and f32, bench_flash_bwd.py --dtype float32, bench_exp2.py,
      bench_stem.py): K5's (both dtypes), K5's SIMT A/B's and K6's launch
      counts in that run, and the times of K5 (tensor cores and SIMT, both
-     dtypes), cuDNN (bf16, f32 with TF32 off), f32 K2 (3xTF32 and SIMT in
-     turns, SDPA's f32 backward), K6 (device time) and the torch chains that
-     the kernels line reports; K5 faster than its SIMT kernel at every branch
-     in both dtypes, f32 K2 faster than its SIMT kernels; K6 no faster than
-     its SFU bound.
+     dtypes), cuDNN (bf16, f32 with TF32 off), f32 K2 (its wgmma pair, PR
+     9's mma.sync pair and the SIMT kernels in turns, SDPA's f32 backward, at
+     the training shapes and TransPose-H's d = 112), K6 (device time) and the
+     torch chains that the kernels line reports; K5 faster than its SIMT
+     kernel at every branch in both dtypes, f32 K2 faster than its SIMT
+     kernels; K6 no faster than its SFU bound.
 
  15. (phases 15-18 run after phase 9) pose_resnet-50 with the preNet
      (``resnet_phase``: the preNet-W48 yaml with
@@ -230,8 +239,10 @@ Phases (each raises on failure; nothing is caught):
      processes of this script (``--multicard-child``) on the one card over
      gloo, the f32 DDP step with global-batch BatchNorm on a global batch of
      32, against one process on the 32 rows (losses at JAX's tolerance),
-     ms/step of both; (c) PoseEstimator(mesh=) with two replicas on cuda:0
-     against the one-device estimator; K1/K2 counted in each.
+     ms/step of both, and a profile of the one process's step (f32 K2's
+     wgmma pair by name and its share of the kernel time, no mma.sync K2);
+     (c) PoseEstimator(mesh=) with two replicas on cuda:0 against the
+     one-device estimator; K1/K2 counted in each, by kernel.
  21. ``orbax_phase`` (after phase 20): the orbax reader over the system's
      libzstd on the committed fixtures (JAX's save_params): CoAM-W48 at
      full width (tests/fixtures/orbax_coam_w48) read and timed, every leaf
@@ -354,7 +365,7 @@ STEP_K2_RTOL = 1e-4
 STEP_BN_RTOL = 1e-4
 STEP_BN_ATOL = 1e-5
 ROUNDS = 3
-REPEATS = 5
+REPEATS = 4
 # K1's (BH, Lq, Lk, d) on the main path: the CoAM position attention of branch
 # 0 and branch 1, BH = the 16 crops of the serving phase's predict_batch
 MAIN_CASES = [(16, 6912, 6912, 48), (16, 1728, 1728, 96)]
@@ -514,7 +525,7 @@ SYNTH_HOST_REPS, SYNTH_CARD_REPS = 4, 16
 # trunk's few-step differences at the tokens move that layer's attention
 # output by many more (both printed); hence its own ratio.  BUCTD_FLASH_KVRES=1's bf16 eval heatmaps equal K1's
 # bit for bit.
-BF16_REPEATS = 3
+BF16_REPEATS = 2
 WARP_DRIFT_PX = 0.05
 # host_loader_phase: steps of the checks run (metrics, trace, debug dumps);
 # the matmul engine vs K4's plain version, tests/test_torch_port_warp_matmul.py's
@@ -544,7 +555,7 @@ BF16_STEP = 2.0 ** -8
 # torch.export decomposes into another kernel.
 GRAPH_PRECOMPILE = [(480, 640, 4), (3, 480, 640, 4)]
 GRAPH_KEYS = {(512, 640, 4), (4, 512, 640, 4)}
-GRAPH_TURNS = 3
+GRAPH_TURNS = 2
 # one program a dtype, each at a bucket the live estimator admits: a trace and
 # a load take tens of seconds at full width
 GRAPH_EXPORT = {"float32": (480, 640, 4), "bfloat16": (4, 480, 640, 4)}
@@ -610,6 +621,12 @@ WGMMA_LIBS = {"flash_fwd": ((BF16_K1_KERNEL,), 16), "flash_fwd_kvres": ((BF16_K1
 # libraries; the mma.sync ``flash_fwd_tf32_kernel`` takes the other f32 calls
 F32_K1_KERNEL = "flash_fwd_tf32_wgmma_kernel"
 F32_WGMMA_LIBS = {"flash_fwd": 16, "flash_fwd_kvres": 16}
+# f32 K2's and K2''s wgmma pair: dq and dk/dv at 8 head dims, with dropout
+# and without
+F32_K2_KERNELS = ("flash_bwd_dq_tf32_wgmma_kernel", "flash_bwd_dkv_tf32_wgmma_kernel")
+F32_K2_LIBS = {"flash_bwd": 32, "flash_bwd_kvres": 32}
+# their names, and the f32 mma.sync pair's, in ptxas's log
+F32_K2_KINDS = ("_tf32_wgmma_kernel", "_tf32_kernel")
 # the K1 and K1' launch counters: all launches, and by kernel (bf16: the wgmma
 # and mma.sync kernels; f32: likewise)
 K1_COUNTS = ("launches", "wgmma_launches", "mma_launches", "f32_wgmma_launches",
@@ -641,7 +658,7 @@ def sass_counts() -> dict:
     """(library, "" or "TF32") -> HMMA counts by kernel, of every flash
     library and of K5's, (library, "HGMMA" or "UTMALDG") -> wgmma and TMA
     load counts of the libraries of K1, K1', K2 and K2', and (library,
-    "HGMMA_TF32") -> tf32 wgmma counts of K1's and K1''s: one disassembly a
+    "HGMMA_TF32") -> tf32 wgmma counts of K1's, K1''s, K2's and K2''s: one disassembly a
     library (cuobjdump, ~7 s each), all at once, on the host while the NaN phase
     uses the card (main waits for them before the timed kernel phases)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -658,7 +675,7 @@ def sass_counts() -> dict:
         if lib in WGMMA_LIBS:
             for op in ("HGMMA", "UTMALDG"):
                 found[(lib, op)] = op_counts(text, op)
-        if lib in F32_WGMMA_LIBS:
+        if lib in F32_WGMMA_LIBS or lib in F32_K2_LIBS:
             found[(lib, "HGMMA_TF32")] = op_counts(text, "HGMMA", "TF32")
     return found
 
@@ -670,7 +687,8 @@ def check_sass(counts: dict) -> None:
     plan of K5); one bf16 K5 kernel a tile plan; HGMMA and UTMALDG in every
     instantiation of bf16 K1's and K1''s wgmma kernel and of bf16 K2's and
     K2''s wgmma pair; TF32 HGMMA and UTMALDG, and no HMMA, in every
-    instantiation of f32 K1's and K1''s wgmma kernel (F32_K1_KERNEL)."""
+    instantiation of f32 K1's and K1''s wgmma kernel (F32_K1_KERNEL) and of
+    f32 K2's and K2''s wgmma pair (F32_K2_KERNELS)."""
     from buctd_tpu_torch.ops.fused_block import TC_PLANS
 
     libs = {**FLASH_SIMT, **K5_SIMT}
@@ -719,12 +737,28 @@ def check_sass(counts: dict) -> None:
                 for op in ("HGMMA_TF32", "UTMALDG")) or sum(got[""].values())):
             raise AssertionError(f"{lib}'s SASS: the f32 wgmma kernel's TF32 HGMMA, UTMALDG "
                                  f"and HMMA {got}")
+    # f32 K2's and K2''s wgmma pair: the same, in every instantiation
+    for lib, n in F32_K2_LIBS.items():
+        got = {op: {f: c for f, c in counts[(lib, op)].items()
+                    if any(k in f for k in F32_K2_KERNELS)}
+               for op in ("HGMMA_TF32", "UTMALDG", "")}
+        print(f"{lib} SASS: {len(got['HGMMA_TF32'])} {' and '.join(F32_K2_KERNELS)} "
+              f"instantiations, TF32 HGMMA {min(got['HGMMA_TF32'].values(), default=0)}-"
+              f"{max(got['HGMMA_TF32'].values(), default=0)} and UTMALDG "
+              f"{min(got['UTMALDG'].values(), default=0)}-"
+              f"{max(got['UTMALDG'].values(), default=0)} each, HMMA "
+              f"{sum(got[''].values())} in all", flush=True)
+        if (any(len(got[op]) != n or min(got[op].values()) == 0
+                for op in ("HGMMA_TF32", "UTMALDG")) or sum(got[""].values())):
+            raise AssertionError(f"{lib}'s SASS: the f32 wgmma pair's TF32 HGMMA, UTMALDG and "
+                                 f"HMMA {got}")
 
 
 def nan_phase(torch, fa, fb) -> None:
     """A NaN operand reaches every f32 tensor-core kernel's output (the 3xTF32
-    split's lo carries it: f32 K1's wgmma kernel, where the dispatch sends
-    these shapes, and its mma.sync kernel, through flash_attention_mma) and
+    split's lo carries it: f32 K1's and K2's wgmma kernels, where the
+    dispatch sends these shapes, and their mma.sync kernels, through
+    flash_attention_mma, flash_bwd_dq_mma and flash_bwd_dkv_mma) and
     K5's in both dtypes (relu keeps it): the
     entries that are not finite are those of the plain version's output,
     at small shapes, dropout 0 (a dropped entry is 0 by selection in the
@@ -752,9 +786,12 @@ def nan_phase(torch, fa, fb) -> None:
                  fa.flash_bwd_dkv_kvres)):
             alike(f"f32 {tag} forward ({bh}, {l}, {d})", fwd(q, k, v, scale), (out, lse))
             alike(f"f32 {tag} backward ({bh}, {l}, {d})", (dq(*args), *dkv(*args)), want)
-        # K1's f32 mma.sync kernel, which the wgmma kernel took over at these d
+        # K1's and K2's f32 mma.sync kernels, which the wgmma kernels took
+        # over at these d
         alike(f"f32 K1 mma.sync kernel ({bh}, {l}, {d})", fa.flash_attention_mma(q, k, v, scale),
               (out, lse))
+        alike(f"f32 K2 mma.sync kernels ({bh}, {l}, {d})",
+              (fa.flash_bwd_dq_mma(*args), *fa.flash_bwd_dkv_mma(*args)), want)
     for b, h, w, c in ((2, 24, 18, 48), (2, 12, 9, 384)):
         for dtype in (torch.float32, torch.bfloat16):
             args = bv.random_block(gen, b, h, w, c, dtype=dtype)
@@ -762,8 +799,9 @@ def nan_phase(torch, fa, fb) -> None:
             want = fb.fused_basic_block_plain(*args)
             for fn in (fb.fused_basic_block, fb.fused_basic_block_simt):
                 alike(f"K5 {fn.__name__} ({b}, {h}, {w}, {c}) {dtype}", [fn(*args)], [want])
-    print("NaN operands: f32 K1 (its wgmma and mma.sync kernels), K1', K2, K2' and K5 (both "
-          "dtypes, tensor cores and SIMT) not finite where the plain versions are", flush=True)
+    print("NaN operands: f32 K1 and K2 (their wgmma and mma.sync kernels), K1', K2' and K5 "
+          "(both dtypes, tensor cores and SIMT) not finite where the plain versions are",
+          flush=True)
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -830,7 +868,8 @@ def f32_core_ms(bh, lq, lk, d) -> float:
 
 def kernel_phase(torch, F, fa) -> dict:
     """K1 vs its plain version in f32 and bf16, at MAIN_CASES, EVAL_CASES,
-    TransPose-H's TP_F32_CASES (d = 112) and OTHER_CASES.  f32 (3xTF32: the
+    TransPose-H's TP_F32_CASES (d = 112) and OTHER_CASES, and f32 K2 at
+    OTHER_CASES with dropout 0 and 0.1 (``k2_case_check``).  f32 (3xTF32: the
     TMA + wgmma kernel, F32_K1_KERNEL, where the dispatch takes the call,
     the mma.sync kernel at d = 47) with dropout 0 and 0.1 at
     KERNEL_ATOL/RTOL; at EVAL_CASES the one-pass control
@@ -847,7 +886,7 @@ def kernel_phase(torch, F, fa) -> dict:
 
     clock = sm_clock_hz()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst, control = 0.0, float("inf")
+    worst, control, k2_worst = 0.0, float("inf"), 0.0
     keys = ("ms", "mma_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "core_ms")
     f32_wgmma_err = 0.0
     groups = {"main": MAIN_CASES, "eval": EVAL_CASES,
@@ -877,6 +916,10 @@ def kernel_phase(torch, F, fa) -> dict:
                     f32_wgmma_err = max(f32_wgmma_err, *errs)
                 notes.append(f"dropout {p}: out {errs[0]:.3e} lse {errs[1]:.3e}"
                              f"{note.get('text', '')}")
+                if dtype == torch.float32 and (bh, lq, lk, d) in OTHER_CASES:
+                    text, err = k2_case_check(torch, fa, gen, q, k, v, out, lse, scale, p, chunk)
+                    k2_worst = max(k2_worst, err)
+                    notes.append(text)
                 del out, lse
             if dtype == torch.float32 and (bh, lq, lk, d) in EVAL_CASES:
                 miss = tf32_control_miss(torch, fa, q, k, v, scale, chunk)
@@ -945,7 +988,7 @@ def kernel_phase(torch, F, fa) -> dict:
               f"{t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.2f}x); out within "
               f"{t['rel']:.3e} of max, {t['tiled']:.3e} rms of the tile rounding", flush=True)
     return {**sums, "bf16": bf16, "max_abs_err": worst, "control": control,
-            "f32_wgmma_err": f32_wgmma_err}
+            "f32_wgmma_err": f32_wgmma_err, "f32_k2_err": k2_worst}
 
 
 def cuda_kernel_names(torch, fn) -> list:
@@ -977,6 +1020,31 @@ def tf32_control_miss(torch, fa, q, k, v, scale, chunk) -> float:
         raise AssertionError(f"the {TF32_CONTROL_PASSES}-pass tf32 control meets the f32 gate "
                              f"(excess {miss:.3e}): the gate cannot tell it from 3xTF32")
     return miss
+
+
+def k2_case_check(torch, fa, gen, q, k, v, out, lse, scale, p, chunk) -> tuple:
+    """f32 K2 at one of OTHER_CASES, dropout p, against the plain backward
+    over BH chunks at BWD_ATOL/RTOL, on the kernels its dispatch picks (the
+    wgmma pair where takes_wgmma_bwd_f32; the mma.sync pair at d = 47),
+    which the counters must show.  Returns (text, the largest error)."""
+    do = torch.randn(q.shape, device="cuda", generator=gen)
+    delta = (do * out).sum(-1)
+    before = k2_by_kernel(fa)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, p, 7)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, p, 7)
+    torch.cuda.synchronize()
+    kind = "f32_wgmma" if fa.takes_wgmma_bwd_f32(q, k, v, do) else "f32_mma"
+    moved = {key: n - before[key] for key, n in k2_by_kernel(fa).items()}
+    if moved != {f"flash_bwd_{x}_{k}": int(k == kind) for x in ("dq", "dkv") for k in K2_KINDS}:
+        raise AssertionError(f"f32 K2 at {tuple(q.shape)}: launches by kernel {moved}")
+
+    def plain(i, a, b, c, g, l, e):
+        return fa.flash_attention_backward_reference(a, b, c, g, l, e, scale, p, 7, bh0=i)
+
+    err = check_chunked(torch, (dq, dk, dv), plain, q.shape[0], chunk, q, k, v, do, lse, delta,
+                        atol=BWD_ATOL, rtol=BWD_RTOL)
+    return (f"K2 on the {kind} kernels: dq {err[0]:.3e} dk {err[1]:.3e} dv {err[2]:.3e} "
+            f"(atol = rtol = {BWD_ATOL:.0e})"), max(err)
 
 
 def k2_control_miss(torch, fa, chunk, q, k, v, do, lse, delta, scale, p, seed) -> float:
@@ -1145,7 +1213,7 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
     res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "bf16_rel": 0.0, "f32_gap": 0.0,
            "fwd_bf16_rel": 0.0, "fwd_bf16_err": 0.0, "rowsum": 0.0, "tiled": 0.0,
            "control": float("inf"),
-           "k2_control": float("inf")}
+           "k2_control": float("inf"), "f32_k2_err": 0.0, "f32_k2_plain_ms": 0.0}
     seed = 1234
     for bh, lq, d in cases:
         chunk = PLAIN_BH[lq]
@@ -1169,9 +1237,10 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
                 dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, p, seed)
                 dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, p, seed)
                 torch.cuda.synchronize()
-                # bf16 (d = 48, 96, 112) on the wgmma kernels; f32 on no bf16 kernel
+                # each dtype (d = 48, 96, 112) on its wgmma kernels
                 moved = {key: n - before[key] for key, n in k2_by_kernel(fa).items()}
-                if moved != k2_wgmma_want(int(dtype == torch.bfloat16)):
+                low = int(dtype == torch.bfloat16)
+                if moved != k2_wgmma_want(low, f32=1 - low):
                     raise AssertionError(f"K2 ({bh}, {lq}, {d}) {dtype}: launches by kernel "
                                          f"{moved}")
 
@@ -1188,6 +1257,10 @@ def k1_k2_checks(torch, fa, gen, cases, dtypes, dropouts) -> dict:
                     miss = k2_control_miss(torch, fa, chunk, q, k, v, do, lse, delta, scale, p,
                                            seed)
                     res["k2_control"] = min(res["k2_control"], miss)
+                    res["f32_k2_err"] = max(res["f32_k2_err"], *err)
+                    if p == DROPOUT:   # the plain f32 backward (dq, dk, dv) at the path's p
+                        res["f32_k2_plain_ms"] += timed_ms(lambda: chunked(
+                            functools.partial(plain, 0), bh, chunk, q, k, v, do, lse, delta), 1)
                     note = f"dq {err[0]:.3e} dk {err[1]:.3e} dv {err[2]:.3e} (atol = rtol = " \
                            f"{BWD_ATOL:.0e}; the one-pass control misses by {miss:.3e})"
                 else:
@@ -1401,11 +1474,13 @@ def transpose_kernel_phase(torch, F, fa, tk: dict) -> dict:
     bf16, dropout DROPOUT: checked against the plain versions at the bf16
     gates (``k1_k2_checks``) and timed beside SDPA's forward and backward and
     the floors (``k1_k2_times``); the kernel / SDPA ratios printed beside
-    those at TRAIN_CASES (``tk``, the training kernel phase's).  f32 K1 at
-    d = 112 is in the kernel phase (TP_F32_CASES).  Prints ptxas's registers
-    and spills of f32 K1's two kernels at every head dim
-    (tools/bench_flash_fwd.py::register_summary) and of every instantiation
-    of bf16 K2's two pairs (tools/bench_flash_bwd.py::register_summary)."""
+    those at TRAIN_CASES (``tk``, the training kernel phase's).  f32 K1 and
+    K2 at the same shape with dropout 0 and 0.1 at the f32 gates (K2's
+    one-pass control missing); f32 K1 at d = 112 is also in the kernel phase
+    (TP_F32_CASES).  Prints ptxas's registers and spills of f32 K1's two
+    kernels at every head dim (tools/bench_flash_fwd.py::register_summary)
+    and of every instantiation of bf16 K2's and f32 K2's two pairs
+    (tools/bench_flash_bwd.py::register_summary)."""
     from buctd_tpu_torch import _build
     from buctd_tpu_torch.tools.bench_exp2 import sm_clock_hz
     from buctd_tpu_torch.tools.bench_flash_bwd import register_summary as bwd_register_summary
@@ -1417,8 +1492,16 @@ def transpose_kernel_phase(torch, F, fa, tk: dict) -> dict:
     print(f"bf16 K2 registers (spills; serialized wgmma) of every instantiation, the wgmma "
           f"pair (wg_) and the mma.sync pair: "
           f"{bwd_register_summary(_build.build_log('flash_bwd'))}", flush=True)
+    for lib in ("flash_bwd", "flash_bwd_kvres"):
+        print(f"f32 K2 registers (spills; serialized wgmma) of every instantiation in {lib}, "
+              f"the wgmma pair (wg_) and the mma.sync pair: "
+              f"{bwd_register_summary(_build.build_log(lib), F32_K2_KINDS)}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(11)
+    # f32 K1 and K2 at d = 112 (TPU.COMPUTE_DTYPE float32 training), dropout
+    # 0 and 0.1: K2 on its wgmma pair at the f32 gate, the control missing
+    f32 = k1_k2_checks(torch, fa, gen, TP_TRAIN_CASES, (torch.float32,), (0.0, DROPOUT))
     res = k1_k2_checks(torch, fa, gen, TP_TRAIN_CASES, (torch.bfloat16,), (DROPOUT,))
+    res["f32_k2_err"], res["f32_k2_control"] = f32["f32_k2_err"], f32["k2_control"]
     res.update(k1_k2_times(torch, F, fa, gen, TP_TRAIN_CASES, sm_clock_hz()))
     for kind, lib, label in (("fwd", "fwd_library_ms", "K1 / SDPA forward"),
                              ("dq", "dq_library_ms", "K2 (dq + dkv) / SDPA backward")):
@@ -2600,7 +2683,7 @@ def options_phase(torch, np, fa, tw, k1_per_step: int = 2) -> dict:
                             "--seed", "0", *base, *opts])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            # K1, dq, dkv, K4; then dq and dkv on the wgmma and the mma.sync kernels
+            # K1, dq, dkv, K4; then dq and dkv by kernel (k2_by_kernel)
             launches = [f.launches for f in counters] + list(k2_by_kernel(fa).values())
             f32_k1_wgmma(fa, f"training option {name}")
             losses = [float(m["loss"]) for st in res["stats"] for m in st["metrics"]]
@@ -2724,7 +2807,7 @@ def card_vs_cpu_step(torch, np, fa) -> dict:
                        torch.from_numpy(tgt).to(dev, dt), torch.from_numpy(tw).to(dev, dt))
         fa.flash_attention_backward = recording_backward if name == "card" else backward
         if name == "card":                   # f32 K2's main path: this step
-            fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+            zero_k2(fa)
         try:
             loss.backward()
         finally:
@@ -2732,7 +2815,7 @@ def card_vs_cpu_step(torch, np, fa) -> dict:
         if name == "card":
             torch.cuda.synchronize()
             launches = {"flash_bwd_dq": fa.flash_bwd_dq.launches,
-                        "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+                        "flash_bwd_dkv": fa.flash_bwd_dkv.launches, **k2_by_kernel(fa)}
         res[name] = (loss.item(),
                      {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()},
                      {k: b.detach().cpu().double() for k, b in m.named_buffers()
@@ -2772,7 +2855,9 @@ def card_vs_cpu_step(torch, np, fa) -> dict:
           f"max |err| / max |grad| {k2_err:.2e} (limit {STEP_K2_RTOL:.0e}); BN running "
           f"stats max |card - CPU| {bn_err:.2e} (rtol {STEP_BN_RTOL:.0e}, atol "
           f"{STEP_BN_ATOL:.0e})", flush=True)
-    if len(k2_calls) != 2 or launches != {"flash_bwd_dq": 2, "flash_bwd_dkv": 2}:
+    # f32 K2 (d = 48 and 96) on its wgmma kernels
+    if len(k2_calls) != 2 or launches != {"flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                                          **k2_wgmma_want(0, f32=2)}:
         raise AssertionError(f"{len(k2_calls)} flash backward calls in the step, not 2; "
                              f"K2 launches {launches}")
     if not (abs(l_card - l_cpu) <= STEP_LOSS_RTOL * abs(l_cpu)
@@ -2975,9 +3060,10 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
             dq = fa.flash_bwd_dq_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed)
             dk, dv = fa.flash_bwd_dkv_kvres(q, k, v, do, lse, delta, scale, DROPOUT, seed)
             torch.cuda.synchronize()
-            # bf16 K2' on K2's wgmma kernels (d = 48, 96)
+            # K2' on K2's wgmma kernels of each dtype (d = 48, 96)
             moved = {key: n - before[key] for key, n in k2_by_kernel(fa, True).items()}
-            if moved != k2_wgmma_want(int(dtype == torch.bfloat16), True):
+            low = int(dtype == torch.bfloat16)
+            if moved != k2_wgmma_want(low, True, 1 - low):
                 raise AssertionError(f"K2' ({bh}, {lq}, {d}) {dtype}: launches by kernel {moved}")
             fwd_errs, note = check_fwd_kv(out, lse, q, k, v, scale, DROPOUT, seed, chunk)
             bwd_text = check_bwd_kv((dq, dk, dv), q, k, v, do, lse, delta, scale, DROPOUT,
@@ -3073,9 +3159,9 @@ def kvres_kernel_phase(torch, F, fa) -> dict:
     launched = [f.launches - b for f, b in zip(counters, before)]
     if launched != [0, 1]:
         raise AssertionError(f"odd-d bf16 under BUCTD_FLASH_KVRES=1: K1, K1' launched {launched}")
-    # d = 47 is no multiple of 8: K2' on the mma.sync kernels
+    # d = 47 is no multiple of 8: K2' on the bf16 mma.sync kernels
     moved = {key: n - k2_before[key] for key, n in k2_by_kernel(fa, True).items()}
-    if moved != {key: int(key.endswith("_mma")) for key in moved}:
+    if moved != {key: int(key.endswith("_mma") and "_f32_" not in key) for key in moved}:
         raise AssertionError(f"odd-d bf16 K2': launches by kernel {moved}")
     chunk = PLAIN_BH.get(lq, bh)
     fwd_errs, note = check_fwd_kv(out, lse, q, k, v, scale, DROPOUT, seed, chunk)
@@ -3906,28 +3992,36 @@ def f32_k1_wgmma(fa, label: str, model_path: bool = True) -> int:
 
 
 def zero_k2(fa) -> None:
-    """K2's and K2''s launch counts, all of them and by bf16 kernel, to 0: the
+    """K2's and K2''s launch counts, all of them and by kernel, to 0: the
     start of a main path's run."""
     for f in (fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dq_kvres, fa.flash_bwd_dkv_kvres):
-        f.launches = f.wgmma_launches = f.mma_launches = 0
+        f.launches = 0
+        for k in K2_KINDS:
+            setattr(f, f"{k}_launches", 0)
+
+
+# K2's kernels by kind: bf16 wgmma, bf16 mma.sync, f32 wgmma (F32_K2_KERNELS),
+# f32 mma.sync (flash_bwd_tf32.cuh's 3xTF32 kernels)
+K2_KINDS = ("wgmma", "mma", "f32_wgmma", "f32_mma")
 
 
 def k2_by_kernel(fa, kvres: bool = False) -> dict:
-    """K2's (``kvres``: K2''s) dq and dk/dv launches since ``zero_k2`` by bf16
-    kernel: {"flash_bwd_dq_wgmma": n, "flash_bwd_dq_mma": n, ...}."""
+    """K2's (``kvres``: K2''s) dq and dk/dv launches since ``zero_k2`` by
+    kernel: {"flash_bwd_dq_wgmma": n, "flash_bwd_dq_mma": n,
+    "flash_bwd_dq_f32_wgmma": n, ...}."""
     sfx = "_kvres" if kvres else ""
     return {f"flash_bwd_{kind}{sfx}_{k}": getattr(getattr(fa, f"flash_bwd_{kind}{sfx}"),
                                                  f"{k}_launches")
-            for kind in ("dq", "dkv") for k in ("wgmma", "mma")}
+            for kind in ("dq", "dkv") for k in K2_KINDS}
 
 
-def k2_wgmma_want(n: int, kvres: bool = False) -> dict:
-    """``k2_by_kernel`` of a bf16 training path that launched K2 (K2') ``n``
-    times a kernel: every launch on the wgmma kernels (d = 48, 96 and 112),
-    none on the mma.sync ones."""
+def k2_wgmma_want(n: int, kvres: bool = False, f32: int = 0) -> dict:
+    """``k2_by_kernel`` of a training path that launched K2 (K2') ``n`` times
+    a kernel in bf16 and ``f32`` times in f32: every launch on the wgmma
+    kernels of its dtype (d = 48, 96 and 112), none on the mma.sync ones."""
     sfx = "_kvres" if kvres else ""
-    return {f"flash_bwd_{kind}{sfx}_{k}": n if k == "wgmma" else 0
-            for kind in ("dq", "dkv") for k in ("wgmma", "mma")}
+    want = {"wgmma": n, "mma": 0, "f32_wgmma": f32, "f32_mma": 0}
+    return {f"flash_bwd_{kind}{sfx}_{k}": want[k] for kind in ("dq", "dkv") for k in K2_KINDS}
 
 
 def bf16_k1_launches(fa, label: str, launches: int) -> int:
@@ -4751,13 +4845,18 @@ def _mc_f32_run(torch, np, fa, job: dict, rank: int, world: int) -> dict:
     # apart; not for the gloo processes that share one card, which cost the
     # most and tell the least), and an all-reduce of a gradient-sized f32
     # buffer alone
-    split = {"kernels_ms": None, "collective_ms": None}
+    split = {"kernels_ms": None, "collective_ms": None, "k2_ms": None, "k2_mma_ms": None}
     if job.get("profile", True):
         by_name = kernel_profile(torch, lambda: float(step(batch)["loss"]),
                                  f"multicard step, process {rank} of {world}")
         split = {"kernels_ms": sum(by_name.values()),
                  "collective_ms": sum(ms for k, ms in by_name.items()
-                                      if "nccl" in k.lower() or "gloo" in k.lower())}
+                                      if "nccl" in k.lower() or "gloo" in k.lower()),
+                 # f32 K2 by name: its wgmma pair, and its mma.sync pair
+                 "k2_ms": sum(ms for k, ms in by_name.items()
+                              if any(n in k for n in F32_K2_KERNELS)),
+                 "k2_mma_ms": sum(ms for k, ms in by_name.items()
+                                  if "flash_bwd_d" in k and "_tf32_kernel" in k)}
     if world > 1:
         import torch.distributed as dist
 
@@ -4926,9 +5025,9 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
         gaps = [abs(a - b) for a, b in zip(two[0]["losses"], one["losses"])]
         stat_gap = max(float((two[0]["stats"][k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
                        for k, v in one["stats"].items())
-        # f32: no K2 launch counts on a bf16 kernel; K1 on the f32 wgmma kernel
+        # f32: K1 and K2 on the f32 wgmma kernels
         want = {**{k: 2 * 2 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
-                **k2_wgmma_want(0), **_mc_k1_want(2 * 2, True)}
+                **k2_wgmma_want(0, f32=2 * 2), **_mc_k1_want(2 * 2, True)}
         where = ("2 processes on the one card over gloo" if cards == 1
                  else f"{world} processes, one a card, over NCCL")
         print(f"multicard (b) {where}, CoAM-W48 f32 global batch {MC_GLOBAL_BATCH}: losses "
@@ -4944,9 +5043,14 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
                     f"{[round(t['collective_ms'], 2) for t in two]}" if cards > 1
                     else "the gloo processes not profiled")
         print(f"multicard (b) a profiled step: one process {one['kernels_ms']:.2f} ms of "
-              f"kernels; {profiled}; an all-reduce of a gradient-sized f32 buffer alone "
-              f"{[round(t['grad_allreduce_ms'], 2) for t in two]} ms; "
+              f"kernels, of which f32 K2's wgmma pair {one['k2_ms']:.2f} ms "
+              f"({100 * one['k2_ms'] / one['kernels_ms']:.1f}%; its mma.sync pair "
+              f"{one['k2_mma_ms']:.2f} ms); {profiled}; an all-reduce of a gradient-sized f32 "
+              f"buffer alone {[round(t['grad_allreduce_ms'], 2) for t in two]} ms; "
               f"transports {transports or 'gloo'}", flush=True)
+        if not one["k2_ms"] > 0.0 or one["k2_mma_ms"]:
+            raise AssertionError("(b): the profiled f32 step names no f32 K2 wgmma kernel, or "
+                                 "an mma.sync one")
         if any(t["losses"] != two[0]["losses"] for t in two):
             raise AssertionError("(b): the processes' global losses differ")
         if not all(g <= MC_LOSS_ATOL + MC_LOSS_RTOL * abs(r)
@@ -4960,7 +5064,8 @@ def multicard_phase(torch, np, fa, card: str) -> dict:
             F32_WGMMA_PATHS[label] = {"f32_k1": n, "f32_mma": 0, "f32_wgmma": sum(
                 t["launches"]["flash_fwd_f32_wgmma_launches"] for t in runs_b)}
         res.update(one_ms=one["ms"], two_ms=[t["ms"] for t in two], loss_gaps=gaps, world=world,
-                   one_kernels_ms=one["kernels_ms"],
+                   one_kernels_ms=one["kernels_ms"], one_k2_ms=one["k2_ms"],
+                   one_launches=one["launches"],
                    kernels_ms=[t["kernels_ms"] for t in two],
                    collective_ms=[t["collective_ms"] for t in two],
                    grad_allreduce_ms=[t["grad_allreduce_ms"] for t in two],
@@ -5280,7 +5385,7 @@ def orbax_phase(torch, np, fa, tw, card: str) -> dict:
         losses = [float(m["loss"]) for st in trained["stats"] for m in st["metrics"]]
         print(f"orbax: train.run --steps {ORBAX_TRAIN_STEPS} with TEST.MODEL_FILE <dir>: "
               f"{trained['steps']} steps, losses {[round(x, 6) for x in losses]}; launches "
-              f"{got}, K2 by bf16 kernel {by_kernel}", flush=True)
+              f"{got}, K2 by kernel {by_kernel}", flush=True)
         if (trained["steps"] != ORBAX_TRAIN_STEPS or not np.isfinite(losses).all()
                 or min(got.values()) == 0):
             raise AssertionError(f"orbax: train.run from the directory: {trained['steps']} "
@@ -5557,19 +5662,23 @@ def main() -> int:
                 "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": bound,
                 "bound_by": bound_by(ops, bound), "library_ms": tk[f"{key}_library_ms"]}
 
-    # f32 K2 at TRAIN_CASES, dropout 0.1, from bench_flash_bwd in the tools
-    # phase: the 3xTF32 kernels, the SIMT kernels in turns, SDPA's f32
-    # backward alone (dq, dk, dv); bounds: the 3xTF32, MUFU and hash floors
-    # and the bytes, at this run's SM clock
-    k2_f32 = tools["k2_f32"].values()
+    # f32 K2 at TRAIN_CASES and TP_TRAIN_CASES, dropout 0.1, from
+    # bench_flash_bwd in the tools phase: the wgmma pair, the mma.sync pair,
+    # the SIMT kernels and SDPA's f32 backward alone (dq, dk, dv) in turns;
+    # bounds: the 3xTF32, MUFU and hash floors and the bytes, at this run's SM
+    # clock
+    k2_f32 = [r for (l, d), r in tools["k2_f32"].items() if (TRAIN_BATCH, l, d) in TRAIN_CASES]
+    k2_f32_tp = tools["k2_f32"][TP_TRAIN_CASES[0][1:]]
     clock = sm_clock_hz()
-    f32_bounds = {}
-    for kind in ("dq", "dkv"):
+
+    def f32_bound(kind, cases):
         ops = sum(max(flash_floors_ms(bh, l, d, kind, clock, DROPOUT, "float32").values())
-                  for bh, l, d in TRAIN_CASES)
+                  for bh, l, d in cases)
         # bwd_bound_ms: the larger of the 3xTF32 operations and the bytes
-        bound = max(ops, sum(bwd_bound_ms(bh, l, d, 4, kind)[0] for bh, l, d in TRAIN_CASES))
-        f32_bounds[kind] = (bound, bound_by(ops, bound))
+        bound = max(ops, sum(bwd_bound_ms(bh, l, d, 4, kind)[0] for bh, l, d in cases))
+        return bound, bound_by(ops, bound)
+
+    f32_bounds = {kind: f32_bound(kind, TRAIN_CASES) for kind in ("dq", "dkv")}
 
     def f32_bwd(kind, ms, launches, **more):
         # f32 K2/K2' at TRAIN_CASES, dropout 0.1; launches: the f32 train
@@ -5602,7 +5711,8 @@ def main() -> int:
         # K2's launches on its wgmma (k "wgmma") or mma.sync ("mma") kernels
         # over the training paths whose launches its entry counts
         key = f"flash_bwd_{kind}_{k}"
-        idx = 4 + 2 * (kind == "dkv") + (k == "mma")   # options_phase's launch list
+        # options_phase's launch list: K1, dq, dkv, K4, then k2_by_kernel's
+        idx = 4 + len(K2_KINDS) * (kind == "dkv") + K2_KINDS.index(k)
         return (train["launches"][key] + train_synth["launches"][key]
                 + sum(o["launches"][idx] for o in options.values())
                 + tp_train["launches"][key] + host["launches"][key]
@@ -5654,6 +5764,64 @@ def main() -> int:
                 "bound_by": bound_by(t["ops_ms"], t["bound_ms"]), "launches": launches,
                 "max_out_err_of_max": t["rel"], "tile_rounding_rms": t["tiled"]}
 
+    # f32 K2's and K2''s wgmma pair (csrc/flash_bwd_tf32_wgmma.cuh): dq's and
+    # dk/dv's launches on it on each f32 training path of this run, read just
+    # after its main path's run (K2' runs none); dq + dk/dv at TRAIN_CASES,
+    # dropout 0.1, beside the mma.sync pair and SDPA's f32 backward in turns,
+    # the same at TransPose-H's d = 112, and K2's share of the profiled f32
+    # train step (with the share the mma.sync pair would take: its time over the
+    # pair's at TRAIN_CASES)
+    f32_k2_paths = {label: {kind: got[f"flash_bwd_{kind}_f32_wgmma"] for kind in ("dq", "dkv")}
+                    for label, got in (("f32_train_step", step_launches),
+                                       ("multicard_one_process", mc["one_launches"]),
+                                       ("multicard_gloo_two_processes", mc["gloo_launches"]))}
+
+    def f32_k2_sums(rows, key):
+        return sum(r[key]["dq_ms"] + r[key]["dkv_ms"] for r in rows)
+
+    f32_k2_ms, f32_k2_mma_ms = f32_k2_sums(k2_f32, "shipped"), f32_k2_sums(k2_f32, "mma")
+    tp_bounds = {kind: f32_bound(kind, [TP_TRAIN_CASES[0]]) for kind in ("dq", "dkv")}
+    share = mc["one_k2_ms"] / mc["one_kernels_ms"]
+    ratio = f32_k2_mma_ms / f32_k2_ms
+    f32_k2_entry = {
+        "name": "flash_bwd_tf32_wgmma", "route": "cuda",
+        "source": "buctd_tpu_torch/csrc/flash_bwd_tf32_wgmma.cuh",
+        "replaces": "buctd_tpu/ops/flash_attention.py:721",
+        # dq's pallas_call above, dk/dv's and the ring variants' (K2') here
+        "also_replaces": ["buctd_tpu/ops/flash_attention.py:754",
+                          "buctd_tpu/ops/flash_attention.py:624",
+                          "buctd_tpu/ops/flash_attention.py:664"],
+        "launches": sum(n for got in f32_k2_paths.values() for n in got.values()),
+        "paths": f32_k2_paths,
+        "max_abs_err": max(tk["f32_k2_err"], tp_k["f32_k2_err"], k1["f32_k2_err"]),
+        "ms": f32_k2_ms, "mma_ms": f32_k2_mma_ms, "plain_ms": tk["f32_k2_plain_ms"],
+        "bound_ms": f32_bounds["dq"][0] + f32_bounds["dkv"][0],
+        "bound_by": f32_bounds["dq"][1],
+        "library_ms": sum(r["sdpa_ms"] for r in k2_f32),
+        **{kind: {"ms": sum(r["shipped"][f"{kind}_ms"] for r in k2_f32),
+                  "mma_ms": sum(r["mma"][f"{kind}_ms"] for r in k2_f32),
+                  "bound_ms": f32_bounds[kind][0], "bound_by": f32_bounds[kind][1]}
+           for kind in ("dq", "dkv")},
+        "transpose_h": {
+            "case": TP_TRAIN_CASES[0], "library_ms": k2_f32_tp["sdpa_ms"],
+            **{kind: {"ms": k2_f32_tp["shipped"][f"{kind}_ms"],
+                      "mma_ms": k2_f32_tp["mma"][f"{kind}_ms"],
+                      "bound_ms": tp_bounds[kind][0], "bound_by": tp_bounds[kind][1]}
+               for kind in ("dq", "dkv")}},
+        "profiled_f32_step": {"kernels_ms": mc["one_kernels_ms"], "k2_ms": mc["one_k2_ms"],
+                              "share": share,
+                              "share_with_mma_pair": share * ratio / (1 - share + share * ratio)}}
+    print(f"f32 K2's wgmma pair: dq + dkv {f32_k2_ms:.4f} ms over {TRAIN_CASES} (the mma.sync pair "
+          f"{f32_k2_mma_ms:.4f}, SDPA's f32 backward {f32_k2_entry['library_ms']:.4f}, bound "
+          f"{f32_k2_entry['bound_ms']:.4f}: {f32_k2_entry['bound_ms'] / f32_k2_ms:.1%} of it); "
+          f"dq {f32_k2_entry['dq']['ms']:.4f} ({f32_bounds['dq'][0] / f32_k2_entry['dq']['ms']:.1%}"
+          f" of bound), dkv {f32_k2_entry['dkv']['ms']:.4f} "
+          f"({f32_bounds['dkv'][0] / f32_k2_entry['dkv']['ms']:.1%}); at {TP_TRAIN_CASES[0]}: "
+          f"dq {k2_f32_tp['shipped']['dq_ms']:.4f} dkv {k2_f32_tp['shipped']['dkv_ms']:.4f} "
+          f"(the mma.sync pair's {k2_f32_tp['mma']['dq_ms']:.4f} + {k2_f32_tp['mma']['dkv_ms']:.4f}, SDPA "
+          f"{k2_f32_tp['sdpa_ms']:.4f}); {100 * share:.1f}% of the profiled f32 step's kernel "
+          f"time (the mma.sync pair would take {100 * f32_k2_entry['profiled_f32_step']['share_with_mma_pair']:.1f}%); "
+          f"launches by path {f32_k2_paths}; card: {card}", flush=True)
     graph_k1 = {f"graph_phase_{dt}": r["launches"] for dt, r in graph.items()}
     # K1, dq and dkv launched on the multi-card paths (multicard_phase)
     mc_k2 = {k: mc["nccl_launches"][k] + mc["gloo_launches"][k]
@@ -5930,6 +6098,7 @@ def main() -> int:
         bwd_entry("dkv", 363),
         kv_bwd_entry("dq", 245),
         kv_bwd_entry("dkv", 295),
+        f32_k2_entry,
         {**entry("warp_resample", "buctd_tpu_torch/csrc/warp_resample.cu",
                  "buctd_tpu/ops/pallas_warp.py:30",
                  train["launches"]["warp_resample"] + more["warp_resample"]

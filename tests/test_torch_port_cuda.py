@@ -487,6 +487,100 @@ def test_bf16_backward_kernels_run_hgmma_and_tma(cuda):
             assert len(got) == n and min(got.values()) > 0, (lib, op, got)
 
 
+def _k2_f32_by_kernel():
+    return [getattr(getattr(fa, name), f"{k}_launches") for name in
+            ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_kvres", "flash_bwd_dkv_kvres")
+            for k in ("f32_wgmma", "f32_mma")]
+
+
+# f32 K2's shapes: the model paths' head dims and d = 128 and 40, ragged
+# against the wgmma plans' tiles and own rows; d = 47, which no TMA load takes
+K2_F32_SHAPES = [(2, 300, 260, 48), (1, 200, 170, 96), (2, 150, 130, 112), (1, 100, 90, 128),
+                 (1, 120, 100, 40), (1, 130, 90, 47)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("bh,lq,lk,d", K2_F32_SHAPES)
+def test_f32_backward_dispatch_wgmma_and_mma(cuda, monkeypatch, bh, lq, lk, d, dropout):
+    """f32 K2 launches the TMA + wgmma pair where takes_wgmma_bwd_f32
+    (counted on f32_wgmma_launches), else the mma.sync pair
+    (f32_mma_launches); either meets the f32 gate (1e-4) against the plain
+    backward; a second launch equals the first bit for bit (no atomics); K2'
+    (the same kernels, a deeper ring) equals K2 bit for bit; the mma.sync
+    pair kept for the A/B (flash_bwd_dq_mma, flash_bwd_dkv_mma) meets the
+    same gate."""
+    monkeypatch.delenv("BUCTD_FLASH_KVRES", raising=False)
+    q, k, v = _qkv(bh, lq, lk, d, torch.float32, cuda)
+    scale, seed = d ** -0.5, 23
+    out, lse = fa.flash_attention(q, k, v, scale, dropout, seed)
+    dout = torch.randn(bh, lq, d, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    args = (q, k, v, dout, lse, (dout * out).sum(-1), scale, dropout, seed)
+    wgmma = fa.takes_wgmma_bwd_f32(q, k, v, dout)
+    assert wgmma == (d % 8 == 0)
+    before = _k2_f32_by_kernel()
+    got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    kv = (fa.flash_bwd_dq_kvres(*args), *fa.flash_bwd_dkv_kvres(*args))
+    torch.cuda.synchronize()
+    on = [1, 0] if wgmma else [0, 1]
+    assert [a - b for a, b in zip(_k2_f32_by_kernel(), before)] == on * 4
+    want = fa.flash_attention_backward_reference(*args)
+    _assert_grads_close(got, want)
+    again = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    for a, b, c in zip(got, again, kv):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    mma = (fa.flash_bwd_dq_mma(*args), *fa.flash_bwd_dkv_mma(*args))
+    torch.cuda.synchronize()
+    _assert_grads_close(mma, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", [0, 3], ids=["q", "dout"])
+def test_f32_backward_unaligned_base_takes_the_mma_pair(cuda, operand):
+    """An f32 q or do 8 bytes into its storage (no 16-byte base, so no TMA)
+    sends f32 K2 at d = 48 to the mma.sync pair (f32_mma_launches), within
+    the f32 gate; the aligned operands run the wgmma pair, within the same
+    gate of it."""
+    q, k, v = _qkv(2, 130, 200, 48, torch.float32, cuda)
+    out, lse = fa.flash_attention(q, k, v, 0.2)
+    dout = torch.randn(2, 130, 48, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    ops = [q, k, v, dout]
+    shifted = torch.empty(ops[operand].numel() + 2, device=cuda)[2:].view_as(ops[operand])
+    shifted.copy_(ops[operand])
+    ops[operand] = shifted
+    assert shifted.data_ptr() % 16 == 8 and not fa.takes_wgmma_bwd_f32(*ops)
+    delta = (dout * out).sum(-1)
+    before = _k2_f32_by_kernel()[:4]
+    got = (fa.flash_bwd_dq(*ops, lse, delta, 0.2), *fa.flash_bwd_dkv(*ops, lse, delta, 0.2))
+    aligned = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, 0.2),
+               *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, 0.2))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_k2_f32_by_kernel()[:4], before)] == [1, 1, 1, 1]
+    want = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta, 0.2)
+    _assert_grads_close(got, want)
+    _assert_grads_close(aligned, want)
+
+
+@pytest.mark.cuda
+def test_f32_backward_wgmma_pair_runs_tf32_hgmma_and_tma(cuda):
+    """In K2's and K2''s libraries every instantiation of the f32 wgmma pair
+    (8 head-dim cases x dropout or not, each kernel) holds tf32 wgmma (HGMMA
+    ... TF32) and TMA tensor loads (UTMALDG) in its SASS, and no mma.sync
+    (HMMA)."""
+    from buctd_tpu_torch import _build
+
+    names = ("flash_bwd_dq_tf32_wgmma_kernel", "flash_bwd_dkv_tf32_wgmma_kernel")
+    for lib in ("flash_bwd", "flash_bwd_kvres"):
+        _build.build([lib])
+        for op, kind in (("HGMMA", "TF32"), ("UTMALDG", ""), ("HMMA", "")):
+            got = {f: c for f, c in _build.sass_op_counts(lib, op, kind).items()
+                   if any(name in f for name in names)}
+            assert len(got) == 32, (lib, op, got)
+            assert (min(got.values()) > 0) == (op != "HMMA"), (lib, op, got)
+            if op == "HMMA":
+                assert sum(got.values()) == 0, (lib, got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("bh,lq,lk,d", [(2, 256, 256, 48), (3, 640, 384, 96)])

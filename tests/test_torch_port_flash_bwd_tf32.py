@@ -130,14 +130,19 @@ def test_backward_tf32_refuses_other_pass_counts():
 
 @pytest.mark.parametrize("d", [7, 16, 40, 48, 64, 96, 128])
 def test_loop_tile_follows_the_kernel_source(d):
-    """dq's key tile is 64 while the padded head dim is at most 48 (the
-    .cuh's rule), else 32; dk/dv's q tile is 32."""
+    """The mma.sync kernels' tiles (``wgmma=False``; the dispatch's at d = 7,
+    which no wgmma kernel takes): dq's key tile is 64 while the padded head
+    dim is at most 48 (the .cuh's rule), else 32; dk/dv's q tile is 32.  The
+    wgmma kernels' tiles are held to their source by
+    test_torch_port_flash_bwd_tf32_wgmma.py."""
     src = (CSRC / "flash_bwd_tf32.cuh").read_text()
     assert "constexpr int bwd_loop_tile() { return kDq && D <= 48 ? 64 : 32; }" in src
     assert re.search(r"constexpr bool bwd_reg_a\(\) \{ return D <= 48; \}", src)
     pad = -(-d // 16) * 16
-    assert fa.bwd_loop_tile(d, True) == (64 if pad <= 48 else 32)
-    assert fa.bwd_loop_tile(d, False) == 32
+    assert fa.bwd_loop_tile(d, True, wgmma=False) == (64 if pad <= 48 else 32)
+    assert fa.bwd_loop_tile(d, False, wgmma=False) == 32
+    if d % 8:
+        assert fa.bwd_loop_tile(d, True) == (64 if pad <= 48 else 32)
 
 
 # -------------------------------------------------- m16n8k8 tf32 fragments ----
